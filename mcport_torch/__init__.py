@@ -1,18 +1,25 @@
 """mcport_torch — the PyTorch / CUDA port of mcport for NVIDIA Hopper.
 
 A second package beside :mod:`mcport`, which stays the reference it is held
-against. The port runs correlated-GBM tail risk (``gbm-risk``) on one H100:
-a hand-written CUDA C++ kernel draws the terminal noise (``csrc/``), plain
-PyTorch does the rest (moments, histogram sketch, VaR/CVaR, checkpointing).
+against. The port runs correlated-GBM tail risk (``gbm-risk``) and the GBM
+path tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``) on one
+H100: hand-written CUDA C++ kernels draw the paths and score them
+(``csrc/``), plain PyTorch does the rest (moments, histogram sketches,
+VaR/CVaR, drawdown quantiles, checkpointing, the frontier's selection).
 
 Layers, entry point down to the device:
 
-    cli.py  →  api.py  →  engine/mc_engine.py  →  ops/gbm.py  →  csrc/*.cu
-                               ↘ ops/quantile.py, models/gbm.py
+    cli.py → api.py → engine/mc_engine.py         → ops/gbm.py        → csrc/terminal_noise.cu
+                      engine/path_risk.py         → ops/path_stats.py → csrc/path_stats.cu
+                      engine/drawdown_frontier.py → ops/multi_dd.py   → csrc/multi_dd.cu
+              ↘ data.py, config.py, models/gbm.py, ops/quantile.py, ops/dirichlet.py
 
-The port imports torch and never jax. Of :mod:`mcport` it imports only the
-jax-free ``mcport.config`` and ``mcport.seeding``; ``mcport.data`` (pandas) is
-imported lazily where CSVs are read.
+The port imports torch and never jax, and nothing of :mod:`mcport`: it keeps
+its own copies of the configuration (``config.py``), the seed stride
+(``seeding.py``) and the CSV pipeline (``data.py``, standard library and
+NumPy, no pandas). Its entry points run on the card (``device="cuda"``)
+unless the caller asks for the CPU, where every kernel's plain torch form
+runs instead.
 
 Precision pin: the Hopper analogue of mcport forcing float32 matmuls
 (``mcport/__init__.py``). Float32 products on the card must not run in TF32:

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles ``csrc/*.cu`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``: no PyTorch headers,
-so a build takes seconds. The library is built at first use into
-``mcport_torch/build/`` (listed in ``.gitignore``), under a name keyed on a
-hash of the sources and flags, so a checkout builds it for itself and an edit
-rebuilds it. ``nvcc``'s resource report (``-Xptxas -v``: registers, shared
-memory, spills per kernel) is kept beside the library as ``<name>.log``.
+``nvcc`` compiles each ``csrc/<name>.cu`` for Hopper (``sm_90a``) into a shared
+library of its own with a plain C interface, loaded with ``ctypes``: no
+PyTorch headers, so a build takes seconds, and the sources build in parallel
+(one ``nvcc`` process each, all started together). A library is built at
+first use into ``mcport_torch/build/`` (listed in ``.gitignore``), under a
+name keyed on a hash of its source, the shared headers (``csrc/*.cuh``) and
+the flags, so a checkout builds it for itself and an edit rebuilds it.
+``nvcc``'s resource report (``-Xptxas -v``: registers, shared memory, stack
+frame and spills per kernel) is kept beside each library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_library", "NVCC_FLAGS"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "build_libraries", "library"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -30,9 +32,20 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-
-def _sources() -> list[Path]:
-    return sorted(p for p in _CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+_c_ll, _c_int, _c_float, _c_ptr = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                   ctypes.c_void_p)
+#: Each kernel library's C entry point and its argument types (see the .cu).
+KERNELS = {
+    "terminal_noise": ("mcport_terminal_noise", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
+        _c_ptr, _c_ptr, _c_ptr]),
+    "path_stats": ("mcport_path_stats", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
+        _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "multi_dd": ("mcport_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+        _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+}
 
 
 def _nvcc() -> str:
@@ -47,43 +60,61 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def build_library() -> Path:
-    """Compile the kernels unless a library for these sources exists; return
-    its path. Concurrent builders each write a temporary file and rename it
-    into place, so a reader never sees a half-written library."""
-    srcs = _sources()
+def _library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in [*sorted(_CSRC.glob("*.cuh")), _CSRC / f"{name}.cu"]:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    so = _BUILD_DIR / f"libmcport_kernels_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
+    return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(names=tuple(KERNELS)) -> dict[str, Path]:
+    """Compile every kernel of ``names`` that has no library for its current
+    sources, all at once; return each one's library path. Each build writes a
+    temporary file and renames it into place, so concurrent builders never
+    show a reader a half-written library."""
+    paths = {name: _library_path(name) for name in names}
+    todo = {name: so for name, so in paths.items() if not so.exists()}
+    if not todo:
+        return paths
     _BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in srcs if s.suffix == ".cu")]
+    nvcc = _nvcc()
+    procs = {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        for name, so in todo.items():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu ({proc.returncode}):\n{out}")
+                continue
+            todo[name].with_suffix(".log").write_text(out)
+            os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every entry point's signature declared."""
-    lib = ctypes.CDLL(str(build_library()))
-    c_ll, c_int, c_float, c_ptr = (ctypes.c_longlong, ctypes.c_int,
-                                   ctypes.c_float, ctypes.c_void_p)
-    lib.mcport_terminal_noise.argtypes = [
-        c_ll, c_ll, c_int, c_int, c_int, c_int, c_int, c_float, c_float,
-        c_ptr, c_ptr, c_ptr]
-    lib.mcport_terminal_noise.restype = c_int
-    lib.mcport_error_string.argtypes = [c_int]
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, its entry point's signature
+    declared."""
+    fn_name, argtypes = KERNELS[name]
+    lib = ctypes.CDLL(str(build_libraries((name,))[name]))
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = _c_int
+    lib.mcport_error_string.argtypes = [_c_int]
     lib.mcport_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,22 +1,32 @@
-"""Top-level API of the port: ``gbm_risk``.
+"""Top-level API of the port: ``gbm_risk`` and ``path_tail_risk``.
 
-Port of the single-device, pseudo-random branch of ``mcport.api.gbm_risk``:
-correlated-GBM tail risk for one portfolio through the chunked, resumable
-engine. The mesh, quasi-MC and hedged branches are not ported yet and raise.
+Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
+(correlated-GBM tail risk for one portfolio through the chunked, resumable
+engine) and of ``mcport.api.path_tail_risk`` for the "gbm" and "student_t"
+families (terminal VaR/CVaR plus the simulated max-drawdown distribution).
+The mesh, quasi-MC and hedged branches and the other path families are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from mcport.config import Config
+from mcport_torch.config import Config
 from mcport_torch.engine.mc_engine import MCCheckpoint, RiskReport, run_resumable_mc
-from mcport_torch.models.gbm import GBMParams, estimate_gbm
+from mcport_torch.engine.path_risk import (
+    UNPORTED_FAMILIES,
+    PathRiskCheckpoint,
+    run_path_risk,
+    run_resumable_path_risk,
+)
+from mcport_torch.models.gbm import GBMParams, estimate_gbm, estimate_t_dof
 
-__all__ = ["gbm_risk", "Config"]
+__all__ = ["gbm_risk", "path_tail_risk", "Config"]
 
 
 def gbm_risk(
@@ -28,12 +38,13 @@ def gbm_risk(
     checkpoint_path=None,
     legs_by_asset=None,
     *,
-    device: str | torch.device,
+    device: str | torch.device = "cuda",
 ) -> RiskReport:
     """Correlated-GBM tail risk for one portfolio on ``device``.
 
-    ``data`` is a :class:`GBMParams` or an ``mcport.data.PriceData`` (anything
-    with a ``prices`` (T, A) matrix), estimated with the sample estimator.
+    ``data`` is a :class:`GBMParams` or a :class:`mcport_torch.data.PriceData`
+    (anything with a ``prices`` (T, A) matrix), estimated with the sample
+    estimator.
     ``weights`` default to equal weights. ``config.gbm`` sets paths, steps,
     seed, block size, antithetic draws and innovations; ``config.simulation
     .alpha`` the tail level; ``config.gbm.auto_sketch=False`` uses
@@ -58,3 +69,69 @@ def gbm_risk(
         params, w, g, sketch, alpha=config.simulation.alpha,
         checkpoint=checkpoint, checkpoint_path=checkpoint_path, device=device)
     return report
+
+
+def path_tail_risk(
+    data,
+    weights: Sequence[float] | np.ndarray | None = None,
+    config: Config = Config(),
+    model: str = "gbm",
+    legs_by_asset=None,
+    p_restart: float = 0.2,
+    rebalance: bool = True,
+    checkpoint: PathRiskCheckpoint | None = None,
+    checkpoint_path=None,
+    max_blocks: int | None = None,
+    *,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Per-period path risk for one portfolio on ``device``: terminal
+    VaR/CVaR plus the simulated max-drawdown distribution →
+    ``{var, cvar, port_mean, dd_mean, dd_median, dd_p95, model, n_paths}``.
+
+    ``data`` is a :class:`mcport_torch.data.PriceData` (``names`` and a (T, A)
+    ``prices`` matrix). ``model`` "gbm" is correlated log-normal; "student_t"
+    keeps its drift and covariance with unit-variance Student-t shocks at the
+    moment-fitted dof (reported as ``t_dof``). ``rebalance`` selects per-step
+    rebalancing (default) or buy-and-hold. ``checkpoint`` /
+    ``checkpoint_path`` / ``max_blocks`` route through
+    :func:`mcport_torch.engine.path_risk.run_resumable_path_risk`
+    (bit-identical to the one-shot engine) and add a ``done`` flag.
+    ``p_restart`` is the bootstrap family's, which is not ported.
+    """
+    if model in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
+    if model not in ("gbm", "student_t"):
+        raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
+                         f"'heston' or 'bootstrap', got {model!r}")
+    if legs_by_asset is not None:
+        raise NotImplementedError("hedged path risk is not ported to mcport_torch yet")
+    a = len(data.names)
+    w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
+    if w.shape != (a,):
+        raise ValueError(f"weights must have shape ({a},)")
+    g = config.gbm
+    alpha = config.simulation.alpha
+    params = estimate_gbm(data.prices)
+    if model == "student_t":
+        g = dataclasses.replace(g, innovations="student_t",
+                                t_dof=estimate_t_dof(data.prices))
+    resumable = (checkpoint is not None or checkpoint_path is not None
+                 or max_blocks is not None)
+    if resumable:
+        rep, ck = run_resumable_path_risk(
+            model, params, w, g, alpha=alpha, rebalance=rebalance,
+            checkpoint=checkpoint, checkpoint_path=checkpoint_path,
+            max_blocks=max_blocks, device=device)
+    else:
+        rep = run_path_risk(params, w, g, alpha=alpha, rebalance=rebalance, device=device)
+    out = {
+        "var": rep.var, "cvar": rep.cvar, "port_mean": rep.port_mean,
+        "dd_mean": rep.dd_mean, "dd_median": rep.dd_median,
+        "dd_p95": rep.dd_p95, "model": model, "n_paths": rep.n_paths,
+    }
+    if resumable:
+        out["done"] = ck.done
+    if model == "student_t":
+        out["t_dof"] = g.t_dof
+    return out

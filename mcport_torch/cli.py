@@ -1,15 +1,18 @@
 """Command-line interface of the port.
 
-    python -m mcport_torch.cli gbm-risk CSV [CSV ...] [--device cuda] ...
+    python -m mcport_torch.cli gbm-risk    CSV [CSV ...] [--path-stats] [--device cuda] ...
+    python -m mcport_torch.cli path-risk   CSV [CSV ...] [--models gbm,student_t] ...
+    python -m mcport_torch.cli dd-frontier CSV [CSV ...] [--score-dtype auto] ...
 
-``gbm-risk`` takes the flags of ``mcport gbm-risk`` that the port carries
-(csv, --period, --estimator, --ewma-lambda, --paths, --steps, --seed,
---alpha, --weights, --antithetic, --innovations, --fast-normal,
---checkpoint, --resume) plus ``--device``, and emits the same JSON keys.
-There is no ``--no-pallas``: the plain torch sampler is the kernel's test
-yardstick, not a user path on the card. ``--hedge``, ``--path-stats``,
-``--attribution`` and ``--ci`` are not ported yet. Reading CSVs needs pandas
-(``mcport.data``), imported only when a command runs.
+Each command takes the flags of its ``mcport`` counterpart that the port
+carries, plus ``--device`` (the card by default; ``cpu`` runs the kernels'
+plain torch forms, for tests), and emits the same JSON keys. CSVs are read
+by :mod:`mcport_torch.data` (standard library and NumPy; no pandas). There is
+no ``--no-pallas`` or ``--loader``: the plain forms are the kernels' test
+yardsticks, not user paths on the card. Not ported yet: ``--hedge``,
+``--attribution`` and ``--ci`` everywhere, the non-GBM path families of
+``path-risk`` and ``dd-frontier``, and ``path-risk --p-restart`` (bootstrap
+only).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import sys
 
 import numpy as np
 
-from mcport.config import DataConfig, GBMConfig
+from mcport_torch.config import Config, DataConfig, GBMConfig, SimulationConfig
+from mcport_torch.engine.path_risk import UNPORTED_FAMILIES
 
 
 def _round_paths(n: int, block: int = 8_192) -> int:
@@ -28,19 +32,39 @@ def _round_paths(n: int, block: int = 8_192) -> int:
     return -(-n // block) * block
 
 
-def cmd_gbm_risk(args) -> None:
-    from mcport.data import load_universe
-    from mcport_torch.engine.mc_engine import load_checkpoint, run_resumable_mc
-    from mcport_torch.models.gbm import estimate_gbm, estimate_t_dof
+def _universe(args):
+    from mcport_torch.data import load_universe
 
-    d = load_universe(paths=args.csv, config=DataConfig(period=args.period))
-    params = estimate_gbm(d.prices, estimator=args.estimator,
-                          ewma_lambda=args.ewma_lambda)
+    return load_universe(args.csv, DataConfig(period=args.period))
+
+
+def _weights(args, d) -> np.ndarray:
     a = d.n_assets
     w = (np.full(a, 1.0 / a) if args.weights is None
          else np.asarray([float(x) for x in args.weights.split(",")]))
     if w.shape[0] != a:
         raise SystemExit(f"--weights needs {a} entries")
+    return w
+
+
+def _estimate(args, d):
+    from mcport_torch.models.gbm import estimate_gbm
+
+    return estimate_gbm(d.prices, estimator=args.estimator, ewma_lambda=args.ewma_lambda)
+
+
+def _emit(obj) -> None:
+    json.dump(obj, sys.stdout, indent=2, default=float)
+    sys.stdout.write("\n")
+
+
+def cmd_gbm_risk(args) -> None:
+    from mcport_torch.engine.mc_engine import load_checkpoint, run_resumable_mc
+    from mcport_torch.models.gbm import estimate_t_dof
+
+    d = _universe(args)
+    params = _estimate(args, d)
+    w = _weights(args, d)
     t_dof = 6.0
     if args.innovations == "student_t":
         t_dof = estimate_t_dof(d.prices)
@@ -69,22 +93,108 @@ def cmd_gbm_risk(args) -> None:
         "terminal_log_mean": report.mean.tolist(),
         "done": ck_out.done,
     }
-    json.dump(out, sys.stdout, indent=2, default=float)
-    sys.stdout.write("\n")
+    if args.path_stats:
+        from mcport_torch.engine.path_risk import run_path_risk
+
+        pr = run_path_risk(params, w, cfg, alpha=args.alpha, device=args.device)
+        out["max_drawdown"] = {
+            "innovations": args.innovations,
+            "mean": pr.dd_mean, "median": pr.dd_median, "p95_worst": pr.dd_p95,
+        }
+    _emit(out)
+
+
+def cmd_path_risk(args) -> None:
+    from mcport_torch.api import path_tail_risk
+
+    d = _universe(args)
+    w = _weights(args, d)
+    block = min(args.paths, 8192)
+    cfg = Config(gbm=GBMConfig(n_paths=_round_paths(args.paths, block), n_steps=args.steps,
+                               seed=args.seed, path_block=block,
+                               bm="poly_fast" if args.fast_normal else "poly"),
+                 simulation=SimulationConfig(alpha=args.alpha))
+    rebalance = not args.buy_and_hold
+    models = args.models.split(",")
+    if args.checkpoint and len(models) != 1:
+        raise SystemExit("--checkpoint requires a single --models entry")
+    ck = None
+    if args.resume:
+        if not args.checkpoint:
+            raise SystemExit("--resume requires --checkpoint FILE")
+        from mcport_torch.engine.path_risk import load_path_risk_checkpoint
+
+        ck = load_path_risk_checkpoint(args.checkpoint)
+    out = {"weights": dict(zip(d.names, map(float, w))),
+           "settlement": "unhedged",
+           "rebalance_gbm": rebalance}
+    for model in models:
+        out[model] = path_tail_risk(
+            d, w, cfg, model=model, rebalance=rebalance, checkpoint=ck,
+            checkpoint_path=args.checkpoint or None, device=args.device)
+    _emit(out)
+
+
+def cmd_dd_frontier(args) -> None:
+    from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search
+    from mcport_torch.models.gbm import estimate_t_dof
+
+    if args.model != "gbm":
+        raise NotImplementedError(f"the {args.model} drawdown frontier is not ported "
+                                  "to mcport_torch yet")
+    d = _universe(args)
+    t_dof = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
+    r = drawdown_frontier_search(
+        args.seed, _estimate(args, d), dd_budget=args.dd_budget,
+        n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
+        alpha=args.alpha, score_dtype=args.score_dtype, rebalance=args.rebalance,
+        t_df=t_dof, bm="poly_fast" if args.fast_normal else "poly", device=args.device)
+    out = {
+        "model": args.model,
+        "dd_budget": r.dd_budget,
+        "n_candidates": args.candidates,
+        "n_feasible": int(r.feasible.sum()),
+        "hedged": False,
+    }
+    if t_dof is not None:
+        out["innovations"] = f"student_t (dof={t_dof:.2f})"
+    if r.opt_idx < 0:
+        out["error"] = "no candidate satisfies the drawdown budget"
+    else:
+        i = r.opt_idx
+        out["weights"] = dict(zip(d.names, map(float, r.opt_weights)))
+        out["expected_return"] = float(r.ret[i])
+        out["dd_p95"] = float(r.dd_p95[i])
+    _emit(out)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mcport_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("csv", nargs="+",
+                        help="asset CSV files (investing.com/yfinance format)")
+        sp.add_argument("--period", default="M", choices=["M", "Q", "W", "D"],
+                        help="analysis period (resample rule)")
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--alpha", type=float, default=0.95)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device: cuda[:N] (default) or cpu (the "
+                             "kernels' plain torch forms, for tests)")
+
+    def estimator(sp):
+        sp.add_argument("--estimator", default="sample", choices=["sample", "lw", "ewma"],
+                        help="covariance tier: reference sample (ddof=1) | "
+                             "Ledoit-Wolf shrinkage | RiskMetrics EWMA")
+        sp.add_argument("--ewma-lambda", type=float, default=0.94,
+                        help="EWMA decay (only with --estimator ewma)")
+
     sp = sub.add_parser("gbm-risk", help="correlated-GBM tail risk")
-    sp.add_argument("csv", nargs="+", help="asset CSV files (investing.com/yfinance format)")
-    sp.add_argument("--period", default="M", choices=["M", "Q", "W", "D"],
-                    help="analysis period (resample rule)")
+    common(sp)
     sp.add_argument("--paths", type=int, default=100_000)
     sp.add_argument("--steps", type=int, default=252)
-    sp.add_argument("--seed", type=int, default=0)
-    sp.add_argument("--alpha", type=float, default=0.95)
     sp.add_argument("--weights", default=None, help="comma list; default equal")
     sp.add_argument("--antithetic", action="store_true")
     sp.add_argument("--innovations", default="normal", choices=["normal", "student_t"],
@@ -94,15 +204,63 @@ def build_parser() -> argparse.ArgumentParser:
                          "Box-Muller, draw error <=~1e-5)")
     sp.add_argument("--checkpoint", default=None, help="npz checkpoint path")
     sp.add_argument("--resume", action="store_true", help="resume from --checkpoint")
-    sp.add_argument("--estimator", default="sample", choices=["sample", "lw", "ewma"],
-                    help="covariance tier: reference sample (ddof=1) | "
-                         "Ledoit-Wolf shrinkage | RiskMetrics EWMA")
-    sp.add_argument("--ewma-lambda", type=float, default=0.94,
-                    help="EWMA decay (only with --estimator ewma)")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device: cuda[:N] (default) or cpu (the plain "
-                         "torch sampler, for tests)")
+    sp.add_argument("--path-stats", action="store_true",
+                    help="add the simulated max-drawdown distribution (buy-and-hold, "
+                         "same paths, seed and innovations)")
+    estimator(sp)
     sp.set_defaults(fn=cmd_gbm_risk)
+
+    sp = sub.add_parser("path-risk",
+                        help="per-period path risk (terminal VaR/CVaR + "
+                             "max-drawdown distribution)")
+    common(sp)
+    sp.add_argument("--models", default="gbm,student_t",
+                    help="comma list of gbm,student_t (garch,dcc,jump,heston,"
+                         "bootstrap are not ported yet)")
+    sp.add_argument("--weights", default=None, help="comma list; default equal")
+    sp.add_argument("--paths", type=int, default=65_536)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--buy-and-hold", action="store_true",
+                    help="buy-and-hold GBM wealth instead of the default "
+                         "per-period rebalancing")
+    sp.add_argument("--checkpoint", default=None, metavar="FILE",
+                    help="persist block-cursor state after every dispatch group "
+                         "(single --models entry only; resumed runs are "
+                         "bit-identical to unsplit ones)")
+    sp.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint FILE")
+    sp.add_argument("--fast-normal", action="store_true",
+                    help="screening-tier normal draws (degree-5 polynomial "
+                         "Box-Muller; student_t has its own sampler and ignores it)")
+    sp.set_defaults(fn=cmd_path_risk)
+
+    sp = sub.add_parser("dd-frontier",
+                        help="max return s.t. a simulated max-drawdown budget")
+    common(sp)
+    sp.add_argument("--dd-budget", type=float, default=0.30,
+                    help="p95-worst drawdown budget (0.30 = -30%%)")
+    sp.add_argument("--candidates", type=int, default=8192)
+    sp.add_argument("--paths", type=int, default=16_384)
+    sp.add_argument("--steps", type=int, default=252)
+    sp.add_argument("--score-dtype",
+                    choices=["auto", "float32", "tensorfloat32", "bfloat16"],
+                    default="auto",
+                    help="candidate-scoring tier: auto (default) is float32; "
+                         "tensorfloat32 is mcport's bf16 split (~1.5e-5); "
+                         "bfloat16 screens, then rescores the leaders at "
+                         "float32")
+    sp.add_argument("--rebalance", action="store_true",
+                    help="rebalance candidates to target weights every period "
+                         "instead of buy-and-hold")
+    sp.add_argument("--model", choices=["gbm", *UNPORTED_FAMILIES], default="gbm",
+                    help="path family (only gbm is ported yet)")
+    sp.add_argument("--innovations", choices=["normal", "student_t"], default="normal",
+                    help="student_t scores candidates under fat-tailed "
+                         "unit-variance t shocks (moment-fitted dof)")
+    sp.add_argument("--fast-normal", action="store_true",
+                    help="screening-tier normal draws for screen AND rescore")
+    estimator(sp)
+    sp.set_defaults(fn=cmd_dd_frontier)
     return p
 
 

@@ -1,9 +1,10 @@
 """Device selection: the port's counterpart of ``mcport/utils/backend.py``.
 
-Every public function of the port takes an explicit ``device``; nothing picks
-``cuda`` or ``cpu`` on its own. Asking for a card that is not there raises:
-there is no silent CPU fallback, because a run on the CPU is a different
-measurement, not a slower one.
+Every entry point of the port takes a ``device`` that defaults to ``"cuda"``:
+it runs on the card unless the caller asks for the CPU (as the tests do),
+where each kernel's plain torch form runs instead. Asking for a card that is
+not there raises: there is no silent CPU fallback, because a run on the CPU
+is a different measurement, not a slower one.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mcport.config import GBMConfig, SketchConfig
+from mcport_torch.config import GBMConfig, SketchConfig
 from mcport_torch.device import resolve_device
 from mcport_torch.models.gbm import GBMParams, portfolio_terminal_returns
 from mcport_torch.ops.gbm import block_terminal_log_returns
@@ -156,7 +156,7 @@ def run_resumable_mc(
     dispatch_blocks: int = 16,
     hedge=None,
     *,
-    device: str | torch.device,
+    device: str | torch.device = "cuda",
 ) -> tuple[RiskReport, MCCheckpoint]:
     """Run (or resume) a chunked MC risk computation on ``device``.
 

@@ -1,0 +1,345 @@
+"""Path-dependent risk: the max-drawdown distribution of a GBM portfolio.
+
+Port of the GBM and Student-t branches of ``mcport/engine/path_risk.py``. The
+path-stats kernel (:func:`mcport_torch.ops.path_stats.gbm_path_stats`) evolves
+every path and returns its portfolio terminal return and maximum drawdown
+(:func:`stats_from_log_paths`, mcport's ``_stats_from_log_paths``, is the
+same reduction on materialised log paths: the kernel's plain form);
+the engine folds them block by block into two int64 histogram sketches
+(terminal return for VaR/CVaR, drawdown for its quantiles) and two sums, on
+the device, without a host synchronisation per block.
+
+Like the terminal engine (:mod:`mcport_torch.engine.mc_engine`), the result is
+a deterministic function of (parameters, weights, seed, grid): block ``b``
+draws the Philox stream keyed ``int32(seed + (b+1) * SEED_STRIDE)``, a
+dispatch group of ``DISPATCH_BLOCKS`` blocks is one kernel launch, and the
+blocks fold left to right, so a run split by ``max_blocks`` and resumed is
+bit-identical to the one-shot run. The checkpoint digest carries the backend
+tag ``torch-philox``: mcport's checkpoints are refused.
+
+Rebalancing defaults follow mcport: :func:`run_path_risk` holds the initial
+allocation (buy-and-hold), :func:`run_resumable_path_risk` rebalances every
+step.
+
+Not ported yet (raise ``NotImplementedError``): hedged settlement, quasi-MC
+paths (``qmc``), bootstrap error bars (``ci_boot``), the non-GBM families
+and ``run_resumable_path_risk_with_recovery``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mcport_torch.config import GBMConfig, SketchConfig
+from mcport_torch.device import resolve_device
+from mcport_torch.engine.mc_engine import BACKEND_TAG
+from mcport_torch.models.gbm import GBMParams
+from mcport_torch.ops.multi_dd import multi_dd_from_log_paths
+from mcport_torch.ops.path_stats import gbm_path_stats
+from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
+
+__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "UNPORTED_FAMILIES", "PathRiskReport",
+           "PathRiskCheckpoint", "run_path_risk", "run_resumable_path_risk",
+           "run_resumable_path_risk_with_recovery", "load_path_risk_checkpoint",
+           "stats_from_log_paths"]
+
+# drawdowns live in [-1, 0]; a dedicated tight sketch keeps quantile error tiny
+DD_SKETCH = SketchConfig(n_bins=4096, lo=-1.0, hi=0.0)
+
+#: blocks per kernel launch; grouping never changes results
+DISPATCH_BLOCKS = 16
+
+#: mcport's other path families: not ported yet (they need their own kernels)
+UNPORTED_FAMILIES = ("garch", "dcc", "jump", "heston", "bootstrap")
+
+
+@dataclass(frozen=True)
+class PathRiskReport:
+    var: float            # terminal portfolio VaR at alpha
+    cvar: float
+    port_mean: float
+    dd_mean: float        # mean max drawdown (negative)
+    dd_p95: float         # (1 - alpha)-quantile of the max drawdown: the worse tail
+    dd_median: float
+    n_paths: int
+    tail_ci: dict | None = None   # bootstrap error bars: not ported, always None
+
+
+@dataclass
+class PathRiskCheckpoint:
+    """Resumable path-risk state: the two int64 sketches, the two sums and
+    the block cursor ``next_block``."""
+
+    seed: int
+    n_steps: int
+    block_paths: int
+    n_blocks: int
+    next_block: int
+    h_port: np.ndarray
+    h_dd: np.ndarray
+    s_port: np.ndarray
+    s_dd: np.ndarray
+    sketch_lo: float
+    sketch_hi: float
+    sketch_space: str
+    dd_lo: float
+    dd_hi: float
+    digest: str = ""
+
+    def save(self, path: str | Path) -> None:
+        np.savez(path, **{f.name: getattr(self, f.name)
+                          for f in dataclasses.fields(self)})
+
+    @property
+    def done(self) -> bool:
+        return self.next_block >= self.n_blocks
+
+    @property
+    def sketch(self) -> SketchConfig:
+        return SketchConfig(n_bins=int(np.asarray(self.h_port).shape[-1]),
+                            lo=float(self.sketch_lo), hi=float(self.sketch_hi),
+                            space=str(self.sketch_space))
+
+    @property
+    def dd_sketch(self) -> SketchConfig:
+        return SketchConfig(n_bins=int(np.asarray(self.h_dd).shape[-1]),
+                            lo=float(self.dd_lo), hi=float(self.dd_hi))
+
+
+def load_path_risk_checkpoint(path: str | Path) -> PathRiskCheckpoint:
+    with np.load(path) as z:
+        names = [f.name for f in dataclasses.fields(PathRiskCheckpoint)]
+        missing = set(names) - set(z.files)
+        if missing:
+            raise ValueError(f"checkpoint {path} lacks fields {sorted(missing)}; "
+                             "it was not written by this engine")
+        kw = {k: z[k] for k in names}
+    for k in ("seed", "n_steps", "block_paths", "n_blocks", "next_block"):
+        kw[k] = int(kw[k])
+    for k in ("sketch_lo", "sketch_hi", "dd_lo", "dd_hi"):
+        kw[k] = float(kw[k])
+    kw["sketch_space"], kw["digest"] = str(kw["sketch_space"]), str(kw["digest"])
+    kw["h_port"], kw["h_dd"] = kw["h_port"].astype(np.int64), kw["h_dd"].astype(np.int64)
+    return PathRiskCheckpoint(**kw)
+
+
+def _host_f64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.ascontiguousarray(np.asarray(x, np.float64))
+
+
+def _digest(model: str, params: GBMParams, weights, config: GBMConfig,
+            rebalance: bool) -> str:
+    """Binds a checkpoint to its computation: model, parameters, weights,
+    seed, grid, shock law, rebalancing, normal tier and the backend (mcport's
+    ``_model_digest`` fields, with the port's stream tag)."""
+    h = hashlib.sha256(model.encode())
+    for arr in (params.mean_step, params.chol_step, params.s0, weights):
+        h.update(_host_f64(arr).tobytes())
+    h.update(f"{config.seed}|{config.n_steps}|{config.n_paths}|{config.path_block}|"
+             f"{config.innovations}|{config.t_dof}|{rebalance}|{BACKEND_TAG}".encode())
+    t_active = config.innovations == "student_t" or model == "student_t"
+    if config.bm != "poly" and not t_active:
+        h.update(f"|bm={config.bm}".encode())
+    return h.hexdigest()
+
+
+def _check_unported(config: GBMConfig, hedge) -> None:
+    if hedge is not None:
+        raise NotImplementedError("hedged path risk is not ported to mcport_torch yet")
+    if config.qmc != "none":
+        raise NotImplementedError("quasi-MC path risk is not ported to mcport_torch yet")
+    if config.ci_boot > 0:
+        raise NotImplementedError("bootstrap error bars (ci_boot > 0) are not ported "
+                                  "to mcport_torch yet")
+
+
+def _report(h_port, h_dd, s_port, s_dd, n_done: int, alpha: float,
+            sketch: SketchConfig, dd_sketch: SketchConfig, dtype) -> PathRiskReport:
+    v, c = sketch_var_cvar(h_port, alpha, sketch, dtype=dtype)
+    dd_p95 = sketch_quantile(h_dd, 1.0 - alpha, dd_sketch, dtype=dtype)
+    dd_med = sketch_quantile(h_dd, 0.5, dd_sketch, dtype=dtype)
+    n = max(n_done, 1)
+    return PathRiskReport(var=float(v), cvar=float(c), port_mean=float(s_port) / n,
+                          dd_mean=float(s_dd) / n, dd_p95=float(dd_p95),
+                          dd_median=float(dd_med), n_paths=n_done)
+
+
+def stats_from_log_paths(paths: torch.Tensor, weights: torch.Tensor,
+                         rebalance: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(portfolio terminal return, max drawdown) of one portfolio ``weights
+    (A,)`` from ``(..., n, T, A)`` cumulative log paths → two ``(..., n)``
+    tensors: mcport's ``_stats_from_log_paths``, which is
+    :func:`multi_dd_from_log_paths` with one candidate."""
+    port, dd = multi_dd_from_log_paths(paths, weights[None], rebalance)
+    return port[..., 0, :], dd[..., 0, :]
+
+
+def _fold(state, params: GBMParams, weights, config: GBMConfig, t_df, rebalance: bool,
+          sketch: SketchConfig, dd_sketch: SketchConfig, start: int, stop: int,
+          dev: torch.device, on_group=None):
+    """Fold blocks ``start .. stop-1`` into ``state = (h_port, h_dd, s_port,
+    s_dd)`` (device tensors); ``on_group(next_block, state)`` runs after each
+    dispatch group."""
+    dtype = getattr(torch, config.dtype)
+    mean = torch.as_tensor(_host_f64(params.mean_step), device=dev).to(torch.float32)
+    chol = torch.as_tensor(_host_f64(params.chol_step), device=dev).to(torch.float32)
+    w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
+    h_port, h_dd, s_port, s_dd = state
+    b = start
+    while b < stop:
+        group = min(DISPATCH_BLOCKS, stop - b)
+        _, port, dd = gbm_path_stats(
+            config.seed, mean, chol, w, config.path_block, config.n_steps,
+            first_block=b, n_blocks=group, rebalance=rebalance, t_df=t_df,
+            bm=config.bm, terminal=False)
+        for pb, db in zip(port.to(dtype), dd.to(dtype)):
+            h_port = h_port + histogram(pb, sketch)
+            h_dd = h_dd + histogram(db, dd_sketch)
+            s_port = s_port + pb.sum()
+            s_dd = s_dd + db.sum()
+        b += group
+        if on_group is not None:
+            on_group(b, (h_port, h_dd, s_port, s_dd))
+    return h_port, h_dd, s_port, s_dd
+
+
+def _empty_state(sketch: SketchConfig, dd_sketch: SketchConfig, dtype, dev):
+    return (torch.zeros(sketch.n_bins, dtype=torch.int64, device=dev),
+            torch.zeros(dd_sketch.n_bins, dtype=torch.int64, device=dev),
+            torch.zeros((), dtype=dtype, device=dev),
+            torch.zeros((), dtype=dtype, device=dev))
+
+
+def _n_blocks(config: GBMConfig) -> int:
+    if config.n_paths % config.path_block:
+        raise ValueError(f"n_paths {config.n_paths} not divisible by path_block "
+                         f"{config.path_block}")
+    return config.n_paths // config.path_block
+
+
+def run_path_risk(
+    params: GBMParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig = SketchConfig(),
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    rebalance: bool = False,
+    hedge=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk for one portfolio on ``device``: terminal VaR/CVaR
+    plus the max-drawdown distribution (mean, median, ``(1 - alpha)``
+    quantile).
+
+    ``rebalance=True`` resets to the target weights every step; False is
+    buy-and-hold. ``config.innovations="student_t"`` draws unit-variance
+    Student-t shocks at ``config.t_dof``; ``config.bm`` picks the normal tier.
+    """
+    _check_unported(config, hedge)
+    n_blocks = _n_blocks(config)
+    dev = resolve_device(device)
+    dtype = getattr(torch, config.dtype)
+    t_df = float(config.t_dof) if config.innovations == "student_t" else None
+    state = _fold(_empty_state(sketch, dd_sketch, dtype, dev), params, weights, config,
+                  t_df, rebalance, sketch, dd_sketch, 0, n_blocks, dev)
+    return _report(*state, config.n_paths, alpha, sketch, dd_sketch, dtype)
+
+
+def run_resumable_path_risk(
+    model: str,
+    model_params: GBMParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig | None = None,
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    s0=None,
+    p_restart: float = 0.2,
+    rebalance: bool = True,
+    checkpoint: PathRiskCheckpoint | None = None,
+    checkpoint_path: str | Path | None = None,
+    max_blocks: int | None = None,
+    *,
+    device: str | torch.device = "cuda",
+) -> tuple[PathRiskReport, PathRiskCheckpoint]:
+    """Checkpointable path risk for ``model`` "gbm" or "student_t" (GBM
+    drift and covariance with unit-variance t shocks at ``config.t_dof``).
+
+    Returns ``(report, checkpoint)``; the report covers the blocks folded so
+    far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
+    ``checkpoint_path`` persists the state after every dispatch group. The
+    digest binds a checkpoint to its computation and a mismatched resume
+    raises. ``s0`` and ``p_restart`` are mcport's arguments for hedged and
+    bootstrap runs, neither of which is ported.
+    """
+    if model in UNPORTED_FAMILIES:
+        raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
+    if model not in ("gbm", "student_t"):
+        raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
+                         f"'heston' or 'bootstrap', got {model!r}")
+    _check_unported(config, hedge)
+    n_blocks = _n_blocks(config)
+    dev = resolve_device(device)
+    dtype = getattr(torch, config.dtype)
+    t_df = (float(config.t_dof)
+            if config.innovations == "student_t" or model == "student_t" else None)
+    digest = _digest(model, model_params, weights, config, rebalance)
+
+    if checkpoint is not None:
+        if (checkpoint.n_steps, checkpoint.block_paths, checkpoint.n_blocks) != (
+                config.n_steps, config.path_block, n_blocks):
+            raise ValueError("checkpoint is for a different run configuration")
+        if checkpoint.digest != digest:
+            raise ValueError(
+                "checkpoint digest mismatch: this checkpoint was written for a "
+                "different computation (params/weights/config) or by another "
+                "backend — refusing to resume it")
+        sketch, dd_sketch = checkpoint.sketch, checkpoint.dd_sketch
+        state = (torch.as_tensor(checkpoint.h_port, device=dev),
+                 torch.as_tensor(checkpoint.h_dd, device=dev),
+                 torch.as_tensor(checkpoint.s_port, device=dev).to(dtype),
+                 torch.as_tensor(checkpoint.s_dd, device=dev).to(dtype))
+        start = checkpoint.next_block
+    else:
+        sketch = SketchConfig() if sketch is None else sketch
+        state = _empty_state(sketch, dd_sketch, dtype, dev)
+        start = 0
+    stop = n_blocks if max_blocks is None else min(n_blocks, start + max_blocks)
+
+    def snapshot(next_block, st) -> PathRiskCheckpoint:
+        h_port, h_dd, s_port, s_dd = (x.cpu().numpy() for x in st)
+        return PathRiskCheckpoint(
+            seed=config.seed, n_steps=config.n_steps, block_paths=config.path_block,
+            n_blocks=n_blocks, next_block=next_block, h_port=h_port, h_dd=h_dd,
+            s_port=s_port, s_dd=s_dd, sketch_lo=sketch.lo, sketch_hi=sketch.hi,
+            sketch_space=sketch.space, dd_lo=dd_sketch.lo, dd_hi=dd_sketch.hi,
+            digest=digest)
+
+    def persist(next_block, st) -> None:
+        snapshot(next_block, st).save(checkpoint_path)
+
+    state = _fold(state, model_params, weights, config, t_df, rebalance, sketch,
+                  dd_sketch, start, stop, dev,
+                  on_group=persist if checkpoint_path is not None else None)
+    ck = snapshot(stop, state)
+    report = _report(*state, stop * config.path_block, alpha, sketch, dd_sketch, dtype)
+    return report, ck
+
+
+def run_resumable_path_risk_with_recovery(*args, **kwargs):
+    """Not ported: mcport reloads the last checkpoint in-process after a
+    device error, but a CUDA fault is sticky for the process, so the port
+    needs a process-level design."""
+    raise NotImplementedError("run_resumable_path_risk_with_recovery is not ported "
+                              "to mcport_torch yet")

@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from mcport.seeding import SEED_STRIDE
+from mcport_torch.seeding import SEED_STRIDE
 from mcport_torch.rng import STREAM_GBM, bits_to_unit, philox4x32
 
 __all__ = [
@@ -45,6 +45,7 @@ __all__ = [
     "BM_VARIANTS",
     "t_draw",
     "block_seeds",
+    "step_shocks",
     "terminal_noise_reference",
     "gbm_terminal_noise",
     "kernel_tolerance",
@@ -170,6 +171,68 @@ def block_seeds(seed: int, first_block: int, n_blocks: int) -> list[int]:
             for b in range(n_blocks)]
 
 
+def _uniform_calls(seed: int, n_assets: int, n_paths: int, first_block: int,
+                   n_blocks: int, first_path: int, dev: torch.device):
+    """``call(draw)`` → the four uniforms (each ``(n_blocks, n_paths, A)``
+    float32) of Philox call ``draw`` for paths ``first_path ..`` of each
+    block: the kernels' counters."""
+    keys = torch.tensor(block_seeds(seed, first_block, n_blocks),
+                        dtype=torch.int64, device=dev).view(-1, 1, 1)
+    asset = torch.arange(n_assets, dtype=torch.int64, device=dev).view(1, 1, -1)
+    path = torch.arange(first_path, first_path + n_paths, dtype=torch.int64,
+                        device=dev).view(1, -1, 1)
+
+    def call(draw: int) -> list[torch.Tensor]:
+        ctr = (torch.full((), draw, dtype=torch.int64, device=dev), asset, path,
+               STREAM_GBM)
+        words = philox4x32(ctr, (keys, 0))
+        return [bits_to_unit(w.expand(n_blocks, n_paths, n_assets)) for w in words]
+
+    return call
+
+
+def step_shocks(
+    seed: int,
+    n_assets: int,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+    bm: str = "poly",
+    t_df: float | None = None,
+    device: torch.device | str,
+) -> torch.Tensor:
+    """The shock of every step on the kernels' counters → ``(n_blocks,
+    n_paths, n_steps, A)`` float32: unit normals, or raw polar-t draws
+    (scale not applied) with ``t_df``. Paths ``first_path ..
+    first_path + n_paths - 1`` of each block, so a long launch can be checked
+    in pieces. Step ``s`` of the normal tiers is draw ``s % 2`` of pair
+    ``s // 2``; of the t tier, draw ``s % 2`` of call ``s // 2``."""
+    if bm not in _BM_CODE:
+        raise ValueError(f"bm must be one of {sorted(_BM_CODE)}, got {bm!r}")
+    dev = torch.device(device)
+    call = _uniform_calls(seed, n_assets, n_paths, first_block, n_blocks, first_path, dev)
+    zs: list[torch.Tensor] = []
+    if t_df is not None:
+        for c in range(-(-n_steps // 2)):
+            u = call(c)
+            zs.append(t_draw(u[0], u[1], t_df))
+            if 2 * c + 1 < n_steps:
+                zs.append(t_draw(u[2], u[3], t_df))
+    else:
+        boxmuller = BM_VARIANTS[bm]
+        for c in range(-(-n_steps // 4)):
+            u = call(c)
+            zs.extend(boxmuller(u[0], u[1]))
+            if 4 * c + 2 < n_steps:
+                zs.extend(boxmuller(u[2], u[3]))
+    if not zs:
+        return torch.zeros((n_blocks, n_paths, 0, n_assets), dtype=torch.float32, device=dev)
+    return torch.stack(zs[:n_steps], dim=2)
+
+
 def _check_args(chol, n_paths, n_steps, n_blocks, bm, t_df) -> None:
     if chol.dtype != torch.float32 or chol.dim() != 2 or chol.shape[0] != chol.shape[1]:
         raise ValueError(f"chol must be a square float32 matrix, got "
@@ -207,17 +270,7 @@ def terminal_noise_reference(
     _check_args(chol, n_paths, n_steps, n_blocks, bm, t_df)
     dev = chol.device
     a = chol.shape[0]
-    keys = torch.tensor(block_seeds(seed, first_block, n_blocks),
-                        dtype=torch.int64, device=dev).view(-1, 1, 1)
-    asset = torch.arange(a, dtype=torch.int64, device=dev).view(1, 1, -1)
-    path = torch.arange(n_paths, dtype=torch.int64, device=dev).view(1, -1, 1)
-
-    def call(draw: int):
-        ctr = (torch.full((), draw, dtype=torch.int64, device=dev), asset, path,
-               STREAM_GBM)
-        words = philox4x32(ctr, (keys, 0))
-        return [bits_to_unit(w.expand(n_blocks, n_paths, a)) for w in words]
-
+    call = _uniform_calls(seed, a, n_paths, first_block, n_blocks, 0, dev)
     n_pairs, odd = divmod(n_steps, 2)
     acc = torch.zeros((n_blocks, n_paths, a), dtype=torch.float32, device=dev)
     if t_df is not None:
@@ -258,7 +311,7 @@ def kernel_tolerance(chol: torch.Tensor, n_steps: int) -> torch.Tensor:
 def _launch(seed, chol, n_paths, n_steps, first_block, n_blocks, bm, t_df):
     from mcport_torch._build import library
 
-    lib = library()
+    lib = library("terminal_noise")
     a = chol.shape[0]
     out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=chol.device)
     if n_paths == 0:

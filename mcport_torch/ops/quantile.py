@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from mcport.config import SketchConfig
+from mcport_torch.config import SketchConfig
 
 __all__ = [
     "MomentState",

@@ -1,10 +1,11 @@
-"""The port's CLI (``python -m mcport_torch.cli gbm-risk``) against mcport's
-``gbm-risk`` on the fixture universe, and the port's import boundary.
+"""The port's CLI (``python -m mcport_torch.cli``) against mcport's on the
+fixture universe, and the port's import boundary.
 
-Both CLIs read ``fixtures/*Historical*.csv`` at ``--period D`` (14 assets);
-their JSON carries the same keys and agrees within Monte Carlo error (the
-streams differ). A subprocess imports every ``mcport_torch`` module and finds
-neither jax nor pandas loaded.
+``gbm-risk`` reads ``fixtures/*Historical*.csv`` at ``--period D`` (14 assets)
+in both CLIs; their JSON carries the same keys and agrees within Monte Carlo
+error (the streams differ). ``path-risk``, ``dd-frontier`` and ``gbm-risk
+--path-stats`` emit mcport's keys. A subprocess imports every
+``mcport_torch`` module and finds neither jax nor pandas loaded.
 """
 
 import contextlib
@@ -105,3 +106,42 @@ def test_port_imports_no_jax_or_pandas():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_path_risk_cli_has_mcport_keys(csvs, tmp_path):
+    common = ["path-risk", *csvs, "--period", "D", "--models", "gbm,student_t",
+              "--paths", "8192", "--steps", "8", "--seed", "2"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["weights"] == ref["weights"]
+    for model in ("gbm", "student_t"):
+        assert set(port[model]) == set(ref[model]) and port[model]["n_paths"] == 8192
+    ck = str(tmp_path / "ck.npz")
+    one = ["path-risk", *csvs[:3], "--period", "D", "--models", "gbm", "--paths", "8192",
+           "--steps", "8", "--buy-and-hold", "--device", "cpu", "--checkpoint", ck]
+    out = _run(port_main, one)
+    assert out["rebalance_gbm"] is False and out["gbm"]["done"] is True
+    assert _run(port_main, one + ["--resume"])["gbm"] == out["gbm"]
+
+
+def test_dd_frontier_cli_has_mcport_keys(csvs):
+    common = ["dd-frontier", *csvs, "--period", "D", "--candidates", "32", "--paths",
+              "1024", "--steps", "8", "--dd-budget", "0.5"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["n_feasible"] > 0
+    assert set(port["weights"]) == set(ref["weights"])
+    t = _run(port_main, common + ["--innovations", "student_t", "--score-dtype",
+                                  "bfloat16", "--rebalance", "--device", "cpu"])
+    assert t["innovations"].startswith("student_t (dof=")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _run(port_main, common + ["--model", "garch", "--device", "cpu"])
+
+
+def test_gbm_risk_cli_path_stats_has_mcport_keys(csvs):
+    common = ["gbm-risk", *csvs[:4], "--period", "D", "--paths", "4096", "--steps", "8",
+              "--path-stats"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and set(port["max_drawdown"]) == set(ref["max_drawdown"])
+    assert -1 <= port["max_drawdown"]["p95_worst"] <= port["max_drawdown"]["median"] <= 0

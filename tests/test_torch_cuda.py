@@ -1,16 +1,19 @@
-"""The terminal-noise kernel on a CUDA card against its plain torch form.
+"""The port's CUDA kernels on a card against their plain torch forms.
 
 Marked ``cuda``; every test skips without a card. On a machine with one (and
 without jax, which tests/conftest.py imports):
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Same cases as phase 2 of chip_smoke.py at test size, plus the engine's own
-dispatch group at GBMConfig defaults. Bound per element:
-``mcport_torch.ops.gbm.kernel_tolerance`` — the smaller of 2e-6 per draw
-(nvcc contracts multiply-adds into FMAs where torch rounds twice) and a
+The cases of chip_smoke.py's phases 2 and 6 at test size, plus the engine's
+own dispatch group at GBMConfig defaults. Bounds: the terminal-noise kernel
+to ``mcport_torch.ops.gbm.kernel_tolerance`` (the smaller of 2e-6 per draw,
+as nvcc contracts multiply-adds into FMAs where torch rounds twice, and a
 random-walk bound at least four times the largest difference measured on an
-H100.
+H100); the path-stats kernel to ``ops.path_stats.path_stats_tolerance``; the
+multi-dd kernel to ``ops.multi_dd.multi_dd_shares``. With one candidate the
+multi-dd kernel is the path-stats kernel bit for bit, and the path-stats
+kernel's terminal is the terminal-noise kernel's up to rounding.
 """
 
 import numpy as np
@@ -70,7 +73,7 @@ def test_kernel_single_draws_match_plain_form(dev, bm, steps):
 def test_kernel_matches_plain_form_at_the_engine_group(dev):
     """The launch run_resumable_mc makes at GBMConfig defaults: seed 0, blocks
     0-15 of 8,192 paths in one launch, 252 steps, poly."""
-    from mcport.config import GBMConfig
+    from mcport_torch.config import GBMConfig
     from mcport_torch.ops.gbm import gbm_terminal_noise, kernel_tolerance, terminal_noise_reference
 
     g = GBMConfig()
@@ -93,7 +96,7 @@ def test_kernel_rejects_too_many_assets(dev):
 
 
 def test_engine_on_card_matches_cpu_run(dev):
-    from mcport.config import GBMConfig
+    from mcport_torch.config import GBMConfig
     from mcport_torch.convert import gbm_params_from_numpy
     from mcport_torch.engine.mc_engine import run_resumable_mc
 
@@ -106,3 +109,127 @@ def test_engine_on_card_matches_cpu_run(dev):
     np.testing.assert_allclose(card.mean, cpu.mean, rtol=0, atol=1e-6)
     np.testing.assert_allclose(card.cov, cpu.cov, rtol=0, atol=1e-8)
     assert int(np.abs(ck_card.hist - ck_cpu.hist).sum()) <= 4   # a few bin-edge moves
+
+
+# ---- kernel #2: path stats -------------------------------------------------------
+
+def _bench_inputs(a, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    mean = torch.from_numpy(rng.normal(1e-3, 5e-4, a).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.dirichlet(np.ones(a)).astype(np.float32)).to(dev)
+    return mean, _chol(a, dev), w
+
+
+@pytest.mark.parametrize("a", [1, 15, 64])
+@pytest.mark.parametrize("bm, t_df", [("poly", None), ("poly_fast", None), ("poly", 5.5)])
+@pytest.mark.parametrize("steps", [252, 7])
+@pytest.mark.parametrize("rebalance", [False, True])
+def test_path_stats_kernel_matches_plain_form(dev, a, bm, t_df, steps, rebalance):
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.path_stats import (gbm_path_stats, path_stats_reference,
+                                             path_stats_shares)
+
+    mean, chol, w = _bench_inputs(a, dev)
+    kw = dict(first_block=6, n_blocks=2, bm=bm, t_df=t_df, rebalance=rebalance)
+    before = gbm_path_stats.launches
+    k = gbm_path_stats(11, mean, chol, w, 4_099, steps, **kw)
+    torch.cuda.synchronize()
+    assert gbm_path_stats.launches == before + 1
+    lk = t_scaled_chol(chol, t_df)
+    p = path_stats_reference(11, mean, lk, w, 4_099, steps, **kw)
+    shares = path_stats_shares(k, p, lk, mean, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("t_df", [None, 5.5])
+def test_path_stats_terminal_is_the_terminal_kernels(dev, t_df):
+    """Kernel #2's terminal log returns are kernel #1's drift + L·Σz at the
+    same seed and blocks, up to the rounding of the running sum."""
+    from mcport_torch.ops.gbm import block_terminal_log_returns, t_scaled_chol
+    from mcport_torch.ops.path_stats import gbm_path_stats, path_stats_tolerance
+
+    mean, chol, w = _bench_inputs(15, dev)
+    term, _, _ = gbm_path_stats(0, mean, chol, w, 8_192, 252, first_block=0, n_blocks=3,
+                                t_df=t_df)
+    ref = block_terminal_log_returns(0, mean, chol, 8_192, 252, first_block=0, n_blocks=3,
+                                     t_df=t_df)
+    tol, _ = path_stats_tolerance(t_scaled_chol(chol, t_df), mean, 252)
+    assert bool(((term - ref).abs() <= tol).all())
+
+
+def test_path_stats_kernel_without_terminal(dev):
+    from mcport_torch.ops.path_stats import gbm_path_stats
+
+    mean, chol, w = _bench_inputs(15, dev)
+    full = gbm_path_stats(2, mean, chol, w, 3_000, 16, rebalance=True)
+    term, port, dd = gbm_path_stats(2, mean, chol, w, 3_000, 16, rebalance=True,
+                                    terminal=False)
+    assert term is None and torch.equal(port, full[1]) and torch.equal(dd, full[2])
+
+
+# ---- kernel #3: many candidates over one path set ------------------------------
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("score_dtype", ["float32", "tensorfloat32", "bfloat16"])
+@pytest.mark.parametrize("rebalance", [False, True])
+def test_multi_dd_kernel_matches_plain_form(dev, n_cand, score_dtype, rebalance):
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    mean, chol, _ = _bench_inputs(15, dev)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(15), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2, rebalance=rebalance)
+    before = gbm_multi_portfolio_dd.launches
+    k = gbm_multi_portfolio_dd(11, mean, chol, w, 2_053, 252, score_dtype=score_dtype, **kw)
+    torch.cuda.synchronize()
+    assert gbm_multi_portfolio_dd.launches == before + 1
+    p = multi_dd_reference(11, mean, chol, w, 2_053, 252, score_dtype=score_dtype, **kw)
+    p32 = multi_dd_reference(11, mean, chol, w, 2_053, 252, **kw)
+    shares = multi_dd_shares(k, p, p32, chol, mean, 252, rebalance, score_dtype)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("bm, t_df", [("poly_fast", None), ("poly", 5.5)])
+@pytest.mark.parametrize("a", [1, 64])
+def test_multi_dd_kernel_tiers_and_widths(dev, bm, t_df, a):
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    mean, chol, _ = _bench_inputs(a, dev)
+    w = torch.from_numpy(np.random.default_rng(3).dirichlet(np.ones(a), 20).astype(
+        np.float32)).to(dev)
+    k = gbm_multi_portfolio_dd(5, mean, chol, w, 1_000, 7, bm=bm, t_df=t_df)
+    lk = t_scaled_chol(chol, t_df)
+    p = multi_dd_reference(5, mean, lk, w, 1_000, 7, bm=bm, t_df=t_df)
+    shares = multi_dd_shares(k, p, p, lk, mean, 7, False, "float32")
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("rebalance", [False, True])
+def test_multi_dd_one_candidate_is_path_stats(dev, rebalance):
+    """Kernel #3 with one candidate is kernel #2's (port, dd), operation for
+    operation."""
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+    from mcport_torch.ops.path_stats import gbm_path_stats
+
+    mean, chol, w = _bench_inputs(15, dev)
+    _, port, dd = gbm_path_stats(0, mean, chol, w, 8_192, 252, first_block=0, n_blocks=2,
+                                 rebalance=rebalance)
+    term, dd3 = gbm_multi_portfolio_dd(0, mean, chol, w[None], 8_192, 252, first_block=0,
+                                       n_blocks=2, rebalance=rebalance)
+    assert torch.equal(term[:, 0], port) and torch.equal(dd3[:, 0], dd)
+
+
+def test_multi_dd_more_than_one_launch_of_candidates(dev):
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    mean, chol, _ = _bench_inputs(15, dev)
+    w = torch.from_numpy(np.random.default_rng(4).dirichlet(np.ones(15), 300).astype(
+        np.float32)).to(dev)
+    before = gbm_multi_portfolio_dd.launches
+    term, dd = gbm_multi_portfolio_dd(1, mean, chol, w, 777, 9)
+    assert gbm_multi_portfolio_dd.launches == before + 2
+    tail = gbm_multi_portfolio_dd(1, mean, chol, w[256:], 777, 9)
+    assert torch.equal(term[:, 256:], tail[0]) and torch.equal(dd[:, 256:], tail[1])

@@ -235,14 +235,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_source_shares_the_python_constants():
-    """The .cu restates three decisions of the Python side; they must agree."""
+    """The kernels' shared header restates three decisions of the Python side;
+    they must agree (and the port's seed stride must be mcport's)."""
     import re
     from pathlib import Path
 
     from mcport.seeding import SEED_STRIDE
+    from mcport_torch import seeding
     from mcport_torch.rng import STREAM_GBM
 
-    src = (Path(G.__file__).resolve().parents[1] / "csrc" / "terminal_noise.cu").read_text()
+    assert seeding.SEED_STRIDE == SEED_STRIDE
+    src = (Path(G.__file__).resolve().parents[1] / "csrc" / "gbm_draws.cuh").read_text()
 
     def const(name):
         return re.search(rf"constexpr \w+(?: \w+)? {name} = ([^;]+);", src).group(1)

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one warm gbm-risk call of the PyTorch port goes on a card.
+"""Where the time of one warm call of the PyTorch port's main paths goes on a card.
 
     python3 tools/profile_gbm_risk.py        # needs one CUDA card
 
-For each size of ``chip_smoke.py``'s main path (GBMConfig defaults and
-BASELINE config-4 scale, on the bench's synthetic 15-asset universe) it prints:
+For each size of ``chip_smoke.py``'s main paths (GBMConfig defaults and
+BASELINE config-4 scale, on the bench's synthetic 15-asset universe) it
+profiles ``mcport_torch.api.gbm_risk`` and ``run_path_risk`` (buy-and-hold,
+normal shocks), and then ``drawdown_frontier_search`` at the bench's size
+(4,096 candidates x 131,072 paths x 252 steps) in its default tier ("auto",
+float32 on a card) and as the bf16 screen plus rescore. For each it prints:
 
-- the warm walls of ``mcport_torch.api.gbm_risk`` without a checkpoint (host
-  clock, ending in a synchronise), after one call that warms up;
+- the warm walls without a checkpoint (host clock, ending in a synchronise),
+  after one call that warms up;
 - one more call under ``torch.profiler``: its wall, the device's busy time
   (the union of the intervals of its kernels, copies and fills), the idle
   share of the wall, the number of kernel launches and of host
@@ -62,21 +66,17 @@ def _top(events: list[dict], n: int) -> list[str]:
     return [f"{total[k] / 1e3:10.3f} ms x {count[k]:5d}  {k[:100]}" for k in rows]
 
 
-def profile_cell(name, g, params, w, dev) -> None:
-    from mcport.config import Config
-    from mcport_torch.api import gbm_risk
-
+def profile_cell(name, fn) -> None:
     def call() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        gbm_risk(params, w, Config(gbm=g), device=dev)
+        fn()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
     call()
     walls = [call() for _ in range(REPS)]
-    print(f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block}) warm walls ms "
-          f"{' / '.join(f'{t * 1e3:.2f}' for t in walls)}")
+    print(f"{name} warm walls ms {' / '.join(f'{t * 1e3:.2f}' for t in walls)}")
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -101,8 +101,12 @@ def main() -> int:
         print("profile_gbm_risk: no CUDA device visible to torch", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import N_ASSETS, bench_universe, cells
+    from chip_smoke import FRONTIER, FRONTIER_SEED, N_ASSETS, bench_universe, cells
+    from mcport_torch.api import gbm_risk
+    from mcport_torch.config import Config
     from mcport_torch.convert import gbm_params_from_numpy
+    from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search
+    from mcport_torch.engine.path_risk import run_path_risk
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -113,7 +117,17 @@ def main() -> int:
     params = gbm_params_from_numpy(np.ones(N_ASSETS), mean, chol)
     w = np.full(N_ASSETS, 1.0 / N_ASSETS)
     for name, g in cells().items():
-        profile_cell(name, g, params, w, dev)
+        size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+        profile_cell(f"gbm_risk {size}",
+                     lambda g=g: gbm_risk(params, w, Config(gbm=g), device=dev))
+        profile_cell(f"run_path_risk {size}",
+                     lambda g=g: run_path_risk(params, w, g, device=dev))
+    for sd in ("auto", "bfloat16"):
+        profile_cell(f"drawdown_frontier_search {sd} ({FRONTIER['n_candidates']} x "
+                     f"{FRONTIER['n_paths']} x {FRONTIER['n_steps']})",
+                     lambda sd=sd: drawdown_frontier_search(FRONTIER_SEED, params,
+                                                            score_dtype=sd, device=dev,
+                                                            **FRONTIER))
     return 0
 
 
