@@ -29,8 +29,8 @@ ends:
    15, and its other two tiers;
 6. the path-stats kernel (#2) against its plain form — tiers, buy-and-hold and
    rebalanced, A in {1, 15, 64}, 252 and 7 steps, a ragged 16,385-path count
-   over two blocks, and every launch of phase 7 over all its paths (bound:
-   ``ops.path_stats.path_stats_tolerance``); #2's terminal against #1's at the
+   over two blocks, and every launch of phase 7 over a head and a tail slice
+   of each block's paths (bound: ``ops.path_stats.path_stats_tolerance``); #2's terminal against #1's at the
    same seed; the multi-dd kernel (#3) against its plain form — the three
    score tiers, both modes, W in {1, 13, 256}, A = 15, 252 steps, the draw
    tiers at W = 13, and one 256-candidate chunk of phase 7's frontier over
@@ -48,11 +48,36 @@ ends:
    shocks, drawdown quantiles and the frontier's optimum against the plain
    forms on the same paths;
 8. kernels #2 and #3 timed with CUDA events beside their plain forms (and #3's
-   score product alone as one torch.matmul per step), and each kernel's
+   score product alone as one torch.matmul per step; #3's plain form in the
+   float32 tier), and each kernel's
    least time: its bytes over the memory rate or its instructions over the
    card's issue rate, counted from the SASS (``cuobjdump -sass``) — for #1 and
    #3 their hot loops, for #2 the work the function needs (kernel #1's draw
    plus the steps' correlate, exp and drawdown), beside #2's own loop.
+9. the family kernels against their plain forms: the GARCH terminal kernel
+   (#4; A in {1, 15, 16}, normal and t(5.5), 252 and 7 steps) and candidate
+   kernel (#5; W in {1, 13, 256}) within ``ops.garch.garch_shares``; the
+   bootstrap terminal kernel (#6; A in {1, 15, 64}, p_restart 0.2, 0 and 1)
+   bit for bit; the candidate kernel (#7) within ``ops.bootstrap
+   .bootstrap_shares`` and, with one-hot candidates, bit for bit against its
+   plain form and #6 (the selection); and every launch of phase 10 over a
+   head and a tail slice of each block's paths;
+10. the family tier's main paths at the bench's GARCH parameters and a
+   365 x 15 history: ``garch_risk`` (normal, t(5.5)) and ``bootstrap_risk``
+   at 1,048,576 x 252, ``run_garch_path_risk`` and ``run_bootstrap_path_risk``
+   at both sizes with split + resume, ``path_tail_risk`` for both families and
+   ``bootstrap_tail_risk``,
+   both family frontiers at 4,096 x 131,072 x 252, and the CLI's
+   ``garch-risk``, ``bootstrap-risk``, ``path-risk --models
+   garch,bootstrap`` and ``dd-frontier --model garch|bootstrap`` on the
+   weekly fixtures; counts reset before and read after, each kernel launched
+   as often as these calls need; then the GARCH terminal law, the iid
+   bootstrap's mean, the card against the CPU, the drawdown quantiles and
+   both frontiers' optima against the plain forms;
+11. kernels #4-#7 timed with CUDA events beside their plain forms and one
+   PyTorch call (``index_select`` for #6's rows, ``torch.matmul`` for the
+   score of #5 and #7), and each one's least time from the work its function
+   needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -76,7 +101,7 @@ import torch
 N_ASSETS, N_STEPS = 15, 252
 LAW_PATHS = 1 << 20
 TIERS = (("poly", None), ("poly_fast", None), ("t", 5.5))
-DISPATCH = 16                       # run_resumable_mc's dispatch_blocks default
+DISPATCH = 16                       # the engines' DISPATCH_BLOCKS
 
 
 def check(ok: bool, what: str) -> None:
@@ -437,14 +462,17 @@ def bench_weights(a: int = N_ASSETS) -> np.ndarray:
 
 def bench_prices():
     """A price history for ``path_tail_risk``: 504 daily steps of the bench
-    universe from seed 2 (``names`` and ``prices`` are all it reads)."""
+    universe from seed 2 (``names``, ``prices`` and their ``port_rets``, the
+    simple returns with a zero first row, are all it reads)."""
     from types import SimpleNamespace
 
     mean, chol = bench_universe()
     z = np.random.default_rng(2).standard_normal((504, N_ASSETS))
     logp = np.cumsum(mean + z @ chol.T.astype(np.float64), axis=0)
     prices = 100.0 * np.exp(np.vstack([np.zeros(N_ASSETS), logp]))
-    return SimpleNamespace(names=tuple(f"asset{i}" for i in range(N_ASSETS)), prices=prices)
+    port_rets = np.vstack([np.zeros(N_ASSETS), prices[1:] / prices[:-1] - 1.0])
+    return SimpleNamespace(names=tuple(f"asset{i}" for i in range(N_ASSETS)), prices=prices,
+                           port_rets=port_rets)
 
 
 def path_launches() -> list[dict]:
@@ -544,19 +572,24 @@ def phase_path_kernels(dev) -> dict:
                             f"paths={KERNEL_PATHS}x2", k, p, lk, mean, steps)
                     del k, p
 
-    # every launch of phase 7, against the plain form over all its paths
+    # every launch of phase 7, against the plain form over a head and a tail
+    # slice of each block's paths
     for launch in path_launches():
         mean, chol, w = t(launch["mean"]), t(launch["chol"]), t(launch["w"])
         lk = t_scaled_chol(chol, launch["t_df"])
         kw = dict(first_block=launch["first_block"], n_blocks=launch["n_blocks"],
                   rebalance=launch["rebalance"], t_df=launch["t_df"])
-        k = gbm_path_stats(launch["seed"], mean, chol, w, launch["block"], launch["steps"],
+        n = launch["block"]
+        k = gbm_path_stats(launch["seed"], mean, chol, w, n, launch["steps"],
                            terminal=False, **kw)
-        p = _plain_path_stats(launch["seed"], mean, lk, w, launch["block"],
-                              launch["steps"], **kw)
-        held_ps(f"{launch['what']} x {launch['block']}", k, (None, *p[1:]), lk, mean,
-                launch["steps"])
-        del k, p
+        for p0 in _slices(n):
+            m = min(SLICE, n)
+            _, port, dd = path_stats_reference(launch["seed"], mean, lk, w, m, launch["steps"],
+                                               first_path=p0, **kw)
+            held_ps(f"{launch['what']} x {n} paths {p0}..{p0 + m - 1}",
+                    (None, k[1][:, p0:p0 + m], k[2][:, p0:p0 + m]), (None, port, dd), lk,
+                    mean, launch["steps"])
+        del k
 
     # consistency: #2's terminal is #1's at the same seed and blocks; #3 with
     # one candidate is #2
@@ -917,6 +950,7 @@ def bounds(rate: float) -> dict:
         res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
         print(f"phase8 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
+    res.update(family_bounds(draw, rate))
     return res
 
 
@@ -956,23 +990,25 @@ def phase_path_timing(dev) -> dict:
     cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), n_cand),
                            dtype=torch.float32, device=dev)
     work = n_cand * pp * N_STEPS
+    def plain3():
+        _plain_multi_dd(0, mean, chol, cand, pp, N_STEPS)
+
     for sd in ("float32", "tensorfloat32", "bfloat16"):
         def kernel3(sd=sd):
             gbm_multi_portfolio_dd(0, mean, chol, cand, pp, N_STEPS, score_dtype=sd)
 
-        def plain3(sd=sd):
-            _plain_multi_dd(0, mean, chol, cand, pp, N_STEPS, score_dtype=sd)
-
-        kernel3(), plain3()
+        kernel3()
         torch.cuda.synchronize()
-        p1, k1, k2, p2 = _time_ms(plain3, 1), _time_ms(kernel3, 5), _time_ms(kernel3, 5), \
-            _time_ms(plain3, 1)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        print(f"phase8 timing multi_dd {n_cand} x {pp} x {N_STEPS} score={sd}: kernel "
-              f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} cand-path-steps/s), plain "
-              f"{p1:.1f} / {p2:.1f} ms")
-        if sd == "float32":
-            res["multi_dd"] = (ms, plain_ms)
+        k1, k2 = _time_ms(kernel3, 5), _time_ms(kernel3, 5)
+        ms = (k1 + k2) / 2
+        line = (f"phase8 timing multi_dd {n_cand} x {pp} x {N_STEPS} score={sd}: kernel "
+                f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} cand-path-steps/s)")
+        if sd == "float32":  # the plain form (float32) between the kernel's two timings
+            plain3()
+            p1, p2 = _time_ms(plain3, 1), _time_ms(plain3, 1)
+            line += f", plain {p1:.1f} / {p2:.1f} ms"
+            res["multi_dd"] = (ms, (p1 + p2) / 2)
+        print(line)
     # the library yardstick: the score product alone, one (W, A) x (A, P)
     # torch.matmul per step
     e = torch.rand((N_ASSETS, pp), device=dev)
@@ -980,6 +1016,551 @@ def phase_path_timing(dev) -> dict:
     print(f"phase8 timing torch.matmul ({n_cand}, {N_ASSETS}) x ({N_ASSETS}, {pp}): {mm:.4f} "
           f"ms per step, x {N_STEPS} steps = {mm * N_STEPS:.3f} ms")
     res["multi_dd"] = (*res["multi_dd"], mm * N_STEPS)
+    return res
+
+
+# ---- the family tier: kernels #4-#7 (CCC-GARCH and the block bootstrap) -----------
+
+FAMILY_SEED = 3
+FAMILY_PATHS = 1 << 20              # garch-risk and bootstrap-risk: 1,048,576 x 252
+SLICE = 4_096                       # paths of each block the plain forms re-run
+CLI_PATHS = 131_072                 # path-risk on the fixtures
+CLI_FRONTIER = (4_096, 16_384)      # dd-frontier on the fixtures: candidates, paths
+FAMILY_KERNELS = ("garch_terminal", "garch_multi_dd", "bootstrap_terminal",
+                  "bootstrap_multi_dd")
+
+
+def bench_garch(a: int = N_ASSETS):
+    """bench.py:190-200: the bench universe's means, omega 0.1 x 4e-4, alpha
+    0.08, beta 0.9, correlation 0.5, sigma2_0 = eps2_0 = 4e-4."""
+    from mcport_torch.convert import garch_params_from_numpy
+
+    mean, _ = bench_universe(a)
+    s0 = np.full(a, 4e-4)
+    return garch_params_from_numpy(mean.astype(np.float64), 0.1 * s0, np.full(a, 0.08),
+                                   np.full(a, 0.9),
+                                   np.linalg.cholesky(0.5 * np.eye(a) + 0.5), s0, s0)
+
+
+def bench_history(a: int = N_ASSETS) -> np.ndarray:
+    """bench.py:286: 365 rows of N(1e-3, 0.02) per-period returns (seed 3)."""
+    return np.random.default_rng(3).normal(1e-3, 0.02, (365, a)).astype(np.float32)
+
+
+def _family_kernels():
+    from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd, bootstrap_terminal
+    from mcport_torch.ops.garch import garch_multi_portfolio_dd, garch_terminal
+
+    return dict(zip(FAMILY_KERNELS, (garch_terminal, garch_multi_portfolio_dd,
+                                     bootstrap_terminal, bootstrap_multi_portfolio_dd)))
+
+
+def _slices(n_paths: int) -> list[int]:
+    """First paths of the slices the plain forms re-run: the head and the tail."""
+    return sorted({0, max(0, n_paths - SLICE)})
+
+
+def family_launches(dev) -> list[dict]:
+    """Every distinct launch of kernels #4-#7 that phase 10 makes through the
+    API (the CLI's run on the fixtures is checked by its counts): garch-risk
+    and bootstrap-risk, both path-risk cells of each family, path_tail_risk
+    and bootstrap_tail_risk (parameters estimated from ``bench_prices``), and
+    every 256-candidate chunk of both frontiers. ``src`` is the launch's
+    GARCH parameters or history, on ``dev``."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.models.garch_mc import estimate_ccc_garch
+    from mcport_torch.ops.dirichlet import sample_weights
+
+    w, eq = bench_weights()[None], np.full((1, N_ASSETS), 1.0 / N_ASSETS)
+    garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    rets = bench_prices().port_rets
+    src = {"garch_terminal": garch, "garch_multi_dd": garch, "bootstrap_terminal": hist,
+           "bootstrap_multi_dd": hist}
+    out = [dict(kernel="garch_terminal", what="garch_risk", seed=FAMILY_SEED,
+                n=FAMILY_PATHS, t_df=None),
+           dict(kernel="garch_terminal", what="garch_risk t(5.5)", seed=FAMILY_SEED,
+                n=FAMILY_PATHS, t_df=5.5),
+           dict(kernel="bootstrap_terminal", what="bootstrap_risk", seed=FAMILY_SEED,
+                n=FAMILY_PATHS),
+           dict(kernel="bootstrap_terminal", what="bootstrap_tail_risk", seed=GBMConfig().seed,
+                n=GBMConfig().n_paths,
+                src=torch.as_tensor(rets, dtype=torch.float32, device=dev))]
+    for name, g in cells().items():
+        for kernel in ("garch_multi_dd", "bootstrap_multi_dd"):
+            out.append(dict(kernel=kernel, what=f"path risk {name}", seed=g.seed,
+                            n=g.path_block, w=w, first_block=0,
+                            n_blocks=g.n_paths // g.path_block))
+    g = GBMConfig()
+    tail = dict(seed=g.seed, n=g.path_block, w=eq, first_block=0,
+                n_blocks=g.n_paths // g.path_block)
+    out.append(dict(kernel="garch_multi_dd", what="path_tail_risk garch",
+                    src=estimate_ccc_garch(rets).tensors(dev), **tail))
+    out.append(dict(kernel="bootstrap_multi_dd", what="path_tail_risk bootstrap",
+                    src=torch.as_tensor(rets, dtype=torch.float32, device=dev), **tail))
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
+                             np.ones(N_ASSETS))
+    for kernel in ("garch_multi_dd", "bootstrap_multi_dd"):
+        for i in range(0, FRONTIER["n_candidates"], 256):
+            out.append(dict(kernel=kernel, what=f"frontier chunk {i // 256}", seed=path_seed,
+                            n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    for launch in out:
+        launch.setdefault("src", src[launch["kernel"]])
+    return out
+
+
+def phase_family_kernels(dev) -> dict:
+    """Kernels #4-#7 against their plain forms: test shapes, then every launch
+    of phase 10 over a head and a tail slice of each block's paths. The
+    bootstrap's selection is held bit for bit."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference, bootstrap_shares,
+                                            bootstrap_terminal_reference)
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_shares,
+                                        garch_terminal_reference)
+
+    k = _family_kernels()
+    worst = dict.fromkeys(FAMILY_KERNELS, 0.0)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def held(name, what, kern, plain, shares):
+        pairs = zip(kern, plain) if isinstance(kern, tuple) else [(kern, plain)]
+        err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+        print(f"phase9 {name} {what} max_abs={err:.3e} shares="
+              + " ".join(f"{n}={v:.3f}" for n, v in shares.items()))
+        check(max(shares.values()) <= 1.0, f"{name} kernel vs plain, {what}")
+        worst[name] = max(worst[name], err)
+
+    def same(name, what, kern, plain):
+        pairs = list(zip(kern, plain)) if isinstance(kern, tuple) else [(kern, plain)]
+        ok = all(torch.equal(a, b) for a, b in pairs)
+        err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+        print(f"phase9 {name} {what} bit-identical={ok} max_abs={err:.3e}")
+        check(ok, f"{name} kernel is its plain form bit for bit, {what}")
+        worst[name] = max(worst[name], err)
+
+    # test shapes: widths, tiers, step counts, candidate counts, ragged paths over two blocks
+    kw = dict(first_block=6, n_blocks=2)
+    for a in (1, 15, 16):
+        g = bench_garch(a).tensors(dev)
+        for t_df in (None, 5.5):
+            for steps in (N_STEPS, 7):
+                kk = k["garch_terminal"](11, g, KERNEL_PATHS, steps, t_df=t_df, **kw)
+                p = garch_terminal_reference(11, g, KERNEL_PATHS, steps, t_df=t_df, **kw)
+                held("garch_terminal", f"A={a} t_df={t_df} steps={steps} "
+                     f"paths={KERNEL_PATHS}x2", kk, p, garch_shares(kk, p, g, steps, t_df))
+    g = bench_garch().tensors(dev)
+    hist = t(bench_history())
+    for n_cand in (1, 13, 256):
+        cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(N_ASSETS), n_cand))
+        for steps in (N_STEPS, 7):
+            kk = k["garch_multi_dd"](11, g, cand, MDD_PATHS, steps, **kw)
+            p = garch_multi_dd_reference(11, g, cand, MDD_PATHS, steps, **kw)
+            held("garch_multi_dd", f"W={n_cand} A={N_ASSETS} steps={steps} "
+                 f"paths={MDD_PATHS}x2", kk, p, garch_shares(kk, p, g, steps))
+            kk = k["bootstrap_multi_dd"](11, hist, cand, MDD_PATHS, steps, 0.2, **kw)
+            p = bootstrap_multi_dd_reference(11, hist, cand, MDD_PATHS, steps, 0.2, **kw)
+            held("bootstrap_multi_dd", f"W={n_cand} A={N_ASSETS} T=365 steps={steps} "
+                 f"paths={MDD_PATHS}x2", kk, p, bootstrap_shares(kk, p, hist, cand, steps))
+    for a in (1, 15, 64):
+        h = t(bench_history(a))
+        for p_restart in (0.2, 0.0, 1.0):
+            for steps in (N_STEPS, 7):
+                same("bootstrap_terminal", f"A={a} T=365 p_restart={p_restart} "
+                     f"steps={steps} paths={KERNEL_PATHS}x2",
+                     k["bootstrap_terminal"](11, h, KERNEL_PATHS, steps, p_restart, **kw),
+                     bootstrap_terminal_reference(11, h, KERNEL_PATHS, steps, p_restart, **kw))
+    # selection: one-hot candidates score one asset's rows exactly, so #7 is
+    # its plain form and #6 bit for bit
+    eye = torch.eye(N_ASSETS, device=dev)
+    t7 = k["bootstrap_multi_dd"](11, hist, eye, KERNEL_PATHS, N_STEPS, 0.2, **kw)
+    same("bootstrap_multi_dd", f"one-hot W={N_ASSETS} paths={KERNEL_PATHS}x2 (selection)",
+         t7, bootstrap_multi_dd_reference(11, hist, eye, KERNEL_PATHS, N_STEPS, 0.2, **kw))
+    same("bootstrap_multi_dd", "one-hot terminal against kernel #6", t7[0],
+         k["bootstrap_terminal"](11, hist, KERNEL_PATHS, N_STEPS, 0.2, **kw).transpose(1, 2))
+
+    # every launch of phase 10, over a head and a tail slice of each block
+    for launch in family_launches(dev):
+        name, n, src, seed = launch["kernel"], launch["n"], launch["src"], launch["seed"]
+        blocks = dict(first_block=launch.get("first_block", -1),
+                      n_blocks=launch.get("n_blocks", 1))
+        if name == "garch_terminal":
+            kk = k[name](seed, src, n, N_STEPS, t_df=launch["t_df"], **blocks)
+        elif name == "bootstrap_terminal":
+            kk = k[name](seed, src, n, N_STEPS, 0.2, **blocks)
+        else:
+            w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+            kk = k[name](seed, src, w, n, N_STEPS, **blocks)
+        for p0 in _slices(n):
+            m = min(SLICE, n)
+            sl = slice(p0, p0 + m)
+            what = (f"{launch['what']} blocks={blocks['first_block'] + 1}.."
+                    f"{blocks['first_block'] + blocks['n_blocks']} paths {p0}..{p0 + m - 1}")
+            if name == "garch_terminal":
+                p = garch_terminal_reference(seed, src, m, N_STEPS, first_path=p0,
+                                             t_df=launch["t_df"], **blocks)
+                held(name, what, kk[:, sl], p, garch_shares(kk[:, sl], p, src, N_STEPS,
+                                                            launch["t_df"]))
+            elif name == "bootstrap_terminal":
+                same(name, what, kk[:, sl], bootstrap_terminal_reference(
+                    seed, src, m, N_STEPS, 0.2, first_path=p0, **blocks))
+            elif name == "garch_multi_dd":
+                p = garch_multi_dd_reference(seed, src, w, m, N_STEPS, first_path=p0, **blocks)
+                part = (kk[0][..., sl], kk[1][..., sl])
+                held(name, what, part, p, garch_shares(part, p, src, N_STEPS))
+            else:
+                p = bootstrap_multi_dd_reference(seed, src, w, m, N_STEPS, 0.2, first_path=p0,
+                                                 **blocks)
+                part = (kk[0][..., sl], kk[1][..., sl])
+                held(name, what, part, p, bootstrap_shares(part, p, src, w, N_STEPS))
+        del kk
+    return worst
+
+
+def _fixture_cli(dev) -> dict:
+    """The four family commands of the CLI on the weekly BTC/ETH fixtures, as
+    a user runs them; each command's JSON."""
+    import contextlib
+    import io
+
+    from mcport_torch.cli import main as cli
+
+    csvs = sorted(str(p) for p in (Path(__file__).resolve().parent / "fixtures").glob(
+        "*7 Years Weekly.csv"))
+    check(len(csvs) == 2, "the weekly BTC/ETH fixtures are in the checkout")
+    common = [*csvs, "--period", "W", "--steps", str(N_STEPS), "--device", str(dev)]
+    runs = {"garch-risk": ["garch-risk", "--paths", str(FAMILY_PATHS)],
+            "bootstrap-risk": ["bootstrap-risk", "--paths", str(FAMILY_PATHS)],
+            "path-risk": ["path-risk", "--models", "garch,bootstrap", "--paths",
+                          str(CLI_PATHS)]}
+    for model in ("garch", "bootstrap"):
+        runs[f"dd-frontier {model}"] = ["dd-frontier", "--model", model, "--candidates",
+                                        str(CLI_FRONTIER[0]), "--paths", str(CLI_FRONTIER[1]),
+                                        "--dd-budget", "1.0"]
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv[:1] + common + argv[1:])
+        out[name] = json.loads(buf.getvalue())
+    return out
+
+
+def phase_family_tier(dev) -> dict:
+    """The family tier's main paths at full width: garch_risk (normal and
+    t(5.5)) and bootstrap_risk at 1,048,576 x 252, run_garch_path_risk and
+    run_bootstrap_path_risk at both cells with split + resume, path_tail_risk
+    for both families and bootstrap_tail_risk, both family frontiers at the
+    bench's size, and the four CLI commands on the fixtures; counts reset
+    before and read after."""
+    from mcport_torch.api import bootstrap_tail_risk, path_tail_risk
+    from mcport_torch.config import Config
+    from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
+    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
+                                               run_resumable_path_risk)
+    from mcport_torch.models.bootstrap import bootstrap_risk
+    from mcport_torch.models.garch_mc import garch_risk
+
+    params, hist, w = bench_garch(), bench_history(), bench_weights()
+    warm_reps = 2
+    k = _family_kernels()
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walls(fn, *a, reps=warm_reps, **kw):
+        out, first = timed(fn, *a, **kw)
+        return out, (first, [timed(fn, *a, **kw)[1] for _ in range(reps)])
+
+    for fn in k.values():
+        fn.launches = 0
+    risk, wall = {}, {}
+    for label, t_df in (("garch_risk", None), ("garch_risk t(5.5)", 5.5)):
+        risk[label], wall[label] = walls(garch_risk, FAMILY_SEED, params, w,
+                                         n_paths=FAMILY_PATHS, n_steps=N_STEPS, t_df=t_df,
+                                         device=dev)
+    risk["bootstrap_risk"], wall["bootstrap_risk"] = walls(
+        bootstrap_risk, FAMILY_SEED, hist, w, n_paths=FAMILY_PATHS, n_steps=N_STEPS,
+        device=dev)
+    reports, resumes = {}, {}
+    for name, g in cells().items():
+        for model, run, src in (("garch", run_garch_path_risk, params),
+                                ("bootstrap", run_bootstrap_path_risk, hist)):
+            reports[model, name], wall[model, name] = walls(run, src, w, g, device=dev)
+            n_blocks = g.n_paths // g.path_block
+            full, ck_full = run_resumable_path_risk(model, src, w, g, device=dev)
+            _, part = run_resumable_path_risk(model, src, w, g, max_blocks=n_blocks // 3,
+                                              device=dev)
+            resumed, ck = run_resumable_path_risk(model, src, w, g, checkpoint=part,
+                                                  device=dev)
+            resumes[model, name] = (full, ck_full, part, resumed, ck)
+    prices = bench_prices()
+    tail = {m: timed(path_tail_risk, prices, None, Config(), model=m, device=dev)
+            for m in ("garch", "bootstrap")}
+    boot_tail, boot_tail_wall = timed(bootstrap_tail_risk, prices, None, Config(), device=dev)
+    # each family frontier's budget: the bench portfolio's drawdown quantile in
+    # the default cell, plus 0.01 — it binds, and leaves a feasible set
+    frontier, budget = {}, {}
+    for model, src in (("garch", params), ("bootstrap", hist)):
+        budget[model] = round(-reports[model, "default"].dd_p95 + 0.01, 4)
+        kw = dict(FRONTIER, dd_budget=budget[model])
+        frontier[model], wall["frontier", model] = walls(
+            family_drawdown_frontier_search, FRONTIER_SEED, model, src, reps=1, device=dev,
+            **kw)
+    cli = _fixture_cli(dev)
+    launches = {name: fn.launches for name, fn in k.items()}
+    chunks = FRONTIER["n_candidates"] // 256
+    cli_chunks = -(-CLI_FRONTIER[0] // 256)
+    per_model = (2 * (1 + warm_reps) + 2 * 3 + 1 + 2 * chunks + 1 + cli_chunks)
+    want = {"garch_terminal": 2 * (1 + warm_reps) + 1, "bootstrap_terminal": 1 + warm_reps + 2,
+            "garch_multi_dd": per_model, "bootstrap_multi_dd": per_model}
+    print(f"phase10 family tier: launches {launches} (expected {want})")
+    check(launches == want, "the family tier went through kernels #4-#7")
+
+    for label, r in risk.items():
+        first, warm = wall[label]
+        print(f"phase10 {label} {FAMILY_PATHS} x {N_STEPS}: wall first={first:.4f} s warm="
+              f"{' / '.join(f'{x:.4f}' for x in warm)} s var={r.var:.6f} cvar={r.cvar:.6f} "
+              f"port_mean={r.port_mean:.6f}")
+        check(all(math.isfinite(x) for x in (r.var, r.cvar, r.port_mean))
+              and r.cvar <= r.var < r.port_mean, f"{label}: finite and ordered")
+    for (model, name), r in reports.items():
+        first, warm = wall[model, name]
+        ok = (all(math.isfinite(getattr(r, f)) for f in
+                  ("var", "cvar", "port_mean", "dd_mean", "dd_p95", "dd_median"))
+              and r.cvar <= r.var and -1.0 <= r.dd_p95 <= r.dd_median <= 0.0
+              and r.n_paths == cells()[name].n_paths)
+        print(f"phase10 run_{model}_path_risk {name}: paths={r.n_paths} wall first="
+              f"{first:.4f} s warm={' / '.join(f'{x:.4f}' for x in warm)} s var={r.var:.6f} "
+              f"cvar={r.cvar:.6f} dd_mean={r.dd_mean:.6f} dd_median={r.dd_median:.6f} "
+              f"dd_p95={r.dd_p95:.6f} sane={ok}")
+        check(ok, f"{model} path risk {name}: finite and ordered")
+        full, ck_full, part, resumed, ck = resumes[model, name]
+        same = (_reports_equal(full, resumed) and ck.done and not part.done
+                and all(np.array_equal(getattr(ck, f), getattr(ck_full, f))
+                        for f in ("h_port", "h_dd", "s_port", "s_dd"))
+                and _reports_equal(full, r))
+        print(f"phase10 {model} {name}: split at block {part.next_block} + resume "
+              f"bit-identical to the one-shot run={same}")
+        check(same, f"{model} {name}: path-risk resume equivalence")
+    for model, (out, t_wall) in tail.items():
+        print(f"phase10 path_tail_risk {model}: wall {t_wall:.4f} s {json.dumps(out)}")
+        check(out["n_paths"] == Config().gbm.n_paths and out["cvar"] <= out["var"]
+              and -1.0 <= out["dd_p95"] <= 0.0, f"path_tail_risk {model}")
+    print(f"phase10 bootstrap_tail_risk {Config().gbm.n_paths} x {Config().gbm.n_steps}: "
+          f"wall {boot_tail_wall:.4f} s var={boot_tail.var:.6f} cvar={boot_tail.cvar:.6f} "
+          f"port_mean={boot_tail.port_mean:.6f}")
+    check(int(boot_tail.hist.sum()) == Config().gbm.n_paths and boot_tail.cvar <= boot_tail.var,
+          "bootstrap_tail_risk")
+    for model, r in frontier.items():
+        first, warm = wall["frontier", model]
+        i = r.opt_idx
+        print(f"phase10 frontier {model}: {FRONTIER['n_candidates']} x {FRONTIER['n_paths']} "
+              f"x {N_STEPS} budget {budget[model]} wall first={first:.4f} s warm="
+              f"{warm[0]:.4f} s feasible={int(r.feasible.sum())} opt={i} "
+              f"ret={float(r.ret[i]):.6f} dd_p95={float(r.dd_p95[i]):.6f}")
+        check(0 < int(r.feasible.sum()) < FRONTIER["n_candidates"]
+              and float(r.dd_p95[i]) >= -budget[model],
+              f"{model} frontier: the budget binds and an optimum is feasible")
+    for name, out in cli.items():
+        print(f"phase10 cli {name}: {json.dumps(out)}")
+    for name in ("garch-risk", "bootstrap-risk"):
+        check(cli[name]["cvar"] <= cli[name]["var"], f"cli {name}")
+    check(all(cli["path-risk"][m]["n_paths"] == CLI_PATHS for m in ("garch", "bootstrap"))
+          and all("weights" in cli[f"dd-frontier {m}"] for m in ("garch", "bootstrap")),
+          "cli path-risk and dd-frontier")
+    _family_references(dev, params, hist, w, risk, reports, frontier)
+    return launches
+
+
+def _family_references(dev, params, hist, w, risk, reports, frontier) -> None:
+    """What phase 10 produced, against references: the GARCH terminal law
+    (E[1 + mu + eps] = 1 + mu every step, so each asset's mean terminal return
+    is (1 + mu)^n - 1), the iid bootstrap's analytic mean, the card against
+    the CPU at a small size, the drawdown quantiles against the plain forms
+    over the same paths, and each frontier's optimum against its plain form."""
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.engine.path_risk import DD_SKETCH
+    from mcport_torch.models.bootstrap import bootstrap_risk
+    from mcport_torch.models.garch_mc import garch_risk
+    from mcport_torch.ops.bootstrap import bootstrap_multi_dd_reference, bootstrap_terminal
+    from mcport_torch.ops.garch import garch_multi_dd_reference, garch_terminal
+
+    g = params.tensors(dev)
+    term = garch_terminal(FAMILY_SEED, g, FAMILY_PATHS, N_STEPS)[0].double()
+    want = (1.0 + params.mu.numpy()) ** N_STEPS - 1.0
+    z = np.abs(term.mean(0).cpu().numpy() - want) / (term.std(0).cpu().numpy()
+                                                     / math.sqrt(FAMILY_PATHS))
+    print(f"phase10 garch law {FAMILY_PATHS} x {N_STEPS}: max |mean - ((1+mu)^n - 1)|/se="
+          f"{z.max():.2f}")
+    check(z.max() < 5.0, "GARCH terminal means are (1 + mu)^n - 1")
+    h = torch.as_tensor(hist, device=dev)
+    iid = bootstrap_terminal(FAMILY_SEED, h, FAMILY_PATHS, 16, 1.0)[0].double()
+    want = (1.0 + hist.astype(np.float64).mean(0)) ** 16 - 1.0
+    z = np.abs(iid.mean(0).cpu().numpy() - want) / (iid.std(0).cpu().numpy()
+                                                    / math.sqrt(FAMILY_PATHS))
+    print(f"phase10 bootstrap iid law {FAMILY_PATHS} x 16: max |mean - ((1+r)^n - 1)|/se="
+          f"{z.max():.2f}")
+    check(z.max() < 5.0, "iid bootstrap means are (1 + mean row)^n - 1")
+
+    # the card against the CPU run (plain forms, same counters) at 16,384 x 16
+    for label, fn, src in (("garch_risk", garch_risk, params),
+                           ("bootstrap_risk", bootstrap_risk, hist)):
+        card = fn(FAMILY_SEED, src, w, 16_384, 16, device=dev)
+        cpu = fn(FAMILY_SEED, src, w, 16_384, 16, device="cpu")
+        d = max(abs(card.var - cpu.var), abs(card.cvar - cpu.cvar))
+        print(f"phase10 {label} card vs cpu (16,384 x 16): max |d var|, |d cvar| = {d:.3e} "
+              f"(bound 1e-4: a few sketch bins)")
+        check(d <= 1e-4, f"{label}: card agrees with the CPU run")
+
+    # drawdown quantiles of the default cell against the plain forms over the same paths
+    cfg = cells()["default"]
+    nb = cfg.n_paths // cfg.path_block
+    wt = torch.as_tensor(w, dtype=torch.float32, device=dev)[None]
+    dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
+    for model, plain in (("garch", lambda p0, m: garch_multi_dd_reference(
+            cfg.seed, g, wt, m, N_STEPS, first_block=0, n_blocks=nb, first_path=p0)),
+                         ("bootstrap", lambda p0, m: bootstrap_multi_dd_reference(
+            cfg.seed, h, wt, m, N_STEPS, 0.2, first_block=0, n_blocks=nb, first_path=p0))):
+        dd = torch.cat([plain(p0, min(2_048, cfg.path_block - p0))[1]
+                        for p0 in range(0, cfg.path_block, 2_048)], dim=-1).reshape(-1)
+        r = reports[model, "default"]
+        q = float(torch.kthvalue(dd, math.ceil(0.05 * dd.numel())).values)
+        med = float(torch.median(dd))
+        print(f"phase10 {model} default dd vs plain form over the same paths: p95 "
+              f"{r.dd_p95:.6f} vs {q:.6f}, median {r.dd_median:.6f} vs {med:.6f}, mean "
+              f"{r.dd_mean:.6f} vs {float(dd.double().mean()):.6f} (bound {2 * dd_width:.2e})")
+        check(abs(r.dd_p95 - q) <= 2 * dd_width and abs(r.dd_median - med) <= 2 * dd_width
+              and abs(r.dd_mean - float(dd.double().mean())) <= 1e-5,
+              f"{model} drawdown quantiles agree with the plain form")
+
+    # each frontier's optimum against its plain form on the same paths
+    path_seed = frontier_seeds(FRONTIER_SEED)[0]
+    k_tail = math.ceil(0.05 * FRONTIER["n_paths"])
+    for model, r in frontier.items():
+        opt = torch.as_tensor(r.weights[r.opt_idx][None], device=dev)
+        n = FRONTIER["n_paths"]
+        parts = [(garch_multi_dd_reference(path_seed, g, opt, min(8_192, n - p0), N_STEPS,
+                                           first_path=p0)
+                  if model == "garch" else
+                  bootstrap_multi_dd_reference(path_seed, h, opt, min(8_192, n - p0), N_STEPS,
+                                               0.2, first_path=p0))
+                 for p0 in range(0, n, 8_192)]
+        term = torch.cat([p[0] for p in parts], dim=-1)[0, 0]
+        dd = torch.cat([p[1] for p in parts], dim=-1)[0, 0]
+        ret, q = float(term.mean()), float(torch.kthvalue(dd, k_tail).values)
+        d_ret, d_dd = abs(float(r.ret[r.opt_idx]) - ret), abs(float(r.dd_p95[r.opt_idx]) - q)
+        print(f"phase10 frontier {model} optimum vs plain form: ret "
+              f"{float(r.ret[r.opt_idx]):.7f} vs {ret:.7f}, dd_p95 "
+              f"{float(r.dd_p95[r.opt_idx]):.7f} vs {q:.7f} (bound 1e-4)")
+        check(d_ret <= 1e-4 and d_dd <= 1e-4, f"{model} frontier optimum agrees with the plain "
+              "form")
+
+
+PHILOX_CALL = 60      # 10 rounds of 2 IMAD.WIDE.U32, 2 LOP3 and 2 IADD (key schedule)
+
+
+def family_bounds(draw: float, rate: float) -> dict:
+    """Least time of kernels #4-#7 at their timing shapes, from the work each
+    function needs: the larger of its instructions over the issue rate and
+    its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
+    instructions per normal draw (its pair loop per Philox call / 4)."""
+    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, N_STEPS, 256, FRONTIER["n_paths"]
+    tri = a * (a + 1) / 2
+    garch_step = a * (draw + 7) + tri          # draw, (A+1)/2 FMAs, sqrt + 6 per asset
+    score = w_cnt * (a + 6)                    # W·A FMAs, 1 + f, V·, peak, dd
+    boot_step = PHILOX_CALL / 2 + 8            # half a Philox call and the row index
+    work = {
+        "garch_terminal": (garch_step * n * p, 4 * (a * a + 6 * a) + 4 * a * p,
+                           f"{draw:.2f} per draw + 7 per asset-step (sqrt, update) + "
+                           f"{tri:.0f} correlate FMAs: {garch_step:.2f} per path-step"),
+        "garch_multi_dd": ((garch_step + score) * n * pp,
+                           4 * (a * a + 6 * a + w_cnt * a) + 8 * w_cnt * pp,
+                           f"{garch_step:.2f} per path-step + {score} for 256 candidates "
+                           f"(A + 6 each)"),
+        "bootstrap_terminal": ((boot_step + 2 * a) * n * p, 4 * 365 * a + 4 * a * p,
+                               f"{boot_step:.0f} per path-step (half a {PHILOX_CALL}-"
+                               f"instruction Philox call, 8 for the row) + 2 per asset-step"),
+        "bootstrap_multi_dd": ((boot_step + a + score) * n * pp,
+                               4 * (365 * a + w_cnt * a) + 8 * w_cnt * pp,
+                               f"{boot_step + a:.0f} per path-step (selection and the "
+                               f"row's loads) + {score} for 256 candidates"),
+    }
+    res = {}
+    for name, (instr, nbytes, how) in work.items():
+        t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        print(f"phase11 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
+              f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
+    return res
+
+
+def phase_family_timing(dev) -> dict:
+    """Kernels #4-#7 timed with CUDA events at the main paths' shapes beside
+    their plain forms (in 131,072- and 8,192-path pieces) and, where one
+    exists, one PyTorch call: index_select of one step's rows for #6 and the
+    score product torch.matmul for #5 and #7, each times the step count."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_terminal_reference)
+    from mcport_torch.ops.garch import garch_multi_dd_reference, garch_terminal_reference
+
+    k = _family_kernels()
+    g = bench_garch().tensors(dev)
+    hist = torch.as_tensor(bench_history(), device=dev)
+    cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
+                           dtype=torch.float32, device=dev)
+    pp = FRONTIER["n_paths"]
+
+    def chunked(fn, n, piece):
+        return lambda: [fn(p0, min(piece, n - p0)) for p0 in range(0, n, piece)]
+
+    runs = {
+        "garch_terminal": (lambda: k["garch_terminal"](0, g, FAMILY_PATHS, N_STEPS),
+                           chunked(lambda p0, m: garch_terminal_reference(
+                               0, g, m, N_STEPS, first_path=p0), FAMILY_PATHS, PLAIN_CHUNK),
+                           FAMILY_PATHS * N_STEPS, 10),
+        "garch_multi_dd": (lambda: k["garch_multi_dd"](0, g, cand, pp, N_STEPS),
+                           chunked(lambda p0, m: garch_multi_dd_reference(
+                               0, g, cand, m, N_STEPS, first_path=p0), pp, MDD_PLAIN_CHUNK),
+                           256 * pp * N_STEPS, 5),
+        "bootstrap_terminal": (lambda: k["bootstrap_terminal"](0, hist, FAMILY_PATHS, N_STEPS),
+                               chunked(lambda p0, m: bootstrap_terminal_reference(
+                                   0, hist, m, N_STEPS, first_path=p0), FAMILY_PATHS,
+                                   PLAIN_CHUNK),
+                               FAMILY_PATHS * N_STEPS, 10),
+        "bootstrap_multi_dd": (lambda: k["bootstrap_multi_dd"](0, hist, cand, pp, N_STEPS),
+                               chunked(lambda p0, m: bootstrap_multi_dd_reference(
+                                   0, hist, cand, m, N_STEPS, first_path=p0), pp,
+                                   MDD_PLAIN_CHUNK),
+                               256 * pp * N_STEPS, 5),
+    }
+    res = {}
+    for name, (kern, plain, work, reps) in runs.items():
+        kern(), plain()
+        torch.cuda.synchronize()
+        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
+                          _time_ms(plain, 1))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
+        print(f"phase11 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
+              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+        res[name] = [ms, plain_ms, None]
+    idx = torch.randint(0, hist.shape[0], (FAMILY_PATHS,), device=dev)
+    sel = _time_ms(lambda: torch.index_select(hist, 0, idx), 50)
+    e = torch.rand((N_ASSETS, pp), device=dev)
+    mm = _time_ms(lambda: torch.matmul(cand, e), 50)
+    print(f"phase11 timing index_select of {FAMILY_PATHS} rows of (365, {N_ASSETS}): {sel:.4f} "
+          f"ms per step, x {N_STEPS} = {sel * N_STEPS:.3f} ms; torch.matmul (256, {N_ASSETS}) "
+          f"x ({N_ASSETS}, {pp}): {mm:.4f} ms per step, x {N_STEPS} = {mm * N_STEPS:.3f} ms")
+    res["bootstrap_terminal"][2] = sel * N_STEPS
+    res["garch_multi_dd"][2] = res["bootstrap_multi_dd"][2] = mm * N_STEPS
     return res
 
 
@@ -993,31 +1574,53 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     t0 = time.perf_counter()
+    clock = [t0]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        print(f"chip_smoke: {what} took {now - clock[0]:.1f} s")
+        clock[0] = now
+
     kind = phase_card()
     phase_build()
+    lap("phases 0-1")
     worst = {"terminal_noise": phase_kernel_vs_plain(dev)}
     phase_law(dev)
     with tempfile.TemporaryDirectory() as tmp:
         launches = {"terminal_noise": phase_main_path(dev, Path(tmp))}
     times = {"terminal_noise": (*phase_timing(dev), None)}
+    lap("phases 2-5")
     worst.update(phase_path_kernels(dev))
     launches.update(phase_path_tier(dev))
     times.update(phase_path_timing(dev))
+    lap("phases 6-8")
+    worst.update(phase_family_kernels(dev))
+    lap("phase 9")
+    launches.update(phase_family_tier(dev))
+    lap("phase 10")
+    times.update(phase_family_timing(dev))
     bound = bounds(issue_rate())
+    lap("phase 11 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),
           "no jax, pandas or mcport imported")
-    source = {"terminal_noise": "mcport/ops/pallas_gbm.py:413",
-              "path_stats": "mcport/ops/pallas_gbm.py:631",
-              "multi_dd": "mcport/ops/pallas_multi_dd.py:82"}
+    kernels = {  # name: (source, the TPU kernel it replaces)
+        "terminal_noise": ("terminal_noise.cu", "mcport/ops/pallas_gbm.py:413"),
+        "path_stats": ("path_stats.cu", "mcport/ops/pallas_gbm.py:631"),
+        "multi_dd": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:82"),
+        "garch_terminal": ("garch.cu", "mcport/ops/pallas_garch.py:36"),
+        "garch_multi_dd": ("garch.cu", "mcport/ops/pallas_garch.py:113"),
+        "bootstrap_terminal": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:52"),
+        "bootstrap_multi_dd": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:120"),
+    }
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": f"mcport_torch/csrc/{name}.cu",
-        "replaces": source[name], "launches": launches[name],
+        "name": name, "route": "cuda", "source": f"mcport_torch/csrc/{src}",
+        "replaces": replaces, "launches": launches[name],
         "max_abs_err": worst[name], "ms": times[name][0], "plain_ms": times[name][1],
         "bound_ms": bound[name][0], "bound_by": bound[name][1],
         "library_ms": times[name][2],
-    } for name in source]}))
+    } for name, (src, replaces) in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

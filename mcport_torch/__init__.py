@@ -1,18 +1,23 @@
 """mcport_torch — the PyTorch / CUDA port of mcport for NVIDIA Hopper.
 
 A second package beside :mod:`mcport`, which stays the reference it is held
-against. The port runs correlated-GBM tail risk (``gbm-risk``) and the GBM
-path tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``) on one
-H100: hand-written CUDA C++ kernels draw the paths and score them
-(``csrc/``), plain PyTorch does the rest (moments, histogram sketches,
-VaR/CVaR, drawdown quantiles, checkpointing, the frontier's selection).
+against. The port runs correlated-GBM tail risk (``gbm-risk``), the GBM path
+tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``) and the
+CCC-GARCH and block-bootstrap families (``garch-risk``, ``bootstrap-risk``,
+their path risk and frontiers) on one H100: hand-written CUDA C++ kernels
+draw the paths and score them (``csrc/``), plain PyTorch does the rest
+(moments, histogram sketches, VaR/CVaR, drawdown quantiles, checkpointing,
+the frontier's selection) and host NumPy/SciPy the estimation.
 
 Layers, entry point down to the device:
 
     cli.py → api.py → engine/mc_engine.py         → ops/gbm.py        → csrc/terminal_noise.cu
                       engine/path_risk.py         → ops/path_stats.py → csrc/path_stats.cu
                       engine/drawdown_frontier.py → ops/multi_dd.py   → csrc/multi_dd.cu
-              ↘ data.py, config.py, models/gbm.py, ops/quantile.py, ops/dirichlet.py
+                      models/garch_mc.py, engines → ops/garch.py      → csrc/garch.cu
+                      models/bootstrap.py, engines→ ops/bootstrap.py  → csrc/bootstrap.cu
+              ↘ data.py, config.py, models/gbm.py, models/garch.py, ops/quantile.py,
+                ops/dirichlet.py
 
 The port imports torch and never jax, and nothing of :mod:`mcport`: it keeps
 its own copies of the configuration (``config.py``), the seed stride

@@ -34,7 +34,8 @@ NVCC_FLAGS = (
 
 _c_ll, _c_int, _c_float, _c_ptr = (ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                                    ctypes.c_void_p)
-#: Each kernel library's C entry point and its argument types (see the .cu).
+#: Each kernel library's C entry points and their argument types (see the
+#: .cu): name, argtypes, then the next entry point's name, argtypes, ...
 KERNELS = {
     "terminal_noise": ("mcport_terminal_noise", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
@@ -45,6 +46,18 @@ KERNELS = {
     "multi_dd": ("mcport_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "garch": ("mcport_garch_terminal", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
+        _c_ptr, _c_ptr, _c_ptr],
+        "mcport_garch_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr]),
+    "bootstrap": ("mcport_bootstrap_terminal", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr, _c_ptr,
+        _c_ptr],
+        "mcport_bootstrap_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
 }
 
 
@@ -108,13 +121,14 @@ def build_libraries(names=tuple(KERNELS)) -> dict[str, Path]:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, its entry point's signature
+    """The loaded library of kernel ``name``, its entry points' signatures
     declared."""
-    fn_name, argtypes = KERNELS[name]
+    entries = KERNELS[name]
     lib = ctypes.CDLL(str(build_libraries((name,))[name]))
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = _c_int
+    for fn_name, argtypes in zip(entries[::2], entries[1::2]):
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = _c_int
     lib.mcport_error_string.argtypes = [_c_int]
     lib.mcport_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,13 @@
-"""Top-level API of the port: ``gbm_risk`` and ``path_tail_risk``.
+"""Top-level API of the port: ``gbm_risk``, ``path_tail_risk`` and
+``bootstrap_tail_risk``.
 
 Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
-engine) and of ``mcport.api.path_tail_risk`` for the "gbm" and "student_t"
-families (terminal VaR/CVaR plus the simulated max-drawdown distribution).
-The mesh, quasi-MC and hedged branches and the other path families are not
-ported yet and raise.
+engine), of ``mcport.api.path_tail_risk`` for the "gbm", "student_t",
+"garch" and "bootstrap" families (terminal VaR/CVaR plus the simulated
+max-drawdown distribution) and of ``mcport.api.bootstrap_tail_risk``. The
+mesh, quasi-MC and hedged branches and the DCC, jump and Heston families are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,14 +21,19 @@ import torch
 from mcport_torch.config import Config
 from mcport_torch.engine.mc_engine import MCCheckpoint, RiskReport, run_resumable_mc
 from mcport_torch.engine.path_risk import (
+    FAMILIES,
     UNPORTED_FAMILIES,
     PathRiskCheckpoint,
+    run_bootstrap_path_risk,
+    run_garch_path_risk,
     run_path_risk,
     run_resumable_path_risk,
 )
+from mcport_torch.models.bootstrap import BootstrapRisk, bootstrap_risk
+from mcport_torch.models.garch_mc import estimate_ccc_garch
 from mcport_torch.models.gbm import GBMParams, estimate_gbm, estimate_t_dof
 
-__all__ = ["gbm_risk", "path_tail_risk", "Config"]
+__all__ = ["gbm_risk", "path_tail_risk", "bootstrap_tail_risk", "Config"]
 
 
 def gbm_risk(
@@ -89,19 +96,21 @@ def path_tail_risk(
     VaR/CVaR plus the simulated max-drawdown distribution →
     ``{var, cvar, port_mean, dd_mean, dd_median, dd_p95, model, n_paths}``.
 
-    ``data`` is a :class:`mcport_torch.data.PriceData` (``names`` and a (T, A)
-    ``prices`` matrix). ``model`` "gbm" is correlated log-normal; "student_t"
-    keeps its drift and covariance with unit-variance Student-t shocks at the
-    moment-fitted dof (reported as ``t_dof``). ``rebalance`` selects per-step
-    rebalancing (default) or buy-and-hold. ``checkpoint`` /
-    ``checkpoint_path`` / ``max_blocks`` route through
+    ``data`` is a :class:`mcport_torch.data.PriceData` (``names``, a (T, A)
+    ``prices`` matrix and its ``port_rets``). ``model`` "gbm" is correlated
+    log-normal; "student_t" keeps its drift and covariance with unit-variance
+    Student-t shocks at the moment-fitted dof (reported as ``t_dof``);
+    "garch" fits CCC-GARCH(1,1) to ``port_rets``; "bootstrap" resamples
+    ``port_rets`` with restart probability ``p_restart``. ``rebalance``
+    selects per-step rebalancing (default) or buy-and-hold for the GBM
+    families; GARCH and bootstrap wealth is always rebalanced.
+    ``checkpoint`` / ``checkpoint_path`` / ``max_blocks`` route through
     :func:`mcport_torch.engine.path_risk.run_resumable_path_risk`
-    (bit-identical to the one-shot engine) and add a ``done`` flag.
-    ``p_restart`` is the bootstrap family's, which is not ported.
+    (bit-identical to the one-shot engines) and add a ``done`` flag.
     """
     if model in UNPORTED_FAMILIES:
         raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
-    if model not in ("gbm", "student_t"):
+    if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
     if legs_by_asset is not None:
@@ -112,17 +121,27 @@ def path_tail_risk(
         raise ValueError(f"weights must have shape ({a},)")
     g = config.gbm
     alpha = config.simulation.alpha
-    params = estimate_gbm(data.prices)
-    if model == "student_t":
-        g = dataclasses.replace(g, innovations="student_t",
-                                t_dof=estimate_t_dof(data.prices))
+    if model in ("gbm", "student_t"):
+        params = estimate_gbm(data.prices)
+        if model == "student_t":
+            g = dataclasses.replace(g, innovations="student_t",
+                                    t_dof=estimate_t_dof(data.prices))
+    elif model == "garch":
+        params = estimate_ccc_garch(data.port_rets)
+    else:
+        params = data.port_rets
     resumable = (checkpoint is not None or checkpoint_path is not None
                  or max_blocks is not None)
     if resumable:
         rep, ck = run_resumable_path_risk(
-            model, params, w, g, alpha=alpha, rebalance=rebalance,
+            model, params, w, g, alpha=alpha, p_restart=p_restart, rebalance=rebalance,
             checkpoint=checkpoint, checkpoint_path=checkpoint_path,
             max_blocks=max_blocks, device=device)
+    elif model == "garch":
+        rep = run_garch_path_risk(params, w, g, alpha=alpha, device=device)
+    elif model == "bootstrap":
+        rep = run_bootstrap_path_risk(params, w, g, p_restart=p_restart, alpha=alpha,
+                                      device=device)
     else:
         rep = run_path_risk(params, w, g, alpha=alpha, rebalance=rebalance, device=device)
     out = {
@@ -135,3 +154,22 @@ def path_tail_risk(
     if model == "student_t":
         out["t_dof"] = g.t_dof
     return out
+
+
+def bootstrap_tail_risk(
+    data,
+    weights: Sequence[float] | np.ndarray | None = None,
+    config: Config = Config(),
+    p_restart: float = 0.2,
+    *,
+    device: str | torch.device = "cuda",
+) -> BootstrapRisk:
+    """Distribution-free tail risk by stationary block bootstrap over the
+    assembled historical returns ``data.port_rets``, on ``device``
+    (:func:`mcport_torch.models.bootstrap.bootstrap_risk`, seeded
+    ``config.gbm.seed``)."""
+    a = len(data.names)
+    w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
+    g = config.gbm
+    return bootstrap_risk(g.seed, data.port_rets, w, n_paths=g.n_paths, n_steps=g.n_steps,
+                          p_restart=p_restart, alpha=config.simulation.alpha, device=device)

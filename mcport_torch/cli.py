@@ -1,8 +1,10 @@
 """Command-line interface of the port.
 
-    python -m mcport_torch.cli gbm-risk    CSV [CSV ...] [--path-stats] [--device cuda] ...
-    python -m mcport_torch.cli path-risk   CSV [CSV ...] [--models gbm,student_t] ...
-    python -m mcport_torch.cli dd-frontier CSV [CSV ...] [--score-dtype auto] ...
+    python -m mcport_torch.cli gbm-risk       CSV [CSV ...] [--path-stats] [--device cuda] ...
+    python -m mcport_torch.cli garch-risk     CSV [CSV ...] [--innovations student_t] ...
+    python -m mcport_torch.cli bootstrap-risk CSV [CSV ...] [--p-restart 0.2] ...
+    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,bootstrap] ...
+    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|bootstrap] ...
 
 Each command takes the flags of its ``mcport`` counterpart that the port
 carries, plus ``--device`` (the card by default; ``cpu`` runs the kernels'
@@ -10,9 +12,8 @@ plain torch forms, for tests), and emits the same JSON keys. CSVs are read
 by :mod:`mcport_torch.data` (standard library and NumPy; no pandas). There is
 no ``--no-pallas`` or ``--loader``: the plain forms are the kernels' test
 yardsticks, not user paths on the card. Not ported yet: ``--hedge``,
-``--attribution`` and ``--ci`` everywhere, the non-GBM path families of
-``path-risk`` and ``dd-frontier``, and ``path-risk --p-restart`` (bootstrap
-only).
+``--attribution`` and ``--ci`` everywhere, ``garch-risk --correlation dcc``,
+and the DCC, jump and Heston families of ``path-risk`` and ``dd-frontier``.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ import sys
 import numpy as np
 
 from mcport_torch.config import Config, DataConfig, GBMConfig, SimulationConfig
-from mcport_torch.engine.path_risk import UNPORTED_FAMILIES
 
 
 def _round_paths(n: int, block: int = 8_192) -> int:
@@ -104,6 +104,52 @@ def cmd_gbm_risk(args) -> None:
     _emit(out)
 
 
+def cmd_garch_risk(args) -> None:
+    from mcport_torch.models.garch_mc import estimate_ccc_garch, garch_risk
+    from mcport_torch.models.gbm import estimate_t_dof
+
+    d = _universe(args)
+    w = _weights(args, d)
+    if args.correlation == "dcc":
+        raise NotImplementedError("garch-risk --correlation dcc is not ported to "
+                                  "mcport_torch yet")
+    params = estimate_ccc_garch(d.port_rets)
+    t_df = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
+    r = garch_risk(args.seed, params, w, n_paths=args.paths, n_steps=args.steps,
+                   alpha=args.alpha, t_df=t_df, device=args.device)
+    _emit({
+        "model": "ccc-garch(1,1)" + (f"-t(dof={t_df:.2f})" if t_df else ""),
+        "n_paths": args.paths,
+        "horizon_steps": args.steps,
+        "weights": dict(zip(d.names, map(float, w))),
+        "var": r.var,
+        "cvar": r.cvar,
+        "portfolio_mean_return": r.port_mean,
+        "garch_alpha": params.alpha.tolist(),
+        "garch_beta": params.beta.tolist(),
+    })
+
+
+def cmd_bootstrap_risk(args) -> None:
+    from mcport_torch.models.bootstrap import bootstrap_risk
+
+    d = _universe(args)
+    w = _weights(args, d)
+    out = bootstrap_risk(args.seed, d.port_rets, w, n_paths=args.paths, n_steps=args.steps,
+                         p_restart=args.p_restart, alpha=args.alpha, device=args.device)
+    _emit({
+        "engine": "stationary-block-bootstrap",
+        "n_paths": args.paths,
+        "horizon_steps": args.steps,
+        "expected_block_len": 1.0 / args.p_restart,
+        "weights": dict(zip(d.names, map(float, w))),
+        "var": out.var,
+        "cvar": out.cvar,
+        "portfolio_mean_return": out.port_mean,
+        "asset_mean_terminal": dict(zip(d.names, map(float, out.mean))),
+    })
+
+
 def cmd_path_risk(args) -> None:
     from mcport_torch.api import path_tail_risk
 
@@ -130,25 +176,38 @@ def cmd_path_risk(args) -> None:
            "rebalance_gbm": rebalance}
     for model in models:
         out[model] = path_tail_risk(
-            d, w, cfg, model=model, rebalance=rebalance, checkpoint=ck,
-            checkpoint_path=args.checkpoint or None, device=args.device)
+            d, w, cfg, model=model, p_restart=args.p_restart, rebalance=rebalance,
+            checkpoint=ck, checkpoint_path=args.checkpoint or None, device=args.device)
     _emit(out)
 
 
 def cmd_dd_frontier(args) -> None:
-    from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search
+    from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
+                                                       family_drawdown_frontier_search)
     from mcport_torch.models.gbm import estimate_t_dof
 
-    if args.model != "gbm":
-        raise NotImplementedError(f"the {args.model} drawdown frontier is not ported "
-                                  "to mcport_torch yet")
     d = _universe(args)
-    t_dof = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
-    r = drawdown_frontier_search(
-        args.seed, _estimate(args, d), dd_budget=args.dd_budget,
-        n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
-        alpha=args.alpha, score_dtype=args.score_dtype, rebalance=args.rebalance,
-        t_df=t_dof, bm="poly_fast" if args.fast_normal else "poly", device=args.device)
+    t_dof = None
+    if args.model == "gbm":
+        t_dof = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
+        r = drawdown_frontier_search(
+            args.seed, _estimate(args, d), dd_budget=args.dd_budget,
+            n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
+            alpha=args.alpha, score_dtype=args.score_dtype, rebalance=args.rebalance,
+            t_df=t_dof, bm="poly_fast" if args.fast_normal else "poly", device=args.device)
+    else:
+        if args.fast_normal:
+            raise SystemExit("--fast-normal applies to --model gbm only")
+        if args.model == "garch":
+            from mcport_torch.models.garch_mc import estimate_ccc_garch
+
+            model_params = estimate_ccc_garch(d.port_rets)
+        else:
+            model_params = d.port_rets
+        r = family_drawdown_frontier_search(
+            args.seed, args.model, model_params, dd_budget=args.dd_budget,
+            n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
+            alpha=args.alpha, device=args.device)
     out = {
         "model": args.model,
         "dd_budget": r.dd_budget,
@@ -210,19 +269,44 @@ def build_parser() -> argparse.ArgumentParser:
     estimator(sp)
     sp.set_defaults(fn=cmd_gbm_risk)
 
+    sp = sub.add_parser("garch-risk",
+                        help="tail risk under CCC-GARCH(1,1) stochastic volatility")
+    common(sp)
+    sp.add_argument("--innovations", default="normal", choices=["normal", "student_t"],
+                    help="student_t = GARCH-t (moment-fitted dof)")
+    sp.add_argument("--correlation", default="ccc", choices=["ccc", "dcc"],
+                    help="dcc (dynamic conditional correlations) is not ported yet")
+    sp.add_argument("--paths", type=int, default=100_000)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--weights", default=None, help="comma list; default equal")
+    sp.set_defaults(fn=cmd_garch_risk)
+
+    sp = sub.add_parser("bootstrap-risk",
+                        help="distribution-free tail risk from resampled historical paths")
+    common(sp)
+    sp.add_argument("--weights", default=None, help="comma-separated, default equal")
+    sp.add_argument("--paths", type=int, default=100_000)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--p-restart", type=float, default=0.2,
+                    help="block restart probability (expected block len = 1/p)")
+    sp.set_defaults(fn=cmd_bootstrap_risk)
+
     sp = sub.add_parser("path-risk",
                         help="per-period path risk (terminal VaR/CVaR + "
                              "max-drawdown distribution)")
     common(sp)
-    sp.add_argument("--models", default="gbm,student_t",
-                    help="comma list of gbm,student_t (garch,dcc,jump,heston,"
-                         "bootstrap are not ported yet)")
+    sp.add_argument("--models", default="gbm,student_t,garch,bootstrap",
+                    help="comma list of gbm,student_t,garch,bootstrap (dcc,jump,"
+                         "heston are not ported yet)")
     sp.add_argument("--weights", default=None, help="comma list; default equal")
     sp.add_argument("--paths", type=int, default=65_536)
     sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--p-restart", type=float, default=0.2,
+                    help="bootstrap restart probability (1/expected block len)")
     sp.add_argument("--buy-and-hold", action="store_true",
                     help="buy-and-hold GBM wealth instead of the default "
-                         "per-period rebalancing")
+                         "per-period rebalancing (GARCH and bootstrap always "
+                         "rebalance)")
     sp.add_argument("--checkpoint", default=None, metavar="FILE",
                     help="persist block-cursor state after every dispatch group "
                          "(single --models entry only; resumed runs are "
@@ -252,8 +336,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--rebalance", action="store_true",
                     help="rebalance candidates to target weights every period "
                          "instead of buy-and-hold")
-    sp.add_argument("--model", choices=["gbm", *UNPORTED_FAMILIES], default="gbm",
-                    help="path family (only gbm is ported yet)")
+    sp.add_argument("--model", choices=["gbm", "garch", "dcc", "jump", "heston",
+                                        "bootstrap"], default="gbm",
+                    help="path family (dcc, jump and heston are not ported yet)")
     sp.add_argument("--innovations", choices=["normal", "student_t"], default="normal",
                     help="student_t scores candidates under fat-tailed "
                          "unit-variance t shocks (moment-fitted dof)")

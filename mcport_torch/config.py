@@ -11,10 +11,11 @@ portfolio, mesh, forecast and payoff sections.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 __all__ = ["period_info", "DataConfig", "SimulationConfig", "GBMConfig",
-           "SketchConfig", "Config"]
+           "SketchConfig", "COVERING_LOG1P_SKETCH", "Config"]
 
 # period code -> (pandas-3 resample rule, annualisation factor); 'M' and 'Q'
 # also accept their pandas-3 spellings
@@ -90,6 +91,17 @@ class SketchConfig:
     lo: float = -1.0
     hi: float = 3.0
     space: str = "linear"
+
+
+# A generous covering log1p sketch for engines without an analytic range
+# (the GARCH terminals): -99.99% .. +100000% simple return at relative
+# resolution. mcport's definition; the CLI and the API share it.
+COVERING_LOG1P_SKETCH = SketchConfig(
+    n_bins=8_192,
+    lo=math.log1p(-0.9999),
+    hi=math.log1p(1000.0),
+    space="log1p",
+)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,308 @@
+// Stationary block-bootstrap paths on Hopper: the terminal simple returns of
+// every asset (kernel bootstrap_terminal_kernel) and W candidate portfolios'
+// rebalanced wealth with its maximum drawdown (kernel bootstrap_dd_kernel).
+//
+// Replaces mcport/ops/pallas_bootstrap.py::_bootstrap_kernel (the
+// bootstrap-risk main path) and ::_bootstrap_dd_kernel (its unhedged mode:
+// path-risk --models bootstrap and the bootstrap drawdown frontier). The plain
+// torch forms of the same functions, on the same Philox counters, are
+// mcport_torch/ops/bootstrap.py::bootstrap_terminal_reference and
+// ::bootstrap_multi_dd_reference.
+//
+// What they compute. For block b of a dispatch group and path p < block_paths,
+// over a (T, A) history of per-period simple returns: a start row, then per
+// step the row idx = restart ? jump : (idx + 1) mod T (Politis-Romano,
+// circular), and either gross *= 1 + hist[idx] per asset (terminal: out
+// gross - 1), or for every candidate w, V *= 1 + w·hist[idx], peak, dd from
+// V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
+//
+// Uniforms: Philox4x32-10 (gbm_draws.cuh), key the block seed, counter (call,
+// 0, path, STREAM_BOOT). Call 0 word 0 gives the start row; call 1 + s/2 gives
+// step s its (restart, jump) words, (0, 1) for an even step, (2, 3) for an odd
+// one. With m = bits >> 9: restart when m·2^-23 < p_restart (float32, exact on
+// both sides), jump row (m·T) >> 23 in integers. So the kernels pick the rows
+// the plain forms pick, and the terminal kernel equals its plain form bit for
+// bit: gross *= 1 + row is one add and one multiply, with nothing to contract.
+//
+// What bounds them on the card. Per path-step: half a Philox call (~60
+// instructions), the index update, then per asset one shared load and one add
+// and multiply; the candidate kernel adds W·A scoring FMAs. Nothing is read
+// from device memory per step, each output is stored once: instruction issue
+// bounds them. The designs: the history lives in (dynamic, opt-in) shared
+// memory for the whole launch, so selection is a load — the TPU's one-hot
+// matmul gather and its 3-way bf16 split are not ported. Terminal: one thread
+// per path, the asset grosses in registers for A <= 16 (local memory from 17
+// to 64). Candidates: multi_dd.cu's block design — a block owns 16 paths and
+// all <= 256 candidates; 16 threads keep the tile's row indices and write the
+// rows of two steps' indices to shared memory per Philox call; per step the
+// block copies the selected rows into a (A, 16) tile, then each thread updates
+// a 4-candidate x 4-path micro-tile of values, peaks and drawdowns held in
+// registers (FP32 FMAs, mcport's float32 score). A dispatch group of blocks
+// is one launch (gridDim.y).
+
+#include "gbm_draws.cuh"
+
+namespace {
+
+constexpr int kTermThreads = 128;
+constexpr int kDdThreads = 256;
+constexpr int kTileP = 16;     // paths per candidate block
+constexpr int kMaxCand = 256;  // ops/multi_dd.py MAX_CANDIDATES
+constexpr int kItems = 4;      // (asset, path) items per thread: kMaxAssets·kTileP / kDdThreads
+
+__device__ __forceinline__ Words boot_call(uint32_t c, int path, uint32_t key) {
+  return philox4x32_10(c, 0u, static_cast<uint32_t>(path), kStreamBoot, key, 0u);
+}
+
+// ⌊m · T / 2^23⌋ for the 23-bit m = bits >> 9: a uniform row in [0, T).
+__device__ __forceinline__ int jump_row(uint32_t bits, int t_len) {
+  return static_cast<int>((static_cast<unsigned long long>(bits >> 9) * t_len) >> 23);
+}
+
+__device__ __forceinline__ int next_row(int idx, uint32_t restart_bits, uint32_t jump_bits,
+                                        int t_len, float p_restart) {
+  if (__uint2float_rn(restart_bits >> 9) * 0x1p-23f < p_restart) {
+    return jump_row(jump_bits, t_len);
+  }
+  return idx + 1 == t_len ? 0 : idx + 1;
+}
+
+// kA: the asset capacity; kUnroll: how far the loops over assets unroll (kA
+// keeps the grosses in registers, 1 lets them live in local memory).
+template <int kA, int kUnroll>
+__global__ void __launch_bounds__(kTermThreads)
+bootstrap_terminal_kernel(long long seed, long long first_block, int block_paths, int t_len,
+                          int n_assets, int n_steps, float p_restart,
+                          const float* __restrict__ hist, float* __restrict__ out) {
+  extern __shared__ float s_hist[];  // (T, A)
+  for (int i = threadIdx.x; i < t_len * n_assets; i += kTermThreads) s_hist[i] = hist[i];
+  __syncthreads();
+
+  const int p = blockIdx.x * kTermThreads + threadIdx.x;
+  if (p >= block_paths) return;
+  const int b = blockIdx.y;
+  const uint32_t key = block_key(seed, first_block, b);
+
+  int idx = jump_row(boot_call(0u, p, key).w0, t_len);
+  float gross[kA];
+#pragma unroll (kUnroll)
+  for (int a = 0; a < kA; ++a) gross[a] = 1.0f;
+
+  for (int s = 0; s < n_steps; s += 2) {
+    const Words w = boot_call(1u + s / 2, p, key);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (s + k >= n_steps) continue;
+      idx = k ? next_row(idx, w.w2, w.w3, t_len, p_restart)
+              : next_row(idx, w.w0, w.w1, t_len, p_restart);
+      const float* row = s_hist + idx * n_assets;
+#pragma unroll (kUnroll)
+      for (int a = 0; a < kA; ++a) {
+        if (a < n_assets) gross[a] *= 1.0f + row[a];
+      }
+    }
+  }
+
+  const long long o = (static_cast<long long>(b) * block_paths + p) * n_assets;
+#pragma unroll (kUnroll)
+  for (int a = 0; a < kA; ++a) {
+    if (a < n_assets) out[o + a] = gross[a] - 1.0f;
+  }
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int hist, w, e, idx, total;
+  __host__ __device__ DdLayout(int t_len, int a, int w_pad) {
+    hist = 0;
+    w = round4(t_len * a);
+    e = w + a * w_pad;
+    idx = e + a * kTileP;
+    total = idx + 2 * kTileP;
+  }
+};
+
+__global__ void __launch_bounds__(kDdThreads, 2)
+bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int t_len,
+                    int n_assets, int n_cand, int n_steps, float p_restart,
+                    const float* __restrict__ hist, const float* __restrict__ weights,
+                    float* __restrict__ term, float* __restrict__ max_dd) {
+  extern __shared__ __align__(16) float smem[];
+  const int a_n = n_assets;
+  const int w_pad = round4(n_cand);
+  const DdLayout lay(t_len, a_n, w_pad);
+  float* s_hist = smem + lay.hist;                       // (T, A)
+  float* s_w = smem + lay.w;                             // (A, w_pad) weights
+  float* s_e = smem + lay.e;                             // (A, kTileP) the step's rows
+  int* s_idx = reinterpret_cast<int*>(smem + lay.idx);   // (2, kTileP) two steps' rows
+
+  const int tid = threadIdx.x;
+  for (int i = tid; i < t_len * a_n; i += kDdThreads) s_hist[i] = hist[i];
+  for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
+    const int a = i / w_pad, w = i % w_pad;
+    s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
+  }
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTileP;
+  const uint32_t key = block_key(seed, first_block, b);
+  // threads 0..15 walk the row indices of the tile's paths
+  int idx = tid < kTileP ? jump_row(boot_call(0u, p0 + tid, key).w0, t_len) : 0;
+  const int n_items = a_n * kTileP;
+
+  const int cw = tid / 4, pq = tid % 4;
+  const bool scorer = 4 * cw < w_pad;
+  float v[4][4], peak[4][4], dd[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = 1.0f;
+      peak[i][j] = 1.0f;
+      dd[i][j] = 0.0f;
+    }
+  }
+
+  for (int s0 = 0; s0 < n_steps; s0 += 2) {
+    const int n = min(2, n_steps - s0);
+    if (tid < kTileP) {
+      const Words w = boot_call(1u + s0 / 2, p0 + tid, key);
+      idx = next_row(idx, w.w0, w.w1, t_len, p_restart);
+      s_idx[tid] = idx;
+      if (n > 1) {
+        idx = next_row(idx, w.w2, w.w3, t_len, p_restart);
+        s_idx[kTileP + tid] = idx;
+      }
+    }
+    __syncthreads();  // also: the history and weights are in place
+
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int r = 0; r < kItems; ++r) {
+        const int item = tid + r * kDdThreads;
+        if (item < n_items) {
+          const int a = item / kTileP, pi = item % kTileP;
+          s_e[item] = s_hist[s_idx[k * kTileP + pi] * a_n + a];
+        }
+      }
+      __syncthreads();
+
+      if (scorer) {
+        float f[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
+        }
+        for (int a = 0; a < a_n; ++a) {
+          const float4 w4 = *reinterpret_cast<const float4*>(s_w + a * w_pad + 4 * cw);
+          const float4 e4 = *reinterpret_cast<const float4*>(s_e + a * kTileP + 4 * pq);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+          const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) f[i][j] = fmaf(wv[i], ev[j], f[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[i][j] = v[i][j] * (1.0f + f[i][j]);
+            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (scorer) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = 4 * cw + i;
+      if (w >= n_cand) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + 4 * pq + j;
+        if (p >= block_paths) continue;
+        const long long o = (static_cast<long long>(b) * n_cand + w) * block_paths + p;
+        term[o] = v[i][j] - 1.0f;
+        max_dd[o] = dd[i][j];
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the terminal kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. hist: (t_len, n_assets) float32 on the device, held in
+// shared memory (4·t_len·n_assets bytes, at most the block's opt-in limit).
+// Output out: (n_blocks, block_paths, n_assets) float32. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
+// the kernel does not take.
+int mcport_bootstrap_terminal(long long seed, long long first_block, int n_blocks,
+                              int block_paths, int t_len, int n_assets, int n_steps,
+                              float p_restart, const void* hist, void* out, void* stream) {
+  if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_blocks < 1 ||
+      n_blocks > 65535 || block_paths < 1 || n_steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
+  const size_t smem = sizeof(float) * static_cast<size_t>(t_len) * n_assets;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* h = static_cast<const float*>(hist);
+  float* o = static_cast<float*>(out);
+  int err;
+  if (n_assets <= 16) {
+    auto kernel = bootstrap_terminal_kernel<16, 16>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<grid, kTermThreads, smem, s>>>(seed, first_block, block_paths, t_len, n_assets,
+                                            n_steps, p_restart, h, o);
+  } else {
+    auto kernel = bootstrap_terminal_kernel<kMaxAssets, 1>;
+    if ((err = set_smem(kernel, smem))) return err;
+    kernel<<<grid, kTermThreads, smem, s>>>(seed, first_block, block_paths, t_len, n_assets,
+                                            n_steps, p_restart, h, o);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. hist: (t_len, n_assets), weights: (n_cand, n_assets),
+// float32 on the device. Outputs term and dd: (n_blocks, n_cand, block_paths)
+// float32. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_blocks,
+                              int block_paths, int t_len, int n_assets, int n_cand,
+                              int n_steps, float p_restart, const void* hist,
+                              const void* weights, void* term, void* dd, void* stream) {
+  if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_cand < 1 ||
+      n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 || block_paths < 1 ||
+      n_steps < 0 || kMaxAssets * kTileP > kItems * kDdThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+  const size_t smem = sizeof(float) * DdLayout(t_len, n_assets, round4(n_cand)).total;
+  int err;
+  if ((err = set_smem(bootstrap_dd_kernel, smem))) return err;
+  bootstrap_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, p_restart,
+      static_cast<const float*>(hist), static_cast<const float*>(weights),
+      static_cast<float*>(term), static_cast<float*>(dd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

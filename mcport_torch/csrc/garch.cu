@@ -1,0 +1,364 @@
+// CCC-GARCH(1,1) paths on Hopper: the terminal simple returns of every asset
+// (kernel garch_terminal_kernel) and W candidate portfolios' rebalanced wealth
+// with its maximum drawdown (kernel garch_dd_kernel).
+//
+// Replaces mcport/ops/pallas_garch.py::_garch_kernel (the garch-risk main path)
+// and ::_garch_dd_kernel (its unhedged mode: path-risk --models garch and the
+// GARCH drawdown frontier). The plain torch forms of the same functions, on the
+// same Philox counters, are mcport_torch/ops/garch.py::garch_terminal_reference
+// and ::garch_multi_dd_reference.
+//
+// What they compute. For block b of a dispatch group and path p < block_paths,
+// step by step: draw z (gbm_draws.cuh: the GBM kernels' shocks, STREAM_GBM),
+// correlate zc = L_R z with the lower triangle of the correlation's Cholesky
+// factor, then per asset
+//   sigma2 = omega + alpha eps2_prev + beta sigma2   (from sigma2_0, eps2_0)
+//   eps = sqrt(max(sigma2, 0)) zc,   r = mu + eps
+// and either cum *= 1 + mu + eps (terminal: out cum - 1 per asset), or, for
+// every candidate w, V *= 1 + w·r, peak = max(peak, V), dd = min(dd, V/peak - 1)
+// from V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
+// GARCH is nonlinear in the shocks, so unlike terminal_noise.cu it must
+// correlate every step: it cannot sum the shocks first.
+//
+// What bounds them on the card. Per path-step and asset: the draw (a quarter of
+// a Philox call and ~40 floating-point operations, kernel #1's 54.75
+// instructions), the correlate's lower triangle ((A+1)/2 FMAs on average) and
+// the GARCH update (an IEEE sqrt, ~6 FMAs); the candidate kernel adds W·A
+// scoring FMAs per path-step. Nothing is read per step and each output is
+// stored once, so both are bound by instruction issue. The designs:
+// - terminal: one thread per path; sigma2 and cum for A <= 16 and the shocks
+//   of one Philox call stay in registers (all loops over assets unrolled).
+//   L_R's rows and the per-asset (omega, alpha, beta, 1 + mu) sit in shared
+//   memory, read with 16-byte loads; the unrolled correlate skips the zero
+//   upper triangle at compile time: A(A+1)/2 FMAs per step, not A².
+// - candidates: multi_dd.cu's block design. A block owns 16 paths and all
+//   <= 256 candidates; each (asset, path) of the tile has a thread that keeps
+//   its sigma2 in a register, draws the shocks of one Philox call into shared
+//   memory, and per step correlates them and writes r = mu + eps to shared
+//   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
+//   values, peaks and drawdowns stay in registers. Scores are FP32 FMAs
+//   (mcport's score_dot is float32).
+// A dispatch group of blocks is one launch (gridDim.y).
+//
+// The kernels read only the lower triangle of L_R (the plain forms do too).
+// nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
+// and plain forms agree to ulps, not bits (bound: ops/garch.py garch_shares).
+
+#include "gbm_draws.cuh"
+
+namespace {
+
+constexpr int kGA = 16;              // ops/garch.py MAX_GARCH_ASSETS
+constexpr int kTermThreads = 128;
+constexpr int kDdThreads = 256;
+constexpr int kTileP = 16;           // paths per candidate block
+constexpr int kMaxCand = 256;        // ops/garch.py MAX_CANDIDATES
+
+// Four floats of shared memory, loaded anew at every use: the volatile load
+// keeps the compiler from holding all of L_R in registers across the unrolled
+// steps of a Philox call (path_stats.cu's lesson).
+__device__ __forceinline__ float4 lds128(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+// The parameter block of ops/garch.py GarchTensors.packed: L (A·A), then mu,
+// omega, alpha, beta, sigma2_0, eps2_0 (A each).
+struct Params {
+  const float *l, *mu, *omega, *alpha, *beta, *s2_0, *e2_0;
+  __device__ Params(const float* p, int a)
+      : l(p), mu(p + a * a), omega(mu + a), alpha(omega + a), beta(alpha + a),
+        s2_0(beta + a), e2_0(s2_0 + a) {}
+};
+
+// The variance of the first step, as every later one: omega + alpha e2 + beta s2.
+__device__ __forceinline__ float first_sigma2(const Params& q, int a) {
+  return q.omega[a] + q.alpha[a] * q.e2_0[a] + q.beta[a] * q.s2_0[a];
+}
+
+// Loads L's lower triangle into s_l (kGA x kGA, zero elsewhere) and, per asset,
+// (omega, alpha, beta, last) into s_g.
+__device__ __forceinline__ void load_params(const Params& q, int a_n, bool one_plus_mu,
+                                            float* s_l, float4* s_g, int tid, int n_threads) {
+  for (int i = tid; i < kGA * kGA; i += n_threads) {
+    const int r = i / kGA, c = i % kGA;
+    s_l[i] = (r < a_n && c <= r) ? q.l[r * a_n + c] : 0.0f;
+  }
+  for (int i = tid; i < kGA; i += n_threads) {
+    s_g[i] = i < a_n ? make_float4(q.omega[i], q.alpha[i], q.beta[i],
+                                   one_plus_mu ? 1.0f + q.mu[i] : q.mu[i])
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+template <int kTier>
+__global__ void __launch_bounds__(kTermThreads)
+garch_terminal_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                      int n_steps, float df, float neg2_over_df,
+                      const float* __restrict__ params, float* __restrict__ out) {
+  __shared__ __align__(16) float s_l[kGA * kGA];
+  __shared__ float4 s_g[kGA];  // (omega, alpha, beta, 1 + mu)
+  const Params q(params, n_assets);
+  load_params(q, n_assets, true, s_l, s_g, threadIdx.x, kTermThreads);
+  __syncthreads();
+
+  const int p = blockIdx.x * kTermThreads + threadIdx.x;
+  if (p >= block_paths) return;
+  const int b = blockIdx.y;
+  const uint32_t key = block_key(seed, first_block, b);
+  constexpr int kPer = steps_per_call<kTier>();
+
+  float s2[kGA], cum[kGA];  // s2: the variance of the coming step
+#pragma unroll
+  for (int a = 0; a < kGA; ++a) {
+    s2[a] = a < n_assets ? first_sigma2(q, a) : 0.0f;
+    cum[a] = 1.0f;
+  }
+
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    float z[kPer][kGA];
+#pragma unroll
+    for (int a = 0; a < kGA; ++a) {
+      float za[4];
+      if (a < n_assets) {
+        call_draws<kTier>(s0 / kPer, a, p, key, n, df, neg2_over_df, za);
+      } else {
+        za[0] = za[1] = za[2] = za[3] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= n) continue;  // (not break: a loop that may break is not unrolled)
+#pragma unroll
+      for (int i = 0; i < kGA; ++i) {
+        if (i < n_assets) {
+          float y = 0.0f;
+#pragma unroll
+          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only
+            const float4 l = lds128(s_l + i * kGA + j);
+            y = fmaf(l.x, z[k][j], y);
+            if (j + 1 <= i) y = fmaf(l.y, z[k][j + 1], y);
+            if (j + 2 <= i) y = fmaf(l.z, z[k][j + 2], y);
+            if (j + 3 <= i) y = fmaf(l.w, z[k][j + 3], y);
+          }
+          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+          const float eps = sqrtf(fmaxf(s2[i], 0.0f)) * y;
+          cum[i] *= g.w + eps;
+          const float e2 = eps * eps;
+          s2[i] = g.x + g.y * e2 + g.z * s2[i];
+        }
+      }
+    }
+  }
+
+  const long long row = static_cast<long long>(b) * block_paths + p;
+#pragma unroll
+  for (int a = 0; a < kGA; ++a) {
+    if (a < n_assets) out[row * n_assets + a] = cum[a] - 1.0f;
+  }
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int l, g, w, z, e, total;
+  __host__ __device__ DdLayout(int a, int w_pad) {
+    l = 0;
+    g = kGA * kGA;
+    w = g + 4 * kGA;
+    z = w + a * w_pad;
+    e = z + 4 * a * kTileP;
+    total = e + a * kTileP;
+  }
+};
+
+__global__ void __launch_bounds__(kDdThreads, 2)
+garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                int n_cand, int n_steps, const float* __restrict__ params,
+                const float* __restrict__ weights, float* __restrict__ term,
+                float* __restrict__ max_dd) {
+  extern __shared__ __align__(16) float smem[];
+  const int a_n = n_assets;
+  const int w_pad = round4(n_cand);
+  const DdLayout lay(a_n, w_pad);
+  float* s_l = smem + lay.l;                            // (kGA, kGA) lower triangle
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (omega, alpha, beta, mu)
+  float* s_w = smem + lay.w;                            // (A, w_pad) weights
+  float* s_z = smem + lay.z;                            // (4, A, kTileP) one Philox call's shocks
+  float* s_e = smem + lay.e;                            // (A, kTileP) r = mu + eps
+
+  const int tid = threadIdx.x;
+  const Params q(params, a_n);
+  load_params(q, a_n, false, s_l, s_g, tid, kDdThreads);
+  for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
+    const int a = i / w_pad, w = i % w_pad;
+    s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
+  }
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTileP;
+  const uint32_t key = block_key(seed, first_block, b);
+  // this thread's (asset, path) item of the tile: A·16 <= 256 items
+  const int ia = tid / kTileP, ip = tid % kTileP;
+  const bool item = ia < a_n;
+  float s2 = item ? first_sigma2(q, ia) : 0.0f;
+
+  // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
+  const int cw = tid / 4, pq = tid % 4;
+  const bool scorer = 4 * cw < w_pad;
+  float v[4][4], peak[4][4], dd[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = 1.0f;
+      peak[i][j] = 1.0f;
+      dd[i][j] = 0.0f;
+    }
+  }
+  __syncthreads();
+
+  constexpr int kPer = steps_per_call<kPoly>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    if (item) {
+      float za[4];
+      call_draws<kPoly>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+    }
+    __syncthreads();
+
+    for (int k = 0; k < n; ++k) {
+      if (item) {
+        float y = 0.0f;
+        for (int j = 0; j <= ia; ++j) {
+          y = fmaf(s_l[ia * kGA + j], s_z[(k * a_n + j) * kTileP + ip], y);
+        }
+        const float4 g = s_g[ia];
+        const float eps = sqrtf(fmaxf(s2, 0.0f)) * y;
+        s_e[ia * kTileP + ip] = g.w + eps;
+        const float e2 = eps * eps;
+        s2 = g.x + g.y * e2 + g.z * s2;
+      }
+      __syncthreads();
+
+      if (scorer) {
+        float f[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
+        }
+        for (int a = 0; a < a_n; ++a) {
+          const float4 w4 = *reinterpret_cast<const float4*>(s_w + a * w_pad + 4 * cw);
+          const float4 e4 = *reinterpret_cast<const float4*>(s_e + a * kTileP + 4 * pq);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+          const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) f[i][j] = fmaf(wv[i], ev[j], f[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[i][j] = v[i][j] * (1.0f + f[i][j]);
+            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (scorer) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = 4 * cw + i;
+      if (w >= n_cand) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + 4 * pq + j;
+        if (p >= block_paths) continue;
+        const long long o = (static_cast<long long>(b) * n_cand + w) * block_paths + p;
+        term[o] = v[i][j] - 1.0f;
+        max_dd[o] = dd[i][j];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the terminal kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. params: ops/garch.py GarchTensors.packed, float32 on the
+// device (L with the t scale folded in). Output out: (n_blocks, block_paths,
+// n_assets) float32. tier: 0 poly, 2 Student-t (df, neg2_over_df = -2/df used
+// only then). Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int mcport_garch_terminal(long long seed, long long first_block, int n_blocks, int block_paths,
+                          int n_assets, int n_steps, int tier, float df, float neg2_over_df,
+                          const void* params, void* out, void* stream) {
+  if (n_assets < 1 || n_assets > kGA || n_blocks < 1 || n_blocks > 65535 ||
+      block_paths < 1 || n_steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* q = static_cast<const float*>(params);
+  float* o = static_cast<float*>(out);
+  switch (tier) {
+    case kPoly:
+      garch_terminal_kernel<kPoly><<<grid, kTermThreads, 0, s>>>(
+          seed, first_block, block_paths, n_assets, n_steps, df, neg2_over_df, q, o);
+      break;
+    case kStudentT:
+      garch_terminal_kernel<kStudentT><<<grid, kTermThreads, 0, s>>>(
+          seed, first_block, block_paths, n_assets, n_steps, df, neg2_over_df, q, o);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. params: GarchTensors.packed; weights: (n_cand,
+// n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
+// block_paths) float32. Normal shocks (the poly tier). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
+// the kernel does not take.
+int mcport_garch_multi_dd(long long seed, long long first_block, int n_blocks,
+                          int block_paths, int n_assets, int n_cand, int n_steps,
+                          const void* params, const void* weights, void* term, void* dd,
+                          void* stream) {
+  if (n_assets < 1 || n_assets > kGA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
+      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || kGA * kTileP > kDdThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+  const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
+  cudaError_t err = cudaFuncSetAttribute(garch_dd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  garch_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      seed, first_block, block_paths, n_assets, n_cand, n_steps,
+      static_cast<const float*>(params), static_cast<const float*>(weights),
+      static_cast<float*>(term), static_cast<float*>(dd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

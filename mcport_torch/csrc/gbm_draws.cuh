@@ -36,6 +36,7 @@ namespace {
 constexpr int kMaxAssets = 64;                // mcport_torch/ops/gbm.py MAX_ASSETS
 constexpr long long kSeedStride = 1LL << 14;  // mcport_torch/seeding.py SEED_STRIDE
 constexpr uint32_t kStreamGbm = 0;            // mcport_torch/rng.py STREAM_GBM
+constexpr uint32_t kStreamBoot = 1;           // mcport_torch/rng.py STREAM_BOOT
 
 enum Tier { kPoly = 0, kPolyFast = 1, kStudentT = 2 };
 

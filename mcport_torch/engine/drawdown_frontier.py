@@ -1,13 +1,17 @@
-"""Drawdown-constrained frontier search over simulated GBM paths.
+"""Drawdown-constrained frontier search over simulated GBM, CCC-GARCH and
+stationary-bootstrap paths.
 
-Port of ``drawdown_frontier_search`` (``mcport/engine/drawdown_frontier.py``):
-among Dirichlet(1) candidate portfolios, the one with the highest mean
-simulated terminal return whose ``(1 - alpha)``-quantile of the maximum
-drawdown stays above ``-dd_budget``.
+Port of ``drawdown_frontier_search`` and ``family_drawdown_frontier_search``
+(``mcport/engine/drawdown_frontier.py``): among Dirichlet(1) candidate
+portfolios, the one with the highest mean simulated terminal return whose
+``(1 - alpha)``-quantile of the maximum drawdown stays above ``-dd_budget``.
 
 Candidates are scored chunk by chunk, ``w_block`` at a time, by the multi-dd
-kernel (:func:`mcport_torch.ops.multi_dd.gbm_multi_portfolio_dd`) over ONE
-shared path set (every chunk regenerates the same paths from the same key, so
+kernel (:func:`mcport_torch.ops.multi_dd.gbm_multi_portfolio_dd`), or for the
+families by the GARCH and bootstrap candidate kernels
+(:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`,
+:func:`mcport_torch.ops.bootstrap.bootstrap_multi_portfolio_dd`; rebalanced
+wealth, float32, no screening tier), over ONE shared path set (every chunk regenerates the same paths from the same key, so
 comparisons between chunks are exact). Each chunk is reduced on the device to
 ``(ret, dd_p95)`` before the next runs: the full ``(N, P)`` score matrix —
 4,096 x 131,072 x 2 floats is 4.3 GB — is never held.
@@ -26,8 +30,8 @@ generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 (mcport: 128, its VMEM tile); "auto" never screens and there is no
 ``auto_bf16_min_work``; on the CPU the plain form honours the score tiers
 (mcport's lax path ignores them). Not ported yet (raise
-``NotImplementedError``): hedged scoring and
-``family_drawdown_frontier_search``.
+``NotImplementedError``): hedged scoring and the DCC, jump and Heston
+families.
 """
 
 from __future__ import annotations
@@ -40,7 +44,9 @@ import torch
 
 from mcport_torch.device import resolve_device
 from mcport_torch.models.gbm import GBMParams
+from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.dirichlet import sample_weights
+from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.multi_dd import (
     BF16_DD_ERR_BOUND,
     BF16_DD_ERR_REBAL_COEF,
@@ -77,6 +83,16 @@ def frontier_seeds(seed: int) -> tuple[int, int]:
     path_seed = int(torch.randint(0, 1 << 30, (), generator=g))
     weight_seed = int(torch.randint(0, 1 << 62, (), generator=g))
     return path_seed, weight_seed
+
+
+def _result(w: torch.Tensor, valid: np.ndarray, ret: np.ndarray, dd_p95: np.ndarray,
+            budget: float) -> DrawdownFrontierResult:
+    """The search's result: feasible candidates and the best of them."""
+    feasible = valid & (dd_p95 >= -budget)
+    opt_idx = int(np.argmax(np.where(feasible, ret, -np.inf))) if feasible.any() else -1
+    return DrawdownFrontierResult(weights=w.cpu().numpy(), valid=valid, ret=ret,
+                                  dd_p95=dd_p95, feasible=feasible, opt_idx=opt_idx,
+                                  dd_budget=budget)
 
 
 def _tail_stats(term: torch.Tensor, dd: torch.Tensor, k_tail: int):
@@ -181,15 +197,73 @@ def drawdown_frontier_search(
             ret[batch], dd_p95[batch] = r_x.cpu().numpy(), d_x.cpu().numpy()
             rescored.update(int(i) for i in batch)
 
-    feasible = valid_np & (dd_p95 >= -budget)
-    opt_idx = int(np.argmax(np.where(feasible, ret, -np.inf))) if feasible.any() else -1
-    return DrawdownFrontierResult(
-        weights=w.cpu().numpy(), valid=valid_np, ret=ret, dd_p95=dd_p95,
-        feasible=feasible, opt_idx=opt_idx, dd_budget=budget)
+    return _result(w, valid_np, ret, dd_p95, budget)
 
 
-def family_drawdown_frontier_search(*args, **kwargs):
-    """Not ported: the GARCH, DCC, jump, Heston and bootstrap frontiers need
-    their families' kernels (ROADMAP Queue 2)."""
-    raise NotImplementedError("family_drawdown_frontier_search is not ported to "
-                              "mcport_torch yet")
+def family_drawdown_frontier_search(
+    seed: int,
+    model: str,
+    model_params,
+    dd_budget: float = 0.30,
+    n_candidates: int = 4_096,
+    n_paths: int = 8_192,
+    n_steps: int = 252,
+    alpha: float = 0.95,
+    min_weights=None,
+    max_weights=None,
+    w_block: int = MAX_CANDIDATES,
+    p_restart: float = 0.2,
+    hedge=None,
+    s0=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> DrawdownFrontierResult:
+    """The drawdown-constrained frontier under a non-GBM path family, on
+    ``device``: "garch" (``model_params`` a
+    :class:`mcport_torch.models.garch_mc.CCCGarchParams`) or "bootstrap"
+    (``model_params`` the (T, A) history of simple returns, ``p_restart`` its
+    restart probability). Candidates compound per-period rebalanced wealth,
+    scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
+    path stream. "dcc", "jump" and "heston" are not ported yet."""
+    if model in ("dcc", "jump", "heston"):
+        raise NotImplementedError(f"the {model} drawdown frontier is not ported to "
+                                  "mcport_torch yet")
+    if model not in ("garch", "bootstrap"):
+        raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
+                         f"got {model!r}")
+    if hedge is not None:
+        raise NotImplementedError("hedged drawdown frontier is not ported to "
+                                  "mcport_torch yet")
+    dev = resolve_device(device)
+    block = min(w_block, n_candidates)
+    if not 1 <= block <= MAX_CANDIDATES:
+        raise ValueError(f"w_block must be in 1..{MAX_CANDIDATES}, got {w_block}")
+    if model == "garch":
+        g = model_params.tensors(dev)
+        a = model_params.n_assets
+
+        def score(w_blk):
+            return garch_multi_portfolio_dd(path_seed, g, w_blk, n_paths, n_steps)
+    else:
+        hist = torch.as_tensor(np.asarray(model_params, np.float32), device=dev)
+        a = hist.shape[1]
+
+        def score(w_blk):
+            return bootstrap_multi_portfolio_dd(path_seed, hist, w_blk, n_paths, n_steps,
+                                                p_restart)
+    min_w = np.zeros(a) if min_weights is None else np.asarray(min_weights, np.float64)
+    max_w = np.ones(a) if max_weights is None else np.asarray(max_weights, np.float64)
+
+    path_seed, weight_seed = frontier_seeds(seed)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    w, valid = sample_weights(gen, n_candidates, min_w, max_w)
+    k_tail = max(1, math.ceil((1.0 - alpha) * n_paths))
+    chunks = []
+    for i in range(0, n_candidates, block):
+        term, dd = score(w[i:i + block])
+        chunks.append(_tail_stats(term[0], dd[0], k_tail))
+    ret = torch.cat([c[0] for c in chunks]).cpu().numpy()
+    dd_p95 = torch.cat([c[1] for c in chunks]).cpu().numpy()
+    valid_np = valid.cpu().numpy()
+    budget = abs(dd_budget)
+    return _result(w, valid_np, ret, dd_p95, budget)

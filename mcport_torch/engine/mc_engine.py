@@ -7,7 +7,7 @@ keyed ``int32(seed + (b+1) * SEED_STRIDE)``, blocks fold into the accumulators
 left to right, and a checkpoint is ``(next_block, moments, histogram)``. A run
 split by ``max_blocks`` and resumed is bit-identical to the one-shot run.
 
-A dispatch group of ``dispatch_blocks`` blocks is one launch of the
+A dispatch group of ``DISPATCH_BLOCKS`` blocks is one launch of the
 terminal-noise kernel; the blocks of the group then fold one by one, each on
 freshly allocated tensors of the same shape, so results do not depend on how
 blocks were grouped. The histogram counts are int64.
@@ -42,10 +42,13 @@ from mcport_torch.ops.quantile import (
     update_moments,
 )
 
-__all__ = ["BACKEND_TAG", "MCCheckpoint", "RiskReport", "run_resumable_mc",
-           "run_resumable_mc_with_recovery", "load_checkpoint"]
+__all__ = ["BACKEND_TAG", "DISPATCH_BLOCKS", "MCCheckpoint", "RiskReport",
+           "run_resumable_mc", "run_resumable_mc_with_recovery", "load_checkpoint"]
 
 BACKEND_TAG = "torch-philox"
+
+#: blocks per kernel launch; grouping never changes results
+DISPATCH_BLOCKS = 16
 
 
 def _host_f64(x) -> np.ndarray:
@@ -153,7 +156,6 @@ def run_resumable_mc(
     checkpoint: MCCheckpoint | None = None,
     max_blocks: int | None = None,
     checkpoint_path: str | Path | None = None,
-    dispatch_blocks: int = 16,
     hedge=None,
     *,
     device: str | torch.device = "cuda",
@@ -163,7 +165,7 @@ def run_resumable_mc(
     ``sketch=None`` derives the covering log1p sketch from the parameters
     (:func:`mcport_torch.ops.quantile.auto_sketch`); a resumed run reuses the
     checkpoint's. ``max_blocks`` bounds this call's work; pass the returned
-    checkpoint (or its saved file) to continue. ``dispatch_blocks`` blocks go
+    checkpoint (or its saved file) to continue. ``DISPATCH_BLOCKS`` blocks go
     to the device in one kernel launch; grouping never changes results.
     ``config.use_pallas`` is not read: on a CUDA device the kernel always
     runs, on the CPU its plain torch form.
@@ -227,7 +229,7 @@ def run_resumable_mc(
     stop = n_blocks if max_blocks is None else min(n_blocks, start + max_blocks)
     b = start
     while b < stop:
-        group = min(dispatch_blocks, stop - b)
+        group = min(DISPATCH_BLOCKS, stop - b)
         terms = block_terminal_log_returns(
             ck.seed, mean_step, chol_step, block_paths, config.n_steps,
             first_block=b, n_blocks=group, antithetic=config.antithetic,

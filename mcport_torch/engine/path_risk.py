@@ -1,29 +1,44 @@
-"""Path-dependent risk: the max-drawdown distribution of a GBM portfolio.
+"""Path-dependent risk: the max-drawdown distribution of a portfolio under
+GBM, CCC-GARCH and stationary-bootstrap paths.
 
-Port of the GBM and Student-t branches of ``mcport/engine/path_risk.py``. The
-path-stats kernel (:func:`mcport_torch.ops.path_stats.gbm_path_stats`) evolves
-every path and returns its portfolio terminal return and maximum drawdown
-(:func:`stats_from_log_paths`, mcport's ``_stats_from_log_paths``, is the
-same reduction on materialised log paths: the kernel's plain form);
-the engine folds them block by block into two int64 histogram sketches
+Port of the GBM, Student-t, GARCH and bootstrap branches of
+``mcport/engine/path_risk.py``. Each family has a block function
+(mcport's ``_block_fn_for``) that evolves every path of a dispatch group on
+its kernel and returns the portfolio's terminal return and maximum drawdown
+per path:
+
+- "gbm" and "student_t": the path-stats kernel
+  (:func:`mcport_torch.ops.path_stats.gbm_path_stats`; :func:`stats_from_log_paths`,
+  mcport's ``_stats_from_log_paths``, is the same reduction on materialised
+  log paths);
+- "garch": the GARCH candidate kernel with one candidate
+  (:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`);
+- "bootstrap": the bootstrap candidate kernel with one candidate
+  (:func:`mcport_torch.ops.bootstrap.bootstrap_multi_portfolio_dd`).
+
+The engine folds them block by block into two int64 histogram sketches
 (terminal return for VaR/CVaR, drawdown for its quantiles) and two sums, on
 the device, without a host synchronisation per block.
 
 Like the terminal engine (:mod:`mcport_torch.engine.mc_engine`), the result is
-a deterministic function of (parameters, weights, seed, grid): block ``b``
-draws the Philox stream keyed ``int32(seed + (b+1) * SEED_STRIDE)``, a
+a deterministic function of (family, parameters, weights, seed, grid): block
+``b`` draws the Philox stream keyed ``int32(seed + (b+1) * SEED_STRIDE)``, a
 dispatch group of ``DISPATCH_BLOCKS`` blocks is one kernel launch, and the
 blocks fold left to right, so a run split by ``max_blocks`` and resumed is
-bit-identical to the one-shot run. The checkpoint digest carries the backend
-tag ``torch-philox``: mcport's checkpoints are refused.
+bit-identical to the one-shot run. The checkpoint digest binds the family and
+its arrays and carries the backend tag ``torch-philox``: another family's or
+mcport's checkpoints are refused.
 
-Rebalancing defaults follow mcport: :func:`run_path_risk` holds the initial
-allocation (buy-and-hold), :func:`run_resumable_path_risk` rebalances every
-step.
+Rebalancing follows mcport: :func:`run_path_risk` holds the initial GBM
+allocation (buy-and-hold) by default, :func:`run_resumable_path_risk`
+rebalances every step, and the GARCH and bootstrap families always compound
+per-period rebalanced wealth (their paths are simple-return recursions).
+The bootstrap's default terminal sketch is the covering log1p range of its
+history.
 
 Not ported yet (raise ``NotImplementedError``): hedged settlement, quasi-MC
-paths (``qmc``), bootstrap error bars (``ci_boot``), the non-GBM families
-and ``run_resumable_path_risk_with_recovery``.
+paths (``qmc``), bootstrap error bars (``ci_boot``), the DCC, jump and Heston
+families and ``run_resumable_path_risk_with_recovery``.
 """
 
 from __future__ import annotations
@@ -39,13 +54,18 @@ import torch
 from mcport_torch.config import GBMConfig, SketchConfig
 from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import BACKEND_TAG
+from mcport_torch.models.bootstrap import _auto_sketch_from_history
+from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
+from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.multi_dd import multi_dd_from_log_paths
 from mcport_torch.ops.path_stats import gbm_path_stats
 from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
 
-__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "UNPORTED_FAMILIES", "PathRiskReport",
-           "PathRiskCheckpoint", "run_path_risk", "run_resumable_path_risk",
+__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "UNPORTED_FAMILIES",
+           "PathRiskReport", "PathRiskCheckpoint", "run_path_risk", "run_garch_path_risk",
+           "run_bootstrap_path_risk", "run_resumable_path_risk",
            "run_resumable_path_risk_with_recovery", "load_path_risk_checkpoint",
            "stats_from_log_paths"]
 
@@ -55,8 +75,9 @@ DD_SKETCH = SketchConfig(n_bins=4096, lo=-1.0, hi=0.0)
 #: blocks per kernel launch; grouping never changes results
 DISPATCH_BLOCKS = 16
 
-#: mcport's other path families: not ported yet (they need their own kernels)
-UNPORTED_FAMILIES = ("garch", "dcc", "jump", "heston", "bootstrap")
+#: mcport's path families, and those not ported yet (they need their own kernels)
+FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
+UNPORTED_FAMILIES = ("dcc", "jump", "heston")
 
 
 @dataclass(frozen=True)
@@ -135,13 +156,20 @@ def _host_f64(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, np.float64))
 
 
-def _digest(model: str, params: GBMParams, weights, config: GBMConfig,
-            rebalance: bool) -> str:
-    """Binds a checkpoint to its computation: model, parameters, weights,
-    seed, grid, shock law, rebalancing, normal tier and the backend (mcport's
-    ``_model_digest`` fields, with the port's stream tag)."""
+def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: bool,
+            p_restart: float) -> str:
+    """Binds a checkpoint to its computation: family, its parameter arrays,
+    weights, seed, grid, shock law, rebalancing, normal tier and the backend
+    (mcport's ``_model_digest`` fields, with the port's stream tag)."""
     h = hashlib.sha256(model.encode())
-    for arr in (params.mean_step, params.chol_step, params.s0, weights):
+    if model in ("gbm", "student_t"):
+        arrays = (model_params.mean_step, model_params.chol_step, model_params.s0)
+    elif model == "garch":
+        p = model_params
+        arrays = (p.mu, p.omega, p.alpha, p.beta, p.corr_chol, p.sigma2_0, p.eps2_0)
+    else:
+        arrays = (model_params, [p_restart])
+    for arr in (*arrays, weights):
         h.update(_host_f64(arr).tobytes())
     h.update(f"{config.seed}|{config.n_steps}|{config.n_paths}|{config.path_block}|"
              f"{config.innovations}|{config.t_dof}|{rebalance}|{BACKEND_TAG}".encode())
@@ -182,24 +210,57 @@ def stats_from_log_paths(paths: torch.Tensor, weights: torch.Tensor,
     return port[..., 0, :], dd[..., 0, :]
 
 
-def _fold(state, params: GBMParams, weights, config: GBMConfig, t_df, rebalance: bool,
-          sketch: SketchConfig, dd_sketch: SketchConfig, start: int, stop: int,
-          dev: torch.device, on_group=None):
+def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: bool,
+              p_restart: float, dev: torch.device):
+    """``(block_fn, default_sketch)`` for ``model`` — mcport's
+    ``_block_fn_for``. ``block_fn(first_block, n_blocks)`` launches one
+    dispatch group and returns ``(port, dd)``, each ``(n_blocks,
+    path_block)``."""
+    w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
+    n, steps, seed = config.path_block, config.n_steps, config.seed
+    if model in ("gbm", "student_t"):
+        mean = torch.as_tensor(_host_f64(model_params.mean_step), device=dev).to(torch.float32)
+        chol = torch.as_tensor(_host_f64(model_params.chol_step), device=dev).to(torch.float32)
+        t_df = (float(config.t_dof)
+                if config.innovations == "student_t" or model == "student_t" else None)
+
+        def block_fn(b, group):
+            _, port, dd = gbm_path_stats(seed, mean, chol, w, n, steps, first_block=b,
+                                         n_blocks=group, rebalance=rebalance, t_df=t_df,
+                                         bm=config.bm, terminal=False)
+            return port, dd
+
+        return block_fn, SketchConfig()
+    if model == "garch":
+        g = model_params.tensors(dev)
+
+        def block_fn(b, group):
+            term, dd = garch_multi_portfolio_dd(seed, g, w[None], n, steps, first_block=b,
+                                                n_blocks=group)
+            return term[:, 0], dd[:, 0]
+
+        return block_fn, SketchConfig()
+    hist = torch.as_tensor(_host_f64(model_params), device=dev).to(torch.float32)
+
+    def block_fn(b, group):
+        term, dd = bootstrap_multi_portfolio_dd(seed, hist, w[None], n, steps, p_restart,
+                                                first_block=b, n_blocks=group)
+        return term[:, 0], dd[:, 0]
+
+    return block_fn, _auto_sketch_from_history(_host_f64(model_params), steps)
+
+
+def _fold(state, block_fn, config: GBMConfig, sketch: SketchConfig,
+          dd_sketch: SketchConfig, start: int, stop: int, on_group=None):
     """Fold blocks ``start .. stop-1`` into ``state = (h_port, h_dd, s_port,
     s_dd)`` (device tensors); ``on_group(next_block, state)`` runs after each
     dispatch group."""
     dtype = getattr(torch, config.dtype)
-    mean = torch.as_tensor(_host_f64(params.mean_step), device=dev).to(torch.float32)
-    chol = torch.as_tensor(_host_f64(params.chol_step), device=dev).to(torch.float32)
-    w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
     h_port, h_dd, s_port, s_dd = state
     b = start
     while b < stop:
         group = min(DISPATCH_BLOCKS, stop - b)
-        _, port, dd = gbm_path_stats(
-            config.seed, mean, chol, w, config.path_block, config.n_steps,
-            first_block=b, n_blocks=group, rebalance=rebalance, t_df=t_df,
-            bm=config.bm, terminal=False)
+        port, dd = block_fn(b, group)
         for pb, db in zip(port.to(dtype), dd.to(dtype)):
             h_port = h_port + histogram(pb, sketch)
             h_dd = h_dd + histogram(db, dd_sketch)
@@ -225,6 +286,19 @@ def _n_blocks(config: GBMConfig) -> int:
     return config.n_paths // config.path_block
 
 
+def _one_shot(model, model_params, weights, config: GBMConfig, sketch, dd_sketch,
+              alpha: float, rebalance: bool, p_restart: float, device) -> PathRiskReport:
+    n_blocks = _n_blocks(config)
+    dev = resolve_device(device)
+    dtype = getattr(torch, config.dtype)
+    block_fn, default_sketch = _block_fn(model, model_params, weights, config, rebalance,
+                                         p_restart, dev)
+    sketch = default_sketch if sketch is None else sketch
+    state = _fold(_empty_state(sketch, dd_sketch, dtype, dev), block_fn, config, sketch,
+                  dd_sketch, 0, n_blocks)
+    return _report(*state, config.n_paths, alpha, sketch, dd_sketch, dtype)
+
+
 def run_path_risk(
     params: GBMParams,
     weights,
@@ -246,18 +320,58 @@ def run_path_risk(
     Student-t shocks at ``config.t_dof``; ``config.bm`` picks the normal tier.
     """
     _check_unported(config, hedge)
-    n_blocks = _n_blocks(config)
-    dev = resolve_device(device)
-    dtype = getattr(torch, config.dtype)
-    t_df = float(config.t_dof) if config.innovations == "student_t" else None
-    state = _fold(_empty_state(sketch, dd_sketch, dtype, dev), params, weights, config,
-                  t_df, rebalance, sketch, dd_sketch, 0, n_blocks, dev)
-    return _report(*state, config.n_paths, alpha, sketch, dd_sketch, dtype)
+    return _one_shot("gbm", params, weights, config, sketch, dd_sketch, alpha, rebalance,
+                     0.2, device)
+
+
+def run_garch_path_risk(
+    params: CCCGarchParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig = SketchConfig(),
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    s0=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk under CCC-GARCH(1,1) paths on ``device``: terminal
+    VaR/CVaR plus the max-drawdown distribution of one portfolio compounding
+    per-period rebalanced wealth. Normal shocks, as mcport's (the config's
+    innovations enter only the checkpoint digest). ``s0`` is mcport's
+    argument for hedged runs, which are not ported."""
+    _check_unported(config, hedge)
+    return _one_shot("garch", params, weights, config, sketch, dd_sketch, alpha, True,
+                     0.2, device)
+
+
+def run_bootstrap_path_risk(
+    returns,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    p_restart: float = 0.2,
+    sketch: SketchConfig | None = None,
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    s0=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk under stationary-bootstrap resampling of the (T,
+    A) history ``returns`` on ``device``: terminal VaR/CVaR plus the
+    max-drawdown distribution of one portfolio compounding per-period
+    rebalanced wealth. ``sketch=None`` derives the covering log1p terminal
+    sketch of the history (valid for any simplex weights)."""
+    _check_unported(config, hedge)
+    return _one_shot("bootstrap", returns, weights, config, sketch, dd_sketch, alpha, True,
+                     p_restart, device)
 
 
 def run_resumable_path_risk(
     model: str,
-    model_params: GBMParams,
+    model_params,
     weights,
     config: GBMConfig = GBMConfig(),
     sketch: SketchConfig | None = None,
@@ -273,28 +387,30 @@ def run_resumable_path_risk(
     *,
     device: str | torch.device = "cuda",
 ) -> tuple[PathRiskReport, PathRiskCheckpoint]:
-    """Checkpointable path risk for ``model`` "gbm" or "student_t" (GBM
-    drift and covariance with unit-variance t shocks at ``config.t_dof``).
+    """Checkpointable path risk for ``model``: "gbm", "student_t" (GBM drift
+    and covariance with unit-variance t shocks at ``config.t_dof``), "garch"
+    (``model_params`` a :class:`CCCGarchParams`) or "bootstrap"
+    (``model_params`` the (T, A) history, ``p_restart`` its restart
+    probability); GARCH and bootstrap wealth is rebalanced every step.
 
     Returns ``(report, checkpoint)``; the report covers the blocks folded so
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
     ``checkpoint_path`` persists the state after every dispatch group. The
     digest binds a checkpoint to its computation and a mismatched resume
-    raises. ``s0`` and ``p_restart`` are mcport's arguments for hedged and
-    bootstrap runs, neither of which is ported.
+    raises. ``s0`` is mcport's argument for hedged runs, which are not ported.
     """
     if model in UNPORTED_FAMILIES:
         raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
-    if model not in ("gbm", "student_t"):
+    if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
     _check_unported(config, hedge)
     n_blocks = _n_blocks(config)
     dev = resolve_device(device)
     dtype = getattr(torch, config.dtype)
-    t_df = (float(config.t_dof)
-            if config.innovations == "student_t" or model == "student_t" else None)
-    digest = _digest(model, model_params, weights, config, rebalance)
+    digest = _digest(model, model_params, weights, config, rebalance, p_restart)
+    block_fn, default_sketch = _block_fn(model, model_params, weights, config, rebalance,
+                                         p_restart, dev)
 
     if checkpoint is not None:
         if (checkpoint.n_steps, checkpoint.block_paths, checkpoint.n_blocks) != (
@@ -303,7 +419,7 @@ def run_resumable_path_risk(
         if checkpoint.digest != digest:
             raise ValueError(
                 "checkpoint digest mismatch: this checkpoint was written for a "
-                "different computation (params/weights/config) or by another "
+                "different computation (family/params/weights/config) or by another "
                 "backend — refusing to resume it")
         sketch, dd_sketch = checkpoint.sketch, checkpoint.dd_sketch
         state = (torch.as_tensor(checkpoint.h_port, device=dev),
@@ -312,7 +428,7 @@ def run_resumable_path_risk(
                  torch.as_tensor(checkpoint.s_dd, device=dev).to(dtype))
         start = checkpoint.next_block
     else:
-        sketch = SketchConfig() if sketch is None else sketch
+        sketch = default_sketch if sketch is None else sketch
         state = _empty_state(sketch, dd_sketch, dtype, dev)
         start = 0
     stop = n_blocks if max_blocks is None else min(n_blocks, start + max_blocks)
@@ -329,8 +445,7 @@ def run_resumable_path_risk(
     def persist(next_block, st) -> None:
         snapshot(next_block, st).save(checkpoint_path)
 
-    state = _fold(state, model_params, weights, config, t_df, rebalance, sketch,
-                  dd_sketch, start, stop, dev,
+    state = _fold(state, block_fn, config, sketch, dd_sketch, start, stop,
                   on_group=persist if checkpoint_path is not None else None)
     ck = snapshot(stop, state)
     report = _report(*state, stop * config.path_block, alpha, sketch, dd_sketch, dtype)

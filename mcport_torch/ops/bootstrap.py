@@ -1,0 +1,322 @@
+"""Stationary block-bootstrap paths: the CUDA bootstrap kernels and their
+plain torch forms.
+
+Port of ``mcport/ops/pallas_bootstrap.py``, its unhedged modes. Two kernels
+(``csrc/bootstrap.cu``) replace ``_bootstrap_kernel`` and
+``_bootstrap_dd_kernel``. Each path resamples rows of a ``(T, A)`` history of
+per-period simple returns (Politis-Romano, circular): from a uniform start
+row, every step either restarts at a uniform row (probability ``p_restart``)
+or advances to the next row, wrapping at ``T``; then
+
+- :func:`bootstrap_terminal` compounds every asset, ``gross *= 1 + row`` → the
+  terminal simple returns ``gross - 1``;
+- :func:`bootstrap_multi_portfolio_dd` compounds ``W`` candidates' per-period
+  rebalanced wealth ``V *= 1 + w·row`` with the running peak and maximum
+  drawdown.
+
+The uniforms come from Philox on ``STREAM_BOOT``, key the block seed, counter
+``(call, 0, path, STREAM_BOOT)``: call 0 word 0 gives the start row, call
+``1 + s // 2`` gives step ``s`` its (restart, jump) pair, words (0, 1) for an
+even step and (2, 3) for an odd one. With ``m = bits >> 9`` (23 bits) the
+restart test is ``m · 2^-23 < p_restart`` in float32 and the jump row is ``⌊m ·
+T / 2^23⌋`` in integers, both exact on either side. So the kernels and the
+plain forms select identical rows, and the terminal kernel equals its plain
+form bit for bit (``gross *= 1 + row`` has no contraction). TPU workarounds
+are not ported: the one-hot matmul gather and its 3-way bf16 split; the
+history sits in the kernels' shared memory and selection is a load.
+
+Each wrapper dispatches on the device of its tensors: the CPU goes to the
+plain form, a CUDA device launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mcport_torch.ops.gbm import block_seeds
+from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+from mcport_torch.rng import STREAM_BOOT, philox4x32
+
+__all__ = [
+    "MAX_BOOT_ASSETS",
+    "SHARED_BYTES",
+    "bootstrap_indices",
+    "bootstrap_terminal_reference",
+    "bootstrap_terminal",
+    "bootstrap_multi_dd_reference",
+    "bootstrap_multi_portfolio_dd",
+    "bootstrap_shares",
+]
+
+#: Widest universe the bootstrap kernels take.
+MAX_BOOT_ASSETS = 64
+#: Shared memory one block of the kernels may hold: the H100's 227 KB per block.
+SHARED_BYTES = 232_448
+_EPS = 2.0 ** -24    # float32 unit roundoff
+_TILE_P = 16         # paths per block of the candidate kernel
+
+
+def _check(hist: torch.Tensor, n_paths: int, n_steps: int, n_blocks: int) -> tuple[int, int]:
+    if hist.dtype != torch.float32 or hist.dim() != 2 or hist.shape[0] < 1:
+        raise ValueError(f"the history must be a (T >= 1, A) float32 matrix, got "
+                         f"{tuple(hist.shape)} {hist.dtype}")
+    t_len, a = hist.shape
+    if not 1 <= a <= MAX_BOOT_ASSETS:
+        raise ValueError(f"the bootstrap kernels take 1..{MAX_BOOT_ASSETS} assets, got {a}")
+    if not 0 <= n_paths < 2**31 or n_steps < 0 or not 1 <= n_blocks <= 65_535:
+        raise ValueError(f"bad grid: n_paths={n_paths}, n_steps={n_steps}, "
+                         f"n_blocks={n_blocks}")
+    return t_len, a
+
+
+def _check_shared(nbytes: int, t_len: int, a: int) -> None:
+    if nbytes > SHARED_BYTES:
+        raise ValueError(f"a {t_len} x {a} history needs {nbytes} bytes of shared memory "
+                         f"in the bootstrap kernels, more than a block's {SHARED_BYTES}; "
+                         "resample a shorter window")
+
+
+def bootstrap_indices(
+    seed: int,
+    t_len: int,
+    n_paths: int,
+    n_steps: int,
+    p_restart: float,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+    device: torch.device | str,
+) -> torch.Tensor:
+    """The history row of every step on the kernels' counters → ``(n_blocks,
+    n_paths, n_steps)`` int64, for paths ``first_path ..`` of each block."""
+    dev = torch.device(device)
+    keys = torch.tensor(block_seeds(seed, first_block, n_blocks), dtype=torch.int64,
+                        device=dev).view(-1, 1)
+    path = torch.arange(first_path, first_path + n_paths, dtype=torch.int64,
+                        device=dev).view(1, -1)
+    p32 = torch.tensor(p_restart, dtype=torch.float32, device=dev)
+
+    def call(c: int):
+        words = philox4x32((c, 0, path, STREAM_BOOT), (keys, 0))
+        return [w.expand(n_blocks, n_paths) >> 9 for w in words]   # 23-bit integers
+
+    def jump(m):
+        return (m * t_len) >> 23
+
+    idx = jump(call(0)[0])
+    out = []
+    for s in range(n_steps):
+        if s % 2 == 0:
+            m = call(1 + s // 2)
+        m_restart, m_jump = m[2 * (s % 2)], m[2 * (s % 2) + 1]
+        nxt = idx + 1
+        nxt = torch.where(nxt == t_len, 0, nxt)
+        restart = m_restart.to(torch.float32) * 2.0 ** -23 < p32
+        idx = torch.where(restart, jump(m_jump), nxt)
+        out.append(idx)
+    if not out:
+        return torch.zeros((n_blocks, n_paths, 0), dtype=torch.int64, device=dev)
+    return torch.stack(out, dim=-1)
+
+
+def bootstrap_terminal_reference(
+    seed: int,
+    hist: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    p_restart: float = 0.2,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> torch.Tensor:
+    """Plain torch form of the bootstrap terminal kernel: terminal simple
+    returns ``(n_blocks, n_paths, A)`` float32 for paths ``first_path ..`` of
+    each block. Runs on any device; the tests use it on the CPU and
+    ``chip_smoke.py`` holds the kernel against it, bit for bit, on the card."""
+    t_len, a = _check(hist, n_paths, n_steps, n_blocks)
+    idx = bootstrap_indices(seed, t_len, n_paths, n_steps, p_restart,
+                            first_block=first_block, n_blocks=n_blocks,
+                            first_path=first_path, device=hist.device)
+    gross = torch.ones((n_blocks, n_paths, a), dtype=torch.float32, device=hist.device)
+    for t in range(n_steps):
+        gross = gross * (1.0 + hist[idx[..., t]])
+    return gross - 1.0
+
+
+def _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    t_len, a = hist.shape
+    _check_shared(4 * t_len * a, t_len, a)
+    lib = library("bootstrap")
+    out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=hist.device)
+    if n_paths == 0:
+        return out
+    hist = hist.contiguous()
+    with torch.cuda.device(hist.device):
+        stream = torch.cuda.current_stream(hist.device).cuda_stream
+        err = lib.mcport_bootstrap_terminal(
+            seed, first_block, n_blocks, n_paths, t_len, a, n_steps, float(p_restart),
+            hist.data_ptr(), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"bootstrap terminal kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    bootstrap_terminal.launches += 1
+    return out
+
+
+def bootstrap_terminal(
+    seed: int,
+    hist: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    p_restart: float = 0.2,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> torch.Tensor:
+    """Terminal simple returns ``(n_blocks, n_paths, A)`` float32 of
+    stationary-bootstrap paths over the history ``hist (T, A)`` for the blocks
+    ``first_block + 1 .. first_block + n_blocks`` of a run seeded ``seed`` (one
+    block keyed by ``seed`` itself by default) — mcport's
+    ``pallas_bootstrap_terminal_returns``; expected block length
+    ``1 / p_restart``.
+
+    A history on a CUDA device launches the kernel, counted in
+    ``bootstrap_terminal.launches``; on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take (a history too large for a
+    block's shared memory), raises.
+    """
+    _check(hist, n_paths, n_steps, n_blocks)
+    if hist.device.type == "cpu":
+        return bootstrap_terminal_reference(seed, hist, n_paths, n_steps, p_restart,
+                                            first_block=first_block, n_blocks=n_blocks)
+    if hist.device.type != "cuda":
+        raise ValueError(f"no bootstrap kernel for device {hist.device}")
+    return _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blocks)
+
+
+bootstrap_terminal.launches = 0
+
+
+def bootstrap_multi_dd_reference(
+    seed: int,
+    hist: torch.Tensor,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    p_restart: float = 0.2,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of the bootstrap candidate kernel: ``(term, dd)``,
+    each ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of
+    each block."""
+    t_len, _ = _check(hist, n_paths, n_steps, n_blocks)
+    idx = bootstrap_indices(seed, t_len, n_paths, n_steps, p_restart,
+                            first_block=first_block, n_blocks=n_blocks,
+                            first_path=first_path, device=hist.device)
+    return rebalanced_dd(hist[idx], weights)
+
+
+def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    t_len, a = hist.shape
+    w_cnt = weights.shape[0]
+    w_pad = -(-w_cnt // 4) * 4
+    _check_shared(4 * (-(-t_len * a // 4) * 4 + a * w_pad + a * _TILE_P + 2 * _TILE_P),
+                  t_len, a)
+    lib = library("bootstrap")
+    term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
+    dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
+    if n_paths == 0:
+        return term, dd
+    hist, weights = hist.contiguous(), weights.contiguous()
+    with torch.cuda.device(hist.device):
+        stream = torch.cuda.current_stream(hist.device).cuda_stream
+        err = lib.mcport_bootstrap_multi_dd(
+            seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps,
+            float(p_restart), hist.data_ptr(), weights.data_ptr(), term.data_ptr(),
+            dd.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"bootstrap candidate kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    bootstrap_multi_portfolio_dd.launches += 1
+    return term, dd
+
+
+def bootstrap_multi_portfolio_dd(
+    seed: int,
+    hist: torch.Tensor,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    p_restart: float = 0.2,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
+    float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
+    wealth over the bootstrap paths of blocks ``first_block + 1 ..
+    first_block + n_blocks`` — mcport's ``pallas_bootstrap_path_stats``,
+    unhedged.
+
+    More than ``MAX_CANDIDATES`` candidates run as several launches over the
+    same paths. Tensors on a CUDA device launch the kernel, each launch
+    counted in ``bootstrap_multi_portfolio_dd.launches``; on the CPU the plain
+    form runs. Any other device, or a problem the kernel does not take, raises.
+    """
+    _, a = _check(hist, n_paths, n_steps, n_blocks)
+    w = weights.to(torch.float32)
+    if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != hist.device:
+        raise ValueError(f"weights must be (W >= 1, {a}) on {hist.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    if hist.device.type == "cpu":
+        return bootstrap_multi_dd_reference(seed, hist, w, n_paths, n_steps, p_restart,
+                                            first_block=first_block, n_blocks=n_blocks)
+    if hist.device.type != "cuda":
+        raise ValueError(f"no bootstrap kernel for device {hist.device}")
+    parts = [_launch_dd(seed, hist, w[i:i + MAX_CANDIDATES], n_paths, n_steps, p_restart,
+                        first_block, n_blocks)
+             for i in range(0, w.shape[0], MAX_CANDIDATES)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
+
+
+bootstrap_multi_portfolio_dd.launches = 0
+
+
+def bootstrap_shares(kernel, plain, hist: torch.Tensor, weights: torch.Tensor,
+                     n_steps: int) -> dict[str, float]:
+    """The largest share of its bound that ``|kernel - plain|`` of the
+    candidate kernel uses, per output ``{"term", "dd"}`` (``inf`` for a
+    non-finite kernel value).
+
+    Both sides select the same rows; they differ only in the order of the
+    score's float32 sum over assets, at most ``A · 2^-24 · h`` per step with
+    ``h`` the largest ``Σ_a |w_a| |row_a|``, and the roundings of ``1 + f``
+    and the product (two of 2^-24). Over ``n`` steps these add up like a
+    random walk; with a factor 4 of headroom ``rel = 4 sqrt(n) 2^-24 (2 + A
+    h)`` bounds the value relatively, ``|Δterm| <= rel (1 + |term|)`` and
+    ``|Δdd| <= 2 rel``."""
+    a = hist.shape[1]
+    h = float((weights.abs().sum(dim=1).max() * hist.abs().max()).cpu())
+    rel = 4.0 * math.sqrt(max(n_steps, 1)) * _EPS * (2.0 + a * h)
+    out = {}
+    for i, name in enumerate(("term", "dd")):
+        k, p = kernel[i], plain[i]
+        if not bool(torch.isfinite(k).all()):
+            out[name] = math.inf
+            continue
+        tol = rel * (1.0 + p.abs()) if name == "term" else torch.full_like(p, 2.0 * rel)
+        out[name] = float(((k - p).abs() / tol).max()) if k.numel() else 0.0
+    return out

@@ -1,0 +1,332 @@
+"""CCC-GARCH(1,1) paths: the CUDA GARCH kernels and their plain torch forms.
+
+Port of ``mcport/ops/pallas_garch.py``, its unhedged modes. Two kernels
+(``csrc/garch.cu``) replace ``_garch_kernel`` and ``_garch_dd_kernel``: per
+path and step they correlate the shocks with the Cholesky factor ``L_R`` of the
+constant correlation, ``zc = L_R z``, update the conditional variance
+``sigma2 = omega + alpha eps2_prev + beta sigma2``, draw the innovation ``eps =
+sqrt(max(sigma2, 0)) zc`` and the return ``r = mu + eps``; then
+
+- :func:`garch_terminal` compounds every asset, ``cum *= 1 + mu + eps`` → the
+  terminal simple returns ``cum - 1``;
+- :func:`garch_multi_portfolio_dd` compounds ``W`` candidate portfolios'
+  per-period rebalanced wealth ``V *= 1 + w·r`` (float32, mcport's
+  ``score_dot``) with the running peak and maximum drawdown.
+
+The shocks are the GBM kernels' normals on ``STREAM_GBM``
+(:func:`mcport_torch.ops.gbm.step_shocks`), so the plain forms are
+``step_shocks`` followed by :func:`garch_innovations`. The terminal
+kernel also takes unit-variance Student-t shocks (mcport's GARCH-t lax
+sampler): ``t_df`` folds the ``1/sqrt(df/(df-2))`` scale into ``L_R``. The
+candidate kernel draws normal shocks only, as mcport's does.
+
+Each wrapper dispatches on the device of its tensors: the CPU goes to the
+plain form, a CUDA device launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mcport_torch.ops.gbm import _BM_CODE, _T_CODE, _check_args, step_shocks, t_scaled_chol
+from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+
+__all__ = [
+    "MAX_GARCH_ASSETS",
+    "GarchTensors",
+    "correlated_shocks",
+    "garch_innovations",
+    "garch_terminal_reference",
+    "garch_terminal",
+    "garch_multi_dd_reference",
+    "garch_multi_portfolio_dd",
+    "garch_tolerance",
+    "garch_shares",
+]
+
+#: Widest universe the GARCH kernels take (one path's state in registers).
+MAX_GARCH_ASSETS = 16
+
+_EPS = 2.0 ** -24    # float32 unit roundoff
+
+
+class GarchTensors(NamedTuple):
+    """CCC-GARCH(1,1) parameters as float32 tensors on one device: ``mu``,
+    ``omega``, ``alpha``, ``beta``, ``sigma2_0``, ``eps2_0`` (A,) and
+    ``corr_chol`` (A, A), the lower Cholesky factor of the correlation."""
+
+    mu: torch.Tensor
+    omega: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    corr_chol: torch.Tensor
+    sigma2_0: torch.Tensor
+    eps2_0: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.corr_chol.device
+
+    def packed(self, chol: torch.Tensor) -> torch.Tensor:
+        """The kernels' parameter block: ``chol`` (A·A, row-major), then mu,
+        omega, alpha, beta, sigma2_0, eps2_0 (A each), float32, contiguous."""
+        return torch.cat([chol.reshape(-1), self.mu, self.omega, self.alpha, self.beta,
+                          self.sigma2_0, self.eps2_0]).contiguous()
+
+
+def _check(g: GarchTensors, n_paths: int, n_steps: int, n_blocks: int, t_df) -> int:
+    a = g.corr_chol.shape[0]
+    if not 1 <= a <= MAX_GARCH_ASSETS:
+        raise ValueError(f"the GARCH kernels take 1..{MAX_GARCH_ASSETS} assets, got {a}")
+    for name, x in g._asdict().items():
+        want = (a, a) if name == "corr_chol" else (a,)
+        if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != g.device:
+            raise ValueError(f"GARCH parameter {name} must be float32 {want} on "
+                             f"{g.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_args(g.corr_chol, n_paths, n_steps, n_blocks, "poly", t_df)
+    return a
+
+
+def garch_innovations(zc: torch.Tensor, g: GarchTensors) -> torch.Tensor:
+    """Innovations ``eps_t`` ``(..., T, A)`` from correlated shocks ``zc
+    (..., T, A)``: ``sigma2_t = omega + alpha eps_{t-1}^2 + beta
+    sigma2_{t-1}`` from ``(sigma2_0, eps2_0)``, ``eps_t = sqrt(max(sigma2_t,
+    0)) zc_t`` — the variance recursion of mcport's ``_garch_kernel``, in its
+    order of operations. The step's return is ``mu + eps_t``."""
+    s2 = g.sigma2_0.expand(zc.shape[:-2] + zc.shape[-1:])
+    e2 = g.eps2_0.expand_as(s2)
+    out = []
+    for t in range(zc.shape[-2]):
+        s2 = g.omega + g.alpha * e2 + g.beta * s2
+        eps = torch.sqrt(torch.clamp_min(s2, 0.0)) * zc[..., t, :]
+        e2 = eps * eps
+        out.append(eps)
+    if not out:
+        return zc.new_zeros(zc.shape)
+    return torch.stack(out, dim=-2)
+
+
+def correlated_shocks(seed: int, g: GarchTensors, n_paths: int, n_steps: int, *,
+                      first_block: int = -1, n_blocks: int = 1, first_path: int = 0,
+                      t_df: float | None = None) -> torch.Tensor:
+    """``zc = L_R z`` ``(n_blocks, n_paths, n_steps, A)`` on the kernels'
+    counters (``t_df``: unit-variance Student-t shocks); like the kernels,
+    only the lower triangle of ``L_R`` is read."""
+    chol = torch.tril(t_scaled_chol(g.corr_chol, t_df))
+    z = step_shocks(seed, chol.shape[0], n_paths, n_steps, first_block=first_block,
+                    n_blocks=n_blocks, first_path=first_path, t_df=t_df, device=g.device)
+    return z @ chol.T
+
+
+def garch_terminal_reference(
+    seed: int,
+    g: GarchTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+    t_df: float | None = None,
+) -> torch.Tensor:
+    """Plain torch form of the GARCH terminal kernel: terminal simple returns
+    ``(n_blocks, n_paths, A)`` float32 for paths ``first_path ..`` of each
+    block. Runs on any device; the tests use it on the CPU and
+    ``chip_smoke.py`` holds the kernel against it on the card."""
+    _check(g, n_paths, n_steps, n_blocks, t_df)
+    zc = correlated_shocks(seed, g, n_paths, n_steps, first_block=first_block,
+                           n_blocks=n_blocks, first_path=first_path, t_df=t_df)
+    eps = garch_innovations(zc, g)
+    cum = torch.ones_like(eps[..., 0, :])
+    one_mu = 1.0 + g.mu
+    for t in range(n_steps):
+        cum = cum * (one_mu + eps[..., t, :])   # mcport's 1.0 + mu + eps
+    return cum - 1.0
+
+
+def _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df):
+    from mcport_torch._build import library
+
+    lib = library("garch")
+    a = g.corr_chol.shape[0]
+    out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=g.device)
+    if n_paths == 0:
+        return out
+    params = g.packed(t_scaled_chol(g.corr_chol, t_df))
+    df = 0.0 if t_df is None else float(t_df)
+    neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.mcport_garch_terminal(
+            seed, first_block, n_blocks, n_paths, a, n_steps,
+            _T_CODE if t_df is not None else _BM_CODE["poly"], df, neg2_over_df,
+            params.data_ptr(), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"GARCH terminal kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    garch_terminal.launches += 1
+    return out
+
+
+def garch_terminal(
+    seed: int,
+    g: GarchTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    t_df: float | None = None,
+) -> torch.Tensor:
+    """Terminal simple returns ``(n_blocks, n_paths, A)`` float32 of CCC-GARCH
+    paths for the blocks ``first_block + 1 .. first_block + n_blocks`` of a run
+    seeded ``seed`` (one block keyed by ``seed`` itself by default) —
+    mcport's ``pallas_garch_terminal_returns``. ``t_df`` draws unit-variance
+    Student-t shocks.
+
+    Parameters on a CUDA device launch the kernel, counted in
+    ``garch_terminal.launches``; on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
+    """
+    _check(g, n_paths, n_steps, n_blocks, t_df)
+    if g.device.type == "cpu":
+        return garch_terminal_reference(seed, g, n_paths, n_steps, first_block=first_block,
+                                        n_blocks=n_blocks, t_df=t_df)
+    if g.device.type != "cuda":
+        raise ValueError(f"no GARCH kernel for device {g.device}")
+    return _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df)
+
+
+garch_terminal.launches = 0
+
+
+def garch_multi_dd_reference(
+    seed: int,
+    g: GarchTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of the GARCH candidate kernel: ``(term, dd)``, each
+    ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
+    block."""
+    _check(g, n_paths, n_steps, n_blocks, None)
+    zc = correlated_shocks(seed, g, n_paths, n_steps, first_block=first_block,
+                           n_blocks=n_blocks, first_path=first_path)
+    return rebalanced_dd(g.mu + garch_innovations(zc, g), weights)
+
+
+def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    lib = library("garch")
+    w_cnt, a = weights.shape
+    term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=g.device)
+    dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=g.device)
+    if n_paths == 0:
+        return term, dd
+    params = g.packed(g.corr_chol)
+    weights = weights.contiguous()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.mcport_garch_multi_dd(
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, params.data_ptr(),
+            weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"GARCH candidate kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    garch_multi_portfolio_dd.launches += 1
+    return term, dd
+
+
+def garch_multi_portfolio_dd(
+    seed: int,
+    g: GarchTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
+    float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
+    wealth over the CCC-GARCH paths of blocks ``first_block + 1 ..
+    first_block + n_blocks`` — mcport's ``pallas_garch_path_stats``, unhedged.
+
+    More than ``MAX_CANDIDATES`` candidates run as several launches over the
+    same paths. Tensors on a CUDA device launch the kernel, each launch
+    counted in ``garch_multi_portfolio_dd.launches``; on the CPU the plain
+    form runs. Any other device, or a problem the kernel does not take, raises.
+    """
+    a = _check(g, n_paths, n_steps, n_blocks, None)
+    w = weights.to(torch.float32)
+    if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != g.device:
+        raise ValueError(f"weights must be (W >= 1, {a}) on {g.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    if g.device.type == "cpu":
+        return garch_multi_dd_reference(seed, g, w, n_paths, n_steps,
+                                        first_block=first_block, n_blocks=n_blocks)
+    if g.device.type != "cuda":
+        raise ValueError(f"no GARCH kernel for device {g.device}")
+    parts = [_launch_dd(seed, g, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
+                        n_blocks)
+             for i in range(0, w.shape[0], MAX_CANDIDATES)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
+
+
+garch_multi_portfolio_dd.launches = 0
+
+
+def garch_tolerance(g: GarchTensors, n_steps: int, t_df: float | None = None) -> torch.Tensor:
+    """Relative bound per asset ``(A,)`` on ``|kernel - plain form|`` of a
+    compounded GARCH value: ``|Δ| <= rel_i · (1 + |plain|)`` for the
+    terminal returns of :func:`garch_terminal`.
+
+    Per step the two sides differ by the draws (at most 2e-6 each, as
+    :func:`mcport_torch.ops.gbm.kernel_tolerance` has it, through ``Σ_j
+    |L_ij|`` and the volatility ``σ``) and by float32 rounding of the gross
+    return (two roundings of 2^-24); the differences add up like a random
+    walk over ``n`` steps, with a factor 4 of headroom. ``σ`` is three times
+    the largest of the start, the first step's and the unconditional
+    volatility.
+    """
+    chol = t_scaled_chol(g.corr_chol, t_df).to(torch.float64).cpu()
+    s2_first = g.omega + g.alpha * g.eps2_0 + g.beta * g.sigma2_0
+    persist = (g.alpha + g.beta).clamp_max(0.999)
+    s2_bar = torch.maximum(torch.maximum(g.sigma2_0, s2_first), g.omega / (1.0 - persist))
+    sigma = 3.0 * torch.sqrt(s2_bar.to(torch.float64).cpu())
+    per_step = 2.0 * _EPS + 2e-6 * sigma * chol.abs().sum(dim=1)
+    return (4.0 * math.sqrt(max(n_steps, 1)) * per_step).to(torch.float32)
+
+
+def garch_shares(kernel, plain, g: GarchTensors, n_steps: int,
+                 t_df: float | None = None) -> dict[str, float]:
+    """The largest share of its bound that ``|kernel - plain|`` uses →
+    ``{"term"}`` for a terminal tensor ``(..., A)``, ``{"term", "dd"}`` for a
+    candidate pair ``(term, dd)``: the candidates' values are held to the
+    largest asset bound plus ``8 · 2^-24 · (A + sqrt(n))`` for the score's sum
+    over assets and the product over steps, the drawdown to twice that.
+    Non-finite kernel values give ``inf``."""
+    rel = garch_tolerance(g, n_steps, t_df).to(g.device)
+
+    def share(k, p, tol):
+        if not bool(torch.isfinite(k).all()):
+            return math.inf
+        return float(((k - p).abs() / tol).max()) if k.numel() else 0.0
+
+    if isinstance(kernel, torch.Tensor):
+        return {"term": share(kernel, plain, rel * (1.0 + plain.abs()))}
+    a = g.corr_chol.shape[0]
+    r = float(rel.max()) + 8.0 * _EPS * (a + math.sqrt(max(n_steps, 1)))
+    return {"term": share(kernel[0], plain[0], r * (1.0 + plain[0].abs())),
+            "dd": share(kernel[1], plain[1], torch.full_like(plain[1], 2.0 * r))}

@@ -238,7 +238,12 @@ def sketch_tail_mean(counts: torch.Tensor, thresh: torch.Tensor,
                      config: SketchConfig = SketchConfig(), *,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Mean (return space) of the samples at or below ``thresh``: each bin
-    contributes its covered fraction at the midpoint of the covered part."""
+    contributes its covered fraction at the midpoint of the covered part.
+
+    Bins with nothing below the threshold contribute nothing. mcport weights
+    every bin's midpoint by its covered count, so a log1p sketch reaching past
+    ~88.7 (a long bootstrap of volatile assets) maps uncovered bins to an
+    infinite float32 midpoint and its CVaR to ``0 · inf = NaN``."""
     counts = counts.to(dtype)
     left, width = _edges(config, dtype, counts.device)
     thresh = torch.as_tensor(thresh, dtype=dtype, device=counts.device)
@@ -246,7 +251,8 @@ def sketch_tail_mean(counts: torch.Tensor, thresh: torch.Tensor,
     mid = _from_u(left + 0.5 * frac * width, config)
     tail_counts = counts * frac
     n_tail = tail_counts.sum()
-    mean_tail = torch.sum(tail_counts * mid) / torch.clamp_min(n_tail, 1.0)
+    covered = torch.where(tail_counts > 0, tail_counts * mid, torch.zeros_like(mid))
+    mean_tail = torch.sum(covered) / torch.clamp_min(n_tail, 1.0)
     return torch.where(n_tail > 0, mean_tail, thresh)
 
 

@@ -17,7 +17,9 @@ Stream layout (identical in ``csrc/terminal_noise.cu``):
 (``mcport/engine/mc_engine.py`` convention). ``draw`` indexes the Philox calls
 of one (path, asset) pair; how a sampler consumes the four words of a call is
 documented in :mod:`mcport_torch.ops.gbm`. ``STREAM_GBM`` tags the GBM shock
-stream so that later samplers can draw from the same seeds without overlap.
+stream (the GARCH kernels draw it too) and ``STREAM_BOOT`` the block
+bootstrap's uniforms, so that samplers keyed by the same seed never share a
+counter.
 
 uint32 values are carried in int64 tensors (torch's unsigned 32-bit type has
 too few operators); every step masks back to 32 bits, and the 32x32→64-bit
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "bits_to_unit", "STREAM_GBM"]
+__all__ = ["philox4x32", "bits_to_unit", "STREAM_GBM", "STREAM_BOOT"]
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -37,6 +39,7 @@ PHILOX_W1 = 0xBB67AE85
 _MASK32 = 0xFFFFFFFF
 
 STREAM_GBM = 0
+STREAM_BOOT = 1   # the block bootstrap's uniforms (mcport_torch/ops/bootstrap.py)
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -4,7 +4,10 @@ fixture universe, and the port's import boundary.
 ``gbm-risk`` reads ``fixtures/*Historical*.csv`` at ``--period D`` (14 assets)
 in both CLIs; their JSON carries the same keys and agrees within Monte Carlo
 error (the streams differ). ``path-risk``, ``dd-frontier`` and ``gbm-risk
---path-stats`` emit mcport's keys. A subprocess imports every
+--path-stats`` emit mcport's keys. ``garch-risk`` and ``bootstrap-risk`` read
+the weekly BTC/ETH fixtures (365 rows): the same keys, the same fitted GARCH
+parameters within 1e-4 (L-BFGS-B's reach, ``tests/test_torch_garch.py``),
+and VaR/CVaR/mean within Monte Carlo error. A subprocess imports every
 ``mcport_torch`` module and finds neither jax nor pandas loaded.
 """
 
@@ -135,7 +138,7 @@ def test_dd_frontier_cli_has_mcport_keys(csvs):
                                   "bfloat16", "--rebalance", "--device", "cpu"])
     assert t["innovations"].startswith("student_t (dof=")
     with pytest.raises(NotImplementedError, match="not ported"):
-        _run(port_main, common + ["--model", "garch", "--device", "cpu"])
+        _run(port_main, common + ["--model", "dcc", "--device", "cpu"])
 
 
 def test_gbm_risk_cli_path_stats_has_mcport_keys(csvs):
@@ -145,3 +148,73 @@ def test_gbm_risk_cli_path_stats_has_mcport_keys(csvs):
     ref = _run(ref_main, common)
     assert set(port) == set(ref) and set(port["max_drawdown"]) == set(ref["max_drawdown"])
     assert -1 <= port["max_drawdown"]["p95_worst"] <= port["max_drawdown"]["median"] <= 0
+
+
+# ---- the GARCH and bootstrap families ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def weekly(fixtures_dir):
+    return sorted(glob.glob(str(fixtures_dir / "*7 Years Weekly.csv")))
+
+
+def _within_mc(port, ref, keys, rel=0.05):
+    """VaR-like outputs of two independent 20,000-path runs: within 5% relative
+    plus an absolute 2e-3 (one estimate's error there is ~1%)."""
+    for k in keys:
+        assert abs(port[k] - ref[k]) <= rel * abs(ref[k]) + 2e-3, k
+
+
+def test_garch_risk_cli_matches_mcport(weekly):
+    common = ["garch-risk", *weekly, "--period", "W", "--paths", "20000", "--steps", "12",
+              "--seed", "1"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["model"] == ref["model"] == "ccc-garch(1,1)"
+    assert port["weights"] == ref["weights"] and port["n_paths"] == 20_000
+    np.testing.assert_allclose(port["garch_alpha"], ref["garch_alpha"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(port["garch_beta"], ref["garch_beta"], rtol=0, atol=1e-4)
+    _within_mc(port, ref, ("var", "cvar", "portfolio_mean_return"))
+    t = _run(port_main, common + ["--innovations", "student_t", "--device", "cpu"])
+    t_ref = _run(ref_main, common + ["--innovations", "student_t"])
+    assert t["model"] == t_ref["model"] and t["model"].startswith("ccc-garch(1,1)-t(dof=")
+    _within_mc(t, t_ref, ("var", "cvar", "portfolio_mean_return"))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _run(port_main, common + ["--correlation", "dcc", "--device", "cpu"])
+
+
+def test_bootstrap_risk_cli_matches_mcport(weekly):
+    common = ["bootstrap-risk", *weekly, "--period", "W", "--paths", "20000", "--steps",
+              "12", "--seed", "2", "--p-restart", "0.25"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["expected_block_len"] == 4.0
+    assert set(port["asset_mean_terminal"]) == set(ref["asset_mean_terminal"])
+    _within_mc(port, ref, ("var", "cvar", "portfolio_mean_return"))
+
+
+def test_path_risk_cli_families_have_mcport_keys(weekly, tmp_path):
+    common = ["path-risk", *weekly, "--period", "W", "--models", "garch,bootstrap",
+              "--paths", "8192", "--steps", "8", "--seed", "2", "--p-restart", "0.3"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref)
+    for model in ("garch", "bootstrap"):
+        assert set(port[model]) == set(ref[model]) and port[model]["n_paths"] == 8192
+    ck = str(tmp_path / "ck.npz")
+    one = ["path-risk", *weekly, "--period", "W", "--models", "bootstrap", "--paths",
+           "16384", "--steps", "8", "--device", "cpu", "--checkpoint", ck]
+    out = _run(port_main, one)
+    assert out["bootstrap"]["done"] is True
+    assert _run(port_main, one + ["--resume"])["bootstrap"] == out["bootstrap"]
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_dd_frontier_cli_families_have_mcport_keys(weekly, model):
+    common = ["dd-frontier", *weekly, "--period", "W", "--candidates", "32", "--paths",
+              "1024", "--steps", "8", "--dd-budget", "0.9", "--model", model]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["model"] == model and port["n_feasible"] > 0
+    assert set(port["weights"]) == set(ref["weights"])
+    with pytest.raises(SystemExit, match="gbm only"):
+        _run(port_main, common + ["--fast-normal", "--device", "cpu"])

@@ -233,3 +233,143 @@ def test_multi_dd_more_than_one_launch_of_candidates(dev):
     assert gbm_multi_portfolio_dd.launches == before + 2
     tail = gbm_multi_portfolio_dd(1, mean, chol, w[256:], 777, 9)
     assert torch.equal(term[:, 256:], tail[0]) and torch.equal(dd[:, 256:], tail[1])
+
+
+# ---- kernels #4 and #5: CCC-GARCH -------------------------------------------------
+
+def _garch(a, dev, seed=0):
+    """The bench's GARCH universe (bench.py): variance 4e-4, omega 4e-5,
+    alpha 0.08, beta 0.9, correlation 0.5."""
+    from mcport_torch.convert import garch_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    s0 = np.full(a, 4e-4)
+    return garch_params_from_numpy(rng.normal(1e-3, 5e-4, a), 0.1 * s0, np.full(a, 0.08),
+                                   np.full(a, 0.9), np.linalg.cholesky(
+                                       0.5 * np.eye(a) + 0.5), s0, s0).tensors(dev)
+
+
+@pytest.mark.parametrize("a", [1, 15, 16])
+@pytest.mark.parametrize("t_df", [None, 5.5])
+@pytest.mark.parametrize("steps", [252, 7])
+def test_garch_terminal_kernel_matches_plain_form(dev, a, t_df, steps):
+    from mcport_torch.ops.garch import garch_shares, garch_terminal, garch_terminal_reference
+
+    g = _garch(a, dev)
+    kw = dict(first_block=6, n_blocks=2, t_df=t_df)
+    before = garch_terminal.launches
+    k = garch_terminal(11, g, 4_099, steps, **kw)
+    torch.cuda.synchronize()
+    assert garch_terminal.launches == before + 1
+    p = garch_terminal_reference(11, g, 4_099, steps, **kw)
+    shares = garch_shares(k, p, g, steps, t_df)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("a, steps", [(15, 252), (15, 7), (1, 9), (16, 8)])
+def test_garch_multi_dd_kernel_matches_plain_form(dev, n_cand, a, steps):
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares)
+
+    g = _garch(a, dev)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(a), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = garch_multi_portfolio_dd.launches
+    k = garch_multi_portfolio_dd(11, g, w, 2_053, steps, **kw)
+    torch.cuda.synchronize()
+    assert garch_multi_portfolio_dd.launches == before + 1
+    p = garch_multi_dd_reference(11, g, w, 2_053, steps, **kw)
+    shares = garch_shares(k, p, g, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_garch_kernels_agree_on_one_asset(dev):
+    """With one asset and the weight 1, the candidate kernel's value is the
+    terminal kernel's compounded gross up to the rounding of ``1 + (mu +
+    eps)`` against ``(1 + mu) + eps``: the two share their shocks."""
+    from mcport_torch.ops.garch import garch_multi_portfolio_dd, garch_terminal
+
+    g = _garch(1, dev)
+    term = garch_terminal(3, g, 8_192, 252, first_block=0, n_blocks=2)
+    t5, _ = garch_multi_portfolio_dd(3, g, torch.ones((1, 1), device=dev), 8_192, 252,
+                                     first_block=0, n_blocks=2)
+    rel = ((t5[:, 0] - term[..., 0]).abs() / (1 + term[..., 0].abs())).max()
+    assert float(rel) < 1e-4
+
+
+def test_garch_kernels_reject_too_many_assets(dev):
+    from mcport_torch.ops.garch import garch_terminal
+
+    with pytest.raises(ValueError, match="1..16 assets"):
+        garch_terminal(0, _garch(17, dev), 128, 4)
+
+
+# ---- kernels #6 and #7: stationary block bootstrap ---------------------------------
+
+def _history(t_len, a, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(1e-3, 0.02, (t_len, a)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("a", [1, 15, 64])
+@pytest.mark.parametrize("p_restart", [0.2, 0.0, 1.0])
+@pytest.mark.parametrize("steps", [252, 7])
+def test_bootstrap_terminal_kernel_is_its_plain_form(dev, a, p_restart, steps):
+    """The kernel selects the plain form's rows and compounds them in the same
+    order: equal bit for bit."""
+    from mcport_torch.ops.bootstrap import bootstrap_terminal, bootstrap_terminal_reference
+
+    hist = _history(365, a, dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = bootstrap_terminal.launches
+    k = bootstrap_terminal(11, hist, 4_099, steps, p_restart, **kw)
+    torch.cuda.synchronize()
+    assert bootstrap_terminal.launches == before + 1
+    assert torch.equal(k, bootstrap_terminal_reference(11, hist, 4_099, steps, p_restart,
+                                                       **kw))
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("a, steps", [(15, 252), (15, 7), (1, 9), (64, 8)])
+def test_bootstrap_multi_dd_kernel_matches_plain_form(dev, n_cand, a, steps):
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares)
+
+    hist = _history(365, a, dev)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(a), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = bootstrap_multi_portfolio_dd.launches
+    k = bootstrap_multi_portfolio_dd(11, hist, w, 2_053, steps, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert bootstrap_multi_portfolio_dd.launches == before + 1
+    p = bootstrap_multi_dd_reference(11, hist, w, 2_053, steps, 0.2, **kw)
+    shares = bootstrap_shares(k, p, hist, w, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_bootstrap_kernels_select_the_same_rows(dev):
+    """One-hot candidates score one asset's row exactly: the candidate
+    kernel's terminal is then the plain form's and the terminal kernel's, bit
+    for bit — its selection is theirs."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_terminal)
+
+    hist = _history(365, 15, dev)
+    eye = torch.eye(15, device=dev)
+    t7, d7 = bootstrap_multi_portfolio_dd(4, hist, eye, 3_001, 252, 0.2, first_block=0,
+                                          n_blocks=2)
+    p7 = bootstrap_multi_dd_reference(4, hist, eye, 3_001, 252, 0.2, first_block=0,
+                                      n_blocks=2)
+    t6 = bootstrap_terminal(4, hist, 3_001, 252, 0.2, first_block=0, n_blocks=2)
+    assert torch.equal(t7, p7[0]) and torch.equal(d7, p7[1])
+    assert torch.equal(t7, t6.transpose(1, 2))
+
+
+def test_bootstrap_kernels_reject_a_history_beyond_shared_memory(dev):
+    from mcport_torch.ops.bootstrap import bootstrap_terminal
+
+    with pytest.raises(ValueError, match="shared memory"):
+        bootstrap_terminal(0, _history(4_000, 15, dev), 128, 4)

@@ -98,10 +98,14 @@ def test_split_and_resume_bit_identical(tmp_path):
     assert _same_state(ck, ck_full)
 
 
-def test_dispatch_grouping_never_changes_results():
-    _, one = run_resumable_mc(PARAMS, W, CFG, device="cpu", dispatch_blocks=1)
-    _, three = run_resumable_mc(PARAMS, W, CFG, device="cpu", dispatch_blocks=3)
-    _, all_ = run_resumable_mc(PARAMS, W, CFG, device="cpu", dispatch_blocks=16)
+def test_dispatch_grouping_never_changes_results(monkeypatch):
+    import mcport_torch.engine.mc_engine as E
+
+    states = []
+    for blocks in (1, 3, 16):
+        monkeypatch.setattr(E, "DISPATCH_BLOCKS", blocks)
+        states.append(run_resumable_mc(PARAMS, W, CFG, device="cpu")[1])
+    one, three, all_ = states
     assert _same_state(one, three) and _same_state(one, all_)
 
 

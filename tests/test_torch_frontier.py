@@ -16,6 +16,14 @@ mcport's Threefry), so the searches are compared in law at matched sizes
 
 Against itself the port is exact where mcport pins it: the bf16 screen plus
 float32 rescore gives the float32 search's optimum; "auto" is float32.
+
+The family frontier (GARCH and bootstrap, rebalanced wealth) is held the same
+way at 32 candidates x 4,096 paths x 12 steps: every candidate of mcport's
+search, scored by the port on its own paths, has mcport's mean return within
+4 standard errors of the difference, and mcport's drawdown quantile ``q``
+lies where the port's law puts it, ``F(q-) <= 1 - alpha <= F(q)`` within 4
+binomial standard errors (the bootstrap's drawdown law has atoms); chunking
+never changes a score.
 """
 
 import jax
@@ -26,10 +34,16 @@ import torch
 
 from mcport.engine.drawdown_frontier import _lax_multi_dd
 from mcport.engine.drawdown_frontier import drawdown_frontier_search as ref_search
+from mcport.engine.drawdown_frontier import family_drawdown_frontier_search as ref_family
+from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.gbm import GBMParams as RefParams
 from mcport.ops.dirichlet import sample_constrained_weights as ref_constrained
 from mcport_torch.convert import from_mcport
-from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search, frontier_seeds
+from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
+                                                   family_drawdown_frontier_search,
+                                                   frontier_seeds)
+from mcport_torch.models.bootstrap import bootstrap_path_stats
+from mcport_torch.models.garch_mc import garch_path_stats
 from mcport_torch.ops.dirichlet import sample_weights
 from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
 
@@ -176,3 +190,56 @@ def test_dirichlet_law_and_bounds_match_mcport():
                                    max_retries=3)
     p, q = float(valid.double().mean()), float(np.asarray(ref_valid).mean())
     assert abs(p - q) <= 4 * np.sqrt(2 * p * (1 - p) / 4_000) + 1e-3
+
+
+# ---- the GARCH and bootstrap family frontier ---------------------------------------
+
+REF_GARCH = RefGarch(mu=MEAN, omega=np.full(A, 4e-5), alpha=np.full(A, 0.08),
+                     beta=np.full(A, 0.9), corr_chol=np.linalg.cholesky(0.6 * np.eye(A) + 0.4),
+                     sigma2_0=np.full(A, 9e-4), eps2_0=np.full(A, 9e-4))
+HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.03 + 0.002).astype(np.float32)
+FAMILY_KW = dict(dd_budget=0.15, n_candidates=32, n_paths=4_096, n_steps=12)
+
+
+def _family_params(model):
+    return (from_mcport(REF_GARCH), REF_GARCH) if model == "garch" else (HISTORY, HISTORY)
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_family_frontier_scores_as_mcport_in_law(model):
+    params, ref_params = _family_params(model)
+    got = family_drawdown_frontier_search(3, model, params, device="cpu", **FAMILY_KW)
+    want = ref_family(jax.random.key(3), model, ref_params, use_pallas=False, **FAMILY_KW)
+    n = FAMILY_KW["n_candidates"]
+    assert got.weights.shape == (n, A) and got.valid.all()
+    assert np.array_equal(got.feasible, got.valid & (got.dd_p95 >= -FAMILY_KW["dd_budget"]))
+    if got.opt_idx >= 0:
+        assert got.ret[got.opt_idx] == got.ret[got.feasible].max()
+    # mcport's candidates on the port's paths
+    args = (7, params, want.weights, FAMILY_KW["n_paths"], FAMILY_KW["n_steps"])
+    term, dd = (x.double().numpy() for x in (
+        garch_path_stats(*args, device="cpu") if model == "garch"
+        else bootstrap_path_stats(*args, device="cpu")))
+    se_r = term.std(-1) / np.sqrt(term.shape[-1])
+    assert np.all(np.abs(term.mean(-1) - want.ret) <= 4 * np.sqrt(2) * se_r)
+    # mcport's quantile q is one of the port's: F(q-) <= 1 - alpha <= F(q) on
+    # the port's paths, within binomial error (the bootstrap's drawdown law has
+    # atoms, where a quantile's density-based error is meaningless)
+    p, n_p = 1 - ALPHA, dd.shape[-1]
+    tol = 4 * np.sqrt(2 * p * (1 - p) / n_p)
+    q = want.dd_p95[:, None].astype(np.float64)
+    assert np.all((dd < q).mean(-1) <= p + tol) and np.all((dd <= q).mean(-1) >= p - tol)
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_family_frontier_chunks_share_one_path_set(model):
+    params, _ = _family_params(model)
+    small = family_drawdown_frontier_search(4, model, params, w_block=8, device="cpu",
+                                            **FAMILY_KW)
+    whole = family_drawdown_frontier_search(4, model, params, device="cpu", **FAMILY_KW)
+    np.testing.assert_array_equal(small.weights, whole.weights)
+    np.testing.assert_allclose(small.ret, whole.ret, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(small.dd_p95, whole.dd_p95, rtol=0, atol=1e-7)
+    with pytest.raises(ValueError, match="w_block"):
+        family_drawdown_frontier_search(4, model, params, w_block=0, device="cpu",
+                                        **FAMILY_KW)

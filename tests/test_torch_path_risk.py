@@ -16,6 +16,12 @@
   and mcport's checkpoints are refused.
 - The kernel-vs-plain bound (``path_stats_tolerance``) rejects planted faults
   at the shapes the card's checks run.
+- The GARCH and bootstrap families: ``run_garch_path_risk`` and
+  ``run_bootstrap_path_risk`` agree with mcport's in law at 16,384 paths x
+  12 steps (4 standard errors of the difference; a bootstrap quantile's
+  error from its order statistics, its law being lumpy); their split runs
+  resume bit-identically, and a checkpoint of one family, or of mcport, is
+  refused by another.
 """
 
 import dataclasses
@@ -34,6 +40,9 @@ from mcport.config import GBMConfig
 from mcport.engine.path_risk import _lax_path_stats
 from mcport.engine.path_risk import run_path_risk as ref_run
 from mcport.engine.path_risk import run_resumable_path_risk as ref_resumable
+from mcport.engine.path_risk import run_bootstrap_path_risk as ref_bootstrap_run
+from mcport.engine.path_risk import run_garch_path_risk as ref_garch_run
+from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.gbm import GBMParams as RefParams
 from mcport.models.gbm import simulate_log_paths
 from mcport_torch.api import gbm_risk, path_tail_risk
@@ -46,11 +55,15 @@ from mcport_torch.engine.mc_engine import run_resumable_mc
 from mcport_torch.engine.path_risk import (
     DD_SKETCH,
     load_path_risk_checkpoint,
+    run_bootstrap_path_risk,
+    run_garch_path_risk,
     run_path_risk,
     run_resumable_path_risk,
     run_resumable_path_risk_with_recovery,
     stats_from_log_paths,
 )
+from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.gbm import block_terminal_log_returns
 from mcport_torch.ops.path_stats import (
     gbm_path_stats,
@@ -200,10 +213,10 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
     lambda: run_path_risk(PARAMS, W, CFG, hedge=object(), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, qmc="sobol"), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
-    lambda: run_resumable_path_risk("garch", PARAMS, W, CFG, device="cpu"),
+    lambda: run_resumable_path_risk("dcc", PARAMS, W, CFG, device="cpu"),
     lambda: run_resumable_path_risk_with_recovery("gbm", PARAMS, W, CFG),
     lambda: drawdown_frontier_search(0, PARAMS, hedge=object(), device="cpu"),
-    lambda: family_drawdown_frontier_search(0, "garch", None),
+    lambda: family_drawdown_frontier_search(0, "jump", None),
     lambda: path_tail_risk(object(), model="heston", device="cpu"),
 ])
 def test_unported_branches_raise(call):
@@ -286,3 +299,109 @@ def test_dd_sketch_is_mcports():
     from mcport.engine.path_risk import DD_SKETCH as REF_DD
 
     assert dataclasses.asdict(DD_SKETCH) == dataclasses.asdict(REF_DD)
+
+
+# ---- the GARCH and bootstrap families ----------------------------------------------
+
+REF_GARCH = RefGarch(
+    mu=MEAN, omega=np.full(A, 4e-5), alpha=np.full(A, 0.08), beta=np.full(A, 0.9),
+    corr_chol=np.linalg.cholesky(0.5 * np.eye(A) + 0.5), sigma2_0=np.full(A, 4e-4),
+    eps2_0=np.full(A, 4e-4))
+GARCH = from_mcport(REF_GARCH)
+HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.02 + 0.002).astype(np.float32)
+FAMILY_CFG = GBMConfig(n_paths=16_384, n_steps=12, path_block=4_096, seed=4)
+
+
+def _order_se(x: np.ndarray, p: float) -> float:
+    """Distribution-free standard error of the sample p-quantile (order
+    statistics one binomial standard deviation either side)."""
+    s = np.sort(x)
+    k, d = int(p * x.size), int(np.sqrt(x.size * p * (1 - p)))
+    return float(s[k + d] - s[k - d]) / 2
+
+
+def _family_sample(model, cfg):
+    """The port's per-path (port, dd) of a family run, for standard errors."""
+    n = cfg.n_paths // cfg.path_block
+    w = _f32(W)[None]
+    if model == "garch":
+        term, dd = garch_multi_portfolio_dd(cfg.seed, GARCH.tensors("cpu"), w, cfg.path_block,
+                                            cfg.n_steps, first_block=0, n_blocks=n)
+    else:
+        term, dd = bootstrap_multi_portfolio_dd(cfg.seed, torch.as_tensor(HISTORY), w,
+                                                cfg.path_block, cfg.n_steps, first_block=0,
+                                                n_blocks=n)
+    return term.double().numpy().ravel(), dd.double().numpy().ravel()
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_family_path_risk_matches_mcport_in_law(model):
+    if model == "garch":
+        got = run_garch_path_risk(GARCH, W, FAMILY_CFG, device="cpu")
+        want = ref_garch_run(REF_GARCH, W, FAMILY_CFG)
+    else:
+        got = run_bootstrap_path_risk(HISTORY, W, FAMILY_CFG, device="cpu")
+        want = ref_bootstrap_run(HISTORY, W, FAMILY_CFG)
+    assert got.n_paths == want.n_paths == FAMILY_CFG.n_paths and got.tail_ci is None
+    port, dd = _family_sample(model, FAMILY_CFG)
+    q_se = _order_se if model == "bootstrap" else _quantile_se
+    se = {"var": q_se(port, 0.05), "cvar": _es_se(port, 0.05),
+          "port_mean": port.std() / np.sqrt(port.size),
+          "dd_mean": dd.std() / np.sqrt(dd.size),
+          "dd_p95": q_se(dd, 0.05), "dd_median": q_se(dd, 0.5)}
+    for name, s in se.items():
+        assert abs(getattr(got, name) - getattr(want, name)) <= 4 * np.sqrt(2) * s, name
+    assert got.cvar <= got.var and -1 <= got.dd_p95 <= got.dd_median <= 0
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_family_split_resume_is_bit_identical(model, tmp_path):
+    params = GARCH if model == "garch" else HISTORY
+    full, ck_full = run_resumable_path_risk(model, params, W, CFG, device="cpu")
+    _, part = run_resumable_path_risk(model, params, W, CFG, max_blocks=3, device="cpu",
+                                      checkpoint_path=tmp_path / "ck.npz")
+    resumed, ck = run_resumable_path_risk(
+        model, params, W, CFG, device="cpu",
+        checkpoint=load_path_risk_checkpoint(tmp_path / "ck.npz"))
+    assert not part.done and ck.done and resumed == full
+    assert all(np.array_equal(getattr(ck, f), getattr(ck_full, f)) for f in _STATE)
+    one_shot = (run_garch_path_risk(GARCH, W, CFG, device="cpu") if model == "garch" else
+                run_bootstrap_path_risk(HISTORY, W, CFG, device="cpu"))
+    assert one_shot == full
+    if model == "bootstrap":   # the covering sketch of the history by default
+        assert ck.sketch_space == "log1p"
+
+
+def test_family_checkpoints_refuse_other_families():
+    _, garch_ck = run_resumable_path_risk("garch", GARCH, W, CFG, max_blocks=1, device="cpu")
+    _, boot_ck = run_resumable_path_risk("bootstrap", HISTORY, W, CFG, max_blocks=1,
+                                         device="cpu")
+    for model, params, ck in (("bootstrap", HISTORY, garch_ck), ("garch", GARCH, boot_ck),
+                              ("gbm", PARAMS, garch_ck),
+                              ("bootstrap", HISTORY * 1.01, boot_ck)):
+        with pytest.raises(ValueError, match="digest"):
+            run_resumable_path_risk(model, params, W, CFG, checkpoint=ck, device="cpu")
+    with pytest.raises(ValueError, match="digest"):
+        run_resumable_path_risk("bootstrap", HISTORY, W, CFG, p_restart=0.3,
+                                checkpoint=boot_ck, device="cpu")
+    _, ref_ck = ref_resumable("garch", REF_GARCH, W, CFG, max_blocks=1)
+    with pytest.raises(ValueError, match="digest"):
+        run_resumable_path_risk("garch", GARCH, W, CFG, checkpoint=ref_ck, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_path_tail_risk_families_have_mcport_keys(fixtures_dir, model, tmp_path):
+    from mcport.api import path_tail_risk as ref_tail
+    from mcport.data import load_universe as ref_load
+
+    paths = sorted(str(p) for p in fixtures_dir.glob("*7 Years Weekly.csv"))
+    d = load_universe(paths, DataConfig(period="W"))
+    small = dataclasses.replace(GBMConfig(), n_paths=8_192, n_steps=8, path_block=4_096)
+    got = path_tail_risk(d, None, Config(gbm=small), model=model, device="cpu")
+    want = ref_tail(ref_load(paths=paths, config=RefDataConfig(period="W")), None,
+                    RefConfig(gbm=small), model=model)
+    assert set(got) == set(want) and got["n_paths"] == want["n_paths"] == 8_192
+    assert got["cvar"] <= got["var"] and -1 <= got["dd_p95"] <= 0
+    resumed = path_tail_risk(d, None, Config(gbm=small), model=model, max_blocks=1,
+                             checkpoint_path=tmp_path / "ck.npz", device="cpu")
+    assert resumed["done"] is False and resumed["n_paths"] == 4_096

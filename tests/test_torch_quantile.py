@@ -176,3 +176,20 @@ def test_sketch_var_cvar_close_to_exact_sample():
     width = (sk.hi - sk.lo) / sk.n_bins
     assert abs(float(v) - worst[-1]) <= 2 * width
     assert abs(float(c) - worst.mean()) <= 2 * width
+
+
+def test_tail_mean_stays_finite_past_the_float32_exponent():
+    """A log1p sketch reaching past ln(FLT_MAX) ~ 88.7 (the covering sketch of
+    a 252-step bootstrap of weekly crypto returns reaches ~118): mcport's
+    float32 CVaR is NaN there (each uncovered bin's infinite midpoint times
+    its zero count); the port's equals mcport's float64 answer."""
+    sk = SketchConfig(n_bins=8_192, lo=-129.0, hi=118.0, space="log1p")
+    counts = np.zeros(sk.n_bins, np.int64)
+    counts[4_000:4_300] = np.arange(1, 301)
+    _, c_ref32 = ref.sketch_var_cvar(jnp.asarray(counts, jnp.float32), 0.95, sk)
+    assert np.isnan(float(c_ref32))
+    v64, c64 = ref.sketch_var_cvar(jnp.asarray(counts, jnp.float64), 0.95, sk)
+    v, c = Q.sketch_var_cvar(torch.tensor(counts), 0.95, sk)
+    assert np.isfinite(float(c)) and float(c) <= float(v)
+    assert float(v) == pytest.approx(float(v64), rel=1e-5)
+    assert float(c) == pytest.approx(float(c64), rel=1e-5)

@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of one warm call of the PyTorch port's main paths goes on a card.
 
-    python3 tools/profile_gbm_risk.py        # needs one CUDA card
+    python3 tools/profile_gbm_risk.py [gbm|family]   # needs one CUDA card; both by default
 
-For each size of ``chip_smoke.py``'s main paths (GBMConfig defaults and
-BASELINE config-4 scale, on the bench's synthetic 15-asset universe) it
-profiles ``mcport_torch.api.gbm_risk`` and ``run_path_risk`` (buy-and-hold,
-normal shocks), and then ``drawdown_frontier_search`` at the bench's size
-(4,096 candidates x 131,072 paths x 252 steps) in its default tier ("auto",
-float32 on a card) and as the bf16 screen plus rescore. For each it prints:
+GBM tier: for each size of ``chip_smoke.py``'s main paths (GBMConfig
+defaults and BASELINE config-4 scale, on the bench's synthetic 15-asset
+universe) it profiles ``mcport_torch.api.gbm_risk`` and ``run_path_risk``
+(buy-and-hold, normal shocks), and then ``drawdown_frontier_search`` at the
+bench's size (4,096 candidates x 131,072 paths x 252 steps) in its default
+tier ("auto", float32 on a card) and as the bf16 screen plus rescore. Family
+tier: ``garch_risk`` and ``bootstrap_risk`` at 1,048,576 x 252 (the bench's
+GARCH parameters, a 365 x 15 history), ``run_garch_path_risk`` and
+``run_bootstrap_path_risk`` at both sizes, and both family frontiers at the
+bench's size. For each call it prints:
 
 - the warm walls without a checkpoint (host clock, ending in a synchronise),
   after one call that warms up;
@@ -101,12 +105,19 @@ def main() -> int:
         print("profile_gbm_risk: no CUDA device visible to torch", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import FRONTIER, FRONTIER_SEED, N_ASSETS, bench_universe, cells
+    from chip_smoke import (FAMILY_PATHS, FAMILY_SEED, FRONTIER, FRONTIER_SEED, N_ASSETS,
+                            bench_garch, bench_history, bench_universe, bench_weights, cells)
     from mcport_torch.api import gbm_risk
     from mcport_torch.config import Config
     from mcport_torch.convert import gbm_params_from_numpy
-    from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search
-    from mcport_torch.engine.path_risk import run_path_risk
+    from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
+                                                       family_drawdown_frontier_search)
+    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
+                                               run_path_risk)
+    from mcport_torch.models.bootstrap import bootstrap_risk
+    from mcport_torch.models.garch_mc import garch_risk
+
+    tiers = sys.argv[1:] or ["gbm", "family"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -116,18 +127,38 @@ def main() -> int:
     mean, chol = bench_universe()
     params = gbm_params_from_numpy(np.ones(N_ASSETS), mean, chol)
     w = np.full(N_ASSETS, 1.0 / N_ASSETS)
-    for name, g in cells().items():
-        size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
-        profile_cell(f"gbm_risk {size}",
-                     lambda g=g: gbm_risk(params, w, Config(gbm=g), device=dev))
-        profile_cell(f"run_path_risk {size}",
-                     lambda g=g: run_path_risk(params, w, g, device=dev))
-    for sd in ("auto", "bfloat16"):
-        profile_cell(f"drawdown_frontier_search {sd} ({FRONTIER['n_candidates']} x "
-                     f"{FRONTIER['n_paths']} x {FRONTIER['n_steps']})",
-                     lambda sd=sd: drawdown_frontier_search(FRONTIER_SEED, params,
-                                                            score_dtype=sd, device=dev,
-                                                            **FRONTIER))
+    front = f"({FRONTIER['n_candidates']} x {FRONTIER['n_paths']} x {FRONTIER['n_steps']})"
+    if "gbm" in tiers:
+        for name, g in cells().items():
+            size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+            profile_cell(f"gbm_risk {size}",
+                         lambda g=g: gbm_risk(params, w, Config(gbm=g), device=dev))
+            profile_cell(f"run_path_risk {size}",
+                         lambda g=g: run_path_risk(params, w, g, device=dev))
+        for sd in ("auto", "bfloat16"):
+            profile_cell(f"drawdown_frontier_search {sd} {front}",
+                         lambda sd=sd: drawdown_frontier_search(FRONTIER_SEED, params,
+                                                                score_dtype=sd, device=dev,
+                                                                **FRONTIER))
+    if "family" in tiers:
+        garch, hist, wb = bench_garch(), bench_history(), bench_weights()
+        steps = FRONTIER["n_steps"]
+        profile_cell(f"garch_risk ({FAMILY_PATHS} x {steps})",
+                     lambda: garch_risk(FAMILY_SEED, garch, wb, FAMILY_PATHS, steps,
+                                        device=dev))
+        profile_cell(f"bootstrap_risk ({FAMILY_PATHS} x {steps})",
+                     lambda: bootstrap_risk(FAMILY_SEED, hist, wb, FAMILY_PATHS, steps,
+                                            device=dev))
+        for name, g in cells().items():
+            size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+            profile_cell(f"run_garch_path_risk {size}",
+                         lambda g=g: run_garch_path_risk(garch, wb, g, device=dev))
+            profile_cell(f"run_bootstrap_path_risk {size}",
+                         lambda g=g: run_bootstrap_path_risk(hist, wb, g, device=dev))
+        for model, src in (("garch", garch), ("bootstrap", hist)):
+            profile_cell(f"family_drawdown_frontier_search {model} {front}",
+                         lambda model=model, src=src: family_drawdown_frontier_search(
+                             FRONTIER_SEED, model, src, device=dev, **FRONTIER))
     return 0
 
 
