@@ -77,7 +77,29 @@ ends:
 11. kernels #4-#7 timed with CUDA events beside their plain forms and one
    PyTorch call (``index_select`` for #6's rows, ``torch.matmul`` for the
    score of #5 and #7), and each one's least time from the work its function
-   needs.
+   needs;
+12. the Merton and Heston kernels against their plain forms: the Merton
+   candidate kernel (#8; W in {1, 13, 256}, A in {1, 15, 64}, rates 0.02
+   and 0.3) within ``ops.jump.merton_shares``, its jumped paths the plain
+   form's with unmissable jumps, and at rate 0 kernel #3's rebalanced output
+   bit for bit; the Heston terminal (#9; A in {1, 15, 16}) and candidate
+   (#10) kernels within ``ops.heston.heston_shares`` at the bench's vol of
+   vol and a Feller-violating one (0.05); and every launch of phase 13 over
+   a head and a tail slice of each block's paths;
+13. the Merton and Heston main paths at bench.py's parameters: ``merton_risk``
+   and ``heston_terminal_returns`` at 1,048,576 x 252, ``run_merton_path_risk``
+   and ``run_heston_path_risk`` at both sizes with split + resume,
+   ``path_tail_risk`` for both (the 15-asset Heston QMLE's host seconds
+   printed), both frontiers at 4,096 x 131,072 x 252, and the CLI's
+   ``jump-risk``, ``path-risk --models jump,heston`` and ``dd-frontier
+   --model jump|heston`` on the weekly fixtures; counts reset before and read
+   after, each kernel launched as often as these calls need; then both
+   terminal laws, the card against the CPU, the drawdown quantiles and both
+   frontiers' optima against the plain forms;
+14. kernels #8-#10 timed with CUDA events beside their plain forms and, for
+   #8 and #10, the score product as one ``torch.matmul`` per step; kernel
+   #4's t(5.5) tier alone; and each new kernel's least time from the work its
+   function needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -951,6 +973,7 @@ def bounds(rate: float) -> dict:
         print(f"phase8 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
     res.update(family_bounds(draw, rate))
+    res.update(family2_bounds(draw, rate))
     return res
 
 
@@ -1564,6 +1587,575 @@ def phase_family_timing(dev) -> dict:
     return res
 
 
+# ---- the Merton and Heston families: kernels #8-#10 -------------------------------
+
+FAMILY2_KERNELS = ("merton_multi_dd", "heston_terminal", "heston_multi_dd")
+FELLER_XI = 0.05                    # a vol-of-vol where 2 kappa theta < xi^2: truncation binds
+CRASH_PATHS = 1 << 20               # paths per block of the unmissable-jumps check
+
+
+def bench_merton(a: int = N_ASSETS):
+    """bench.py:326-332: the bench universe plus jump rate 0.02 per step, jump
+    mean -0.08 and jump vol 0.04 per asset."""
+    from mcport_torch.convert import merton_params_from_numpy
+
+    mean, chol = bench_universe(a)
+    return merton_params_from_numpy(np.ones(a), mean.astype(np.float64),
+                                    chol.astype(np.float64), 0.02, np.full(a, -0.08),
+                                    np.full(a, 0.04))
+
+
+def bench_heston(a: int = N_ASSETS, xi: float = 3e-3):
+    """bench.py:358-363: the bench universe's means, kappa 0.15, theta 4e-4, xi
+    3e-3 (or ``xi``), rho -0.5, v0 4e-4, shock correlation 0.5."""
+    from mcport_torch.convert import heston_params_from_numpy
+
+    mean, _ = bench_universe(a)
+    full = np.ones(a)
+    return heston_params_from_numpy(mean.astype(np.float64), 0.15 * full, 4e-4 * full,
+                                    xi * full, -0.5 * full, 4e-4 * full,
+                                    np.linalg.cholesky(0.5 * np.eye(a) + 0.5), 100.0 * full)
+
+
+def _family2_kernels():
+    from mcport_torch.ops.heston import heston_multi_portfolio_dd, heston_terminal
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+
+    return dict(zip(FAMILY2_KERNELS, (merton_multi_portfolio_dd, heston_terminal,
+                                      heston_multi_portfolio_dd)))
+
+
+def _merton_tensors(p, dev):
+    d = p.diffusion
+    return tuple(torch.as_tensor(x).to(dev, torch.float32)
+                 for x in (d.mean_step, d.chol_step, p.jump_mean, p.jump_vol))
+
+
+_FITTED = {}
+
+
+def fitted_families():
+    """The jump and Heston parameters ``path_tail_risk`` estimates from
+    ``bench_prices`` (computed once), and the Heston QMLE's host seconds."""
+    if not _FITTED:
+        from mcport_torch.models.heston import estimate_heston
+        from mcport_torch.models.jump import estimate_merton_common
+
+        prices = bench_prices().prices
+        _FITTED["jump"] = estimate_merton_common(prices)
+        t0 = time.perf_counter()
+        _FITTED["heston"] = estimate_heston(prices)
+        _FITTED["heston_fit_s"] = time.perf_counter() - t0
+    return _FITTED
+
+
+def family2_launches(dev) -> list[dict]:
+    """Every distinct launch of kernels #8-#10 that phase 13 makes through the
+    API (the CLI's run on the fixtures is checked by its counts):
+    ``heston_terminal_returns`` at 1,048,576 x 252, both path-risk cells of
+    each family, ``path_tail_risk`` for both (parameters estimated from
+    ``bench_prices``), and every 256-candidate chunk of both frontiers.
+    ``src`` is the launch's parameters on ``dev``."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.ops.dirichlet import sample_weights
+
+    w, eq = bench_weights()[None], np.full((1, N_ASSETS), 1.0 / N_ASSETS)
+    src = {"merton_multi_dd": bench_merton(), "heston_terminal": bench_heston(),
+           "heston_multi_dd": bench_heston()}
+    out = [dict(kernel="heston_terminal", what="heston_terminal_returns", seed=FAMILY_SEED,
+                n=FAMILY_PATHS)]
+    for name, g in cells().items():
+        for kernel in ("merton_multi_dd", "heston_multi_dd"):
+            out.append(dict(kernel=kernel, what=f"path risk {name}", seed=g.seed,
+                            n=g.path_block, w=w, first_block=0,
+                            n_blocks=g.n_paths // g.path_block))
+    g = GBMConfig()
+    fit = fitted_families()
+    for kernel, model in (("merton_multi_dd", "jump"), ("heston_multi_dd", "heston")):
+        out.append(dict(kernel=kernel, what=f"path_tail_risk {model}", seed=g.seed,
+                        n=g.path_block, w=eq, first_block=0,
+                        n_blocks=g.n_paths // g.path_block, src=fit[model]))
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
+                             np.ones(N_ASSETS))
+    for kernel in ("merton_multi_dd", "heston_multi_dd"):
+        for i in range(0, FRONTIER["n_candidates"], 256):
+            out.append(dict(kernel=kernel, what=f"frontier chunk {i // 256}", seed=path_seed,
+                            n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    for launch in out:
+        launch.setdefault("src", src[launch["kernel"]])
+    return out
+
+
+def phase_family2_kernels(dev) -> dict:
+    """Kernels #8-#10 against their plain forms: test shapes (Heston at the
+    bench's xi and a Feller-violating one), #8's jump steps and its rate-0
+    identity with kernel #3, then every launch of phase 13 over a head and a
+    tail slice of each block's paths."""
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_shares,
+                                         heston_terminal_reference)
+    from mcport_torch.ops.jump import merton_multi_dd_reference, merton_shares
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    k = _family2_kernels()
+    worst = dict.fromkeys(FAMILY2_KERNELS, 0.0)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def held(name, what, kern, plain, shares):
+        pairs = zip(kern, plain) if isinstance(kern, tuple) else [(kern, plain)]
+        err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+        print(f"phase12 {name} {what} max_abs={err:.3e} shares="
+              + " ".join(f"{n}={v:.3f}" for n, v in shares.items()))
+        check(max(shares.values()) <= 1.0, f"{name} kernel vs plain, {what}")
+        worst[name] = max(worst[name], err)
+
+    kw = dict(first_block=6, n_blocks=2)
+    for a, steps in ((15, N_STEPS), (15, 7), (1, 9), (64, 8)):
+        mean, chol = (t(x) for x in bench_universe(a))
+        muj, sigj = t(np.full(a, -0.08)), t(np.full(a, 0.04))
+        for n_cand in (1, 13, 256):
+            cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(a), n_cand))
+            for rate in (0.02, 0.3):
+                kk = k["merton_multi_dd"](11, mean, chol, rate, muj, sigj, cand, MDD_PATHS,
+                                          steps, **kw)
+                p = merton_multi_dd_reference(11, mean, chol, rate, muj, sigj, cand, MDD_PATHS,
+                                              steps, **kw)
+                held("merton_multi_dd", f"W={n_cand} A={a} steps={steps} rate={rate} "
+                     f"paths={MDD_PATHS}x2", kk, p, merton_shares(kk, p, chol, mean, sigj, steps))
+    # unmissable jumps: sigma_J = 0, mu_J = -0.5, one step; a jumped path's
+    # drawdown is below -0.2, so the jump steps show in the output
+    mean, chol = (t(x) for x in bench_universe())
+    eq = torch.full((1, N_ASSETS), 1.0 / N_ASSETS, device=dev)
+    zero, crash = t(np.zeros(N_ASSETS)), t(np.full(N_ASSETS, -0.5))
+    _, dk = k["merton_multi_dd"](5, mean, chol, 0.3, crash, zero, eq, CRASH_PATHS, 1,
+                                 first_block=0, n_blocks=2)
+    _, dp = merton_multi_dd_reference(5, mean, chol, 0.3, crash, zero, eq, CRASH_PATHS, 1,
+                                      first_block=0, n_blocks=2)
+    jumped = dp < -0.2
+    same = torch.equal(dk < -0.2, jumped)
+    print(f"phase12 merton_multi_dd unmissable jumps (rate 0.3, mu_J -0.5, sigma_J 0, 1 step, "
+          f"{CRASH_PATHS} x 2 paths): jumped share {float(jumped.float().mean()):.4f}, the "
+          f"kernel's jumped paths are the plain form's={same}")
+    check(same, "kernel #8 jumps on the plain form's steps")
+    # rate 0: no step jumps, and the kernel keeps kernel #3's step code
+    muj, sigj = t(np.full(N_ASSETS, -0.08)), t(np.full(N_ASSETS, 0.04))
+    for n_cand in (1, 256):
+        cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(N_ASSETS), n_cand))
+        grp = dict(first_block=0, n_blocks=2)
+        k8 = k["merton_multi_dd"](3, mean, chol, 0.0, muj, sigj, cand, 8_192, N_STEPS, **grp)
+        k3 = gbm_multi_portfolio_dd(3, mean, chol, cand, 8_192, N_STEPS, rebalance=True, **grp)
+        ident = torch.equal(k8[0], k3[0]) and torch.equal(k8[1], k3[1])
+        print(f"phase12 merton_multi_dd rate 0 W={n_cand} 8,192 x 2 x {N_STEPS}: bit-identical "
+              f"to kernel #3 rebalanced={ident} max|d|="
+              f"{float((k8[0] - k3[0]).abs().max()):.3e}/{float((k8[1] - k3[1]).abs().max()):.3e}")
+        check(ident, "kernel #8 at rate 0 is kernel #3's rebalanced output")
+
+    for xi in (3e-3, FELLER_XI):
+        for a in (1, 15, 16):
+            h = bench_heston(a, xi).tensors(dev)
+            for steps in (N_STEPS, 7):
+                kk = k["heston_terminal"](11, h, KERNEL_PATHS, steps, **kw)
+                p = heston_terminal_reference(11, h, KERNEL_PATHS, steps, **kw)
+                held("heston_terminal", f"A={a} xi={xi} steps={steps} paths={KERNEL_PATHS}x2",
+                     kk, p, heston_shares(kk, p, h, steps))
+        for a, steps in ((15, N_STEPS), (15, 7), (1, 9), (16, 8)):
+            h = bench_heston(a, xi).tensors(dev)
+            for n_cand in (1, 13, 256):
+                cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(a), n_cand))
+                kk = k["heston_multi_dd"](11, h, cand, MDD_PATHS, steps, **kw)
+                p = heston_multi_dd_reference(11, h, cand, MDD_PATHS, steps, **kw)
+                held("heston_multi_dd", f"W={n_cand} A={a} xi={xi} steps={steps} "
+                     f"paths={MDD_PATHS}x2", kk, p, heston_shares(kk, p, h, steps))
+
+    # every launch of phase 13, over a head and a tail slice of each block
+    for launch in family2_launches(dev):
+        name, n, src, seed = launch["kernel"], launch["n"], launch["src"], launch["seed"]
+        blocks = dict(first_block=launch.get("first_block", -1),
+                      n_blocks=launch.get("n_blocks", 1))
+        if name == "merton_multi_dd":
+            mean, chol, muj, sigj = _merton_tensors(src, dev)
+            rate = src.jump_rate
+            w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+            kk = k[name](seed, mean, chol, rate, muj, sigj, w, n, N_STEPS, **blocks)
+        else:
+            h = src.tensors(dev)
+            if name == "heston_terminal":
+                kk = k[name](seed, h, n, N_STEPS, **blocks)
+            else:
+                w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+                kk = k[name](seed, h, w, n, N_STEPS, **blocks)
+        for p0 in _slices(n):
+            m = min(SLICE, n)
+            sl = slice(p0, p0 + m)
+            what = (f"{launch['what']} blocks={blocks['first_block'] + 1}.."
+                    f"{blocks['first_block'] + blocks['n_blocks']} paths {p0}..{p0 + m - 1}")
+            if name == "merton_multi_dd":
+                p = merton_multi_dd_reference(seed, mean, chol, rate, muj, sigj, w, m, N_STEPS,
+                                              first_path=p0, **blocks)
+                part = (kk[0][..., sl], kk[1][..., sl])
+                held(name, what, part, p, merton_shares(part, p, chol, mean, sigj, N_STEPS))
+            elif name == "heston_terminal":
+                p = heston_terminal_reference(seed, h, m, N_STEPS, first_path=p0, **blocks)
+                held(name, what, kk[:, sl], p, heston_shares(kk[:, sl], p, h, N_STEPS))
+            else:
+                p = heston_multi_dd_reference(seed, h, w, m, N_STEPS, first_path=p0, **blocks)
+                part = (kk[0][..., sl], kk[1][..., sl])
+                held(name, what, part, p, heston_shares(part, p, h, N_STEPS))
+        del kk
+    return worst
+
+
+def _fixture_cli2(dev) -> dict:
+    """The family commands of this slice on the weekly BTC/ETH fixtures, as a
+    user runs them; each command's JSON."""
+    import contextlib
+    import io
+
+    from mcport_torch.cli import main as cli
+
+    csvs = sorted(str(p) for p in (Path(__file__).resolve().parent / "fixtures").glob(
+        "*7 Years Weekly.csv"))
+    check(len(csvs) == 2, "the weekly BTC/ETH fixtures are in the checkout")
+    common = [*csvs, "--period", "W", "--steps", str(N_STEPS), "--device", str(dev)]
+    runs = {"jump-risk": ["jump-risk", "--paths", str(FAMILY_PATHS)],
+            "path-risk": ["path-risk", "--models", "jump,heston", "--paths", str(CLI_PATHS)]}
+    for model in ("jump", "heston"):
+        runs[f"dd-frontier {model}"] = ["dd-frontier", "--model", model, "--candidates",
+                                        str(CLI_FRONTIER[0]), "--paths", str(CLI_FRONTIER[1]),
+                                        "--dd-budget", "1.0"]
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv[:1] + common + argv[1:])
+        out[name] = json.loads(buf.getvalue())
+    return out
+
+
+def phase_family2_tier(dev) -> dict:
+    """The Merton and Heston main paths at full width: merton_risk and
+    heston_terminal_returns at 1,048,576 x 252, run_merton_path_risk and
+    run_heston_path_risk at both cells with split + resume, path_tail_risk
+    for both (the 15-asset QMLE fit timed), both family frontiers at the
+    bench's size, and the CLI's jump-risk, path-risk --models jump,heston
+    and dd-frontier --model jump|heston on the fixtures; counts reset before
+    and read after."""
+    from mcport_torch.api import path_tail_risk
+    from mcport_torch.config import Config
+    from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
+    from mcport_torch.engine.path_risk import (run_heston_path_risk, run_merton_path_risk,
+                                               run_resumable_path_risk)
+    from mcport_torch.models.heston import heston_terminal_returns
+    from mcport_torch.models.jump import merton_risk
+
+    merton, heston, w = bench_merton(), bench_heston(), bench_weights()
+    params = {"jump": merton, "heston": heston}
+    runs = {"jump": run_merton_path_risk, "heston": run_heston_path_risk}
+    warm_reps = 2
+    k = _family2_kernels()
+    fit = fitted_families()
+    print(f"phase13 the Heston QMLE fit of path_tail_risk ({bench_prices().prices.shape[0]} "
+          f"prices x {N_ASSETS} assets): {fit['heston_fit_s']:.2f} s on the host")
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walls(fn, *a, reps=warm_reps, **kw):
+        out, first = timed(fn, *a, **kw)
+        return out, (first, [timed(fn, *a, **kw)[1] for _ in range(reps)])
+
+    for fn in k.values():
+        fn.launches = 0
+    risk, wall = {}, {}
+    risk["merton_risk"], wall["merton_risk"] = walls(
+        merton_risk, FAMILY_SEED, merton, w, n_paths=FAMILY_PATHS, n_steps=N_STEPS, device=dev)
+    term, wall["heston_terminal_returns"] = walls(
+        heston_terminal_returns, FAMILY_SEED, heston, FAMILY_PATHS, N_STEPS, device=dev)
+    reports, resumes = {}, {}
+    for name, g in cells().items():
+        for model in ("jump", "heston"):
+            reports[model, name], wall[model, name] = walls(runs[model], params[model], w, g,
+                                                            device=dev)
+            n_blocks = g.n_paths // g.path_block
+            full, ck_full = run_resumable_path_risk(model, params[model], w, g, device=dev)
+            _, part = run_resumable_path_risk(model, params[model], w, g,
+                                              max_blocks=n_blocks // 3, device=dev)
+            resumed, ck = run_resumable_path_risk(model, params[model], w, g, checkpoint=part,
+                                                  device=dev)
+            resumes[model, name] = (full, ck_full, part, resumed, ck)
+    prices = bench_prices()
+    tail = {m: timed(path_tail_risk, prices, None, Config(), model=m, device=dev)
+            for m in ("jump", "heston")}
+    frontier, budget = {}, {}
+    for model in ("jump", "heston"):
+        budget[model] = round(-reports[model, "default"].dd_p95 + 0.01, 4)
+        kw = dict(FRONTIER, dd_budget=budget[model])
+        frontier[model], wall["frontier", model] = walls(
+            family_drawdown_frontier_search, FRONTIER_SEED, model, params[model], reps=1,
+            device=dev, **kw)
+    cli = _fixture_cli2(dev)
+    launches = {name: fn.launches for name, fn in k.items()}
+    chunks = FRONTIER["n_candidates"] // 256
+    cli_chunks = -(-CLI_FRONTIER[0] // 256)
+    per_model = 2 * (1 + warm_reps) + 2 * 3 + 1 + 2 * chunks + 1 + cli_chunks
+    want = {"merton_multi_dd": per_model, "heston_terminal": 1 + warm_reps,
+            "heston_multi_dd": per_model}
+    print(f"phase13 Merton and Heston tier: launches {launches} (expected {want})")
+    check(launches == want, "the Merton and Heston paths went through kernels #8-#10")
+
+    r = risk["merton_risk"]
+    first, warm = wall["merton_risk"]
+    print(f"phase13 merton_risk {FAMILY_PATHS} x {N_STEPS}: wall first={first:.4f} s warm="
+          f"{' / '.join(f'{x:.4f}' for x in warm)} s var={r.var:.6f} cvar={r.cvar:.6f} "
+          f"port_mean={r.port_mean:.6f} jump_frac={r.jump_frac:.6f}")
+    check(all(math.isfinite(x) for x in (r.var, r.cvar, r.port_mean))
+          and r.cvar <= r.var < r.port_mean and 0.0 < r.jump_frac < 1.0
+          and int(r.hist.sum()) == FAMILY_PATHS, "merton_risk: finite and ordered")
+    first, warm = wall["heston_terminal_returns"]
+    fin = bool(torch.isfinite(term).all())
+    print(f"phase13 heston_terminal_returns {FAMILY_PATHS} x {N_STEPS} x {N_ASSETS}: wall first="
+          f"{first:.4f} s warm={' / '.join(f'{x:.4f}' for x in warm)} s finite={fin} shape="
+          f"{tuple(term.shape)}")
+    check(fin and tuple(term.shape) == (FAMILY_PATHS, N_ASSETS), "heston terminal returns")
+    for (model, name), r in reports.items():
+        first, warm = wall[model, name]
+        ok = (all(math.isfinite(getattr(r, f)) for f in
+                  ("var", "cvar", "port_mean", "dd_mean", "dd_p95", "dd_median"))
+              and r.cvar <= r.var and -1.0 <= r.dd_p95 <= r.dd_median <= 0.0
+              and r.n_paths == cells()[name].n_paths)
+        print(f"phase13 run_{'merton' if model == 'jump' else model}_path_risk {name}: paths="
+              f"{r.n_paths} wall first={first:.4f} s warm={' / '.join(f'{x:.4f}' for x in warm)}"
+              f" s var={r.var:.6f} cvar={r.cvar:.6f} dd_mean={r.dd_mean:.6f} dd_median="
+              f"{r.dd_median:.6f} dd_p95={r.dd_p95:.6f} sane={ok}")
+        check(ok, f"{model} path risk {name}: finite and ordered")
+        full, ck_full, part, resumed, ck = resumes[model, name]
+        same = (_reports_equal(full, resumed) and ck.done and not part.done
+                and all(np.array_equal(getattr(ck, f), getattr(ck_full, f))
+                        for f in ("h_port", "h_dd", "s_port", "s_dd"))
+                and _reports_equal(full, r))
+        print(f"phase13 {model} {name}: split at block {part.next_block} + resume "
+              f"bit-identical to the one-shot run={same}")
+        check(same, f"{model} {name}: path-risk resume equivalence")
+    for model, (out, t_wall) in tail.items():
+        print(f"phase13 path_tail_risk {model}: wall {t_wall:.4f} s {json.dumps(out)}")
+        check(out["n_paths"] == Config().gbm.n_paths and out["cvar"] <= out["var"]
+              and -1.0 <= out["dd_p95"] <= 0.0, f"path_tail_risk {model}")
+    for model, r in frontier.items():
+        first, warm = wall["frontier", model]
+        i = r.opt_idx
+        print(f"phase13 frontier {model}: {FRONTIER['n_candidates']} x {FRONTIER['n_paths']} "
+              f"x {N_STEPS} budget {budget[model]} wall first={first:.4f} s warm="
+              f"{warm[0]:.4f} s feasible={int(r.feasible.sum())} opt={i} "
+              f"ret={float(r.ret[i]):.6f} dd_p95={float(r.dd_p95[i]):.6f}")
+        check(0 < int(r.feasible.sum()) < FRONTIER["n_candidates"]
+              and float(r.dd_p95[i]) >= -budget[model],
+              f"{model} frontier: the budget binds and an optimum is feasible")
+    for name, out in cli.items():
+        print(f"phase13 cli {name}: {json.dumps(out)}")
+    check(cli["jump-risk"]["cvar"] <= cli["jump-risk"]["var"], "cli jump-risk")
+    check(all(cli["path-risk"][m]["n_paths"] == CLI_PATHS for m in ("jump", "heston"))
+          and all("weights" in cli[f"dd-frontier {m}"] for m in ("jump", "heston")),
+          "cli path-risk and dd-frontier")
+    _family2_references(dev, merton, heston, w, reports, frontier)
+    return launches
+
+
+def _family2_references(dev, merton, heston, w, reports, frontier) -> None:
+    """What phase 13 produced, against references: the Merton terminal law
+    (mean log return n m + lambda n muJ, exactly), the Heston terminal law at
+    the bench's parameters (v0 = theta: mean log return n (mu - theta/2)),
+    the card against the CPU at 16,384 x 16, the drawdown quantiles against
+    the plain forms over the same paths, and each frontier's optimum against
+    its plain form."""
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.engine.path_risk import DD_SKETCH
+    from mcport_torch.models.heston import heston_terminal_returns
+    from mcport_torch.models.jump import merton_risk, merton_terminal_returns
+    from mcport_torch.ops.heston import heston_multi_dd_reference, heston_shares
+    from mcport_torch.ops.jump import merton_multi_dd_reference
+
+    d = merton.diffusion
+    lam = merton.jump_rate
+    x = merton_terminal_returns(FAMILY_SEED, d.mean_step, d.chol_step, lam, merton.jump_mean,
+                                merton.jump_vol, FAMILY_PATHS, N_STEPS, device=dev).double()
+    want = N_STEPS * (d.mean_step.numpy() + lam * merton.jump_mean.numpy())
+    z = np.abs(x.mean(0).cpu().numpy() - want) / (x.std(0).cpu().numpy()
+                                                  / math.sqrt(FAMILY_PATHS))
+    print(f"phase13 merton law {FAMILY_PATHS} x {N_STEPS}: max |mean - n (m + lambda muJ)|/se="
+          f"{z.max():.2f}")
+    check(z.max() < 5.0, "Merton terminal means are n (m + lambda muJ)")
+    x = torch.log1p(heston_terminal_returns(FAMILY_SEED, heston, FAMILY_PATHS, N_STEPS,
+                                            device=dev).double())
+    want = N_STEPS * (heston.mu.numpy() - heston.theta.numpy() / 2)
+    z = np.abs(x.mean(0).cpu().numpy() - want) / (x.std(0).cpu().numpy()
+                                                  / math.sqrt(FAMILY_PATHS))
+    print(f"phase13 heston law {FAMILY_PATHS} x {N_STEPS}: max |mean - n (mu - theta/2)|/se="
+          f"{z.max():.2f}")
+    check(z.max() < 5.0, "Heston terminal means are n (mu - theta/2)")
+
+    card = merton_risk(FAMILY_SEED, merton, w, 16_384, 16, device=dev)
+    cpu = merton_risk(FAMILY_SEED, merton, w, 16_384, 16, device="cpu")
+    dv = max(abs(card.var - cpu.var), abs(card.cvar - cpu.cvar))
+    print(f"phase13 merton_risk card vs cpu (16,384 x 16): max |d var|, |d cvar| = {dv:.3e} "
+          f"(bound 1e-4: a few sketch bins), jump_frac {card.jump_frac} vs {cpu.jump_frac}")
+    check(dv <= 1e-4 and card.jump_frac == cpu.jump_frac, "merton_risk: card agrees with CPU")
+    h_card = heston_terminal_returns(FAMILY_SEED, heston, 16_384, 16, device=dev)
+    h_cpu = heston_terminal_returns(FAMILY_SEED, heston, 16_384, 16, device="cpu")
+    sh = heston_shares(h_card.cpu(), h_cpu, heston.tensors("cpu"), 16)
+    print(f"phase13 heston_terminal_returns card vs cpu (16,384 x 16): share {sh['term']:.3f}")
+    check(sh["term"] <= 1.0, "heston_terminal_returns: card agrees with CPU")
+
+    cfg = cells()["default"]
+    nb = cfg.n_paths // cfg.path_block
+    wt = torch.as_tensor(w, dtype=torch.float32, device=dev)[None]
+    mt = _merton_tensors(merton, dev)
+    h = heston.tensors(dev)
+    dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
+    plain = {"jump": lambda seed, w_, m, **kw: merton_multi_dd_reference(
+                 seed, mt[0], mt[1], merton.jump_rate, mt[2], mt[3], w_, m, N_STEPS, **kw),
+             "heston": lambda seed, w_, m, **kw: heston_multi_dd_reference(
+                 seed, h, w_, m, N_STEPS, **kw)}
+    for model in ("jump", "heston"):
+        dd = torch.cat([plain[model](cfg.seed, wt, min(2_048, cfg.path_block - p0),
+                                     first_block=0, n_blocks=nb, first_path=p0)[1]
+                        for p0 in range(0, cfg.path_block, 2_048)], dim=-1).reshape(-1)
+        r = reports[model, "default"]
+        q = float(torch.kthvalue(dd, math.ceil(0.05 * dd.numel())).values)
+        med = float(torch.median(dd))
+        print(f"phase13 {model} default dd vs plain form over the same paths: p95 "
+              f"{r.dd_p95:.6f} vs {q:.6f}, median {r.dd_median:.6f} vs {med:.6f}, mean "
+              f"{r.dd_mean:.6f} vs {float(dd.double().mean()):.6f} (bound {2 * dd_width:.2e})")
+        check(abs(r.dd_p95 - q) <= 2 * dd_width and abs(r.dd_median - med) <= 2 * dd_width
+              and abs(r.dd_mean - float(dd.double().mean())) <= 1e-5,
+              f"{model} drawdown quantiles agree with the plain form")
+    path_seed = frontier_seeds(FRONTIER_SEED)[0]
+    k_tail = math.ceil(0.05 * FRONTIER["n_paths"])
+    for model, r in frontier.items():
+        opt = torch.as_tensor(r.weights[r.opt_idx][None], device=dev)
+        n = FRONTIER["n_paths"]
+        parts = [plain[model](path_seed, opt, min(8_192, n - p0), first_path=p0)
+                 for p0 in range(0, n, 8_192)]
+        term = torch.cat([p[0] for p in parts], dim=-1)[0, 0]
+        dd = torch.cat([p[1] for p in parts], dim=-1)[0, 0]
+        ret, q = float(term.mean()), float(torch.kthvalue(dd, k_tail).values)
+        d_ret, d_dd = abs(float(r.ret[r.opt_idx]) - ret), abs(float(r.dd_p95[r.opt_idx]) - q)
+        print(f"phase13 frontier {model} optimum vs plain form: ret "
+              f"{float(r.ret[r.opt_idx]):.7f} vs {ret:.7f}, dd_p95 "
+              f"{float(r.dd_p95[r.opt_idx]):.7f} vs {q:.7f} (bound 1e-4)")
+        check(d_ret <= 1e-4 and d_dd <= 1e-4, f"{model} frontier optimum agrees with the plain "
+              "form")
+
+
+BOX_MULLER_PAIR = 79.5   # kernel #1's draw: 54.75 = a quarter of a Philox call + half a pair
+
+
+def family2_bounds(draw: float, rate: float) -> dict:
+    """Least time of kernels #8-#10 at their timing shapes, from the work each
+    function needs: the larger of its instructions over the issue rate and
+    its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
+    instructions per normal draw (its pair loop per Philox call / 4)."""
+    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, N_STEPS, 256, FRONTIER["n_paths"]
+    tri = a * (a + 1) / 2
+    score = w_cnt * (a + 6)                    # W·A FMAs, V·f, peak, dd
+    lam = 0.02
+    merton_step = a * (draw + 3) + tri + PHILOX_CALL / 2 + BOX_MULLER_PAIR / 2 + lam * a
+    heston_step = a * (2 * draw + 12) + tri    # two draws, the update, the correlate
+    work = {
+        "merton_multi_dd": ((merton_step + score) * n * pp,
+                            4 * (a * a + 3 * a + w_cnt * a) + 8 * w_cnt * pp,
+                            f"{draw:.2f} per draw + 3 per asset-step (m, exp) + {tri:.0f} "
+                            f"correlate FMAs + half a Philox call and half a Box-Muller pair "
+                            f"+ {lam} x A jump adds: {merton_step:.2f} per path-step + {score} "
+                            f"for 256 candidates"),
+        "heston_terminal": (heston_step * n * p, 4 * (a * a + 7 * a) + 4 * a * p,
+                            f"2 x {draw:.2f} per asset-step (two draws) + 12 for the update + "
+                            f"{tri:.0f} correlate FMAs: {heston_step:.2f} per path-step"),
+        "heston_multi_dd": ((heston_step + 2 * a + score) * n * pp,
+                            4 * (a * a + 7 * a + w_cnt * a) + 8 * w_cnt * pp,
+                            f"{heston_step:.2f} per path-step + 2 per asset-step (exp) + "
+                            f"{score} for 256 candidates"),
+    }
+    res = {}
+    for name, (instr, nbytes, how) in work.items():
+        t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        print(f"phase14 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
+              f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
+    return res
+
+
+def phase_family2_timing(dev) -> dict:
+    """Kernels #8-#10 timed with CUDA events at the main paths' shapes beside
+    their plain forms (in 131,072- and 8,192-path pieces) and, for #8 and
+    #10, the score product alone as one torch.matmul per step; and kernel
+    #4's t(5.5) tier alone."""
+    from mcport_torch.ops.garch import garch_terminal
+    from mcport_torch.ops.heston import heston_multi_dd_reference, heston_terminal_reference
+    from mcport_torch.ops.jump import merton_multi_dd_reference
+
+    k = _family2_kernels()
+    mean, chol, muj, sigj = _merton_tensors(bench_merton(), dev)
+    h = bench_heston().tensors(dev)
+    cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
+                           dtype=torch.float32, device=dev)
+    pp = FRONTIER["n_paths"]
+
+    def chunked(fn, n, piece):
+        return lambda: [fn(p0, min(piece, n - p0)) for p0 in range(0, n, piece)]
+
+    runs = {
+        "merton_multi_dd": (lambda: k["merton_multi_dd"](0, mean, chol, 0.02, muj, sigj, cand,
+                                                         pp, N_STEPS),
+                            chunked(lambda p0, m: merton_multi_dd_reference(
+                                0, mean, chol, 0.02, muj, sigj, cand, m, N_STEPS,
+                                first_path=p0), pp, MDD_PLAIN_CHUNK),
+                            256 * pp * N_STEPS, 5),
+        "heston_terminal": (lambda: k["heston_terminal"](0, h, FAMILY_PATHS, N_STEPS),
+                            chunked(lambda p0, m: heston_terminal_reference(
+                                0, h, m, N_STEPS, first_path=p0), FAMILY_PATHS, PLAIN_CHUNK),
+                            FAMILY_PATHS * N_STEPS, 10),
+        "heston_multi_dd": (lambda: k["heston_multi_dd"](0, h, cand, pp, N_STEPS),
+                            chunked(lambda p0, m: heston_multi_dd_reference(
+                                0, h, cand, m, N_STEPS, first_path=p0), pp, MDD_PLAIN_CHUNK),
+                            256 * pp * N_STEPS, 5),
+    }
+    res = {}
+    for name, (kern, plain, work, reps) in runs.items():
+        kern(), plain()
+        torch.cuda.synchronize()
+        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
+                          _time_ms(plain, 1))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
+        print(f"phase14 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
+              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+        res[name] = [ms, plain_ms, None]
+    e = torch.rand((N_ASSETS, pp), device=dev)
+    mm = _time_ms(lambda: torch.matmul(cand, e), 50)
+    print(f"phase14 timing torch.matmul (256, {N_ASSETS}) x ({N_ASSETS}, {pp}): {mm:.4f} ms per "
+          f"step, x {N_STEPS} = {mm * N_STEPS:.3f} ms")
+    res["merton_multi_dd"][2] = res["heston_multi_dd"][2] = mm * N_STEPS
+    g = bench_garch().tensors(dev)
+
+    def garch_t():
+        garch_terminal(0, g, FAMILY_PATHS, N_STEPS, t_df=5.5)
+
+    garch_t()
+    t1, t2 = _time_ms(garch_t, 10), _time_ms(garch_t, 10)
+    print(f"phase14 timing garch_terminal t(5.5) tier alone {FAMILY_PATHS} x {N_STEPS} x "
+          f"{N_ASSETS}: kernel {t1:.3f} / {t2:.3f} ms "
+          f"({FAMILY_PATHS * N_STEPS / ((t1 + t2) / 2) * 1e3:.4e} path-steps/s)")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -1599,8 +2191,14 @@ def main() -> int:
     launches.update(phase_family_tier(dev))
     lap("phase 10")
     times.update(phase_family_timing(dev))
+    lap("phase 11")
+    worst.update(phase_family2_kernels(dev))
+    lap("phase 12")
+    launches.update(phase_family2_tier(dev))
+    lap("phase 13")
+    times.update(phase_family2_timing(dev))
     bound = bounds(issue_rate())
-    lap("phase 11 and the bounds")
+    lap("phase 14 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),
           "no jax, pandas or mcport imported")
@@ -1612,6 +2210,9 @@ def main() -> int:
         "garch_multi_dd": ("garch.cu", "mcport/ops/pallas_garch.py:113"),
         "bootstrap_terminal": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:52"),
         "bootstrap_multi_dd": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:120"),
+        "merton_multi_dd": ("jump.cu", "mcport/ops/pallas_jump.py:70"),
+        "heston_terminal": ("heston.cu", "mcport/ops/pallas_heston.py:72"),
+        "heston_multi_dd": ("heston.cu", "mcport/ops/pallas_heston.py:172"),
     }
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

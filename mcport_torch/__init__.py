@@ -2,9 +2,11 @@
 
 A second package beside :mod:`mcport`, which stays the reference it is held
 against. The port runs correlated-GBM tail risk (``gbm-risk``), the GBM path
-tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``) and the
-CCC-GARCH and block-bootstrap families (``garch-risk``, ``bootstrap-risk``,
-their path risk and frontiers) on one H100: hand-written CUDA C++ kernels
+tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``), the
+CCC-GARCH and block-bootstrap families (``garch-risk``, ``bootstrap-risk``)
+and the common-jump Merton and Heston families (``jump-risk``,
+``heston_terminal_returns``), with the families' path risk and frontiers, on
+one H100: hand-written CUDA C++ kernels
 draw the paths and score them (``csrc/``), plain PyTorch does the rest
 (moments, histogram sketches, VaR/CVaR, drawdown quantiles, checkpointing,
 the frontier's selection) and host NumPy/SciPy the estimation.
@@ -16,7 +18,10 @@ Layers, entry point down to the device:
                       engine/drawdown_frontier.py → ops/multi_dd.py   → csrc/multi_dd.cu
                       models/garch_mc.py, engines → ops/garch.py      → csrc/garch.cu
                       models/bootstrap.py, engines→ ops/bootstrap.py  → csrc/bootstrap.cu
-              ↘ data.py, config.py, models/gbm.py, models/garch.py, ops/quantile.py,
+                      engines                     → ops/jump.py       → csrc/jump.cu
+                      models/heston.py, engines   → ops/heston.py     → csrc/heston.cu
+              ↘ data.py, config.py, models/gbm.py, models/garch.py, models/jump.py
+                (its exact terminal sampler as torch ops), ops/quantile.py,
                 ops/dirichlet.py
 
 The port imports torch and never jax, and nothing of :mod:`mcport`: it keeps

@@ -58,6 +58,14 @@ KERNELS = {
         "mcport_bootstrap_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
         _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "jump": ("mcport_merton_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr]),
+    "heston": ("mcport_heston_terminal", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
+        "mcport_heston_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr]),
 }
 
 

@@ -4,10 +4,10 @@
 Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
 engine), of ``mcport.api.path_tail_risk`` for the "gbm", "student_t",
-"garch" and "bootstrap" families (terminal VaR/CVaR plus the simulated
-max-drawdown distribution) and of ``mcport.api.bootstrap_tail_risk``. The
-mesh, quasi-MC and hedged branches and the DCC, jump and Heston families are
-not ported yet and raise.
+"garch", "jump", "heston" and "bootstrap" families (terminal VaR/CVaR plus
+the simulated max-drawdown distribution) and of
+``mcport.api.bootstrap_tail_risk``. The mesh, quasi-MC and hedged branches
+and the DCC family are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,12 +26,16 @@ from mcport_torch.engine.path_risk import (
     PathRiskCheckpoint,
     run_bootstrap_path_risk,
     run_garch_path_risk,
+    run_heston_path_risk,
+    run_merton_path_risk,
     run_path_risk,
     run_resumable_path_risk,
 )
 from mcport_torch.models.bootstrap import BootstrapRisk, bootstrap_risk
 from mcport_torch.models.garch_mc import estimate_ccc_garch
 from mcport_torch.models.gbm import GBMParams, estimate_gbm, estimate_t_dof
+from mcport_torch.models.heston import estimate_heston
+from mcport_torch.models.jump import estimate_merton_common
 
 __all__ = ["gbm_risk", "path_tail_risk", "bootstrap_tail_risk", "Config"]
 
@@ -100,10 +104,12 @@ def path_tail_risk(
     ``prices`` matrix and its ``port_rets``). ``model`` "gbm" is correlated
     log-normal; "student_t" keeps its drift and covariance with unit-variance
     Student-t shocks at the moment-fitted dof (reported as ``t_dof``);
-    "garch" fits CCC-GARCH(1,1) to ``port_rets``; "bootstrap" resamples
-    ``port_rets`` with restart probability ``p_restart``. ``rebalance``
-    selects per-step rebalancing (default) or buy-and-hold for the GBM
-    families; GARCH and bootstrap wealth is always rebalanced.
+    "garch" fits CCC-GARCH(1,1) to ``port_rets``; "jump" calibrates the
+    common-jump Merton model to ``prices`` (threshold 3); "heston" fits the
+    Heston model to ``prices`` (the QMLE); "bootstrap" resamples ``port_rets``
+    with restart probability ``p_restart``. ``rebalance`` selects per-step
+    rebalancing (default) or buy-and-hold for the GBM families; every other
+    family's wealth is always rebalanced.
     ``checkpoint`` / ``checkpoint_path`` / ``max_blocks`` route through
     :func:`mcport_torch.engine.path_risk.run_resumable_path_risk`
     (bit-identical to the one-shot engines) and add a ``done`` flag.
@@ -128,6 +134,10 @@ def path_tail_risk(
                                     t_dof=estimate_t_dof(data.prices))
     elif model == "garch":
         params = estimate_ccc_garch(data.port_rets)
+    elif model == "jump":
+        params = estimate_merton_common(data.prices)
+    elif model == "heston":
+        params = estimate_heston(data.prices)
     else:
         params = data.port_rets
     resumable = (checkpoint is not None or checkpoint_path is not None
@@ -139,6 +149,10 @@ def path_tail_risk(
             max_blocks=max_blocks, device=device)
     elif model == "garch":
         rep = run_garch_path_risk(params, w, g, alpha=alpha, device=device)
+    elif model == "jump":
+        rep = run_merton_path_risk(params, w, g, alpha=alpha, device=device)
+    elif model == "heston":
+        rep = run_heston_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "bootstrap":
         rep = run_bootstrap_path_risk(params, w, g, p_restart=p_restart, alpha=alpha,
                                       device=device)

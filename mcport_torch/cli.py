@@ -3,8 +3,9 @@
     python -m mcport_torch.cli gbm-risk       CSV [CSV ...] [--path-stats] [--device cuda] ...
     python -m mcport_torch.cli garch-risk     CSV [CSV ...] [--innovations student_t] ...
     python -m mcport_torch.cli bootstrap-risk CSV [CSV ...] [--p-restart 0.2] ...
-    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,bootstrap] ...
-    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|bootstrap] ...
+    python -m mcport_torch.cli jump-risk      CSV [CSV ...] [--threshold 3.0] ...
+    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,jump,heston,bootstrap] ...
+    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|jump|heston|bootstrap] ...
 
 Each command takes the flags of its ``mcport`` counterpart that the port
 carries, plus ``--device`` (the card by default; ``cpu`` runs the kernels'
@@ -13,7 +14,7 @@ by :mod:`mcport_torch.data` (standard library and NumPy; no pandas). There is
 no ``--no-pallas`` or ``--loader``: the plain forms are the kernels' test
 yardsticks, not user paths on the card. Not ported yet: ``--hedge``,
 ``--attribution`` and ``--ci`` everywhere, ``garch-risk --correlation dcc``,
-and the DCC, jump and Heston families of ``path-risk`` and ``dd-frontier``.
+and the DCC family of ``path-risk`` and ``dd-frontier``.
 """
 
 from __future__ import annotations
@@ -150,6 +151,31 @@ def cmd_bootstrap_risk(args) -> None:
     })
 
 
+def cmd_jump_risk(args) -> None:
+    from mcport_torch.models.jump import estimate_merton_common, merton_risk
+
+    d = _universe(args)
+    params = estimate_merton_common(d.prices, threshold=args.threshold)
+    w = _weights(args, d)
+    out = merton_risk(args.seed, params, w, n_paths=args.paths, n_steps=args.steps,
+                      alpha=args.alpha, device=args.device)
+    _emit({
+        "engine": "merton-common-jump",
+        "n_paths": args.paths,
+        "horizon_steps": args.steps,
+        "calibration": {
+            "jump_rate_per_step": params.jump_rate,
+            "jump_mean": dict(zip(d.names, map(float, params.jump_mean))),
+            "jump_vol": dict(zip(d.names, map(float, params.jump_vol))),
+        },
+        "weights": dict(zip(d.names, map(float, w))),
+        "var": out.var,
+        "cvar": out.cvar,
+        "portfolio_mean_return": out.port_mean,
+        "paths_with_jump_frac": out.jump_frac,
+    })
+
+
 def cmd_path_risk(args) -> None:
     from mcport_torch.api import path_tail_risk
 
@@ -202,6 +228,14 @@ def cmd_dd_frontier(args) -> None:
             from mcport_torch.models.garch_mc import estimate_ccc_garch
 
             model_params = estimate_ccc_garch(d.port_rets)
+        elif args.model == "jump":
+            from mcport_torch.models.jump import estimate_merton_common
+
+            model_params = estimate_merton_common(d.prices)
+        elif args.model == "heston":
+            from mcport_torch.models.heston import estimate_heston
+
+            model_params = estimate_heston(d.prices)
         else:
             model_params = d.port_rets
         r = family_drawdown_frontier_search(
@@ -291,13 +325,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="block restart probability (expected block len = 1/p)")
     sp.set_defaults(fn=cmd_bootstrap_risk)
 
+    sp = sub.add_parser("jump-risk",
+                        help="Merton systemic-jump tail risk (threshold-calibrated)")
+    common(sp)
+    sp.add_argument("--weights", default=None, help="comma-separated, default equal")
+    sp.add_argument("--paths", type=int, default=262_144)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--threshold", type=float, default=3.0,
+                    help="systemic-jump z-score threshold (cross-sectional median)")
+    sp.set_defaults(fn=cmd_jump_risk)
+
     sp = sub.add_parser("path-risk",
                         help="per-period path risk (terminal VaR/CVaR + "
                              "max-drawdown distribution)")
     common(sp)
-    sp.add_argument("--models", default="gbm,student_t,garch,bootstrap",
-                    help="comma list of gbm,student_t,garch,bootstrap (dcc,jump,"
-                         "heston are not ported yet)")
+    sp.add_argument("--models", default="gbm,student_t,garch,jump,heston,bootstrap",
+                    help="comma list of gbm,student_t,garch,jump,heston,bootstrap "
+                         "(dcc is not ported yet)")
     sp.add_argument("--weights", default=None, help="comma list; default equal")
     sp.add_argument("--paths", type=int, default=65_536)
     sp.add_argument("--steps", type=int, default=52)
@@ -305,7 +349,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bootstrap restart probability (1/expected block len)")
     sp.add_argument("--buy-and-hold", action="store_true",
                     help="buy-and-hold GBM wealth instead of the default "
-                         "per-period rebalancing (GARCH and bootstrap always "
+                         "per-period rebalancing (the other families always "
                          "rebalance)")
     sp.add_argument("--checkpoint", default=None, metavar="FILE",
                     help="persist block-cursor state after every dispatch group "
@@ -338,7 +382,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "instead of buy-and-hold")
     sp.add_argument("--model", choices=["gbm", "garch", "dcc", "jump", "heston",
                                         "bootstrap"], default="gbm",
-                    help="path family (dcc, jump and heston are not ported yet)")
+                    help="path family (dcc is not ported yet)")
     sp.add_argument("--innovations", choices=["normal", "student_t"], default="normal",
                     help="student_t scores candidates under fat-tailed "
                          "unit-variance t shocks (moment-fitted dof)")

@@ -1,5 +1,5 @@
-"""Carry parameters from mcport (NumPy) into the port (torch): GBM and
-CCC-GARCH(1,1).
+"""Carry parameters from mcport (NumPy) into the port (torch): GBM,
+CCC-GARCH(1,1), common-jump Merton and Heston.
 
 The tests feed both packages from the same NumPy arrays through these
 functions. Weight vectors need no conversion: the port's engine and API take
@@ -15,8 +15,11 @@ import torch
 
 from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
+from mcport_torch.models.heston import HestonParams
+from mcport_torch.models.jump import MertonParams
 
-__all__ = ["gbm_params_from_numpy", "garch_params_from_numpy", "from_mcport"]
+__all__ = ["gbm_params_from_numpy", "garch_params_from_numpy", "merton_params_from_numpy",
+           "heston_params_from_numpy", "from_mcport"]
 
 
 def _f64(x) -> torch.Tensor:
@@ -49,10 +52,47 @@ def garch_params_from_numpy(mu, omega, alpha, beta, corr_chol, sigma2_0,
     return p
 
 
-def from_mcport(params) -> GBMParams | CCCGarchParams:
-    """The port's counterpart of an ``mcport.models.gbm.GBMParams`` or an
-    ``mcport.models.garch_mc.CCCGarchParams`` (told apart by their fields)."""
-    if hasattr(params, "corr_chol"):
-        return garch_params_from_numpy(params.mu, params.omega, params.alpha, params.beta,
-                                       params.corr_chol, params.sigma2_0, params.eps2_0)
-    return gbm_params_from_numpy(params.s0, params.mean_step, params.chol_step)
+def merton_params_from_numpy(s0, mean_step, chol_step, jump_rate, jump_mean,
+                             jump_vol) -> MertonParams:
+    """Port :class:`MertonParams` (float64 CPU tensors, copied) from the
+    diffusion's arrays, the per-step jump rate and the (A,) jump mean and
+    vol."""
+    p = MertonParams(gbm_params_from_numpy(s0, mean_step, chol_step), float(jump_rate),
+                     _f64(jump_mean), _f64(jump_vol))
+    if p.jump_mean.shape != (p.n_assets,) or p.jump_vol.shape != (p.n_assets,):
+        raise ValueError("the jump arrays do not describe the diffusion's universe")
+    return p
+
+
+def heston_params_from_numpy(mu, kappa, theta, xi, rho, v0, corr_chol, s0) -> HestonParams:
+    """Port :class:`HestonParams` (float64 CPU tensors, copied) from seven (A,)
+    arrays and the (A, A) correlation factor."""
+    p = HestonParams(mu=_f64(mu), kappa=_f64(kappa), theta=_f64(theta), xi=_f64(xi),
+                     rho=_f64(rho), v0=_f64(v0), corr_chol=_f64(corr_chol), s0=_f64(s0))
+    a = p.n_assets
+    vectors = ("kappa", "theta", "xi", "rho", "v0", "s0")
+    if (p.mu.shape != (a,) or any(getattr(p, f).shape != (a,) for f in vectors)
+            or p.corr_chol.shape != (a, a)):
+        raise ValueError("the Heston arrays do not describe one universe")
+    return p
+
+
+def from_mcport(params) -> GBMParams | CCCGarchParams | MertonParams | HestonParams:
+    """The port's counterpart of mcport's ``GBMParams``, ``CCCGarchParams``,
+    ``MertonParams`` or ``HestonParams``, told apart by a field only that type
+    has: ``omega`` (GARCH), ``kappa`` (Heston), ``diffusion`` (Merton),
+    ``mean_step`` (GBM)."""
+    p = params
+    if hasattr(p, "omega"):
+        return garch_params_from_numpy(p.mu, p.omega, p.alpha, p.beta, p.corr_chol,
+                                       p.sigma2_0, p.eps2_0)
+    if hasattr(p, "kappa"):
+        return heston_params_from_numpy(p.mu, p.kappa, p.theta, p.xi, p.rho, p.v0,
+                                        p.corr_chol, p.s0)
+    if hasattr(p, "diffusion"):
+        d = p.diffusion
+        return merton_params_from_numpy(d.s0, d.mean_step, d.chol_step, p.jump_rate,
+                                        p.jump_mean, p.jump_vol)
+    if hasattr(p, "mean_step"):
+        return gbm_params_from_numpy(p.s0, p.mean_step, p.chol_step)
+    raise TypeError(f"no port counterpart for {type(p).__name__}")

@@ -37,8 +37,14 @@ constexpr int kMaxAssets = 64;                // mcport_torch/ops/gbm.py MAX_ASS
 constexpr long long kSeedStride = 1LL << 14;  // mcport_torch/seeding.py SEED_STRIDE
 constexpr uint32_t kStreamGbm = 0;            // mcport_torch/rng.py STREAM_GBM
 constexpr uint32_t kStreamBoot = 1;           // mcport_torch/rng.py STREAM_BOOT
+constexpr uint32_t kStreamJump = 2;           // mcport_torch/rng.py STREAM_JUMP
+constexpr uint32_t kStreamHeston = 3;         // mcport_torch/rng.py STREAM_HESTON
 
-enum Tier { kPoly = 0, kPolyFast = 1, kStudentT = 2 };
+// kPolyStrict is the poly tier with every operation rounded as the torch form
+// rounds it (no contraction): bit-identical draws, for kernels whose state
+// must follow the plain form bit for bit (heston.cu). The wrappers never pass
+// it as a tier code.
+enum Tier { kPoly = 0, kPolyFast = 1, kStudentT = 2, kPolyStrict = 3 };
 
 struct Words {
   uint32_t w0, w1, w2, w3;
@@ -181,6 +187,46 @@ __device__ __forceinline__ void boxmuller(float u1, float u2, float* z1, float* 
   *z2 = r * s;
 }
 
+// sincos_poly<false> with every product and sum rounded once, in the torch
+// form's order (ops/gbm.py sincos_poly): bit-identical to it.
+__device__ __forceinline__ void sincos_poly_strict(float u, float* cos_t, float* sin_t) {
+  const float t = 4.0f * u;
+  float q = floorf(t + 0.5f);
+  const float r = __fmul_rn(__fsub_rn(t, q), 0x1.921fb6p+0f);  // π/2
+  const float r2 = __fmul_rn(r, r);
+  float s = __fadd_rn(-0x1.a01a02p-13f, __fmul_rn(r2, 0x1.71de3ap-19f));
+  s = __fadd_rn(0x1.111112p-7f, __fmul_rn(r2, s));
+  s = __fadd_rn(-0x1.555556p-3f, __fmul_rn(r2, s));
+  s = __fmul_rn(r, __fadd_rn(1.0f, __fmul_rn(r2, s)));
+  float c = __fadd_rn(-0x1.6c16c2p-10f, __fmul_rn(r2, 0x1.a01a02p-16f));
+  c = __fadd_rn(0x1.555556p-5f, __fmul_rn(r2, c));
+  c = __fadd_rn(-0.5f, __fmul_rn(r2, c));
+  c = __fadd_rn(1.0f, __fmul_rn(r2, c));
+  q = (q == 4.0f) ? 0.0f : q;
+  if (q == 1.0f) {
+    *cos_t = -s;
+    *sin_t = c;
+  } else if (q == 2.0f) {
+    *cos_t = -c;
+    *sin_t = -s;
+  } else if (q == 3.0f) {
+    *cos_t = s;
+    *sin_t = -c;
+  } else {
+    *cos_t = c;
+    *sin_t = s;
+  }
+}
+
+// boxmuller<false> rounded as the torch form rounds it: bit-identical draws.
+__device__ __forceinline__ void boxmuller_strict(float u1, float u2, float* z1, float* z2) {
+  const float r = __fsqrt_rn(-2.0f * ln_poly<false, true>(u1));
+  float c, s;
+  sincos_poly_strict(u2, &c, &s);
+  *z1 = __fmul_rn(r, c);
+  *z2 = __fmul_rn(r, s);
+}
+
 // Student-t(df) by Bailey's polar transform (not unit variance: the wrapper
 // folds the scale into L). p = u^(-2/df) - 1 cancels as u → 1, where sqrt(df p)
 // magnifies one ulp of the exp to ~2e-5 in the draw; so ln and exp are
@@ -201,17 +247,20 @@ __host__ __device__ constexpr int steps_per_call() {
 }
 
 // The shocks of steps c·steps_per_call .. + n-1 of one (path, asset): Philox
-// call c, consumed as the terminal-noise kernel consumes it. z[k] for k >= n
-// is left 0.
-template <int kTier>
+// call c of stream kStream, consumed as the terminal-noise kernel consumes it.
+// z[k] for k >= n is left 0.
+template <int kTier, uint32_t kStream = kStreamGbm>
 __device__ __forceinline__ void call_draws(uint32_t c, uint32_t asset, uint32_t path,
                                            uint32_t key, int n, float df,
                                            float neg2_over_df, float z[4]) {
-  const Words w = philox4x32_10(c, asset, path, kStreamGbm, key, 0u);
+  const Words w = philox4x32_10(c, asset, path, kStream, key, 0u);
   z[0] = z[1] = z[2] = z[3] = 0.0f;
   if (kTier == kStudentT) {
     z[0] = t_draw(bits_to_unit(w.w0), bits_to_unit(w.w1), df, neg2_over_df);
     if (n > 1) z[1] = t_draw(bits_to_unit(w.w2), bits_to_unit(w.w3), df, neg2_over_df);
+  } else if (kTier == kPolyStrict) {
+    boxmuller_strict(bits_to_unit(w.w0), bits_to_unit(w.w1), &z[0], &z[1]);
+    if (n > 2) boxmuller_strict(bits_to_unit(w.w2), bits_to_unit(w.w3), &z[2], &z[3]);
   } else {
     constexpr bool kFast = kTier == kPolyFast;
     boxmuller<kFast>(bits_to_unit(w.w0), bits_to_unit(w.w1), &z[0], &z[1]);

@@ -1,0 +1,375 @@
+// Heston stochastic-volatility paths on Hopper: the terminal simple returns of
+// every asset (kernel heston_terminal_kernel) and W candidate portfolios'
+// rebalanced wealth with its maximum drawdown (kernel heston_dd_kernel).
+//
+// Replaces mcport/ops/pallas_heston.py::_heston_kernel (heston_terminal_returns)
+// and ::_heston_dd_kernel (its unhedged mode: path-risk --models heston and
+// the Heston drawdown frontier). The plain torch forms of the same functions,
+// on the same Philox counters, are mcport_torch/ops/heston.py
+// ::heston_terminal_reference and ::heston_multi_dd_reference.
+//
+// What they compute. For block b of a dispatch group and path p < block_paths,
+// step by step: draw two normal fields, the return shocks z (STREAM_GBM) and
+// the variance shocks w (STREAM_HESTON), both in the GBM shocks' layout;
+// correlate zc = L_R z with the lower triangle of the correlation's Cholesky
+// factor; then per asset, full-truncation Euler in mcport's order:
+//   zv = rho zc + rho_c w,  vp = max(v, 0),  sv = sqrt(vp)
+//   x  = (mu - vp/2) + sv zc
+//   v  = v + kappa (theta - vp) + xi sv zv      (from v0; v, not vp)
+// and either acc += x (terminal: out expm1(acc) per asset), or, for every
+// candidate w, V *= W_w·exp(x), peak = max(peak, V), dd = min(dd, V/peak - 1)
+// from V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
+// rho_c = sqrt(1 - rho^2) arrives precomputed in float32 (ops/heston.py).
+//
+// Bit-identical path state. With full truncation the recursion is chaotic
+// where the Feller condition fails: sqrt at v ≈ 0 turns one ulp of v into
+// sqrt(ulp) of sv, and at xi = 0.05 (bench kappa, theta) a 2-ulp change of the
+// shocks grows to O(1) in the terminal log return within 252 steps
+// (tests/test_torch_heston.py). No tolerance can hold a kernel that rounds
+// differently from its plain form there. So both kernels round every
+// operation of the path — the draws (gbm_draws.cuh kPolyStrict), the correlate
+// (one product and one sum per term, in column order) and the update — as the
+// torch form does, with __fmul_rn/__fadd_rn/__fsqrt_rn and no contraction:
+// v, x and acc equal the plain form's bit for bit. Only the final expm1, the
+// per-step exp and the candidates' score (FP32 FMAs) differ by ulps, and no
+// difference feeds back into the path.
+//
+// What bounds them on the card. Per path-step and asset: two draws (half a
+// Philox call and one Box-Muller pair each, kernel #1's 54.75 instructions
+// per draw, more when strict), the correlate's lower triangle ((A+1)/2
+// products and sums on average) and the update (~12 operations with an IEEE
+// sqrt); the candidate kernel adds an exp per asset-step and W·A scoring FMAs
+// per path-step. Nothing is read per step and each output is stored once, so
+// both are bound by instruction issue. The designs are the GARCH kernels'
+// (garch.cu):
+// - terminal: one thread per path; v, acc and both fields of one Philox call
+//   for A <= 16 stay in registers (all loops over assets unrolled). L_R's rows
+//   and the per-asset (mu, kappa, theta, xi) and (rho, rho_c) sit in shared
+//   memory behind volatile 16-byte loads; the unrolled correlate skips the
+//   zero upper triangle at compile time: A(A+1)/2 terms per step, not A².
+// - candidates: a block owns 16 paths and all <= 256 candidates; each (asset,
+//   path) of the tile has a thread that keeps its variance and the variance
+//   shocks of one Philox call in registers, draws the return shocks into
+//   shared memory, and per step correlates them and writes exp(x) to shared
+//   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
+//   values, peaks and drawdowns stay in registers (multi_dd.cu's scoring).
+// A dispatch group of blocks is one launch (gridDim.y).
+
+#include "gbm_draws.cuh"
+
+namespace {
+
+constexpr int kHA = 16;              // ops/heston.py MAX_HESTON_ASSETS
+constexpr int kTermThreads = 128;
+constexpr int kDdThreads = 256;
+constexpr int kTileP = 16;           // paths per candidate block
+constexpr int kMaxCand = 256;        // ops/multi_dd.py MAX_CANDIDATES
+
+// Four floats of shared memory, loaded anew at every use (garch.cu's lds128):
+// the volatile load keeps the compiler from holding all of L_R in registers
+// across the unrolled steps of a Philox call.
+__device__ __forceinline__ float4 lds128(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+  return v;
+}
+
+// The parameter block of ops/heston.py HestonTensors.packed: L (A·A), then mu,
+// kappa, theta, xi, rho, rho_c, v0 (A each).
+struct Params {
+  const float *l, *mu, *kappa, *theta, *xi, *rho, *rho_c, *v0;
+  __device__ Params(const float* p, int a)
+      : l(p), mu(p + a * a), kappa(mu + a), theta(kappa + a), xi(theta + a), rho(xi + a),
+        rho_c(rho + a), v0(rho_c + a) {}
+};
+
+// Loads L's lower triangle into s_l (kHA x kHA, zero elsewhere) and, per asset,
+// (mu, kappa, theta, xi) into s_g and (rho, rho_c, v0, 0) into s_h.
+__device__ __forceinline__ void load_params(const Params& q, int a_n, float* s_l, float4* s_g,
+                                            float4* s_h, int tid, int n_threads) {
+  for (int i = tid; i < kHA * kHA; i += n_threads) {
+    const int r = i / kHA, c = i % kHA;
+    s_l[i] = (r < a_n && c <= r) ? q.l[r * a_n + c] : 0.0f;
+  }
+  for (int i = tid; i < kHA; i += n_threads) {
+    const bool in = i < a_n;
+    s_g[i] = in ? make_float4(q.mu[i], q.kappa[i], q.theta[i], q.xi[i])
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    s_h[i] = in ? make_float4(q.rho[i], q.rho_c[i], q.v0[i], 0.0f)
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// One full-truncation step of one asset, rounded as the torch form rounds it:
+// returns x and advances v. zc is the correlated return shock, w the variance
+// shock, g = (mu, kappa, theta, xi), h = (rho, rho_c, ., .).
+__device__ __forceinline__ float heston_step(float zc, float w, float4 g, float4 h, float* v) {
+  const float zv = __fadd_rn(__fmul_rn(h.x, zc), __fmul_rn(h.y, w));
+  const float vp = fmaxf(*v, 0.0f);
+  const float sv = __fsqrt_rn(vp);
+  const float x = __fadd_rn(__fsub_rn(g.x, __fmul_rn(0.5f, vp)), __fmul_rn(sv, zc));
+  *v = __fadd_rn(__fadd_rn(*v, __fmul_rn(g.y, __fsub_rn(g.z, vp))),
+                 __fmul_rn(__fmul_rn(g.w, sv), zv));
+  return x;
+}
+
+__global__ void __launch_bounds__(kTermThreads)
+heston_terminal_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                       int n_steps, const float* __restrict__ params, float* __restrict__ out) {
+  __shared__ __align__(16) float s_l[kHA * kHA];
+  __shared__ float4 s_g[kHA];  // (mu, kappa, theta, xi)
+  __shared__ float4 s_h[kHA];  // (rho, rho_c, v0, 0)
+  const Params q(params, n_assets);
+  load_params(q, n_assets, s_l, s_g, s_h, threadIdx.x, kTermThreads);
+  __syncthreads();
+
+  const int p = blockIdx.x * kTermThreads + threadIdx.x;
+  if (p >= block_paths) return;
+  const int b = blockIdx.y;
+  const uint32_t key = block_key(seed, first_block, b);
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+
+  float v[kHA], acc[kHA];
+#pragma unroll
+  for (int a = 0; a < kHA; ++a) {
+    v[a] = a < n_assets ? s_h[a].z : 0.0f;
+    acc[a] = 0.0f;
+  }
+
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    float z[kPer][kHA], w[kPer][kHA];
+#pragma unroll
+    for (int a = 0; a < kHA; ++a) {
+      float za[4], wa[4];
+      if (a < n_assets) {
+        call_draws<kPolyStrict>(s0 / kPer, a, p, key, n, 0.0f, 0.0f, za);
+        call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, a, p, key, n, 0.0f, 0.0f, wa);
+      } else {
+        za[0] = za[1] = za[2] = za[3] = 0.0f;
+        wa[0] = wa[1] = wa[2] = wa[3] = 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        z[k][a] = za[k];
+        w[k][a] = wa[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= n) continue;  // (not break: a loop that may break is not unrolled)
+#pragma unroll
+      for (int i = 0; i < kHA; ++i) {
+        if (i < n_assets) {
+          float y = 0.0f;
+#pragma unroll
+          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only, in column order
+            const float4 l = lds128(s_l + i * kHA + j);
+            y = __fadd_rn(y, __fmul_rn(l.x, z[k][j]));
+            if (j + 1 <= i) y = __fadd_rn(y, __fmul_rn(l.y, z[k][j + 1]));
+            if (j + 2 <= i) y = __fadd_rn(y, __fmul_rn(l.z, z[k][j + 2]));
+            if (j + 3 <= i) y = __fadd_rn(y, __fmul_rn(l.w, z[k][j + 3]));
+          }
+          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+          const float4 h = lds128(reinterpret_cast<const float*>(s_h + i));
+          acc[i] = __fadd_rn(acc[i], heston_step(y, w[k][i], g, h, &v[i]));
+        }
+      }
+    }
+  }
+
+  const long long row = static_cast<long long>(b) * block_paths + p;
+#pragma unroll
+  for (int a = 0; a < kHA; ++a) {
+    if (a < n_assets) out[row * n_assets + a] = expm1f(acc[a]);
+  }
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+
+struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int l, g, h, w, z, e, total;
+  __host__ __device__ DdLayout(int a, int w_pad) {
+    l = 0;
+    g = kHA * kHA;
+    h = g + 4 * kHA;
+    w = h + 4 * kHA;
+    z = w + a * w_pad;
+    e = z + 4 * a * kTileP;
+    total = e + a * kTileP;
+  }
+};
+
+__global__ void __launch_bounds__(kDdThreads, 2)
+heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                 int n_cand, int n_steps, const float* __restrict__ params,
+                 const float* __restrict__ weights, float* __restrict__ term,
+                 float* __restrict__ max_dd) {
+  extern __shared__ __align__(16) float smem[];
+  const int a_n = n_assets;
+  const int w_pad = round4(n_cand);
+  const DdLayout lay(a_n, w_pad);
+  float* s_l = smem + lay.l;                              // (kHA, kHA) lower triangle
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (mu, kappa, theta, xi)
+  float4* s_h = reinterpret_cast<float4*>(smem + lay.h);  // (rho, rho_c, v0, 0)
+  float* s_w = smem + lay.w;                              // (A, w_pad) weights
+  float* s_z = smem + lay.z;                              // (4, A, kTileP) return shocks
+  float* s_e = smem + lay.e;                              // (A, kTileP) exp(x)
+
+  const int tid = threadIdx.x;
+  const Params q(params, a_n);
+  load_params(q, a_n, s_l, s_g, s_h, tid, kDdThreads);
+  for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
+    const int a = i / w_pad, w = i % w_pad;
+    s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
+  }
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTileP;
+  const uint32_t key = block_key(seed, first_block, b);
+  // this thread's (asset, path) item of the tile: A·16 <= 256 items
+  const int ia = tid / kTileP, ip = tid % kTileP;
+  const bool item = ia < a_n;
+
+  // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
+  const int cw = tid / 4, pq = tid % 4;
+  const bool scorer = 4 * cw < w_pad;
+  float v[4][4], peak[4][4], dd[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = 1.0f;
+      peak[i][j] = 1.0f;
+      dd[i][j] = 0.0f;
+    }
+  }
+  __syncthreads();
+  float var = item ? s_h[ia].z : 0.0f;  // the item's variance, from v0
+
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    float wa[4];
+    if (item) {
+      float za[4];
+      call_draws<kPolyStrict>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
+      call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, wa);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= n) continue;
+      if (item) {
+        float y = 0.0f;
+        for (int j = 0; j <= ia; ++j) {
+          y = __fadd_rn(y, __fmul_rn(s_l[ia * kHA + j], s_z[(k * a_n + j) * kTileP + ip]));
+        }
+        s_e[ia * kTileP + ip] = expf(heston_step(y, wa[k], s_g[ia], s_h[ia], &var));
+      }
+      __syncthreads();
+
+      if (scorer) {
+        float f[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
+        }
+        for (int a = 0; a < a_n; ++a) {
+          const float4 w4 = *reinterpret_cast<const float4*>(s_w + a * w_pad + 4 * cw);
+          const float4 e4 = *reinterpret_cast<const float4*>(s_e + a * kTileP + 4 * pq);
+          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+          const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) f[i][j] = fmaf(wv[i], ev[j], f[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            v[i][j] = v[i][j] * f[i][j];
+            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if (scorer) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int w = 4 * cw + i;
+      if (w >= n_cand) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = p0 + 4 * pq + j;
+        if (p >= block_paths) continue;
+        const long long o = (static_cast<long long>(b) * n_cand + w) * block_paths + p;
+        term[o] = v[i][j] - 1.0f;
+        max_dd[o] = dd[i][j];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the terminal kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. params: ops/heston.py HestonTensors.packed, float32 on
+// the device. Output out: (n_blocks, block_paths, n_assets) float32. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
+// the kernel does not take.
+int mcport_heston_terminal(long long seed, long long first_block, int n_blocks,
+                           int block_paths, int n_assets, int n_steps, const void* params,
+                           void* out, void* stream) {
+  if (n_assets < 1 || n_assets > kHA || n_blocks < 1 || n_blocks > 65535 ||
+      block_paths < 1 || n_steps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
+  heston_terminal_kernel<<<grid, kTermThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      seed, first_block, block_paths, n_assets, n_steps, static_cast<const float*>(params),
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// first_block+n_blocks. params: HestonTensors.packed; weights: (n_cand,
+// n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
+// block_paths) float32. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
+                           int block_paths, int n_assets, int n_cand, int n_steps,
+                           const void* params, const void* weights, void* term, void* dd,
+                           void* stream) {
+  if (n_assets < 1 || n_assets > kHA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
+      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || kHA * kTileP > kDdThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+  const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
+  cudaError_t err = cudaFuncSetAttribute(heston_dd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  heston_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      seed, first_block, block_paths, n_assets, n_cand, n_steps,
+      static_cast<const float*>(params), static_cast<const float*>(weights),
+      static_cast<float*>(term), static_cast<float*>(dd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

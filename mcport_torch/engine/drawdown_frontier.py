@@ -1,5 +1,5 @@
-"""Drawdown-constrained frontier search over simulated GBM, CCC-GARCH and
-stationary-bootstrap paths.
+"""Drawdown-constrained frontier search over simulated GBM, CCC-GARCH,
+common-jump Merton, Heston and stationary-bootstrap paths.
 
 Port of ``drawdown_frontier_search`` and ``family_drawdown_frontier_search``
 (``mcport/engine/drawdown_frontier.py``): among Dirichlet(1) candidate
@@ -8,8 +8,10 @@ portfolios, the one with the highest mean simulated terminal return whose
 
 Candidates are scored chunk by chunk, ``w_block`` at a time, by the multi-dd
 kernel (:func:`mcport_torch.ops.multi_dd.gbm_multi_portfolio_dd`), or for the
-families by the GARCH and bootstrap candidate kernels
+families by their candidate kernels
 (:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`,
+:func:`mcport_torch.ops.jump.merton_multi_portfolio_dd`,
+:func:`mcport_torch.ops.heston.heston_multi_portfolio_dd`,
 :func:`mcport_torch.ops.bootstrap.bootstrap_multi_portfolio_dd`; rebalanced
 wealth, float32, no screening tier), over ONE shared path set (every chunk regenerates the same paths from the same key, so
 comparisons between chunks are exact). Each chunk is reduced on the device to
@@ -30,8 +32,7 @@ generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 (mcport: 128, its VMEM tile); "auto" never screens and there is no
 ``auto_bf16_min_work``; on the CPU the plain form honours the score tiers
 (mcport's lax path ignores them). Not ported yet (raise
-``NotImplementedError``): hedged scoring and the DCC, jump and Heston
-families.
+``NotImplementedError``): hedged scoring and the DCC family.
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from mcport_torch.models.gbm import GBMParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.dirichlet import sample_weights
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
+from mcport_torch.ops.heston import heston_multi_portfolio_dd
+from mcport_torch.ops.jump import merton_multi_portfolio_dd
 from mcport_torch.ops.multi_dd import (
     BF16_DD_ERR_BOUND,
     BF16_DD_ERR_REBAL_COEF,
@@ -220,15 +223,17 @@ def family_drawdown_frontier_search(
 ) -> DrawdownFrontierResult:
     """The drawdown-constrained frontier under a non-GBM path family, on
     ``device``: "garch" (``model_params`` a
-    :class:`mcport_torch.models.garch_mc.CCCGarchParams`) or "bootstrap"
+    :class:`mcport_torch.models.garch_mc.CCCGarchParams`), "jump" (a
+    :class:`mcport_torch.models.jump.MertonParams`), "heston" (a
+    :class:`mcport_torch.models.heston.HestonParams`) or "bootstrap"
     (``model_params`` the (T, A) history of simple returns, ``p_restart`` its
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
-    path stream. "dcc", "jump" and "heston" are not ported yet."""
-    if model in ("dcc", "jump", "heston"):
-        raise NotImplementedError(f"the {model} drawdown frontier is not ported to "
+    path stream. "dcc" is not ported yet."""
+    if model == "dcc":
+        raise NotImplementedError("the dcc drawdown frontier is not ported to "
                                   "mcport_torch yet")
-    if model not in ("garch", "bootstrap"):
+    if model not in ("garch", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
     if hedge is not None:
@@ -244,6 +249,20 @@ def family_drawdown_frontier_search(
 
         def score(w_blk):
             return garch_multi_portfolio_dd(path_seed, g, w_blk, n_paths, n_steps)
+    elif model == "jump":
+        d, a = model_params.diffusion, model_params.n_assets
+        mean, chol, muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (
+            d.mean_step, d.chol_step, model_params.jump_mean, model_params.jump_vol))
+
+        def score(w_blk):
+            return merton_multi_portfolio_dd(path_seed, mean, chol, model_params.jump_rate,
+                                             muj, sigj, w_blk, n_paths, n_steps)
+    elif model == "heston":
+        h = model_params.tensors(dev)
+        a = model_params.n_assets
+
+        def score(w_blk):
+            return heston_multi_portfolio_dd(path_seed, h, w_blk, n_paths, n_steps)
     else:
         hist = torch.as_tensor(np.asarray(model_params, np.float32), device=dev)
         a = hist.shape[1]

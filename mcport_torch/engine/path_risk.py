@@ -1,7 +1,7 @@
 """Path-dependent risk: the max-drawdown distribution of a portfolio under
-GBM, CCC-GARCH and stationary-bootstrap paths.
+GBM, CCC-GARCH, common-jump Merton, Heston and stationary-bootstrap paths.
 
-Port of the GBM, Student-t, GARCH and bootstrap branches of
+Port of the GBM, Student-t, GARCH, jump, Heston and bootstrap branches of
 ``mcport/engine/path_risk.py``. Each family has a block function
 (mcport's ``_block_fn_for``) that evolves every path of a dispatch group on
 its kernel and returns the portfolio's terminal return and maximum drawdown
@@ -13,6 +13,10 @@ per path:
   log paths);
 - "garch": the GARCH candidate kernel with one candidate
   (:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`);
+- "jump": the Merton candidate kernel with one candidate
+  (:func:`mcport_torch.ops.jump.merton_multi_portfolio_dd`);
+- "heston": the Heston candidate kernel with one candidate
+  (:func:`mcport_torch.ops.heston.heston_multi_portfolio_dd`);
 - "bootstrap": the bootstrap candidate kernel with one candidate
   (:func:`mcport_torch.ops.bootstrap.bootstrap_multi_portfolio_dd`).
 
@@ -31,14 +35,14 @@ mcport's checkpoints are refused.
 
 Rebalancing follows mcport: :func:`run_path_risk` holds the initial GBM
 allocation (buy-and-hold) by default, :func:`run_resumable_path_risk`
-rebalances every step, and the GARCH and bootstrap families always compound
-per-period rebalanced wealth (their paths are simple-return recursions).
+rebalances every step, and the GARCH, jump, Heston and bootstrap families
+always compound per-period rebalanced wealth.
 The bootstrap's default terminal sketch is the covering log1p range of its
 history.
 
 Not ported yet (raise ``NotImplementedError``): hedged settlement, quasi-MC
-paths (``qmc``), bootstrap error bars (``ci_boot``), the DCC, jump and Heston
-families and ``run_resumable_path_risk_with_recovery``.
+paths (``qmc``), bootstrap error bars (``ci_boot``), the DCC family and
+``run_resumable_path_risk_with_recovery``.
 """
 
 from __future__ import annotations
@@ -57,14 +61,19 @@ from mcport_torch.engine.mc_engine import BACKEND_TAG
 from mcport_torch.models.bootstrap import _auto_sketch_from_history
 from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
+from mcport_torch.models.heston import HestonParams
+from mcport_torch.models.jump import MertonParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
+from mcport_torch.ops.heston import heston_multi_portfolio_dd
+from mcport_torch.ops.jump import merton_multi_portfolio_dd
 from mcport_torch.ops.multi_dd import multi_dd_from_log_paths
 from mcport_torch.ops.path_stats import gbm_path_stats
 from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
 
 __all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "UNPORTED_FAMILIES",
            "PathRiskReport", "PathRiskCheckpoint", "run_path_risk", "run_garch_path_risk",
+           "run_merton_path_risk", "run_heston_path_risk",
            "run_bootstrap_path_risk", "run_resumable_path_risk",
            "run_resumable_path_risk_with_recovery", "load_path_risk_checkpoint",
            "stats_from_log_paths"]
@@ -77,7 +86,7 @@ DISPATCH_BLOCKS = 16
 
 #: mcport's path families, and those not ported yet (they need their own kernels)
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
-UNPORTED_FAMILIES = ("dcc", "jump", "heston")
+UNPORTED_FAMILIES = ("dcc",)
 
 
 @dataclass(frozen=True)
@@ -167,6 +176,13 @@ def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: boo
     elif model == "garch":
         p = model_params
         arrays = (p.mu, p.omega, p.alpha, p.beta, p.corr_chol, p.sigma2_0, p.eps2_0)
+    elif model == "jump":
+        p = model_params
+        arrays = (p.diffusion.mean_step, p.diffusion.chol_step, [p.jump_rate], p.jump_mean,
+                  p.jump_vol)
+    elif model == "heston":
+        p = model_params
+        arrays = (p.mu, p.kappa, p.theta, p.xi, p.rho, p.v0, p.corr_chol, p.s0)
     else:
         arrays = (model_params, [p_restart])
     for arr in (*arrays, weights):
@@ -237,6 +253,28 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
         def block_fn(b, group):
             term, dd = garch_multi_portfolio_dd(seed, g, w[None], n, steps, first_block=b,
                                                 n_blocks=group)
+            return term[:, 0], dd[:, 0]
+
+        return block_fn, SketchConfig()
+    if model == "jump":
+        d = model_params.diffusion
+        mean, chol, muj, sigj = (torch.as_tensor(_host_f64(x), device=dev).to(torch.float32)
+                                 for x in (d.mean_step, d.chol_step, model_params.jump_mean,
+                                           model_params.jump_vol))
+
+        def block_fn(b, group):
+            term, dd = merton_multi_portfolio_dd(seed, mean, chol, model_params.jump_rate, muj,
+                                                 sigj, w[None], n, steps, first_block=b,
+                                                 n_blocks=group)
+            return term[:, 0], dd[:, 0]
+
+        return block_fn, SketchConfig()
+    if model == "heston":
+        h = model_params.tensors(dev)
+
+        def block_fn(b, group):
+            term, dd = heston_multi_portfolio_dd(seed, h, w[None], n, steps, first_block=b,
+                                                 n_blocks=group)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -346,6 +384,47 @@ def run_garch_path_risk(
                      0.2, device)
 
 
+def run_merton_path_risk(
+    params: MertonParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig = SketchConfig(),
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk under common-jump Merton paths on ``device``:
+    terminal VaR/CVaR plus the max-drawdown distribution of one portfolio
+    compounding per-period rebalanced wealth ``V *= w'exp(x)``, with the
+    per-step Bernoulli systemic jump clock (:mod:`mcport_torch.ops.jump`)."""
+    _check_unported(config, hedge)
+    return _one_shot("jump", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
+                     device)
+
+
+def run_heston_path_risk(
+    params: HestonParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig = SketchConfig(),
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    s0=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk under Heston stochastic-volatility paths on
+    ``device``: terminal VaR/CVaR plus the max-drawdown distribution of one
+    portfolio compounding per-period rebalanced wealth ``V *= w'exp(x)``.
+    ``s0`` is mcport's argument for hedged runs, which are not ported."""
+    _check_unported(config, hedge)
+    return _one_shot("heston", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
+                     device)
+
+
 def run_bootstrap_path_risk(
     returns,
     weights,
@@ -389,9 +468,10 @@ def run_resumable_path_risk(
 ) -> tuple[PathRiskReport, PathRiskCheckpoint]:
     """Checkpointable path risk for ``model``: "gbm", "student_t" (GBM drift
     and covariance with unit-variance t shocks at ``config.t_dof``), "garch"
-    (``model_params`` a :class:`CCCGarchParams`) or "bootstrap"
+    (``model_params`` a :class:`CCCGarchParams`), "jump" (a
+    :class:`MertonParams`), "heston" (a :class:`HestonParams`) or "bootstrap"
     (``model_params`` the (T, A) history, ``p_restart`` its restart
-    probability); GARCH and bootstrap wealth is rebalanced every step.
+    probability); every family but GBM's is rebalanced every step.
 
     Returns ``(report, checkpoint)``; the report covers the blocks folded so
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;

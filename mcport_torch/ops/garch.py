@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _BM_CODE, _T_CODE, _check_args, step_shocks, t_scaled_chol
+from mcport_torch.ops.gbm import _BM_CODE, _T_CODE, _check_args, sqrt_rn, step_shocks, t_scaled_chol
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
@@ -101,7 +101,7 @@ def garch_innovations(zc: torch.Tensor, g: GarchTensors) -> torch.Tensor:
     out = []
     for t in range(zc.shape[-2]):
         s2 = g.omega + g.alpha * e2 + g.beta * s2
-        eps = torch.sqrt(torch.clamp_min(s2, 0.0)) * zc[..., t, :]
+        eps = sqrt_rn(torch.clamp_min(s2, 0.0)) * zc[..., t, :]
         e2 = eps * eps
         out.append(eps)
     if not out:

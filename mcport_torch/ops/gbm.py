@@ -39,6 +39,7 @@ from mcport_torch.rng import STREAM_GBM, bits_to_unit, philox4x32
 
 __all__ = [
     "MAX_ASSETS",
+    "sqrt_rn",
     "ln_poly",
     "sincos_poly",
     "exp_poly",
@@ -89,6 +90,14 @@ def _horner(coef, x: torch.Tensor) -> torch.Tensor:
     return p
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as the kernels' ``sqrtf``
+    computes it. torch's vectorised CPU float32 ``sqrt`` is not correctly
+    rounded (some results are an ulp off); the float64 root rounded
+    to float32 is, on any device."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def ln_poly(u: torch.Tensor, coef=_LN1P_COEF) -> torch.Tensor:
     """ln(u) for float32 ``u`` in (0, 1]: exponent extraction, one octave fold
     at sqrt(2), then ``x·P(x)`` for ln(1+x) — mcport's ``_ln_poly``."""
@@ -135,13 +144,13 @@ def exp_poly(x: torch.Tensor) -> torch.Tensor:
 
 
 def _boxmuller_poly(u1, u2):
-    r = torch.sqrt(-2.0 * ln_poly(u1))
+    r = sqrt_rn(-2.0 * ln_poly(u1))
     c, s = sincos_poly(u2)
     return r * c, r * s
 
 
 def _boxmuller_poly_fast(u1, u2):
-    r = torch.sqrt(-2.0 * ln_poly(u1, _LN1P_FAST_COEF))
+    r = sqrt_rn(-2.0 * ln_poly(u1, _LN1P_FAST_COEF))
     c, s = sincos_poly(u2, fast=True)
     return r * c, r * s
 
@@ -157,7 +166,7 @@ def t_draw(u: torch.Tensor, v: torch.Tensor, df: float) -> torch.Tensor:
     ``sqrt(df (u^(-2/df) - 1)) cos(2πv)`` — ``one_t`` of mcport's
     ``_make_t_pair``. Not unit-variance: callers fold the scale into L."""
     p = exp_poly((-2.0 / df) * ln_poly(u)) - 1.0
-    r = torch.sqrt(df * torch.clamp_min(p, 0.0))
+    r = sqrt_rn(df * torch.clamp_min(p, 0.0))
     c, _ = sincos_poly(v)
     return r * c
 
@@ -172,10 +181,11 @@ def block_seeds(seed: int, first_block: int, n_blocks: int) -> list[int]:
 
 
 def _uniform_calls(seed: int, n_assets: int, n_paths: int, first_block: int,
-                   n_blocks: int, first_path: int, dev: torch.device):
+                   n_blocks: int, first_path: int, dev: torch.device,
+                   stream: int = STREAM_GBM):
     """``call(draw)`` → the four uniforms (each ``(n_blocks, n_paths, A)``
-    float32) of Philox call ``draw`` for paths ``first_path ..`` of each
-    block: the kernels' counters."""
+    float32) of Philox call ``draw`` of ``stream`` for paths ``first_path ..``
+    of each block: the kernels' counters."""
     keys = torch.tensor(block_seeds(seed, first_block, n_blocks),
                         dtype=torch.int64, device=dev).view(-1, 1, 1)
     asset = torch.arange(n_assets, dtype=torch.int64, device=dev).view(1, 1, -1)
@@ -183,8 +193,7 @@ def _uniform_calls(seed: int, n_assets: int, n_paths: int, first_block: int,
                         device=dev).view(1, -1, 1)
 
     def call(draw: int) -> list[torch.Tensor]:
-        ctr = (torch.full((), draw, dtype=torch.int64, device=dev), asset, path,
-               STREAM_GBM)
+        ctr = (torch.full((), draw, dtype=torch.int64, device=dev), asset, path, stream)
         words = philox4x32(ctr, (keys, 0))
         return [bits_to_unit(w.expand(n_blocks, n_paths, n_assets)) for w in words]
 
@@ -202,6 +211,7 @@ def step_shocks(
     first_path: int = 0,
     bm: str = "poly",
     t_df: float | None = None,
+    stream: int = STREAM_GBM,
     device: torch.device | str,
 ) -> torch.Tensor:
     """The shock of every step on the kernels' counters → ``(n_blocks,
@@ -209,11 +219,13 @@ def step_shocks(
     (scale not applied) with ``t_df``. Paths ``first_path ..
     first_path + n_paths - 1`` of each block, so a long launch can be checked
     in pieces. Step ``s`` of the normal tiers is draw ``s % 2`` of pair
-    ``s // 2``; of the t tier, draw ``s % 2`` of call ``s // 2``."""
+    ``s // 2``; of the t tier, draw ``s % 2`` of call ``s // 2``. ``stream``
+    tags the counters (Heston's variance shocks use ``STREAM_HESTON``)."""
     if bm not in _BM_CODE:
         raise ValueError(f"bm must be one of {sorted(_BM_CODE)}, got {bm!r}")
     dev = torch.device(device)
-    call = _uniform_calls(seed, n_assets, n_paths, first_block, n_blocks, first_path, dev)
+    call = _uniform_calls(seed, n_assets, n_paths, first_block, n_blocks, first_path, dev,
+                          stream)
     zs: list[torch.Tensor] = []
     if t_df is not None:
         for c in range(-(-n_steps // 2)):

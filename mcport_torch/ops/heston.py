@@ -1,0 +1,334 @@
+"""Heston stochastic-volatility paths: the CUDA Heston kernels and their plain
+torch forms.
+
+Port of ``mcport/ops/pallas_heston.py``, its unhedged modes. Two kernels
+(``csrc/heston.cu``) replace ``_heston_kernel`` and ``_heston_dd_kernel``:
+per path and step they draw two normal fields — the return shocks ``z``
+(``STREAM_GBM``, the GBM kernels' layout) and the variance shocks ``w``
+(``STREAM_HESTON``, the same layout) — and advance the full-truncation Euler
+scheme of mcport's ``_heston_step`` in its order of operations:
+
+    zc = L_R z                       (lower triangle of the correlation factor)
+    zv = rho zc + sqrt(1 - rho^2) w  (leverage; sqrt(1 - rho^2) in float32)
+    vp = max(v, 0),  sv = sqrt(vp)
+    x  = (mu - vp/2) + sv zc         (the step's log return)
+    v  = v + kappa (theta - vp) + xi sv zv
+
+- :func:`heston_terminal` sums ``acc += x`` per asset → the terminal simple
+  returns ``expm1(acc)`` (mcport's lax form);
+- :func:`heston_multi_portfolio_dd` compounds ``W`` candidate portfolios'
+  per-period rebalanced wealth ``V *= W·exp(x)`` (float32, mcport's
+  ``score_dot``) with the running peak and maximum drawdown.
+
+The plain forms are two :func:`mcport_torch.ops.gbm.step_shocks` calls plus
+:func:`heston_increments`. Each wrapper dispatches on the device of its
+tensors: the CPU goes to the plain form, a CUDA device launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mcport_torch.ops.gbm import _check_args, sqrt_rn, step_shocks
+from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+from mcport_torch.rng import STREAM_HESTON
+
+__all__ = [
+    "MAX_HESTON_ASSETS",
+    "HestonTensors",
+    "heston_shocks",
+    "heston_increments",
+    "heston_terminal_reference",
+    "heston_terminal",
+    "heston_multi_dd_reference",
+    "heston_multi_portfolio_dd",
+    "heston_tolerance",
+    "heston_shares",
+]
+
+#: Widest universe the Heston kernels take (one path's state in registers).
+MAX_HESTON_ASSETS = 16
+
+_EPS = 2.0 ** -24    # float32 unit roundoff
+
+
+class HestonTensors(NamedTuple):
+    """Heston parameters as float32 tensors on one device: ``mu``, ``kappa``,
+    ``theta``, ``xi``, ``rho``, ``v0`` (A,) and ``corr_chol`` (A, A), the lower
+    Cholesky factor of the return shocks' correlation."""
+
+    mu: torch.Tensor
+    kappa: torch.Tensor
+    theta: torch.Tensor
+    xi: torch.Tensor
+    rho: torch.Tensor
+    v0: torch.Tensor
+    corr_chol: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.corr_chol.device
+
+    @property
+    def rho_c(self) -> torch.Tensor:
+        """``sqrt(1 - rho^2)`` in float32, as mcport's kernel computes it."""
+        return sqrt_rn(1.0 - self.rho * self.rho)
+
+    def packed(self) -> torch.Tensor:
+        """The kernels' parameter block: ``corr_chol`` (A·A, row-major), then
+        mu, kappa, theta, xi, rho, sqrt(1 - rho^2), v0 (A each), float32,
+        contiguous."""
+        return torch.cat([self.corr_chol.reshape(-1), self.mu, self.kappa, self.theta,
+                          self.xi, self.rho, self.rho_c, self.v0]).contiguous()
+
+
+def _check(h: HestonTensors, n_paths: int, n_steps: int, n_blocks: int) -> int:
+    a = h.corr_chol.shape[0]
+    if not 1 <= a <= MAX_HESTON_ASSETS:
+        raise ValueError(f"the Heston kernels take 1..{MAX_HESTON_ASSETS} assets, got {a}")
+    for name, x in h._asdict().items():
+        want = (a, a) if name == "corr_chol" else (a,)
+        if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != h.device:
+            raise ValueError(f"Heston parameter {name} must be float32 {want} on "
+                             f"{h.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_args(h.corr_chol, n_paths, n_steps, n_blocks, "poly", None)
+    return a
+
+
+def heston_shocks(seed: int, h: HestonTensors, n_paths: int, n_steps: int, *,
+                  first_block: int = -1, n_blocks: int = 1,
+                  first_path: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(zc, w)``, each ``(n_blocks, n_paths, n_steps, A)`` float32 on the
+    kernels' counters: the correlated return shocks ``L_R z`` and the variance
+    shocks. As in the kernels, only the lower triangle of ``L_R`` is read and
+    ``zc_i`` is summed term by term in column order, each product and sum
+    rounded once, so that the kernels' path state can equal this form's bit
+    for bit."""
+    kw = dict(first_block=first_block, n_blocks=n_blocks, first_path=first_path,
+              device=h.device)
+    a = h.corr_chol.shape[0]
+    z = step_shocks(seed, a, n_paths, n_steps, **kw)
+    w = step_shocks(seed, a, n_paths, n_steps, stream=STREAM_HESTON, **kw)
+    chol = torch.tril(h.corr_chol)
+    zc = torch.zeros_like(z)
+    for j in range(a):
+        zc = zc + chol[:, j] * z[..., j:j + 1]
+    return zc, w
+
+
+def heston_increments(zc: torch.Tensor, w: torch.Tensor, h: HestonTensors) -> torch.Tensor:
+    """Log returns ``x_t`` ``(..., T, A)`` of the full-truncation scheme from
+    correlated return shocks ``zc`` and variance shocks ``w`` ``(..., T,
+    A)``, the variance starting at ``v0`` — mcport's ``_heston_step`` in its
+    order of operations."""
+    v = h.v0.expand(zc.shape[:-2] + zc.shape[-1:])
+    rho_c = h.rho_c
+    out = []
+    for t in range(zc.shape[-2]):
+        zct = zc[..., t, :]
+        zv = h.rho * zct + rho_c * w[..., t, :]
+        vp = torch.clamp_min(v, 0.0)
+        sv = sqrt_rn(vp)
+        out.append((h.mu - 0.5 * vp) + sv * zct)
+        v = v + h.kappa * (h.theta - vp) + h.xi * sv * zv
+    if not out:
+        return zc.new_zeros(zc.shape)
+    return torch.stack(out, dim=-2)
+
+
+def heston_terminal_reference(
+    seed: int,
+    h: HestonTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> torch.Tensor:
+    """Plain torch form of the Heston terminal kernel: terminal simple returns
+    ``expm1(Σ_t x_t)`` ``(n_blocks, n_paths, A)`` float32 for paths
+    ``first_path ..`` of each block, the sum taken step by step. Runs on any
+    device; the tests use it on the CPU and ``chip_smoke.py`` holds the kernel
+    against it on the card."""
+    _check(h, n_paths, n_steps, n_blocks)
+    x = heston_increments(*heston_shocks(seed, h, n_paths, n_steps, first_block=first_block,
+                                         n_blocks=n_blocks, first_path=first_path), h)
+    acc = torch.zeros_like(x[..., 0, :])
+    for t in range(n_steps):
+        acc = acc + x[..., t, :]
+    return torch.expm1(acc)
+
+
+def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    lib = library("heston")
+    a = h.corr_chol.shape[0]
+    out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=h.device)
+    if n_paths == 0:
+        return out
+    params = h.packed()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.mcport_heston_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
+                                         params.data_ptr(), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"Heston terminal kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    heston_terminal.launches += 1
+    return out
+
+
+def heston_terminal(
+    seed: int,
+    h: HestonTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> torch.Tensor:
+    """Terminal simple returns ``(n_blocks, n_paths, A)`` float32 of Heston
+    paths for the blocks ``first_block + 1 .. first_block + n_blocks`` of a run
+    seeded ``seed`` (one block keyed by ``seed`` itself by default) —
+    mcport's ``pallas_heston_terminal_returns``.
+
+    Parameters on a CUDA device launch the kernel, counted in
+    ``heston_terminal.launches``; on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
+    """
+    _check(h, n_paths, n_steps, n_blocks)
+    if h.device.type == "cpu":
+        return heston_terminal_reference(seed, h, n_paths, n_steps, first_block=first_block,
+                                         n_blocks=n_blocks)
+    if h.device.type != "cuda":
+        raise ValueError(f"no Heston kernel for device {h.device}")
+    return _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks)
+
+
+heston_terminal.launches = 0
+
+
+def heston_multi_dd_reference(
+    seed: int,
+    h: HestonTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of the Heston candidate kernel: ``(term, dd)``, each
+    ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
+    block."""
+    _check(h, n_paths, n_steps, n_blocks)
+    x = heston_increments(*heston_shocks(seed, h, n_paths, n_steps, first_block=first_block,
+                                         n_blocks=n_blocks, first_path=first_path), h)
+    return rebalanced_dd(torch.exp(x), weights, gross=True)
+
+
+def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    lib = library("heston")
+    w_cnt, a = weights.shape
+    term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=h.device)
+    dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=h.device)
+    if n_paths == 0:
+        return term, dd
+    params = h.packed()
+    weights = weights.contiguous()
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.mcport_heston_multi_dd(
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, params.data_ptr(),
+            weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"Heston candidate kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    heston_multi_portfolio_dd.launches += 1
+    return term, dd
+
+
+def heston_multi_portfolio_dd(
+    seed: int,
+    h: HestonTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
+    float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
+    wealth ``V *= W·exp(x)`` over the Heston paths of blocks ``first_block +
+    1 .. first_block + n_blocks`` — mcport's ``pallas_heston_path_stats``,
+    unhedged.
+
+    More than ``MAX_CANDIDATES`` candidates run as several launches over the
+    same paths. Tensors on a CUDA device launch the kernel, each launch
+    counted in ``heston_multi_portfolio_dd.launches``; on the CPU the plain
+    form runs. Any other device, or a problem the kernel does not take,
+    raises.
+    """
+    a = _check(h, n_paths, n_steps, n_blocks)
+    w = weights.to(torch.float32)
+    if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != h.device:
+        raise ValueError(f"weights must be (W >= 1, {a}) on {h.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    if h.device.type == "cpu":
+        return heston_multi_dd_reference(seed, h, w, n_paths, n_steps,
+                                         first_block=first_block, n_blocks=n_blocks)
+    if h.device.type != "cuda":
+        raise ValueError(f"no Heston kernel for device {h.device}")
+    parts = [_launch_dd(seed, h, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
+                        n_blocks)
+             for i in range(0, w.shape[0], MAX_CANDIDATES)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
+
+
+heston_multi_portfolio_dd.launches = 0
+
+
+def heston_tolerance(n_assets: int, n_steps: int) -> tuple[float, float]:
+    """Relative bounds on ``|kernel - plain form|`` → ``(terminal, value)``.
+
+    The kernels' path state (``v``, ``x``, ``acc``) equals the plain form's
+    bit for bit, so only the transcendentals that leave the path and the
+    candidates' score differ. Terminal: ``expm1`` of the same ``acc`` on two
+    implementations, each within an ulp, four ulps with headroom: ``|Δ| <=
+    2^-21 |plain|``. Value: per step each ``exp`` within two ulps on either
+    side, the score's sum over ``A`` positive terms in another order (``A``
+    roundings) and the product, over ``n`` steps as a random walk with a
+    factor 8 of headroom: ``8 · 2^-24 · (A + 2 sqrt(n))``; the terminal return
+    then differs by at most ``rel · (1 + |term|)``, the drawdown by ``2 ·
+    rel``."""
+    return 2.0 ** -21, 8.0 * _EPS * (n_assets + 2.0 * math.sqrt(max(n_steps, 1)))
+
+
+def heston_shares(kernel, plain, h: HestonTensors, n_steps: int) -> dict[str, float]:
+    """The largest share of its bound (:func:`heston_tolerance`) that ``|kernel
+    - plain|`` uses → ``{"term"}`` for a terminal tensor ``(..., A)``,
+    ``{"term", "dd"}`` for a candidate pair ``(term, dd)``. Non-finite kernel
+    values give ``inf``."""
+    term_rel, rel = heston_tolerance(h.corr_chol.shape[0], n_steps)
+
+    def share(k, p, tol):
+        if not bool(torch.isfinite(k).all()):
+            return math.inf
+        return float(((k - p).abs() / tol).max()) if k.numel() else 0.0
+
+    if isinstance(kernel, torch.Tensor):
+        return {"term": share(kernel, plain, term_rel * plain.abs() + 1e-30)}
+    return {"term": share(kernel[0], plain[0], rel * (1.0 + plain[0].abs())),
+            "dd": share(kernel[1], plain[1], torch.full_like(plain[1], 2.0 * rel))}

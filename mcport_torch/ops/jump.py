@@ -1,0 +1,227 @@
+"""Common-jump Merton candidate paths: the CUDA jump kernel and its plain
+torch form.
+
+Port of ``pallas_merton_path_stats`` (``mcport/ops/pallas_jump.py``), its
+unhedged mode. The kernel (``csrc/jump.cu``) replaces ``_jump_dd_kernel``:
+per path and step it draws the GBM shocks ``z`` on kernel #3's counters, the
+increment ``x = m + L z``, and a systemic jump clock — an event ``u < λ`` and
+one common jump normal ``jn`` shared by every asset — that adds ``μJ + σJ·jn``
+to every asset's increment on an event step; then ``W`` candidates compound
+per-period rebalanced wealth ``V *= W·exp(x)`` (float32, mcport's
+``score_dot``) with their running peak and maximum drawdown.
+
+The jump clock (``rng.STREAM_JUMP``): one Philox call ``(c, 0, path,
+STREAM_JUMP)`` covers steps ``2c`` and ``2c + 1`` of one path — words 0 and
+1 are their event uniforms, words 2 and 3 one poly Box-Muller pair, their
+jump normals. mcport's kernel draws an 8-row grid per four steps (rows 0-3
+the uniforms, 4-7 two Box-Muller pairs); this is that grid halved. The event
+test compares float32 uniforms, exact on both sides, with ``float32(λ)``, so
+the kernel and the plain form pick identical jump steps.
+
+The plain form adds the jump term to the increments that
+:func:`mcport_torch.ops.path_stats.log_paths_reference` sums and scores them
+with :func:`mcport_torch.ops.multi_dd.multi_dd_from_log_paths` (rebalanced):
+at ``λ = 0`` it is kernel #3's rebalanced float32 plain form exactly, since it
+adds ``0 · (μJ + σJ·jn)``. :func:`merton_multi_portfolio_dd` dispatches on the
+device of its tensors: the CPU goes to the plain form, a CUDA device launches
+the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from mcport_torch.ops.gbm import BM_VARIANTS, _check_args, _uniform_calls, step_shocks
+from mcport_torch.ops.multi_dd import MAX_CANDIDATES, multi_dd_from_log_paths, multi_dd_tolerance
+from mcport_torch.rng import STREAM_JUMP
+
+__all__ = [
+    "jump_clock",
+    "merton_increments",
+    "merton_multi_dd_reference",
+    "merton_multi_portfolio_dd",
+    "merton_tolerance",
+    "merton_shares",
+]
+
+
+def jump_clock(seed: int, jump_rate: float, n_paths: int, n_steps: int, *,
+               first_block: int = -1, n_blocks: int = 1, first_path: int = 0,
+               device: torch.device | str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(event, jn)``, each ``(n_blocks, n_paths, n_steps)`` float32 on the
+    kernel's counters: ``event`` is 1 where the step's uniform is below
+    ``float32(jump_rate)``, else 0; ``jn`` the step's common jump normal."""
+    dev = torch.device(device)
+    call = _uniform_calls(seed, 1, n_paths, first_block, n_blocks, first_path, dev,
+                          STREAM_JUMP)
+    lam = torch.tensor(jump_rate, dtype=torch.float32, device=dev)
+    events, normals = [], []
+    for c in range(-(-n_steps // 2)):
+        u = [x[..., 0] for x in call(c)]
+        events += [(u[0] < lam).to(torch.float32), (u[1] < lam).to(torch.float32)]
+        normals += BM_VARIANTS["poly"](u[2], u[3])
+    if not events:
+        empty = torch.zeros((n_blocks, n_paths, 0), dtype=torch.float32, device=dev)
+        return empty, empty.clone()
+    return (torch.stack(events[:n_steps], dim=-1), torch.stack(normals[:n_steps], dim=-1))
+
+
+def merton_increments(seed: int, mean: torch.Tensor, chol: torch.Tensor, jump_rate: float,
+                      jump_mean: torch.Tensor, jump_vol: torch.Tensor, n_paths: int,
+                      n_steps: int, *, first_block: int = -1, n_blocks: int = 1,
+                      first_path: int = 0) -> torch.Tensor:
+    """Log increments ``x_t = m + L z_t + event_t (μJ + σJ jn_t)`` → ``(n_blocks,
+    n_paths, n_steps, A)`` float32 on the kernel's counters."""
+    z = step_shocks(seed, chol.shape[0], n_paths, n_steps, first_block=first_block,
+                    n_blocks=n_blocks, first_path=first_path, device=chol.device)
+    event, jn = jump_clock(seed, jump_rate, n_paths, n_steps, first_block=first_block,
+                           n_blocks=n_blocks, first_path=first_path, device=chol.device)
+    return (mean + z @ chol.T) + event[..., None] * (jump_mean + jump_vol * jn[..., None])
+
+
+def _check(chol, mean, jump_mean, jump_vol, n_paths, n_steps, n_blocks, jump_rate) -> int:
+    _check_args(chol, n_paths, n_steps, n_blocks, "poly", None)
+    a = chol.shape[0]
+    for name, x in (("mean_step", mean), ("jump_mean", jump_mean), ("jump_vol", jump_vol)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (a,) or x.device != chol.device:
+            raise ValueError(f"{name} must be float32 ({a},) on {chol.device}, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not math.isfinite(jump_rate) or jump_rate < 0.0:
+        raise ValueError(f"jump_rate must be a finite rate >= 0, got {jump_rate}")
+    return a
+
+
+def merton_multi_dd_reference(
+    seed: int,
+    mean: torch.Tensor,
+    chol: torch.Tensor,
+    jump_rate: float,
+    jump_mean: torch.Tensor,
+    jump_vol: torch.Tensor,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of the jump kernel: ``(term, dd)``, each ``(n_blocks,
+    W, n_paths)`` float32, for paths ``first_path ..`` of each block. Runs on
+    any device; the tests use it on the CPU and ``chip_smoke.py`` holds the
+    kernel against it on the card."""
+    _check(chol, mean, jump_mean, jump_vol, n_paths, n_steps, n_blocks, jump_rate)
+    x = merton_increments(seed, mean, chol, jump_rate, jump_mean, jump_vol, n_paths, n_steps,
+                          first_block=first_block, n_blocks=n_blocks, first_path=first_path)
+    return multi_dd_from_log_paths(torch.cumsum(x, dim=2), weights, rebalance=True)
+
+
+def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, jump_rate):
+    from mcport_torch._build import library
+
+    lib = library("jump")
+    dev = params.device
+    w_cnt = weights.shape[0]
+    term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=dev)
+    dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=dev)
+    if n_paths == 0:
+        return term, dd
+    weights = weights.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mcport_merton_multi_dd(
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, jump_rate,
+            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"jump kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    merton_multi_portfolio_dd.launches += 1
+    return term, dd
+
+
+def merton_multi_portfolio_dd(
+    seed: int,
+    mean_step: torch.Tensor,
+    chol_step: torch.Tensor,
+    jump_rate: float,
+    jump_mean: torch.Tensor,
+    jump_vol: torch.Tensor,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
+    float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
+    wealth over the common-jump Merton paths of blocks ``first_block + 1 ..
+    first_block + n_blocks`` of a run seeded ``seed`` (one block keyed by
+    ``seed`` itself by default) — mcport's ``pallas_merton_path_stats``,
+    unhedged.
+
+    More than ``MAX_CANDIDATES`` candidates run as several launches over the
+    same paths. Tensors on a CUDA device launch the kernel, each launch
+    counted in ``merton_multi_portfolio_dd.launches``; on the CPU the plain
+    form runs. Any other device, or a problem the kernel does not take,
+    raises.
+    """
+    chol, mean = chol_step.to(torch.float32), mean_step.to(torch.float32)
+    muj, sigj = jump_mean.to(torch.float32), jump_vol.to(torch.float32)
+    jump_rate = float(jump_rate)
+    a = _check(chol, mean, muj, sigj, n_paths, n_steps, n_blocks, jump_rate)
+    w = weights.to(torch.float32)
+    if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != chol.device:
+        raise ValueError(f"weights must be (W >= 1, {a}) on {chol.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    if chol.device.type == "cpu":
+        return merton_multi_dd_reference(seed, mean, chol, jump_rate, muj, sigj, w, n_paths,
+                                         n_steps, first_block=first_block, n_blocks=n_blocks)
+    if chol.device.type != "cuda":
+        raise ValueError(f"no jump kernel for device {chol.device}")
+    params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
+    parts = [_launch(seed, params, w[i:i + MAX_CANDIDATES], a, n_paths, n_steps, first_block,
+                     n_blocks, jump_rate)
+             for i in range(0, w.shape[0], MAX_CANDIDATES)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
+
+
+merton_multi_portfolio_dd.launches = 0
+
+
+def merton_tolerance(chol: torch.Tensor, mean: torch.Tensor, jump_vol: torch.Tensor,
+                     n_steps: int) -> float:
+    """Relative bound on ``|kernel - plain form|`` of a candidate's value:
+    :func:`mcport_torch.ops.multi_dd.multi_dd_tolerance` of the rebalanced
+    float32 tier (the diffusion is kernel #3's, step for step), plus the jump
+    normals' share — 2e-6 per draw, as for the shocks, scaled by the largest
+    ``σJ``, over ``4 sqrt(n)`` steps as a random walk with headroom. The
+    events are identical on both sides, so no jump can be missed. The terminal
+    return then differs by at most ``rel · (1 + term)``, the drawdown by ``2 ·
+    rel``."""
+    rel = multi_dd_tolerance(chol, mean, n_steps, True, "float32")
+    sig = float(jump_vol.abs().max()) if jump_vol.numel() else 0.0
+    return rel + 4.0 * math.sqrt(max(n_steps, 1)) * 2e-6 * sig
+
+
+def merton_shares(kernel, plain, chol: torch.Tensor, mean: torch.Tensor,
+                  jump_vol: torch.Tensor, n_steps: int) -> dict[str, float]:
+    """The largest share of its bound (:func:`merton_tolerance`) that
+    ``|kernel - plain|`` uses, per output ``{"term", "dd"}`` (``inf`` for a
+    non-finite kernel value)."""
+    rel = merton_tolerance(chol, mean, jump_vol, n_steps)
+    out = {}
+    for i, name in enumerate(("term", "dd")):
+        k, p = kernel[i], plain[i]
+        if not bool(torch.isfinite(k).all()):
+            out[name] = math.inf
+        elif k.numel() == 0:
+            out[name] = 0.0
+        else:
+            tol = rel * (1.0 + p.abs()) if name == "term" else 2.0 * rel
+            out[name] = float(((k - p).abs() / tol).max())
+    return out

@@ -102,18 +102,21 @@ def multi_dd_from_log_paths(paths: torch.Tensor, weights: torch.Tensor,
     return term, dd
 
 
-def rebalanced_dd(r: torch.Tensor, weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def rebalanced_dd(r: torch.Tensor, weights: torch.Tensor,
+                  gross: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(..., W, n)``, of ``W``
     candidates ``weights (W, A)`` compounding per-period rebalanced wealth
     ``V_t = V_{t-1} (1 + w·r_t)`` over per-step returns ``r (..., n, T, A)``,
     from ``V_0 = peak_0 = 1``, ``dd_0 = 0`` (mcport's ``_garch_dd_kernel`` and
-    ``_bootstrap_dd_kernel`` after the path step)."""
+    ``_bootstrap_dd_kernel`` after the path step). With ``gross``, ``r`` holds
+    gross factors and ``V_t = V_{t-1} (w·r_t)`` (``_heston_dd_kernel``)."""
     w = weights.to(r.dtype)
     v = torch.ones(r.shape[:-2] + (w.shape[0],), dtype=r.dtype, device=r.device)
     peak = torch.ones_like(v)
     dd = torch.zeros_like(v)
     for t in range(r.shape[-2]):
-        v = v * (1.0 + r[..., t, :] @ w.T)
+        f = r[..., t, :] @ w.T
+        v = v * (f if gross else 1.0 + f)
         peak = torch.maximum(peak, v)
         dd = torch.minimum(dd, v / peak - 1.0)
     return torch.movedim(v - 1.0, -1, -2), torch.movedim(dd, -1, -2)

@@ -16,10 +16,19 @@ Stream layout (identical in ``csrc/terminal_noise.cu``):
 ``block_seed = int32(seed + (b + 1) * SEED_STRIDE)`` for engine block ``b``
 (``mcport/engine/mc_engine.py`` convention). ``draw`` indexes the Philox calls
 of one (path, asset) pair; how a sampler consumes the four words of a call is
-documented in :mod:`mcport_torch.ops.gbm`. ``STREAM_GBM`` tags the GBM shock
-stream (the GARCH kernels draw it too) and ``STREAM_BOOT`` the block
-bootstrap's uniforms, so that samplers keyed by the same seed never share a
-counter.
+documented in :mod:`mcport_torch.ops.gbm`. The last counter word tags the
+stream, so that samplers keyed by the same seed never share a counter:
+
+- ``STREAM_GBM``: the GBM shocks (the GARCH, Merton and Heston kernels draw
+  them too);
+- ``STREAM_BOOT``: the block bootstrap's uniforms;
+- ``STREAM_JUMP``: the Merton path kernel's jump clock, counter ``(draw, 0,
+  path, STREAM_JUMP)``; one call covers two steps of one path
+  (:mod:`mcport_torch.ops.jump`);
+- ``STREAM_HESTON``: Heston's variance shocks, in the GBM shocks' layout
+  (:mod:`mcport_torch.ops.heston`);
+- ``STREAM_MERTON``: the exact Merton terminal sampler's normals and Poisson
+  uniforms (:mod:`mcport_torch.models.jump`).
 
 uint32 values are carried in int64 tensors (torch's unsigned 32-bit type has
 too few operators); every step masks back to 32 bits, and the 32x32→64-bit
@@ -30,7 +39,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["philox4x32", "bits_to_unit", "STREAM_GBM", "STREAM_BOOT"]
+__all__ = ["philox4x32", "bits_to_unit", "STREAM_GBM", "STREAM_BOOT", "STREAM_JUMP",
+           "STREAM_HESTON", "STREAM_MERTON"]
 
 PHILOX_M0 = 0xD2511F53
 PHILOX_M1 = 0xCD9E8D57
@@ -40,6 +50,9 @@ _MASK32 = 0xFFFFFFFF
 
 STREAM_GBM = 0
 STREAM_BOOT = 1   # the block bootstrap's uniforms (mcport_torch/ops/bootstrap.py)
+STREAM_JUMP = 2   # the Merton jump clock (mcport_torch/ops/jump.py)
+STREAM_HESTON = 3  # Heston's variance shocks (mcport_torch/ops/heston.py)
+STREAM_MERTON = 4  # the exact Merton terminal sampler (mcport_torch/models/jump.py)
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

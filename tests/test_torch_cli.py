@@ -7,8 +7,11 @@ error (the streams differ). ``path-risk``, ``dd-frontier`` and ``gbm-risk
 --path-stats`` emit mcport's keys. ``garch-risk`` and ``bootstrap-risk`` read
 the weekly BTC/ETH fixtures (365 rows): the same keys, the same fitted GARCH
 parameters within 1e-4 (L-BFGS-B's reach, ``tests/test_torch_garch.py``),
-and VaR/CVaR/mean within Monte Carlo error. A subprocess imports every
-``mcport_torch`` module and finds neither jax nor pandas loaded.
+and VaR/CVaR/mean within Monte Carlo error; ``jump-risk`` the same
+calibration to 1e-12 and VaR/CVaR/mean and the jump fraction within Monte
+Carlo error; ``path-risk --models jump,heston`` and ``dd-frontier --model
+jump|heston`` mcport's keys. A subprocess imports every ``mcport_torch``
+module and finds neither jax nor pandas loaded.
 """
 
 import contextlib
@@ -208,7 +211,43 @@ def test_path_risk_cli_families_have_mcport_keys(weekly, tmp_path):
     assert _run(port_main, one + ["--resume"])["bootstrap"] == out["bootstrap"]
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_jump_risk_cli_matches_mcport(weekly):
+    common = ["jump-risk", *weekly, "--period", "W", "--paths", "20000", "--steps", "12",
+              "--seed", "1", "--threshold", "2.5"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["engine"] == ref["engine"] == "merton-common-jump"
+    assert port["weights"] == ref["weights"] and port["n_paths"] == 20_000
+    cal, ref_cal = port["calibration"], ref["calibration"]
+    assert cal["jump_rate_per_step"] == pytest.approx(ref_cal["jump_rate_per_step"], rel=1e-12)
+    assert cal["jump_rate_per_step"] > 0
+    for key in ("jump_mean", "jump_vol"):
+        np.testing.assert_allclose(list(cal[key].values()), list(ref_cal[key].values()),
+                                   rtol=1e-12)
+    _within_mc(port, ref, ("var", "cvar", "portfolio_mean_return"))
+    p = ref["paths_with_jump_frac"]
+    assert abs(port["paths_with_jump_frac"] - p) <= 4 * np.sqrt(2 * p * (1 - p) / 20_000)
+
+
+def test_path_risk_cli_jump_and_heston_have_mcport_keys(weekly):
+    common = ["path-risk", *weekly, "--period", "W", "--models", "jump,heston", "--paths",
+              "8192", "--steps", "8", "--seed", "2"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref)
+    for model in ("jump", "heston"):
+        assert set(port[model]) == set(ref[model]) and port[model]["n_paths"] == 8192
+        assert port[model]["cvar"] <= port[model]["var"]
+
+
+def test_path_risk_cli_defaults_to_every_ported_family():
+    from mcport_torch.cli import build_parser
+
+    args = build_parser().parse_args(["path-risk", "x.csv"])
+    assert args.models == "gbm,student_t,garch,jump,heston,bootstrap"
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_dd_frontier_cli_families_have_mcport_keys(weekly, model):
     common = ["dd-frontier", *weekly, "--period", "W", "--candidates", "32", "--paths",
               "1024", "--steps", "8", "--dd-budget", "0.9", "--model", model]

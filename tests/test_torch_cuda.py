@@ -13,7 +13,13 @@ random-walk bound at least four times the largest difference measured on an
 H100); the path-stats kernel to ``ops.path_stats.path_stats_tolerance``; the
 multi-dd kernel to ``ops.multi_dd.multi_dd_shares``. With one candidate the
 multi-dd kernel is the path-stats kernel bit for bit, and the path-stats
-kernel's terminal is the terminal-noise kernel's up to rounding.
+kernel's terminal is the terminal-noise kernel's up to rounding. The family
+kernels: CCC-GARCH (#4, #5) to ``ops.garch.garch_shares``, the bootstrap
+(#6 bit for bit, #7 to ``ops.bootstrap.bootstrap_shares``), common-jump
+Merton (#8) to ``ops.jump.merton_shares`` with the plain form's jump steps
+and, at rate 0, kernel #3's output bit for bit, and Heston (#9, #10) to
+``ops.heston.heston_shares`` at the bench's vol-of-vol and a Feller-violating
+one.
 """
 
 import numpy as np
@@ -373,3 +379,151 @@ def test_bootstrap_kernels_reject_a_history_beyond_shared_memory(dev):
 
     with pytest.raises(ValueError, match="shared memory"):
         bootstrap_terminal(0, _history(4_000, 15, dev), 128, 4)
+
+
+# ---- kernel #8: common-jump Merton candidates ---------------------------------------
+
+def _merton(a, dev, mu_j=-0.08, sig_j=0.04):
+    """The bench's Merton universe (bench.py): the GBM universe plus jump mean
+    -0.08 and jump vol 0.04 per asset."""
+    mean, chol, _ = _bench_inputs(a, dev)
+    full = torch.full((a,), 1.0, dtype=torch.float32, device=dev)
+    return mean, chol, mu_j * full, sig_j * full
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("a, steps", [(15, 252), (15, 7), (1, 9), (64, 8)])
+@pytest.mark.parametrize("jump_rate", [0.02, 0.3])
+def test_merton_kernel_matches_plain_form(dev, n_cand, a, steps, jump_rate):
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+
+    mean, chol, muj, sigj = _merton(a, dev)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(a), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = merton_multi_portfolio_dd.launches
+    k = merton_multi_portfolio_dd(11, mean, chol, jump_rate, muj, sigj, w, 2_053, steps, **kw)
+    torch.cuda.synchronize()
+    assert merton_multi_portfolio_dd.launches == before + 1
+    p = merton_multi_dd_reference(11, mean, chol, jump_rate, muj, sigj, w, 2_053, steps, **kw)
+    shares = merton_shares(k, p, chol, mean, sigj, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_merton_kernel_jumps_on_the_plain_forms_steps(dev):
+    """Unmissable jumps (sigma_J = 0, mu_J = -0.5, one step): a path that
+    jumped loses ~40%, so its drawdown shows the event. The kernel's jumped
+    paths are the plain form's, path for path."""
+    from mcport_torch.ops.jump import merton_multi_dd_reference, merton_multi_portfolio_dd
+
+    mean, chol, muj, sigj = _merton(15, dev, mu_j=-0.5, sig_j=0.0)
+    w = torch.full((1, 15), 1.0 / 15, device=dev)
+    kw = dict(first_block=0, n_blocks=3)
+    _, dk = merton_multi_portfolio_dd(5, mean, chol, 0.3, muj, sigj, w, 65_537, 1, **kw)
+    _, dp = merton_multi_dd_reference(5, mean, chol, 0.3, muj, sigj, w, 65_537, 1, **kw)
+    jumped = dp < -0.2
+    assert 0.25 < float(jumped.float().mean()) < 0.35
+    assert torch.equal(dk < -0.2, jumped)
+
+
+@pytest.mark.parametrize("n_cand", [1, 256])
+def test_merton_kernel_at_zero_rate_is_the_multi_dd_kernel(dev, n_cand):
+    """At lambda = 0 no step jumps: the kernel is kernel #3's rebalanced
+    float32 output bit for bit (it keeps #3's step code)."""
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    mean, chol, muj, sigj = _merton(15, dev)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(15), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=0, n_blocks=2)
+    k = merton_multi_portfolio_dd(3, mean, chol, 0.0, muj, sigj, w, 8_192, 252, **kw)
+    g = gbm_multi_portfolio_dd(3, mean, chol, w, 8_192, 252, rebalance=True, **kw)
+    assert torch.equal(k[0], g[0]) and torch.equal(k[1], g[1])
+
+
+def test_merton_kernel_more_than_one_launch_of_candidates(dev):
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+
+    mean, chol, muj, sigj = _merton(15, dev)
+    w = torch.from_numpy(np.random.default_rng(4).dirichlet(np.ones(15), 300).astype(
+        np.float32)).to(dev)
+    before = merton_multi_portfolio_dd.launches
+    term, dd = merton_multi_portfolio_dd(1, mean, chol, 0.02, muj, sigj, w, 777, 9)
+    assert merton_multi_portfolio_dd.launches == before + 2
+    tail = merton_multi_portfolio_dd(1, mean, chol, 0.02, muj, sigj, w[256:], 777, 9)
+    assert torch.equal(term[:, 256:], tail[0]) and torch.equal(dd[:, 256:], tail[1])
+
+
+# ---- kernels #9 and #10: Heston ---------------------------------------------------
+
+def _heston(a, dev, xi=3e-3, seed=0):
+    """The bench's Heston universe (bench.py): kappa 0.15, theta 4e-4, rho
+    -0.5, v0 4e-4, shock correlation 0.5; xi 3e-3, or a Feller-violating xi
+    (0.05) where the truncation binds often."""
+    from mcport_torch.convert import heston_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    full = np.ones(a)
+    return heston_params_from_numpy(
+        rng.normal(1e-3, 5e-4, a), 0.15 * full, 4e-4 * full, xi * full, -0.5 * full,
+        4e-4 * full, np.linalg.cholesky(0.5 * np.eye(a) + 0.5), full).tensors(dev)
+
+
+@pytest.mark.parametrize("a", [1, 15, 16])
+@pytest.mark.parametrize("xi", [3e-3, 0.05])
+@pytest.mark.parametrize("steps", [252, 7])
+def test_heston_terminal_kernel_matches_plain_form(dev, a, xi, steps):
+    from mcport_torch.ops.heston import heston_shares, heston_terminal, heston_terminal_reference
+
+    h = _heston(a, dev, xi)
+    kw = dict(first_block=6, n_blocks=2)
+    before = heston_terminal.launches
+    k = heston_terminal(11, h, 4_099, steps, **kw)
+    torch.cuda.synchronize()
+    assert heston_terminal.launches == before + 1
+    p = heston_terminal_reference(11, h, 4_099, steps, **kw)
+    shares = heston_shares(k, p, h, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("a, steps", [(15, 252), (15, 7), (1, 9), (16, 8)])
+@pytest.mark.parametrize("xi", [3e-3, 0.05])
+def test_heston_multi_dd_kernel_matches_plain_form(dev, n_cand, a, steps, xi):
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares)
+
+    h = _heston(a, dev, xi)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(a), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = heston_multi_portfolio_dd.launches
+    k = heston_multi_portfolio_dd(11, h, w, 2_053, steps, **kw)
+    torch.cuda.synchronize()
+    assert heston_multi_portfolio_dd.launches == before + 1
+    p = heston_multi_dd_reference(11, h, w, 2_053, steps, **kw)
+    shares = heston_shares(k, p, h, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_heston_kernels_agree_on_one_asset(dev):
+    """With one asset and the weight 1, the candidate kernel's value is the
+    terminal kernel's compounded return, prod exp(x) against expm1(sum x),
+    on the same path state."""
+    from mcport_torch.ops.heston import heston_multi_portfolio_dd, heston_terminal
+
+    h = _heston(1, dev, 0.05)
+    term = heston_terminal(3, h, 8_192, 252, first_block=0, n_blocks=2)
+    t10, _ = heston_multi_portfolio_dd(3, h, torch.ones((1, 1), device=dev), 8_192, 252,
+                                       first_block=0, n_blocks=2)
+    rel = ((t10[:, 0] - term[..., 0]).abs() / (1 + term[..., 0].abs())).max()
+    assert float(rel) < 1e-4
+
+
+def test_heston_kernels_reject_too_many_assets(dev):
+    from mcport_torch.ops.heston import heston_terminal
+
+    with pytest.raises(ValueError, match="1..16 assets"):
+        heston_terminal(0, _heston(17, dev), 128, 4)

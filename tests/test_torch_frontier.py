@@ -17,8 +17,9 @@ mcport's Threefry), so the searches are compared in law at matched sizes
 Against itself the port is exact where mcport pins it: the bf16 screen plus
 float32 rescore gives the float32 search's optimum; "auto" is float32.
 
-The family frontier (GARCH and bootstrap, rebalanced wealth) is held the same
-way at 32 candidates x 4,096 paths x 12 steps: every candidate of mcport's
+The family frontier (GARCH, bootstrap, common-jump Merton and Heston,
+rebalanced wealth) is held the same way at 32 candidates x 4,096 paths x 12
+steps: every candidate of mcport's
 search, scored by the port on its own paths, has mcport's mean return within
 4 standard errors of the difference, and mcport's drawdown quantile ``q``
 lies where the port's law puts it, ``F(q-) <= 1 - alpha <= F(q)`` within 4
@@ -37,6 +38,8 @@ from mcport.engine.drawdown_frontier import drawdown_frontier_search as ref_sear
 from mcport.engine.drawdown_frontier import family_drawdown_frontier_search as ref_family
 from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.gbm import GBMParams as RefParams
+from mcport.models.heston import HestonParams as RefHeston
+from mcport.models.jump import MertonParams as RefMerton
 from mcport.ops.dirichlet import sample_constrained_weights as ref_constrained
 from mcport_torch.convert import from_mcport
 from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
@@ -44,6 +47,8 @@ from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                    frontier_seeds)
 from mcport_torch.models.bootstrap import bootstrap_path_stats
 from mcport_torch.models.garch_mc import garch_path_stats
+from mcport_torch.models.heston import heston_path_stats
+from mcport_torch.models.jump import merton_path_stats
 from mcport_torch.ops.dirichlet import sample_weights
 from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
 
@@ -192,20 +197,38 @@ def test_dirichlet_law_and_bounds_match_mcport():
     assert abs(p - q) <= 4 * np.sqrt(2 * p * (1 - p) / 4_000) + 1e-3
 
 
-# ---- the GARCH and bootstrap family frontier ---------------------------------------
+# ---- the family frontier: GARCH, bootstrap, Merton, Heston ------------------------
 
 REF_GARCH = RefGarch(mu=MEAN, omega=np.full(A, 4e-5), alpha=np.full(A, 0.08),
                      beta=np.full(A, 0.9), corr_chol=np.linalg.cholesky(0.6 * np.eye(A) + 0.4),
                      sigma2_0=np.full(A, 9e-4), eps2_0=np.full(A, 9e-4))
 HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.03 + 0.002).astype(np.float32)
 FAMILY_KW = dict(dd_budget=0.15, n_candidates=32, n_paths=4_096, n_steps=12)
+REF_MERTON = RefMerton(REF_PARAMS, 0.1, np.array([-0.06, -0.08, -0.05]),
+                       np.array([0.03, 0.04, 0.02]))
+REF_HESTON = RefHeston(mu=MEAN, kappa=np.full(A, 0.15), theta=np.full(A, 9e-4),
+                       xi=np.full(A, 0.01), rho=np.full(A, -0.5), v0=np.full(A, 9e-4),
+                       corr_chol=np.linalg.cholesky(0.6 * np.eye(A) + 0.4), s0=np.ones(A))
 
 
 def _family_params(model):
-    return (from_mcport(REF_GARCH), REF_GARCH) if model == "garch" else (HISTORY, HISTORY)
+    ref = {"garch": REF_GARCH, "jump": REF_MERTON, "heston": REF_HESTON}.get(model)
+    return (HISTORY, HISTORY) if ref is None else (from_mcport(ref), ref)
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def _family_path_stats(model, seed, params, w, n_paths, n_steps):
+    """The port's plain (terminal returns, drawdowns) of candidates ``w``."""
+    if model == "jump":
+        d = params.diffusion
+        return merton_path_stats(seed, d.mean_step, d.chol_step, params.jump_rate,
+                                 params.jump_mean, params.jump_vol, w, n_paths, n_steps,
+                                 device="cpu")
+    fn = {"garch": garch_path_stats, "heston": heston_path_stats,
+          "bootstrap": bootstrap_path_stats}[model]
+    return fn(seed, params, w, n_paths, n_steps, device="cpu")
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_family_frontier_scores_as_mcport_in_law(model):
     params, ref_params = _family_params(model)
     got = family_drawdown_frontier_search(3, model, params, device="cpu", **FAMILY_KW)
@@ -216,10 +239,8 @@ def test_family_frontier_scores_as_mcport_in_law(model):
     if got.opt_idx >= 0:
         assert got.ret[got.opt_idx] == got.ret[got.feasible].max()
     # mcport's candidates on the port's paths
-    args = (7, params, want.weights, FAMILY_KW["n_paths"], FAMILY_KW["n_steps"])
-    term, dd = (x.double().numpy() for x in (
-        garch_path_stats(*args, device="cpu") if model == "garch"
-        else bootstrap_path_stats(*args, device="cpu")))
+    term, dd = (x.double().numpy() for x in _family_path_stats(
+        model, 7, params, want.weights, FAMILY_KW["n_paths"], FAMILY_KW["n_steps"]))
     se_r = term.std(-1) / np.sqrt(term.shape[-1])
     assert np.all(np.abs(term.mean(-1) - want.ret) <= 4 * np.sqrt(2) * se_r)
     # mcport's quantile q is one of the port's: F(q-) <= 1 - alpha <= F(q) on
@@ -231,7 +252,7 @@ def test_family_frontier_scores_as_mcport_in_law(model):
     assert np.all((dd < q).mean(-1) <= p + tol) and np.all((dd <= q).mean(-1) >= p - tol)
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_family_frontier_chunks_share_one_path_set(model):
     params, _ = _family_params(model)
     small = family_drawdown_frontier_search(4, model, params, w_block=8, device="cpu",

@@ -16,12 +16,13 @@
   and mcport's checkpoints are refused.
 - The kernel-vs-plain bound (``path_stats_tolerance``) rejects planted faults
   at the shapes the card's checks run.
-- The GARCH and bootstrap families: ``run_garch_path_risk`` and
-  ``run_bootstrap_path_risk`` agree with mcport's in law at 16,384 paths x
-  12 steps (4 standard errors of the difference; a bootstrap quantile's
-  error from its order statistics, its law being lumpy); their split runs
-  resume bit-identically, and a checkpoint of one family, or of mcport, is
-  refused by another.
+- The GARCH, bootstrap, common-jump Merton and Heston families:
+  ``run_garch_path_risk``, ``run_bootstrap_path_risk``,
+  ``run_merton_path_risk`` and ``run_heston_path_risk`` agree with mcport's
+  in law at 16,384 paths x 12 steps (4 standard errors of the difference; a
+  bootstrap quantile's error from its order statistics, its law being
+  lumpy); their split runs resume bit-identically, and a checkpoint of one
+  family, or of mcport, is refused by another.
 """
 
 import dataclasses
@@ -42,7 +43,11 @@ from mcport.engine.path_risk import run_path_risk as ref_run
 from mcport.engine.path_risk import run_resumable_path_risk as ref_resumable
 from mcport.engine.path_risk import run_bootstrap_path_risk as ref_bootstrap_run
 from mcport.engine.path_risk import run_garch_path_risk as ref_garch_run
+from mcport.engine.path_risk import run_heston_path_risk as ref_heston_run
+from mcport.engine.path_risk import run_merton_path_risk as ref_merton_run
 from mcport.models.garch_mc import CCCGarchParams as RefGarch
+from mcport.models.heston import HestonParams as RefHeston
+from mcport.models.jump import MertonParams as RefMerton
 from mcport.models.gbm import GBMParams as RefParams
 from mcport.models.gbm import simulate_log_paths
 from mcport_torch.api import gbm_risk, path_tail_risk
@@ -52,11 +57,15 @@ from mcport_torch.data import load_universe
 from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                    family_drawdown_frontier_search)
 from mcport_torch.engine.mc_engine import run_resumable_mc
+from mcport_torch.models.heston import heston_terminal_returns
+from mcport_torch.models.jump import merton_risk
 from mcport_torch.engine.path_risk import (
     DD_SKETCH,
     load_path_risk_checkpoint,
     run_bootstrap_path_risk,
     run_garch_path_risk,
+    run_heston_path_risk,
+    run_merton_path_risk,
     run_path_risk,
     run_resumable_path_risk,
     run_resumable_path_risk_with_recovery,
@@ -64,6 +73,8 @@ from mcport_torch.engine.path_risk import (
 )
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
+from mcport_torch.ops.heston import heston_multi_portfolio_dd
+from mcport_torch.ops.jump import merton_multi_portfolio_dd
 from mcport_torch.ops.gbm import block_terminal_log_returns
 from mcport_torch.ops.path_stats import (
     gbm_path_stats,
@@ -216,8 +227,8 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
     lambda: run_resumable_path_risk("dcc", PARAMS, W, CFG, device="cpu"),
     lambda: run_resumable_path_risk_with_recovery("gbm", PARAMS, W, CFG),
     lambda: drawdown_frontier_search(0, PARAMS, hedge=object(), device="cpu"),
-    lambda: family_drawdown_frontier_search(0, "jump", None),
-    lambda: path_tail_risk(object(), model="heston", device="cpu"),
+    lambda: family_drawdown_frontier_search(0, "dcc", None),
+    lambda: path_tail_risk(object(), model="dcc", device="cpu"),
 ])
 def test_unported_branches_raise(call):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -238,6 +249,10 @@ def test_unknown_model_raises():
         sorted(glob.glob(str(FIXTURES / "*Historical*.csv")))[:2], DataConfig(period="D")),
         model="gbm"),
     lambda: drawdown_frontier_search(0, PARAMS),
+    lambda: run_merton_path_risk(MERTON, W, CFG),
+    lambda: family_drawdown_frontier_search(0, "heston", HESTON),
+    lambda: merton_risk(0, MERTON, W, n_paths=64, n_steps=4),
+    lambda: heston_terminal_returns(0, HESTON, 16, 4),
 ])
 def test_entry_points_default_to_the_card(call):
     """Without a ``device`` every entry point asks for the card, and a
@@ -310,6 +325,15 @@ REF_GARCH = RefGarch(
 GARCH = from_mcport(REF_GARCH)
 HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.02 + 0.002).astype(np.float32)
 FAMILY_CFG = GBMConfig(n_paths=16_384, n_steps=12, path_block=4_096, seed=4)
+REF_MERTON = RefMerton(REF_PARAMS, 0.1, np.linspace(-0.1, -0.05, A), np.full(A, 0.04))
+MERTON = from_mcport(REF_MERTON)
+REF_HESTON = RefHeston(mu=MEAN, kappa=np.full(A, 0.15), theta=np.full(A, 4e-4),
+                       xi=np.full(A, 0.01), rho=np.full(A, -0.5), v0=np.full(A, 6e-4),
+                       corr_chol=np.linalg.cholesky(0.5 * np.eye(A) + 0.5), s0=np.ones(A))
+HESTON = from_mcport(REF_HESTON)
+FAMILY_PARAMS = {"garch": GARCH, "bootstrap": HISTORY, "jump": MERTON, "heston": HESTON}
+ONE_SHOT = {"garch": run_garch_path_risk, "bootstrap": run_bootstrap_path_risk,
+            "jump": run_merton_path_risk, "heston": run_heston_path_risk}
 
 
 def _order_se(x: np.ndarray, p: float) -> float:
@@ -327,6 +351,16 @@ def _family_sample(model, cfg):
     if model == "garch":
         term, dd = garch_multi_portfolio_dd(cfg.seed, GARCH.tensors("cpu"), w, cfg.path_block,
                                             cfg.n_steps, first_block=0, n_blocks=n)
+    elif model == "jump":
+        d = MERTON.diffusion
+        term, dd = merton_multi_portfolio_dd(cfg.seed, d.mean_step, d.chol_step,
+                                             MERTON.jump_rate, MERTON.jump_mean,
+                                             MERTON.jump_vol, w, cfg.path_block, cfg.n_steps,
+                                             first_block=0, n_blocks=n)
+    elif model == "heston":
+        term, dd = heston_multi_portfolio_dd(cfg.seed, HESTON.tensors("cpu"), w,
+                                             cfg.path_block, cfg.n_steps, first_block=0,
+                                             n_blocks=n)
     else:
         term, dd = bootstrap_multi_portfolio_dd(cfg.seed, torch.as_tensor(HISTORY), w,
                                                 cfg.path_block, cfg.n_steps, first_block=0,
@@ -334,13 +368,16 @@ def _family_sample(model, cfg):
     return term.double().numpy().ravel(), dd.double().numpy().ravel()
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_family_path_risk_matches_mcport_in_law(model):
+    got = ONE_SHOT[model](FAMILY_PARAMS[model], W, FAMILY_CFG, device="cpu")
     if model == "garch":
-        got = run_garch_path_risk(GARCH, W, FAMILY_CFG, device="cpu")
         want = ref_garch_run(REF_GARCH, W, FAMILY_CFG)
+    elif model == "jump":
+        want = ref_merton_run(REF_MERTON, W, FAMILY_CFG)
+    elif model == "heston":
+        want = ref_heston_run(REF_HESTON, W, FAMILY_CFG)
     else:
-        got = run_bootstrap_path_risk(HISTORY, W, FAMILY_CFG, device="cpu")
         want = ref_bootstrap_run(HISTORY, W, FAMILY_CFG)
     assert got.n_paths == want.n_paths == FAMILY_CFG.n_paths and got.tail_ci is None
     port, dd = _family_sample(model, FAMILY_CFG)
@@ -354,9 +391,9 @@ def test_family_path_risk_matches_mcport_in_law(model):
     assert got.cvar <= got.var and -1 <= got.dd_p95 <= got.dd_median <= 0
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_family_split_resume_is_bit_identical(model, tmp_path):
-    params = GARCH if model == "garch" else HISTORY
+    params = FAMILY_PARAMS[model]
     full, ck_full = run_resumable_path_risk(model, params, W, CFG, device="cpu")
     _, part = run_resumable_path_risk(model, params, W, CFG, max_blocks=3, device="cpu",
                                       checkpoint_path=tmp_path / "ck.npz")
@@ -365,9 +402,7 @@ def test_family_split_resume_is_bit_identical(model, tmp_path):
         checkpoint=load_path_risk_checkpoint(tmp_path / "ck.npz"))
     assert not part.done and ck.done and resumed == full
     assert all(np.array_equal(getattr(ck, f), getattr(ck_full, f)) for f in _STATE)
-    one_shot = (run_garch_path_risk(GARCH, W, CFG, device="cpu") if model == "garch" else
-                run_bootstrap_path_risk(HISTORY, W, CFG, device="cpu"))
-    assert one_shot == full
+    assert ONE_SHOT[model](params, W, CFG, device="cpu") == full
     if model == "bootstrap":   # the covering sketch of the history by default
         assert ck.sketch_space == "log1p"
 
@@ -389,7 +424,26 @@ def test_family_checkpoints_refuse_other_families():
         run_resumable_path_risk("garch", GARCH, W, CFG, checkpoint=ref_ck, device="cpu")
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap"])
+def test_jump_and_heston_checkpoints_refuse_other_families():
+    _, jump_ck = run_resumable_path_risk("jump", MERTON, W, CFG, max_blocks=1, device="cpu")
+    _, heston_ck = run_resumable_path_risk("heston", HESTON, W, CFG, max_blocks=1,
+                                           device="cpu")
+    other_rate = from_mcport(RefMerton(REF_PARAMS, 0.2, REF_MERTON.jump_mean,
+                                       REF_MERTON.jump_vol))
+    other_xi = from_mcport(RefHeston(**{**REF_HESTON.__dict__, "xi": np.full(A, 0.02)}))
+    for model, params, ck in (("heston", HESTON, jump_ck), ("jump", MERTON, heston_ck),
+                              ("garch", GARCH, jump_ck), ("gbm", PARAMS, heston_ck),
+                              ("jump", other_rate, jump_ck), ("heston", other_xi, heston_ck)):
+        with pytest.raises(ValueError, match="digest"):
+            run_resumable_path_risk(model, params, W, CFG, checkpoint=ck, device="cpu")
+    for model, ref in (("jump", REF_MERTON), ("heston", REF_HESTON)):
+        _, ref_ck = ref_resumable(model, ref, W, CFG, max_blocks=1)
+        with pytest.raises(ValueError, match="digest"):
+            run_resumable_path_risk(model, FAMILY_PARAMS[model], W, CFG, checkpoint=ref_ck,
+                                    device="cpu")
+
+
+@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
 def test_path_tail_risk_families_have_mcport_keys(fixtures_dir, model, tmp_path):
     from mcport.api import path_tail_risk as ref_tail
     from mcport.data import load_universe as ref_load

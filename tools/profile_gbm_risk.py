@@ -12,7 +12,10 @@ tier ("auto", float32 on a card) and as the bf16 screen plus rescore. Family
 tier: ``garch_risk`` and ``bootstrap_risk`` at 1,048,576 x 252 (the bench's
 GARCH parameters, a 365 x 15 history), ``run_garch_path_risk`` and
 ``run_bootstrap_path_risk`` at both sizes, and both family frontiers at the
-bench's size. For each call it prints:
+bench's size; then the Merton and Heston families at the bench's parameters:
+``merton_risk`` and ``heston_terminal_returns`` at 1,048,576 x 252,
+``run_merton_path_risk`` and ``run_heston_path_risk`` at both sizes, and both
+frontiers. For each call it prints:
 
 - the warm walls without a checkpoint (host clock, ending in a synchronise),
   after one call that warms up;
@@ -106,16 +109,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (FAMILY_PATHS, FAMILY_SEED, FRONTIER, FRONTIER_SEED, N_ASSETS,
-                            bench_garch, bench_history, bench_universe, bench_weights, cells)
+                            bench_garch, bench_heston, bench_history, bench_merton,
+                            bench_universe, bench_weights, cells)
     from mcport_torch.api import gbm_risk
     from mcport_torch.config import Config
     from mcport_torch.convert import gbm_params_from_numpy
     from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                        family_drawdown_frontier_search)
     from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
+                                               run_heston_path_risk, run_merton_path_risk,
                                                run_path_risk)
     from mcport_torch.models.bootstrap import bootstrap_risk
     from mcport_torch.models.garch_mc import garch_risk
+    from mcport_torch.models.heston import heston_terminal_returns
+    from mcport_torch.models.jump import merton_risk
 
     tiers = sys.argv[1:] or ["gbm", "family"]
 
@@ -156,6 +163,23 @@ def main() -> int:
             profile_cell(f"run_bootstrap_path_risk {size}",
                          lambda g=g: run_bootstrap_path_risk(hist, wb, g, device=dev))
         for model, src in (("garch", garch), ("bootstrap", hist)):
+            profile_cell(f"family_drawdown_frontier_search {model} {front}",
+                         lambda model=model, src=src: family_drawdown_frontier_search(
+                             FRONTIER_SEED, model, src, device=dev, **FRONTIER))
+        merton, heston = bench_merton(), bench_heston()
+        profile_cell(f"merton_risk ({FAMILY_PATHS} x {steps})",
+                     lambda: merton_risk(FAMILY_SEED, merton, wb, FAMILY_PATHS, steps,
+                                         device=dev))
+        profile_cell(f"heston_terminal_returns ({FAMILY_PATHS} x {steps})",
+                     lambda: heston_terminal_returns(FAMILY_SEED, heston, FAMILY_PATHS, steps,
+                                                     device=dev))
+        for name, g in cells().items():
+            size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+            profile_cell(f"run_merton_path_risk {size}",
+                         lambda g=g: run_merton_path_risk(merton, wb, g, device=dev))
+            profile_cell(f"run_heston_path_risk {size}",
+                         lambda g=g: run_heston_path_risk(heston, wb, g, device=dev))
+        for model, src in (("jump", merton), ("heston", heston)):
             profile_cell(f"family_drawdown_frontier_search {model} {front}",
                          lambda model=model, src=src: family_drawdown_frontier_search(
                              FRONTIER_SEED, model, src, device=dev, **FRONTIER))
