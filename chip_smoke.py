@@ -100,6 +100,28 @@ ends:
    #8 and #10, the score product as one ``torch.matmul`` per step; kernel
    #4's t(5.5) tier alone; and each new kernel's least time from the work its
    function needs.
+15. the DCC-GARCH kernels against their plain forms within
+   ``ops.dcc.dcc_shares``: the terminal kernel (replacing #11 and #12; A in
+   {1, 2, 15, 16}, 52 and 7 steps, a ragged path count over two blocks) and
+   the candidate kernel (replacing #13 and #14; W in {1, 13, 256}) at
+   bench.py's DCC parameters, with q0 off S (a non-unit diagonal and a large
+   common e0) and frozen (a = 0, b = 1); the zero-vol closed form; a = b = 0
+   against kernel #4 on the same seed; and every launch of phase 16 over a
+   head and a tail slice of each block's paths;
+16. the DCC main paths at bench.py's DCC parameters: ``dcc_risk`` at
+   1,048,576 x 52, ``run_dcc_path_risk`` at both sizes with split + resume,
+   ``path_tail_risk`` (the estimation's host seconds printed), the DCC
+   frontier at 4,096 x 131,072 x 252, and the CLI's ``garch-risk
+   --correlation dcc``, ``path-risk --models dcc``, ``dd-frontier --model
+   dcc`` and ``compare-models`` on the weekly fixtures; counts reset before
+   and read after, each kernel launched as often as these calls need; then
+   the terminal law ((1 + mu)^n - 1 exactly), the card against the CPU, the
+   drawdown quantiles and the frontier's optimum against the plain forms;
+17. both DCC kernels timed with CUDA events beside their plain forms at
+   1,048,576 x 52 x 15 and 256 x 131,072 x 52, with ``torch.linalg.cholesky``
+   of the (1,048,576, 15, 15) batch x 52 and the score product as one
+   ``torch.matmul`` per step x 52 as yardsticks, and their least times from
+   the work their functions need.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -974,6 +996,7 @@ def bounds(rate: float) -> dict:
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
     res.update(family_bounds(draw, rate))
     res.update(family2_bounds(draw, rate))
+    res.update(dcc_bounds(draw, rate))
     return res
 
 
@@ -2156,6 +2179,457 @@ def phase_family2_timing(dev) -> dict:
     return res
 
 
+# ---- the DCC-GARCH family: kernels #11-#14 ----------------------------------------
+
+DCC_KERNELS = ("dcc_terminal", "dcc_dd")
+DCC_STEPS = 52                      # bench.py:213, the DCC risk horizon
+
+
+def bench_dcc(a: int = N_ASSETS, ab=(0.05, 0.9), q0=None, e0: float = 0.0):
+    """bench.py:211-219: the bench's GARCH parameters (``bench_garch``), a
+    0.05, b 0.9, q0 = 0.5 I + 0.5 (or ``q0``), e0 = 0 (or ``e0`` for every
+    asset)."""
+    from mcport_torch.convert import dcc_params_from_numpy
+
+    corr = 0.5 * np.eye(a) + 0.5
+    return dcc_params_from_numpy(bench_garch(a), ab[0], ab[1], corr if q0 is None else q0,
+                                 np.full(a, e0))
+
+
+def _dcc_kernels():
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd, dcc_terminal
+
+    return dict(zip(DCC_KERNELS, (dcc_terminal, dcc_multi_portfolio_dd)))
+
+
+def fitted_dcc():
+    """The DCC parameters ``path_tail_risk`` estimates from ``bench_prices``
+    (computed once), and the estimation's host seconds."""
+    if "dcc" not in _FITTED:
+        from mcport_torch.models.dcc import estimate_dcc_garch
+
+        t0 = time.perf_counter()
+        _FITTED["dcc"] = estimate_dcc_garch(bench_prices().port_rets)
+        _FITTED["dcc_fit_s"] = time.perf_counter() - t0
+    return _FITTED
+
+
+def dcc_launches(dev) -> list[dict]:
+    """Every distinct launch of the DCC kernels that phase 16 makes through the
+    API (the CLI's run on the fixtures is checked by its counts): dcc_risk at
+    1,048,576 x 52, both path-risk cells, path_tail_risk (parameters
+    estimated from ``bench_prices``) and every 256-candidate chunk of the
+    frontier. ``src`` is the launch's parameters."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.ops.dirichlet import sample_weights
+
+    w, eq = bench_weights()[None], np.full((1, N_ASSETS), 1.0 / N_ASSETS)
+    out = [dict(kernel="dcc_terminal", what="dcc_risk", seed=FAMILY_SEED, n=FAMILY_PATHS,
+                steps=DCC_STEPS)]
+    for name, g in cells().items():
+        out.append(dict(kernel="dcc_dd", what=f"path risk {name}", seed=g.seed,
+                        n=g.path_block, w=w, first_block=0, n_blocks=g.n_paths // g.path_block))
+    g = GBMConfig()
+    out.append(dict(kernel="dcc_dd", what="path_tail_risk dcc", seed=g.seed,
+                    n=g.path_block, w=eq, first_block=0, n_blocks=g.n_paths // g.path_block,
+                    src=fitted_dcc()["dcc"]))
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
+                             np.ones(N_ASSETS))
+    for i in range(0, FRONTIER["n_candidates"], 256):
+        out.append(dict(kernel="dcc_dd", what=f"frontier chunk {i // 256}",
+                        seed=path_seed, n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    for launch in out:
+        launch.setdefault("src", bench_dcc())
+        launch.setdefault("steps", N_STEPS)
+    return out
+
+
+def phase_dcc_kernels(dev) -> dict:
+    """The DCC kernels against their plain forms within ``ops.dcc.dcc_shares``:
+    test shapes (A in {1, 2, 15, 16}, 52 and 7 steps, a ragged path count
+    over two blocks, W in {1, 13, 256}; q0 with a non-unit diagonal and a
+    large common e0; the frozen case a = 0, b = 1), the zero-vol closed form,
+    a = b = 0 against kernel #4 on the same seed, then every launch of phase
+    16 over a head and a tail slice of each block's paths."""
+    from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_shares, dcc_terminal_reference,
+                                      dcc_tolerance)
+    from mcport_torch.ops.garch import garch_terminal
+
+    k = _dcc_kernels()
+    worst = dict.fromkeys(DCC_KERNELS, 0.0)
+
+    def held(name, what, kern, plain, shares):
+        pairs = zip(kern, plain) if isinstance(kern, tuple) else [(kern, plain)]
+        err = max(float((a - b).abs().max()) for a, b in pairs if a.numel())
+        print(f"phase15 {name} {what} max_abs={err:.3e} shares="
+              + " ".join(f"{n}={v:.3f}" for n, v in shares.items()))
+        check(max(shares.values()) <= 1.0, f"{name} kernel vs plain, {what}")
+        worst[name] = max(worst[name], err)
+
+    kw = dict(first_block=6, n_blocks=2)
+    cases = {"bench": bench_dcc,
+             "q0=S+0.05I e0=3": lambda a: bench_dcc(a, q0=0.55 * np.eye(a) + 0.5, e0=3.0),
+             "frozen a=0 b=1": lambda a: bench_dcc(a, ab=(0.0, 1.0))}
+    for case, params in cases.items():
+        for a in (1, 2, 15, 16):
+            d = params(a).tensors(dev)
+            for steps in (DCC_STEPS, 7):
+                kk = k["dcc_terminal"](11, d, KERNEL_PATHS, steps, **kw)
+                p = dcc_terminal_reference(11, d, KERNEL_PATHS, steps, **kw)
+                held("dcc_terminal", f"{case} A={a} steps={steps} paths={KERNEL_PATHS}x2", kk,
+                     p, dcc_shares(kk, p, d, steps))
+        for a, steps in ((15, DCC_STEPS), (15, 7), (1, 9), (2, 8), (16, 8)):
+            d = params(a).tensors(dev)
+            for n_cand in (1, 13, 256):
+                cand = torch.as_tensor(np.random.default_rng(n_cand).dirichlet(
+                    np.ones(a), n_cand), dtype=torch.float32, device=dev)
+                kk = k["dcc_dd"](11, d, cand, MDD_PATHS, steps, **kw)
+                p = dcc_multi_dd_reference(11, d, cand, MDD_PATHS, steps, **kw)
+                held("dcc_dd", f"{case} W={n_cand} A={a} steps={steps} "
+                     f"paths={MDD_PATHS}x2", kk, p, dcc_shares(kk, p, d, steps))
+    # zero volatility: every path compounds (1 + mu)^n - 1
+    d = bench_dcc(3).tensors(dev)
+    zero = torch.zeros(3, device=dev)
+    mu = torch.tensor([0.01, -0.005, 0.002], device=dev)
+    d = d._replace(mu=mu, omega=zero, alpha=zero, beta=zero, sigma2_0=zero, eps2_0=zero)
+    want = ((1.0 + mu.double()) ** 6 - 1.0).float()
+    zt = k["dcc_terminal"](1, d, 4_099, 6)[0]
+    zd = k["dcc_dd"](1, d, torch.eye(3, device=dev), 4_099, 6)[0][0]
+    err = max(float((zt - want).abs().max()), float((zd - want[:, None]).abs().max()))
+    print(f"phase15 zero vol, 6 steps: max |kernel - ((1 + mu)^6 - 1)| = {err:.3e} (bound 3e-7)")
+    check(err <= 3e-7, "the DCC kernels' zero-vol closed form")
+    # a = b = 0 and q0 = S: CCC-GARCH on kernel #4's shocks, up to the float32
+    # Cholesky of S
+    for a in (2, 15):
+        d = bench_dcc(a, ab=(0.0, 0.0)).tensors(dev)
+        k11 = k["dcc_terminal"](5, d, 65_536, N_STEPS, first_block=0, n_blocks=2)
+        k4 = garch_terminal(5, bench_garch(a).tensors(dev), 65_536, N_STEPS, first_block=0,
+                            n_blocks=2)
+        sh = dcc_shares(k11, k4, d, N_STEPS)
+        print(f"phase15 dcc_terminal a=b=0 q0=S A={a} 65,536 x 2 x {N_STEPS} against kernel #4 "
+              f"(garch_terminal, same seed): max_abs={float((k11 - k4).abs().max()):.3e} "
+              f"share={sh['term']:.3f} of dcc_tolerance (relative bound "
+              f"{float(dcc_tolerance(d, N_STEPS).max()):.3e})")
+        check(sh["term"] <= 1.0, "kernel #11 at a = b = 0 is kernel #4 up to chol(S)")
+
+    # every launch of phase 16, over a head and a tail slice of each block
+    for launch in dcc_launches(dev):
+        name, n, seed, steps = launch["kernel"], launch["n"], launch["seed"], launch["steps"]
+        d = launch["src"].tensors(dev)
+        blocks = dict(first_block=launch.get("first_block", -1),
+                      n_blocks=launch.get("n_blocks", 1))
+        if name == "dcc_terminal":
+            kk = k[name](seed, d, n, steps, **blocks)
+        else:
+            w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+            kk = k[name](seed, d, w, n, steps, **blocks)
+        for p0 in _slices(n):
+            m = min(SLICE, n)
+            sl = slice(p0, p0 + m)
+            what = (f"{launch['what']} blocks={blocks['first_block'] + 1}.."
+                    f"{blocks['first_block'] + blocks['n_blocks']} paths {p0}..{p0 + m - 1}")
+            if name == "dcc_terminal":
+                p = dcc_terminal_reference(seed, d, m, steps, first_path=p0, **blocks)
+                held(name, what, kk[:, sl], p, dcc_shares(kk[:, sl], p, d, steps))
+            else:
+                p = dcc_multi_dd_reference(seed, d, w, m, steps, first_path=p0, **blocks)
+                part = (kk[0][..., sl], kk[1][..., sl])
+                held(name, what, part, p, dcc_shares(part, p, d, steps))
+        del kk
+    return worst
+
+
+def _fixture_cli_dcc(dev) -> dict:
+    """This slice's commands on the weekly BTC/ETH fixtures, as a user runs
+    them; each command's JSON."""
+    import contextlib
+    import io
+
+    from mcport_torch.cli import main as cli
+
+    csvs = sorted(str(p) for p in (Path(__file__).resolve().parent / "fixtures").glob(
+        "*7 Years Weekly.csv"))
+    check(len(csvs) == 2, "the weekly BTC/ETH fixtures are in the checkout")
+    common = [*csvs, "--period", "W", "--steps", str(N_STEPS), "--device", str(dev)]
+    runs = {"garch-risk dcc": ["garch-risk", "--correlation", "dcc", "--paths",
+                               str(FAMILY_PATHS)],
+            "path-risk": ["path-risk", "--models", "dcc", "--paths", str(CLI_PATHS)],
+            "dd-frontier dcc": ["dd-frontier", "--model", "dcc", "--candidates",
+                                str(CLI_FRONTIER[0]), "--paths", str(CLI_FRONTIER[1]),
+                                "--dd-budget", "1.0"],
+            "compare-models": ["compare-models", "--paths", str(FAMILY_PATHS)]}
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv[:1] + common + argv[1:])
+        out[name] = json.loads(buf.getvalue())
+    return out
+
+
+def phase_dcc_tier(dev) -> dict:
+    """The DCC main paths at full width: dcc_risk at 1,048,576 x 52,
+    run_dcc_path_risk at both cells with split + resume, path_tail_risk
+    (the estimation's host seconds printed), the DCC frontier at the bench's
+    size, and the CLI's garch-risk --correlation dcc, path-risk --models dcc,
+    dd-frontier --model dcc and compare-models on the fixtures; counts reset
+    before and read after."""
+    from mcport_torch.api import path_tail_risk
+    from mcport_torch.config import Config
+    from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
+    from mcport_torch.engine.path_risk import run_dcc_path_risk, run_resumable_path_risk
+    from mcport_torch.models.dcc import dcc_risk
+
+    dcc, w = bench_dcc(), bench_weights()
+    warm_reps = 2
+    k = _dcc_kernels()
+    fit = fitted_dcc()
+    print(f"phase16 the DCC estimation of path_tail_risk ({bench_prices().prices.shape[0]} "
+          f"prices x {N_ASSETS} assets: {N_ASSETS} GARCH fits and the (a, b) grids): "
+          f"{fit['dcc_fit_s']:.2f} s on the host, a={float(fit['dcc'].a_dcc):.4f} "
+          f"b={float(fit['dcc'].b_dcc):.4f}")
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walls(fn, *a, reps=warm_reps, **kw):
+        out, first = timed(fn, *a, **kw)
+        return out, (first, [timed(fn, *a, **kw)[1] for _ in range(reps)])
+
+    for fn in k.values():
+        fn.launches = 0
+    wall = {}
+    risk, wall["dcc_risk"] = walls(dcc_risk, FAMILY_SEED, dcc, w, n_paths=FAMILY_PATHS,
+                                   n_steps=DCC_STEPS, device=dev)
+    reports, resumes = {}, {}
+    for name, g in cells().items():
+        reports[name], wall[name] = walls(run_dcc_path_risk, dcc, w, g, device=dev)
+        n_blocks = g.n_paths // g.path_block
+        full, ck_full = run_resumable_path_risk("dcc", dcc, w, g, device=dev)
+        _, part = run_resumable_path_risk("dcc", dcc, w, g, max_blocks=n_blocks // 3,
+                                          device=dev)
+        resumed, ck = run_resumable_path_risk("dcc", dcc, w, g, checkpoint=part, device=dev)
+        resumes[name] = (full, ck_full, part, resumed, ck)
+    tail, t_wall = timed(path_tail_risk, bench_prices(), None, Config(), model="dcc",
+                         device=dev)
+    budget = round(-reports["default"].dd_p95 + 0.01, 4)
+    frontier, wall["frontier"] = walls(family_drawdown_frontier_search, FRONTIER_SEED, "dcc",
+                                       dcc, reps=1, device=dev,
+                                       **dict(FRONTIER, dd_budget=budget))
+    cli, cli_wall = timed(_fixture_cli_dcc, dev)
+    launches = {name: fn.launches for name, fn in k.items()}
+    chunks = FRONTIER["n_candidates"] // 256
+    cli_chunks = -(-CLI_FRONTIER[0] // 256)
+    want = {"dcc_terminal": 1 + warm_reps + 2,
+            "dcc_dd": 2 * (1 + warm_reps) + 2 * 3 + 1 + 2 * chunks + 1 + cli_chunks}
+    print(f"phase16 DCC tier: launches {launches} (expected {want})")
+    check(launches == want, "the DCC paths went through their two kernels")
+
+    first, warm = wall["dcc_risk"]
+    print(f"phase16 dcc_risk {FAMILY_PATHS} x {DCC_STEPS}: wall first={first:.4f} s warm="
+          f"{' / '.join(f'{x:.4f}' for x in warm)} s var={risk.var:.6f} cvar={risk.cvar:.6f} "
+          f"port_mean={risk.port_mean:.6f}")
+    check(all(math.isfinite(x) for x in risk) and risk.cvar <= risk.var < risk.port_mean,
+          "dcc_risk: finite and ordered")
+    for name, r in reports.items():
+        first, warm = wall[name]
+        ok = (all(math.isfinite(getattr(r, f)) for f in
+                  ("var", "cvar", "port_mean", "dd_mean", "dd_p95", "dd_median"))
+              and r.cvar <= r.var and -1.0 <= r.dd_p95 <= r.dd_median <= 0.0
+              and r.n_paths == cells()[name].n_paths)
+        print(f"phase16 run_dcc_path_risk {name}: paths={r.n_paths} wall first={first:.4f} s "
+              f"warm={' / '.join(f'{x:.4f}' for x in warm)} s var={r.var:.6f} "
+              f"cvar={r.cvar:.6f} dd_mean={r.dd_mean:.6f} dd_median={r.dd_median:.6f} "
+              f"dd_p95={r.dd_p95:.6f} sane={ok}")
+        check(ok, f"dcc path risk {name}: finite and ordered")
+        full, ck_full, part, resumed, ck = resumes[name]
+        same = (_reports_equal(full, resumed) and ck.done and not part.done
+                and all(np.array_equal(getattr(ck, f), getattr(ck_full, f))
+                        for f in ("h_port", "h_dd", "s_port", "s_dd"))
+                and _reports_equal(full, r))
+        print(f"phase16 dcc {name}: split at block {part.next_block} + resume bit-identical "
+              f"to the one-shot run={same}")
+        check(same, f"dcc {name}: path-risk resume equivalence")
+    print(f"phase16 path_tail_risk dcc: wall {t_wall:.4f} s (estimation included) "
+          f"{json.dumps(tail)}")
+    check(tail["n_paths"] == Config().gbm.n_paths and tail["cvar"] <= tail["var"]
+          and -1.0 <= tail["dd_p95"] <= 0.0, "path_tail_risk dcc")
+    first, warm = wall["frontier"]
+    i = frontier.opt_idx
+    print(f"phase16 frontier dcc: {FRONTIER['n_candidates']} x {FRONTIER['n_paths']} x "
+          f"{N_STEPS} budget {budget} wall first={first:.4f} s warm={warm[0]:.4f} s "
+          f"feasible={int(frontier.feasible.sum())} opt={i} ret={float(frontier.ret[i]):.6f} "
+          f"dd_p95={float(frontier.dd_p95[i]):.6f}")
+    check(0 < int(frontier.feasible.sum()) < FRONTIER["n_candidates"]
+          and float(frontier.dd_p95[i]) >= -budget,
+          "dcc frontier: the budget binds and an optimum is feasible")
+    print(f"phase16 cli: the four commands in {cli_wall:.2f} s")
+    for name, out in cli.items():
+        print(f"phase16 cli {name}: {json.dumps(out)}")
+    g_dcc = cli["garch-risk dcc"]
+    check(g_dcc["cvar"] <= g_dcc["var"] and g_dcc["model"].startswith("dcc-garch(1,1) a="),
+          "cli garch-risk dcc")
+    check(cli["path-risk"]["dcc"]["n_paths"] == CLI_PATHS
+          and "weights" in cli["dd-frontier dcc"], "cli path-risk and dd-frontier")
+    models = cli["compare-models"]["models"]
+    check(len(models) == 7 and all("error" not in m and m["cvar"] <= m["var"]
+                                   for m in models.values()),
+          "cli compare-models: seven families")
+    _dcc_references(dev, dcc, w, reports, frontier)
+    return launches
+
+
+def _dcc_references(dev, dcc, w, reports, frontier) -> None:
+    """What phase 16 produced, against references: the terminal law (eps is
+    a martingale difference, so E[1 + R_n] = (1 + mu)^n exactly), the card
+    against the CPU at 16,384 x 16, the drawdown quantiles against the plain
+    form over the same paths, and the frontier's optimum against its plain
+    form."""
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.engine.path_risk import DD_SKETCH
+    from mcport_torch.models.dcc import dcc_risk, dcc_terminal_returns
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_shares, dcc_terminal
+
+    d = dcc.tensors(dev)
+    x = dcc_terminal(FAMILY_SEED, d, FAMILY_PATHS, DCC_STEPS)[0].double()
+    want = (1.0 + dcc.base.mu.numpy()) ** DCC_STEPS - 1.0
+    z = np.abs(x.mean(0).cpu().numpy() - want) / (x.std(0).cpu().numpy()
+                                                  / math.sqrt(FAMILY_PATHS))
+    print(f"phase16 dcc law {FAMILY_PATHS} x {DCC_STEPS}: max |mean - ((1 + mu)^n - 1)|/se="
+          f"{z.max():.2f}")
+    check(z.max() < 5.0, "DCC terminal means are (1 + mu)^n - 1")
+
+    card = dcc_risk(FAMILY_SEED, dcc, w, 16_384, 16, device=dev)
+    cpu = dcc_risk(FAMILY_SEED, dcc, w, 16_384, 16, device="cpu")
+    dv = max(abs(card.var - cpu.var), abs(card.cvar - cpu.cvar))
+    t_card = dcc_terminal_returns(FAMILY_SEED, dcc, 16_384, 16, device="cpu")
+    t_k = dcc_terminal(FAMILY_SEED, d, 16_384, 16)[0].cpu()
+    sh = dcc_shares(t_k, t_card, dcc.tensors("cpu"), 16)
+    print(f"phase16 dcc card vs cpu (16,384 x 16): max |d var|, |d cvar| = {dv:.3e} (bound "
+          f"1e-4: a few sketch bins); terminal returns share {sh['term']:.3f}")
+    check(dv <= 1e-4 and sh["term"] <= 1.0, "dcc_risk: card agrees with CPU")
+
+    cfg = cells()["default"]
+    nb = cfg.n_paths // cfg.path_block
+    wt = torch.as_tensor(w, dtype=torch.float32, device=dev)[None]
+    dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
+    dd = torch.cat([dcc_multi_dd_reference(cfg.seed, d, wt, min(2_048, cfg.path_block - p0),
+                                           N_STEPS, first_block=0, n_blocks=nb,
+                                           first_path=p0)[1]
+                    for p0 in range(0, cfg.path_block, 2_048)], dim=-1).reshape(-1)
+    r = reports["default"]
+    q = float(torch.kthvalue(dd, math.ceil(0.05 * dd.numel())).values)
+    med = float(torch.median(dd))
+    print(f"phase16 dcc default dd vs plain form over the same paths: p95 {r.dd_p95:.6f} vs "
+          f"{q:.6f}, median {r.dd_median:.6f} vs {med:.6f}, mean {r.dd_mean:.6f} vs "
+          f"{float(dd.double().mean()):.6f} (bound {2 * dd_width:.2e})")
+    check(abs(r.dd_p95 - q) <= 2 * dd_width and abs(r.dd_median - med) <= 2 * dd_width
+          and abs(r.dd_mean - float(dd.double().mean())) <= 1e-5,
+          "dcc drawdown quantiles agree with the plain form")
+    path_seed = frontier_seeds(FRONTIER_SEED)[0]
+    k_tail = math.ceil(0.05 * FRONTIER["n_paths"])
+    opt = torch.as_tensor(frontier.weights[frontier.opt_idx][None], device=dev)
+    n = FRONTIER["n_paths"]
+    parts = [dcc_multi_dd_reference(path_seed, d, opt, min(8_192, n - p0), N_STEPS,
+                                    first_path=p0) for p0 in range(0, n, 8_192)]
+    term = torch.cat([p[0] for p in parts], dim=-1)[0, 0]
+    dd = torch.cat([p[1] for p in parts], dim=-1)[0, 0]
+    ret, q = float(term.mean()), float(torch.kthvalue(dd, k_tail).values)
+    i = frontier.opt_idx
+    d_ret, d_dd = abs(float(frontier.ret[i]) - ret), abs(float(frontier.dd_p95[i]) - q)
+    print(f"phase16 frontier dcc optimum vs plain form: ret {float(frontier.ret[i]):.7f} vs "
+          f"{ret:.7f}, dd_p95 {float(frontier.dd_p95[i]):.7f} vs {q:.7f} (bound 1e-4)")
+    check(d_ret <= 1e-4 and d_dd <= 1e-4, "dcc frontier optimum agrees with the plain form")
+
+
+def dcc_bounds(draw: float, rate: float) -> dict:
+    """Least time of the DCC kernels at their timing shapes (1,048,576 x 52 x
+    15 and 256 x 131,072 x 52), from the work each function needs per
+    path-step: the draws, the Q update (3 per triangle entry), the Cholesky
+    (A(A^2-1)/6 FMAs, A(A-1)/2 multiplies, A rsqrt), the correlate (A(A+1)/2
+    FMAs) and 9 per asset for the rescale, GARCH and compounding; the
+    candidate kernel adds 256 x (A + 6) for the score."""
+    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, DCC_STEPS, 256, FRONTIER["n_paths"]
+    tri = a * (a + 1) / 2
+    chol = a * (a * a - 1) / 6 + a * (a - 1) / 2 + a
+    step = a * draw + 3 * tri + chol + tri + 9 * a
+    score = w_cnt * (a + 6)
+    how = (f"{a} x {draw:.2f} draws + {3 * tri:.0f} Q update + {chol:.0f} Cholesky "
+           f"({a * (a * a - 1) / 6:.0f} FMAs, {a * (a - 1) / 2:.0f} multiplies, {a} rsqrt) + "
+           f"{tri:.0f} correlate + {9 * a} rescale/GARCH/compound: {step:.2f} per path-step")
+    work = {"dcc_terminal": (step * n * p, 4 * (2 * a * a + 7 * a + 2) + 4 * a * p, how),
+            "dcc_dd": ((step + score) * n * pp,
+                             4 * (2 * a * a + 7 * a + 2 + w_cnt * a) + 8 * w_cnt * pp,
+                             f"{step:.2f} per path-step + {score} for 256 candidates")}
+    res = {}
+    for name, (instr, nbytes, how) in work.items():
+        t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+        print(f"phase17 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
+              f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
+    return res
+
+
+def phase_dcc_timing(dev) -> dict:
+    """The DCC kernels timed with CUDA events at bench.py's DCC shapes beside
+    their plain forms (in 131,072- and 8,192-path pieces), and the one-call
+    yardsticks: torch.linalg.cholesky of a (1,048,576, 15, 15) batch x 52
+    (the factorisation alone) and the score product as one torch.matmul per
+    step x 52."""
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_terminal_reference
+
+    k = _dcc_kernels()
+    d = bench_dcc().tensors(dev)
+    cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
+                           dtype=torch.float32, device=dev)
+    pp = FRONTIER["n_paths"]
+
+    def chunked(fn, n, piece):
+        return lambda: [fn(p0, min(piece, n - p0)) for p0 in range(0, n, piece)]
+
+    runs = {
+        "dcc_terminal": (lambda: k["dcc_terminal"](0, d, FAMILY_PATHS, DCC_STEPS),
+                         chunked(lambda p0, m: dcc_terminal_reference(
+                             0, d, m, DCC_STEPS, first_path=p0), FAMILY_PATHS, PLAIN_CHUNK),
+                         FAMILY_PATHS * DCC_STEPS, 10),
+        "dcc_dd": (lambda: k["dcc_dd"](0, d, cand, pp, DCC_STEPS),
+                         chunked(lambda p0, m: dcc_multi_dd_reference(
+                             0, d, cand, m, DCC_STEPS, first_path=p0), pp, MDD_PLAIN_CHUNK),
+                         256 * pp * DCC_STEPS, 10),
+    }
+    res = {}
+    for name, (kern, plain, work, reps) in runs.items():
+        kern(), plain()
+        torch.cuda.synchronize()
+        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
+                          _time_ms(plain, 1))
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        unit = "cand-path-steps/s" if name == "dcc_dd" else "path-steps/s"
+        print(f"phase17 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
+              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+        res[name] = [ms, plain_ms, None]
+    q = torch.as_tensor(0.5 * np.eye(N_ASSETS) + 0.5, dtype=torch.float32, device=dev)
+    qb = q.expand(FAMILY_PATHS, N_ASSETS, N_ASSETS).contiguous()
+    ch = _time_ms(lambda: torch.linalg.cholesky(qb), 5)
+    del qb
+    print(f"phase17 timing torch.linalg.cholesky ({FAMILY_PATHS}, {N_ASSETS}, {N_ASSETS}): "
+          f"{ch:.4f} ms per step, x {DCC_STEPS} = {ch * DCC_STEPS:.3f} ms")
+    e = torch.rand((N_ASSETS, pp), device=dev)
+    mm = _time_ms(lambda: torch.matmul(cand, e), 50)
+    print(f"phase17 timing torch.matmul (256, {N_ASSETS}) x ({N_ASSETS}, {pp}): {mm:.4f} ms per "
+          f"step, x {DCC_STEPS} = {mm * DCC_STEPS:.3f} ms")
+    res["dcc_terminal"][2] = ch * DCC_STEPS
+    res["dcc_dd"][2] = mm * DCC_STEPS
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2197,8 +2671,14 @@ def main() -> int:
     launches.update(phase_family2_tier(dev))
     lap("phase 13")
     times.update(phase_family2_timing(dev))
+    lap("phase 14")
+    worst.update(phase_dcc_kernels(dev))
+    lap("phase 15")
+    launches.update(phase_dcc_tier(dev))
+    lap("phase 16")
+    times.update(phase_dcc_timing(dev))
     bound = bounds(issue_rate())
-    lap("phase 14 and the bounds")
+    lap("phase 17 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),
           "no jax, pandas or mcport imported")
@@ -2213,6 +2693,10 @@ def main() -> int:
         "merton_multi_dd": ("jump.cu", "mcport/ops/pallas_jump.py:70"),
         "heston_terminal": ("heston.cu", "mcport/ops/pallas_heston.py:72"),
         "heston_multi_dd": ("heston.cu", "mcport/ops/pallas_heston.py:172"),
+        # one kernel each for the TPU's pack and tile layouts: :242 and :337,
+        # :359 and :279
+        "dcc_terminal": ("dcc.cu", "mcport/ops/pallas_dcc.py:242"),
+        "dcc_dd": ("dcc.cu", "mcport/ops/pallas_dcc.py:359"),
     }
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

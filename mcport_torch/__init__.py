@@ -4,9 +4,10 @@ A second package beside :mod:`mcport`, which stays the reference it is held
 against. The port runs correlated-GBM tail risk (``gbm-risk``), the GBM path
 tier (``path-risk``, ``gbm-risk --path-stats``, ``dd-frontier``), the
 CCC-GARCH and block-bootstrap families (``garch-risk``, ``bootstrap-risk``)
-and the common-jump Merton and Heston families (``jump-risk``,
-``heston_terminal_returns``), with the families' path risk and frontiers, on
-one H100: hand-written CUDA C++ kernels
+the common-jump Merton and Heston families (``jump-risk``,
+``heston_terminal_returns``) and the DCC-GARCH family (``garch-risk
+--correlation dcc``), with the families' path risk and frontiers, and
+``compare-models`` over all seven, on one H100: hand-written CUDA C++ kernels
 draw the paths and score them (``csrc/``), plain PyTorch does the rest
 (moments, histogram sketches, VaR/CVaR, drawdown quantiles, checkpointing,
 the frontier's selection) and host NumPy/SciPy the estimation.
@@ -20,6 +21,7 @@ Layers, entry point down to the device:
                       models/bootstrap.py, engines→ ops/bootstrap.py  → csrc/bootstrap.cu
                       engines                     → ops/jump.py       → csrc/jump.cu
                       models/heston.py, engines   → ops/heston.py     → csrc/heston.cu
+                      models/dcc.py, engines      → ops/dcc.py        → csrc/dcc.cu
               ↘ data.py, config.py, models/gbm.py, models/garch.py, models/jump.py
                 (its exact terminal sampler as torch ops), ops/quantile.py,
                 ops/dirichlet.py

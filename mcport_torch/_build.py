@@ -66,6 +66,11 @@ KERNELS = {
         "mcport_heston_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
         _c_ptr, _c_ptr]),
+    "dcc": ("mcport_dcc_terminal", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
+        "mcport_dcc_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr]),
 }
 
 

@@ -1,13 +1,13 @@
-"""Top-level API of the port: ``gbm_risk``, ``path_tail_risk`` and
-``bootstrap_tail_risk``.
+"""Top-level API of the port: ``gbm_risk``, ``path_tail_risk``,
+``bootstrap_tail_risk`` and ``compare_tail_risk``.
 
 Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
-engine), of ``mcport.api.path_tail_risk`` for the "gbm", "student_t",
-"garch", "jump", "heston" and "bootstrap" families (terminal VaR/CVaR plus
-the simulated max-drawdown distribution) and of
-``mcport.api.bootstrap_tail_risk``. The mesh, quasi-MC and hedged branches
-and the DCC family are not ported yet and raise.
+engine), of ``mcport.api.path_tail_risk`` for all seven families (terminal
+VaR/CVaR plus the simulated max-drawdown distribution), of
+``mcport.api.bootstrap_tail_risk`` and of ``mcport.api.compare_tail_risk``
+(one portfolio under every family). The mesh, quasi-MC and hedged branches
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -18,13 +18,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mcport_torch.config import Config
+from mcport_torch.config import COVERING_LOG1P_SKETCH, Config
 from mcport_torch.engine.mc_engine import MCCheckpoint, RiskReport, run_resumable_mc
 from mcport_torch.engine.path_risk import (
     FAMILIES,
-    UNPORTED_FAMILIES,
     PathRiskCheckpoint,
     run_bootstrap_path_risk,
+    run_dcc_path_risk,
     run_garch_path_risk,
     run_heston_path_risk,
     run_merton_path_risk,
@@ -32,12 +32,15 @@ from mcport_torch.engine.path_risk import (
     run_resumable_path_risk,
 )
 from mcport_torch.models.bootstrap import BootstrapRisk, bootstrap_risk
-from mcport_torch.models.garch_mc import estimate_ccc_garch
+from mcport_torch.models.dcc import dcc_risk, estimate_dcc_garch
+from mcport_torch.models.garch_mc import estimate_ccc_garch, garch_risk
 from mcport_torch.models.gbm import GBMParams, estimate_gbm, estimate_t_dof
-from mcport_torch.models.heston import estimate_heston
-from mcport_torch.models.jump import estimate_merton_common
+from mcport_torch.models.heston import estimate_heston, heston_terminal_returns
+from mcport_torch.models.jump import estimate_merton_common, merton_risk
+from mcport_torch.ops.quantile import histogram, sketch_var_cvar
 
-__all__ = ["gbm_risk", "path_tail_risk", "bootstrap_tail_risk", "Config"]
+__all__ = ["gbm_risk", "path_tail_risk", "bootstrap_tail_risk", "compare_tail_risk",
+           "Config"]
 
 
 def gbm_risk(
@@ -104,18 +107,17 @@ def path_tail_risk(
     ``prices`` matrix and its ``port_rets``). ``model`` "gbm" is correlated
     log-normal; "student_t" keeps its drift and covariance with unit-variance
     Student-t shocks at the moment-fitted dof (reported as ``t_dof``);
-    "garch" fits CCC-GARCH(1,1) to ``port_rets``; "jump" calibrates the
-    common-jump Merton model to ``prices`` (threshold 3); "heston" fits the
-    Heston model to ``prices`` (the QMLE); "bootstrap" resamples ``port_rets``
-    with restart probability ``p_restart``. ``rebalance`` selects per-step
+    "garch" fits CCC-GARCH(1,1) to ``port_rets``, "dcc" DCC-GARCH(1,1);
+    "jump" calibrates the common-jump Merton model to ``prices`` (threshold
+    3); "heston" fits the Heston model to ``prices`` (the QMLE);
+    "bootstrap" resamples ``port_rets`` with restart probability
+    ``p_restart``. ``rebalance`` selects per-step
     rebalancing (default) or buy-and-hold for the GBM families; every other
     family's wealth is always rebalanced.
     ``checkpoint`` / ``checkpoint_path`` / ``max_blocks`` route through
     :func:`mcport_torch.engine.path_risk.run_resumable_path_risk`
     (bit-identical to the one-shot engines) and add a ``done`` flag.
     """
-    if model in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
@@ -134,6 +136,8 @@ def path_tail_risk(
                                     t_dof=estimate_t_dof(data.prices))
     elif model == "garch":
         params = estimate_ccc_garch(data.port_rets)
+    elif model == "dcc":
+        params = estimate_dcc_garch(data.port_rets)
     elif model == "jump":
         params = estimate_merton_common(data.prices)
     elif model == "heston":
@@ -149,6 +153,8 @@ def path_tail_risk(
             max_blocks=max_blocks, device=device)
     elif model == "garch":
         rep = run_garch_path_risk(params, w, g, alpha=alpha, device=device)
+    elif model == "dcc":
+        rep = run_dcc_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "jump":
         rep = run_merton_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "heston":
@@ -187,3 +193,83 @@ def bootstrap_tail_risk(
     g = config.gbm
     return bootstrap_risk(g.seed, data.port_rets, w, n_paths=g.n_paths, n_steps=g.n_steps,
                           p_restart=p_restart, alpha=config.simulation.alpha, device=device)
+
+
+def compare_tail_risk(
+    data,
+    weights: Sequence[float] | np.ndarray | None = None,
+    config: Config = Config(),
+    *,
+    device: str | torch.device = "cuda",
+) -> dict[str, dict[str, float]]:
+    """One portfolio under every model family on ``device`` → ``{model: {var,
+    cvar, portfolio_mean, ...}}``: GBM with normal and with Student-t shocks
+    (moment-fitted dof, ``t_dof``), CCC-GARCH, DCC-GARCH (``a_dcc``,
+    ``b_dcc``), common-jump Merton (``jump_rate_per_step``), Heston
+    (``mean_kappa``, ``mean_xi``) and the stationary block bootstrap, on the
+    same universe, weights, path count and horizon (``config.gbm``) and tail
+    level (``config.simulation.alpha``) — mcport's risk-model sensitivity
+    view.
+
+    As mcport does, a GARCH, DCC or Heston fit that fails on a degenerate
+    series is reported as ``{"error": ...}`` and the others go on; only the
+    estimation is guarded, so a kernel that fails to build or launch raises.
+    """
+    a = len(data.names)
+    w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
+    g = config.gbm
+    alpha = config.simulation.alpha
+    n, steps, seed = g.n_paths, g.n_steps, g.seed
+    params = estimate_gbm(data.prices)
+    out: dict[str, dict[str, float]] = {}
+
+    def pack(var, cvar, mean):
+        return {"var": float(var), "cvar": float(cvar), "portfolio_mean": float(mean)}
+
+    r = gbm_risk(params, w, config, device=device)
+    out["gbm_normal"] = pack(r.var, r.cvar, r.port_mean)
+    t_cfg = dataclasses.replace(g, innovations="student_t", t_dof=estimate_t_dof(data.prices))
+    r = gbm_risk(params, w, dataclasses.replace(config, gbm=t_cfg), device=device)
+    out["gbm_student_t"] = pack(r.var, r.cvar, r.port_mean)
+    out["gbm_student_t"]["t_dof"] = t_cfg.t_dof
+
+    # each `try` holds the estimation alone: what runs on the card propagates
+    try:
+        gp = estimate_ccc_garch(data.port_rets)
+    except Exception as e:  # degenerate series can break the MLE; keep going
+        out["ccc_garch"] = {"error": str(e)}
+    else:
+        r = garch_risk(seed, gp, w, n_paths=n, n_steps=steps, alpha=alpha, device=device)
+        out["ccc_garch"] = pack(r.var, r.cvar, r.port_mean)
+
+    try:
+        dp = estimate_dcc_garch(data.port_rets)
+    except Exception as e:
+        out["dcc_garch"] = {"error": str(e)}
+    else:
+        r = dcc_risk(seed, dp, w, n_paths=n, n_steps=steps, alpha=alpha, device=device)
+        out["dcc_garch"] = pack(r.var, r.cvar, r.port_mean)
+        out["dcc_garch"]["a_dcc"] = float(dp.a_dcc)
+        out["dcc_garch"]["b_dcc"] = float(dp.b_dcc)
+
+    jp = estimate_merton_common(data.prices)
+    r = merton_risk(seed, jp, w, n_paths=n, n_steps=steps, alpha=alpha, device=device)
+    out["merton_jump"] = pack(r.var, r.cvar, r.port_mean)
+    out["merton_jump"]["jump_rate_per_step"] = jp.jump_rate
+
+    try:
+        hp = estimate_heston(data.prices)
+    except Exception as e:
+        out["heston"] = {"error": str(e)}
+    else:
+        term = heston_terminal_returns(seed, hp, n, steps, device=device)
+        port = term @ torch.as_tensor(w, device=term.device).to(term.dtype)
+        v, c = sketch_var_cvar(histogram(port, COVERING_LOG1P_SKETCH), alpha,
+                               COVERING_LOG1P_SKETCH)
+        out["heston"] = pack(v, c, port.mean())
+        out["heston"]["mean_kappa"] = float(hp.kappa.mean())
+        out["heston"]["mean_xi"] = float(hp.xi.mean())
+
+    r = bootstrap_tail_risk(data, w, config, device=device)
+    out["block_bootstrap"] = pack(r.var, r.cvar, r.port_mean)
+    return out

@@ -1,11 +1,12 @@
 """Command-line interface of the port.
 
     python -m mcport_torch.cli gbm-risk       CSV [CSV ...] [--path-stats] [--device cuda] ...
-    python -m mcport_torch.cli garch-risk     CSV [CSV ...] [--innovations student_t] ...
+    python -m mcport_torch.cli garch-risk     CSV [CSV ...] [--innovations student_t | --correlation dcc] ...
     python -m mcport_torch.cli bootstrap-risk CSV [CSV ...] [--p-restart 0.2] ...
     python -m mcport_torch.cli jump-risk      CSV [CSV ...] [--threshold 3.0] ...
-    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,jump,heston,bootstrap] ...
-    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|jump|heston|bootstrap] ...
+    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,dcc,jump,heston,bootstrap] ...
+    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|dcc|jump|heston|bootstrap] ...
+    python -m mcport_torch.cli compare-models CSV [CSV ...] ...
 
 Each command takes the flags of its ``mcport`` counterpart that the port
 carries, plus ``--device`` (the card by default; ``cpu`` runs the kernels'
@@ -13,8 +14,7 @@ plain torch forms, for tests), and emits the same JSON keys. CSVs are read
 by :mod:`mcport_torch.data` (standard library and NumPy; no pandas). There is
 no ``--no-pallas`` or ``--loader``: the plain forms are the kernels' test
 yardsticks, not user paths on the card. Not ported yet: ``--hedge``,
-``--attribution`` and ``--ci`` everywhere, ``garch-risk --correlation dcc``,
-and the DCC family of ``path-risk`` and ``dd-frontier``.
+``--attribution`` and ``--ci`` everywhere.
 """
 
 from __future__ import annotations
@@ -112,8 +112,21 @@ def cmd_garch_risk(args) -> None:
     d = _universe(args)
     w = _weights(args, d)
     if args.correlation == "dcc":
-        raise NotImplementedError("garch-risk --correlation dcc is not ported to "
-                                  "mcport_torch yet")
+        from mcport_torch.models.dcc import dcc_risk, estimate_dcc_garch
+
+        if args.innovations != "normal":
+            raise SystemExit("--correlation dcc supports normal shocks only")
+        dp = estimate_dcc_garch(d.port_rets)
+        r = dcc_risk(args.seed, dp, w, n_paths=args.paths, n_steps=args.steps,
+                     alpha=args.alpha, device=args.device)
+        _emit({
+            "model": f"dcc-garch(1,1) a={float(dp.a_dcc):.3f} b={float(dp.b_dcc):.3f}",
+            "n_paths": args.paths,
+            "horizon_steps": args.steps,
+            "weights": dict(zip(d.names, map(float, w))),
+            "var": r.var, "cvar": r.cvar, "portfolio_mean_return": r.port_mean,
+        })
+        return
     params = estimate_ccc_garch(d.port_rets)
     t_df = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
     r = garch_risk(args.seed, params, w, n_paths=args.paths, n_steps=args.steps,
@@ -228,6 +241,10 @@ def cmd_dd_frontier(args) -> None:
             from mcport_torch.models.garch_mc import estimate_ccc_garch
 
             model_params = estimate_ccc_garch(d.port_rets)
+        elif args.model == "dcc":
+            from mcport_torch.models.dcc import estimate_dcc_garch
+
+            model_params = estimate_dcc_garch(d.port_rets)
         elif args.model == "jump":
             from mcport_torch.models.jump import estimate_merton_common
 
@@ -259,6 +276,25 @@ def cmd_dd_frontier(args) -> None:
         out["expected_return"] = float(r.ret[i])
         out["dd_p95"] = float(r.dd_p95[i])
     _emit(out)
+
+
+def cmd_compare_models(args) -> None:
+    from mcport_torch.api import compare_tail_risk
+
+    d = _universe(args)
+    w = _weights(args, d)
+    block = min(args.paths, 8192)
+    cfg = Config(gbm=GBMConfig(n_paths=_round_paths(args.paths, block), n_steps=args.steps,
+                               seed=args.seed, path_block=block),
+                 simulation=SimulationConfig(alpha=args.alpha))
+    out = compare_tail_risk(d, w, cfg, device=args.device)
+    _emit({
+        "engine": "model-comparison",
+        "n_paths": cfg.gbm.n_paths,
+        "horizon_steps": args.steps,
+        "weights": dict(zip(d.names, map(float, w))),
+        "models": out,
+    })
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -309,7 +345,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--innovations", default="normal", choices=["normal", "student_t"],
                     help="student_t = GARCH-t (moment-fitted dof)")
     sp.add_argument("--correlation", default="ccc", choices=["ccc", "dcc"],
-                    help="dcc (dynamic conditional correlations) is not ported yet")
+                    help="dcc = dynamic conditional correlations (DCC-GARCH, "
+                         "normal shocks)")
     sp.add_argument("--paths", type=int, default=100_000)
     sp.add_argument("--steps", type=int, default=52)
     sp.add_argument("--weights", default=None, help="comma list; default equal")
@@ -339,9 +376,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="per-period path risk (terminal VaR/CVaR + "
                              "max-drawdown distribution)")
     common(sp)
-    sp.add_argument("--models", default="gbm,student_t,garch,jump,heston,bootstrap",
-                    help="comma list of gbm,student_t,garch,jump,heston,bootstrap "
-                         "(dcc is not ported yet)")
+    sp.add_argument("--models", default="gbm,student_t,garch,dcc,jump,heston,bootstrap",
+                    help="comma list of gbm,student_t,garch,dcc,jump,heston,bootstrap")
     sp.add_argument("--weights", default=None, help="comma list; default equal")
     sp.add_argument("--paths", type=int, default=65_536)
     sp.add_argument("--steps", type=int, default=52)
@@ -382,7 +418,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "instead of buy-and-hold")
     sp.add_argument("--model", choices=["gbm", "garch", "dcc", "jump", "heston",
                                         "bootstrap"], default="gbm",
-                    help="path family (dcc is not ported yet)")
+                    help="path family")
     sp.add_argument("--innovations", choices=["normal", "student_t"], default="normal",
                     help="student_t scores candidates under fat-tailed "
                          "unit-variance t shocks (moment-fitted dof)")
@@ -390,6 +426,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="screening-tier normal draws for screen AND rescore")
     estimator(sp)
     sp.set_defaults(fn=cmd_dd_frontier)
+
+    sp = sub.add_parser("compare-models",
+                        help="one portfolio, every tail-risk model family")
+    common(sp)
+    sp.add_argument("--weights", default=None, help="comma-separated, default equal")
+    sp.add_argument("--paths", type=int, default=262_144)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.set_defaults(fn=cmd_compare_models)
     return p
 
 

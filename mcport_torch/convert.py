@@ -1,5 +1,5 @@
 """Carry parameters from mcport (NumPy) into the port (torch): GBM,
-CCC-GARCH(1,1), common-jump Merton and Heston.
+CCC-GARCH(1,1), DCC-GARCH(1,1), common-jump Merton and Heston.
 
 The tests feed both packages from the same NumPy arrays through these
 functions. Weight vectors need no conversion: the port's engine and API take
@@ -13,13 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcport_torch.models.dcc import DCCGarchParams
 from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.models.heston import HestonParams
 from mcport_torch.models.jump import MertonParams
 
-__all__ = ["gbm_params_from_numpy", "garch_params_from_numpy", "merton_params_from_numpy",
-           "heston_params_from_numpy", "from_mcport"]
+__all__ = ["gbm_params_from_numpy", "garch_params_from_numpy", "dcc_params_from_numpy",
+           "merton_params_from_numpy", "heston_params_from_numpy", "from_mcport"]
 
 
 def _f64(x) -> torch.Tensor:
@@ -52,6 +53,18 @@ def garch_params_from_numpy(mu, omega, alpha, beta, corr_chol, sigma2_0,
     return p
 
 
+def dcc_params_from_numpy(base: CCCGarchParams, a_dcc, b_dcc, q0, e0) -> DCCGarchParams:
+    """Port :class:`DCCGarchParams` (float64 CPU tensors, copied) from the
+    port's GARCH base, the two coefficients, the (A, A) starting Q and the
+    (A,) last standardised residual."""
+    p = DCCGarchParams(base=base, a_dcc=_f64(a_dcc), b_dcc=_f64(b_dcc), q0=_f64(q0),
+                       e0=_f64(e0))
+    a = base.n_assets
+    if (p.a_dcc.shape, p.b_dcc.shape, p.q0.shape, p.e0.shape) != ((), (), (a, a), (a,)):
+        raise ValueError("the DCC arrays do not describe the base's universe")
+    return p
+
+
 def merton_params_from_numpy(s0, mean_step, chol_step, jump_rate, jump_mean,
                              jump_vol) -> MertonParams:
     """Port :class:`MertonParams` (float64 CPU tensors, copied) from the
@@ -77,12 +90,16 @@ def heston_params_from_numpy(mu, kappa, theta, xi, rho, v0, corr_chol, s0) -> He
     return p
 
 
-def from_mcport(params) -> GBMParams | CCCGarchParams | MertonParams | HestonParams:
+def from_mcport(params) -> (GBMParams | CCCGarchParams | DCCGarchParams | MertonParams
+                            | HestonParams):
     """The port's counterpart of mcport's ``GBMParams``, ``CCCGarchParams``,
-    ``MertonParams`` or ``HestonParams``, told apart by a field only that type
-    has: ``omega`` (GARCH), ``kappa`` (Heston), ``diffusion`` (Merton),
-    ``mean_step`` (GBM)."""
+    ``DCCGarchParams``, ``MertonParams`` or ``HestonParams``, told apart by a
+    field only that type has: ``a_dcc`` (DCC, whose ``base`` is converted as
+    GARCH parameters), ``omega`` (GARCH), ``kappa`` (Heston), ``diffusion``
+    (Merton), ``mean_step`` (GBM)."""
     p = params
+    if hasattr(p, "a_dcc"):
+        return dcc_params_from_numpy(from_mcport(p.base), p.a_dcc, p.b_dcc, p.q0, p.e0)
     if hasattr(p, "omega"):
         return garch_params_from_numpy(p.mu, p.omega, p.alpha, p.beta, p.corr_chol,
                                        p.sigma2_0, p.eps2_0)

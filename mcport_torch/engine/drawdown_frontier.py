@@ -1,5 +1,5 @@
 """Drawdown-constrained frontier search over simulated GBM, CCC-GARCH,
-common-jump Merton, Heston and stationary-bootstrap paths.
+DCC-GARCH, common-jump Merton, Heston and stationary-bootstrap paths.
 
 Port of ``drawdown_frontier_search`` and ``family_drawdown_frontier_search``
 (``mcport/engine/drawdown_frontier.py``): among Dirichlet(1) candidate
@@ -10,6 +10,7 @@ Candidates are scored chunk by chunk, ``w_block`` at a time, by the multi-dd
 kernel (:func:`mcport_torch.ops.multi_dd.gbm_multi_portfolio_dd`), or for the
 families by their candidate kernels
 (:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`,
+:func:`mcport_torch.ops.dcc.dcc_multi_portfolio_dd`,
 :func:`mcport_torch.ops.jump.merton_multi_portfolio_dd`,
 :func:`mcport_torch.ops.heston.heston_multi_portfolio_dd`,
 :func:`mcport_torch.ops.bootstrap.bootstrap_multi_portfolio_dd`; rebalanced
@@ -31,8 +32,8 @@ CPU generator that draws the path key and the seed of the weights' device
 generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 (mcport: 128, its VMEM tile); "auto" never screens and there is no
 ``auto_bf16_min_work``; on the CPU the plain form honours the score tiers
-(mcport's lax path ignores them). Not ported yet (raise
-``NotImplementedError``): hedged scoring and the DCC family.
+(mcport's lax path ignores them). Not ported yet (raises
+``NotImplementedError``): hedged scoring.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from mcport_torch.device import resolve_device
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.dirichlet import sample_weights
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.heston import heston_multi_portfolio_dd
@@ -223,17 +225,15 @@ def family_drawdown_frontier_search(
 ) -> DrawdownFrontierResult:
     """The drawdown-constrained frontier under a non-GBM path family, on
     ``device``: "garch" (``model_params`` a
-    :class:`mcport_torch.models.garch_mc.CCCGarchParams`), "jump" (a
+    :class:`mcport_torch.models.garch_mc.CCCGarchParams`), "dcc" (a
+    :class:`mcport_torch.models.dcc.DCCGarchParams`), "jump" (a
     :class:`mcport_torch.models.jump.MertonParams`), "heston" (a
     :class:`mcport_torch.models.heston.HestonParams`) or "bootstrap"
     (``model_params`` the (T, A) history of simple returns, ``p_restart`` its
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
-    path stream. "dcc" is not ported yet."""
-    if model == "dcc":
-        raise NotImplementedError("the dcc drawdown frontier is not ported to "
-                                  "mcport_torch yet")
-    if model not in ("garch", "jump", "heston", "bootstrap"):
+    path stream."""
+    if model not in ("garch", "dcc", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
     if hedge is not None:
@@ -249,6 +249,12 @@ def family_drawdown_frontier_search(
 
         def score(w_blk):
             return garch_multi_portfolio_dd(path_seed, g, w_blk, n_paths, n_steps)
+    elif model == "dcc":
+        dt = model_params.tensors(dev)
+        a = model_params.n_assets
+
+        def score(w_blk):
+            return dcc_multi_portfolio_dd(path_seed, dt, w_blk, n_paths, n_steps)
     elif model == "jump":
         d, a = model_params.diffusion, model_params.n_assets
         mean, chol, muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (

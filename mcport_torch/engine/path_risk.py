@@ -1,11 +1,11 @@
 """Path-dependent risk: the max-drawdown distribution of a portfolio under
-GBM, CCC-GARCH, common-jump Merton, Heston and stationary-bootstrap paths.
+GBM, CCC-GARCH, DCC-GARCH, common-jump Merton, Heston and stationary-bootstrap
+paths.
 
-Port of the GBM, Student-t, GARCH, jump, Heston and bootstrap branches of
-``mcport/engine/path_risk.py``. Each family has a block function
-(mcport's ``_block_fn_for``) that evolves every path of a dispatch group on
-its kernel and returns the portfolio's terminal return and maximum drawdown
-per path:
+Port of ``mcport/engine/path_risk.py``, its unhedged branches. Each family
+has a block function (mcport's ``_block_fn_for``) that evolves every path of
+a dispatch group on its kernel and returns the portfolio's terminal return
+and maximum drawdown per path:
 
 - "gbm" and "student_t": the path-stats kernel
   (:func:`mcport_torch.ops.path_stats.gbm_path_stats`; :func:`stats_from_log_paths`,
@@ -13,6 +13,8 @@ per path:
   log paths);
 - "garch": the GARCH candidate kernel with one candidate
   (:func:`mcport_torch.ops.garch.garch_multi_portfolio_dd`);
+- "dcc": the DCC candidate kernel with one candidate
+  (:func:`mcport_torch.ops.dcc.dcc_multi_portfolio_dd`);
 - "jump": the Merton candidate kernel with one candidate
   (:func:`mcport_torch.ops.jump.merton_multi_portfolio_dd`);
 - "heston": the Heston candidate kernel with one candidate
@@ -35,13 +37,13 @@ mcport's checkpoints are refused.
 
 Rebalancing follows mcport: :func:`run_path_risk` holds the initial GBM
 allocation (buy-and-hold) by default, :func:`run_resumable_path_risk`
-rebalances every step, and the GARCH, jump, Heston and bootstrap families
-always compound per-period rebalanced wealth.
+rebalances every step, and the GARCH, DCC, jump, Heston and bootstrap
+families always compound per-period rebalanced wealth.
 The bootstrap's default terminal sketch is the covering log1p range of its
 history.
 
 Not ported yet (raise ``NotImplementedError``): hedged settlement, quasi-MC
-paths (``qmc``), bootstrap error bars (``ci_boot``), the DCC family and
+paths (``qmc``), bootstrap error bars (``ci_boot``) and
 ``run_resumable_path_risk_with_recovery``.
 """
 
@@ -59,11 +61,13 @@ from mcport_torch.config import GBMConfig, SketchConfig
 from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import BACKEND_TAG
 from mcport_torch.models.bootstrap import _auto_sketch_from_history
+from mcport_torch.models.dcc import DCCGarchParams
 from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.models.heston import HestonParams
 from mcport_torch.models.jump import MertonParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.heston import heston_multi_portfolio_dd
 from mcport_torch.ops.jump import merton_multi_portfolio_dd
@@ -71,9 +75,9 @@ from mcport_torch.ops.multi_dd import multi_dd_from_log_paths
 from mcport_torch.ops.path_stats import gbm_path_stats
 from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
 
-__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "UNPORTED_FAMILIES",
+__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES",
            "PathRiskReport", "PathRiskCheckpoint", "run_path_risk", "run_garch_path_risk",
-           "run_merton_path_risk", "run_heston_path_risk",
+           "run_dcc_path_risk", "run_merton_path_risk", "run_heston_path_risk",
            "run_bootstrap_path_risk", "run_resumable_path_risk",
            "run_resumable_path_risk_with_recovery", "load_path_risk_checkpoint",
            "stats_from_log_paths"]
@@ -84,9 +88,8 @@ DD_SKETCH = SketchConfig(n_bins=4096, lo=-1.0, hi=0.0)
 #: blocks per kernel launch; grouping never changes results
 DISPATCH_BLOCKS = 16
 
-#: mcport's path families, and those not ported yet (they need their own kernels)
+#: mcport's path families
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
-UNPORTED_FAMILIES = ("dcc",)
 
 
 @dataclass(frozen=True)
@@ -176,6 +179,10 @@ def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: boo
     elif model == "garch":
         p = model_params
         arrays = (p.mu, p.omega, p.alpha, p.beta, p.corr_chol, p.sigma2_0, p.eps2_0)
+    elif model == "dcc":
+        p, b = model_params, model_params.base
+        arrays = (b.mu, b.omega, b.alpha, b.beta, b.corr_chol, b.sigma2_0, b.eps2_0, p.q0,
+                  p.e0, [float(p.a_dcc), float(p.b_dcc)])
     elif model == "jump":
         p = model_params
         arrays = (p.diffusion.mean_step, p.diffusion.chol_step, [p.jump_rate], p.jump_mean,
@@ -253,6 +260,15 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
         def block_fn(b, group):
             term, dd = garch_multi_portfolio_dd(seed, g, w[None], n, steps, first_block=b,
                                                 n_blocks=group)
+            return term[:, 0], dd[:, 0]
+
+        return block_fn, SketchConfig()
+    if model == "dcc":
+        dt = model_params.tensors(dev)
+
+        def block_fn(b, group):
+            term, dd = dcc_multi_portfolio_dd(seed, dt, w[None], n, steps, first_block=b,
+                                              n_blocks=group)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -384,6 +400,27 @@ def run_garch_path_risk(
                      0.2, device)
 
 
+def run_dcc_path_risk(
+    params: DCCGarchParams,
+    weights,
+    config: GBMConfig = GBMConfig(),
+    sketch: SketchConfig = SketchConfig(),
+    dd_sketch: SketchConfig = DD_SKETCH,
+    alpha: float = 0.95,
+    hedge=None,
+    s0=None,
+    *,
+    device: str | torch.device = "cuda",
+) -> PathRiskReport:
+    """Simulated path risk under DCC-GARCH(1,1) paths on ``device``: terminal
+    VaR/CVaR plus the max-drawdown distribution of one portfolio compounding
+    per-period rebalanced wealth, under correlations that rise in stress.
+    ``s0`` is mcport's argument for hedged runs, which are not ported."""
+    _check_unported(config, hedge)
+    return _one_shot("dcc", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
+                     device)
+
+
 def run_merton_path_risk(
     params: MertonParams,
     weights,
@@ -468,10 +505,11 @@ def run_resumable_path_risk(
 ) -> tuple[PathRiskReport, PathRiskCheckpoint]:
     """Checkpointable path risk for ``model``: "gbm", "student_t" (GBM drift
     and covariance with unit-variance t shocks at ``config.t_dof``), "garch"
-    (``model_params`` a :class:`CCCGarchParams`), "jump" (a
-    :class:`MertonParams`), "heston" (a :class:`HestonParams`) or "bootstrap"
-    (``model_params`` the (T, A) history, ``p_restart`` its restart
-    probability); every family but GBM's is rebalanced every step.
+    (``model_params`` a :class:`CCCGarchParams`), "dcc" (a
+    :class:`DCCGarchParams`), "jump" (a :class:`MertonParams`), "heston" (a
+    :class:`HestonParams`) or "bootstrap" (``model_params`` the (T, A)
+    history, ``p_restart`` its restart probability); every family but GBM's
+    is rebalanced every step.
 
     Returns ``(report, checkpoint)``; the report covers the blocks folded so
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
@@ -479,8 +517,6 @@ def run_resumable_path_risk(
     digest binds a checkpoint to its computation and a mismatched resume
     raises. ``s0`` is mcport's argument for hedged runs, which are not ported.
     """
-    if model in UNPORTED_FAMILIES:
-        raise NotImplementedError(f"{model} path risk is not ported to mcport_torch yet")
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")

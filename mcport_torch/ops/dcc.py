@@ -1,0 +1,385 @@
+"""DCC-GARCH(1,1) paths: the CUDA DCC kernels and their plain torch forms.
+
+Port of ``mcport/ops/pallas_dcc.py``, its unhedged modes. Two kernels
+(``csrc/dcc.cu``) replace the four TPU kernels — ``_dcc_pack_kernel`` and
+``_dcc_kernel`` (the terminal returns in the TPU's pack and tile layouts) and
+``_dcc_dd_kernel`` and ``_dcc_pack_dd_kernel`` (the candidates). Per path and
+step they follow the pack kernel's formulation (``_make_pack_asset_step``),
+from ``Q = q0``, ``e = e0`` and the GARCH state ``(sigma2_0, eps2_0)``:
+
+    Q      = (1-a-b) S + a e e' + b Q          (S = corr_chol corr_chol')
+    L      = chol(Q)                           (pivot floor rsqrt(max(d, 1e-12)))
+    e_new  = diag(Q)^{-1/2} (L z)              (chol(R) = D^{-1/2} chol(Q))
+    sigma2 = omega + alpha eps2 + beta sigma2,  eps = sqrt(max(sigma2, 0)) e_new
+
+with ``diag(Q)`` read from the updated ``Q`` itself, and the return ``r = mu +
+eps``; then
+
+- :func:`dcc_terminal` compounds every asset, ``cum *= 1 + mu + eps`` → the
+  terminal simple returns ``cum - 1``;
+- :func:`dcc_multi_portfolio_dd` compounds ``W`` candidate portfolios'
+  per-period rebalanced wealth ``V *= 1 + w·r`` (float32, mcport's
+  ``score_dot``) with the running peak and maximum drawdown.
+
+The shocks ``z`` are the GBM kernels' normals on ``STREAM_GBM``
+(:func:`mcport_torch.ops.gbm.step_shocks`), with the GARCH kernels' path, step
+and asset mapping: with ``a = b = 0`` and ``q0 = S`` the recursion is
+CCC-GARCH on the same shocks, up to the float32 Cholesky of ``S``. The plain
+forms are ``step_shocks`` followed by :func:`dcc_innovations`, which rounds
+every operation as IEEE float32 (``sqrt_rn``, :func:`rsqrt_rn`) and subtracts
+the Cholesky sums in ascending order, as the kernels do.
+
+Each wrapper dispatches on the device of its tensors: the CPU goes to the
+plain form, a CUDA device launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from mcport_torch.ops.gbm import _check_args, sqrt_rn, step_shocks
+from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+
+__all__ = [
+    "MAX_DCC_ASSETS",
+    "DccTensors",
+    "rsqrt_rn",
+    "dcc_innovations",
+    "dcc_terminal_reference",
+    "dcc_terminal",
+    "dcc_multi_dd_reference",
+    "dcc_multi_portfolio_dd",
+    "dcc_tolerance",
+    "dcc_shares",
+]
+
+#: Widest universe the DCC kernels take (a path's triangle fits a thread's
+#: registers and shared memory, a row of it a lane's registers).
+MAX_DCC_ASSETS = 16
+
+_EPS = 2.0 ** -24    # float32 unit roundoff
+_FLOOR = 1e-12       # the pivot and diagonal floor of mcport's kernels
+
+
+class DccTensors(NamedTuple):
+    """DCC-GARCH(1,1) parameters as float32 tensors on one device: ``mu``,
+    ``omega``, ``alpha``, ``beta``, ``sigma2_0``, ``eps2_0``, ``e0`` (A,),
+    ``s`` (A, A) the unconditional correlation ``corr_chol corr_chol'``,
+    ``q0`` (A, A) the starting Q, and ``ab`` (2,) the news and persistence
+    coefficients ``(a, b)``."""
+
+    mu: torch.Tensor
+    omega: torch.Tensor
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    sigma2_0: torch.Tensor
+    eps2_0: torch.Tensor
+    e0: torch.Tensor
+    s: torch.Tensor
+    q0: torch.Tensor
+    ab: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.s.device
+
+    @property
+    def n_assets(self) -> int:
+        return self.s.shape[0]
+
+    def packed(self) -> torch.Tensor:
+        """The kernels' parameter block: ``s`` and ``q0`` (A·A each,
+        row-major), then mu, omega, alpha, beta, sigma2_0, eps2_0, e0 (A
+        each), a and b; float32, contiguous."""
+        return torch.cat([self.s.reshape(-1), self.q0.reshape(-1), self.mu, self.omega,
+                          self.alpha, self.beta, self.sigma2_0, self.eps2_0, self.e0,
+                          self.ab]).contiguous()
+
+
+def _check(d: DccTensors, n_paths: int, n_steps: int, n_blocks: int) -> int:
+    a = d.n_assets
+    if not 1 <= a <= MAX_DCC_ASSETS:
+        raise ValueError(f"the DCC kernels take 1..{MAX_DCC_ASSETS} assets, got {a}")
+    for name, x in d._asdict().items():
+        want = (a, a) if name in ("s", "q0") else (2,) if name == "ab" else (a,)
+        if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != d.device:
+            raise ValueError(f"DCC parameter {name} must be float32 {want} on "
+                             f"{d.device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_args(d.s, n_paths, n_steps, n_blocks, "poly", None)
+    return a
+
+
+def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 reciprocal square root, as the kernels'
+    ``__frsqrt_rn`` computes it: the float64 value rounded to float32."""
+    return torch.rsqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def dcc_innovations(z: torch.Tensor, d: DccTensors) -> torch.Tensor:
+    """Innovations ``eps_t`` ``(..., T, A)`` from unit normal shocks ``z (...,
+    T, A)``: the DCC recursion of the module docstring, one IEEE float32
+    operation at a time in the kernels' order — the Q update as ``c0 S + a (e_i
+    e_j) + b Q`` with ``c0 = (1 - a) - b``; the Cholesky column by column, each
+    entry's sum subtracted in ascending k; ``L z`` summed in ascending j. The
+    step's return is ``mu + eps_t``."""
+    a_c, b_c = d.ab[0], d.ab[1]
+    cs = ((1.0 - a_c) - b_c) * d.s
+    n = d.n_assets
+    batch = z.shape[:-2]
+    q = d.q0.expand(batch + (n, n))
+    e = d.e0.expand(batch + (n,))
+    s2 = d.sigma2_0.expand(batch + (n,))
+    e2 = d.eps2_0.expand(batch + (n,))
+    out = []
+    for t in range(z.shape[-2]):
+        q = cs + a_c * (e[..., :, None] * e[..., None, :]) + b_c * q
+        cols = []            # cols[j]: L[j:, j]
+        for j in range(n):
+            num = q[..., j:, j]
+            for k in range(j):
+                num = num - cols[k][..., j - k:] * cols[k][..., j - k:j - k + 1]
+            inv = rsqrt_rn(torch.clamp_min(num[..., :1], _FLOOR))
+            cols.append(num * inv)
+        zt = z[..., t, :]
+        m = cols[0] * zt[..., :1]
+        for j in range(1, n):
+            m[..., j:] += cols[j] * zt[..., j:j + 1]
+        e = m * rsqrt_rn(torch.clamp_min(torch.diagonal(q, dim1=-2, dim2=-1), _FLOOR))
+        s2 = d.omega + d.alpha * e2 + d.beta * s2
+        eps = sqrt_rn(torch.clamp_min(s2, 0.0)) * e
+        e2 = eps * eps
+        out.append(eps)
+    if not out:
+        return z.new_zeros(z.shape)
+    return torch.stack(out, dim=-2)
+
+
+def _shocks(seed, d, n_paths, n_steps, first_block, n_blocks, first_path):
+    return step_shocks(seed, d.n_assets, n_paths, n_steps, first_block=first_block,
+                       n_blocks=n_blocks, first_path=first_path, device=d.device)
+
+
+def dcc_terminal_reference(
+    seed: int,
+    d: DccTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> torch.Tensor:
+    """Plain torch form of the DCC terminal kernel: terminal simple returns
+    ``(n_blocks, n_paths, A)`` float32 for paths ``first_path ..`` of each
+    block. Runs on any device; the tests use it on the CPU and
+    ``chip_smoke.py`` holds the kernel against it on the card."""
+    _check(d, n_paths, n_steps, n_blocks)
+    eps = dcc_innovations(_shocks(seed, d, n_paths, n_steps, first_block, n_blocks,
+                                  first_path), d)
+    cum = torch.ones_like(eps[..., 0, :])
+    one_mu = 1.0 + d.mu
+    for t in range(n_steps):
+        cum = cum * (one_mu + eps[..., t, :])   # mcport's (1 + mu) + eps
+    return cum - 1.0
+
+
+def _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    lib = library("dcc")
+    a = d.n_assets
+    out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=d.device)
+    if n_paths == 0:
+        return out
+    params = d.packed()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.mcport_dcc_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
+                                      params.data_ptr(), out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"DCC terminal kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    dcc_terminal.launches += 1
+    return out
+
+
+def dcc_terminal(
+    seed: int,
+    d: DccTensors,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> torch.Tensor:
+    """Terminal simple returns ``(n_blocks, n_paths, A)`` float32 of DCC-GARCH
+    paths for the blocks ``first_block + 1 .. first_block + n_blocks`` of a
+    run seeded ``seed`` (one block keyed by ``seed`` itself by default) —
+    mcport's ``pallas_dcc_terminal_returns``.
+
+    Parameters on a CUDA device launch the kernel, counted in
+    ``dcc_terminal.launches``; on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
+    """
+    _check(d, n_paths, n_steps, n_blocks)
+    if d.device.type == "cpu":
+        return dcc_terminal_reference(seed, d, n_paths, n_steps, first_block=first_block,
+                                      n_blocks=n_blocks)
+    if d.device.type != "cuda":
+        raise ValueError(f"no DCC kernel for device {d.device}")
+    return _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks)
+
+
+dcc_terminal.launches = 0
+
+
+def dcc_multi_dd_reference(
+    seed: int,
+    d: DccTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+    first_path: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch form of the DCC candidate kernel: ``(term, dd)``, each
+    ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
+    block."""
+    _check(d, n_paths, n_steps, n_blocks)
+    eps = dcc_innovations(_shocks(seed, d, n_paths, n_steps, first_block, n_blocks,
+                                  first_path), d)
+    return rebalanced_dd(d.mu + eps, weights)
+
+
+def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks):
+    from mcport_torch._build import library
+
+    lib = library("dcc")
+    w_cnt, a = weights.shape
+    term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=d.device)
+    dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=d.device)
+    if n_paths == 0:
+        return term, dd
+    params = d.packed()
+    weights = weights.contiguous()
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+                                      params.data_ptr(), weights.data_ptr(), term.data_ptr(),
+                                      dd.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"DCC candidate kernel launch failed: CUDA error {err} "
+                           f"({lib.mcport_error_string(err).decode()})")
+    dcc_multi_portfolio_dd.launches += 1
+    return term, dd
+
+
+def dcc_multi_portfolio_dd(
+    seed: int,
+    d: DccTensors,
+    weights: torch.Tensor,
+    n_paths: int,
+    n_steps: int,
+    *,
+    first_block: int = -1,
+    n_blocks: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
+    float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
+    wealth over the DCC-GARCH paths of blocks ``first_block + 1 ..
+    first_block + n_blocks`` — mcport's ``pallas_dcc_path_stats``, unhedged.
+
+    More than ``MAX_CANDIDATES`` candidates run as several launches over the
+    same paths. Tensors on a CUDA device launch the kernel, each launch
+    counted in ``dcc_multi_portfolio_dd.launches``; on the CPU the plain form
+    runs. Any other device, or a problem the kernel does not take, raises.
+    """
+    a = _check(d, n_paths, n_steps, n_blocks)
+    w = weights.to(torch.float32)
+    if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != d.device:
+        raise ValueError(f"weights must be (W >= 1, {a}) on {d.device}, got "
+                         f"{tuple(w.shape)} on {w.device}")
+    if d.device.type == "cpu":
+        return dcc_multi_dd_reference(seed, d, w, n_paths, n_steps, first_block=first_block,
+                                      n_blocks=n_blocks)
+    if d.device.type != "cuda":
+        raise ValueError(f"no DCC kernel for device {d.device}")
+    parts = [_launch_dd(seed, d, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
+                        n_blocks)
+             for i in range(0, w.shape[0], MAX_CANDIDATES)]
+    if len(parts) == 1:
+        return parts[0]
+    return (torch.cat([p[0] for p in parts], dim=1), torch.cat([p[1] for p in parts], dim=1))
+
+
+dcc_multi_portfolio_dd.launches = 0
+
+
+def dcc_tolerance(d: DccTensors, n_steps: int) -> torch.Tensor:
+    """Relative bound per asset ``(A,)`` on ``|kernel - plain form|`` of a
+    compounded DCC value: ``|Δ| <= rel_i · (1 + |plain|)`` for the terminal
+    returns of :func:`dcc_terminal`.
+
+    Per step the two sides differ by the draws (at most 2e-6 each, as
+    :func:`mcport_torch.ops.gbm.kernel_tolerance` has it; a row of chol(R) has
+    unit norm, so ``e`` moves by at most ``2e-6 sqrt(A)``), by the Q update,
+    the Cholesky and ``L z`` (nvcc's FMAs against two roundings: about ``A +
+    2`` roundings per entry, amplified by the square root of the condition
+    of ``R_t``) and by the gross return (two roundings). The condition of
+    ``R_t`` is at most ``A q_max / lambda``: ``lambda``, the least eigenvalue
+    of every ``Q_t``, is at least ``min(lambda_min(q0), (1-a-b)
+    lambda_min(S) / (1-b))`` (``Q_t ⪰ (1-a-b) lambda_min(S) I + b Q_{t-1}``);
+    ``q_max``, the diagonal's scale, the larger of ``q0``'s and ``((1-a-b) +
+    4a) / (1-b)``, with ``e^2`` at four times its unit mean. A change of
+    ``e`` re-enters Q through ``a e e'`` and stays there for ``1/(1-b)``
+    steps: a gain of ``1 + 4a/(1-b)``. The differences add up like a random
+    walk over ``n`` steps, with a factor 4 of headroom; ``sigma`` is three
+    times the largest of the start, the first step's and the unconditional
+    volatility.
+    """
+    n = d.n_assets
+    a_c, b_c = (float(x) for x in d.ab.to(torch.float64).cpu())
+    c0 = max(1.0 - a_c - b_c, 0.0)
+    s = d.s.to(torch.float64).cpu()
+    q0 = d.q0.to(torch.float64).cpu()
+    lam = float(torch.linalg.eigvalsh(0.5 * (q0 + q0.T)).min())
+    q_max = float(torch.diagonal(q0).max())
+    gain = 1.0
+    if b_c < 1.0:
+        lam = min(lam, c0 * float(torch.linalg.eigvalsh(s).min()) / (1.0 - b_c))
+        q_max = max(q_max, (c0 * float(torch.diagonal(s).max()) + 4.0 * a_c) / (1.0 - b_c))
+        gain += 4.0 * a_c / (1.0 - b_c)
+    kappa = n * q_max / max(lam, 1e-12)
+    per_e = 2e-6 * math.sqrt(n) + 4.0 * (n + 2) * math.sqrt(kappa) * _EPS
+    s2_first = d.omega + d.alpha * d.eps2_0 + d.beta * d.sigma2_0
+    persist = (d.alpha + d.beta).clamp_max(0.999)
+    s2_bar = torch.maximum(torch.maximum(d.sigma2_0, s2_first), d.omega / (1.0 - persist))
+    sigma = 3.0 * torch.sqrt(s2_bar.to(torch.float64).cpu())
+    per_step = 2.0 * _EPS + sigma * gain * per_e
+    return (4.0 * math.sqrt(max(n_steps, 1)) * per_step).to(torch.float32)
+
+
+def dcc_shares(kernel, plain, d: DccTensors, n_steps: int) -> dict[str, float]:
+    """The largest share of its bound that ``|kernel - plain|`` uses →
+    ``{"term"}`` for a terminal tensor ``(..., A)``, ``{"term", "dd"}`` for a
+    candidate pair ``(term, dd)``: the candidates' values are held to the
+    largest asset bound plus ``8 · 2^-24 · (A + sqrt(n))`` for the score's sum
+    over assets and the product over steps, the drawdown to twice that.
+    Non-finite kernel values give ``inf``."""
+    rel = dcc_tolerance(d, n_steps).to(d.device)
+
+    def share(k, p, tol):
+        if not bool(torch.isfinite(k).all()):
+            return math.inf
+        return float(((k - p).abs() / tol).max()) if k.numel() else 0.0
+
+    if isinstance(kernel, torch.Tensor):
+        return {"term": share(kernel, plain, rel * (1.0 + plain.abs()))}
+    r = float(rel.max()) + 8.0 * _EPS * (d.n_assets + math.sqrt(max(n_steps, 1)))
+    return {"term": share(kernel[0], plain[0], r * (1.0 + plain[0].abs())),
+            "dd": share(kernel[1], plain[1], torch.full_like(plain[1], 2.0 * r))}

@@ -10,8 +10,13 @@ parameters within 1e-4 (L-BFGS-B's reach, ``tests/test_torch_garch.py``),
 and VaR/CVaR/mean within Monte Carlo error; ``jump-risk`` the same
 calibration to 1e-12 and VaR/CVaR/mean and the jump fraction within Monte
 Carlo error; ``path-risk --models jump,heston`` and ``dd-frontier --model
-jump|heston`` mcport's keys. A subprocess imports every ``mcport_torch``
-module and finds neither jax nor pandas loaded.
+jump|heston`` mcport's keys. ``garch-risk --correlation dcc`` has mcport's
+keys and model string and agrees in law (``--innovations student_t`` exits
+with mcport's message); ``path-risk --models dcc`` and ``dd-frontier --model
+dcc`` emit mcport's keys; ``compare-models`` gives mcport's seven families
+with their keys, VaR/CVaR/mean within Monte Carlo error and the same DCC
+fit. A subprocess imports every ``mcport_torch`` module and finds neither
+jax nor pandas loaded.
 """
 
 import contextlib
@@ -140,8 +145,10 @@ def test_dd_frontier_cli_has_mcport_keys(csvs):
     t = _run(port_main, common + ["--innovations", "student_t", "--score-dtype",
                                   "bfloat16", "--rebalance", "--device", "cpu"])
     assert t["innovations"].startswith("student_t (dof=")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run(port_main, common + ["--model", "dcc", "--device", "cpu"])
+    dcc = _run(port_main, ["dd-frontier", *csvs[:4], "--period", "D", "--candidates", "16",
+                           "--paths", "256", "--steps", "4", "--dd-budget", "0.9", "--model",
+                           "dcc", "--device", "cpu"])
+    assert set(dcc) == set(port) and dcc["model"] == "dcc" and dcc["n_feasible"] > 0
 
 
 def test_gbm_risk_cli_path_stats_has_mcport_keys(csvs):
@@ -181,8 +188,17 @@ def test_garch_risk_cli_matches_mcport(weekly):
     t_ref = _run(ref_main, common + ["--innovations", "student_t"])
     assert t["model"] == t_ref["model"] and t["model"].startswith("ccc-garch(1,1)-t(dof=")
     _within_mc(t, t_ref, ("var", "cvar", "portfolio_mean_return"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run(port_main, common + ["--correlation", "dcc", "--device", "cpu"])
+    dcc = _run(port_main, common + ["--correlation", "dcc", "--device", "cpu"])
+    dcc_ref = _run(ref_main, common + ["--correlation", "dcc"])
+    assert set(dcc) == set(dcc_ref) and dcc["model"] == dcc_ref["model"]
+    assert dcc["model"].startswith("dcc-garch(1,1) a=") and dcc["n_paths"] == 20_000
+    _within_mc(dcc, dcc_ref, ("var", "cvar", "portfolio_mean_return"))
+    argv = common + ["--correlation", "dcc", "--innovations", "student_t"]
+    with pytest.raises(SystemExit, match="normal shocks only") as ref_exit:
+        _run(ref_main, argv)
+    with pytest.raises(SystemExit) as port_exit:
+        _run(port_main, argv + ["--device", "cpu"])
+    assert str(port_exit.value) == str(ref_exit.value)
 
 
 def test_bootstrap_risk_cli_matches_mcport(weekly):
@@ -196,12 +212,12 @@ def test_bootstrap_risk_cli_matches_mcport(weekly):
 
 
 def test_path_risk_cli_families_have_mcport_keys(weekly, tmp_path):
-    common = ["path-risk", *weekly, "--period", "W", "--models", "garch,bootstrap",
+    common = ["path-risk", *weekly, "--period", "W", "--models", "garch,dcc,bootstrap",
               "--paths", "8192", "--steps", "8", "--seed", "2", "--p-restart", "0.3"]
     port = _run(port_main, common + ["--device", "cpu"])
     ref = _run(ref_main, common)
     assert set(port) == set(ref)
-    for model in ("garch", "bootstrap"):
+    for model in ("garch", "dcc", "bootstrap"):
         assert set(port[model]) == set(ref[model]) and port[model]["n_paths"] == 8192
     ck = str(tmp_path / "ck.npz")
     one = ["path-risk", *weekly, "--period", "W", "--models", "bootstrap", "--paths",
@@ -244,10 +260,28 @@ def test_path_risk_cli_defaults_to_every_ported_family():
     from mcport_torch.cli import build_parser
 
     args = build_parser().parse_args(["path-risk", "x.csv"])
-    assert args.models == "gbm,student_t,garch,jump,heston,bootstrap"
+    assert args.models == "gbm,student_t,garch,dcc,jump,heston,bootstrap"
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+def test_compare_models_cli_matches_mcport(weekly):
+    """Every family of mcport's compare-models, with its keys and its VaR,
+    CVaR and mean within Monte Carlo error at 20,000 paths; the DCC fit's a
+    and b equal."""
+    common = ["compare-models", *weekly, "--period", "W", "--paths", "20000", "--steps", "12",
+              "--seed", "1"]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref) and port["engine"] == ref["engine"] == "model-comparison"
+    assert port["n_paths"] == ref["n_paths"] == 24_576 and port["weights"] == ref["weights"]
+    assert set(port["models"]) == set(ref["models"]) and len(port["models"]) == 7
+    for model, out in ref["models"].items():
+        assert set(port["models"][model]) == set(out), model
+        _within_mc(port["models"][model], out, ("var", "cvar", "portfolio_mean"))
+    for k in ("a_dcc", "b_dcc"):
+        assert port["models"]["dcc_garch"][k] == ref["models"]["dcc_garch"][k]
+
+
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_dd_frontier_cli_families_have_mcport_keys(weekly, model):
     common = ["dd-frontier", *weekly, "--period", "W", "--candidates", "32", "--paths",
               "1024", "--steps", "8", "--dd-budget", "0.9", "--model", model]

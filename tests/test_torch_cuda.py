@@ -17,9 +17,10 @@ kernel's terminal is the terminal-noise kernel's up to rounding. The family
 kernels: CCC-GARCH (#4, #5) to ``ops.garch.garch_shares``, the bootstrap
 (#6 bit for bit, #7 to ``ops.bootstrap.bootstrap_shares``), common-jump
 Merton (#8) to ``ops.jump.merton_shares`` with the plain form's jump steps
-and, at rate 0, kernel #3's output bit for bit, and Heston (#9, #10) to
+and, at rate 0, kernel #3's output bit for bit, Heston (#9, #10) to
 ``ops.heston.heston_shares`` at the bench's vol-of-vol and a Feller-violating
-one.
+one, and DCC-GARCH (the terminal kernel for #11/#12, the candidate kernel for
+#13/#14) to ``ops.dcc.dcc_shares``, with ``a = b = 0`` held to kernel #4.
 """
 
 import numpy as np
@@ -527,3 +528,120 @@ def test_heston_kernels_reject_too_many_assets(dev):
 
     with pytest.raises(ValueError, match="1..16 assets"):
         heston_terminal(0, _heston(17, dev), 128, 4)
+
+
+# ---- kernels #11-#14: DCC-GARCH -----------------------------------------------------
+
+def _dcc(a, dev, case="bench", seed=0):
+    """bench.py's DCC parameters on the GARCH universe (a 0.05, b 0.9, q0 =
+    S, e0 = 0); "q0" the non-unit diagonal q0 = S + 0.05 I of
+    tests/test_pallas_dcc.py with a large common e0 (3); "frozen" a = 0, b =
+    1; "ccc" a = b = 0."""
+    from mcport_torch.convert import dcc_params_from_numpy, garch_params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    s0 = np.full(a, 4e-4)
+    corr = 0.5 * np.eye(a) + 0.5
+    base = garch_params_from_numpy(rng.normal(1e-3, 5e-4, a), 0.1 * s0, np.full(a, 0.08),
+                                   np.full(a, 0.9), np.linalg.cholesky(corr), s0, s0)
+    ab, q0, e0 = {"bench": ((0.05, 0.9), corr, 0.0),
+                  "q0": ((0.05, 0.9), corr + 0.05 * np.eye(a), 3.0),
+                  "frozen": ((0.0, 1.0), corr, 0.0), "ccc": ((0.0, 0.0), corr, 0.0)}[case]
+    return dcc_params_from_numpy(base, ab[0], ab[1], q0, np.full(a, e0)).tensors(dev)
+
+
+@pytest.mark.parametrize("a", [1, 2, 15, 16])
+@pytest.mark.parametrize("case", ["bench", "q0", "frozen"])
+@pytest.mark.parametrize("steps", [52, 7])
+def test_dcc_terminal_kernel_matches_plain_form(dev, a, case, steps):
+    from mcport_torch.ops.dcc import dcc_shares, dcc_terminal, dcc_terminal_reference
+
+    d = _dcc(a, dev, case)
+    kw = dict(first_block=6, n_blocks=2)
+    before = dcc_terminal.launches
+    k = dcc_terminal(11, d, 4_099, steps, **kw)
+    torch.cuda.synchronize()
+    assert dcc_terminal.launches == before + 1
+    p = dcc_terminal_reference(11, d, 4_099, steps, **kw)
+    shares = dcc_shares(k, p, d, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("a, steps", [(15, 52), (15, 7), (1, 9), (2, 8), (16, 8)])
+@pytest.mark.parametrize("case", ["bench", "q0"])
+def test_dcc_multi_dd_kernel_matches_plain_form(dev, n_cand, a, steps, case):
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
+
+    d = _dcc(a, dev, case)
+    w = torch.from_numpy(np.random.default_rng(n_cand).dirichlet(
+        np.ones(a), n_cand).astype(np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2)
+    before = dcc_multi_portfolio_dd.launches
+    k = dcc_multi_portfolio_dd(11, d, w, 2_053, steps, **kw)
+    torch.cuda.synchronize()
+    assert dcc_multi_portfolio_dd.launches == before + 1
+    p = dcc_multi_dd_reference(11, d, w, 2_053, steps, **kw)
+    shares = dcc_shares(k, p, d, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("a", [2, 15])
+def test_dcc_kernel_without_dynamics_is_the_garch_kernel(dev, a):
+    """a = b = 0 and q0 = S: Q_t = S every step and the DCC terminal kernel
+    draws CCC-GARCH on kernel #4's shocks, up to the float32 Cholesky of S."""
+    from mcport_torch.ops.dcc import dcc_shares, dcc_terminal
+    from mcport_torch.ops.garch import garch_terminal
+
+    d = _dcc(a, dev, "ccc")
+    k11 = dcc_terminal(5, d, 8_192, 52, first_block=0, n_blocks=2)
+    k4 = garch_terminal(5, _garch(a, dev), 8_192, 52, first_block=0, n_blocks=2)
+    assert dcc_shares(k11, k4, d, 52)["term"] <= 1.0
+
+
+def test_dcc_kernels_zero_vol_closed_form(dev):
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd, dcc_terminal
+
+    d = _dcc(3, dev)
+    zero = torch.zeros(3, device=dev)
+    mu = torch.tensor([0.01, -0.005, 0.002], device=dev)
+    d = d._replace(mu=mu, omega=zero, alpha=zero, beta=zero, sigma2_0=zero, eps2_0=zero)
+    want = ((1.0 + mu.double()) ** 6 - 1.0).float()
+    term = dcc_terminal(1, d, 300, 6)[0]
+    assert float((term - want).abs().max()) <= 3e-7
+    t13, dd = dcc_multi_portfolio_dd(1, d, torch.eye(3, device=dev), 300, 6)
+    assert float((t13[0] - want[:, None]).abs().max()) <= 3e-7
+
+
+def test_dcc_kernels_agree_on_one_asset(dev):
+    """With one asset R = 1, e = z: the candidate kernel's value with the
+    weight 1 is the terminal kernel's compounded gross up to the rounding of
+    ``1 + (mu + eps)`` against ``(1 + mu) + eps``."""
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd, dcc_terminal
+
+    d = _dcc(1, dev, "q0")
+    term = dcc_terminal(3, d, 8_192, 52, first_block=0, n_blocks=2)
+    t13, _ = dcc_multi_portfolio_dd(3, d, torch.ones((1, 1), device=dev), 8_192, 52,
+                                    first_block=0, n_blocks=2)
+    rel = ((t13[:, 0] - term[..., 0]).abs() / (1 + term[..., 0].abs())).max()
+    assert float(rel) < 1e-4
+
+
+def test_dcc_multi_dd_kernel_more_than_one_launch_of_candidates(dev):
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
+
+    d = _dcc(15, dev)
+    w = torch.from_numpy(np.random.default_rng(2).dirichlet(np.ones(15), 300)
+                         .astype(np.float32)).to(dev)
+    before = dcc_multi_portfolio_dd.launches
+    term, dd = dcc_multi_portfolio_dd(1, d, w, 777, 9)
+    assert dcc_multi_portfolio_dd.launches == before + 2 and term.shape == (1, 300, 777)
+    tail = dcc_multi_portfolio_dd(1, d, w[256:], 777, 9)
+    assert torch.equal(term[:, 256:], tail[0]) and torch.equal(dd[:, 256:], tail[1])
+
+
+def test_dcc_kernels_reject_too_many_assets(dev):
+    from mcport_torch.ops.dcc import dcc_terminal
+
+    with pytest.raises(ValueError, match="1..16 assets"):
+        dcc_terminal(0, _dcc(17, dev), 128, 4)

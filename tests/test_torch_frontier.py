@@ -17,7 +17,7 @@ mcport's Threefry), so the searches are compared in law at matched sizes
 Against itself the port is exact where mcport pins it: the bf16 screen plus
 float32 rescore gives the float32 search's optimum; "auto" is float32.
 
-The family frontier (GARCH, bootstrap, common-jump Merton and Heston,
+The family frontier (GARCH, DCC, bootstrap, common-jump Merton and Heston,
 rebalanced wealth) is held the same way at 32 candidates x 4,096 paths x 12
 steps: every candidate of mcport's
 search, scored by the port on its own paths, has mcport's mean return within
@@ -36,6 +36,7 @@ import torch
 from mcport.engine.drawdown_frontier import _lax_multi_dd
 from mcport.engine.drawdown_frontier import drawdown_frontier_search as ref_search
 from mcport.engine.drawdown_frontier import family_drawdown_frontier_search as ref_family
+from mcport.models.dcc import DCCGarchParams as RefDcc
 from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.gbm import GBMParams as RefParams
 from mcport.models.heston import HestonParams as RefHeston
@@ -46,6 +47,7 @@ from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                    family_drawdown_frontier_search,
                                                    frontier_seeds)
 from mcport_torch.models.bootstrap import bootstrap_path_stats
+from mcport_torch.models.dcc import dcc_path_stats
 from mcport_torch.models.garch_mc import garch_path_stats
 from mcport_torch.models.heston import heston_path_stats
 from mcport_torch.models.jump import merton_path_stats
@@ -197,7 +199,7 @@ def test_dirichlet_law_and_bounds_match_mcport():
     assert abs(p - q) <= 4 * np.sqrt(2 * p * (1 - p) / 4_000) + 1e-3
 
 
-# ---- the family frontier: GARCH, bootstrap, Merton, Heston ------------------------
+# ---- the family frontier: GARCH, DCC, bootstrap, Merton, Heston -------------------
 
 REF_GARCH = RefGarch(mu=MEAN, omega=np.full(A, 4e-5), alpha=np.full(A, 0.08),
                      beta=np.full(A, 0.9), corr_chol=np.linalg.cholesky(0.6 * np.eye(A) + 0.4),
@@ -211,8 +213,13 @@ REF_HESTON = RefHeston(mu=MEAN, kappa=np.full(A, 0.15), theta=np.full(A, 9e-4),
                        corr_chol=np.linalg.cholesky(0.6 * np.eye(A) + 0.4), s0=np.ones(A))
 
 
+REF_DCC = RefDcc(base=REF_GARCH, a_dcc=0.06, b_dcc=0.9, q0=0.55 * np.eye(A) + 0.4,
+                 e0=np.array([1.2, -0.4, 2.0]))
+
+
 def _family_params(model):
-    ref = {"garch": REF_GARCH, "jump": REF_MERTON, "heston": REF_HESTON}.get(model)
+    ref = {"garch": REF_GARCH, "dcc": REF_DCC, "jump": REF_MERTON,
+           "heston": REF_HESTON}.get(model)
     return (HISTORY, HISTORY) if ref is None else (from_mcport(ref), ref)
 
 
@@ -223,12 +230,12 @@ def _family_path_stats(model, seed, params, w, n_paths, n_steps):
         return merton_path_stats(seed, d.mean_step, d.chol_step, params.jump_rate,
                                  params.jump_mean, params.jump_vol, w, n_paths, n_steps,
                                  device="cpu")
-    fn = {"garch": garch_path_stats, "heston": heston_path_stats,
+    fn = {"garch": garch_path_stats, "dcc": dcc_path_stats, "heston": heston_path_stats,
           "bootstrap": bootstrap_path_stats}[model]
     return fn(seed, params, w, n_paths, n_steps, device="cpu")
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_family_frontier_scores_as_mcport_in_law(model):
     params, ref_params = _family_params(model)
     got = family_drawdown_frontier_search(3, model, params, device="cpu", **FAMILY_KW)
@@ -252,7 +259,7 @@ def test_family_frontier_scores_as_mcport_in_law(model):
     assert np.all((dd < q).mean(-1) <= p + tol) and np.all((dd <= q).mean(-1) >= p - tol)
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_family_frontier_chunks_share_one_path_set(model):
     params, _ = _family_params(model)
     small = family_drawdown_frontier_search(4, model, params, w_block=8, device="cpu",

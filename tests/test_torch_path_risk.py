@@ -16,8 +16,8 @@
   and mcport's checkpoints are refused.
 - The kernel-vs-plain bound (``path_stats_tolerance``) rejects planted faults
   at the shapes the card's checks run.
-- The GARCH, bootstrap, common-jump Merton and Heston families:
-  ``run_garch_path_risk``, ``run_bootstrap_path_risk``,
+- The GARCH, DCC, bootstrap, common-jump Merton and Heston families:
+  ``run_garch_path_risk``, ``run_dcc_path_risk``, ``run_bootstrap_path_risk``,
   ``run_merton_path_risk`` and ``run_heston_path_risk`` agree with mcport's
   in law at 16,384 paths x 12 steps (4 standard errors of the difference; a
   bootstrap quantile's error from its order statistics, its law being
@@ -42,9 +42,11 @@ from mcport.engine.path_risk import _lax_path_stats
 from mcport.engine.path_risk import run_path_risk as ref_run
 from mcport.engine.path_risk import run_resumable_path_risk as ref_resumable
 from mcport.engine.path_risk import run_bootstrap_path_risk as ref_bootstrap_run
+from mcport.engine.path_risk import run_dcc_path_risk as ref_dcc_run
 from mcport.engine.path_risk import run_garch_path_risk as ref_garch_run
 from mcport.engine.path_risk import run_heston_path_risk as ref_heston_run
 from mcport.engine.path_risk import run_merton_path_risk as ref_merton_run
+from mcport.models.dcc import DCCGarchParams as RefDcc
 from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.heston import HestonParams as RefHeston
 from mcport.models.jump import MertonParams as RefMerton
@@ -57,12 +59,14 @@ from mcport_torch.data import load_universe
 from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                    family_drawdown_frontier_search)
 from mcport_torch.engine.mc_engine import run_resumable_mc
+from mcport_torch.models.dcc import dcc_risk
 from mcport_torch.models.heston import heston_terminal_returns
 from mcport_torch.models.jump import merton_risk
 from mcport_torch.engine.path_risk import (
     DD_SKETCH,
     load_path_risk_checkpoint,
     run_bootstrap_path_risk,
+    run_dcc_path_risk,
     run_garch_path_risk,
     run_heston_path_risk,
     run_merton_path_risk,
@@ -72,6 +76,7 @@ from mcport_torch.engine.path_risk import (
     stats_from_log_paths,
 )
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.heston import heston_multi_portfolio_dd
 from mcport_torch.ops.jump import merton_multi_portfolio_dd
@@ -224,11 +229,12 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
     lambda: run_path_risk(PARAMS, W, CFG, hedge=object(), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, qmc="sobol"), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
-    lambda: run_resumable_path_risk("dcc", PARAMS, W, CFG, device="cpu"),
+    lambda: run_resumable_path_risk("dcc", DCC, W, CFG, hedge=object(), device="cpu"),
     lambda: run_resumable_path_risk_with_recovery("gbm", PARAMS, W, CFG),
     lambda: drawdown_frontier_search(0, PARAMS, hedge=object(), device="cpu"),
-    lambda: family_drawdown_frontier_search(0, "dcc", None),
-    lambda: path_tail_risk(object(), model="dcc", device="cpu"),
+    lambda: family_drawdown_frontier_search(0, "dcc", DCC, hedge=object(), device="cpu"),
+    lambda: path_tail_risk(object(), model="dcc", legs_by_asset={}, device="cpu"),
+    lambda: run_dcc_path_risk(DCC, W, CFG, hedge=object(), device="cpu"),
 ])
 def test_unported_branches_raise(call):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -253,6 +259,9 @@ def test_unknown_model_raises():
     lambda: family_drawdown_frontier_search(0, "heston", HESTON),
     lambda: merton_risk(0, MERTON, W, n_paths=64, n_steps=4),
     lambda: heston_terminal_returns(0, HESTON, 16, 4),
+    lambda: run_dcc_path_risk(DCC, W, CFG),
+    lambda: family_drawdown_frontier_search(0, "dcc", DCC),
+    lambda: dcc_risk(0, DCC, W, n_paths=64, n_steps=4),
 ])
 def test_entry_points_default_to_the_card(call):
     """Without a ``device`` every entry point asks for the card, and a
@@ -331,9 +340,15 @@ REF_HESTON = RefHeston(mu=MEAN, kappa=np.full(A, 0.15), theta=np.full(A, 4e-4),
                        xi=np.full(A, 0.01), rho=np.full(A, -0.5), v0=np.full(A, 6e-4),
                        corr_chol=np.linalg.cholesky(0.5 * np.eye(A) + 0.5), s0=np.ones(A))
 HESTON = from_mcport(REF_HESTON)
-FAMILY_PARAMS = {"garch": GARCH, "bootstrap": HISTORY, "jump": MERTON, "heston": HESTON}
-ONE_SHOT = {"garch": run_garch_path_risk, "bootstrap": run_bootstrap_path_risk,
-            "jump": run_merton_path_risk, "heston": run_heston_path_risk}
+# the GARCH base with moving correlations; q0 off S, with a non-unit diagonal
+REF_DCC = RefDcc(base=REF_GARCH, a_dcc=0.05, b_dcc=0.9, q0=0.45 * np.eye(A) + 0.6,
+                 e0=np.linspace(-1.5, 1.5, A))
+DCC = from_mcport(REF_DCC)
+FAMILY_PARAMS = {"garch": GARCH, "dcc": DCC, "bootstrap": HISTORY, "jump": MERTON,
+                 "heston": HESTON}
+ONE_SHOT = {"garch": run_garch_path_risk, "dcc": run_dcc_path_risk,
+            "bootstrap": run_bootstrap_path_risk, "jump": run_merton_path_risk,
+            "heston": run_heston_path_risk}
 
 
 def _order_se(x: np.ndarray, p: float) -> float:
@@ -351,6 +366,9 @@ def _family_sample(model, cfg):
     if model == "garch":
         term, dd = garch_multi_portfolio_dd(cfg.seed, GARCH.tensors("cpu"), w, cfg.path_block,
                                             cfg.n_steps, first_block=0, n_blocks=n)
+    elif model == "dcc":
+        term, dd = dcc_multi_portfolio_dd(cfg.seed, DCC.tensors("cpu"), w, cfg.path_block,
+                                          cfg.n_steps, first_block=0, n_blocks=n)
     elif model == "jump":
         d = MERTON.diffusion
         term, dd = merton_multi_portfolio_dd(cfg.seed, d.mean_step, d.chol_step,
@@ -368,11 +386,13 @@ def _family_sample(model, cfg):
     return term.double().numpy().ravel(), dd.double().numpy().ravel()
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_family_path_risk_matches_mcport_in_law(model):
     got = ONE_SHOT[model](FAMILY_PARAMS[model], W, FAMILY_CFG, device="cpu")
     if model == "garch":
         want = ref_garch_run(REF_GARCH, W, FAMILY_CFG)
+    elif model == "dcc":
+        want = ref_dcc_run(REF_DCC, W, FAMILY_CFG)
     elif model == "jump":
         want = ref_merton_run(REF_MERTON, W, FAMILY_CFG)
     elif model == "heston":
@@ -391,7 +411,7 @@ def test_family_path_risk_matches_mcport_in_law(model):
     assert got.cvar <= got.var and -1 <= got.dd_p95 <= got.dd_median <= 0
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_family_split_resume_is_bit_identical(model, tmp_path):
     params = FAMILY_PARAMS[model]
     full, ck_full = run_resumable_path_risk(model, params, W, CFG, device="cpu")
@@ -443,7 +463,27 @@ def test_jump_and_heston_checkpoints_refuse_other_families():
                                     device="cpu")
 
 
-@pytest.mark.parametrize("model", ["garch", "bootstrap", "jump", "heston"])
+def test_dcc_checkpoints_refuse_other_families_and_parameters():
+    """The DCC digest binds the GARCH base, q0, e0, a and b: a GARCH run on the
+    same base, another b, another q0 and mcport's DCC checkpoint are refused."""
+    from mcport_torch.convert import dcc_params_from_numpy
+
+    _, dcc_ck = run_resumable_path_risk("dcc", DCC, W, CFG, max_blocks=1, device="cpu")
+    _, garch_ck = run_resumable_path_risk("garch", GARCH, W, CFG, max_blocks=1, device="cpu")
+    other_b = dcc_params_from_numpy(GARCH, 0.05, 0.91, DCC.q0, DCC.e0)
+    other_q0 = dcc_params_from_numpy(GARCH, 0.05, 0.9, DCC.q0 + 0.01, DCC.e0)
+    for model, params, ck in (("garch", GARCH, dcc_ck), ("dcc", DCC, garch_ck),
+                              ("dcc", other_b, dcc_ck), ("dcc", other_q0, dcc_ck)):
+        with pytest.raises(ValueError, match="digest"):
+            run_resumable_path_risk(model, params, W, CFG, checkpoint=ck, device="cpu")
+    _, ref_ck = ref_resumable("dcc", REF_DCC, W, CFG, max_blocks=1)
+    with pytest.raises(ValueError, match="digest"):
+        run_resumable_path_risk("dcc", DCC, W, CFG, checkpoint=ref_ck, device="cpu")
+    resumed, ck = run_resumable_path_risk("dcc", DCC, W, CFG, checkpoint=dcc_ck, device="cpu")
+    assert ck.done and resumed.n_paths == CFG.n_paths
+
+
+@pytest.mark.parametrize("model", ["garch", "dcc", "bootstrap", "jump", "heston"])
 def test_path_tail_risk_families_have_mcport_keys(fixtures_dir, model, tmp_path):
     from mcport.api import path_tail_risk as ref_tail
     from mcport.data import load_universe as ref_load

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one warm call of the PyTorch port's main paths goes on a card.
 
-    python3 tools/profile_gbm_risk.py [gbm|family]   # needs one CUDA card; both by default
+    python3 tools/profile_gbm_risk.py [gbm|family|dcc]   # needs one CUDA card; all by default
 
 GBM tier: for each size of ``chip_smoke.py``'s main paths (GBMConfig
 defaults and BASELINE config-4 scale, on the bench's synthetic 15-asset
@@ -15,7 +15,11 @@ GARCH parameters, a 365 x 15 history), ``run_garch_path_risk`` and
 bench's size; then the Merton and Heston families at the bench's parameters:
 ``merton_risk`` and ``heston_terminal_returns`` at 1,048,576 x 252,
 ``run_merton_path_risk`` and ``run_heston_path_risk`` at both sizes, and both
-frontiers. For each call it prints:
+frontiers. DCC tier: ``dcc_risk`` at 1,048,576 x 52 (bench.py's DCC
+parameters and horizon), ``run_dcc_path_risk`` at both sizes, the DCC
+frontier at the bench's size, and ``compare_tail_risk`` on the weekly BTC/ETH
+fixtures at the ``compare-models`` defaults (262,144 paths x 52 steps,
+estimation included). For each call it prints:
 
 - the warm walls without a checkpoint (host clock, ending in a synchronise),
   after one call that warms up;
@@ -108,23 +112,24 @@ def main() -> int:
         print("profile_gbm_risk: no CUDA device visible to torch", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (FAMILY_PATHS, FAMILY_SEED, FRONTIER, FRONTIER_SEED, N_ASSETS,
-                            bench_garch, bench_heston, bench_history, bench_merton,
-                            bench_universe, bench_weights, cells)
-    from mcport_torch.api import gbm_risk
+    from chip_smoke import (DCC_STEPS, FAMILY_PATHS, FAMILY_SEED, FRONTIER, FRONTIER_SEED,
+                            N_ASSETS, bench_dcc, bench_garch, bench_heston, bench_history,
+                            bench_merton, bench_universe, bench_weights, cells)
+    from mcport_torch.api import compare_tail_risk, gbm_risk
     from mcport_torch.config import Config
     from mcport_torch.convert import gbm_params_from_numpy
     from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
                                                        family_drawdown_frontier_search)
-    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
-                                               run_heston_path_risk, run_merton_path_risk,
-                                               run_path_risk)
+    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_dcc_path_risk,
+                                               run_garch_path_risk, run_heston_path_risk,
+                                               run_merton_path_risk, run_path_risk)
     from mcport_torch.models.bootstrap import bootstrap_risk
+    from mcport_torch.models.dcc import dcc_risk
     from mcport_torch.models.garch_mc import garch_risk
     from mcport_torch.models.heston import heston_terminal_returns
     from mcport_torch.models.jump import merton_risk
 
-    tiers = sys.argv[1:] or ["gbm", "family"]
+    tiers = sys.argv[1:] or ["gbm", "family", "dcc"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -183,6 +188,26 @@ def main() -> int:
             profile_cell(f"family_drawdown_frontier_search {model} {front}",
                          lambda model=model, src=src: family_drawdown_frontier_search(
                              FRONTIER_SEED, model, src, device=dev, **FRONTIER))
+    if "dcc" in tiers:
+        from mcport_torch.config import DataConfig, GBMConfig
+        from mcport_torch.data import load_universe
+
+        dcc, wb = bench_dcc(), bench_weights()
+        profile_cell(f"dcc_risk ({FAMILY_PATHS} x {DCC_STEPS})",
+                     lambda: dcc_risk(FAMILY_SEED, dcc, wb, FAMILY_PATHS, DCC_STEPS,
+                                      device=dev))
+        for name, g in cells().items():
+            size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+            profile_cell(f"run_dcc_path_risk {size}",
+                         lambda g=g: run_dcc_path_risk(dcc, wb, g, device=dev))
+        profile_cell(f"family_drawdown_frontier_search dcc {front}",
+                     lambda: family_drawdown_frontier_search(FRONTIER_SEED, "dcc", dcc,
+                                                             device=dev, **FRONTIER))
+        weekly = load_universe(sorted(str(p) for p in (ROOT / "fixtures").glob(
+            "*7 Years Weekly.csv")), DataConfig(period="W"))
+        cmp_cfg = Config(gbm=GBMConfig(n_paths=262_144, n_steps=52, path_block=8_192))
+        profile_cell("compare_tail_risk weekly BTC/ETH (262,144 x 52, estimation included)",
+                     lambda: compare_tail_risk(weekly, None, cmp_cfg, device=dev))
     return 0
 
 
