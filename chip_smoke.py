@@ -122,6 +122,32 @@ ends:
    of the (1,048,576, 15, 15) batch x 52 and the score product as one
    ``torch.matmul`` per step x 52 as yardsticks, and their least times from
    the work their functions need.
+18. the repairs: the GARCH, Heston and DCC kernels' wide variants at A in
+   {17, 33, 64} against their plain forms (Heston's path state bit for bit,
+   at the bench's vol of vol and a Feller-violating one), the bootstrap
+   kernels on an 8,192 x 15 history past shared memory (bit for bit, and the
+   one-hot selection), ``path_tail_risk`` for garch, heston and dcc and
+   ``compare_tail_risk`` on a 17-asset universe on the card (counts reset
+   before and read after), and A = 65 refused on the card;
+19. the hedged modes of kernels #3 and #8 against their plain forms (1-3 legs
+   of every type, the score tiers and t(5.5), W in {1, 13, 256}, rates 0.02
+   and 0.3), an identity hedge against the rebalanced mode, #8 at rate 0
+   against #3 bit for bit, and every hedged launch of phase 20 over a head
+   and a tail slice of each block's paths (bounds: ``ops.multi_dd
+   .multi_dd_shares`` and ``ops.jump.merton_shares`` with the hedge);
+20. the hedged main paths with a married put on asset 0 and a collar on
+   asset 1: ``gbm_risk`` at both cells, path risk for gbm, student_t and jump
+   at both cells with split + resume, ``path_tail_risk`` for the three, the
+   hedged GBM and jump frontiers at 4,096 x 131,072 x 252,
+   ``hedged_tail_risk`` for all seven families at 1,048,576 x 252 (DCC at
+   52), and the CLI's ``hedged-risk``, ``gbm-risk --hedge``, ``path-risk
+   --hedge`` and ``dd-frontier --hedge`` on the weekly fixtures; counts reset
+   before and read after; then the hedged drawdown quantiles and the hedged
+   frontier's optimum against the plain form;
+21. the hedged modes timed at 256 x 131,072 x 252 beside their plain forms and
+   the score product as one ``torch.matmul`` per step, each wide variant at
+   A = 64, and the bootstrap kernels on the long history; the hedged modes'
+   least times from the work their functions need.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -982,7 +1008,7 @@ def bounds(rate: float) -> dict:
     # loop, two float4 loads (weights, exps) per asset, per scoring thread
     # (one per candidate of a 16-path tile) and step
     w_cnt, pp = 256, FRONTIER["n_paths"]
-    loops = _sass_loops(libs["multi_dd"], "multi_dd_kernelILi0ELb0ELi0EE")
+    loops = _sass_loops(libs["multi_dd"], "multi_dd_kernelILi0ELi0ELi0EE")
     *_, call_loop = _hot_loop(loops, PHILOX_MULS, 4 * 20)
     ins, its, _ = _hot_loop(loops, ("LDS.128",), 2, within=call_loop)
     out["multi_dd"] = (ins * (a // its) * n * w_cnt * (pp // 16),
@@ -997,6 +1023,22 @@ def bounds(rate: float) -> dict:
     res.update(family_bounds(draw, rate))
     res.update(family2_bounds(draw, rate))
     res.update(dcc_bounds(draw, rate))
+    res.update(hedged_bounds(draw, rate))
+    # phase 21's variants, keyed as it keys their times: the widened kernels at
+    # A = 64 (52 steps; terminal 262,144 paths, DCC 65,536; candidates 256 x
+    # 16,384, DCC 256 x 4,096), the bootstrap on the long history, and the
+    # 17-64-asset layouts at 15 assets (the same work as the narrow kernels)
+    a64 = dict(a=64, n=DCC_STEPS, p=262_144, pp=16_384, tag="phase21 A=64")
+    variants = {**family_bounds(draw, rate, names=("garch_terminal", "garch_multi_dd"), **a64),
+                **family2_bounds(draw, rate, names=("heston_terminal", "heston_multi_dd"),
+                                 **a64),
+                **dcc_bounds(draw, rate, **dict(a64, p=65_536, pp=4_096))}
+    res.update({f"{name} A=64": b for name, b in variants.items()})
+    long = family_bounds(draw, rate, rows=LONG_HISTORY, tag=f"phase21 {LONG_HISTORY}-row",
+                         names=("bootstrap_terminal", "bootstrap_multi_dd"))
+    res.update({f"{name} {LONG_HISTORY} rows": b for name, b in long.items()})
+    for name in ("garch_terminal", "garch_multi_dd", "heston_terminal", "heston_multi_dd"):
+        res[f"{name} A=15 17-64 layout"] = res[name]
     return res
 
 
@@ -1513,12 +1555,16 @@ def _family_references(dev, params, hist, w, risk, reports, frontier) -> None:
 PHILOX_CALL = 60      # 10 rounds of 2 IMAD.WIDE.U32, 2 LOP3 and 2 IADD (key schedule)
 
 
-def family_bounds(draw: float, rate: float) -> dict:
-    """Least time of kernels #4-#7 at their timing shapes, from the work each
+def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STEPS,
+                  p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"], rows: int = 365,
+                  names=None, tag: str = "phase11") -> dict:
+    """Least time of kernels #4-#7 at their timing shapes (or at ``a``
+    assets, ``n`` steps, ``p`` terminal and ``pp`` candidate paths, a
+    ``rows``-row history; only ``names`` if given), from the work each
     function needs: the larger of its instructions over the issue rate and
     its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
     instructions per normal draw (its pair loop per Philox call / 4)."""
-    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, N_STEPS, 256, FRONTIER["n_paths"]
+    w_cnt = 256
     tri = a * (a + 1) / 2
     garch_step = a * (draw + 7) + tri          # draw, (A+1)/2 FMAs, sqrt + 6 per asset
     score = w_cnt * (a + 6)                    # W·A FMAs, 1 + f, V·, peak, dd
@@ -1531,19 +1577,27 @@ def family_bounds(draw: float, rate: float) -> dict:
                            4 * (a * a + 6 * a + w_cnt * a) + 8 * w_cnt * pp,
                            f"{garch_step:.2f} per path-step + {score} for 256 candidates "
                            f"(A + 6 each)"),
-        "bootstrap_terminal": ((boot_step + 2 * a) * n * p, 4 * 365 * a + 4 * a * p,
+        "bootstrap_terminal": ((boot_step + 2 * a) * n * p, 4 * rows * a + 4 * a * p,
                                f"{boot_step:.0f} per path-step (half a {PHILOX_CALL}-"
                                f"instruction Philox call, 8 for the row) + 2 per asset-step"),
         "bootstrap_multi_dd": ((boot_step + a + score) * n * pp,
-                               4 * (365 * a + w_cnt * a) + 8 * w_cnt * pp,
+                               4 * (rows * a + w_cnt * a) + 8 * w_cnt * pp,
                                f"{boot_step + a:.0f} per path-step (selection and the "
                                f"row's loads) + {score} for 256 candidates"),
     }
+    return _bound_table(work, rate, tag, names)
+
+
+def _bound_table(work: dict, rate: float, tag: str, names=None) -> dict:
+    """``{name: (bound ms, "operations" or "bytes")}`` from ``{name:
+    (instructions, bytes, how)}``, each printed under ``tag``."""
     res = {}
     for name, (instr, nbytes, how) in work.items():
+        if names is not None and name not in names:
+            continue
         t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-        print(f"phase11 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
+        print(f"{tag} bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
     return res
 
@@ -2080,12 +2134,15 @@ def _family2_references(dev, merton, heston, w, reports, frontier) -> None:
 BOX_MULLER_PAIR = 79.5   # kernel #1's draw: 54.75 = a quarter of a Philox call + half a pair
 
 
-def family2_bounds(draw: float, rate: float) -> dict:
-    """Least time of kernels #8-#10 at their timing shapes, from the work each
-    function needs: the larger of its instructions over the issue rate and
-    its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
-    instructions per normal draw (its pair loop per Philox call / 4)."""
-    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, N_STEPS, 256, FRONTIER["n_paths"]
+def family2_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STEPS,
+                   p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"], names=None,
+                   tag: str = "phase14") -> dict:
+    """Least time of kernels #8-#10 at their timing shapes (or at the shape
+    given, only ``names`` if given), from the work each function needs: the
+    larger of its instructions over the issue rate and its bytes over HBM
+    bandwidth. ``draw`` is kernel #1's measured instructions per normal draw
+    (its pair loop per Philox call / 4)."""
+    w_cnt = 256
     tri = a * (a + 1) / 2
     score = w_cnt * (a + 6)                    # W·A FMAs, V·f, peak, dd
     lam = 0.02
@@ -2106,13 +2163,7 @@ def family2_bounds(draw: float, rate: float) -> dict:
                             f"{heston_step:.2f} per path-step + 2 per asset-step (exp) + "
                             f"{score} for 256 candidates"),
     }
-    res = {}
-    for name, (instr, nbytes, how) in work.items():
-        t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-        print(f"phase14 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
-              f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
-    return res
+    return _bound_table(work, rate, tag, names)
 
 
 def phase_family2_timing(dev) -> dict:
@@ -2549,14 +2600,16 @@ def _dcc_references(dev, dcc, w, reports, frontier) -> None:
     check(d_ret <= 1e-4 and d_dd <= 1e-4, "dcc frontier optimum agrees with the plain form")
 
 
-def dcc_bounds(draw: float, rate: float) -> dict:
+def dcc_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = DCC_STEPS,
+               p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"],
+               tag: str = "phase17") -> dict:
     """Least time of the DCC kernels at their timing shapes (1,048,576 x 52 x
-    15 and 256 x 131,072 x 52), from the work each function needs per
-    path-step: the draws, the Q update (3 per triangle entry), the Cholesky
-    (A(A^2-1)/6 FMAs, A(A-1)/2 multiplies, A rsqrt), the correlate (A(A+1)/2
-    FMAs) and 9 per asset for the rescale, GARCH and compounding; the
-    candidate kernel adds 256 x (A + 6) for the score."""
-    a, p, n, w_cnt, pp = N_ASSETS, FAMILY_PATHS, DCC_STEPS, 256, FRONTIER["n_paths"]
+    15 and 256 x 131,072 x 52, or the shape given), from the work each
+    function needs per path-step: the draws, the Q update (3 per triangle
+    entry), the Cholesky (A(A^2-1)/6 FMAs, A(A-1)/2 multiplies, A rsqrt), the
+    correlate (A(A+1)/2 FMAs) and 9 per asset for the rescale, GARCH and
+    compounding; the candidate kernel adds 256 x (A + 6) for the score."""
+    w_cnt = 256
     tri = a * (a + 1) / 2
     chol = a * (a * a - 1) / 6 + a * (a - 1) / 2 + a
     step = a * draw + 3 * tri + chol + tri + 9 * a
@@ -2568,13 +2621,7 @@ def dcc_bounds(draw: float, rate: float) -> dict:
             "dcc_dd": ((step + score) * n * pp,
                              4 * (2 * a * a + 7 * a + 2 + w_cnt * a) + 8 * w_cnt * pp,
                              f"{step:.2f} per path-step + {score} for 256 candidates")}
-    res = {}
-    for name, (instr, nbytes, how) in work.items():
-        t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
-        print(f"phase17 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
-              f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
-    return res
+    return _bound_table(work, rate, tag)
 
 
 def phase_dcc_timing(dev) -> dict:
@@ -2630,6 +2677,807 @@ def phase_dcc_timing(dev) -> dict:
     return res
 
 
+# ---- wider universes and hedged settlement: phases 18-21 -------------------------------
+
+WIDE = (17, 33, 64)                 # widths of the wide variants (the narrow ones stop at 16)
+LONG_HISTORY = 8_192                # rows: past a block's shared memory at 15 assets
+HEDGED_KERNELS = ("multi_dd_hedged", "merton_multi_dd_hedged")
+SPOT = 100.0                        # the hedged main paths' spot of every bench asset
+HEDGED_TAIL_STEPS = {"dcc": DCC_STEPS}
+# the hedged frontiers' horizons: the bench's 252 steps, where settling the
+# married put every step drives some candidates' wealth past float32's range
+# (mcport's semantics), and 52, where it stays inside it
+HEDGED_FRONTIER_STEPS = (N_STEPS, 52)
+
+
+def bench_hedge(spots) -> tuple:
+    """A married put on asset 0 and a collar on asset 1 at the reference's
+    default strikes (0.9 and 1.1 of the spot, no premium), the others
+    unhedged: ``(legs_by_asset, HedgeSpec)`` for spots ``spots``."""
+    from mcport_torch.options import HedgeSpec, strategy_legs
+
+    legs = {0: strategy_legs("Married Put", float(spots[0])),
+            1: strategy_legs("Collar", float(spots[1]))}
+    return legs, HedgeSpec.build(legs, [f"asset{i}" for i in range(len(spots))])
+
+
+def hedged_params():
+    """The bench universe (GBM and Merton) at spot 100 for every asset."""
+    from mcport_torch.convert import gbm_params_from_numpy, merton_params_from_numpy
+
+    mean, chol = bench_universe()
+    s0 = np.full(N_ASSETS, SPOT)
+    gbm = gbm_params_from_numpy(s0, mean.astype(np.float64), chol.astype(np.float64))
+    merton = merton_params_from_numpy(s0, mean.astype(np.float64), chol.astype(np.float64),
+                                      0.02, np.full(N_ASSETS, -0.08), np.full(N_ASSETS, 0.04))
+    return gbm, merton
+
+
+def leg_mix(a: int, n_legs: int, dev, seed: int = 0):
+    """Every leg type over ``n_legs`` legs per asset, strikes within 15% of
+    random spots, premiums up to 2%, and one qty-0 padding row."""
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    rng = np.random.default_rng(seed)
+    s0 = rng.uniform(20.0, 200.0, a)
+    t = (np.arange(a * n_legs) % 7).reshape(a, n_legs).astype(np.int32)
+    q = rng.uniform(0.2, 1.5, (a, n_legs))
+    q[-1, -1] = 0.0
+
+    def f(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    return HedgeTensors(f(s0), torch.as_tensor(t, device=dev),
+                        f(s0[:, None] * rng.uniform(0.85, 1.15, (a, n_legs))),
+                        f(s0[:, None] * rng.uniform(0.0, 0.02, (a, n_legs))), f(q))
+
+
+def universe17():
+    """ROADMAP.md Queue 3's probe: 200 weekly rows of N(1e-3, 0.02) returns
+    plus a common factor for 17 assets (``names``, ``prices``,
+    ``port_rets``)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(17)
+    rets = rng.normal(1e-3, 0.02, (199, 17)) + rng.normal(0.0, 0.01, (199, 1))
+    prices = 100.0 * np.cumprod(np.vstack([np.ones((1, 17)), 1.0 + rets]), axis=0)
+    return SimpleNamespace(names=tuple(f"S{i}" for i in range(17)), prices=prices,
+                           port_rets=np.vstack([np.zeros((1, 17)), rets]))
+
+
+def _held_printer(prefix: str, worst: dict):
+    """``held(name, what, kernel, plain, shares)``: print and check one
+    comparison, keep each kernel's worst |kernel - plain| over the values
+    finite on both sides."""
+    def held(name, what, kern, plain, shares):
+        pairs = zip(kern, plain) if isinstance(kern, tuple) else [(kern, plain)]
+        diffs = [(x - y).abs() for x, y in pairs if x.numel()]
+        err = max((float(d[torch.isfinite(d)].max()) if bool(torch.isfinite(d).any()) else 0.0)
+                  for d in diffs)
+        print(f"{prefix} {name} {what} max_abs={err:.3e} shares="
+              + " ".join(f"{n}={v:.3f}" for n, v in shares.items()))
+        check(max(shares.values()) <= 1.0, f"{name} kernel vs plain, {what}")
+        worst[name] = max(worst.get(name, 0.0), err)
+    return held
+
+
+def phase_wide(dev) -> dict:
+    """Phase 18, the repairs: the GARCH, Heston and DCC kernels' wide variants
+    at A = 17, 33 and 64 against their plain forms (Heston's path state bit
+    for bit: its terminal within four ulps of expm1); the bootstrap kernels
+    on an 8,192 x 15 history (past shared memory) bit for bit; path_tail_risk
+    for garch, heston and dcc and compare_tail_risk on the 17-asset probe
+    universe, counts reset before and read after; and A = 65 refused on the
+    card. Returns each kernel's worst |kernel - plain|."""
+    from mcport_torch.api import compare_tail_risk, path_tail_risk
+    from mcport_torch.config import Config, GBMConfig
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
+
+    worst: dict = {}
+    held = _held_printer("phase18", worst)
+    kw = dict(first_block=6, n_blocks=2)
+    for a in WIDE:
+        rng = np.random.default_rng(a)
+        w13 = torch.as_tensor(rng.dirichlet(np.ones(a), 13), dtype=torch.float32, device=dev)
+        g = bench_garch(a).tensors(dev)
+        for t_df in (None, 5.5):
+            k = G.garch_terminal(11, g, MDD_PATHS, N_STEPS, t_df=t_df, **kw)
+            p = G.garch_terminal_reference(11, g, MDD_PATHS, N_STEPS, t_df=t_df, **kw)
+            held("garch_terminal", f"A={a} t_df={t_df} {MDD_PATHS}x2 x {N_STEPS}", k, p,
+                 G.garch_shares(k, p, g, N_STEPS, t_df))
+        k = G.garch_multi_portfolio_dd(11, g, w13, MDD_PATHS, N_STEPS, **kw)
+        p = G.garch_multi_dd_reference(11, g, w13, MDD_PATHS, N_STEPS, **kw)
+        held("garch_multi_dd", f"A={a} W=13 {MDD_PATHS}x2 x {N_STEPS}", k, p,
+             G.garch_shares(k, p, g, N_STEPS))
+        for xi in (3e-3, FELLER_XI):
+            h = bench_heston(a, xi).tensors(dev)
+            k = H.heston_terminal(11, h, MDD_PATHS, N_STEPS, **kw)
+            p = H.heston_terminal_reference(11, h, MDD_PATHS, N_STEPS, **kw)
+            held("heston_terminal", f"A={a} xi={xi} {MDD_PATHS}x2 x {N_STEPS}", k, p,
+                 H.heston_shares(k, p, h, N_STEPS))
+            k = H.heston_multi_portfolio_dd(11, h, w13, MDD_PATHS, N_STEPS, **kw)
+            p = H.heston_multi_dd_reference(11, h, w13, MDD_PATHS, N_STEPS, **kw)
+            held("heston_multi_dd", f"A={a} xi={xi} W=13 {MDD_PATHS}x2 x {N_STEPS}", k, p,
+                 H.heston_shares(k, p, h, N_STEPS))
+        d = bench_dcc(a).tensors(dev)
+        k = D.dcc_terminal(11, d, 2_053, DCC_STEPS, **kw)
+        p = D.dcc_terminal_reference(11, d, 2_053, DCC_STEPS, **kw)
+        held("dcc_terminal", f"A={a} 2053x2 x {DCC_STEPS}", k, p, D.dcc_shares(k, p, d,
+                                                                               DCC_STEPS))
+        k = D.dcc_multi_portfolio_dd(11, d, w13, 1_029, 13, **kw)
+        p = D.dcc_multi_dd_reference(11, d, w13, 1_029, 13, **kw)
+        held("dcc_dd", f"A={a} W=13 1029x2 x 13", k, p, D.dcc_shares(k, p, d, 13))
+    # the bootstrap past shared memory: the same rows from device memory
+    hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (LONG_HISTORY, N_ASSETS)),
+                           dtype=torch.float32, device=dev)
+    check(not B.history_in_shared(4 * LONG_HISTORY * N_ASSETS),
+          "the long history is past a block's shared memory")
+    k = B.bootstrap_terminal(11, hist, KERNEL_PATHS, N_STEPS, 0.2, **kw)
+    p = B.bootstrap_terminal_reference(11, hist, KERNEL_PATHS, N_STEPS, 0.2, **kw)
+    print(f"phase18 bootstrap_terminal {LONG_HISTORY} x {N_ASSETS} history, {KERNEL_PATHS}x2 "
+          f"x {N_STEPS}: bit for bit={torch.equal(k, p)}")
+    check(torch.equal(k, p), "bootstrap_terminal on the long history is its plain form")
+    worst["bootstrap_terminal"] = 0.0
+    eye = torch.eye(N_ASSETS, device=dev)
+    k7, _ = B.bootstrap_multi_portfolio_dd(11, hist, eye, MDD_PATHS, N_STEPS, 0.2, **kw)
+    p6 = B.bootstrap_terminal_reference(11, hist, MDD_PATHS, N_STEPS, 0.2, **kw)
+    print(f"phase18 bootstrap_multi_dd one-hot candidates on the long history: the plain "
+          f"form's rows bit for bit={torch.equal(k7, p6.transpose(1, 2))}")
+    check(torch.equal(k7, p6.transpose(1, 2)), "bootstrap_multi_dd selects the same rows")
+    w13 = torch.as_tensor(np.random.default_rng(9).dirichlet(np.ones(N_ASSETS), 13),
+                          dtype=torch.float32, device=dev)
+    k = B.bootstrap_multi_portfolio_dd(11, hist, w13, MDD_PATHS, N_STEPS, 0.2, **kw)
+    p = B.bootstrap_multi_dd_reference(11, hist, w13, MDD_PATHS, N_STEPS, 0.2, **kw)
+    held("bootstrap_multi_dd", f"long history W=13 {MDD_PATHS}x2 x {N_STEPS}", k, p,
+         B.bootstrap_shares(k, p, hist, w13, N_STEPS))
+    # past 64 assets the card refuses, naming the open item
+    try:
+        G.garch_terminal(0, bench_garch(65).tensors(dev), 128, 4)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"phase18 A=65 on the card: {refused}")
+    check("1..64 assets" in refused and "ROADMAP" in refused, "A = 65 is refused on the card")
+
+    # the main paths at 17 assets: counts reset just before, read just after
+    counted = {"garch_terminal": G.garch_terminal, "garch_multi_dd": G.garch_multi_portfolio_dd,
+               "heston_terminal": H.heston_terminal,
+               "heston_multi_dd": H.heston_multi_portfolio_dd,
+               "dcc_terminal": D.dcc_terminal, "dcc_dd": D.dcc_multi_portfolio_dd}
+    for fn in counted.values():
+        fn.launches = 0
+    data = universe17()
+    cfg = Config(gbm=GBMConfig(n_steps=DCC_STEPS))
+    t0 = time.perf_counter()
+    tails = {m: path_tail_risk(data, None, cfg, model=m, device=dev)
+             for m in ("garch", "heston", "dcc")}
+    compare = compare_tail_risk(data, None, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    print(f"phase18 17 assets: path_tail_risk garch/heston/dcc and compare_tail_risk in "
+          f"{wall:.2f} s (estimation included), launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          "the 17-asset main paths went through the wide kernels")
+    for m, out in tails.items():
+        print(f"phase18 path_tail_risk {m} at 17 assets: {json.dumps(out)}")
+        check(out["cvar"] <= out["var"] and -1.0 <= out["dd_p95"] <= out["dd_median"] <= 0.0,
+              f"path_tail_risk {m} at 17 assets")
+    print(f"phase18 compare_tail_risk at 17 assets: {json.dumps(compare)}")
+    check(len(compare) == 7 and all("error" not in v and v["cvar"] <= v["var"]
+                                    for v in compare.values()),
+          "compare_tail_risk reports seven families at 17 assets")
+    return worst
+
+
+def hedged_launches(dev) -> list[dict]:
+    """Every distinct hedged launch of kernels #3 and #8 that phase 20 makes
+    through the API (the CLI's run on the fixtures is checked by its counts):
+    path risk at both cells for gbm, student_t and jump, path_tail_risk for
+    the three (parameters estimated from ``bench_prices``, spots its last
+    prices), and every 256-candidate chunk of both frontiers."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.models.gbm import estimate_gbm, estimate_t_dof
+    from mcport_torch.ops.dirichlet import sample_weights
+
+    gbm, merton = hedged_params()
+    w = bench_weights()[None]
+    out = []
+    for name, g in cells().items():
+        nb = g.n_paths // g.path_block
+        for model, t_df in (("gbm", None), ("student_t", 5.5), ("jump", None)):
+            out.append(dict(kernel="merton_multi_dd_hedged" if model == "jump"
+                            else "multi_dd_hedged", what=f"path risk {model} {name}",
+                            seed=g.seed, n=g.path_block, w=w, first_block=0, n_blocks=nb,
+                            t_df=t_df, src=merton if model == "jump" else gbm,
+                            s0=np.full(N_ASSETS, SPOT)))
+    prices = bench_prices().prices
+    g = GBMConfig()
+    eq = np.full((1, N_ASSETS), 1.0 / N_ASSETS)
+    est = estimate_gbm(prices)
+    for model, t_df in (("gbm", None), ("student_t", estimate_t_dof(prices))):
+        out.append(dict(kernel="multi_dd_hedged", what=f"path_tail_risk {model}", seed=g.seed,
+                        n=g.path_block, w=eq, first_block=0, n_blocks=g.n_paths // g.path_block,
+                        t_df=t_df, src=est, s0=prices[-1]))
+    out.append(dict(kernel="merton_multi_dd_hedged", what="path_tail_risk jump", seed=g.seed,
+                    n=g.path_block, w=eq, first_block=0, n_blocks=g.n_paths // g.path_block,
+                    t_df=None, src=fitted_families()["jump"], s0=prices[-1]))
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
+                             np.ones(N_ASSETS))
+    for steps in HEDGED_FRONTIER_STEPS:
+        for i in range(0, FRONTIER["n_candidates"], 256):
+            for kernel, src in (("multi_dd_hedged", gbm), ("merton_multi_dd_hedged", merton)):
+                out.append(dict(kernel=kernel, what=f"frontier {steps} steps chunk {i // 256}",
+                                seed=path_seed, n=FRONTIER["n_paths"], w=cand[i:i + 256],
+                                t_df=None, src=src, s0=np.full(N_ASSETS, SPOT), steps=steps))
+    for launch in out:
+        launch.setdefault("steps", N_STEPS)
+    return out
+
+
+def _hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=True):
+    """One hedged launch of ``hedged_launches`` through the kernel, or its
+    plain form over ``n`` paths from ``first_path``, with its bound per
+    (candidate, path) unless ``bound`` is false."""
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.ops.jump import merton_multi_dd_reference, merton_multi_portfolio_dd
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd, multi_dd_reference
+
+    _, spec = bench_hedge(launch["s0"])
+    hedge = HedgeTensors.from_spec(spec, launch["s0"], dev)
+    w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+    blocks = dict(first_block=launch.get("first_block", -1), n_blocks=launch.get("n_blocks", 1))
+    p = launch["src"]
+    d = p.diffusion if launch["kernel"] == "merton_multi_dd_hedged" else p
+    mean, chol = (torch.as_tensor(x).to(dev, torch.float32) for x in (d.mean_step, d.chol_step))
+    n = launch["n"] if n is None else n
+    if launch["kernel"] == "merton_multi_dd_hedged":
+        muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (p.jump_mean,
+                                                                         p.jump_vol))
+        args = (launch["seed"], mean, chol, p.jump_rate, muj, sigj, w, n, launch["steps"])
+        if plain:
+            return merton_multi_dd_reference(*args, first_path=first_path, hedge=hedge,
+                                             with_bound=bound, **blocks)
+        return merton_multi_portfolio_dd(*args, hedge=hedge, **blocks)
+    t_df = launch["t_df"]
+    if plain:
+        return multi_dd_reference(launch["seed"], mean, t_scaled_chol(chol, t_df), w, n,
+                                  launch["steps"], first_path=first_path, t_df=t_df,
+                                  hedge=hedge, with_bound=bound, **blocks)
+    return gbm_multi_portfolio_dd(launch["seed"], mean, chol, w, n, launch["steps"], t_df=t_df,
+                                  hedge=hedge, **blocks)
+
+
+def _hedged_shares(launch, kern, plain, dev):
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.ops.jump import merton_shares
+    from mcport_torch.ops.multi_dd import multi_dd_shares
+
+    _, spec = bench_hedge(launch["s0"])
+    hedge = HedgeTensors.from_spec(spec, launch["s0"], dev)
+    p = launch["src"]
+    d = p.diffusion if launch["kernel"] == "merton_multi_dd_hedged" else p
+    mean, chol = (torch.as_tensor(x).to(dev, torch.float32) for x in (d.mean_step, d.chol_step))
+    if launch["kernel"] == "merton_multi_dd_hedged":
+        sigj = torch.as_tensor(p.jump_vol).to(dev, torch.float32)
+        return merton_shares(kern, plain, chol, mean, sigj, launch["steps"], hedge)
+    return multi_dd_shares(kern, plain, None, t_scaled_chol(chol, launch["t_df"]), mean,
+                           launch["steps"], True, "float32", hedge)
+
+
+def phase_hedged_kernels(dev) -> dict:
+    """Phase 19: the hedged modes of kernels #3 and #8 against their plain
+    forms (``ops.multi_dd.multi_dd_shares`` and ``ops.jump.merton_shares``
+    with the hedge): test shapes with 1-3 legs of every type, the score tiers
+    and t(5.5) shocks, W in {1, 13, 256}; an identity hedge against the
+    rebalanced mode on the card; #8 at rate 0 against #3, both hedged, bit for
+    bit; then every launch of phase 20 over a head and a tail slice of each
+    block's paths. Each comparison holds every (candidate, path): finite ones
+    to the plain form's bound path by path, overflowed ones to the same
+    non-finite values (``ops.hedged.hedged_shares``); it prints how many of
+    each, and the worst absolute and relative differences of the finite
+    ones, which the kernels line reports."""
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.hedged import HedgeTensors, hedged_held
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+    from mcport_torch.options import HedgeSpec
+
+    worst: dict = {}
+
+    def held(name, what, kern, plain, shares):
+        c = hedged_held(kern, plain)
+        print(f"phase19 {name} {what} max_abs={c['max_abs']:.3e} max_rel={c['max_rel']:.3e} "
+              f"paths finite={c['finite']} overflowed={c['overflowed']} edge={c['edge']} "
+              f"astray={c['astray']} shares=" + " ".join(f"{n}={v:.4f}"
+                                                         for n, v in shares.items()))
+        check(max(shares.values()) <= 1.0, f"{name} kernel vs plain, {what}")
+        worst[name] = max(worst.get(name, 0.0), c["max_abs"])
+
+    mean_np, chol_np = bench_universe()
+    mean, chol = torch.as_tensor(mean_np, device=dev), torch.as_tensor(chol_np, device=dev)
+    merton = bench_merton()
+    _, mchol, muj, sigj = _merton_tensors(merton, dev)
+    kw = dict(first_block=6, n_blocks=2)
+    for n_legs in (1, 2, 3):
+        hedge = leg_mix(N_ASSETS, n_legs, dev, seed=n_legs)
+        for n_cand in (1, 13, 256):
+            w = torch.as_tensor(np.random.default_rng(n_cand).dirichlet(np.ones(N_ASSETS),
+                                                                        n_cand),
+                                dtype=torch.float32, device=dev)
+            tiers = ("float32", "tensorfloat32", "bfloat16") if n_cand == 13 else ("float32",)
+            for sd in tiers:
+                for t_df in ((None, 5.5) if n_cand == 13 else (None,)):
+                    lk = t_scaled_chol(chol, t_df)
+                    args = (11, mean, lk, w, MDD_PATHS, 60)
+                    k = gbm_multi_portfolio_dd(11, mean, chol, w, MDD_PATHS, 60, score_dtype=sd,
+                                               t_df=t_df, hedge=hedge, **kw)
+                    p = multi_dd_reference(*args, score_dtype=sd, t_df=t_df, hedge=hedge,
+                                           with_bound=True, **kw)
+                    p32 = multi_dd_reference(*args, t_df=t_df, hedge=hedge, **kw)
+                    held("multi_dd_hedged", f"L={n_legs} W={n_cand} {sd} t_df={t_df} "
+                         f"{MDD_PATHS}x2 x 60", k, p,
+                         multi_dd_shares(k, p, p32, lk, mean, 60, True, sd, hedge))
+            for rate in (0.02, 0.3):
+                margs = (11, mean, mchol, rate, muj, sigj, w, MDD_PATHS, 60)
+                k = merton_multi_portfolio_dd(*margs, hedge=hedge, **kw)
+                p = merton_multi_dd_reference(*margs, hedge=hedge, with_bound=True, **kw)
+                held("merton_multi_dd_hedged", f"L={n_legs} W={n_cand} rate={rate} "
+                     f"{MDD_PATHS}x2 x 60", k, p,
+                     merton_shares(k, p, mchol, mean, sigj, 60, hedge))
+    # an identity hedge (one BUY_ASSET leg per asset) is the rebalanced mode
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(N_ASSETS)]),
+                                   np.linspace(10.0, 200.0, N_ASSETS), dev)
+    w = torch.as_tensor(np.random.default_rng(3).dirichlet(np.ones(N_ASSETS), 256),
+                        dtype=torch.float32, device=dev)
+    h = gbm_multi_portfolio_dd(5, mean, chol, w, MDD_PATHS, N_STEPS, hedge=ident)
+    r = gbm_multi_portfolio_dd(5, mean, chol, w, MDD_PATHS, N_STEPS, rebalance=True)
+    bound = multi_dd_reference(5, mean, chol, w, MDD_PATHS, N_STEPS, hedge=ident,
+                               with_bound=True)[2]
+    sh = multi_dd_shares(h, (*r, bound), None, chol, mean, N_STEPS, True, "float32", ident)
+    print(f"phase19 identity hedge vs the rebalanced mode, W=256 {MDD_PATHS} x {N_STEPS}: "
+          f"max_abs={max(float((x - y).abs().max()) for x, y in zip(h, r)):.3e} shares="
+          + " ".join(f"{n}={v:.4f}" for n, v in sh.items()))
+    check(max(sh.values()) <= 1.0, "an identity hedge is the rebalanced mode")
+    # rate 0: kernel #8 hedged is kernel #3 hedged bit for bit
+    hedge = leg_mix(N_ASSETS, 2, dev, seed=7)
+    j = merton_multi_portfolio_dd(7, mean, chol, 0.0, muj, sigj, w, MDD_PATHS, N_STEPS,
+                                  hedge=hedge)
+    m = gbm_multi_portfolio_dd(7, mean, chol, w, MDD_PATHS, N_STEPS, hedge=hedge)
+    same = torch.equal(j[0], m[0]) and torch.equal(j[1], m[1])
+    print(f"phase19 merton hedged at rate 0 vs multi_dd hedged, W=256 {MDD_PATHS} x "
+          f"{N_STEPS}: bit for bit={same}")
+    check(same, "kernel #8 hedged at rate 0 is kernel #3 hedged")
+    # every launch of phase 20, over a head and a tail slice of each block
+    for launch in hedged_launches(dev):
+        kk = _hedged_call(launch, dev, plain=False)
+        for p0 in _slices(launch["n"]):
+            m = min(SLICE, launch["n"])
+            sl = slice(p0, p0 + m)
+            part = (kk[0][..., sl], kk[1][..., sl])
+            p = _hedged_call(launch, dev, plain=True, n=m, first_path=p0)
+            held(launch["kernel"], f"{launch['what']} paths {p0}..{p0 + m - 1}", part, p,
+                 _hedged_shares(launch, part, p, dev))
+        del kk
+    return worst
+
+
+def _fixture_cli_hedged(dev, tmp: Path) -> dict:
+    """The hedged commands on the weekly BTC/ETH fixtures (a married put on
+    BTC, a collar on ETH), as a user runs them; each command's JSON."""
+    import contextlib
+    import io
+
+    from mcport_torch.cli import main as cli
+
+    csvs = sorted(str(p) for p in (Path(__file__).resolve().parent / "fixtures").glob(
+        "*7 Years Weekly.csv"))
+    check(len(csvs) == 2, "the weekly BTC/ETH fixtures are in the checkout")
+    hedge = tmp / "hedge.json"
+    hedge.write_text(json.dumps({Path(csvs[0]).stem: {"strategy": "Married Put"},
+                                 Path(csvs[1]).stem: {"strategy": "Collar"}}))
+    common = [*csvs, "--period", "W", "--hedge", str(hedge), "--device", str(dev)]
+    # a year of weekly steps: per-step settlement of the collar's short call
+    # over 252 weeks of crypto volatility overflows the wealth (in mcport too)
+    runs = {"hedged-risk": ["hedged-risk", "--paths", str(FAMILY_PATHS)],
+            "gbm-risk --hedge": ["gbm-risk", "--paths", str(FAMILY_PATHS), "--steps", "52",
+                                 "--path-stats"],
+            "path-risk --hedge": ["path-risk", "--models", "gbm,student_t,jump", "--paths",
+                                  str(CLI_PATHS)],
+            "dd-frontier --hedge": ["dd-frontier", "--candidates", str(CLI_FRONTIER[0]),
+                                    "--paths", str(CLI_FRONTIER[1]), "--steps", "52",
+                                    "--dd-budget", "1.0"]}
+    out = {}
+    for name, argv in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv[:1] + common + argv[1:])
+        out[name] = json.loads(buf.getvalue())
+    return out
+
+
+def phase_hedged_tier(dev) -> dict:
+    """Phase 20, the hedged main paths, all with a married put on asset 0 and
+    a collar on asset 1: gbm_risk at both cells, path risk for gbm, student_t
+    and jump at both cells with split + resume, path_tail_risk for the three,
+    the hedged GBM and jump frontiers at the bench's size, hedged_tail_risk
+    for the seven families at 1,048,576 x 252 (DCC at 52), and the four CLI
+    commands on the fixtures; counts reset before and read after."""
+    from mcport_torch.api import gbm_risk, hedged_tail_risk, path_tail_risk
+    from mcport_torch.config import Config
+    from mcport_torch.engine.drawdown_frontier import (drawdown_frontier_search,
+                                                       family_drawdown_frontier_search)
+    from mcport_torch.engine.path_risk import (run_merton_path_risk, run_path_risk,
+                                               run_resumable_path_risk)
+    from mcport_torch.ops.gbm import gbm_terminal_noise
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    gbm, merton = hedged_params()
+    w = bench_weights()
+    legs, spec = bench_hedge(np.full(N_ASSETS, SPOT))
+    prices = bench_prices()
+    tail_legs, _ = bench_hedge(prices.prices[-1])
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walls(fn, *a, reps=1, **kw):
+        out, first = timed(fn, *a, **kw)
+        return out, (first, [timed(fn, *a, **kw)[1] for _ in range(reps)])
+
+    counted = {"multi_dd_hedged": gbm_multi_portfolio_dd,
+               "merton_multi_dd_hedged": merton_multi_portfolio_dd}
+    for fn in counted.values():
+        fn.hedged_launches = 0
+    gbm_terminal_noise.launches = 0
+    wall, risks = {}, {}
+    for name, g in cells().items():
+        risks[name], wall[f"gbm_risk {name}"] = walls(
+            gbm_risk, gbm, w, Config(gbm=g), legs_by_asset=legs, device=dev)
+    reports, resumes = {}, {}
+    for name, g in cells().items():
+        nb = g.n_paths // g.path_block
+        for model in ("gbm", "student_t", "jump"):
+            cfg = path_config(g, 5.5 if model == "student_t" else None)
+            params = merton if model == "jump" else gbm
+            run = run_merton_path_risk if model == "jump" else run_path_risk
+            key = f"{model} {name}"
+            reports[key], wall[key] = walls(run, params, w, cfg, hedge=spec, device=dev)
+            _, part = run_resumable_path_risk(model, params, w, cfg, hedge=spec,
+                                              max_blocks=nb // 3, device=dev)
+            resumes[key] = run_resumable_path_risk(model, params, w, cfg, hedge=spec,
+                                                   checkpoint=part, device=dev), part
+    tails = {m: path_tail_risk(prices, None, Config(), model=m, legs_by_asset=tail_legs,
+                               device=dev) for m in ("gbm", "student_t", "jump")}
+    # each 252-step frontier's budget: the bench portfolio's hedged drawdown
+    # quantile in the default cell, plus 0.01; each 52-step one's: the median
+    # candidate's quantile, from a first pass. Each binds and leaves a feasible set
+    runs = {"gbm": lambda **kw: drawdown_frontier_search(FRONTIER_SEED, gbm, hedge=spec,
+                                                         device=dev, **kw),
+            "jump": lambda **kw: family_drawdown_frontier_search(
+                FRONTIER_SEED, "jump", merton, hedge=spec, s0=np.full(N_ASSETS, SPOT),
+                device=dev, **kw)}
+    frontier, budget = {}, {}
+    for steps in HEDGED_FRONTIER_STEPS:
+        for m, run in runs.items():
+            key, cfg = f"{m} {steps}", dict(FRONTIER, n_steps=steps)
+            if steps == N_STEPS:
+                budget[key] = round(-reports[f"{m} default"].dd_p95 + 0.01, 4)
+            else:
+                budget[key] = round(-float(np.median(run(**dict(cfg, dd_budget=1.0)).dd_p95)), 4)
+            frontier[key], wall[f"frontier {key}"] = walls(run, **dict(cfg, dd_budget=budget[key]))
+    hedged_tail, t_wall = {}, {}
+    for m in ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap"):
+        cfg = Config(gbm=dataclasses.replace(
+            cells()["default"], n_paths=FAMILY_PATHS, n_steps=HEDGED_TAIL_STEPS.get(m, N_STEPS)))
+        hedged_tail[m], t_wall[m] = timed(hedged_tail_risk, prices, None, cfg, tail_legs,
+                                          model=m, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, cli_wall = timed(_fixture_cli_hedged, dev, Path(tmp))
+    launches = {name: fn.hedged_launches for name, fn in counted.items()}
+    print(f"phase20 hedged tier: hedged launches {launches}, terminal-noise launches "
+          f"{gbm_terminal_noise.launches}")
+    check(all(n > 0 for n in launches.values()) and gbm_terminal_noise.launches > 0,
+          "the hedged paths went through the hedged modes of kernels #3 and #8")
+
+    for name, r in risks.items():
+        first, warm = wall[f"gbm_risk {name}"]
+        print(f"phase20 gbm_risk hedged {name}: paths={r.n_paths} wall first={first:.4f} s "
+              f"warm={warm[0]:.4f} s var={r.var:.6f} cvar={r.cvar:.6f} "
+              f"port_mean={r.port_mean:.6f}")
+        check(math.isfinite(r.var) and r.cvar <= r.var < r.port_mean, f"gbm_risk hedged {name}")
+    for key, r in reports.items():
+        first, warm = wall[key]
+        (resumed, ck), part = resumes[key]
+        same = _reports_equal(r, resumed) and ck.done and not part.done
+        print(f"phase20 path risk hedged {key}: paths={r.n_paths} wall first={first:.4f} s "
+              f"warm={warm[0]:.4f} s var={r.var:.6f} cvar={r.cvar:.6f} dd_p95={r.dd_p95:.6f} "
+              f"dd_median={r.dd_median:.6f}; split at block {part.next_block} + resume "
+              f"bit-identical={same}")
+        check(r.cvar <= r.var and -1.0 <= r.dd_p95 <= r.dd_median <= 0.0,
+              f"hedged path risk {key}: finite and ordered")
+        check(same, f"hedged path risk {key}: resume equivalence")
+    for m, out in tails.items():
+        print(f"phase20 path_tail_risk hedged {m}: {json.dumps(out)}")
+        check(out["hedged_assets"] == ["asset0", "asset1"] and out["cvar"] <= out["var"],
+              f"path_tail_risk hedged {m}")
+    for key, r in frontier.items():
+        first, warm = wall[f"frontier {key}"]
+        i = r.opt_idx
+        print(f"phase20 frontier hedged {key} steps: {FRONTIER['n_candidates']} x "
+              f"{FRONTIER['n_paths']} budget {budget[key]} wall first={first:.4f} s "
+              f"warm={warm[0]:.4f} s feasible={int(r.feasible.sum())} opt={i} "
+              f"ret={float(r.ret[i]):.7g} dd_p95={float(r.dd_p95[i]):.6f} candidates with "
+              f"an infinite mean return {int((~np.isfinite(r.ret)).sum())}")
+        check(0 < int(r.feasible.sum()) < FRONTIER["n_candidates"]
+              and float(r.dd_p95[i]) >= -budget[key], f"hedged {key}-step frontier")
+    for m, out in hedged_tail.items():
+        print(f"phase20 hedged_tail_risk {m} {FAMILY_PATHS} x "
+              f"{HEDGED_TAIL_STEPS.get(m, N_STEPS)}: wall {t_wall[m]:.3f} s (estimation "
+              f"included) {json.dumps(out)}")
+        check(out["n_paths"] == FAMILY_PATHS and out["cvar"] <= out["var"]
+              and all(math.isfinite(out[k]) for k in ("var", "cvar", "port_mean")),
+              f"hedged_tail_risk {m}")
+    print(f"phase20 cli: the four hedged commands in {cli_wall:.2f} s")
+    for name, out in cli.items():
+        print(f"phase20 cli {name}: {json.dumps(out)}")
+    check(all(cli["hedged-risk"][m]["cvar"] <= cli["hedged-risk"][m]["var"]
+              for m in cli["hedged-risk"] if m != "weights"), "cli hedged-risk")
+    check(cli["gbm-risk --hedge"]["max_drawdown"]["settlement"] == "per-period hedged"
+          and cli["path-risk --hedge"]["settlement"] == "per-period hedged"
+          and cli["dd-frontier --hedge"]["hedged"] is True, "cli --hedge")
+    _hedged_references(dev, gbm, merton, w, spec, reports, frontier)
+    return launches
+
+
+def _hedged_references(dev, gbm, merton, w, spec, reports, frontier) -> None:
+    """What phase 20 produced, against references: the default cell's hedged
+    drawdown quantiles against the plain form over the same paths, and each
+    hedged frontier's optimum (GBM and jump, 252 and 52 steps) against its
+    plain form over all its paths, within what the plain form's bound per
+    path allows (the mean return within the mean of the terminal bounds, the
+    quantile within twice the largest bound, each plus a reduction's
+    rounding); an infinite mean return must be the plain form's too."""
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.engine.path_risk import DD_SKETCH
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.ops.multi_dd import multi_dd_reference
+
+    hedge = HedgeTensors.from_spec(spec, np.full(N_ASSETS, SPOT), dev)
+    mean, chol = (torch.as_tensor(x).to(dev, torch.float32) for x in (gbm.mean_step,
+                                                                      gbm.chol_step))
+    cfg = cells()["default"]
+    nb = cfg.n_paths // cfg.path_block
+    wt = torch.as_tensor(w, dtype=torch.float32, device=dev)[None]
+    dd = torch.cat([multi_dd_reference(cfg.seed, mean, chol, wt, min(2_048, cfg.path_block - p0),
+                                       N_STEPS, first_block=0, n_blocks=nb, first_path=p0,
+                                       hedge=hedge)[1]
+                    for p0 in range(0, cfg.path_block, 2_048)], dim=-1).reshape(-1)
+    dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
+    r = reports["gbm default"]
+    q = float(torch.kthvalue(dd, math.ceil(0.05 * dd.numel())).values)
+    med = float(torch.median(dd))
+    print(f"phase20 hedged gbm default dd vs plain form over the same paths: p95 "
+          f"{r.dd_p95:.6f} vs {q:.6f}, median {r.dd_median:.6f} vs {med:.6f} (bound "
+          f"{2 * dd_width:.2e})")
+    check(abs(r.dd_p95 - q) <= 2 * dd_width and abs(r.dd_median - med) <= 2 * dd_width,
+          "hedged drawdown quantiles agree with the plain form")
+    path_seed = frontier_seeds(FRONTIER_SEED)[0]
+    n = FRONTIER["n_paths"]
+    for key, f in frontier.items():
+        m, steps = key.split()
+        i = f.opt_idx
+        launch = dict(kernel="merton_multi_dd_hedged" if m == "jump" else "multi_dd_hedged",
+                      seed=path_seed, w=f.weights[i][None], t_df=None,
+                      src=merton if m == "jump" else gbm, s0=np.full(N_ASSETS, SPOT),
+                      steps=int(steps), n=n)
+        parts = [_hedged_call(launch, dev, plain=True, n=min(8_192, n - p0), first_path=p0)
+                 for p0 in range(0, n, 8_192)]
+        term, ddo, bnd = (torch.cat([p[j] for p in parts], dim=-1)[0, 0] for j in range(3))
+        ret = float(term.mean())
+        q = float(torch.kthvalue(torch.nan_to_num(ddo, nan=-math.inf),
+                                 math.ceil(0.05 * n)).values)
+        fin = torch.isfinite(term)
+        ret_tol = (float((bnd[fin].double() * (1.0 + term[fin].double().abs())).mean())
+                   + (1e-6 * (1.0 + abs(ret)) if math.isfinite(ret) else 0.0))
+        q_tol = 2.0 * float(bnd[torch.isfinite(ddo)].max()) + 1e-6
+        got_ret, got_q = float(f.ret[i]), float(f.dd_p95[i])
+        print(f"phase20 hedged frontier {key} steps optimum vs plain form: ret {got_ret:.7g} "
+              f"vs {ret:.7g} (bound {ret_tol:.3g}), dd_p95 {got_q:.7f} vs {q:.7f} (bound "
+              f"{q_tol:.3g}); paths overflowed {int((~fin).sum())} of {n}")
+        check(_within(got_ret, ret, ret_tol) and _within(got_q, q, q_tol),
+              f"hedged {key}-step frontier optimum agrees with the plain form")
+
+
+def _within(got: float, want: float, tol: float) -> bool:
+    """``|got - want| <= tol``; a non-finite ``want`` must be ``got`` itself."""
+    if not math.isfinite(want):
+        return got == want or (math.isnan(got) and math.isnan(want))
+    return abs(got - want) <= tol
+
+
+def hedged_bounds(draw: float, rate: float) -> dict:
+    """Least time of the hedged modes of kernels #3 and #8 at 256 x 131,072 x
+    252 with the bench hedge (L = 2 legs), from the work each function needs
+    per path-step: the draws, the correlate's lower triangle, the increment,
+    exp and price update (3 per asset), per asset the legs' settlement (per
+    leg two subtractions, two maxima, the select, a multiply and an add: 7)
+    and one division (counted as 8), and the score, 256 x (A + 6); #8 adds
+    the jump clock (half a Philox call and half a Box-Muller pair) and its
+    adds."""
+    a, n, w_cnt, pp, legs = N_ASSETS, N_STEPS, 256, FRONTIER["n_paths"], 2
+    tri = a * (a + 1) / 2
+    settle = a * (7 * legs + 1 + 8)
+    score = w_cnt * (a + 6)
+    gbm_step = a * (draw + 3) + tri + settle
+    jump_step = gbm_step + PHILOX_CALL / 2 + BOX_MULLER_PAIR / 2 + 0.02 * a
+    hedge_bytes = 4 * a * (1 + 4 * legs)
+    work = {"multi_dd_hedged": ((gbm_step + score) * n * pp,
+                                4 * (a * a + a + w_cnt * a) + hedge_bytes + 8 * w_cnt * pp,
+                                f"{draw:.2f} per draw + 3 per asset-step + {tri:.0f} correlate "
+                                f"FMAs + {settle:.0f} settlement: {gbm_step:.2f} per path-step "
+                                f"+ {score} for 256 candidates"),
+               "merton_multi_dd_hedged": ((jump_step + score) * n * pp,
+                                          4 * (a * a + 3 * a + w_cnt * a) + hedge_bytes
+                                          + 8 * w_cnt * pp,
+                                          f"{jump_step:.2f} per path-step (the jump clock "
+                                          f"added) + {score} for 256 candidates")}
+    return _bound_table(work, rate, "phase21")
+
+
+def phase_hedged_timing(dev) -> dict:
+    """Phase 21: the hedged modes of #3 and #8 timed with CUDA events at 256 x
+    131,072 x 252 beside their plain forms (in 8,192-path pieces) and the
+    score product as one torch.matmul per step; each wide variant at A = 64;
+    the bootstrap kernels on the 8,192-row history."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    gbm, merton = hedged_params()
+    _, spec = bench_hedge(np.full(N_ASSETS, SPOT))
+    hedge = HedgeTensors.from_spec(spec, np.full(N_ASSETS, SPOT), dev)
+    cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
+                           dtype=torch.float32, device=dev)
+    pp = FRONTIER["n_paths"]
+    res = {}
+    for name, src in (("multi_dd_hedged", gbm), ("merton_multi_dd_hedged", merton)):
+        launch = dict(kernel=name, seed=0, n=pp, w=cand, t_df=None, src=src,
+                      s0=np.full(N_ASSETS, SPOT), steps=N_STEPS)
+
+        def kern(launch=launch):
+            _hedged_call(launch, dev, plain=False)
+
+        def plain(launch=launch):
+            for p0 in range(0, pp, MDD_PLAIN_CHUNK):
+                _hedged_call(launch, dev, plain=True, n=min(MDD_PLAIN_CHUNK, pp - p0),
+                             first_path=p0, bound=False)
+
+        kern()
+        torch.cuda.synchronize()
+        p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, 3), _time_ms(kern, 3)
+        ms = (k1 + k2) / 2
+        print(f"phase21 timing {name} (L=2) 256 x {pp} x {N_STEPS}: kernel {k1:.3f} / "
+              f"{k2:.3f} ms ({256 * pp * N_STEPS / ms * 1e3:.4e} cand-path-steps/s), plain "
+              f"{p1:.1f} ms")
+        res[name] = [ms, p1, None]
+    e = torch.rand((N_ASSETS, pp), device=dev)
+    mm = _time_ms(lambda: torch.matmul(cand, e), 50)
+    print(f"phase21 timing torch.matmul (256, {N_ASSETS}) x ({N_ASSETS}, {pp}): {mm:.4f} ms per "
+          f"step, x {N_STEPS} = {mm * N_STEPS:.3f} ms")
+    for name in HEDGED_KERNELS:
+        res[name][2] = mm * N_STEPS
+    # the wide variants at A = 64
+    a, tp, dp, steps = 64, 262_144, 16_384, DCC_STEPS
+    c64 = torch.as_tensor(np.random.default_rng(1).dirichlet(np.ones(a), 256),
+                          dtype=torch.float32, device=dev)
+    g, h, d = (bench_garch(a).tensors(dev), bench_heston(a).tensors(dev),
+               bench_dcc(a).tensors(dev))
+    wide = {"garch_terminal": (lambda: G.garch_terminal(0, g, tp, steps), tp),
+            "garch_multi_dd": (lambda: G.garch_multi_portfolio_dd(0, g, c64, dp, steps), dp),
+            "heston_terminal": (lambda: H.heston_terminal(0, h, tp, steps), tp),
+            "heston_multi_dd": (lambda: H.heston_multi_portfolio_dd(0, h, c64, dp, steps), dp),
+            "dcc_terminal": (lambda: D.dcc_terminal(0, d, tp // 4, steps), tp // 4),
+            "dcc_dd": (lambda: D.dcc_multi_portfolio_dd(0, d, c64, dp // 4, steps), dp // 4)}
+    for name, (fn, n) in wide.items():
+        fn()
+        torch.cuda.synchronize()
+        t1, t2 = _time_ms(fn, 2), _time_ms(fn, 2)
+        work = n * steps * (256 if "multi" in name or name == "dcc_dd" else 1)
+        print(f"phase21 timing {name} wide variant A={a} {'256 x ' if work > n * steps else ''}"
+              f"{n} x {steps}: kernel {t1:.3f} / {t2:.3f} ms "
+              f"({work / ((t1 + t2) / 2) * 1e3:.4e} {'cand-' if work > n * steps else ''}"
+              f"path-steps/s)")
+        res[f"{name} A=64"] = [(t1 + t2) / 2, None, None]
+    _tile_at_15(dev, cand, res)
+    # the bootstrap on the long history, from device memory
+    hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (LONG_HISTORY, N_ASSETS)),
+                           dtype=torch.float32, device=dev)
+    short = hist[:365].contiguous()
+    for what, hh in (("365-row history (shared memory)", short),
+                     (f"{LONG_HISTORY}-row history (device memory)", hist)):
+        def term(hh=hh):
+            B.bootstrap_terminal(0, hh, FAMILY_PATHS, N_STEPS)
+
+        def cdd(hh=hh):
+            B.bootstrap_multi_portfolio_dd(0, hh, cand, pp, N_STEPS)
+
+        term(), cdd()
+        torch.cuda.synchronize()
+        t1, c1 = _time_ms(term, 5), _time_ms(cdd, 2)
+        print(f"phase21 timing bootstrap {what}: terminal {FAMILY_PATHS} x {N_STEPS} "
+              f"{t1:.3f} ms, candidates 256 x {pp} x {N_STEPS} {c1:.3f} ms")
+        if hh is hist:
+            res[f"bootstrap_terminal {LONG_HISTORY} rows"] = [t1, None, None]
+            res[f"bootstrap_multi_dd {LONG_HISTORY} rows"] = [c1, None, None]
+    return res
+
+
+def _tile_at_15(dev, cand, res: dict) -> None:
+    """The GARCH and Heston kernels' 17-64-asset layouts run at the bench's 15
+    assets: held to their plain forms (Heston bit for bit) on two blocks, then
+    timed with CUDA events beside the narrow kernels at the narrow kernels'
+    timing shapes (phases 11 and 14), narrow / wide / wide / narrow — what
+    keeping the narrow kernels beside them buys."""
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
+
+    g, h = bench_garch().tensors(dev), bench_heston().tensors(dev)
+    w13 = torch.as_tensor(np.random.default_rng(15).dirichlet(np.ones(N_ASSETS), 13),
+                          dtype=torch.float32, device=dev)
+    kw = dict(first_block=6, n_blocks=2)
+    k = G._launch_terminal(11, g, MDD_PATHS, N_STEPS, 6, 2, None, wide=True)
+    sh = G.garch_shares(k, G.garch_terminal_reference(11, g, MDD_PATHS, N_STEPS, **kw), g,
+                        N_STEPS, None)
+    k = G._launch_dd(11, g, w13, MDD_PATHS, N_STEPS, 6, 2, wide=True)
+    sd = G.garch_shares(k, G.garch_multi_dd_reference(11, g, w13, MDD_PATHS, N_STEPS, **kw), g,
+                        N_STEPS)
+    same_t = torch.equal(H._launch_terminal(11, h, MDD_PATHS, N_STEPS, 6, 2, wide=True),
+                         H.heston_terminal_reference(11, h, MDD_PATHS, N_STEPS, **kw))
+    kh = H._launch_dd(11, h, w13, MDD_PATHS, N_STEPS, 6, 2, wide=True)
+    ph = H.heston_multi_dd_reference(11, h, w13, MDD_PATHS, N_STEPS, **kw)
+    same_d = torch.equal(kh[0], ph[0]) and torch.equal(kh[1], ph[1])
+    print(f"phase21 17-64 layouts at A={N_ASSETS} vs plain forms, {MDD_PATHS}x2 x {N_STEPS}: "
+          f"garch_terminal share {max(sh.values()):.3f}, garch_multi_dd share "
+          f"{max(sd.values()):.3f}, heston terminal and candidates bit for bit "
+          f"{same_t} / {same_d}")
+    check(max(sh.values()) <= 1.0 and max(sd.values()) <= 1.0 and same_t and same_d,
+          "the 17-64-asset layouts at 15 assets agree with their plain forms")
+    pp = FRONTIER["n_paths"]
+    runs = {"garch_terminal": lambda wide: G._launch_terminal(0, g, FAMILY_PATHS, N_STEPS, -1,
+                                                              1, None, wide),
+            "garch_multi_dd": lambda wide: G._launch_dd(0, g, cand, pp, N_STEPS, -1, 1, wide),
+            "heston_terminal": lambda wide: H._launch_terminal(0, h, FAMILY_PATHS, N_STEPS, -1,
+                                                               1, wide),
+            "heston_multi_dd": lambda wide: H._launch_dd(0, h, cand, pp, N_STEPS, -1, 1, wide)}
+    for name, fn in runs.items():
+        fn(False), fn(True)
+        torch.cuda.synchronize()
+        n1, t1 = _time_ms(lambda: fn(False), 2), _time_ms(lambda: fn(True), 2)
+        t2, n2 = _time_ms(lambda: fn(True), 2), _time_ms(lambda: fn(False), 2)
+        narrow, tile = (n1 + n2) / 2, (t1 + t2) / 2
+        print(f"phase21 timing {name} at A={N_ASSETS}: narrow {n1:.3f} / {n2:.3f} ms, 17-64 "
+              f"layout {t1:.3f} / {t2:.3f} ms ({tile / narrow:.3f}x)")
+        res[f"{name} A=15 17-64 layout"] = [tile, None, None]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -2677,8 +3525,21 @@ def main() -> int:
     launches.update(phase_dcc_tier(dev))
     lap("phase 16")
     times.update(phase_dcc_timing(dev))
+    lap("phase 17")
+    for name, err in phase_wide(dev).items():
+        worst[name] = max(worst[name], err)
+    lap("phase 18")
+    worst.update(phase_hedged_kernels(dev))
+    lap("phase 19")
+    launches.update(phase_hedged_tier(dev))
+    lap("phase 20")
+    times.update(phase_hedged_timing(dev))
     bound = bounds(issue_rate())
-    lap("phase 17 and the bounds")
+    for key, t in times.items():
+        if " " in key:   # phase 21's variants, beside their bounds
+            print(f"phase21 {key}: {t[0]:.3f} ms, bound {bound[key][0]:.3f} ms "
+                  f"({bound[key][1]}), {100 * bound[key][0] / t[0]:.1f}% of the bound")
+    lap("phase 21 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),
           "no jax, pandas or mcport imported")
@@ -2697,6 +3558,9 @@ def main() -> int:
         # :359 and :279
         "dcc_terminal": ("dcc.cu", "mcport/ops/pallas_dcc.py:242"),
         "dcc_dd": ("dcc.cu", "mcport/ops/pallas_dcc.py:359"),
+        # the hedged modes: the hedged branches of #3 (:143-175) and #8 (:100-120)
+        "multi_dd_hedged": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:143"),
+        "merton_multi_dd_hedged": ("jump.cu", "mcport/ops/pallas_jump.py:100"),
     }
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{

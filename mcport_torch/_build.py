@@ -45,27 +45,27 @@ KERNELS = {
         _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "multi_dd": ("mcport_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+        _c_int, _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "garch": ("mcport_garch_terminal", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
         _c_ptr, _c_ptr, _c_ptr],
         "mcport_garch_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr]),
-    "bootstrap": ("mcport_bootstrap_terminal", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr, _c_ptr,
-        _c_ptr],
-        "mcport_bootstrap_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
-    "jump": ("mcport_merton_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr, _c_ptr,
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
         _c_ptr, _c_ptr, _c_ptr]),
+    "bootstrap": ("mcport_bootstrap_terminal", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr,
+        _c_ptr, _c_ptr],
+        "mcport_bootstrap_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+    "jump": ("mcport_merton_multi_dd", [
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
     "heston": ("mcport_heston_terminal", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
         "mcport_heston_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr]),
+        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
+        _c_ptr, _c_ptr, _c_ptr]),
     "dcc": ("mcport_dcc_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
         "mcport_dcc_multi_dd", [

@@ -1,27 +1,33 @@
 """Top-level API of the port: ``gbm_risk``, ``path_tail_risk``,
-``bootstrap_tail_risk`` and ``compare_tail_risk``.
+``hedged_tail_risk``, ``bootstrap_tail_risk`` and ``compare_tail_risk``.
 
 Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
-engine), of ``mcport.api.path_tail_risk`` for all seven families (terminal
-VaR/CVaR plus the simulated max-drawdown distribution), of
+engine, hedged or not), of ``mcport.api.path_tail_risk`` for all seven
+families (terminal VaR/CVaR plus the simulated max-drawdown distribution;
+hedged for gbm, student_t and jump), of ``mcport.api.hedged_tail_risk``
+(option legs settled against every family's terminal prices), of
 ``mcport.api.bootstrap_tail_risk`` and of ``mcport.api.compare_tail_risk``
-(one portfolio under every family). The mesh, quasi-MC and hedged branches
-are not ported yet and raise.
+(one portfolio under every family). The mesh and quasi-MC branches, the
+hedged path risk of garch, dcc, heston and bootstrap, and bootstrap error
+bars are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from mcport_torch.config import COVERING_LOG1P_SKETCH, Config
+from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import MCCheckpoint, RiskReport, run_resumable_mc
 from mcport_torch.engine.path_risk import (
     FAMILIES,
+    check_hedged_family,
     PathRiskCheckpoint,
     run_bootstrap_path_risk,
     run_dcc_path_risk,
@@ -36,11 +42,16 @@ from mcport_torch.models.dcc import dcc_risk, estimate_dcc_garch
 from mcport_torch.models.garch_mc import estimate_ccc_garch, garch_risk
 from mcport_torch.models.gbm import GBMParams, estimate_gbm, estimate_t_dof
 from mcport_torch.models.heston import estimate_heston, heston_terminal_returns
-from mcport_torch.models.jump import estimate_merton_common, merton_risk
+from mcport_torch.models.jump import estimate_merton_common, merton_risk, merton_terminal_returns
+from mcport_torch.ops.bootstrap import bootstrap_terminal
+from mcport_torch.ops.dcc import dcc_terminal
+from mcport_torch.ops.garch import garch_terminal
+from mcport_torch.ops.gbm import terminal_log_returns
 from mcport_torch.ops.quantile import histogram, sketch_var_cvar
+from mcport_torch.options.hedged import HedgeSpec, hedged_from_simple
 
-__all__ = ["gbm_risk", "path_tail_risk", "bootstrap_tail_risk", "compare_tail_risk",
-           "Config"]
+__all__ = ["gbm_risk", "path_tail_risk", "hedged_tail_risk", "bootstrap_tail_risk",
+           "compare_tail_risk", "Config"]
 
 
 def gbm_risk(
@@ -64,12 +75,15 @@ def gbm_risk(
     .alpha`` the tail level; ``config.gbm.auto_sketch=False`` uses
     ``config.sketch`` verbatim. ``checkpoint``/``checkpoint_path`` resume and
     save as in :func:`mcport_torch.engine.mc_engine.run_resumable_mc`.
+
+    ``legs_by_asset`` ({asset name or index: Legs or reference-style rows})
+    makes the PORTFOLIO tail statistics hedged: the legs settle at intrinsic
+    value against the simulated terminal prices (the terminal composition of
+    ``app.py:164-180``); the asset moments stay the plain log-return moments.
     """
     g = config.gbm
     if mesh is not None:
         raise NotImplementedError("multi-device gbm_risk is not ported to mcport_torch yet")
-    if legs_by_asset:
-        raise NotImplementedError("hedged gbm_risk is not ported to mcport_torch yet")
     if g.qmc != "none":
         raise NotImplementedError("quasi-MC gbm_risk is not ported to mcport_torch yet")
     params = data if isinstance(data, GBMParams) else estimate_gbm(data.prices)
@@ -78,10 +92,14 @@ def gbm_risk(
          else np.asarray(torch.as_tensor(weights).cpu(), np.float64))
     if w.shape != (a,):
         raise ValueError(f"weights must have shape ({a},)")
+    hedge = None
+    if legs_by_asset:
+        names = getattr(data, "names", None) or [f"asset{i}" for i in range(a)]
+        hedge = HedgeSpec.build(legs_by_asset, names)
     sketch = None if g.auto_sketch else config.sketch
     report, _ = run_resumable_mc(
         params, w, g, sketch, alpha=config.simulation.alpha,
-        checkpoint=checkpoint, checkpoint_path=checkpoint_path, device=device)
+        checkpoint=checkpoint, checkpoint_path=checkpoint_path, hedge=hedge, device=device)
     return report
 
 
@@ -117,12 +135,19 @@ def path_tail_risk(
     ``checkpoint`` / ``checkpoint_path`` / ``max_blocks`` route through
     :func:`mcport_torch.engine.path_risk.run_resumable_path_risk`
     (bit-identical to the one-shot engines) and add a ``done`` flag.
+
+    ``legs_by_asset`` settles every asset's option legs per simulated step
+    against the prices from the last row of ``prices`` (hedged per-step
+    settlement, the rebalanced recursion ``V *= 1 + w·r_h``; ``rebalance`` is
+    not read) and adds ``hedged_assets``. Ported for "gbm", "student_t" and
+    "jump"; another family raises ``NotImplementedError`` naming it.
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
-    if legs_by_asset is not None:
-        raise NotImplementedError("hedged path risk is not ported to mcport_torch yet")
+    if legs_by_asset is not None:   # before the estimation, which may take seconds
+        check_hedged_family(model)
+    spec = None if legs_by_asset is None else HedgeSpec.build(legs_by_asset, data.names)
     a = len(data.names)
     w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
     if w.shape != (a,):
@@ -148,22 +173,24 @@ def path_tail_risk(
                  or max_blocks is not None)
     if resumable:
         rep, ck = run_resumable_path_risk(
-            model, params, w, g, alpha=alpha, p_restart=p_restart, rebalance=rebalance,
-            checkpoint=checkpoint, checkpoint_path=checkpoint_path,
-            max_blocks=max_blocks, device=device)
+            model, params, w, g, alpha=alpha, hedge=spec,
+            s0=None if spec is None else np.asarray(data.prices[-1], np.float64),
+            p_restart=p_restart, rebalance=rebalance, checkpoint=checkpoint,
+            checkpoint_path=checkpoint_path, max_blocks=max_blocks, device=device)
     elif model == "garch":
         rep = run_garch_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "dcc":
         rep = run_dcc_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "jump":
-        rep = run_merton_path_risk(params, w, g, alpha=alpha, device=device)
+        rep = run_merton_path_risk(params, w, g, alpha=alpha, hedge=spec, device=device)
     elif model == "heston":
         rep = run_heston_path_risk(params, w, g, alpha=alpha, device=device)
     elif model == "bootstrap":
         rep = run_bootstrap_path_risk(params, w, g, p_restart=p_restart, alpha=alpha,
                                       device=device)
     else:
-        rep = run_path_risk(params, w, g, alpha=alpha, rebalance=rebalance, device=device)
+        rep = run_path_risk(params, w, g, alpha=alpha, rebalance=rebalance, hedge=spec,
+                            device=device)
     out = {
         "var": rep.var, "cvar": rep.cvar, "port_mean": rep.port_mean,
         "dd_mean": rep.dd_mean, "dd_median": rep.dd_median,
@@ -173,7 +200,88 @@ def path_tail_risk(
         out["done"] = ck.done
     if model == "student_t":
         out["t_dof"] = g.t_dof
+    if spec is not None:
+        out["hedged_assets"] = [n for n, m_ in zip(data.names, spec.hedged_mask) if m_]
     return out
+
+
+def _family_terminal_simple(data, model: str, g, dev: torch.device) -> torch.Tensor:
+    """(n_paths, A) terminal SIMPLE returns under ``model``, one block keyed by
+    ``g.seed`` — mcport's ``_family_terminal_simple`` on the port's terminal
+    kernels: the terminal-noise kernel (gbm, student_t), the GARCH, DCC,
+    Heston and bootstrap terminal kernels, and the exact Merton sampler."""
+    seed, n, steps = g.seed, g.n_paths, g.n_steps
+    if model in ("gbm", "student_t"):
+        params = estimate_gbm(data.prices)
+        mean, chol = (torch.as_tensor(x).to(dev, torch.float32)
+                      for x in (params.mean_step, params.chol_step))
+        t_df = estimate_t_dof(data.prices) if model == "student_t" else None
+        return torch.expm1(terminal_log_returns(seed, mean, chol, n, steps, t_df=t_df))
+    if model == "garch":
+        return garch_terminal(seed, estimate_ccc_garch(data.port_rets).tensors(dev), n,
+                              steps)[0]
+    if model == "dcc":
+        return dcc_terminal(seed, estimate_dcc_garch(data.port_rets).tensors(dev), n,
+                            steps)[0]
+    if model == "jump":
+        mp = estimate_merton_common(data.prices)
+        d = mp.diffusion
+        return torch.expm1(merton_terminal_returns(seed, d.mean_step, d.chol_step,
+                                                   mp.jump_rate, mp.jump_mean, mp.jump_vol,
+                                                   n, steps, device=dev))
+    if model == "heston":
+        return heston_terminal_returns(seed, estimate_heston(data.prices), n, steps,
+                                       device=dev)
+    if model == "bootstrap":
+        hist = torch.as_tensor(np.asarray(data.port_rets, np.float32), device=dev)
+        return bootstrap_terminal(seed, hist, n, steps)[0]
+    raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', 'heston' "
+                     f"or 'bootstrap', got {model!r}")
+
+
+def hedged_tail_risk(
+    data,
+    weights: Sequence[float] | np.ndarray | None = None,
+    config: Config = Config(),
+    legs_by_asset=None,
+    model: str = "gbm",
+    *,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Hedged portfolio tail risk under any terminal model family, on
+    ``device`` → ``{var, cvar, port_mean, model, n_paths, hedged_assets}``.
+
+    Draws ``(n_paths, A)`` terminal simple returns under ``model`` ("gbm",
+    "student_t", "garch", "dcc", "jump", "heston", "bootstrap"; estimated from
+    ``data`` as :func:`path_tail_risk` does), settles each asset's option legs
+    at intrinsic value against the implied terminal price ``s0 · (1 + r)``
+    with ``s0`` the last row of ``prices`` (:func:`mcport_torch.options.hedged
+    .hedged_from_simple`), and reports the exact k-worst tail of the hedged
+    portfolio: ``k = ceil((1 - alpha) n_paths)``, VaR the k-th worst return,
+    CVaR the mean of the k worst. Bootstrap error bars (``config.gbm.ci_boot
+    > 0``) are not ported and raise."""
+    g = config.gbm
+    if g.ci_boot > 0:
+        raise NotImplementedError("bootstrap error bars (ci_boot > 0) are not ported to "
+                                  "mcport_torch yet")
+    dev = resolve_device(device)
+    a = len(data.names)
+    w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
+    spec = HedgeSpec.build(legs_by_asset, data.names)
+    s0 = torch.as_tensor(np.asarray(data.prices[-1], np.float64), device=dev)
+    simple = _family_terminal_simple(data, model, g, dev)
+    hedged = hedged_from_simple(simple, s0, *spec.tensors(dev, torch.float64))
+    port = hedged @ torch.as_tensor(w, device=dev).to(hedged.dtype)
+    k = max(1, math.ceil((1.0 - config.simulation.alpha) * g.n_paths))
+    worst = torch.topk(-port, k).values
+    return {
+        "var": float(-worst[-1]),
+        "cvar": float(-worst.mean()),
+        "port_mean": float(port.mean()),
+        "model": model,
+        "n_paths": g.n_paths,
+        "hedged_assets": [n for n, m_ in zip(data.names, spec.hedged_mask) if m_],
+    }
 
 
 def bootstrap_tail_risk(

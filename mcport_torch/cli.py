@@ -1,20 +1,27 @@
 """Command-line interface of the port.
 
-    python -m mcport_torch.cli gbm-risk       CSV [CSV ...] [--path-stats] [--device cuda] ...
+    python -m mcport_torch.cli gbm-risk       CSV [CSV ...] [--path-stats] [--hedge FILE] ...
     python -m mcport_torch.cli garch-risk     CSV [CSV ...] [--innovations student_t | --correlation dcc] ...
     python -m mcport_torch.cli bootstrap-risk CSV [CSV ...] [--p-restart 0.2] ...
     python -m mcport_torch.cli jump-risk      CSV [CSV ...] [--threshold 3.0] ...
-    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,garch,dcc,jump,heston,bootstrap] ...
-    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|dcc|jump|heston|bootstrap] ...
+    python -m mcport_torch.cli path-risk      CSV [CSV ...] [--models gbm,student_t,...] [--hedge FILE] ...
+    python -m mcport_torch.cli dd-frontier    CSV [CSV ...] [--model gbm|garch|...] [--hedge FILE] ...
     python -m mcport_torch.cli compare-models CSV [CSV ...] ...
+    python -m mcport_torch.cli hedged-risk    CSV [CSV ...] --hedge FILE [--models ...] ...
 
 Each command takes the flags of its ``mcport`` counterpart that the port
 carries, plus ``--device`` (the card by default; ``cpu`` runs the kernels'
 plain torch forms, for tests), and emits the same JSON keys. CSVs are read
 by :mod:`mcport_torch.data` (standard library and NumPy; no pandas). There is
 no ``--no-pallas`` or ``--loader``: the plain forms are the kernels' test
-yardsticks, not user paths on the card. Not ported yet: ``--hedge``,
-``--attribution`` and ``--ci`` everywhere.
+yardsticks, not user paths on the card. ``--hedge FILE`` is mcport's JSON
+hedge config (:func:`mcport_torch.options.hedged.legs_from_spec`), e.g.
+
+    {"BTC": {"strategy": "Married Put"}, "ETH": {"strategy": "Collar"}}
+
+Hedged ``path-risk`` and ``dd-frontier`` run for the gbm, student_t and jump
+families; another family exits with a message naming it. Not ported yet:
+``--attribution`` and ``--ci`` (``hedged-risk --ci`` exits with a message).
 """
 
 from __future__ import annotations
@@ -59,6 +66,40 @@ def _emit(obj) -> None:
     sys.stdout.write("\n")
 
 
+def _hedge_from_args(args, d):
+    """``(legs_by_asset, HedgeSpec)`` from ``--hedge FILE``, or ``(None,
+    None)``: mcport's JSON schema, strategy strikes relative to each asset's
+    last price (the reference's tab-1 convention, ``app.py:515-581``)."""
+    path = getattr(args, "hedge", None)
+    if not path:
+        return None, None
+    from pathlib import Path
+
+    from mcport_torch.options.hedged import HedgeSpec, legs_from_spec
+
+    try:
+        spec_map = json.loads(Path(path).read_text())
+    except (OSError, json.JSONDecodeError) as e:
+        raise SystemExit(f"--hedge {path}: {e}")
+    try:
+        legs = legs_from_spec(spec_map, d.names, d.prices[-1])
+        return legs, HedgeSpec.build(legs, d.names)
+    except ValueError as e:
+        raise SystemExit(f"--hedge {path}: {e}")
+
+
+def _refuse_unported_hedge(models, hedge, what: str) -> None:
+    """Exit before any work when a hedged run asks for a family whose hedged
+    mode is not ported: it must not run that family unhedged."""
+    from mcport_torch.engine.path_risk import check_hedged_family
+
+    for model in models if hedge is not None else ():
+        try:
+            check_hedged_family(model, what)
+        except NotImplementedError as e:
+            raise SystemExit(f"--hedge: {e}") from None
+
+
 def cmd_gbm_risk(args) -> None:
     from mcport_torch.engine.mc_engine import load_checkpoint, run_resumable_mc
     from mcport_torch.models.gbm import estimate_t_dof
@@ -79,9 +120,10 @@ def cmd_gbm_risk(args) -> None:
                     innovations=args.innovations, t_dof=t_dof,
                     bm="poly_fast" if args.fast_normal else "poly")
     ck = load_checkpoint(args.checkpoint) if args.resume else None
+    _, hedge = _hedge_from_args(args, d)
     report, ck_out = run_resumable_mc(
         params, w, cfg, alpha=args.alpha, checkpoint=ck,
-        checkpoint_path=args.checkpoint, device=args.device)
+        checkpoint_path=args.checkpoint, hedge=hedge, device=args.device)
     out = {
         "n_paths": report.n_paths,
         "horizon_steps": args.steps,
@@ -94,14 +136,18 @@ def cmd_gbm_risk(args) -> None:
         "terminal_log_mean": report.mean.tolist(),
         "done": ck_out.done,
     }
+    if hedge is not None:
+        out["hedged_assets"] = [n for n, m_ in zip(d.names, hedge.hedged_mask) if m_]
     if args.path_stats:
         from mcport_torch.engine.path_risk import run_path_risk
 
-        pr = run_path_risk(params, w, cfg, alpha=args.alpha, device=args.device)
+        pr = run_path_risk(params, w, cfg, alpha=args.alpha, hedge=hedge, device=args.device)
         out["max_drawdown"] = {
             "innovations": args.innovations,
             "mean": pr.dd_mean, "median": pr.dd_median, "p95_worst": pr.dd_p95,
         }
+        if hedge is not None:
+            out["max_drawdown"] = {"settlement": "per-period hedged", **out["max_drawdown"]}
     _emit(out)
 
 
@@ -189,11 +235,32 @@ def cmd_jump_risk(args) -> None:
     })
 
 
+def cmd_hedged_risk(args) -> None:
+    from mcport_torch.api import hedged_tail_risk
+
+    if args.ci:
+        raise SystemExit("hedged-risk --ci: bootstrap error bars are not ported to "
+                         "mcport_torch yet (ROADMAP.md Queue 1 item 4)")
+    d = _universe(args)
+    w = _weights(args, d)
+    legs_by_asset, _ = _hedge_from_args(args, d)
+    if legs_by_asset is None:
+        raise SystemExit("hedged-risk requires --hedge FILE")
+    cfg = Config(gbm=GBMConfig(n_paths=args.paths, n_steps=args.steps, seed=args.seed),
+                 simulation=SimulationConfig(alpha=args.alpha))
+    out = {"weights": dict(zip(d.names, map(float, w)))}
+    for model in args.models.split(","):
+        out[model] = hedged_tail_risk(d, w, cfg, legs_by_asset, model=model,
+                                      device=args.device)
+    _emit(out)
+
+
 def cmd_path_risk(args) -> None:
     from mcport_torch.api import path_tail_risk
 
     d = _universe(args)
     w = _weights(args, d)
+    legs_by_asset, hedge = _hedge_from_args(args, d)
     block = min(args.paths, 8192)
     cfg = Config(gbm=GBMConfig(n_paths=_round_paths(args.paths, block), n_steps=args.steps,
                                seed=args.seed, path_block=block,
@@ -201,6 +268,7 @@ def cmd_path_risk(args) -> None:
                  simulation=SimulationConfig(alpha=args.alpha))
     rebalance = not args.buy_and_hold
     models = args.models.split(",")
+    _refuse_unported_hedge(models, hedge, "path risk")
     if args.checkpoint and len(models) != 1:
         raise SystemExit("--checkpoint requires a single --models entry")
     ck = None
@@ -211,12 +279,13 @@ def cmd_path_risk(args) -> None:
 
         ck = load_path_risk_checkpoint(args.checkpoint)
     out = {"weights": dict(zip(d.names, map(float, w))),
-           "settlement": "unhedged",
+           "settlement": "per-period hedged" if hedge is not None else "unhedged",
            "rebalance_gbm": rebalance}
     for model in models:
         out[model] = path_tail_risk(
-            d, w, cfg, model=model, p_restart=args.p_restart, rebalance=rebalance,
-            checkpoint=ck, checkpoint_path=args.checkpoint or None, device=args.device)
+            d, w, cfg, model=model, legs_by_asset=legs_by_asset, p_restart=args.p_restart,
+            rebalance=rebalance, checkpoint=ck, checkpoint_path=args.checkpoint or None,
+            device=args.device)
     _emit(out)
 
 
@@ -226,6 +295,8 @@ def cmd_dd_frontier(args) -> None:
     from mcport_torch.models.gbm import estimate_t_dof
 
     d = _universe(args)
+    _, hedge = _hedge_from_args(args, d)
+    _refuse_unported_hedge([args.model], hedge, "drawdown frontier")
     t_dof = None
     if args.model == "gbm":
         t_dof = estimate_t_dof(d.prices) if args.innovations == "student_t" else None
@@ -233,7 +304,8 @@ def cmd_dd_frontier(args) -> None:
             args.seed, _estimate(args, d), dd_budget=args.dd_budget,
             n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
             alpha=args.alpha, score_dtype=args.score_dtype, rebalance=args.rebalance,
-            t_df=t_dof, bm="poly_fast" if args.fast_normal else "poly", device=args.device)
+            hedge=hedge, t_df=t_dof, bm="poly_fast" if args.fast_normal else "poly",
+            device=args.device)
     else:
         if args.fast_normal:
             raise SystemExit("--fast-normal applies to --model gbm only")
@@ -258,13 +330,14 @@ def cmd_dd_frontier(args) -> None:
         r = family_drawdown_frontier_search(
             args.seed, args.model, model_params, dd_budget=args.dd_budget,
             n_candidates=args.candidates, n_paths=args.paths, n_steps=args.steps,
-            alpha=args.alpha, device=args.device)
+            alpha=args.alpha, hedge=hedge,
+            s0=None if hedge is None else np.asarray(d.prices[-1]), device=args.device)
     out = {
         "model": args.model,
         "dd_budget": r.dd_budget,
         "n_candidates": args.candidates,
         "n_feasible": int(r.feasible.sum()),
-        "hedged": False,
+        "hedged": hedge is not None,
     }
     if t_dof is not None:
         out["innovations"] = f"student_t (dof={t_dof:.2f})"
@@ -313,6 +386,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="torch device: cuda[:N] (default) or cpu (the "
                              "kernels' plain torch forms, for tests)")
 
+    def hedge_arg(sp, required: str = ""):
+        sp.add_argument("--hedge", default=None, metavar="FILE",
+                        help=f"JSON hedge config{required}: {{asset: {{strategy, params}} "
+                             "| {legs}}")
+
     def estimator(sp):
         sp.add_argument("--estimator", default="sample", choices=["sample", "lw", "ewma"],
                         help="covariance tier: reference sample (ddof=1) | "
@@ -335,7 +413,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--resume", action="store_true", help="resume from --checkpoint")
     sp.add_argument("--path-stats", action="store_true",
                     help="add the simulated max-drawdown distribution (buy-and-hold, "
-                         "same paths, seed and innovations)")
+                         "same paths, seed and innovations; hedged: per-period settled)")
+    hedge_arg(sp)
     estimator(sp)
     sp.set_defaults(fn=cmd_gbm_risk)
 
@@ -396,6 +475,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--fast-normal", action="store_true",
                     help="screening-tier normal draws (degree-5 polynomial "
                          "Box-Muller; student_t has its own sampler and ignores it)")
+    hedge_arg(sp)
     sp.set_defaults(fn=cmd_path_risk)
 
     sp = sub.add_parser("dd-frontier",
@@ -424,6 +504,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "unit-variance t shocks (moment-fitted dof)")
     sp.add_argument("--fast-normal", action="store_true",
                     help="screening-tier normal draws for screen AND rescore")
+    hedge_arg(sp)
     estimator(sp)
     sp.set_defaults(fn=cmd_dd_frontier)
 
@@ -434,6 +515,20 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--paths", type=int, default=262_144)
     sp.add_argument("--steps", type=int, default=52)
     sp.set_defaults(fn=cmd_compare_models)
+
+    sp = sub.add_parser("hedged-risk",
+                        help="hedged tail risk across model families (options settle "
+                             "against simulated terminal prices)")
+    common(sp)
+    hedge_arg(sp, " (required)")
+    sp.add_argument("--models", default="gbm,student_t,garch,dcc,jump,heston,bootstrap",
+                    help="comma list of gbm,student_t,garch,dcc,jump,heston,bootstrap")
+    sp.add_argument("--weights", default=None, help="comma list; default equal")
+    sp.add_argument("--paths", type=int, default=100_000)
+    sp.add_argument("--steps", type=int, default=52)
+    sp.add_argument("--ci", type=int, nargs="?", const=200, default=0, metavar="B",
+                    help="bootstrap error bars on var/cvar: not ported (exits)")
+    sp.set_defaults(fn=cmd_hedged_risk)
     return p
 
 

@@ -6,7 +6,8 @@ reads (``tests/test_torch_data.py`` holds every default to mcport's), so a
 ``Config`` written for one package configures the other. Fields the port does
 not read are left out: mcport's ``GBMConfig.dt`` and ``use_pallas`` (the port
 always runs its kernels on a card and their plain forms on the CPU), and the
-portfolio, mesh, forecast and payoff sections.
+portfolio, mesh and forecast sections. ``PayoffConfig`` is the payoff grid of
+:mod:`mcport_torch.options.payoff`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import math
 from dataclasses import dataclass, field
 
 __all__ = ["period_info", "DataConfig", "SimulationConfig", "GBMConfig",
-           "SketchConfig", "COVERING_LOG1P_SKETCH", "Config"]
+           "SketchConfig", "COVERING_LOG1P_SKETCH", "PayoffConfig", "Config"]
 
 # period code -> (pandas-3 resample rule, annualisation factor); 'M' and 'Q'
 # also accept their pandas-3 spellings
@@ -102,6 +103,15 @@ COVERING_LOG1P_SKETCH = SketchConfig(
     hi=math.log1p(1000.0),
     space="log1p",
 )
+
+
+@dataclass(frozen=True)
+class PayoffConfig:
+    """Payoff-curve grid (app.py:593)."""
+
+    n_points: int = 100
+    lo_mult: float = 0.5
+    hi_mult: float = 1.5
 
 
 @dataclass(frozen=True)

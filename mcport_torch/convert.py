@@ -1,5 +1,6 @@
 """Carry parameters from mcport (NumPy) into the port (torch): GBM,
-CCC-GARCH(1,1), DCC-GARCH(1,1), common-jump Merton and Heston.
+CCC-GARCH(1,1), DCC-GARCH(1,1), common-jump Merton and Heston, and option
+legs and hedges.
 
 The tests feed both packages from the same NumPy arrays through these
 functions. Weight vectors need no conversion: the port's engine and API take
@@ -18,6 +19,8 @@ from mcport_torch.models.garch_mc import CCCGarchParams
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.models.heston import HestonParams
 from mcport_torch.models.jump import MertonParams
+from mcport_torch.options.hedged import HedgeSpec
+from mcport_torch.options.legs import Legs
 
 __all__ = ["gbm_params_from_numpy", "garch_params_from_numpy", "dcc_params_from_numpy",
            "merton_params_from_numpy", "heston_params_from_numpy", "from_mcport"]
@@ -91,13 +94,20 @@ def heston_params_from_numpy(mu, kappa, theta, xi, rho, v0, corr_chol, s0) -> He
 
 
 def from_mcport(params) -> (GBMParams | CCCGarchParams | DCCGarchParams | MertonParams
-                            | HestonParams):
+                            | HestonParams | HedgeSpec | Legs):
     """The port's counterpart of mcport's ``GBMParams``, ``CCCGarchParams``,
-    ``DCCGarchParams``, ``MertonParams`` or ``HestonParams``, told apart by a
-    field only that type has: ``a_dcc`` (DCC, whose ``base`` is converted as
-    GARCH parameters), ``omega`` (GARCH), ``kappa`` (Heston), ``diffusion``
-    (Merton), ``mean_step`` (GBM)."""
+    ``DCCGarchParams``, ``MertonParams``, ``HestonParams``, ``HedgeSpec`` or
+    ``Legs``, told apart by a field only that type has: ``hedged_mask``
+    (HedgeSpec, which shares ``type_id`` with Legs), ``type_id`` (Legs),
+    ``a_dcc`` (DCC, whose ``base`` is converted as GARCH parameters),
+    ``omega`` (GARCH), ``kappa`` (Heston), ``diffusion`` (Merton),
+    ``mean_step`` (GBM). The option types keep their NumPy arrays, copied."""
     p = params
+    if hasattr(p, "hedged_mask"):
+        return HedgeSpec(*(np.array(getattr(p, f)) for f in
+                           ("type_id", "strike", "premium", "qty", "hedged_mask")))
+    if hasattr(p, "type_id"):
+        return Legs(*(np.array(getattr(p, f)) for f in ("type_id", "strike", "premium", "qty")))
     if hasattr(p, "a_dcc"):
         return dcc_params_from_numpy(from_mcport(p.base), p.a_dcc, p.b_dcc, p.q0, p.e0)
     if hasattr(p, "omega"):

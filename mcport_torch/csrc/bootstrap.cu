@@ -30,7 +30,11 @@
 // from device memory per step, each output is stored once: instruction issue
 // bounds them. The designs: the history lives in (dynamic, opt-in) shared
 // memory for the whole launch, so selection is a load — the TPU's one-hot
-// matmul gather and its 3-way bf16 split are not ported. Terminal: one thread
+// matmul gather and its 3-way bf16 split are not ported. A history past a
+// block's shared memory (kShared false, chosen by ops/bootstrap.py
+// history_in_shared) stays in device memory, and each selected row is read
+// through the read-only cache (__ldg): the same rows, the same arithmetic, so
+// the same results; only the load's source moves. Terminal: one thread
 // per path, the asset grosses in registers for A <= 16 (local memory from 17
 // to 64). Candidates: multi_dd.cu's block design — a block owns 16 paths and
 // all <= 256 candidates; 16 threads keep the tile's row indices and write the
@@ -67,16 +71,27 @@ __device__ __forceinline__ int next_row(int idx, uint32_t restart_bits, uint32_t
   return idx + 1 == t_len ? 0 : idx + 1;
 }
 
+// A history row's entry a: from shared memory, or from device memory through
+// the read-only cache.
+template <bool kShared>
+__device__ __forceinline__ float row_at(const float* row, int a) {
+  return kShared ? row[a] : __ldg(row + a);
+}
+
 // kA: the asset capacity; kUnroll: how far the loops over assets unroll (kA
-// keeps the grosses in registers, 1 lets them live in local memory).
-template <int kA, int kUnroll>
+// keeps the grosses in registers, 1 lets them live in local memory); kShared:
+// the history in shared memory (else read from device memory).
+template <int kA, int kUnroll, bool kShared>
 __global__ void __launch_bounds__(kTermThreads)
 bootstrap_terminal_kernel(long long seed, long long first_block, int block_paths, int t_len,
                           int n_assets, int n_steps, float p_restart,
                           const float* __restrict__ hist, float* __restrict__ out) {
-  extern __shared__ float s_hist[];  // (T, A)
-  for (int i = threadIdx.x; i < t_len * n_assets; i += kTermThreads) s_hist[i] = hist[i];
+  extern __shared__ float s_hist[];  // (T, A) when kShared
+  if (kShared) {
+    for (int i = threadIdx.x; i < t_len * n_assets; i += kTermThreads) s_hist[i] = hist[i];
+  }
   __syncthreads();
+  const float* h = kShared ? s_hist : hist;
 
   const int p = blockIdx.x * kTermThreads + threadIdx.x;
   if (p >= block_paths) return;
@@ -95,10 +110,10 @@ bootstrap_terminal_kernel(long long seed, long long first_block, int block_paths
       if (s + k >= n_steps) continue;
       idx = k ? next_row(idx, w.w2, w.w3, t_len, p_restart)
               : next_row(idx, w.w0, w.w1, t_len, p_restart);
-      const float* row = s_hist + idx * n_assets;
+      const float* row = h + idx * n_assets;
 #pragma unroll (kUnroll)
       for (int a = 0; a < kA; ++a) {
-        if (a < n_assets) gross[a] *= 1.0f + row[a];
+        if (a < n_assets) gross[a] *= 1.0f + row_at<kShared>(row, a);
       }
     }
   }
@@ -114,15 +129,16 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
   int hist, w, e, idx, total;
-  __host__ __device__ DdLayout(int t_len, int a, int w_pad) {
+  __host__ __device__ DdLayout(int t_len, int a, int w_pad, bool shared) {
     hist = 0;
-    w = round4(t_len * a);
+    w = shared ? round4(t_len * a) : 0;
     e = w + a * w_pad;
     idx = e + a * kTileP;
     total = idx + 2 * kTileP;
   }
 };
 
+template <bool kShared>
 __global__ void __launch_bounds__(kDdThreads, 2)
 bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int t_len,
                     int n_assets, int n_cand, int n_steps, float p_restart,
@@ -131,14 +147,17 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
-  const DdLayout lay(t_len, a_n, w_pad);
-  float* s_hist = smem + lay.hist;                       // (T, A)
+  const DdLayout lay(t_len, a_n, w_pad, kShared);
+  float* s_hist = smem + lay.hist;                       // (T, A) when kShared
   float* s_w = smem + lay.w;                             // (A, w_pad) weights
   float* s_e = smem + lay.e;                             // (A, kTileP) the step's rows
   int* s_idx = reinterpret_cast<int*>(smem + lay.idx);   // (2, kTileP) two steps' rows
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < t_len * a_n; i += kDdThreads) s_hist[i] = hist[i];
+  if (kShared) {
+    for (int i = tid; i < t_len * a_n; i += kDdThreads) s_hist[i] = hist[i];
+  }
+  const float* h = kShared ? s_hist : hist;
   for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
     const int a = i / w_pad, w = i % w_pad;
     s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
@@ -183,7 +202,7 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
         const int item = tid + r * kDdThreads;
         if (item < n_items) {
           const int a = item / kTileP, pi = item % kTileP;
-          s_e[item] = s_hist[s_idx[k * kTileP + pi] * a_n + a];
+          s_e[item] = row_at<kShared>(h + s_idx[k * kTileP + pi] * a_n, a);
         }
       }
       __syncthreads();
@@ -249,45 +268,47 @@ extern "C" {
 
 // Launches the terminal kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. hist: (t_len, n_assets) float32 on the device, held in
-// shared memory (4·t_len·n_assets bytes, at most the block's opt-in limit).
-// Output out: (n_blocks, block_paths, n_assets) float32. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
-// the kernel does not take.
+// shared memory when in_shared (4·t_len·n_assets bytes, at most the block's
+// opt-in limit), else read from device memory. Output out: (n_blocks,
+// block_paths, n_assets) float32. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_bootstrap_terminal(long long seed, long long first_block, int n_blocks,
                               int block_paths, int t_len, int n_assets, int n_steps,
-                              float p_restart, const void* hist, void* out, void* stream) {
+                              float p_restart, int in_shared, const void* hist, void* out,
+                              void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_blocks < 1 ||
       n_blocks > 65535 || block_paths < 1 || n_steps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
-  const size_t smem = sizeof(float) * static_cast<size_t>(t_len) * n_assets;
+  const size_t smem = in_shared ? sizeof(float) * static_cast<size_t>(t_len) * n_assets : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* h = static_cast<const float*>(hist);
   float* o = static_cast<float*>(out);
-  int err;
+  auto run = [&](auto kernel) {
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<grid, kTermThreads, smem, s>>>(seed, first_block, block_paths, t_len, n_assets,
+                                            n_steps, p_restart, h, o);
+    return static_cast<int>(cudaGetLastError());
+  };
   if (n_assets <= 16) {
-    auto kernel = bootstrap_terminal_kernel<16, 16>;
-    if ((err = set_smem(kernel, smem))) return err;
-    kernel<<<grid, kTermThreads, smem, s>>>(seed, first_block, block_paths, t_len, n_assets,
-                                            n_steps, p_restart, h, o);
-  } else {
-    auto kernel = bootstrap_terminal_kernel<kMaxAssets, 1>;
-    if ((err = set_smem(kernel, smem))) return err;
-    kernel<<<grid, kTermThreads, smem, s>>>(seed, first_block, block_paths, t_len, n_assets,
-                                            n_steps, p_restart, h, o);
+    return in_shared ? run(bootstrap_terminal_kernel<16, 16, true>)
+                     : run(bootstrap_terminal_kernel<16, 16, false>);
   }
-  return static_cast<int>(cudaGetLastError());
+  return in_shared ? run(bootstrap_terminal_kernel<kMaxAssets, 1, true>)
+                   : run(bootstrap_terminal_kernel<kMaxAssets, 1, false>);
 }
 
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. hist: (t_len, n_assets), weights: (n_cand, n_assets),
-// float32 on the device. Outputs term and dd: (n_blocks, n_cand, block_paths)
-// float32. Returns cudaGetLastError() after the launch, or
+// float32 on the device; the history in shared memory when in_shared, else
+// read from device memory. Outputs term and dd: (n_blocks, n_cand,
+// block_paths) float32. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_blocks,
                               int block_paths, int t_len, int n_assets, int n_cand,
-                              int n_steps, float p_restart, const void* hist,
+                              int n_steps, float p_restart, int in_shared, const void* hist,
                               const void* weights, void* term, void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_cand < 1 ||
       n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 || block_paths < 1 ||
@@ -295,14 +316,18 @@ int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_block
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem = sizeof(float) * DdLayout(t_len, n_assets, round4(n_cand)).total;
-  int err;
-  if ((err = set_smem(bootstrap_dd_kernel, smem))) return err;
-  bootstrap_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, p_restart,
-      static_cast<const float*>(hist), static_cast<const float*>(weights),
-      static_cast<float*>(term), static_cast<float*>(dd));
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem =
+      sizeof(float) * DdLayout(t_len, n_assets, round4(n_cand), in_shared != 0).total;
+  auto run = [&](auto kernel) {
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, p_restart,
+        static_cast<const float*>(hist), static_cast<const float*>(weights),
+        static_cast<float*>(term), static_cast<float*>(dd));
+    return static_cast<int>(cudaGetLastError());
+  };
+  return in_shared ? run(bootstrap_dd_kernel<true>) : run(bootstrap_dd_kernel<false>);
 }
 
 }  // extern "C"

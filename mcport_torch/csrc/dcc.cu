@@ -53,6 +53,22 @@
 //   updates its 4-candidate x 4-path micro-tile of values, peaks and
 //   drawdowns in registers (FP32 FMAs: mcport's score_dot is float32). The
 //   recursion spreads over all 256 threads, so at W = 1 it does not idle 240.
+// For 17 <= A <= 64 (dcc_wide_kernel, both functions): a path's triangle is
+// 2,080 floats at A = 64, past any thread's registers and past a half-warp's.
+// A group of 32 threads (A <= 32) or 64 (A <= 64) owns one path, thread r its
+// row r, and a 256-thread block owns 8 or 4 paths. Each path's Q, its
+// Cholesky factor L, the shocks of one Philox call and e live in shared
+// memory, Q and L packed column by column (entry (r, j) at j·A - j(j-1)/2 + r
+// - j), so that the rows of a column sit on consecutive banks. Per step:
+// thread r updates row r of Q; then column by column, behind one barrier
+// each, thread r >= j computes the pivot of column j itself (the same sum in
+// the same order as thread j, so every thread holds the same rounded
+// reciprocal) and its L_rj; then e_r, the GARCH update and either the gross or
+// r = mu + eps into a shared (A, paths) tile, which thread c scores for
+// candidate c over the block's paths. The sums keep the narrow kernels'
+// order (ascending k and j) and the correctly rounded rsqrt; the A <= 16
+// kernels are unchanged. A simple design: A barriers per step, and A/64 to
+// A/32 of the threads working in the Cholesky's late columns.
 // A dispatch group of blocks is one launch (gridDim.y).
 //
 // nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
@@ -62,7 +78,7 @@
 
 namespace {
 
-constexpr int kDA = 16;                      // ops/dcc.py MAX_DCC_ASSETS
+constexpr int kDA = 16;                      // the narrow kernels' asset bound
 constexpr int kTri = kDA * (kDA + 1) / 2;    // entries of a lower triangle
 constexpr int kTermThreads = 128;
 constexpr int kDdThreads = 256;
@@ -393,6 +409,194 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
   }
 }
 
+// Entry (r, j), r >= j, of an n x n lower triangle packed column by column.
+__device__ __forceinline__ int col_at(int j, int r, int n) { return j * n - j * (j - 1) / 2 + r - j; }
+
+struct WideLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int cs, g, w, r, paths, per_path, total;
+  __host__ __device__ WideLayout(int n, int n_p, int w_pad) {
+    const int t = n * (n + 1) / 2;
+    cs = 0;                               // (1-a-b) S, packed by column
+    g = round4(t);                        // A float4 (omega, alpha, beta, last)
+    w = g + 4 * n;                        // (A, w_pad) weights (candidates only)
+    r = w + n * w_pad;                    // (A, paths) r = mu + eps (candidates only)
+    paths = round4(r + n * n_p);
+    per_path = round4(2 * t + 5 * n);     // Q and L packed by column, z (4, A), e (A)
+    total = paths + n_p * per_path;
+  }
+};
+
+// Threads per path in the wide kernel: a row each, rounded up to whole warps.
+__host__ __device__ constexpr int wide_rows(int n) { return n <= 32 ? 32 : 64; }
+
+template <bool kScore>
+__global__ void __launch_bounds__(kDdThreads)
+dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                int n_cand, int n_steps, const float* __restrict__ params,
+                const float* __restrict__ weights, float* __restrict__ term,
+                float* __restrict__ max_dd) {
+  constexpr int kMaxPaths = kDdThreads / 32;
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets;
+  const int rows = wide_rows(n), n_p = kDdThreads / rows;
+  const int w_pad = kScore ? round4(n_cand) : 0;
+  const WideLayout lay(n, n_p, w_pad);
+  const int tid = threadIdx.x, pl = tid / rows, row = tid % rows;
+  const bool active = row < n;
+  const int t = n * (n + 1) / 2;
+  float* s_cs = smem + lay.cs;
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);
+  float* s_w = smem + lay.w;
+  float* s_r = smem + lay.r;
+  float* s_q = smem + lay.paths + pl * lay.per_path;  // this path's Q
+  float* s_l = s_q + t;                               // its Cholesky factor
+  float* s_z = s_l + t;                               // (4, A) one Philox call's shocks
+  float* s_e = s_z + 4 * n;                           // (A,) e of the last step
+
+  const Params q(params, n);
+  const float c0 = q.c0(), a_c = q.a, b_c = q.b;
+  for (int i = tid; i < n * n; i += kDdThreads) {
+    const int r = i / n, c = i % n;
+    if (c <= r) s_cs[col_at(c, r, n)] = c0 * q.s[r * n + c];
+  }
+  for (int i = tid; i < n; i += kDdThreads) {
+    s_g[i] = make_float4(q.omega[i], q.alpha[i], q.beta[i], kScore ? q.mu[i] : 1.0f + q.mu[i]);
+  }
+  for (int i = tid; i < n * w_pad; i += kDdThreads) {
+    const int a = i / w_pad, w = i % w_pad;
+    s_w[i] = w < n_cand ? weights[w * n + a] : 0.0f;
+  }
+  if (active) {
+    for (int j = 0; j <= row; ++j) s_q[col_at(j, row, n)] = q.q0[row * n + j];
+    s_e[row] = q.e0[row];
+  }
+  float s2 = active ? first_sigma2(q, row) : 0.0f;  // the variance of the coming step
+  float cum = 1.0f;
+
+  const int blk = blockIdx.y;
+  const int p = blockIdx.x * n_p + pl;  // this thread's path of the dispatch block
+  const uint32_t key = block_key(seed, first_block, blk);
+  // candidate tid's values, peaks and drawdowns over the block's paths
+  const bool scorer = kScore && tid < n_cand;
+  float v[kMaxPaths], peak[kMaxPaths], dd[kMaxPaths];
+#pragma unroll
+  for (int i = 0; i < kMaxPaths; ++i) {
+    v[i] = 1.0f;
+    peak[i] = 1.0f;
+    dd[i] = 0.0f;
+  }
+  __syncthreads();
+
+  constexpr int kPer = steps_per_call<kPoly>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int nk = min(kPer, n_steps - s0);
+    if (active) {
+      float za[4];
+      call_draws<kPoly>(s0 / kPer, row, p, key, nk, 0.0f, 0.0f, za);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) s_z[k * n + row] = za[k];
+    }
+    __syncthreads();
+
+    for (int k = 0; k < nk; ++k) {
+      const float* z = s_z + k * n;
+      // Q update: row `row` of the lower triangle
+      if (active) {
+        const float er = s_e[row];
+        for (int j = 0; j <= row; ++j) {
+          const int at = col_at(j, row, n);
+          s_q[at] = fmaf(b_c, s_q[at], fmaf(a_c, er * s_e[j], s_cs[at]));
+        }
+      }
+      __syncthreads();
+      // Cholesky of Q, column by column (left-looking)
+      for (int j = 0; j < n; ++j) {
+        if (active && row >= j) {
+          float d = s_q[col_at(j, j, n)];
+          for (int k2 = 0; k2 < j; ++k2) {
+            const float ljk = s_l[col_at(k2, j, n)];
+            d = fmaf(-ljk, ljk, d);
+          }
+          const float inv = __frsqrt_rn(fmaxf(d, 1e-12f));
+          float num = d;
+          if (row > j) {
+            num = s_q[col_at(j, row, n)];
+            for (int k2 = 0; k2 < j; ++k2) {
+              num = fmaf(-s_l[col_at(k2, row, n)], s_l[col_at(k2, j, n)], num);
+            }
+          }
+          s_l[col_at(j, row, n)] = num * inv;
+        }
+        __syncthreads();
+      }
+      // e = D^{-1/2} (L z), then the GARCH update and the compounding
+      if (active) {
+        float m = s_l[col_at(0, row, n)] * z[0];
+        for (int j = 1; j <= row; ++j) m = fmaf(s_l[col_at(j, row, n)], z[j], m);
+        const float ei = m * __frsqrt_rn(fmaxf(s_q[col_at(row, row, n)], 1e-12f));
+        const float4 g = s_g[row];
+        const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
+        if (kScore) {
+          s_r[row * n_p + pl] = g.w + eps;
+        } else {
+          cum *= g.w + eps;
+        }
+        s2 = g.x + g.y * (eps * eps) + g.z * s2;
+        s_e[row] = ei;
+      }
+      __syncthreads();
+      if (scorer) {  // candidate tid over the block's paths
+#pragma unroll
+        for (int i = 0; i < kMaxPaths; ++i) {
+          if (i < n_p) {
+            float f = 0.0f;
+            for (int a = 0; a < n; ++a) f = fmaf(s_w[a * w_pad + tid], s_r[a * n_p + i], f);
+            v[i] = v[i] * (1.0f + f);
+            peak[i] = fmaxf(peak[i], v[i]);
+            dd[i] = fminf(dd[i], v[i] / peak[i] - 1.0f);
+          }
+        }
+      }
+      // (s_r is rewritten only after the next step's barriers)
+    }
+  }
+
+  if (kScore) {
+    if (scorer) {
+#pragma unroll
+      for (int i = 0; i < kMaxPaths; ++i) {
+        const int path = blockIdx.x * n_p + i;
+        if (i < n_p && path < block_paths) {
+          const long long o = (static_cast<long long>(blk) * n_cand + tid) * block_paths + path;
+          term[o] = v[i] - 1.0f;
+          max_dd[o] = dd[i];
+        }
+      }
+    }
+  } else if (active && p < block_paths) {
+    term[(static_cast<long long>(blk) * block_paths + p) * n + row] = cum - 1.0f;
+  }
+}
+
+// Launches the wide kernel: the terminal function (out in term) or, kScore,
+// the candidates'.
+template <bool kScore>
+int launch_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                int n_assets, int n_cand, int n_steps, const float* params, const float* w,
+                float* term, float* dd, cudaStream_t stream) {
+  const int n_p = kDdThreads / wide_rows(n_assets);
+  const dim3 grid((block_paths + n_p - 1) / n_p, n_blocks);
+  const size_t smem =
+      sizeof(float) * WideLayout(n_assets, n_p, kScore ? round4(n_cand) : 0).total;
+  auto kernel = dcc_wide_kernel<kScore>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kDdThreads, smem, stream>>>(seed, first_block, block_paths, n_assets, n_cand,
+                                             n_steps, params, w, term, dd);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -404,9 +608,15 @@ extern "C" {
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int block_paths,
                         int n_assets, int n_steps, const void* params, void* out, void* stream) {
-  if (n_assets < 1 || n_assets > kDA || n_blocks < 1 || n_blocks > 65535 ||
+  if (n_assets < 1 || n_assets > kMaxAssets || n_blocks < 1 || n_blocks > 65535 ||
       block_paths < 1 || n_steps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_assets > kDA) {
+    return launch_wide<false>(seed, first_block, n_blocks, block_paths, n_assets, 1, n_steps,
+                              static_cast<const float*>(params), nullptr,
+                              static_cast<float*>(out), nullptr,
+                              static_cast<cudaStream_t>(stream));
   }
   const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
   const size_t smem = sizeof(float) * TermLayout(n_assets).total;
@@ -429,9 +639,16 @@ int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int
 int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int block_paths,
                         int n_assets, int n_cand, int n_steps, const void* params,
                         const void* weights, void* term, void* dd, void* stream) {
-  if (n_assets < 1 || n_assets > kDA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
-      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || kDA * kTileP != kDdThreads) {
+  if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
+      kDA * kTileP != kDdThreads || kMaxCand > kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_assets > kDA) {
+    return launch_wide<true>(seed, first_block, n_blocks, block_paths, n_assets, n_cand,
+                             n_steps, static_cast<const float*>(params),
+                             static_cast<const float*>(weights), static_cast<float*>(term),
+                             static_cast<float*>(dd), static_cast<cudaStream_t>(stream));
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
   const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;

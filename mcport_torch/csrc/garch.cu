@@ -38,6 +38,15 @@
 //   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
 //   values, peaks and drawdowns stay in registers. Scores are FP32 FMAs
 //   (mcport's score_dot is float32).
+// - wider universes, 17 <= A <= 64: a path's state (A variances, A
+//   compounded grosses and 4·A shocks) no longer fits one thread's
+//   registers. The candidate kernel keeps its design with kItems = 4 (asset,
+//   path) items per thread (multi_dd.cu's mapping), each item's sigma2 in a
+//   register. The terminal kernel takes the same tile (garch_terminal_tile_kernel):
+//   16 paths per block, each (asset, path) item's sigma2 and gross in a
+//   thread's registers, the Philox call's shocks in shared memory, one barrier
+//   per four steps. The A <= 16 kernels are unchanged: the wide variants are
+//   separate instantiations, with the same operations in the same order.
 // A dispatch group of blocks is one launch (gridDim.y).
 //
 // The kernels read only the lower triangle of L_R (the plain forms do too).
@@ -48,7 +57,7 @@
 
 namespace {
 
-constexpr int kGA = 16;              // ops/garch.py MAX_GARCH_ASSETS
+constexpr int kGA = 16;              // the register-resident terminal kernel's asset bound
 constexpr int kTermThreads = 128;
 constexpr int kDdThreads = 256;
 constexpr int kTileP = 16;           // paths per candidate block
@@ -79,15 +88,16 @@ __device__ __forceinline__ float first_sigma2(const Params& q, int a) {
   return q.omega[a] + q.alpha[a] * q.e2_0[a] + q.beta[a] * q.s2_0[a];
 }
 
-// Loads L's lower triangle into s_l (kGA x kGA, zero elsewhere) and, per asset,
-// (omega, alpha, beta, last) into s_g.
+// Loads L's lower triangle into s_l (kCap x kCap, zero elsewhere) and, per
+// asset, (omega, alpha, beta, last) into s_g (kCap entries).
+template <int kCap = kGA>
 __device__ __forceinline__ void load_params(const Params& q, int a_n, bool one_plus_mu,
                                             float* s_l, float4* s_g, int tid, int n_threads) {
-  for (int i = tid; i < kGA * kGA; i += n_threads) {
-    const int r = i / kGA, c = i % kGA;
+  for (int i = tid; i < kCap * kCap; i += n_threads) {
+    const int r = i / kCap, c = i % kCap;
     s_l[i] = (r < a_n && c <= r) ? q.l[r * a_n + c] : 0.0f;
   }
-  for (int i = tid; i < kGA; i += n_threads) {
+  for (int i = tid; i < kCap; i += n_threads) {
     s_g[i] = i < a_n ? make_float4(q.omega[i], q.alpha[i], q.beta[i],
                                    one_plus_mu ? 1.0f + q.mu[i] : q.mu[i])
                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -168,26 +178,123 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
   int l, g, w, z, e, total;
-  __host__ __device__ DdLayout(int a, int w_pad) {
+  __host__ __device__ DdLayout(int a, int w_pad, int cap) {
     l = 0;
-    g = kGA * kGA;
-    w = g + 4 * kGA;
+    g = cap * cap;
+    w = g + 4 * cap;
     z = w + a * w_pad;
     e = z + 4 * a * kTileP;
     total = e + a * kTileP;
   }
 };
 
+// The (asset, path) items of a 16-path tile per thread of the 256: one for A
+// <= 16, four up to kMaxAssets (multi_dd.cu's mapping).
+template <int kCap>
+__host__ __device__ constexpr int tile_items() { return kCap * kTileP / kDdThreads; }
+
+// The tile kernel for the terminal returns at 17 <= A <= 64: the candidate
+// kernel's (asset, path) items without the scoring; each item's variance and
+// gross stay in registers, the shocks of one Philox call in shared memory.
+struct TileLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int l, g, z, total;
+  __host__ __device__ explicit TileLayout(int a) {
+    l = 0;
+    g = kMaxAssets * kMaxAssets;
+    z = g + 4 * kMaxAssets;
+    total = z + 4 * a * kTileP;
+  }
+};
+
+template <int kTier>
+__global__ void __launch_bounds__(kDdThreads, 2)
+garch_terminal_tile_kernel(long long seed, long long first_block, int block_paths,
+                           int n_assets, int n_steps, float df, float neg2_over_df,
+                           const float* __restrict__ params, float* __restrict__ out) {
+  constexpr int kIt = tile_items<kMaxAssets>();
+  extern __shared__ __align__(16) float smem[];
+  const int a_n = n_assets;
+  const TileLayout lay(a_n);
+  float* s_l = smem + lay.l;                              // (64, 64) lower triangle
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (omega, alpha, beta, 1 + mu)
+  float* s_z = smem + lay.z;                              // (4, A, kTileP) one call's shocks
+  const int tid = threadIdx.x;
+  const Params q(params, a_n);
+  load_params<kMaxAssets>(q, a_n, true, s_l, s_g, tid, kDdThreads);
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTileP;
+  const uint32_t key = block_key(seed, first_block, b);
+  const int n_items = a_n * kTileP;
+  float s2[kIt], cum[kIt];  // per item: the variance of the coming step, the gross
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    s2[r] = item < n_items ? first_sigma2(q, item / kTileP) : 0.0f;
+    cum[r] = 1.0f;
+  }
+  __syncthreads();
+
+  constexpr int kPer = steps_per_call<kTier>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+#pragma unroll
+    for (int r = 0; r < kIt; ++r) {
+      const int item = tid + r * kDdThreads;
+      if (item < n_items) {
+        const int a = item / kTileP, p = item % kTileP;
+        float za[4];
+        call_draws<kTier>(s0 / kPer, a, p0 + p, key, n, df, neg2_over_df, za);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_z[(k * a_n + a) * kTileP + p] = za[k];
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int r = 0; r < kIt; ++r) {
+        const int item = tid + r * kDdThreads;
+        if (item < n_items) {
+          const int a = item / kTileP, p = item % kTileP;
+          float y = 0.0f;
+          for (int j = 0; j <= a; ++j) {  // row a's lower triangle, in column order
+            y = fmaf(s_l[a * kMaxAssets + j], s_z[(k * a_n + j) * kTileP + p], y);
+          }
+          const float4 g = s_g[a];
+          const float eps = sqrtf(fmaxf(s2[r], 0.0f)) * y;
+          cum[r] *= g.w + eps;
+          const float e2 = eps * eps;
+          s2[r] = g.x + g.y * e2 + g.z * s2[r];
+        }
+      }
+    }
+    __syncthreads();  // the next call's draws overwrite s_z
+  }
+
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    const int a = item / kTileP, p = p0 + item % kTileP;
+    if (item < n_items && p < block_paths) {
+      out[(static_cast<long long>(b) * block_paths + p) * a_n + a] = cum[r] - 1.0f;
+    }
+  }
+}
+
+// kCap: the asset bound (kGA: one (asset, path) item per thread; kMaxAssets:
+// four).
+template <int kCap>
 __global__ void __launch_bounds__(kDdThreads, 2)
 garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
                 int n_cand, int n_steps, const float* __restrict__ params,
                 const float* __restrict__ weights, float* __restrict__ term,
                 float* __restrict__ max_dd) {
+  constexpr int kIt = tile_items<kCap>();
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
-  const DdLayout lay(a_n, w_pad);
-  float* s_l = smem + lay.l;                            // (kGA, kGA) lower triangle
+  const DdLayout lay(a_n, w_pad, kCap);
+  float* s_l = smem + lay.l;                            // (kCap, kCap) lower triangle
   float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (omega, alpha, beta, mu)
   float* s_w = smem + lay.w;                            // (A, w_pad) weights
   float* s_z = smem + lay.z;                            // (4, A, kTileP) one Philox call's shocks
@@ -195,7 +302,7 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
 
   const int tid = threadIdx.x;
   const Params q(params, a_n);
-  load_params(q, a_n, false, s_l, s_g, tid, kDdThreads);
+  load_params<kCap>(q, a_n, false, s_l, s_g, tid, kDdThreads);
   for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
     const int a = i / w_pad, w = i % w_pad;
     s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
@@ -204,10 +311,15 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * kTileP;
   const uint32_t key = block_key(seed, first_block, b);
-  // this thread's (asset, path) item of the tile: A·16 <= 256 items
-  const int ia = tid / kTileP, ip = tid % kTileP;
-  const bool item = ia < a_n;
-  float s2 = item ? first_sigma2(q, ia) : 0.0f;
+  // this thread's (asset, path) items of the tile: item tid + r·256, asset
+  // item / 16, path item % 16
+  const int n_items = a_n * kTileP;
+  float s2[kIt];
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    s2[r] = item < n_items ? first_sigma2(q, item / kTileP) : 0.0f;
+  }
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -227,25 +339,35 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   constexpr int kPer = steps_per_call<kPoly>();
   for (int s0 = 0; s0 < n_steps; s0 += kPer) {
     const int n = min(kPer, n_steps - s0);
-    if (item) {
-      float za[4];
-      call_draws<kPoly>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+    for (int r = 0; r < kIt; ++r) {
+      const int item = tid + r * kDdThreads;
+      if (item < n_items) {
+        const int ia = item / kTileP, ip = item % kTileP;
+        float za[4];
+        call_draws<kPoly>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+      }
     }
     __syncthreads();
 
     for (int k = 0; k < n; ++k) {
-      if (item) {
-        float y = 0.0f;
-        for (int j = 0; j <= ia; ++j) {
-          y = fmaf(s_l[ia * kGA + j], s_z[(k * a_n + j) * kTileP + ip], y);
+#pragma unroll
+      for (int r = 0; r < kIt; ++r) {
+        const int item = tid + r * kDdThreads;
+        if (item < n_items) {
+          const int ia = item / kTileP, ip = item % kTileP;
+          float y = 0.0f;
+          for (int j = 0; j <= ia; ++j) {
+            y = fmaf(s_l[ia * kCap + j], s_z[(k * a_n + j) * kTileP + ip], y);
+          }
+          const float4 g = s_g[ia];
+          const float eps = sqrtf(fmaxf(s2[r], 0.0f)) * y;
+          s_e[ia * kTileP + ip] = g.w + eps;
+          const float e2 = eps * eps;
+          s2[r] = g.x + g.y * e2 + g.z * s2[r];
         }
-        const float4 g = s_g[ia];
-        const float eps = sqrtf(fmaxf(s2, 0.0f)) * y;
-        s_e[ia * kTileP + ip] = g.w + eps;
-        const float e2 = eps * eps;
-        s2 = g.x + g.y * e2 + g.z * s2;
       }
       __syncthreads();
 
@@ -306,19 +428,40 @@ extern "C" {
 // first_block+n_blocks. params: ops/garch.py GarchTensors.packed, float32 on the
 // device (L with the t scale folded in). Output out: (n_blocks, block_paths,
 // n_assets) float32. tier: 0 poly, 2 Student-t (df, neg2_over_df = -2/df used
-// only then). Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// only then). wide: nonzero runs the tile kernel of 17-64 assets at any width
+// (to time it against the narrow one). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_garch_terminal(long long seed, long long first_block, int n_blocks, int block_paths,
-                          int n_assets, int n_steps, int tier, float df, float neg2_over_df,
-                          const void* params, void* out, void* stream) {
-  if (n_assets < 1 || n_assets > kGA || n_blocks < 1 || n_blocks > 65535 ||
-      block_paths < 1 || n_steps < 0) {
+                          int n_assets, int n_steps, int wide, int tier, float df,
+                          float neg2_over_df, const void* params, void* out, void* stream) {
+  if (n_assets < 1 || n_assets > kMaxAssets || n_blocks < 1 || n_blocks > 65535 ||
+      block_paths < 1 || n_steps < 0 || kMaxAssets * kTileP > 4 * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* q = static_cast<const float*>(params);
   float* o = static_cast<float*>(out);
+  if (n_assets > kGA || wide) {
+    const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+    const size_t smem = sizeof(float) * TileLayout(n_assets).total;
+    auto run = [&](auto kernel) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, kDdThreads, smem, s>>>(seed, first_block, block_paths, n_assets, n_steps,
+                                            df, neg2_over_df, q, o);
+      return static_cast<int>(cudaGetLastError());
+    };
+    switch (tier) {
+      case kPoly:
+        return run(garch_terminal_tile_kernel<kPoly>);
+      case kStudentT:
+        return run(garch_terminal_tile_kernel<kStudentT>);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
   switch (tier) {
     case kPoly:
       garch_terminal_kernel<kPoly><<<grid, kTermThreads, 0, s>>>(
@@ -337,28 +480,34 @@ int mcport_garch_terminal(long long seed, long long first_block, int n_blocks, i
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: GarchTensors.packed; weights: (n_cand,
 // n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. Normal shocks (the poly tier). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
-// the kernel does not take.
+// block_paths) float32. Normal shocks (the poly tier). wide: nonzero runs the
+// 64-asset instantiation at any width. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_garch_multi_dd(long long seed, long long first_block, int n_blocks,
-                          int block_paths, int n_assets, int n_cand, int n_steps,
+                          int block_paths, int n_assets, int n_cand, int n_steps, int wide,
                           const void* params, const void* weights, void* term, void* dd,
                           void* stream) {
-  if (n_assets < 1 || n_assets > kGA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
-      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || kGA * kTileP > kDdThreads) {
+  if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
+      kGA * kTileP != tile_items<kGA>() * kDdThreads ||
+      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
-  cudaError_t err = cudaFuncSetAttribute(garch_dd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  garch_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      seed, first_block, block_paths, n_assets, n_cand, n_steps,
-      static_cast<const float*>(params), static_cast<const float*>(weights),
-      static_cast<float*>(term), static_cast<float*>(dd));
-  return static_cast<int>(cudaGetLastError());
+  wide = wide || n_assets > kGA;
+  const size_t smem =
+      sizeof(float) * DdLayout(n_assets, round4(n_cand), wide ? kMaxAssets : kGA).total;
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, block_paths, n_assets, n_cand, n_steps,
+        static_cast<const float*>(params), static_cast<const float*>(weights),
+        static_cast<float*>(term), static_cast<float*>(dd));
+    return static_cast<int>(cudaGetLastError());
+  };
+  return wide ? run(garch_dd_kernel<kMaxAssets>) : run(garch_dd_kernel<kGA>);
 }
 
 }  // extern "C"

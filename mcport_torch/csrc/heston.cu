@@ -53,13 +53,21 @@
 //   shared memory, and per step correlates them and writes exp(x) to shared
 //   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
 //   values, peaks and drawdowns stay in registers (multi_dd.cu's scoring).
+// - wider universes, 17 <= A <= 64 (garch.cu's wide variants): the candidate
+//   kernel keeps its design with four (asset, path) items per thread, each
+//   item's variance and variance shocks in registers; the terminal kernel
+//   takes the same 16-path tile (heston_terminal_tile_kernel), each item's v
+//   and acc in registers, the return shocks of one Philox call in shared
+//   memory. Every operation of the path is the same, in the same order and
+//   rounding, so the wide kernels' path state too equals the plain form's bit
+//   for bit. The A <= 16 kernels are unchanged.
 // A dispatch group of blocks is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
 
 namespace {
 
-constexpr int kHA = 16;              // ops/heston.py MAX_HESTON_ASSETS
+constexpr int kHA = 16;              // the register-resident terminal kernel's asset bound
 constexpr int kTermThreads = 128;
 constexpr int kDdThreads = 256;
 constexpr int kTileP = 16;           // paths per candidate block
@@ -85,15 +93,17 @@ struct Params {
         rho_c(rho + a), v0(rho_c + a) {}
 };
 
-// Loads L's lower triangle into s_l (kHA x kHA, zero elsewhere) and, per asset,
-// (mu, kappa, theta, xi) into s_g and (rho, rho_c, v0, 0) into s_h.
+// Loads L's lower triangle into s_l (kCap x kCap, zero elsewhere) and, per
+// asset, (mu, kappa, theta, xi) into s_g and (rho, rho_c, v0, 0) into s_h
+// (kCap entries each).
+template <int kCap = kHA>
 __device__ __forceinline__ void load_params(const Params& q, int a_n, float* s_l, float4* s_g,
                                             float4* s_h, int tid, int n_threads) {
-  for (int i = tid; i < kHA * kHA; i += n_threads) {
-    const int r = i / kHA, c = i % kHA;
+  for (int i = tid; i < kCap * kCap; i += n_threads) {
+    const int r = i / kCap, c = i % kCap;
     s_l[i] = (r < a_n && c <= r) ? q.l[r * a_n + c] : 0.0f;
   }
-  for (int i = tid; i < kHA; i += n_threads) {
+  for (int i = tid; i < kCap; i += n_threads) {
     const bool in = i < a_n;
     s_g[i] = in ? make_float4(q.mu[i], q.kappa[i], q.theta[i], q.xi[i])
                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -191,27 +201,116 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
   int l, g, h, w, z, e, total;
-  __host__ __device__ DdLayout(int a, int w_pad) {
+  __host__ __device__ DdLayout(int a, int w_pad, int cap) {
     l = 0;
-    g = kHA * kHA;
-    h = g + 4 * kHA;
-    w = h + 4 * kHA;
+    g = cap * cap;
+    h = g + 4 * cap;
+    w = h + 4 * cap;
     z = w + a * w_pad;
     e = z + 4 * a * kTileP;
     total = e + a * kTileP;
   }
 };
 
+// The (asset, path) items of a 16-path tile per thread of the 256: one for A
+// <= 16, four up to kMaxAssets.
+template <int kCap>
+__host__ __device__ constexpr int tile_items() { return kCap * kTileP / kDdThreads; }
+
+// The terminal kernel at 17 <= A <= 64: the candidate kernel's (asset, path)
+// items without the scoring (the parameter block and the shocks in shared
+// memory, the weights region empty).
+template <int kCap>
+__global__ void __launch_bounds__(kDdThreads, 2)
+heston_terminal_tile_kernel(long long seed, long long first_block, int block_paths,
+                            int n_assets, int n_steps, const float* __restrict__ params,
+                            float* __restrict__ out) {
+  constexpr int kIt = tile_items<kCap>();
+  extern __shared__ __align__(16) float smem[];
+  const int a_n = n_assets;
+  const DdLayout lay(a_n, 0, kCap);
+  float* s_l = smem + lay.l;                              // (kCap, kCap) lower triangle
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (mu, kappa, theta, xi)
+  float4* s_h = reinterpret_cast<float4*>(smem + lay.h);  // (rho, rho_c, v0, 0)
+  float* s_z = smem + lay.z;                              // (4, A, kTileP) return shocks
+  const int tid = threadIdx.x;
+  const Params q(params, a_n);
+  load_params<kCap>(q, a_n, s_l, s_g, s_h, tid, kDdThreads);
+  __syncthreads();
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTileP;
+  const uint32_t key = block_key(seed, first_block, b);
+  const int n_items = a_n * kTileP;
+  float var[kIt], acc[kIt];
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    var[r] = item < n_items ? s_h[item / kTileP].z : 0.0f;
+    acc[r] = 0.0f;
+  }
+
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    float wa[kIt][4];
+#pragma unroll
+    for (int r = 0; r < kIt; ++r) {
+      const int item = tid + r * kDdThreads;
+      if (item < n_items) {
+        const int ia = item / kTileP, ip = item % kTileP;
+        float za[4];
+        call_draws<kPolyStrict>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
+        call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f,
+                                               wa[r]);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= n) continue;
+#pragma unroll
+      for (int r = 0; r < kIt; ++r) {
+        const int item = tid + r * kDdThreads;
+        if (item < n_items) {
+          const int ia = item / kTileP, ip = item % kTileP;
+          float y = 0.0f;
+          for (int j = 0; j <= ia; ++j) {
+            y = __fadd_rn(y, __fmul_rn(s_l[ia * kCap + j], s_z[(k * a_n + j) * kTileP + ip]));
+          }
+          acc[r] = __fadd_rn(acc[r], heston_step(y, wa[r][k], s_g[ia], s_h[ia], &var[r]));
+        }
+      }
+    }
+    __syncthreads();  // the next call's draws overwrite s_z
+  }
+
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    const int a = item / kTileP, p = p0 + item % kTileP;
+    if (item < n_items && p < block_paths) {
+      out[(static_cast<long long>(b) * block_paths + p) * a_n + a] = expm1f(acc[r]);
+    }
+  }
+}
+
+// kCap: the asset bound (kHA: one (asset, path) item per thread; kMaxAssets:
+// four).
+template <int kCap>
 __global__ void __launch_bounds__(kDdThreads, 2)
 heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
                  int n_cand, int n_steps, const float* __restrict__ params,
                  const float* __restrict__ weights, float* __restrict__ term,
                  float* __restrict__ max_dd) {
+  constexpr int kIt = tile_items<kCap>();
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
-  const DdLayout lay(a_n, w_pad);
-  float* s_l = smem + lay.l;                              // (kHA, kHA) lower triangle
+  const DdLayout lay(a_n, w_pad, kCap);
+  float* s_l = smem + lay.l;                              // (kCap, kCap) lower triangle
   float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (mu, kappa, theta, xi)
   float4* s_h = reinterpret_cast<float4*>(smem + lay.h);  // (rho, rho_c, v0, 0)
   float* s_w = smem + lay.w;                              // (A, w_pad) weights
@@ -220,7 +319,7 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
 
   const int tid = threadIdx.x;
   const Params q(params, a_n);
-  load_params(q, a_n, s_l, s_g, s_h, tid, kDdThreads);
+  load_params<kCap>(q, a_n, s_l, s_g, s_h, tid, kDdThreads);
   for (int i = tid; i < a_n * w_pad; i += kDdThreads) {
     const int a = i / w_pad, w = i % w_pad;
     s_w[i] = w < n_cand ? weights[w * a_n + a] : 0.0f;
@@ -229,9 +328,9 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * kTileP;
   const uint32_t key = block_key(seed, first_block, b);
-  // this thread's (asset, path) item of the tile: A·16 <= 256 items
-  const int ia = tid / kTileP, ip = tid % kTileP;
-  const bool item = ia < a_n;
+  // this thread's (asset, path) items of the tile: item tid + r·256, asset
+  // item / 16, path item % 16
+  const int n_items = a_n * kTileP;
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -247,30 +346,46 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
     }
   }
   __syncthreads();
-  float var = item ? s_h[ia].z : 0.0f;  // the item's variance, from v0
+  float var[kIt];  // each item's variance, from v0
+#pragma unroll
+  for (int r = 0; r < kIt; ++r) {
+    const int item = tid + r * kDdThreads;
+    var[r] = item < n_items ? s_h[item / kTileP].z : 0.0f;
+  }
 
   constexpr int kPer = steps_per_call<kPolyStrict>();
   for (int s0 = 0; s0 < n_steps; s0 += kPer) {
     const int n = min(kPer, n_steps - s0);
-    float wa[4];
-    if (item) {
-      float za[4];
-      call_draws<kPolyStrict>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
-      call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, wa);
+    float wa[kIt][4];
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+    for (int r = 0; r < kIt; ++r) {
+      const int item = tid + r * kDdThreads;
+      if (item < n_items) {
+        const int ia = item / kTileP, ip = item % kTileP;
+        float za[4];
+        call_draws<kPolyStrict>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f, za);
+        call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, ia, p0 + ip, key, n, 0.0f, 0.0f,
+                                               wa[r]);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_z[(k * a_n + ia) * kTileP + ip] = za[k];
+      }
     }
     __syncthreads();
 
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       if (k >= n) continue;
-      if (item) {
-        float y = 0.0f;
-        for (int j = 0; j <= ia; ++j) {
-          y = __fadd_rn(y, __fmul_rn(s_l[ia * kHA + j], s_z[(k * a_n + j) * kTileP + ip]));
+#pragma unroll
+      for (int r = 0; r < kIt; ++r) {
+        const int item = tid + r * kDdThreads;
+        if (item < n_items) {
+          const int ia = item / kTileP, ip = item % kTileP;
+          float y = 0.0f;
+          for (int j = 0; j <= ia; ++j) {
+            y = __fadd_rn(y, __fmul_rn(s_l[ia * kCap + j], s_z[(k * a_n + j) * kTileP + ip]));
+          }
+          s_e[ia * kTileP + ip] = expf(heston_step(y, wa[r][k], s_g[ia], s_h[ia], &var[r]));
         }
-        s_e[ia * kTileP + ip] = expf(heston_step(y, wa[k], s_g[ia], s_h[ia], &var));
       }
       __syncthreads();
 
@@ -329,15 +444,29 @@ extern "C" {
 
 // Launches the terminal kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: ops/heston.py HestonTensors.packed, float32 on
-// the device. Output out: (n_blocks, block_paths, n_assets) float32. Returns
+// the device. Output out: (n_blocks, block_paths, n_assets) float32. wide:
+// nonzero runs the tile kernel of 17-64 assets at any width. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
 // the kernel does not take.
 int mcport_heston_terminal(long long seed, long long first_block, int n_blocks,
-                           int block_paths, int n_assets, int n_steps, const void* params,
-                           void* out, void* stream) {
-  if (n_assets < 1 || n_assets > kHA || n_blocks < 1 || n_blocks > 65535 ||
-      block_paths < 1 || n_steps < 0) {
+                           int block_paths, int n_assets, int n_steps, int wide,
+                           const void* params, void* out, void* stream) {
+  if (n_assets < 1 || n_assets > kMaxAssets || n_blocks < 1 || n_blocks > 65535 ||
+      block_paths < 1 || n_steps < 0 ||
+      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_assets > kHA || wide) {
+    const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+    const size_t smem = sizeof(float) * DdLayout(n_assets, 0, kMaxAssets).total;
+    auto kernel = heston_terminal_tile_kernel<kMaxAssets>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, block_paths, n_assets, n_steps, static_cast<const float*>(params),
+        static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
   heston_terminal_kernel<<<grid, kTermThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -349,27 +478,34 @@ int mcport_heston_terminal(long long seed, long long first_block, int n_blocks,
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: HestonTensors.packed; weights: (n_cand,
 // n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. Returns cudaGetLastError() after the launch, or
+// block_paths) float32. wide: nonzero runs the 64-asset instantiation at any
+// width. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
-                           int block_paths, int n_assets, int n_cand, int n_steps,
+                           int block_paths, int n_assets, int n_cand, int n_steps, int wide,
                            const void* params, const void* weights, void* term, void* dd,
                            void* stream) {
-  if (n_assets < 1 || n_assets > kHA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
-      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || kHA * kTileP > kDdThreads) {
+  if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
+      kHA * kTileP != tile_items<kHA>() * kDdThreads ||
+      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
-  cudaError_t err = cudaFuncSetAttribute(heston_dd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  heston_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      seed, first_block, block_paths, n_assets, n_cand, n_steps,
-      static_cast<const float*>(params), static_cast<const float*>(weights),
-      static_cast<float*>(term), static_cast<float*>(dd));
-  return static_cast<int>(cudaGetLastError());
+  wide = wide || n_assets > kHA;
+  const size_t smem =
+      sizeof(float) * DdLayout(n_assets, round4(n_cand), wide ? kMaxAssets : kHA).total;
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, block_paths, n_assets, n_cand, n_steps,
+        static_cast<const float*>(params), static_cast<const float*>(weights),
+        static_cast<float*>(term), static_cast<float*>(dd));
+    return static_cast<int>(cudaGetLastError());
+  };
+  return wide ? run(heston_dd_kernel<kMaxAssets>) : run(heston_dd_kernel<kHA>);
 }
 
 }  // extern "C"

@@ -2,10 +2,10 @@
 // paths on Hopper: per (candidate, path), the terminal simple return and the
 // maximum drawdown of per-period rebalanced wealth.
 //
-// Replaces mcport/ops/pallas_jump.py::_jump_dd_kernel (its unhedged mode), the
-// TPU kernel of path-risk --models jump and the jump drawdown frontier. The
-// plain torch form of the same function, on the same Philox counters, is
-// mcport_torch/ops/jump.py::merton_multi_dd_reference.
+// Replaces mcport/ops/pallas_jump.py::_jump_dd_kernel, both modes, the TPU
+// kernel of path-risk --models jump and the jump drawdown frontier, hedged or
+// not. The plain torch form of the same function, on the same Philox
+// counters, is mcport_torch/ops/jump.py::merton_multi_dd_reference.
 //
 // What it computes. For block b of a dispatch group and path p < block_paths,
 // step by step: draw z (gbm_draws.cuh, STREAM_GBM: kernel #3's shocks), x = m
@@ -16,7 +16,12 @@
 // assets: systemic jumps); then for every candidate w, V *= W_w·exp(x), peak =
 // max(peak, V), dd = min(dd, V/peak - 1) from V_0 = peak_0 = 1, dd_0 = 0. Out:
 // V_T - 1 and dd per (candidate, path). Scores are FP32 FMAs (mcport's
-// score_dot is float32).
+// score_dot is float32). Hedged (kHedged, mcport's hedged branch,
+// pallas_jump.py:100-120): each (asset, path) item carries its price P from
+// s0 in a register, P_new = P·exp(x) with the same jump clock, the item
+// writes hedged.cuh's settled return r_h(P, P_new) in place of exp(x), and
+// V *= 1 + W_w·r_h — multi_dd.cu's hedged step on the jumped increment,
+// its peak and dd carrying a NaN of overflowed wealth as multi_dd.cu's do.
 //
 // The diffusion and the score are multi_dd.cu's rebalanced float32 code,
 // copied operation for operation (and not shared through a header, which
@@ -44,6 +49,7 @@
 // valid counters) but never stored.
 
 #include "gbm_draws.cuh"
+#include "hedged.cuh"
 
 namespace {
 
@@ -55,8 +61,8 @@ constexpr int kItems = 4;           // (asset, path) items per thread: kMaxAsset
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct Layout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
-  int chol, mean, muj, sigj, w, z, e, ev, jn, total;
-  __host__ __device__ Layout(int a, int w_pad) {
+  int chol, mean, muj, sigj, w, z, e, ev, jn, hedge, total;
+  __host__ __device__ Layout(int a, int w_pad, int n_legs) {
     chol = 0;
     mean = round4(chol + a * a);
     muj = round4(mean + a);
@@ -66,19 +72,22 @@ struct Layout {  // offsets into dynamic shared memory, in floats, 16-byte align
     e = z + 4 * a * kTileP;
     ev = e + a * kTileP;
     jn = ev + 4 * kTileP;
-    total = jn + 4 * kTileP;
+    hedge = jn + 4 * kTileP;
+    total = hedge + (n_legs ? hedge_floats(a, n_legs) : 0);
   }
 };
 
+template <bool kHedged>
 __global__ void __launch_bounds__(kThreads, 2)
 jump_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-               int n_cand, int n_steps, float lam, const float* __restrict__ params,
-               const float* __restrict__ weights, float* __restrict__ term,
+               int n_cand, int n_steps, int n_legs, float lam,
+               const float* __restrict__ params, const float* __restrict__ weights,
+               const float* __restrict__ hedge, float* __restrict__ term,
                float* __restrict__ max_dd) {
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
-  const Layout lay(a_n, w_pad);
+  const Layout lay(a_n, w_pad, kHedged ? n_legs : 0);
   float* s_chol = smem + lay.chol;  // (A, A)
   float* s_mean = smem + lay.mean;  // (A,)
   float* s_muj = smem + lay.muj;    // (A,) jump means
@@ -88,9 +97,14 @@ jump_dd_kernel(long long seed, long long first_block, int block_paths, int n_ass
   float* s_e = smem + lay.e;        // (A, kTileP): exp(x)
   float* s_ev = smem + lay.ev;      // (4, kTileP): 1 on a jump step, else 0
   float* s_jn = smem + lay.jn;      // (4, kTileP): the steps' common jump normals
+  float* s_h = smem + lay.hedge;    // hedged: the hedge block (hedged.cuh)
 
   // params: ops/jump.py's block — L (A·A), then m, muJ, sigJ (A each)
   const int tid = threadIdx.x;
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(a_n, n_legs); i += kThreads) s_h[i] = hedge[i];
+  }
+  const HedgeBlock legs(s_h, a_n, n_legs);
   for (int i = tid; i < a_n * a_n; i += kThreads) s_chol[i] = params[i];
   for (int i = tid; i < a_n; i += kThreads) {
     s_mean[i] = params[a_n * a_n + i];
@@ -107,6 +121,12 @@ jump_dd_kernel(long long seed, long long first_block, int block_paths, int n_ass
   const uint32_t key = block_key(seed, first_block, b);
   constexpr int kPer = steps_per_call<kPoly>();
   const int n_items = a_n * kTileP;
+  float price[kItems];  // hedged: the price of this thread's (asset, path) items
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int item = tid + r * kThreads;
+    price[r] = (kHedged && item < n_items) ? hedge[item / kTileP] : 0.0f;
+  }
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -164,7 +184,13 @@ jump_dd_kernel(long long seed, long long first_block, int block_paths, int n_ass
           if (s_ev[k * kTileP + p] != 0.0f) {
             x = __fadd_rn(x, __fadd_rn(s_muj[a], __fmul_rn(s_sigj[a], s_jn[k * kTileP + p])));
           }
-          s_e[item] = expf(x);
+          if (kHedged) {  // the settled return of the move P -> P·exp(x)
+            const float p_new = price[r] * expf(x);
+            s_e[item] = hedged_return(legs, a, price[r], p_new);
+            price[r] = p_new;
+          } else {
+            s_e[item] = expf(x);
+          }
         }
       }
       __syncthreads();
@@ -191,9 +217,14 @@ jump_dd_kernel(long long seed, long long first_block, int block_paths, int n_ass
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            v[i][j] = v[i][j] * f[i][j];
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            v[i][j] = kHedged ? v[i][j] * (1.0f + f[i][j]) : v[i][j] * f[i][j];
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -226,29 +257,34 @@ extern "C" {
 // params: ops/jump.py's block — L (n_assets, n_assets) row-major, then the
 // per-step mean, jump mean and jump vol (n_assets each); weights: (n_cand,
 // n_assets); float32 on the device. lam: the per-step jump probability as a
-// float32. Outputs term and dd: (n_blocks, n_cand, block_paths) float32.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// arguments the kernel does not take.
+// float32. hedge: ops/hedged.py HedgeTensors.packed for n_legs legs per
+// asset, or null (n_legs 0) for the unhedged mode. Outputs term and dd:
+// (n_blocks, n_cand, block_paths) float32. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments the kernel does not take
+// (among them a hedge too large for a block's shared memory).
 int mcport_merton_multi_dd(long long seed, long long first_block, int n_blocks,
-                           int block_paths, int n_assets, int n_cand, int n_steps, float lam,
-                           const void* params, const void* weights, void* term, void* dd,
-                           void* stream) {
+                           int block_paths, int n_assets, int n_cand, int n_steps, int n_legs,
+                           float lam, const void* params, const void* weights,
+                           const void* hedge, void* term, void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
-      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
-      kMaxAssets * kTileP > kItems * kThreads) {
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
+      (n_legs > 0 && hedge == nullptr) || kMaxAssets * kTileP > kItems * kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem = sizeof(float) * Layout(n_assets, round4(n_cand)).total;
-  cudaError_t err = cudaFuncSetAttribute(jump_dd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  jump_dd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      seed, first_block, block_paths, n_assets, n_cand, n_steps, lam,
-      static_cast<const float*>(params), static_cast<const float*>(weights),
-      static_cast<float*>(term), static_cast<float*>(dd));
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = sizeof(float) * Layout(n_assets, round4(n_cand), n_legs).total;
+  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, block_paths, n_assets, n_cand, n_steps, n_legs, lam,
+        static_cast<const float*>(params), static_cast<const float*>(weights),
+        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
+    return static_cast<int>(cudaGetLastError());
+  };
+  return n_legs ? run(jump_dd_kernel<true>) : run(jump_dd_kernel<false>);
 }
 
 }  // extern "C"

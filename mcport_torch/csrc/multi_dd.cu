@@ -2,19 +2,28 @@
 // on Hopper: per (candidate, path), the terminal simple return and the maximum
 // drawdown.
 //
-// Replaces mcport/ops/pallas_multi_dd.py::_multi_dd_kernel (its unhedged
-// modes), the TPU kernel of the drawdown-frontier main path. The plain torch
-// form of the same function, on the same Philox counters, is
-// mcport_torch/ops/multi_dd.py::multi_dd_reference.
+// Replaces mcport/ops/pallas_multi_dd.py::_multi_dd_kernel, its three modes,
+// the TPU kernel of the drawdown-frontier main path and of hedged GBM path
+// risk. The plain torch form of the same function, on the same Philox
+// counters, is mcport_torch/ops/multi_dd.py::multi_dd_reference.
 //
 // What it computes. For block b of a dispatch group and path p < block_paths,
 // step by step: draw z (gbm_draws.cuh: the same shocks as terminal_noise.cu and
 // path_stats.cu), x = m + L z, logS += x; then for every candidate w
 //   buy-and-hold:  V_t = W_w · exp(logS)
 //   rebalanced:    V_t = V_{t-1} · W_w · exp(x)
+//   hedged:        P_t = P_{t-1} · exp(x) from P_0 = s0, and
+//                  V_t = V_{t-1} · (1 + W_w · r_h(P_{t-1}, P_t))
 // with V_0 = peak_0 = 1, dd_0 = 0, peak = max(peak, V), dd = min(dd, V/peak -
 // 1). Out: V_T - 1 and dd per (candidate, path). With one candidate this is
-// path_stats.cu's (port, dd), operation for operation.
+// path_stats.cu's (port, dd), operation for operation. r_h is hedged.cuh's
+// per-step option settlement (mcport's hedged branch, pallas_multi_dd.py:
+// 143-175): the price P replaces logS in the same registers, and the settled
+// returns replace exp(x) in the shared tile the candidates score. The shocks
+// are the unhedged modes' (the same counters), so a hedge of one BUY_ASSET leg
+// per asset is the rebalanced mode up to rounding. Hedged wealth can overflow
+// float32 (an in-the-money leg pays every step): then V = inf, V/peak = NaN,
+// and peak and dd carry the NaN as torch.maximum/minimum do (hedged.cuh).
 //
 // Score tiers (the per-step product W·e), mcport's numerics:
 //   float32        FP32 FMAs;
@@ -46,6 +55,7 @@
 // valid counters) but never stored.
 
 #include "gbm_draws.cuh"
+#include "hedged.cuh"
 
 namespace {
 
@@ -55,6 +65,7 @@ constexpr int kMaxCand = 256;       // ops/multi_dd.py MAX_CANDIDATES
 constexpr int kItems = 4;           // (asset, path) items per thread: kMaxAssets·kTileP / kThreads
 
 enum Score { kF32 = 0, kSplit = 1, kBf16 = 2 };
+enum Mode { kHold = 0, kRebal = 1, kHedged = 2 };
 
 // float → the nearest bfloat16 (ties to even), returned as a float; torch's
 // float32 → bfloat16 conversion for finite values.
@@ -67,8 +78,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
 struct Layout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
-  int chol, mean, w1, w2, z, e1, e2, total;
-  __host__ __device__ Layout(int a, int w_pad, bool split) {
+  int chol, mean, w1, w2, z, e1, e2, hedge, total;
+  __host__ __device__ Layout(int a, int w_pad, bool split, int n_legs) {
     chol = 0;
     mean = round4(chol + a * a);
     w1 = round4(mean + a);
@@ -76,21 +87,23 @@ struct Layout {  // offsets into dynamic shared memory, in floats, 16-byte align
     z = w2 + (split ? a * w_pad : 0);
     e1 = z + 4 * a * kTileP;
     e2 = e1 + a * kTileP;
-    total = e2 + (split ? a * kTileP : 0);
+    hedge = e2 + (split ? a * kTileP : 0);
+    total = hedge + (n_legs ? hedge_floats(a, n_legs) : 0);
   }
 };
 
-template <int kTier, bool kRebal, int kScore>
+template <int kTier, int kMode, int kScore>
 __global__ void __launch_bounds__(kThreads, 2)
 multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-                int n_cand, int n_steps, float df, float neg2_over_df,
+                int n_cand, int n_steps, int n_legs, float df, float neg2_over_df,
                 const float* __restrict__ chol, const float* __restrict__ mean,
-                const float* __restrict__ weights, float* __restrict__ term,
-                float* __restrict__ max_dd) {
+                const float* __restrict__ weights, const float* __restrict__ hedge,
+                float* __restrict__ term, float* __restrict__ max_dd) {
+  constexpr bool kRebalanced = kMode == kRebal;
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
-  const Layout lay(a_n, w_pad, kScore == kSplit);
+  const Layout lay(a_n, w_pad, kScore == kSplit, kMode == kHedged ? n_legs : 0);
   float* s_chol = smem + lay.chol;  // (A, A)
   float* s_mean = smem + lay.mean;  // (A,)
   float* s_w1 = smem + lay.w1;      // (A, w_pad): score weights, or their bf16 high part
@@ -98,8 +111,13 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   float* s_z = smem + lay.z;        // (4, A, kTileP): the shocks of one Philox call
   float* s_e1 = smem + lay.e1;      // (A, kTileP): exp(logS) or exp(x), or its high part
   float* s_e2 = smem + lay.e2;      // (A, kTileP): the split tier's low part
+  float* s_h = smem + lay.hedge;    // hedged: the hedge block (hedged.cuh)
 
   const int tid = threadIdx.x;
+  if (kMode == kHedged) {
+    for (int i = tid; i < hedge_floats(a_n, n_legs); i += kThreads) s_h[i] = hedge[i];
+  }
+  const HedgeBlock legs(s_h, a_n, n_legs);
   for (int i = tid; i < a_n * a_n; i += kThreads) s_chol[i] = chol[i];
   for (int i = tid; i < a_n; i += kThreads) s_mean[i] = mean[i];
   for (int i = tid; i < a_n * w_pad; i += kThreads) {
@@ -120,9 +138,12 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   constexpr int kPer = steps_per_call<kTier>();
   const int n_items = a_n * kTileP;
 
-  float acc[kItems];  // logS of this thread's (asset, path) items
+  float acc[kItems];  // logS of this thread's (asset, path) items; hedged, their price
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < kItems; ++r) {
+    const int item = tid + r * kThreads;
+    acc[r] = (kMode == kHedged && item < n_items) ? hedge[item / kTileP] : 0.0f;
+  }
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -165,8 +186,15 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
             y = fmaf(s_chol[a * a_n + j], s_z[(k * a_n + j) * kTileP + p], y);
           }
           const float x = s_mean[a] + y;
-          acc[r] += x;
-          const float e = expf(kRebal ? x : acc[r]);
+          float e;
+          if (kMode == kHedged) {  // the settled return of the move P -> P·exp(x)
+            const float p_new = acc[r] * expf(x);
+            e = hedged_return(legs, a, acc[r], p_new);
+            acc[r] = p_new;
+          } else {
+            acc[r] += x;
+            e = expf(kRebalanced ? x : acc[r]);
+          }
           if (kScore == kF32) {
             s_e1[item] = e;
           } else {
@@ -214,9 +242,16 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            v[i][j] = kRebal ? v[i][j] * f[i][j] : f[i][j];
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            v[i][j] = kMode == kHedged ? v[i][j] * (1.0f + f[i][j])
+                      : kRebalanced    ? v[i][j] * f[i][j]
+                                       : f[i][j];
+            if (kMode == kHedged) {  // wealth may overflow: NaN carries on
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -224,7 +259,7 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
     }
   }
 
-  if (!kRebal) {
+  if (kMode == kHold) {
     // the terminal return is the FP32 score of the terminal state in every
     // tier (Σ w when n_steps == 0): exp(logS) to shared memory once more
 #pragma unroll
@@ -266,55 +301,57 @@ multi_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   }
 }
 
-template <int kTier, bool kRebal, int kScore>
-int launch(dim3 grid, size_t smem, cudaStream_t s, long long seed, long long first_block,
-           int block_paths, int n_assets, int n_cand, int n_steps, float df,
-           float neg2_over_df, const float* chol, const float* mean, const float* w,
-           float* term, float* dd) {
-  auto kernel = multi_dd_kernel<kTier, kRebal, kScore>;
+// The launch's arguments, passed down the dispatch on (tier, mode, score).
+struct Args {
+  dim3 grid;
+  size_t smem;
+  cudaStream_t s;
+  long long seed, first_block;
+  int block_paths, n_assets, n_cand, n_steps, n_legs;
+  float df, neg2_over_df;
+  const float *chol, *mean, *w, *hedge;
+  float *term, *dd;
+};
+
+template <int kTier, int kMode, int kScore>
+int launch(const Args& g) {
+  auto kernel = multi_dd_kernel<kTier, kMode, kScore>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         static_cast<int>(g.smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, s>>>(seed, first_block, block_paths, n_assets, n_cand,
-                                      n_steps, df, neg2_over_df, chol, mean, w, term, dd);
+  kernel<<<g.grid, kThreads, g.smem, g.s>>>(g.seed, g.first_block, g.block_paths, g.n_assets,
+                                            g.n_cand, g.n_steps, g.n_legs, g.df,
+                                            g.neg2_over_df, g.chol, g.mean, g.w, g.hedge,
+                                            g.term, g.dd);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kTier, bool kRebal>
-int launch_score(int score, dim3 grid, size_t smem, cudaStream_t s, long long seed,
-                 long long first_block, int block_paths, int n_assets, int n_cand,
-                 int n_steps, float df, float neg2_over_df, const float* chol,
-                 const float* mean, const float* w, float* term, float* dd) {
+template <int kTier, int kMode>
+int launch_score(int score, const Args& g) {
   switch (score) {
     case kF32:
-      return launch<kTier, kRebal, kF32>(grid, smem, s, seed, first_block, block_paths,
-                                         n_assets, n_cand, n_steps, df, neg2_over_df, chol,
-                                         mean, w, term, dd);
+      return launch<kTier, kMode, kF32>(g);
     case kSplit:
-      return launch<kTier, kRebal, kSplit>(grid, smem, s, seed, first_block, block_paths,
-                                           n_assets, n_cand, n_steps, df, neg2_over_df,
-                                           chol, mean, w, term, dd);
+      return launch<kTier, kMode, kSplit>(g);
     case kBf16:
-      return launch<kTier, kRebal, kBf16>(grid, smem, s, seed, first_block, block_paths,
-                                          n_assets, n_cand, n_steps, df, neg2_over_df, chol,
-                                          mean, w, term, dd);
+      return launch<kTier, kMode, kBf16>(g);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int kTier>
-int launch_mode(bool rebalance, int score, dim3 grid, size_t smem, cudaStream_t s,
-                long long seed, long long first_block, int block_paths, int n_assets,
-                int n_cand, int n_steps, float df, float neg2_over_df, const float* chol,
-                const float* mean, const float* w, float* term, float* dd) {
-  return rebalance
-             ? launch_score<kTier, true>(score, grid, smem, s, seed, first_block, block_paths,
-                                         n_assets, n_cand, n_steps, df, neg2_over_df, chol,
-                                         mean, w, term, dd)
-             : launch_score<kTier, false>(score, grid, smem, s, seed, first_block,
-                                          block_paths, n_assets, n_cand, n_steps, df,
-                                          neg2_over_df, chol, mean, w, term, dd);
+int launch_mode(int mode, int score, const Args& g) {
+  switch (mode) {
+    case kHold:
+      return launch_score<kTier, kHold>(score, g);
+    case kRebal:
+      return launch_score<kTier, kRebal>(score, g);
+    case kHedged:
+      return launch_score<kTier, kHedged>(score, g);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -323,43 +360,52 @@ extern "C" {
 
 // Launches the kernel on `stream` for blocks first_block+1 .. first_block+n_blocks.
 // chol: (n_assets, n_assets), mean: (n_assets,), weights: (n_cand, n_assets),
-// float32 row-major on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. tier: 0 poly, 1 poly_fast, 2 Student-t (df,
-// neg2_over_df = -2/df used only then); rebalance: 0 buy-and-hold, 1
-// rebalanced every step; score: 0 float32, 1 tensorfloat32 (bf16 split), 2
-// bfloat16. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// float32 row-major on the device; hedge: ops/hedged.py HedgeTensors.packed
+// for n_legs legs per asset (read only in the hedged mode). Outputs term and
+// dd: (n_blocks, n_cand, block_paths) float32. tier: 0 poly, 1 poly_fast, 2
+// Student-t (df, neg2_over_df = -2/df used only then); mode: 0 buy-and-hold,
+// 1 rebalanced every step, 2 hedged per-step settlement; score: 0 float32, 1
+// tensorfloat32 (bf16 split), 2 bfloat16. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments the kernel does not take
+// (among them a hedge too large for a block's shared memory).
 int mcport_multi_dd(long long seed, long long first_block, int n_blocks, int block_paths,
-                    int n_assets, int n_cand, int n_steps, int tier, int rebalance, int score,
-                    float df, float neg2_over_df, const void* chol, const void* mean,
-                    const void* weights, void* term, void* dd, void* stream) {
+                    int n_assets, int n_cand, int n_steps, int tier, int mode, int score,
+                    int n_legs, float df, float neg2_over_df, const void* chol,
+                    const void* mean, const void* weights, const void* hedge, void* term,
+                    void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
       n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
-      kMaxAssets * kTileP > kItems * kThreads) {
+      kMaxAssets * kTileP > kItems * kThreads || (mode == kHedged && n_legs < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem =
-      sizeof(float) * Layout(n_assets, round4(n_cand), score == kSplit).total;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(chol);
-  const float* m = static_cast<const float*>(mean);
-  const float* w = static_cast<const float*>(weights);
-  float* t = static_cast<float*>(term);
-  float* d = static_cast<float*>(dd);
-  const bool rebal = rebalance != 0;
+  Args g;
+  g.grid = dim3((block_paths + kTileP - 1) / kTileP, n_blocks);
+  g.smem = sizeof(float) * Layout(n_assets, round4(n_cand), score == kSplit,
+                                  mode == kHedged ? n_legs : 0).total;
+  if (g.smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  g.s = static_cast<cudaStream_t>(stream);
+  g.seed = seed;
+  g.first_block = first_block;
+  g.block_paths = block_paths;
+  g.n_assets = n_assets;
+  g.n_cand = n_cand;
+  g.n_steps = n_steps;
+  g.n_legs = mode == kHedged ? n_legs : 0;
+  g.df = df;
+  g.neg2_over_df = neg2_over_df;
+  g.chol = static_cast<const float*>(chol);
+  g.mean = static_cast<const float*>(mean);
+  g.w = static_cast<const float*>(weights);
+  g.hedge = static_cast<const float*>(hedge);
+  g.term = static_cast<float*>(term);
+  g.dd = static_cast<float*>(dd);
   switch (tier) {
     case kPoly:
-      return launch_mode<kPoly>(rebal, score, grid, smem, s, seed, first_block, block_paths,
-                                n_assets, n_cand, n_steps, df, neg2_over_df, l, m, w, t, d);
+      return launch_mode<kPoly>(mode, score, g);
     case kPolyFast:
-      return launch_mode<kPolyFast>(rebal, score, grid, smem, s, seed, first_block,
-                                    block_paths, n_assets, n_cand, n_steps, df, neg2_over_df,
-                                    l, m, w, t, d);
+      return launch_mode<kPolyFast>(mode, score, g);
     case kStudentT:
-      return launch_mode<kStudentT>(rebal, score, grid, smem, s, seed, first_block,
-                                    block_paths, n_assets, n_cand, n_steps, df, neg2_over_df,
-                                    l, m, w, t, d);
+      return launch_mode<kStudentT>(mode, score, g);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

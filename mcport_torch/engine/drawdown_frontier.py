@@ -32,8 +32,15 @@ CPU generator that draws the path key and the seed of the weights' device
 generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 (mcport: 128, its VMEM tile); "auto" never screens and there is no
 ``auto_bf16_min_work``; on the CPU the plain form honours the score tiers
-(mcport's lax path ignores them). Not ported yet (raises
-``NotImplementedError``): hedged scoring.
+(mcport's lax path ignores them).
+
+``hedge`` (a :class:`mcport_torch.options.hedged.HedgeSpec`) scores every
+candidate on hedged per-step settlement against the prices from the spots —
+always the settled recursion ``V *= 1 + w·r_h`` (mcport: buy-and-hold of an
+intrinsic-settled position is not defined mid-path) — for GBM and, in the
+family search, "jump". Not ported yet (raises ``NotImplementedError``): the
+hedged GARCH, DCC, Heston and bootstrap frontiers (their kernels' hedged
+modes, ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -45,10 +52,12 @@ import numpy as np
 import torch
 
 from mcport_torch.device import resolve_device
+from mcport_torch.engine.path_risk import check_hedged_family
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.dirichlet import sample_weights
+from mcport_torch.ops.hedged import HedgeTensors
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.heston import heston_multi_portfolio_dd
 from mcport_torch.ops.jump import merton_multi_portfolio_dd
@@ -101,7 +110,10 @@ def _result(w: torch.Tensor, valid: np.ndarray, ret: np.ndarray, dd_p95: np.ndar
 
 
 def _tail_stats(term: torch.Tensor, dd: torch.Tensor, k_tail: int):
-    """(mean terminal return, k-th smallest drawdown) per candidate row."""
+    """(mean terminal return, k-th smallest drawdown) per candidate row. A NaN
+    drawdown (hedged wealth that overflowed) ranks as the worst, as in
+    mcport's ``top_k(-dd)``: ``kthvalue`` alone would rank it the best."""
+    dd = torch.nan_to_num(dd, nan=-math.inf)
     return term.mean(dim=-1), torch.kthvalue(dd, k_tail, dim=-1).values
 
 
@@ -133,12 +145,11 @@ def drawdown_frontier_search(
     ``score_dtype``: "float32", "tensorfloat32" (mcport's bf16 split),
     "bfloat16" (screen plus exact rescore of up to ``rescore_top`` leaders per
     round until the winner is exact) or "auto" (float32). ``rebalance`` scores
-    per-step-rebalanced candidates; ``t_df`` Student-t shocks; ``bm`` the
-    normal tier of both screen and rescore.
+    per-step-rebalanced candidates; ``hedge`` (a HedgeSpec) hedged per-step
+    settlement against the prices from ``params.s0`` (the bf16 screen's margin
+    then widens as rebalanced); ``t_df`` Student-t shocks; ``bm`` the normal
+    tier of both screen and rescore.
     """
-    if hedge is not None:
-        raise NotImplementedError("hedged drawdown frontier is not ported to "
-                                  "mcport_torch yet")
     dev = resolve_device(device)
     a = params.n_assets
     min_w = np.zeros(a) if min_weights is None else np.asarray(min_weights, np.float64)
@@ -154,12 +165,14 @@ def drawdown_frontier_search(
     w, valid = sample_weights(gen, n_candidates, min_w, max_w)
     mean = torch.as_tensor(params.mean_step).to(dev, torch.float32)
     chol = torch.as_tensor(params.chol_step).to(dev, torch.float32)
+    legs = None if hedge is None else HedgeTensors.from_spec(
+        hedge, torch.as_tensor(params.s0).cpu().numpy(), dev)
     k_tail = max(1, math.ceil((1.0 - alpha) * n_paths))
 
     def score(w_blk: torch.Tensor, tier: str):
         term, dd = gbm_multi_portfolio_dd(path_seed, mean, chol, w_blk, n_paths, n_steps,
                                           rebalance=rebalance, score_dtype=tier,
-                                          t_df=t_df, bm=bm)
+                                          t_df=t_df, bm=bm, hedge=legs)
         return _tail_stats(term[0], dd[0], k_tail)
 
     chunks = [score(w[i:i + block], score_dtype) for i in range(0, n_candidates, block)]
@@ -173,9 +186,11 @@ def drawdown_frontier_search(
         # within `margin` of the budget (mcport's pinned bf16 perturbation
         # bound, widened as sqrt(T) when rebalancing compounds it). The
         # feasible set lies inside this pool, so rescoring batches until the
-        # winner itself is exact keeps the optimum exact.
+        # winner itself is exact keeps the optimum exact. Hedged scoring
+        # compounds per step like rebalancing: the same widening.
         margin = BF16_DD_ERR_BOUND + (
-            BF16_DD_ERR_REBAL_COEF * math.sqrt(n_steps) if rebalance else 0.0)
+            BF16_DD_ERR_REBAL_COEF * math.sqrt(n_steps)
+            if rebalance or hedge is not None else 0.0)
         pool = np.nonzero(valid_np & (dd_p95 >= -(budget + margin)))[0]
         rescored: set[int] = set()
         while pool.size:
@@ -232,13 +247,15 @@ def family_drawdown_frontier_search(
     (``model_params`` the (T, A) history of simple returns, ``p_restart`` its
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
-    path stream."""
+    path stream. ``hedge`` (a HedgeSpec) with the spots ``s0``: hedged
+    per-step settlement, "jump" only."""
     if model not in ("garch", "dcc", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
     if hedge is not None:
-        raise NotImplementedError("hedged drawdown frontier is not ported to "
-                                  "mcport_torch yet")
+        check_hedged_family(model, "drawdown frontier")
+    if hedge is not None and s0 is None:
+        raise ValueError("hedged family frontier requires s0 (asset prices)")
     dev = resolve_device(device)
     block = min(w_block, n_candidates)
     if not 1 <= block <= MAX_CANDIDATES:
@@ -259,10 +276,12 @@ def family_drawdown_frontier_search(
         d, a = model_params.diffusion, model_params.n_assets
         mean, chol, muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (
             d.mean_step, d.chol_step, model_params.jump_mean, model_params.jump_vol))
+        legs = None if hedge is None else HedgeTensors.from_spec(
+            hedge, np.asarray(torch.as_tensor(s0).cpu(), np.float64), dev)
 
         def score(w_blk):
             return merton_multi_portfolio_dd(path_seed, mean, chol, model_params.jump_rate,
-                                             muj, sigj, w_blk, n_paths, n_steps)
+                                             muj, sigj, w_blk, n_paths, n_steps, hedge=legs)
     elif model == "heston":
         h = model_params.tensors(dev)
         a = model_params.n_assets

@@ -15,8 +15,14 @@ blocks were grouped. The histogram counts are int64.
 The run digest carries the backend tag ``torch-philox``: the port and mcport
 draw different streams, so neither resumes the other's checkpoint.
 
-Not ported yet (raise ``NotImplementedError``): hedged settlement, bootstrap
-error bars (``ci_boot > 0``) and ``run_resumable_mc_with_recovery``.
+``hedge`` (a :class:`mcport_torch.options.hedged.HedgeSpec`) settles the
+portfolio's option legs at intrinsic value against the simulated terminal
+prices ``s0 · exp(term)`` (mcport's terminal composition, an elementwise
+transform after the kernel); the asset moments stay the plain log-return
+moments. The hedge's bytes and the spots enter the run digest.
+
+Not ported yet (raise ``NotImplementedError``): bootstrap error bars
+(``ci_boot > 0``) and ``run_resumable_mc_with_recovery``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from mcport_torch.config import GBMConfig, SketchConfig
 from mcport_torch.device import resolve_device
 from mcport_torch.models.gbm import GBMParams, portfolio_terminal_returns
 from mcport_torch.ops.gbm import block_terminal_log_returns
+from mcport_torch.options.hedged import auto_hedged_sketch, hedged_terminal_returns
 from mcport_torch.ops.quantile import (
     MomentState,
     auto_sketch,
@@ -57,9 +64,10 @@ def _host_f64(x) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, np.float64))
 
 
-def _run_digest(params: GBMParams, weights, config: GBMConfig) -> str:
+def _run_digest(params: GBMParams, weights, config: GBMConfig, hedge=None) -> str:
     """Binds a checkpoint to its computation: parameters, weights, seed, grid,
-    sampler tier and the backend. Resuming anything else is refused."""
+    sampler tier, the hedge (mcport's ``hedge|`` bytes, then the spots it
+    settles against) and the backend. Resuming anything else is refused."""
     h = hashlib.sha256()
     for arr in (params.mean_step, params.chol_step, weights):
         h.update(_host_f64(arr).tobytes())
@@ -68,6 +76,9 @@ def _run_digest(params: GBMParams, weights, config: GBMConfig) -> str:
              f"{config.innovations}|{config.t_dof}".encode())
     if config.bm != "poly" and config.innovations != "student_t":
         h.update(f"|bm={config.bm}".encode())
+    if hedge is not None:
+        h.update(b"hedge|" + hedge.digest_bytes())
+        h.update(_host_f64(params.s0).tobytes())
     h.update(f"|backend={BACKEND_TAG}".encode())
     return h.hexdigest()
 
@@ -163,15 +174,16 @@ def run_resumable_mc(
     """Run (or resume) a chunked MC risk computation on ``device``.
 
     ``sketch=None`` derives the covering log1p sketch from the parameters
-    (:func:`mcport_torch.ops.quantile.auto_sketch`); a resumed run reuses the
-    checkpoint's. ``max_blocks`` bounds this call's work; pass the returned
-    checkpoint (or its saved file) to continue. ``DISPATCH_BLOCKS`` blocks go
+    (:func:`mcport_torch.ops.quantile.auto_sketch`), or hedged the exact
+    linear one (:func:`mcport_torch.options.hedged.auto_hedged_sketch`); a
+    resumed run reuses the checkpoint's. ``hedge`` makes the portfolio's tail
+    statistics hedged (the module docstring). ``max_blocks`` bounds this
+    call's work; pass the returned checkpoint (or its saved file) to
+    continue. ``DISPATCH_BLOCKS`` blocks go
     to the device in one kernel launch; grouping never changes results.
     ``config.use_pallas`` is not read: on a CUDA device the kernel always
     runs, on the CPU its plain torch form.
     """
-    if hedge is not None:
-        raise NotImplementedError("hedged settlement is not ported to mcport_torch yet")
     if config.ci_boot > 0:
         raise NotImplementedError("bootstrap error bars (ci_boot > 0) are not "
                                   "ported to mcport_torch yet")
@@ -183,9 +195,14 @@ def run_resumable_mc(
     n_blocks = config.n_paths // block_paths
     t_df = config.t_dof if config.innovations == "student_t" else None
 
-    digest = _run_digest(params, weights, config)
+    digest = _run_digest(params, weights, config, hedge)
     if checkpoint is None:
-        if sketch is None:
+        if sketch is None and hedge is not None:
+            w_np = _host_f64(weights)
+            sketch = auto_hedged_sketch(params, config.n_steps, hedge,
+                                        weights=w_np if (w_np >= 0).all() else None,
+                                        t_dof=t_df)
+        elif sketch is None:
             sketch = auto_sketch(params.mean_step, params.chol_step, config.n_steps,
                                  t_dof=t_df)
         ck = MCCheckpoint(
@@ -224,6 +241,8 @@ def run_resumable_mc(
                           on_dev(ck.sum_c), on_dev(ck.outer), on_dev(ck.outer_c))
     hist = on_dev(np.asarray(ck.hist), torch.int64)
     port_sum = on_dev(ck.port_sum)
+    if hedge is not None:
+        s0, legs = on_dev(params.s0), hedge.tensors(dev, torch.float64)
 
     start = ck.next_block
     stop = n_blocks if max_blocks is None else min(n_blocks, start + max_blocks)
@@ -235,7 +254,10 @@ def run_resumable_mc(
             first_block=b, n_blocks=group, antithetic=config.antithetic,
             t_df=t_df, bm=config.bm)
         for term in terms.to(dtype):
-            port = portfolio_terminal_returns(term, w)
+            if hedge is not None:   # the legs settle against s0 · exp(term)
+                port = hedged_terminal_returns(term, s0, *legs) @ w
+            else:
+                port = portfolio_terminal_returns(term, w)
             moments = update_moments(moments, term, shift=shift)
             hist = hist + histogram(port, sketch)
             port_sum = port_sum + port.sum()

@@ -2,8 +2,9 @@
 GBM, CCC-GARCH, DCC-GARCH, common-jump Merton, Heston and stationary-bootstrap
 paths.
 
-Port of ``mcport/engine/path_risk.py``, its unhedged branches. Each family
-has a block function (mcport's ``_block_fn_for``) that evolves every path of
+Port of ``mcport/engine/path_risk.py``: every family unhedged, and hedged
+per-step settlement for "gbm", "student_t" and "jump". Each family has a
+block function (mcport's ``_block_fn_for``) that evolves every path of
 a dispatch group on its kernel and returns the portfolio's terminal return
 and maximum drawdown per path:
 
@@ -42,8 +43,16 @@ families always compound per-period rebalanced wealth.
 The bootstrap's default terminal sketch is the covering log1p range of its
 history.
 
-Not ported yet (raise ``NotImplementedError``): hedged settlement, quasi-MC
-paths (``qmc``), bootstrap error bars (``ci_boot``) and
+``hedge`` (a :class:`mcport_torch.options.hedged.HedgeSpec`) settles the
+option legs at intrinsic value every simulated step against the prices from
+the spots ``s0`` and compounds ``V *= 1 + w·r_h`` (mcport's hedged branches):
+"gbm" and "student_t" score the one portfolio on the multi-dd kernel's hedged
+mode, "jump" on the jump kernel's. The hedge's bytes and the spots enter the
+checkpoint digest.
+
+Not ported yet (raise ``NotImplementedError``): hedged "garch", "dcc",
+"heston" and "bootstrap" (their kernels' hedged modes, ROADMAP.md Queue 2),
+quasi-MC paths (``qmc``), bootstrap error bars (``ci_boot``) and
 ``run_resumable_path_risk_with_recovery``.
 """
 
@@ -71,11 +80,12 @@ from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
 from mcport_torch.ops.heston import heston_multi_portfolio_dd
 from mcport_torch.ops.jump import merton_multi_portfolio_dd
-from mcport_torch.ops.multi_dd import multi_dd_from_log_paths
+from mcport_torch.ops.hedged import HedgeTensors
+from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd, multi_dd_from_log_paths
 from mcport_torch.ops.path_stats import gbm_path_stats
 from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
 
-__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES",
+__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "HEDGED_FAMILIES", "check_hedged_family",
            "PathRiskReport", "PathRiskCheckpoint", "run_path_risk", "run_garch_path_risk",
            "run_dcc_path_risk", "run_merton_path_risk", "run_heston_path_risk",
            "run_bootstrap_path_risk", "run_resumable_path_risk",
@@ -90,6 +100,8 @@ DISPATCH_BLOCKS = 16
 
 #: mcport's path families
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
+#: the families whose hedged per-step settlement is ported
+HEDGED_FAMILIES = ("gbm", "student_t", "jump")
 
 
 @dataclass(frozen=True)
@@ -169,10 +181,11 @@ def _host_f64(x) -> np.ndarray:
 
 
 def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: bool,
-            p_restart: float) -> str:
+            p_restart: float, hedge=None, s0=None) -> str:
     """Binds a checkpoint to its computation: family, its parameter arrays,
-    weights, seed, grid, shock law, rebalancing, normal tier and the backend
-    (mcport's ``_model_digest`` fields, with the port's stream tag)."""
+    weights, the spots, seed, grid, shock law, rebalancing, normal tier, the
+    hedge and the backend (mcport's ``_model_digest`` fields, with the port's
+    stream tag)."""
     h = hashlib.sha256(model.encode())
     if model in ("gbm", "student_t"):
         arrays = (model_params.mean_step, model_params.chol_step, model_params.s0)
@@ -192,19 +205,31 @@ def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: boo
         arrays = (p.mu, p.kappa, p.theta, p.xi, p.rho, p.v0, p.corr_chol, p.s0)
     else:
         arrays = (model_params, [p_restart])
-    for arr in (*arrays, weights):
+    for arr in (*arrays, weights) + (() if s0 is None else (s0,)):
         h.update(_host_f64(arr).tobytes())
     h.update(f"{config.seed}|{config.n_steps}|{config.n_paths}|{config.path_block}|"
              f"{config.innovations}|{config.t_dof}|{rebalance}|{BACKEND_TAG}".encode())
     t_active = config.innovations == "student_t" or model == "student_t"
     if config.bm != "poly" and not t_active:
         h.update(f"|bm={config.bm}".encode())
+    if hedge is not None:
+        h.update(b"hedge|" + hedge.digest_bytes())
     return h.hexdigest()
 
 
-def _check_unported(config: GBMConfig, hedge) -> None:
+def check_hedged_family(model: str, what: str = "path risk") -> None:
+    """Raise ``NotImplementedError`` naming ``model`` unless its hedged
+    per-step settlement is ported (``HEDGED_FAMILIES``)."""
+    if model not in HEDGED_FAMILIES:
+        raise NotImplementedError(
+            f"hedged {model} {what} is not ported to mcport_torch yet (its kernel's "
+            f"hedged mode, ROADMAP.md Queue 2); hedged runs take "
+            f"{', '.join(HEDGED_FAMILIES)}")
+
+
+def _check_unported(config: GBMConfig, hedge=None, model: str = "gbm") -> None:
     if hedge is not None:
-        raise NotImplementedError("hedged path risk is not ported to mcport_torch yet")
+        check_hedged_family(model)
     if config.qmc != "none":
         raise NotImplementedError("quasi-MC path risk is not ported to mcport_torch yet")
     if config.ci_boot > 0:
@@ -234,18 +259,28 @@ def stats_from_log_paths(paths: torch.Tensor, weights: torch.Tensor,
 
 
 def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: bool,
-              p_restart: float, dev: torch.device):
+              p_restart: float, dev: torch.device, hedge=None, s0=None):
     """``(block_fn, default_sketch)`` for ``model`` — mcport's
     ``_block_fn_for``. ``block_fn(first_block, n_blocks)`` launches one
     dispatch group and returns ``(port, dd)``, each ``(n_blocks,
-    path_block)``."""
+    path_block)``. ``hedge`` with the spots ``s0``: hedged per-step
+    settlement ("gbm", "student_t" and "jump")."""
     w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
     n, steps, seed = config.path_block, config.n_steps, config.seed
+    legs = None if hedge is None else HedgeTensors.from_spec(hedge, _host_f64(s0), dev)
     if model in ("gbm", "student_t"):
         mean = torch.as_tensor(_host_f64(model_params.mean_step), device=dev).to(torch.float32)
         chol = torch.as_tensor(_host_f64(model_params.chol_step), device=dev).to(torch.float32)
         t_df = (float(config.t_dof)
                 if config.innovations == "student_t" or model == "student_t" else None)
+        if legs is not None:   # one candidate on the multi-dd kernel's hedged mode
+            def block_fn(b, group):
+                term, dd = gbm_multi_portfolio_dd(seed, mean, chol, w[None], n, steps,
+                                                  first_block=b, n_blocks=group, t_df=t_df,
+                                                  bm=config.bm, hedge=legs)
+                return term[:, 0], dd[:, 0]
+
+            return block_fn, SketchConfig()
 
         def block_fn(b, group):
             _, port, dd = gbm_path_stats(seed, mean, chol, w, n, steps, first_block=b,
@@ -281,7 +316,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
         def block_fn(b, group):
             term, dd = merton_multi_portfolio_dd(seed, mean, chol, model_params.jump_rate, muj,
                                                  sigj, w[None], n, steps, first_block=b,
-                                                 n_blocks=group)
+                                                 n_blocks=group, hedge=legs)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -341,12 +376,13 @@ def _n_blocks(config: GBMConfig) -> int:
 
 
 def _one_shot(model, model_params, weights, config: GBMConfig, sketch, dd_sketch,
-              alpha: float, rebalance: bool, p_restart: float, device) -> PathRiskReport:
+              alpha: float, rebalance: bool, p_restart: float, device, hedge=None,
+              s0=None) -> PathRiskReport:
     n_blocks = _n_blocks(config)
     dev = resolve_device(device)
     dtype = getattr(torch, config.dtype)
     block_fn, default_sketch = _block_fn(model, model_params, weights, config, rebalance,
-                                         p_restart, dev)
+                                         p_restart, dev, hedge, s0)
     sketch = default_sketch if sketch is None else sketch
     state = _fold(_empty_state(sketch, dd_sketch, dtype, dev), block_fn, config, sketch,
                   dd_sketch, 0, n_blocks)
@@ -372,10 +408,13 @@ def run_path_risk(
     ``rebalance=True`` resets to the target weights every step; False is
     buy-and-hold. ``config.innovations="student_t"`` draws unit-variance
     Student-t shocks at ``config.t_dof``; ``config.bm`` picks the normal tier.
+    ``hedge`` (a HedgeSpec) settles the option legs every step against the
+    prices from ``params.s0`` (the rebalanced recursion ``V *= 1 + w·r_h``;
+    ``rebalance`` is not read).
     """
     _check_unported(config, hedge)
     return _one_shot("gbm", params, weights, config, sketch, dd_sketch, alpha, rebalance,
-                     0.2, device)
+                     0.2, device, hedge, None if hedge is None else params.s0)
 
 
 def run_garch_path_risk(
@@ -395,7 +434,7 @@ def run_garch_path_risk(
     per-period rebalanced wealth. Normal shocks, as mcport's (the config's
     innovations enter only the checkpoint digest). ``s0`` is mcport's
     argument for hedged runs, which are not ported."""
-    _check_unported(config, hedge)
+    _check_unported(config, hedge, "garch")
     return _one_shot("garch", params, weights, config, sketch, dd_sketch, alpha, True,
                      0.2, device)
 
@@ -416,7 +455,7 @@ def run_dcc_path_risk(
     VaR/CVaR plus the max-drawdown distribution of one portfolio compounding
     per-period rebalanced wealth, under correlations that rise in stress.
     ``s0`` is mcport's argument for hedged runs, which are not ported."""
-    _check_unported(config, hedge)
+    _check_unported(config, hedge, "dcc")
     return _one_shot("dcc", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
                      device)
 
@@ -435,10 +474,12 @@ def run_merton_path_risk(
     """Simulated path risk under common-jump Merton paths on ``device``:
     terminal VaR/CVaR plus the max-drawdown distribution of one portfolio
     compounding per-period rebalanced wealth ``V *= w'exp(x)``, with the
-    per-step Bernoulli systemic jump clock (:mod:`mcport_torch.ops.jump`)."""
-    _check_unported(config, hedge)
+    per-step Bernoulli systemic jump clock (:mod:`mcport_torch.ops.jump`).
+    ``hedge`` settles the option legs every step against the prices from
+    ``params.diffusion.s0`` (``V *= 1 + w·r_h``)."""
+    _check_unported(config, hedge, "jump")
     return _one_shot("jump", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
-                     device)
+                     device, hedge, None if hedge is None else params.diffusion.s0)
 
 
 def run_heston_path_risk(
@@ -457,7 +498,7 @@ def run_heston_path_risk(
     ``device``: terminal VaR/CVaR plus the max-drawdown distribution of one
     portfolio compounding per-period rebalanced wealth ``V *= w'exp(x)``.
     ``s0`` is mcport's argument for hedged runs, which are not ported."""
-    _check_unported(config, hedge)
+    _check_unported(config, hedge, "heston")
     return _one_shot("heston", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
                      device)
 
@@ -480,7 +521,7 @@ def run_bootstrap_path_risk(
     max-drawdown distribution of one portfolio compounding per-period
     rebalanced wealth. ``sketch=None`` derives the covering log1p terminal
     sketch of the history (valid for any simplex weights)."""
-    _check_unported(config, hedge)
+    _check_unported(config, hedge, "bootstrap")
     return _one_shot("bootstrap", returns, weights, config, sketch, dd_sketch, alpha, True,
                      p_restart, device)
 
@@ -515,18 +556,22 @@ def run_resumable_path_risk(
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
     ``checkpoint_path`` persists the state after every dispatch group. The
     digest binds a checkpoint to its computation and a mismatched resume
-    raises. ``s0`` is mcport's argument for hedged runs, which are not ported.
+    raises. ``hedge`` (a HedgeSpec, "gbm", "student_t" and "jump") settles
+    the option legs every step against the spots ``s0`` (by default the
+    model's own: ``model_params.s0``, or ``.diffusion.s0`` for "jump").
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
-    _check_unported(config, hedge)
+    _check_unported(config, hedge, model)
+    if hedge is not None and s0 is None:
+        s0 = (model_params.diffusion.s0 if model == "jump" else model_params.s0)
     n_blocks = _n_blocks(config)
     dev = resolve_device(device)
     dtype = getattr(torch, config.dtype)
-    digest = _digest(model, model_params, weights, config, rebalance, p_restart)
+    digest = _digest(model, model_params, weights, config, rebalance, p_restart, hedge, s0)
     block_fn, default_sketch = _block_fn(model, model_params, weights, config, rebalance,
-                                         p_restart, dev)
+                                         p_restart, dev, hedge, s0)
 
     if checkpoint is not None:
         if (checkpoint.n_steps, checkpoint.block_paths, checkpoint.n_blocks) != (

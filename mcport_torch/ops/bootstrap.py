@@ -23,7 +23,8 @@ T / 2^23⌋`` in integers, both exact on either side. So the kernels and the
 plain forms select identical rows, and the terminal kernel equals its plain
 form bit for bit (``gross *= 1 + row`` has no contraction). TPU workarounds
 are not ported: the one-hot matmul gather and its 3-way bf16 split; the
-history sits in the kernels' shared memory and selection is a load.
+history sits in the kernels' shared memory, or past a block's shared memory
+in device memory behind the read-only cache, and selection is a load.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
 plain form, a CUDA device launches the kernel or raises.
@@ -35,13 +36,13 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import block_seeds
+from mcport_torch.ops.gbm import block_seeds, check_card_assets
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 from mcport_torch.rng import STREAM_BOOT, philox4x32
 
 __all__ = [
-    "MAX_BOOT_ASSETS",
     "SHARED_BYTES",
+    "history_in_shared",
     "bootstrap_indices",
     "bootstrap_terminal_reference",
     "bootstrap_terminal",
@@ -50,8 +51,6 @@ __all__ = [
     "bootstrap_shares",
 ]
 
-#: Widest universe the bootstrap kernels take.
-MAX_BOOT_ASSETS = 64
 #: Shared memory one block of the kernels may hold: the H100's 227 KB per block.
 SHARED_BYTES = 232_448
 _EPS = 2.0 ** -24    # float32 unit roundoff
@@ -63,19 +62,21 @@ def _check(hist: torch.Tensor, n_paths: int, n_steps: int, n_blocks: int) -> tup
         raise ValueError(f"the history must be a (T >= 1, A) float32 matrix, got "
                          f"{tuple(hist.shape)} {hist.dtype}")
     t_len, a = hist.shape
-    if not 1 <= a <= MAX_BOOT_ASSETS:
-        raise ValueError(f"the bootstrap kernels take 1..{MAX_BOOT_ASSETS} assets, got {a}")
+    if a < 1:
+        raise ValueError("the history must cover at least one asset")
     if not 0 <= n_paths < 2**31 or n_steps < 0 or not 1 <= n_blocks <= 65_535:
         raise ValueError(f"bad grid: n_paths={n_paths}, n_steps={n_steps}, "
                          f"n_blocks={n_blocks}")
     return t_len, a
 
 
-def _check_shared(nbytes: int, t_len: int, a: int) -> None:
-    if nbytes > SHARED_BYTES:
-        raise ValueError(f"a {t_len} x {a} history needs {nbytes} bytes of shared memory "
-                         f"in the bootstrap kernels, more than a block's {SHARED_BYTES}; "
-                         "resample a shorter window")
+def history_in_shared(nbytes: int) -> bool:
+    """Whether a kernel keeps the history in shared memory: when its whole
+    block layout, ``nbytes``, fits a block's ``SHARED_BYTES``. A longer history
+    stays in device memory and each step's row is read from there through the
+    read-only cache (``__ldg``); the rows selected, and so the results, are the
+    same either way."""
+    return nbytes <= SHARED_BYTES
 
 
 def bootstrap_indices(
@@ -151,7 +152,7 @@ def _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blo
     from mcport_torch._build import library
 
     t_len, a = hist.shape
-    _check_shared(4 * t_len * a, t_len, a)
+    in_shared = history_in_shared(4 * t_len * a)
     lib = library("bootstrap")
     out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=hist.device)
     if n_paths == 0:
@@ -161,7 +162,7 @@ def _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blo
         stream = torch.cuda.current_stream(hist.device).cuda_stream
         err = lib.mcport_bootstrap_terminal(
             seed, first_block, n_blocks, n_paths, t_len, a, n_steps, float(p_restart),
-            hist.data_ptr(), out.data_ptr(), stream)
+            int(in_shared), hist.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"bootstrap terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -188,8 +189,8 @@ def bootstrap_terminal(
 
     A history on a CUDA device launches the kernel, counted in
     ``bootstrap_terminal.launches``; on the CPU the plain form runs. Any other
-    device, or a problem the kernel does not take (a history too large for a
-    block's shared memory), raises.
+    device, or a problem the kernel does not take, raises. A history past a
+    block's shared memory is read from device memory (:func:`history_in_shared`).
     """
     _check(hist, n_paths, n_steps, n_blocks)
     if hist.device.type == "cpu":
@@ -197,6 +198,7 @@ def bootstrap_terminal(
                                             first_block=first_block, n_blocks=n_blocks)
     if hist.device.type != "cuda":
         raise ValueError(f"no bootstrap kernel for device {hist.device}")
+    check_card_assets(hist.shape[1], "bootstrap")
     return _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blocks)
 
 
@@ -231,8 +233,8 @@ def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_
     t_len, a = hist.shape
     w_cnt = weights.shape[0]
     w_pad = -(-w_cnt // 4) * 4
-    _check_shared(4 * (-(-t_len * a // 4) * 4 + a * w_pad + a * _TILE_P + 2 * _TILE_P),
-                  t_len, a)
+    in_shared = history_in_shared(
+        4 * (-(-t_len * a // 4) * 4 + a * w_pad + a * _TILE_P + 2 * _TILE_P))
     lib = library("bootstrap")
     term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
     dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
@@ -243,8 +245,8 @@ def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_
         stream = torch.cuda.current_stream(hist.device).cuda_stream
         err = lib.mcport_bootstrap_multi_dd(
             seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps,
-            float(p_restart), hist.data_ptr(), weights.data_ptr(), term.data_ptr(),
-            dd.data_ptr(), stream)
+            float(p_restart), int(in_shared), hist.data_ptr(), weights.data_ptr(),
+            term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"bootstrap candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -284,6 +286,7 @@ def bootstrap_multi_portfolio_dd(
                                             first_block=first_block, n_blocks=n_blocks)
     if hist.device.type != "cuda":
         raise ValueError(f"no bootstrap kernel for device {hist.device}")
+    check_card_assets(a, "bootstrap")
     parts = [_launch_dd(seed, hist, w[i:i + MAX_CANDIDATES], n_paths, n_steps, p_restart,
                         first_block, n_blocks)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]

@@ -30,7 +30,9 @@ every operation as IEEE float32 (``sqrt_rn``, :func:`rsqrt_rn`) and subtracts
 the Cholesky sums in ascending order, as the kernels do.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
-plain form, a CUDA device launches the kernel or raises.
+plain form, a CUDA device launches the kernel or raises. The plain forms
+take any number of assets; on the card the kernels take 1..64, from 17
+assets through ``dcc_wide_kernel`` (``csrc/dcc.cu``).
 """
 
 from __future__ import annotations
@@ -40,11 +42,10 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _check_args, sqrt_rn, step_shocks
+from mcport_torch.ops.gbm import _check_args, check_card_assets, sqrt_rn, step_shocks
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
-    "MAX_DCC_ASSETS",
     "DccTensors",
     "rsqrt_rn",
     "dcc_innovations",
@@ -55,10 +56,6 @@ __all__ = [
     "dcc_tolerance",
     "dcc_shares",
 ]
-
-#: Widest universe the DCC kernels take (a path's triangle fits a thread's
-#: registers and shared memory, a row of it a lane's registers).
-MAX_DCC_ASSETS = 16
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
 _FLOOR = 1e-12       # the pivot and diagonal floor of mcport's kernels
@@ -101,8 +98,6 @@ class DccTensors(NamedTuple):
 
 def _check(d: DccTensors, n_paths: int, n_steps: int, n_blocks: int) -> int:
     a = d.n_assets
-    if not 1 <= a <= MAX_DCC_ASSETS:
-        raise ValueError(f"the DCC kernels take 1..{MAX_DCC_ASSETS} assets, got {a}")
     for name, x in d._asdict().items():
         want = (a, a) if name in ("s", "q0") else (2,) if name == "ab" else (a,)
         if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != d.device:
@@ -230,6 +225,7 @@ def dcc_terminal(
                                       n_blocks=n_blocks)
     if d.device.type != "cuda":
         raise ValueError(f"no DCC kernel for device {d.device}")
+    check_card_assets(d.n_assets, "DCC")
     return _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks)
 
 
@@ -309,6 +305,7 @@ def dcc_multi_portfolio_dd(
                                       n_blocks=n_blocks)
     if d.device.type != "cuda":
         raise ValueError(f"no DCC kernel for device {d.device}")
+    check_card_assets(a, "DCC")
     parts = [_launch_dd(seed, d, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
                         n_blocks)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]

@@ -21,7 +21,9 @@ sampler): ``t_df`` folds the ``1/sqrt(df/(df-2))`` scale into ``L_R``. The
 candidate kernel draws normal shocks only, as mcport's does.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
-plain form, a CUDA device launches the kernel or raises.
+plain form, a CUDA device launches the kernel or raises. The plain forms
+take any number of assets; on the card the kernels take 1..64, from 17
+assets through their wide variants (``csrc/garch.cu``).
 """
 
 from __future__ import annotations
@@ -31,11 +33,11 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _BM_CODE, _T_CODE, _check_args, sqrt_rn, step_shocks, t_scaled_chol
+from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, _check_args, check_card_assets, sqrt_rn,
+                                  step_shocks, t_scaled_chol)
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
-    "MAX_GARCH_ASSETS",
     "GarchTensors",
     "correlated_shocks",
     "garch_innovations",
@@ -46,9 +48,6 @@ __all__ = [
     "garch_tolerance",
     "garch_shares",
 ]
-
-#: Widest universe the GARCH kernels take (one path's state in registers).
-MAX_GARCH_ASSETS = 16
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
 
@@ -79,8 +78,6 @@ class GarchTensors(NamedTuple):
 
 def _check(g: GarchTensors, n_paths: int, n_steps: int, n_blocks: int, t_df) -> int:
     a = g.corr_chol.shape[0]
-    if not 1 <= a <= MAX_GARCH_ASSETS:
-        raise ValueError(f"the GARCH kernels take 1..{MAX_GARCH_ASSETS} assets, got {a}")
     for name, x in g._asdict().items():
         want = (a, a) if name == "corr_chol" else (a,)
         if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != g.device:
@@ -147,7 +144,9 @@ def garch_terminal_reference(
     return cum - 1.0
 
 
-def _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df):
+def _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df, wide=False):
+    """Launch kernel #4; ``wide`` takes the 17-64-asset tile kernel at any
+    width (``chip_smoke.py`` times the two layouts at 15 assets)."""
     from mcport_torch._build import library
 
     lib = library("garch")
@@ -161,7 +160,7 @@ def _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df):
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.mcport_garch_terminal(
-            seed, first_block, n_blocks, n_paths, a, n_steps,
+            seed, first_block, n_blocks, n_paths, a, n_steps, int(wide),
             _T_CODE if t_df is not None else _BM_CODE["poly"], df, neg2_over_df,
             params.data_ptr(), out.data_ptr(), stream)
     if err:
@@ -197,6 +196,7 @@ def garch_terminal(
                                         n_blocks=n_blocks, t_df=t_df)
     if g.device.type != "cuda":
         raise ValueError(f"no GARCH kernel for device {g.device}")
+    check_card_assets(g.corr_chol.shape[0], "GARCH")
     return _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df)
 
 
@@ -223,7 +223,9 @@ def garch_multi_dd_reference(
     return rebalanced_dd(g.mu + garch_innovations(zc, g), weights)
 
 
-def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks):
+def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=False):
+    """Launch kernel #5 for at most ``MAX_CANDIDATES``; ``wide`` takes the
+    64-asset instantiation at any width."""
     from mcport_torch._build import library
 
     lib = library("garch")
@@ -237,8 +239,8 @@ def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks):
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         err = lib.mcport_garch_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, params.data_ptr(),
-            weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
+            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"GARCH candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -276,6 +278,7 @@ def garch_multi_portfolio_dd(
                                         first_block=first_block, n_blocks=n_blocks)
     if g.device.type != "cuda":
         raise ValueError(f"no GARCH kernel for device {g.device}")
+    check_card_assets(a, "GARCH")
     parts = [_launch_dd(seed, g, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
                         n_blocks)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]

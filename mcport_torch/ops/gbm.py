@@ -39,6 +39,7 @@ from mcport_torch.rng import STREAM_GBM, bits_to_unit, philox4x32
 
 __all__ = [
     "MAX_ASSETS",
+    "check_card_assets",
     "sqrt_rn",
     "ln_poly",
     "sincos_poly",
@@ -55,7 +56,8 @@ __all__ = [
     "terminal_log_returns",
 ]
 
-#: Widest universe the kernel takes (its shared-memory layout; see the .cu).
+#: Widest universe every kernel of the port takes on the card (the plain forms
+#: take any width). Wider universes on the card are ROADMAP.md's open item.
 MAX_ASSETS = 64
 
 # degree-10 Chebyshev fit of ln(1+x)/x on [sqrt(2)/2-1, sqrt(2)-1], highest
@@ -245,14 +247,22 @@ def step_shocks(
     return torch.stack(zs[:n_steps], dim=2)
 
 
+def check_card_assets(a: int, what: str) -> None:
+    """Raise unless the card's ``what`` kernels take ``a`` assets: 1 to
+    ``MAX_ASSETS``. Only a launch checks this; every plain form takes any
+    width (ROADMAP.md Queue 3 keeps the wider card layout open)."""
+    if not 1 <= a <= MAX_ASSETS:
+        raise ValueError(f"the {what} kernels take 1..{MAX_ASSETS} assets on the card, got "
+                         f"{a}; wider universes run on the CPU (ROADMAP.md Queue 3, the "
+                         "card's 64-asset cap)")
+
+
 def _check_args(chol, n_paths, n_steps, n_blocks, bm, t_df) -> None:
     if chol.dtype != torch.float32 or chol.dim() != 2 or chol.shape[0] != chol.shape[1]:
         raise ValueError(f"chol must be a square float32 matrix, got "
                          f"{tuple(chol.shape)} {chol.dtype}")
-    a = chol.shape[0]
-    if not 1 <= a <= MAX_ASSETS:
-        raise ValueError(f"the terminal-noise kernel takes 1..{MAX_ASSETS} "
-                         f"assets, got {a}")
+    if chol.shape[0] < 1:
+        raise ValueError("chol must cover at least one asset")
     if not 0 <= n_paths < 2**31 or n_steps < 0 or not 1 <= n_blocks <= 65_535:
         raise ValueError(f"bad grid: n_paths={n_paths}, n_steps={n_steps}, "
                          f"n_blocks={n_blocks}")
@@ -371,6 +381,7 @@ def gbm_terminal_noise(
             n_blocks=n_blocks, bm=bm, t_df=t_df)
     if chol.device.type != "cuda":
         raise ValueError(f"no terminal-noise kernel for device {chol.device}")
+    check_card_assets(chol.shape[0], "terminal-noise")
     return _launch(seed, chol, n_paths, n_steps, first_block, n_blocks, bm, t_df)
 
 

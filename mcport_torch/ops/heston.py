@@ -23,7 +23,8 @@ scheme of mcport's ``_heston_step`` in its order of operations:
 The plain forms are two :func:`mcport_torch.ops.gbm.step_shocks` calls plus
 :func:`heston_increments`. Each wrapper dispatches on the device of its
 tensors: the CPU goes to the plain form, a CUDA device launches the kernel or
-raises.
+raises. The plain forms take any number of assets; on the card the kernels
+take 1..64, from 17 assets through their wide variants (``csrc/heston.cu``).
 """
 
 from __future__ import annotations
@@ -33,12 +34,11 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _check_args, sqrt_rn, step_shocks
+from mcport_torch.ops.gbm import _check_args, check_card_assets, sqrt_rn, step_shocks
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 from mcport_torch.rng import STREAM_HESTON
 
 __all__ = [
-    "MAX_HESTON_ASSETS",
     "HestonTensors",
     "heston_shocks",
     "heston_increments",
@@ -49,9 +49,6 @@ __all__ = [
     "heston_tolerance",
     "heston_shares",
 ]
-
-#: Widest universe the Heston kernels take (one path's state in registers).
-MAX_HESTON_ASSETS = 16
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
 
@@ -88,8 +85,6 @@ class HestonTensors(NamedTuple):
 
 def _check(h: HestonTensors, n_paths: int, n_steps: int, n_blocks: int) -> int:
     a = h.corr_chol.shape[0]
-    if not 1 <= a <= MAX_HESTON_ASSETS:
-        raise ValueError(f"the Heston kernels take 1..{MAX_HESTON_ASSETS} assets, got {a}")
     for name, x in h._asdict().items():
         want = (a, a) if name == "corr_chol" else (a,)
         if x.dtype != torch.float32 or tuple(x.shape) != want or x.device != h.device:
@@ -164,7 +159,9 @@ def heston_terminal_reference(
     return torch.expm1(acc)
 
 
-def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks):
+def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks, wide=False):
+    """Launch kernel #9; ``wide`` takes the 17-64-asset tile kernel at any
+    width (``chip_smoke.py`` times the two layouts at 15 assets)."""
     from mcport_torch._build import library
 
     lib = library("heston")
@@ -176,7 +173,7 @@ def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks):
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.mcport_heston_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
-                                         params.data_ptr(), out.data_ptr(), stream)
+                                         int(wide), params.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"Heston terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -208,6 +205,7 @@ def heston_terminal(
                                          n_blocks=n_blocks)
     if h.device.type != "cuda":
         raise ValueError(f"no Heston kernel for device {h.device}")
+    check_card_assets(h.corr_chol.shape[0], "Heston")
     return _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks)
 
 
@@ -234,7 +232,9 @@ def heston_multi_dd_reference(
     return rebalanced_dd(torch.exp(x), weights, gross=True)
 
 
-def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks):
+def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=False):
+    """Launch kernel #10 for at most ``MAX_CANDIDATES``; ``wide`` takes the
+    64-asset instantiation at any width."""
     from mcport_torch._build import library
 
     lib = library("heston")
@@ -248,8 +248,8 @@ def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks):
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.mcport_heston_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, params.data_ptr(),
-            weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
+            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"Heston candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -289,6 +289,7 @@ def heston_multi_portfolio_dd(
                                          first_block=first_block, n_blocks=n_blocks)
     if h.device.type != "cuda":
         raise ValueError(f"no Heston kernel for device {h.device}")
+    check_card_assets(a, "Heston")
     parts = [_launch_dd(seed, h, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
                         n_blocks)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]

@@ -1,14 +1,17 @@
 """Common-jump Merton candidate paths: the CUDA jump kernel and its plain
 torch form.
 
-Port of ``pallas_merton_path_stats`` (``mcport/ops/pallas_jump.py``), its
-unhedged mode. The kernel (``csrc/jump.cu``) replaces ``_jump_dd_kernel``:
+Port of ``pallas_merton_path_stats`` (``mcport/ops/pallas_jump.py``), both
+modes. The kernel (``csrc/jump.cu``) replaces ``_jump_dd_kernel``:
 per path and step it draws the GBM shocks ``z`` on kernel #3's counters, the
 increment ``x = m + L z``, and a systemic jump clock — an event ``u < λ`` and
 one common jump normal ``jn`` shared by every asset — that adds ``μJ + σJ·jn``
 to every asset's increment on an event step; then ``W`` candidates compound
 per-period rebalanced wealth ``V *= W·exp(x)`` (float32, mcport's
-``score_dot``) with their running peak and maximum drawdown.
+``score_dot``) with their running peak and maximum drawdown. Hedged
+(``hedge``), every asset's price moves ``P *= exp(x)`` from its spot and the
+candidates compound ``V *= 1 + W·r_h`` with the legs settled per step
+(:mod:`mcport_torch.ops.hedged`).
 
 The jump clock (``rng.STREAM_JUMP``): one Philox call ``(c, 0, path,
 STREAM_JUMP)`` covers steps ``2c`` and ``2c + 1`` of one path — words 0 and
@@ -33,8 +36,11 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import BM_VARIANTS, _check_args, _uniform_calls, step_shocks
-from mcport_torch.ops.multi_dd import MAX_CANDIDATES, multi_dd_from_log_paths, multi_dd_tolerance
+from mcport_torch.ops.gbm import (BM_VARIANTS, _check_args, _uniform_calls, check_card_assets,
+                                  step_shocks)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
+from mcport_torch.ops.multi_dd import (MAX_CANDIDATES, hedged_price_bound, multi_dd_from_log_paths,
+                                       multi_dd_tolerance)
 from mcport_torch.rng import STREAM_JUMP
 
 __all__ = [
@@ -43,6 +49,7 @@ __all__ = [
     "merton_multi_dd_reference",
     "merton_multi_portfolio_dd",
     "merton_tolerance",
+    "merton_price_bound",
     "merton_shares",
 ]
 
@@ -107,18 +114,27 @@ def merton_multi_dd_reference(
     first_block: int = -1,
     n_blocks: int = 1,
     first_path: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the jump kernel: ``(term, dd)``, each ``(n_blocks,
-    W, n_paths)`` float32, for paths ``first_path ..`` of each block. Runs on
-    any device; the tests use it on the CPU and ``chip_smoke.py`` holds the
-    kernel against it on the card."""
+    W, n_paths)`` float32, for paths ``first_path ..`` of each block;
+    ``hedge`` selects the hedged mode, and ``with_bound`` adds the hedged
+    kernel's bound per (candidate, path) (:func:`mcport_torch.ops.hedged
+    .hedged_multi_dd`, with :func:`merton_price_bound`).
+    Runs on any device; the tests use it on the CPU and ``chip_smoke.py``
+    holds the kernel against it on the card."""
     _check(chol, mean, jump_mean, jump_vol, n_paths, n_steps, n_blocks, jump_rate)
     x = merton_increments(seed, mean, chol, jump_rate, jump_mean, jump_vol, n_paths, n_steps,
                           first_block=first_block, n_blocks=n_blocks, first_path=first_path)
+    if hedge is not None:
+        price = merton_price_bound(chol, mean, jump_vol, n_steps) if with_bound else None
+        return hedged_multi_dd(x, hedge, weights.to(torch.float32), price_bound=price)
     return multi_dd_from_log_paths(torch.cumsum(x, dim=2), weights, rebalance=True)
 
 
-def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, jump_rate):
+def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, jump_rate,
+            hedge):
     from mcport_torch._build import library
 
     lib = library("jump")
@@ -129,15 +145,20 @@ def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, j
     if n_paths == 0:
         return term, dd
     weights = weights.contiguous()
+    block = hedge.packed() if hedge is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mcport_merton_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, jump_rate,
-            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+            hedge.n_legs if hedge is not None else 0, jump_rate, params.data_ptr(),
+            weights.data_ptr(), block.data_ptr() if block is not None else None,
+            term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"jump kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     merton_multi_portfolio_dd.launches += 1
+    if hedge is not None:
+        merton_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -154,19 +175,21 @@ def merton_multi_portfolio_dd(
     *,
     first_block: int = -1,
     n_blocks: int = 1,
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
     wealth over the common-jump Merton paths of blocks ``first_block + 1 ..
     first_block + n_blocks`` of a run seeded ``seed`` (one block keyed by
-    ``seed`` itself by default) — mcport's ``pallas_merton_path_stats``,
-    unhedged.
+    ``seed`` itself by default) — mcport's ``pallas_merton_path_stats``;
+    ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors`) settles the
+    option legs per step (mcport's ``hedge_args``).
 
     More than ``MAX_CANDIDATES`` candidates run as several launches over the
     same paths. Tensors on a CUDA device launch the kernel, each launch
-    counted in ``merton_multi_portfolio_dd.launches``; on the CPU the plain
-    form runs. Any other device, or a problem the kernel does not take,
-    raises.
+    counted in ``merton_multi_portfolio_dd.launches`` (a hedged one in
+    ``.hedged_launches`` too); on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
     """
     chol, mean = chol_step.to(torch.float32), mean_step.to(torch.float32)
     muj, sigj = jump_mean.to(torch.float32), jump_vol.to(torch.float32)
@@ -176,14 +199,18 @@ def merton_multi_portfolio_dd(
     if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != chol.device:
         raise ValueError(f"weights must be (W >= 1, {a}) on {chol.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
+    if hedge is not None:
+        hedge.check(a, chol.device)
     if chol.device.type == "cpu":
         return merton_multi_dd_reference(seed, mean, chol, jump_rate, muj, sigj, w, n_paths,
-                                         n_steps, first_block=first_block, n_blocks=n_blocks)
+                                         n_steps, first_block=first_block, n_blocks=n_blocks,
+                                         hedge=hedge)
     if chol.device.type != "cuda":
         raise ValueError(f"no jump kernel for device {chol.device}")
+    check_card_assets(a, "jump")
     params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
     parts = [_launch(seed, params, w[i:i + MAX_CANDIDATES], a, n_paths, n_steps, first_block,
-                     n_blocks, jump_rate)
+                     n_blocks, jump_rate, hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -191,6 +218,7 @@ def merton_multi_portfolio_dd(
 
 
 merton_multi_portfolio_dd.launches = 0
+merton_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
 
 
 def merton_tolerance(chol: torch.Tensor, mean: torch.Tensor, jump_vol: torch.Tensor,
@@ -202,17 +230,34 @@ def merton_tolerance(chol: torch.Tensor, mean: torch.Tensor, jump_vol: torch.Ten
     ``σJ``, over ``4 sqrt(n)`` steps as a random walk with headroom. The
     events are identical on both sides, so no jump can be missed. The terminal
     return then differs by at most ``rel · (1 + term)``, the drawdown by ``2 ·
-    rel``."""
+    rel``. The hedged mode's bound is per path (:func:`merton_price_bound`)."""
     rel = multi_dd_tolerance(chol, mean, n_steps, True, "float32")
     sig = float(jump_vol.abs().max()) if jump_vol.numel() else 0.0
     return rel + 4.0 * math.sqrt(max(n_steps, 1)) * 2e-6 * sig
 
 
+def merton_price_bound(chol: torch.Tensor, mean: torch.Tensor, jump_vol: torch.Tensor,
+                       n_steps: int) -> torch.Tensor:
+    """Per-asset bound ``(A,)`` on the relative difference of the hedged
+    jump kernel's price from its plain form's at any step: kernel #3's
+    (:func:`mcport_torch.ops.multi_dd.hedged_price_bound`) plus the jump
+    normals' share as in :func:`merton_tolerance`, per asset's ``σJ``."""
+    walk = 4.0 * math.sqrt(max(n_steps, 1)) * 2e-6 * jump_vol.to(torch.float32).abs()
+    return hedged_price_bound(chol, mean, n_steps) + walk.to(chol.device)
+
+
 def merton_shares(kernel, plain, chol: torch.Tensor, mean: torch.Tensor,
-                  jump_vol: torch.Tensor, n_steps: int) -> dict[str, float]:
+                  jump_vol: torch.Tensor, n_steps: int,
+                  hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound (:func:`merton_tolerance`) that
     ``|kernel - plain|`` uses, per output ``{"term", "dd"}`` (``inf`` for a
-    non-finite kernel value)."""
+    non-finite kernel value). Hedged (``hedge``): path by path against the
+    bound that ``plain`` carries (:func:`merton_multi_dd_reference`
+    ``with_bound``), by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, None)
     rel = merton_tolerance(chol, mean, jump_vol, n_steps)
     out = {}
     for i, name in enumerate(("term", "dd")):

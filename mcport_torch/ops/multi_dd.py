@@ -2,12 +2,14 @@
 kernel and its plain torch form.
 
 Port of ``gbm_multi_portfolio_dd`` (``mcport/ops/pallas_multi_dd.py``), its
-unhedged modes. The kernel (``csrc/multi_dd.cu``) replaces
-``_multi_dd_kernel``: per path it evolves the log prices step by step on the
-shocks of the other GBM kernels (``csrc/gbm_draws.cuh``) and scores every
-candidate per step — buy-and-hold ``V_t = W·exp(logS_t)`` or rebalanced ``V_t
-= V_{t-1} · W·exp(x_t)`` — tracking each (candidate, path)'s peak and maximum
-drawdown. With one candidate it is :func:`mcport_torch.ops.path_stats
+three modes. The kernel (``csrc/multi_dd.cu``) replaces ``_multi_dd_kernel``:
+per path it evolves the log prices step by step on the shocks of the other
+GBM kernels (``csrc/gbm_draws.cuh``) and scores every candidate per step —
+buy-and-hold ``V_t = W·exp(logS_t)``, rebalanced ``V_t = V_{t-1} ·
+W·exp(x_t)``, or hedged ``V_t = V_{t-1} (1 + W·r_h)`` with the option legs
+settled per step against the prices ``P_t = P_{t-1} exp(x_t)`` from the spot
+(:mod:`mcport_torch.ops.hedged`) — tracking each (candidate, path)'s peak and
+maximum drawdown. With one candidate it is :func:`mcport_torch.ops.path_stats
 .gbm_path_stats`'s ``(port, dd)``.
 
 Score tiers, mcport's numerics (``SCORE_DTYPES``): "float32"; "tensorfloat32",
@@ -30,7 +32,9 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import _BM_CODE, _T_CODE, _check_args, t_scaled_chol
+from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, _check_args, check_card_assets, step_shocks,
+                                  t_scaled_chol)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.path_stats import log_paths_reference, path_stats_tolerance
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "rebalanced_dd",
     "gbm_multi_portfolio_dd",
     "multi_dd_tolerance",
+    "hedged_price_bound",
     "multi_dd_shares",
 ]
 
@@ -137,13 +142,27 @@ def multi_dd_reference(
     score_dtype: str = "float32",
     bm: str = "poly",
     t_df: float | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the multi-dd kernel: ``(term, dd)``, each
     ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
-    block. ``chol`` is the kernel's factor (t scale folded in). Runs on any
-    device; the tests use it on the CPU and ``chip_smoke.py`` holds the kernel
-    against it on the card."""
+    block. ``chol`` is the kernel's factor (t scale folded in); ``hedge``
+    selects the hedged mode (``rebalance`` is then not read), and
+    ``with_bound`` adds the hedged kernel's bound per (candidate, path)
+    (:func:`mcport_torch.ops.hedged.hedged_multi_dd`, with
+    :func:`hedged_price_bound`). Runs on any device; the tests use it on the
+    CPU and ``chip_smoke.py`` holds the kernel against it on the card."""
     _check_args(chol, n_paths, n_steps, n_blocks, bm, t_df)
+    if hedge is not None:
+        z = step_shocks(seed, chol.shape[0], n_paths, n_steps, first_block=first_block,
+                        n_blocks=n_blocks, first_path=first_path, bm=bm, t_df=t_df,
+                        device=chol.device)
+        split = 2.0 * 2.0 ** -16 * math.sqrt(max(n_steps, 1))   # the split tier's rounding
+        return hedged_multi_dd(
+            mean + z @ chol.T, hedge, weights.to(torch.float32), score_dtype,
+            hedged_price_bound(chol, mean, n_steps).to(chol.device) if with_bound else None,
+            split if score_dtype == "tensorfloat32" else 0.0)
     paths = log_paths_reference(seed, mean, chol, n_paths, n_steps,
                                 first_block=first_block, n_blocks=n_blocks,
                                 first_path=first_path, bm=bm, t_df=t_df)
@@ -151,7 +170,7 @@ def multi_dd_reference(
 
 
 def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
-            rebalance, score_dtype, bm, t_df):
+            rebalance, score_dtype, bm, t_df, hedge):
     from mcport_torch._build import library
 
     lib = library("multi_dd")
@@ -164,17 +183,22 @@ def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
     chol, mean, weights = chol.contiguous(), mean.contiguous(), weights.contiguous()
     df = 0.0 if t_df is None else float(t_df)
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
+    mode = 2 if hedge is not None else int(rebalance)
+    block = hedge.packed() if hedge is not None else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mcport_multi_dd(
             seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
-            _T_CODE if t_df is not None else _BM_CODE[bm], int(rebalance),
-            SCORE_DTYPES[score_dtype], df, neg2_over_df, chol.data_ptr(),
-            mean.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+            _T_CODE if t_df is not None else _BM_CODE[bm], mode, SCORE_DTYPES[score_dtype],
+            hedge.n_legs if hedge is not None else 0, df, neg2_over_df, chol.data_ptr(),
+            mean.data_ptr(), weights.data_ptr(), block.data_ptr() if block is not None else None,
+            term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"multi-dd kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     gbm_multi_portfolio_dd.launches += 1
+    if hedge is not None:
+        gbm_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -192,6 +216,7 @@ def gbm_multi_portfolio_dd(
     score_dtype: str = "float32",
     t_df: float | None = None,
     bm: str = "poly",
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` over the paths of blocks
@@ -199,11 +224,14 @@ def gbm_multi_portfolio_dd(
     (one block keyed by ``seed`` itself by default).
 
     ``chol_step`` is the model's factor (``t_df`` folds the unit-variance t
-    scale into it). More than ``MAX_CANDIDATES`` candidates run as several
+    scale into it). ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors`
+    on the same device) selects hedged per-step settlement, mcport's
+    ``hedge_args``: the candidates compound ``V *= 1 + W·r_h`` (``rebalance``
+    is not read). More than ``MAX_CANDIDATES`` candidates run as several
     launches over the same paths. Tensors on a CUDA device launch the kernel,
-    each launch counted in ``gbm_multi_portfolio_dd.launches``; on the CPU the
-    plain form runs. Any other device, or a problem the kernel does not take,
-    raises.
+    each launch counted in ``gbm_multi_portfolio_dd.launches`` (a hedged one
+    in ``.hedged_launches`` too); on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
     """
     chol = t_scaled_chol(chol_step.to(torch.float32), t_df)
     mean = mean_step.to(torch.float32)
@@ -218,15 +246,18 @@ def gbm_multi_portfolio_dd(
                          f"got {score_dtype!r}")
     if not chol.device == mean.device == w.device:
         raise ValueError("mean_step, chol_step and weights must be on one device")
+    if hedge is not None:
+        hedge.check(a, chol.device)
     if chol.device.type == "cpu":
         return multi_dd_reference(seed, mean, chol, w, n_paths, n_steps,
                                   first_block=first_block, n_blocks=n_blocks,
                                   rebalance=rebalance, score_dtype=score_dtype, bm=bm,
-                                  t_df=t_df)
+                                  t_df=t_df, hedge=hedge)
     if chol.device.type != "cuda":
         raise ValueError(f"no multi-dd kernel for device {chol.device}")
+    check_card_assets(a, "multi-dd")
     parts = [_launch(seed, mean, chol, w[i:i + MAX_CANDIDATES], n_paths, n_steps,
-                     first_block, n_blocks, rebalance, score_dtype, bm, t_df)
+                     first_block, n_blocks, rebalance, score_dtype, bm, t_df, hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -234,6 +265,7 @@ def gbm_multi_portfolio_dd(
 
 
 gbm_multi_portfolio_dd.launches = 0
+gbm_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
 
 
 def multi_dd_tolerance(chol: torch.Tensor, mean: torch.Tensor, n_steps: int,
@@ -250,15 +282,28 @@ def multi_dd_tolerance(chol: torch.Tensor, mean: torch.Tensor, n_steps: int,
     largest differences used at most a fifth of these bounds (float32 and
     split tiers, both modes, 1-256 candidates, 7 and 252 steps, up to 131,072
     paths), and a wrong tier or mode exceeds them
-    (``tests/test_torch_multi_dd.py``)."""
+    (``tests/test_torch_multi_dd.py``). The hedged mode's bound is per path
+    (:func:`hedged_price_bound`)."""
     _, rel = path_stats_tolerance(chol, mean, n_steps)
     if score_dtype == "tensorfloat32":
         rel += 2.0 * 2.0 ** -16 * (math.sqrt(max(n_steps, 1)) if rebalance else 1.0)
     return rel
 
 
+def hedged_price_bound(chol: torch.Tensor, mean: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """Per-asset bound ``(A,)`` on the relative difference of the hedged
+    kernel's price ``P`` from its plain form's at any step: the log paths'
+    bound (:func:`path_stats_tolerance`) plus two roundings per step (the exp
+    and the price's product) over ``4 sqrt(n)`` steps. The hedged plain form
+    turns it into a bound per (candidate, path)
+    (:func:`mcport_torch.ops.hedged.hedged_multi_dd`)."""
+    term, _ = path_stats_tolerance(chol, mean, n_steps)
+    return term + 8.0 * 2.0 ** -24 * math.sqrt(max(n_steps, 1))
+
+
 def multi_dd_shares(kernel, plain, plain_f32, chol: torch.Tensor, mean: torch.Tensor,
-                    n_steps: int, rebalance: bool, score_dtype: str) -> dict[str, float]:
+                    n_steps: int, rebalance: bool, score_dtype: str,
+                    hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound that ``|kernel - plain|`` uses, per
     output ``{"term", "dd"}`` (``inf`` for a non-finite kernel value).
 
@@ -268,7 +313,13 @@ def multi_dd_shares(kernel, plain, plain_f32, chol: torch.Tensor, mean: torch.Te
     rounding; a kernel that ignored the tier would use ~4x the bound), and the
     buy-and-hold terminal, float32 in every tier, elementwise. ``plain_f32``
     is the plain form in the float32 tier on the same paths (read only for
-    bfloat16)."""
+    bfloat16). ``hedge``: the hedged mode, by :func:`mcport_torch.ops.hedged
+    .hedged_shares`, path by path against the bound that ``plain`` carries
+    (:func:`multi_dd_reference` ``with_bound``)."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, plain_f32, score_dtype)
     out = {}
     rel = multi_dd_tolerance(chol, mean, n_steps, rebalance, score_dtype)
     for i, name in enumerate(("term", "dd")):

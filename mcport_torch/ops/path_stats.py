@@ -29,6 +29,7 @@ from mcport_torch.ops.gbm import (
     _BM_CODE,
     _T_CODE,
     _check_args,
+    check_card_assets,
     kernel_tolerance,
     step_shocks,
     t_scaled_chol,
@@ -173,6 +174,7 @@ def gbm_path_stats(
         return (term if terminal else None), port, dd
     if chol.device.type != "cuda":
         raise ValueError(f"no path-stats kernel for device {chol.device}")
+    check_card_assets(a, "path-stats")
     return _launch(seed, mean, chol, w, n_paths, n_steps, first_block, n_blocks,
                    rebalance, bm, t_df, terminal)
 

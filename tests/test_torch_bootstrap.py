@@ -203,11 +203,14 @@ def test_wrappers_check_their_inputs(history):
     h = torch.as_tensor(history)
     with pytest.raises(ValueError, match="float32"):
         O.bootstrap_terminal(0, h.double(), 16, 4)
+    # the plain forms take any width; only a launch on the card checks 1..64
+    assert O.bootstrap_terminal(0, torch.zeros((10, 65)), 16, 4).shape == (1, 16, 65)
     with pytest.raises(ValueError, match="1..64 assets"):
-        O.bootstrap_terminal(0, torch.zeros((10, 65)), 16, 4)
+        O.check_card_assets(65, "bootstrap")
     with pytest.raises(ValueError, match="weights must be"):
         O.bootstrap_multi_portfolio_dd(0, h, torch.ones(2, A + 1), 16, 4)
     with pytest.raises(ValueError, match="no bootstrap kernel"):
         O.bootstrap_terminal(0, h.to("meta"), 16, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        O._check_shared(4 * 4_000 * 15, 4_000, 15)
+    # a history past a block's shared memory is read from device memory
+    assert O.history_in_shared(4 * 365 * 15)
+    assert not O.history_in_shared(4 * 4_000 * 15)

@@ -15,8 +15,11 @@ keys and model string and agrees in law (``--innovations student_t`` exits
 with mcport's message); ``path-risk --models dcc`` and ``dd-frontier --model
 dcc`` emit mcport's keys; ``compare-models`` gives mcport's seven families
 with their keys, VaR/CVaR/mean within Monte Carlo error and the same DCC
-fit. A subprocess imports every ``mcport_torch`` module and finds neither
-jax nor pandas loaded.
+fit. ``hedged-risk``, ``gbm-risk --hedge``, ``path-risk --hedge`` and
+``dd-frontier --hedge`` (mcport's JSON hedge file: a married put on BTC, a
+collar on ETH) emit mcport's keys, and the unported hedged families and
+``--ci`` exit with a message. A subprocess imports every ``mcport_torch``
+module and finds neither jax nor pandas loaded.
 """
 
 import contextlib
@@ -291,3 +294,60 @@ def test_dd_frontier_cli_families_have_mcport_keys(weekly, model):
     assert set(port["weights"]) == set(ref["weights"])
     with pytest.raises(SystemExit, match="gbm only"):
         _run(port_main, common + ["--fast-normal", "--device", "cpu"])
+
+
+# ---- hedged settlement: --hedge and hedged-risk ---------------------------------------
+
+@pytest.fixture(scope="module")
+def hedge_file(weekly, tmp_path_factory):
+    """mcport's JSON hedge config on the weekly fixtures: a married put on
+    BTC and a collar on ETH (strikes relative to each last price)."""
+    names = [Path(p).stem for p in weekly]
+    path = tmp_path_factory.mktemp("hedge") / "hedge.json"
+    path.write_text(json.dumps({names[0]: {"strategy": "Married Put"},
+                                names[1]: {"strategy": "Collar"}}))
+    return str(path)
+
+
+@pytest.mark.parametrize("argv", [
+    ["hedged-risk", "--models", "gbm,garch,jump,bootstrap", "--paths", "4096", "--steps",
+     "8"],
+    ["gbm-risk", "--paths", "8192", "--steps", "8", "--path-stats"],
+    ["path-risk", "--models", "gbm,student_t,jump", "--paths", "8192", "--steps", "8"],
+    ["dd-frontier", "--candidates", "32", "--paths", "1024", "--steps", "8", "--dd-budget",
+     "0.9"],
+    ["dd-frontier", "--model", "jump", "--candidates", "32", "--paths", "1024", "--steps",
+     "8", "--dd-budget", "0.9"],
+])
+def test_hedged_commands_have_mcport_keys(weekly, hedge_file, argv):
+    common = [argv[0], *weekly, "--period", "W", "--hedge", hedge_file, *argv[1:]]
+    port = _run(port_main, common + ["--device", "cpu"])
+    ref = _run(ref_main, common)
+    assert set(port) == set(ref)
+    for key, out in ref.items():
+        if isinstance(out, dict) and key != "weights":
+            assert set(port[key]) == set(out), key
+    if argv[0] in ("hedged-risk", "path-risk"):
+        models = argv[argv.index("--models") + 1].split(",")
+        assert all(port[m]["hedged_assets"] == ref[m]["hedged_assets"] for m in models)
+    if argv[0] == "dd-frontier":
+        assert port["hedged"] is True and port["n_feasible"] > 0
+    if argv[0] == "gbm-risk":
+        assert port["hedged_assets"] == ref["hedged_assets"]
+        assert port["max_drawdown"]["settlement"] == "per-period hedged"
+
+
+def test_hedged_commands_exit_on_what_is_not_ported(weekly, hedge_file):
+    common = [*weekly, "--period", "W", "--hedge", hedge_file, "--device", "cpu"]
+    with pytest.raises(SystemExit, match="bootstrap error bars"):
+        _run(port_main, ["hedged-risk", *common, "--ci", "50"])
+    for argv in (["path-risk", "--models", "gbm,heston"], ["dd-frontier", "--model", "dcc"]):
+        with pytest.raises(SystemExit, match="is not ported"):
+            _run(port_main, [argv[0], *common, *argv[1:], "--paths", "1024"])
+    with pytest.raises(SystemExit, match="requires --hedge"):
+        _run(port_main, ["hedged-risk", *weekly, "--period", "W", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not in the universe"):
+        bad = Path(hedge_file).with_name("bad.json")
+        bad.write_text(json.dumps({"DOGE": {"strategy": "Collar"}}))
+        _run(port_main, ["gbm-risk", *weekly, "--period", "W", "--hedge", str(bad),
+                         "--device", "cpu"])

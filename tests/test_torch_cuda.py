@@ -21,6 +21,11 @@ and, at rate 0, kernel #3's output bit for bit, Heston (#9, #10) to
 ``ops.heston.heston_shares`` at the bench's vol-of-vol and a Feller-violating
 one, and DCC-GARCH (the terminal kernel for #11/#12, the candidate kernel for
 #13/#14) to ``ops.dcc.dcc_shares``, with ``a = b = 0`` held to kernel #4.
+The wide variants of the GARCH, Heston and DCC kernels (17-64 assets) to
+the same bounds, the bootstrap kernels on histories past shared memory bit
+for bit, and the hedged modes of kernels #3 and #8 to ``multi_dd_shares``
+and ``merton_shares`` with the hedge (an identity hedge against the
+rebalanced mode; #8 at rate 0 equal to #3, both hedged).
 """
 
 import numpy as np
@@ -309,8 +314,8 @@ def test_garch_kernels_agree_on_one_asset(dev):
 def test_garch_kernels_reject_too_many_assets(dev):
     from mcport_torch.ops.garch import garch_terminal
 
-    with pytest.raises(ValueError, match="1..16 assets"):
-        garch_terminal(0, _garch(17, dev), 128, 4)
+    with pytest.raises(ValueError, match="1..64 assets"):
+        garch_terminal(0, _garch(65, dev), 128, 4)
 
 
 # ---- kernels #6 and #7: stationary block bootstrap ---------------------------------
@@ -375,11 +380,30 @@ def test_bootstrap_kernels_select_the_same_rows(dev):
     assert torch.equal(t7, t6.transpose(1, 2))
 
 
-def test_bootstrap_kernels_reject_a_history_beyond_shared_memory(dev):
-    from mcport_torch.ops.bootstrap import bootstrap_terminal
+@pytest.mark.parametrize("t_len", [4_000, 8_192])
+def test_bootstrap_kernels_read_a_history_beyond_shared_memory(dev, t_len):
+    """Past a block's shared memory the history stays in device memory: the
+    same rows, so the terminal kernel is its plain form bit for bit and the
+    one-hot candidates select the same rows."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares,
+                                            bootstrap_terminal, bootstrap_terminal_reference,
+                                            history_in_shared)
 
-    with pytest.raises(ValueError, match="shared memory"):
-        bootstrap_terminal(0, _history(4_000, 15, dev), 128, 4)
+    hist = _history(t_len, 15, dev)
+    assert not history_in_shared(4 * t_len * 15)
+    kw = dict(first_block=6, n_blocks=2)
+    k = bootstrap_terminal(11, hist, 4_099, 252, 0.2, **kw)
+    assert torch.equal(k, bootstrap_terminal_reference(11, hist, 4_099, 252, 0.2, **kw))
+    w = torch.from_numpy(np.random.default_rng(1).dirichlet(np.ones(15), 13).astype(
+        np.float32)).to(dev)
+    kk = bootstrap_multi_portfolio_dd(11, hist, w, 2_053, 60, 0.2, **kw)
+    pp = bootstrap_multi_dd_reference(11, hist, w, 2_053, 60, 0.2, **kw)
+    assert max(bootstrap_shares(kk, pp, hist, w, 60).values()) <= 1.0
+    eye = torch.eye(15, device=dev)
+    t7, _ = bootstrap_multi_portfolio_dd(11, hist, eye, 2_053, 60, 0.2, **kw)
+    t6 = bootstrap_terminal_reference(11, hist, 2_053, 60, 0.2, **kw)
+    assert torch.equal(t7, t6.transpose(1, 2))
 
 
 # ---- kernel #8: common-jump Merton candidates ---------------------------------------
@@ -526,8 +550,8 @@ def test_heston_kernels_agree_on_one_asset(dev):
 def test_heston_kernels_reject_too_many_assets(dev):
     from mcport_torch.ops.heston import heston_terminal
 
-    with pytest.raises(ValueError, match="1..16 assets"):
-        heston_terminal(0, _heston(17, dev), 128, 4)
+    with pytest.raises(ValueError, match="1..64 assets"):
+        heston_terminal(0, _heston(65, dev), 128, 4)
 
 
 # ---- kernels #11-#14: DCC-GARCH -----------------------------------------------------
@@ -643,5 +667,197 @@ def test_dcc_multi_dd_kernel_more_than_one_launch_of_candidates(dev):
 def test_dcc_kernels_reject_too_many_assets(dev):
     from mcport_torch.ops.dcc import dcc_terminal
 
-    with pytest.raises(ValueError, match="1..16 assets"):
-        dcc_terminal(0, _dcc(17, dev), 128, 4)
+    with pytest.raises(ValueError, match="1..64 assets"):
+        dcc_terminal(0, _dcc(65, dev), 128, 4)
+
+
+# ---- the wide variants: 17 <= A <= 64 -----------------------------------------------
+
+@pytest.mark.parametrize("a", [17, 33, 64])
+@pytest.mark.parametrize("t_df", [None, 5.5])
+def test_garch_wide_kernels_match_plain_form(dev, a, t_df):
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares, garch_terminal, garch_terminal_reference)
+
+    g = _garch(a, dev)
+    kw = dict(first_block=6, n_blocks=2)
+    k = garch_terminal(11, g, 1_029, 52, t_df=t_df, **kw)
+    p = garch_terminal_reference(11, g, 1_029, 52, t_df=t_df, **kw)
+    assert max(garch_shares(k, p, g, 52, t_df).values()) <= 1.0
+    w = torch.from_numpy(np.random.default_rng(a).dirichlet(np.ones(a), 13).astype(
+        np.float32)).to(dev)
+    kk = garch_multi_portfolio_dd(11, g, w, 1_029, 52, **kw)
+    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, **kw)
+    assert max(garch_shares(kk, pp, g, 52).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [17, 33, 64])
+@pytest.mark.parametrize("xi", [3e-3, 0.05])
+def test_heston_wide_kernels_match_plain_form(dev, a, xi):
+    """The wide kernels' path state is the plain form's bit for bit, also
+    where the Feller condition fails (xi 0.05): the terminal within
+    heston_shares' four ulps of expm1."""
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares, heston_terminal,
+                                         heston_terminal_reference)
+
+    h = _heston(a, dev, xi)
+    kw = dict(first_block=6, n_blocks=2)
+    k = heston_terminal(11, h, 1_029, 63, **kw)
+    p = heston_terminal_reference(11, h, 1_029, 63, **kw)
+    assert max(heston_shares(k, p, h, 63).values()) <= 1.0
+    w = torch.from_numpy(np.random.default_rng(a).dirichlet(np.ones(a), 13).astype(
+        np.float32)).to(dev)
+    kk = heston_multi_portfolio_dd(11, h, w, 1_029, 63, **kw)
+    pp = heston_multi_dd_reference(11, h, w, 1_029, 63, **kw)
+    assert max(heston_shares(kk, pp, h, 63).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [17, 33, 64])
+@pytest.mark.parametrize("case", ["bench", "q0", "frozen"])
+def test_dcc_wide_kernels_match_plain_form(dev, a, case):
+    from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_multi_portfolio_dd,
+                                      dcc_shares, dcc_terminal, dcc_terminal_reference)
+
+    d = _dcc(a, dev, case)
+    kw = dict(first_block=6, n_blocks=2)
+    k = dcc_terminal(11, d, 515, 13, **kw)
+    p = dcc_terminal_reference(11, d, 515, 13, **kw)
+    assert max(dcc_shares(k, p, d, 13).values()) <= 1.0
+    w = torch.from_numpy(np.random.default_rng(a).dirichlet(np.ones(a), 256).astype(
+        np.float32)).to(dev)
+    kk = dcc_multi_portfolio_dd(11, d, w, 515, 13, **kw)
+    pp = dcc_multi_dd_reference(11, d, w, 515, 13, **kw)
+    assert max(dcc_shares(kk, pp, d, 13).values()) <= 1.0
+
+
+# ---- the hedged modes of kernels #3 and #8 --------------------------------------------
+
+def _hedge(a, dev, n_legs=2, seed=0):
+    """Every leg type over ``n_legs`` legs per asset, strikes around the spot,
+    some premiums, and one qty-0 padding row."""
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    rng = np.random.default_rng(seed)
+    s0 = rng.uniform(20.0, 200.0, a)
+    t = (np.arange(a * n_legs) % 7).reshape(a, n_legs).astype(np.int32)
+    k = s0[:, None] * rng.uniform(0.85, 1.15, (a, n_legs))
+    prem = s0[:, None] * rng.uniform(0.0, 0.02, (a, n_legs))
+    q = rng.uniform(0.2, 1.5, (a, n_legs))
+    q[-1, -1] = 0.0
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    return HedgeTensors(f(s0), torch.as_tensor(t, device=dev), f(k), f(prem), f(q))
+
+
+@pytest.mark.parametrize("n_legs", [1, 2, 3])
+@pytest.mark.parametrize("score_dtype", ["float32", "tensorfloat32", "bfloat16"])
+@pytest.mark.parametrize("bm, t_df", [("poly", None), ("poly", 5.5)])
+def test_multi_dd_hedged_kernel_matches_plain_form(dev, n_legs, score_dtype, bm, t_df):
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    a = 15
+    mean, chol, _ = _bench_inputs(a, dev)
+    hedge = _hedge(a, dev, n_legs)
+    w = torch.from_numpy(np.random.default_rng(2).dirichlet(np.ones(a), 13).astype(
+        np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2, score_dtype=score_dtype, bm=bm, t_df=t_df)
+    before = gbm_multi_portfolio_dd.launches
+    k = gbm_multi_portfolio_dd(11, mean, chol, w, 2_053, 60, hedge=hedge, **kw)
+    torch.cuda.synchronize()
+    assert gbm_multi_portfolio_dd.launches == before + 1
+    lk = t_scaled_chol(chol, t_df)
+    p = multi_dd_reference(11, mean, lk, w, 2_053, 60, hedge=hedge, with_bound=True, **kw)
+    p32 = multi_dd_reference(11, mean, lk, w, 2_053, 60, hedge=hedge,
+                             **dict(kw, score_dtype="float32"))
+    shares = multi_dd_shares(k, p, p32, lk, mean, 60, True, score_dtype, hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_multi_dd_identity_hedge_is_the_rebalanced_mode(dev):
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+    from mcport_torch.options.hedged import HedgeSpec
+
+    a = 15
+    mean, chol, _ = _bench_inputs(a, dev)
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(a)]),
+                                   np.linspace(10.0, 100.0, a), dev)
+    w = torch.from_numpy(np.random.default_rng(3).dirichlet(np.ones(a), 256).astype(
+        np.float32)).to(dev)
+    h = gbm_multi_portfolio_dd(5, mean, chol, w, 4_099, 252, hedge=ident)
+    r = gbm_multi_portfolio_dd(5, mean, chol, w, 4_099, 252, rebalance=True)
+    bound = multi_dd_reference(5, mean, chol, w, 4_099, 252, hedge=ident, with_bound=True)[2]
+    assert max(multi_dd_shares(h, (*r, bound), None, chol, mean, 252, True, "float32",
+                               ident).values()) <= 1.0
+
+
+@pytest.mark.parametrize("n_legs", [1, 3])
+@pytest.mark.parametrize("jump_rate", [0.02, 0.3])
+def test_merton_hedged_kernel_matches_plain_form(dev, n_legs, jump_rate):
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+
+    a = 15
+    mean, chol, muj, sigj = _merton(a, dev)
+    hedge = _hedge(a, dev, n_legs, seed=1)
+    w = torch.from_numpy(np.random.default_rng(4).dirichlet(np.ones(a), 256).astype(
+        np.float32)).to(dev)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    before = merton_multi_portfolio_dd.launches
+    k = merton_multi_portfolio_dd(11, mean, chol, jump_rate, muj, sigj, w, 2_053, 60, **kw)
+    torch.cuda.synchronize()
+    assert merton_multi_portfolio_dd.launches == before + 1
+    p = merton_multi_dd_reference(11, mean, chol, jump_rate, muj, sigj, w, 2_053, 60,
+                                  with_bound=True, **kw)
+    shares = merton_shares(k, p, chol, mean, sigj, 60, hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_merton_hedged_kernel_at_zero_rate_is_the_multi_dd_hedged_kernel(dev):
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    a = 15
+    mean, chol, muj, sigj = _merton(a, dev)
+    hedge = _hedge(a, dev, 2, seed=2)
+    w = torch.from_numpy(np.random.default_rng(5).dirichlet(np.ones(a), 13).astype(
+        np.float32)).to(dev)
+    j = merton_multi_portfolio_dd(7, mean, chol, 0.0, muj, sigj, w, 2_053, 60, hedge=hedge)
+    m = gbm_multi_portfolio_dd(7, mean, chol, w, 2_053, 60, hedge=hedge)
+    assert torch.equal(j[0], m[0]) and torch.equal(j[1], m[1])
+
+
+@pytest.mark.parametrize("kernel", ["multi_dd", "merton"])
+def test_hedged_kernels_carry_overflowed_wealth_as_the_plain_form(dev, kernel):
+    """Deep in-the-money puts settled every step overflow the wealth; the
+    kernels then give the plain form's inf terminal value and NaN drawdown on
+    the same paths, and hold every other path to the bound."""
+    from mcport_torch.ops.hedged import HedgeTensors, hedged_held
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    a = 15
+    mean, chol, muj, sigj = _merton(a, dev)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    s0 = np.full(a, 100.0)
+    hedge = HedgeTensors(f(s0), torch.full((a, 2), 4, dtype=torch.int32, device=dev),
+                         f(np.full((a, 2), 99.0)), f(np.zeros((a, 2))), f(np.full((a, 2), 3.0)))
+    w = torch.from_numpy(np.random.default_rng(6).dirichlet(np.ones(a), 13).astype(
+        np.float32)).to(dev)
+    if kernel == "merton":
+        args = (3, mean, chol, 0.3, muj, sigj, w, 2_053, 252)
+        k = merton_multi_portfolio_dd(*args, hedge=hedge)
+        p = merton_multi_dd_reference(*args, hedge=hedge, with_bound=True)
+        shares = merton_shares(k, p, chol, mean, sigj, 252, hedge)
+    else:
+        k = gbm_multi_portfolio_dd(3, mean, chol, w, 2_053, 252, hedge=hedge)
+        p = multi_dd_reference(3, mean, chol, w, 2_053, 252, hedge=hedge, with_bound=True)
+        shares = multi_dd_shares(k, p, None, chol, mean, 252, True, "float32", hedge)
+    held = hedged_held(k, p)
+    assert held["overflowed"] > 0 and held["astray"] == 0, held
+    assert max(shares.values()) <= 1.0, (shares, held)

@@ -21,7 +21,7 @@ import torch
 from mcport.config import Config, GBMConfig, SketchConfig
 from mcport.engine.mc_engine import run_resumable_mc as ref_run
 from mcport.models.gbm import GBMParams as RefParams
-from mcport_torch.api import gbm_risk
+from mcport_torch.api import gbm_risk, hedged_tail_risk, path_tail_risk
 from mcport_torch.convert import from_mcport, gbm_params_from_numpy
 from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import (
@@ -166,13 +166,14 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: run_resumable_mc(PARAMS, W, CFG, hedge=object(), device="cpu"),
+    lambda: path_tail_risk(object(), model="heston", legs_by_asset={}, device="cpu"),
     lambda: run_resumable_mc(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
     lambda: run_resumable_mc_with_recovery(PARAMS, W, CFG),
     lambda: gbm_risk(PARAMS, W, Config(gbm=dataclasses.replace(CFG, qmc="sobol")),
                      device="cpu"),
     lambda: gbm_risk(PARAMS, W, Config(gbm=CFG), mesh=object(), device="cpu"),
-    lambda: gbm_risk(PARAMS, W, Config(gbm=CFG), legs_by_asset={0: []}, device="cpu"),
+    lambda: hedged_tail_risk(object(), config=Config(gbm=dataclasses.replace(CFG, ci_boot=10)),
+                             device="cpu"),
 ])
 def test_unported_branches_raise(call):
     with pytest.raises(NotImplementedError, match="not ported"):

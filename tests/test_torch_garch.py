@@ -277,8 +277,10 @@ def test_garch_tolerance_rejects_planted_faults(monkeypatch, fault, steps):
 
 def test_wrappers_check_their_inputs():
     g = _bench().tensors("cpu")
-    with pytest.raises(ValueError, match="1..16 assets"):
-        O.garch_terminal(0, _bench(17).tensors("cpu"), 16, 4)
+    # the plain forms take any width; only a launch on the card checks 1..64
+    assert O.garch_terminal(0, _bench(17).tensors("cpu"), 16, 4).shape == (1, 16, 17)
+    with pytest.raises(ValueError, match="1..64 assets"):
+        O.check_card_assets(65, "GARCH")
     with pytest.raises(ValueError, match="float32"):
         O.garch_terminal(0, g._replace(mu=g.mu.double()), 16, 4)
     with pytest.raises(ValueError, match="weights must be"):
