@@ -128,7 +128,7 @@ ends:
    kernels on an 8,192 x 15 history past shared memory (bit for bit, and the
    one-hot selection), ``path_tail_risk`` for garch, heston and dcc and
    ``compare_tail_risk`` on a 17-asset universe on the card (counts reset
-   before and read after), and A = 65 refused on the card;
+   before and read after);
 19. the hedged modes of kernels #3 and #8 against their plain forms (1-3 legs
    of every type, the score tiers and t(5.5), W in {1, 13, 256}, rates 0.02
    and 0.3), an identity hedge against the rebalanced mode, #8 at rate 0
@@ -148,6 +148,30 @@ ends:
    the score product as one ``torch.matmul`` per step, each wide variant at
    A = 64, and the bootstrap kernels on the long history; the hedged modes'
    least times from the work their functions need.
+22. widths past 64 (``csrc/wide.cuh``): every kernel at A = 65 and 200 (DCC
+   65 and 256, where Q and L leave shared memory) on the bench universe
+   widened, against its plain form with today's bounds (the bootstrap's
+   selection bit for bit, #3 at one candidate equal to #2, #8 at rate 0
+   equal to #3); the hedged #3, #5, #7 and #8 at A = 65; and the main paths
+   at 65 assets (``path_tail_risk`` for all seven families,
+   ``compare_tail_risk``, ``gbm_risk``, a GBM frontier) with every wrapper's
+   wide count reset before and read after;
+23. the hedged modes of #5 and #7 against their plain forms path by path
+   (``ops.garch.garch_shares`` and ``ops.bootstrap.bootstrap_shares`` with
+   the hedge): 1-3 legs of every type, W in {1, 13, 256}, the bootstrap on
+   shared-memory and 8,192-row histories, one-hot bootstrap candidates bit
+   for bit, an identity hedge against the unhedged mode, and every hedged
+   launch of phase 24 over a head and a tail slice of each block's paths;
+24. the hedged GARCH and bootstrap main paths with the bench hedge: path risk
+   at both cells with split + resume, ``path_tail_risk`` for both, both
+   hedged frontiers at 4,096 x 131,072 x 252 and at 52 steps (optima against
+   the plain forms), and the CLI's ``path-risk --hedge`` and ``dd-frontier
+   --hedge`` for both on the weekly fixtures; counts reset before and read
+   after;
+25. the hedged #5 and #7 timed at 256 x 131,072 x 252 beside their unhedged
+   modes, plain forms and the score product as one ``torch.matmul`` per
+   step; each kernel's wide layout at A = 200 (DCC 256) beside its plain
+   form; every new entry's least time from the work its function needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -741,7 +765,12 @@ def phase_path_kernels(dev) -> dict:
 
 
 def _reports_equal(a, b) -> bool:
-    return all(getattr(a, f) == getattr(b, f) for f in
+    """Equal fields, a NaN equal to a NaN (the drawdown sum of overflowed
+    hedged wealth)."""
+    def same(x, y):
+        return x == y or (isinstance(x, float) and math.isnan(x) and math.isnan(y))
+
+    return all(same(getattr(a, f), getattr(b, f)) for f in
                ("var", "cvar", "port_mean", "dd_mean", "dd_p95", "dd_median", "n_paths"))
 
 
@@ -1039,6 +1068,7 @@ def bounds(rate: float) -> dict:
     res.update({f"{name} {LONG_HISTORY} rows": b for name, b in long.items()})
     for name in ("garch_terminal", "garch_multi_dd", "heston_terminal", "heston_multi_dd"):
         res[f"{name} A=15 17-64 layout"] = res[name]
+    res["draw"] = draw   # kernel #1's instructions per draw, for the later tables
     return res
 
 
@@ -1063,14 +1093,13 @@ def phase_path_timing(dev) -> dict:
 
     kernel2(), plain2()
     torch.cuda.synchronize()
-    p1, k1, k2, p2 = _time_ms(plain2, 1), _time_ms(kernel2, 10), _time_ms(kernel2, 10), \
-        _time_ms(plain2, 1)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    p1, k1, k2 = _time_ms(plain2, 1), _time_ms(kernel2, 10), _time_ms(kernel2, 10)
+    ms, plain_ms = (k1 + k2) / 2, p1
     work = LAW_PATHS * N_STEPS
     reb = _time_ms(lambda: kernel2(True), 10)
     print(f"phase8 timing path_stats {LAW_PATHS} x {N_STEPS} x {N_ASSETS} buy-hold: kernel "
-          f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} path-steps/s), plain {p1:.1f} / "
-          f"{p2:.1f} ms ({work / plain_ms * 1e3:.4e} path-steps/s); rebalanced kernel "
+          f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} path-steps/s), plain {p1:.1f} "
+          f"ms ({work / plain_ms * 1e3:.4e} path-steps/s); rebalanced kernel "
           f"{reb:.3f} ms")
     res["path_stats"] = (ms, plain_ms, None)
 
@@ -1093,9 +1122,9 @@ def phase_path_timing(dev) -> dict:
                 f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} cand-path-steps/s)")
         if sd == "float32":  # the plain form (float32) between the kernel's two timings
             plain3()
-            p1, p2 = _time_ms(plain3, 1), _time_ms(plain3, 1)
-            line += f", plain {p1:.1f} / {p2:.1f} ms"
-            res["multi_dd"] = (ms, (p1 + p2) / 2)
+            p1 = _time_ms(plain3, 1)
+            line += f", plain {p1:.1f} ms"
+            res["multi_dd"] = (ms, p1)
         print(line)
     # the library yardstick: the score product alone, one (W, A) x (A, P)
     # torch.matmul per step
@@ -1190,10 +1219,9 @@ def family_launches(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
                              np.ones(N_ASSETS))
-    for kernel in ("garch_multi_dd", "bootstrap_multi_dd"):
-        for i in range(0, FRONTIER["n_candidates"], 256):
-            out.append(dict(kernel=kernel, what=f"frontier chunk {i // 256}", seed=path_seed,
-                            n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    for kernel in ("garch_multi_dd", "bootstrap_multi_dd"):   # its 16 launches of 256
+        out.append(dict(kernel=kernel, what="frontier, 16 chunks", seed=path_seed,
+                        n=FRONTIER["n_paths"], w=cand))
     for launch in out:
         launch.setdefault("src", src[launch["kernel"]])
     return out
@@ -1645,12 +1673,12 @@ def phase_family_timing(dev) -> dict:
     for name, (kern, plain, work, reps) in runs.items():
         kern(), plain()
         torch.cuda.synchronize()
-        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
-                          _time_ms(plain, 1))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        # the plain form once, after its warm-up: a yardstick of arithmetic
+        p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
+        ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
         print(f"phase11 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
-              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+              f"{unit}), plain {p1:.1f} ms")
         res[name] = [ms, plain_ms, None]
     idx = torch.randint(0, hist.shape[0], (FAMILY_PATHS,), device=dev)
     sel = _time_ms(lambda: torch.index_select(hist, 0, idx), 50)
@@ -1757,10 +1785,13 @@ def family2_launches(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
                              np.ones(N_ASSETS))
-    for kernel in ("merton_multi_dd", "heston_multi_dd"):
-        for i in range(0, FRONTIER["n_candidates"], 256):
-            out.append(dict(kernel=kernel, what=f"frontier chunk {i // 256}", seed=path_seed,
-                            n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    # the Heston frontier's 16 launches of 256 in one call; the Merton plain
+    # form holds every (path, step, candidate) at once, so it goes chunk by chunk
+    out.append(dict(kernel="heston_multi_dd", what="frontier, 16 chunks", seed=path_seed,
+                    n=FRONTIER["n_paths"], w=cand))
+    for i in range(0, FRONTIER["n_candidates"], 256):
+        out.append(dict(kernel="merton_multi_dd", what=f"frontier chunk {i // 256}",
+                        seed=path_seed, n=FRONTIER["n_paths"], w=cand[i:i + 256]))
     for launch in out:
         launch.setdefault("src", src[launch["kernel"]])
     return out
@@ -2205,12 +2236,12 @@ def phase_family2_timing(dev) -> dict:
     for name, (kern, plain, work, reps) in runs.items():
         kern(), plain()
         torch.cuda.synchronize()
-        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
-                          _time_ms(plain, 1))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        # the plain form once, after its warm-up: a yardstick of arithmetic
+        p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
+        ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
         print(f"phase14 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
-              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+              f"{unit}), plain {p1:.1f} ms")
         res[name] = [ms, plain_ms, None]
     e = torch.rand((N_ASSETS, pp), device=dev)
     mm = _time_ms(lambda: torch.matmul(cand, e), 50)
@@ -2289,9 +2320,8 @@ def dcc_launches(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
                              np.ones(N_ASSETS))
-    for i in range(0, FRONTIER["n_candidates"], 256):
-        out.append(dict(kernel="dcc_dd", what=f"frontier chunk {i // 256}",
-                        seed=path_seed, n=FRONTIER["n_paths"], w=cand[i:i + 256]))
+    out.append(dict(kernel="dcc_dd", what="frontier, 16 chunks of 256", seed=path_seed,
+                    n=FRONTIER["n_paths"], w=cand))
     for launch in out:
         launch.setdefault("src", bench_dcc())
         launch.setdefault("steps", N_STEPS)
@@ -2655,12 +2685,12 @@ def phase_dcc_timing(dev) -> dict:
     for name, (kern, plain, work, reps) in runs.items():
         kern(), plain()
         torch.cuda.synchronize()
-        p1, k1, k2, p2 = (_time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps),
-                          _time_ms(plain, 1))
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        # the plain form once, after its warm-up: a yardstick of arithmetic
+        p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
+        ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if name == "dcc_dd" else "path-steps/s"
         print(f"phase17 timing {name}: kernel {k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} "
-              f"{unit}), plain {p1:.1f} / {p2:.1f} ms")
+              f"{unit}), plain {p1:.1f} ms")
         res[name] = [ms, plain_ms, None]
     q = torch.as_tensor(0.5 * np.eye(N_ASSETS) + 0.5, dtype=torch.float32, device=dev)
     qb = q.expand(FAMILY_PATHS, N_ASSETS, N_ASSETS).contiguous()
@@ -2767,8 +2797,8 @@ def phase_wide(dev) -> dict:
     for bit: its terminal within four ulps of expm1); the bootstrap kernels
     on an 8,192 x 15 history (past shared memory) bit for bit; path_tail_risk
     for garch, heston and dcc and compare_tail_risk on the 17-asset probe
-    universe, counts reset before and read after; and A = 65 refused on the
-    card. Returns each kernel's worst |kernel - plain|."""
+    universe, counts reset before and read after (past 64 assets: phase 22).
+    Returns each kernel's worst |kernel - plain|."""
     from mcport_torch.api import compare_tail_risk, path_tail_risk
     from mcport_torch.config import Config, GBMConfig
     from mcport_torch.ops import bootstrap as B
@@ -2833,15 +2863,6 @@ def phase_wide(dev) -> dict:
     p = B.bootstrap_multi_dd_reference(11, hist, w13, MDD_PATHS, N_STEPS, 0.2, **kw)
     held("bootstrap_multi_dd", f"long history W=13 {MDD_PATHS}x2 x {N_STEPS}", k, p,
          B.bootstrap_shares(k, p, hist, w13, N_STEPS))
-    # past 64 assets the card refuses, naming the open item
-    try:
-        G.garch_terminal(0, bench_garch(65).tensors(dev), 128, 4)
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    print(f"phase18 A=65 on the card: {refused}")
-    check("1..64 assets" in refused and "ROADMAP" in refused, "A = 65 is refused on the card")
-
     # the main paths at 17 assets: counts reset just before, read just after
     counted = {"garch_terminal": G.garch_terminal, "garch_multi_dd": G.garch_multi_portfolio_dd,
                "heston_terminal": H.heston_terminal,
@@ -2910,12 +2931,11 @@ def hedged_launches(dev) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
                              np.ones(N_ASSETS))
-    for steps in HEDGED_FRONTIER_STEPS:
-        for i in range(0, FRONTIER["n_candidates"], 256):
-            for kernel, src in (("multi_dd_hedged", gbm), ("merton_multi_dd_hedged", merton)):
-                out.append(dict(kernel=kernel, what=f"frontier {steps} steps chunk {i // 256}",
-                                seed=path_seed, n=FRONTIER["n_paths"], w=cand[i:i + 256],
-                                t_df=None, src=src, s0=np.full(N_ASSETS, SPOT), steps=steps))
+    for steps in HEDGED_FRONTIER_STEPS:   # each frontier's 16 launches of 256 candidates
+        for kernel, src in (("multi_dd_hedged", gbm), ("merton_multi_dd_hedged", merton)):
+            out.append(dict(kernel=kernel, what=f"frontier {steps} steps, 16 chunks",
+                            seed=path_seed, n=FRONTIER["n_paths"], w=cand, t_df=None, src=src,
+                            s0=np.full(N_ASSETS, SPOT), steps=steps))
     for launch in out:
         launch.setdefault("steps", N_STEPS)
     return out
@@ -3072,9 +3092,10 @@ def phase_hedged_kernels(dev) -> dict:
     return worst
 
 
-def _fixture_cli_hedged(dev, tmp: Path) -> dict:
-    """The hedged commands on the weekly BTC/ETH fixtures (a married put on
-    BTC, a collar on ETH), as a user runs them; each command's JSON."""
+def _fixture_cli_hedged(dev, tmp: Path, runs=None) -> dict:
+    """Hedged commands on the weekly BTC/ETH fixtures (a married put on BTC, a
+    collar on ETH), as a user runs them: ``runs`` ``{name: argv}``, by
+    default phase 20's four; each command's JSON."""
     import contextlib
     import io
 
@@ -3089,14 +3110,15 @@ def _fixture_cli_hedged(dev, tmp: Path) -> dict:
     common = [*csvs, "--period", "W", "--hedge", str(hedge), "--device", str(dev)]
     # a year of weekly steps: per-step settlement of the collar's short call
     # over 252 weeks of crypto volatility overflows the wealth (in mcport too)
-    runs = {"hedged-risk": ["hedged-risk", "--paths", str(FAMILY_PATHS)],
-            "gbm-risk --hedge": ["gbm-risk", "--paths", str(FAMILY_PATHS), "--steps", "52",
-                                 "--path-stats"],
-            "path-risk --hedge": ["path-risk", "--models", "gbm,student_t,jump", "--paths",
-                                  str(CLI_PATHS)],
-            "dd-frontier --hedge": ["dd-frontier", "--candidates", str(CLI_FRONTIER[0]),
-                                    "--paths", str(CLI_FRONTIER[1]), "--steps", "52",
-                                    "--dd-budget", "1.0"]}
+    if runs is None:
+        runs = {"hedged-risk": ["hedged-risk", "--paths", str(FAMILY_PATHS)],
+                "gbm-risk --hedge": ["gbm-risk", "--paths", str(FAMILY_PATHS), "--steps", "52",
+                                     "--path-stats"],
+                "path-risk --hedge": ["path-risk", "--models", "gbm,student_t,jump", "--paths",
+                                      str(CLI_PATHS)],
+                "dd-frontier --hedge": ["dd-frontier", "--candidates", str(CLI_FRONTIER[0]),
+                                        "--paths", str(CLI_FRONTIER[1]), "--steps", "52",
+                                        "--dd-budget", "1.0"]}
     out = {}
     for name, argv in runs.items():
         buf = io.StringIO()
@@ -3478,6 +3500,770 @@ def _tile_at_15(dev, cand, res: dict) -> None:
         res[f"{name} A=15 17-64 layout"] = [tile, None, None]
 
 
+# ---- past 64 assets, and the hedged GARCH and bootstrap modes: phases 22-25 -------------
+
+WIDE_A = (65, 200)                  # widths of the wide layout (csrc/wide.cuh)
+DCC_WIDE_A = (65, 256)              # DCC's: at 256 a path's Q and L leave shared memory
+WIDE_TERM, WIDE_CAND, WIDE_STEPS = 32_768, 8_192, 52   # per block; two blocks each check
+DCC_WIDE = (2_048, 8)               # DCC: paths per block, steps
+WIDE_TIMING = dict(p=65_536, pp=8_192, n=52)   # phase 25 at A = 200 (DCC: 4,096 x 8)
+WIDE_KERNELS = ("terminal_noise", "path_stats", "multi_dd", "merton_multi_dd",
+                "garch_terminal", "garch_multi_dd", "bootstrap_terminal", "bootstrap_multi_dd",
+                "heston_terminal", "heston_multi_dd", "dcc_terminal", "dcc_dd")
+FAMILY_HEDGED = ("garch_multi_dd_hedged", "bootstrap_multi_dd_hedged")
+
+
+def _wide_wrappers() -> dict:
+    """Each kernel's wrapper, by its name in the kernels line."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
+    from mcport_torch.ops.gbm import gbm_terminal_noise
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+    from mcport_torch.ops.path_stats import gbm_path_stats
+
+    return dict(zip(WIDE_KERNELS, (
+        gbm_terminal_noise, gbm_path_stats, gbm_multi_portfolio_dd, merton_multi_portfolio_dd,
+        G.garch_terminal, G.garch_multi_portfolio_dd, B.bootstrap_terminal,
+        B.bootstrap_multi_portfolio_dd, H.heston_terminal, H.heston_multi_portfolio_dd,
+        D.dcc_terminal, D.dcc_multi_portfolio_dd)))
+
+
+def universe65():
+    """Queue 3's probe at 65 assets: 200 weekly rows of N(1e-3, 0.02) returns
+    plus a common factor (``names``, ``prices``, ``port_rets``)."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(65)
+    rets = rng.normal(1e-3, 0.02, (199, 65)) + rng.normal(0.0, 0.01, (199, 1))
+    prices = 100.0 * np.cumprod(np.vstack([np.ones((1, 65)), 1.0 + rets]), axis=0)
+    return SimpleNamespace(names=tuple(f"S{i}" for i in range(65)), prices=prices,
+                           port_rets=np.vstack([np.zeros((1, 65)), rets]))
+
+
+def _wide_calls(a: int, dev, p: int, pp: int, n: int, w_cnt: int, nb: int = 2):
+    """``{name: (kernel(), plain(), shares(k, p) or None for bit for bit)}``
+    for every kernel at ``a`` assets (``p`` terminal and ``pp`` candidate
+    paths per block, ``n`` steps, ``w_cnt`` candidates, ``nb`` blocks)."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
+    from mcport_torch.ops.gbm import (gbm_terminal_noise, kernel_tolerance,
+                                      terminal_noise_reference)
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+    from mcport_torch.ops.path_stats import (gbm_path_stats, path_stats_reference,
+                                             path_stats_shares)
+
+    kw = dict(first_block=6, n_blocks=nb)
+    mean, chol = (torch.as_tensor(x, device=dev) for x in bench_universe(a))
+    w1 = torch.full((a,), 1.0 / a, device=dev)
+    w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), w_cnt),
+                        dtype=torch.float32, device=dev)
+    m = bench_merton(a)
+    _, _, muj, sigj = _merton_tensors(m, dev)
+    g, hist, h = (bench_garch(a).tensors(dev), torch.as_tensor(bench_history(a), device=dev),
+                  bench_heston(a).tensors(dev))
+
+    def tn_share(k, pl):
+        return {"term": float(((k - pl).abs() / kernel_tolerance(chol, n)).max())}
+
+    margs = (11, mean, chol, 0.02, muj, sigj, w, pp, n)
+    return {
+        "terminal_noise": (lambda: gbm_terminal_noise(11, chol, p, n, **kw),
+                           lambda: terminal_noise_reference(11, chol, p, n, **kw), tn_share),
+        "path_stats": (lambda: gbm_path_stats(11, mean, chol, w1, p, n, **kw),
+                       lambda: path_stats_reference(11, mean, chol, w1, p, n, **kw),
+                       lambda k, pl: path_stats_shares(k, pl, chol, mean, n)),
+        "multi_dd": (lambda: gbm_multi_portfolio_dd(11, mean, chol, w, pp, n, rebalance=True,
+                                                    **kw),
+                     lambda: multi_dd_reference(11, mean, chol, w, pp, n, rebalance=True, **kw),
+                     lambda k, pl: multi_dd_shares(k, pl, None, chol, mean, n, True,
+                                                   "float32")),
+        "merton_multi_dd": (lambda: merton_multi_portfolio_dd(*margs, **kw),
+                            lambda: merton_multi_dd_reference(*margs, **kw),
+                            lambda k, pl: merton_shares(k, pl, chol, mean, sigj, n)),
+        "garch_terminal": (lambda: G.garch_terminal(11, g, p, n, **kw),
+                           lambda: G.garch_terminal_reference(11, g, p, n, **kw),
+                           lambda k, pl: G.garch_shares(k, pl, g, n)),
+        "garch_multi_dd": (lambda: G.garch_multi_portfolio_dd(11, g, w, pp, n, **kw),
+                           lambda: G.garch_multi_dd_reference(11, g, w, pp, n, **kw),
+                           lambda k, pl: G.garch_shares(k, pl, g, n)),
+        "bootstrap_terminal": (lambda: B.bootstrap_terminal(11, hist, p, n, **kw),
+                               lambda: B.bootstrap_terminal_reference(11, hist, p, n, **kw),
+                               None),
+        "bootstrap_multi_dd": (lambda: B.bootstrap_multi_portfolio_dd(11, hist, w, pp, n, **kw),
+                               lambda: B.bootstrap_multi_dd_reference(11, hist, w, pp, n, **kw),
+                               lambda k, pl: B.bootstrap_shares(k, pl, hist, w, n)),
+        "heston_terminal": (lambda: H.heston_terminal(11, h, p, n, **kw),
+                            lambda: H.heston_terminal_reference(11, h, p, n, **kw),
+                            lambda k, pl: H.heston_shares(k, pl, h, n)),
+        "heston_multi_dd": (lambda: H.heston_multi_portfolio_dd(11, h, w, pp, n, **kw),
+                            lambda: H.heston_multi_dd_reference(11, h, w, pp, n, **kw),
+                            lambda k, pl: H.heston_shares(k, pl, h, n)),
+    }
+
+
+def _dcc_wide_calls(a: int, dev, p: int, n: int, w_cnt: int, nb: int = 2):
+    from mcport_torch.ops import dcc as D
+
+    kw = dict(first_block=6, n_blocks=nb)
+    d = bench_dcc(a).tensors(dev)
+    w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), w_cnt),
+                        dtype=torch.float32, device=dev)
+    return {"dcc_terminal": (lambda: D.dcc_terminal(11, d, p, n, **kw),
+                             lambda: D.dcc_terminal_reference(11, d, p, n, **kw),
+                             lambda k, pl: D.dcc_shares(k, pl, d, n)),
+            "dcc_dd": (lambda: D.dcc_multi_portfolio_dd(11, d, w, p, n, **kw),
+                       lambda: D.dcc_multi_dd_reference(11, d, w, p, n, **kw),
+                       lambda k, pl: D.dcc_shares(k, pl, d, n))}
+
+
+def phase_wide_any(dev) -> tuple[dict, dict, dict]:
+    """Phase 22, widths past 64: every kernel at A = 65 and 200 (DCC 65 and
+    256, where Q and L leave shared memory) on the bench universe widened,
+    against its plain form on the card with today's bounds (the bootstrap
+    terminal and one-hot candidates bit for bit, Heston's path state through
+    heston_shares' four ulps, #8 at rate 0 equal to #3 and #3 with one
+    candidate equal to #2); the hedged #3, #5, #7 and #8 at A = 65; then the
+    main paths at 65 assets with every wrapper's wide count reset before and
+    read after: path_tail_risk for the seven families, compare_tail_risk
+    (the terminal kernels), gbm_risk and a GBM frontier. Returns each wide
+    layout's worst |kernel - plain| and its launches on that run."""
+    from mcport_torch.api import compare_tail_risk, gbm_risk, path_tail_risk
+    from mcport_torch.config import Config, GBMConfig
+    from mcport_torch.engine.drawdown_frontier import drawdown_frontier_search
+    from mcport_torch.models.gbm import estimate_gbm
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    worst: dict = {}
+    held = _held_printer("phase22", worst)
+    for a in WIDE_A:
+        calls = _wide_calls(a, dev, WIDE_TERM, WIDE_CAND, WIDE_STEPS, 64)
+        for name, (kern, plain, shares) in calls.items():
+            k, p = kern(), plain()
+            what = f"A={a} {'64 x ' if 'dd' in name else ''}2 blocks x {WIDE_STEPS}"
+            if shares is None:
+                same = torch.equal(k, p)
+                print(f"phase22 {name} wide {what}: bit for bit={same}")
+                check(same, f"{name} wide at A={a} is its plain form")
+                worst[name] = max(worst.get(name, 0.0), 0.0)
+            else:
+                held(name, what, k, p, shares(k, p))
+            del k, p
+        # the bit-identical pairs: #3 at one candidate is #2, #8 at rate 0 is
+        # #3 rebalanced, one-hot bootstrap candidates select the plain rows
+        mean, chol = (torch.as_tensor(x, device=dev) for x in bench_universe(a))
+        w1 = torch.full((a,), 1.0 / a, device=dev)
+        kw = dict(first_block=6, n_blocks=2)
+        ps = calls["path_stats"][0]()
+        one = gbm_multi_portfolio_dd(11, mean, chol, w1[None], WIDE_TERM, WIDE_STEPS, **kw)
+        _, _, muj, sigj = _merton_tensors(bench_merton(a), dev)
+        w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 64),
+                            dtype=torch.float32, device=dev)
+        j0 = merton_multi_portfolio_dd(11, mean, chol, 0.0, muj, sigj, w, WIDE_CAND,
+                                       WIDE_STEPS, **kw)
+        m3 = gbm_multi_portfolio_dd(11, mean, chol, w, WIDE_CAND, WIDE_STEPS, rebalance=True,
+                                    **kw)
+        hist = torch.as_tensor(bench_history(a), device=dev)
+        k7, _ = B.bootstrap_multi_portfolio_dd(11, hist, torch.eye(a, device=dev)[:9], WIDE_CAND,
+                                               WIDE_STEPS, **kw)
+        p6 = B.bootstrap_terminal_reference(11, hist, WIDE_CAND, WIDE_STEPS, **kw)
+        same = (torch.equal(one[0][:, 0], ps[1]) and torch.equal(one[1][:, 0], ps[2]),
+                torch.equal(j0[0], m3[0]) and torch.equal(j0[1], m3[1]),
+                torch.equal(k7, p6[..., :9].transpose(1, 2)))
+        print(f"phase22 A={a} bit for bit: #3 one candidate = #2 {same[0]}, #8 rate 0 = #3 "
+              f"{same[1]}, #7 one-hot = #6's plain rows {same[2]}")
+        check(all(same), f"the bit-identical wide kernels at A={a}")
+    for a in DCC_WIDE_A:
+        for name, (kern, plain, shares) in _dcc_wide_calls(a, dev, *DCC_WIDE, 64).items():
+            k, p = kern(), plain()
+            held(name, f"A={a} {'64 x ' if name == 'dcc_dd' else ''}2 blocks x {DCC_WIDE[1]}",
+                 k, p, shares(k, p))
+    # the hedged modes at 65 assets: 2 legs of every type, 64 candidates
+    hw = {}
+    a = WIDE_A[0]
+    hedge = leg_mix(a, 2, dev, seed=a)
+    for name, (kern, plain, shares) in _family_hedged_calls(a, dev, hedge, WIDE_CAND, 60,
+                                                            64).items():
+        k, p = kern(), plain()
+        hw[name] = _hedged_report("phase22", name, f"A={a} L=2 W=64 2 blocks x 60", k, p,
+                                  shares(k, p))
+    mean, chol = (torch.as_tensor(x, device=dev) for x in bench_universe(a))
+    w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 64),
+                        dtype=torch.float32, device=dev)
+    _, _, muj, sigj = _merton_tensors(bench_merton(a), dev)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    k = gbm_multi_portfolio_dd(11, mean, chol, w, WIDE_CAND, 60, **kw)
+    p = multi_dd_reference(11, mean, chol, w, WIDE_CAND, 60, with_bound=True, **kw)
+    hw["multi_dd_hedged"] = _hedged_report(
+        "phase22", "multi_dd_hedged", f"A={a} L=2 W=64 2 blocks x 60", k, p,
+        multi_dd_shares(k, p, None, chol, mean, 60, True, "float32", hedge))
+    margs = (11, mean, chol, 0.3, muj, sigj, w, WIDE_CAND, 60)
+    k = merton_multi_portfolio_dd(*margs, **kw)
+    p = merton_multi_dd_reference(*margs, with_bound=True, **kw)
+    hw["merton_multi_dd_hedged"] = _hedged_report(
+        "phase22", "merton_multi_dd_hedged", f"A={a} L=2 W=64 rate 0.3 2 blocks x 60", k, p,
+        merton_shares(k, p, chol, mean, sigj, 60, hedge))
+
+    # the main paths at 65 assets: counts reset just before, read just after
+    wrappers = _wide_wrappers()
+    for fn in wrappers.values():
+        fn.wide_launches = 0
+    data = universe65()
+    cfg = Config(gbm=GBMConfig(n_steps=DCC_STEPS))
+    t0 = time.perf_counter()
+    tails = {m: path_tail_risk(data, None, cfg, model=m, device=dev)
+             for m in ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")}
+    compare = compare_tail_risk(data, None, cfg, device=dev)
+    params = estimate_gbm(data.prices)
+    risk = gbm_risk(params, None, cfg, device=dev)
+    front = drawdown_frontier_search(FRONTIER_SEED, params, dd_budget=1.0, n_candidates=512,
+                                     n_paths=16_384, n_steps=DCC_STEPS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.wide_launches for name, fn in wrappers.items()}
+    print(f"phase22 65 assets: path_tail_risk x 7, compare_tail_risk, gbm_risk and a 512 x "
+          f"16,384 frontier in {wall:.2f} s (estimation included), wide launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          "the 65-asset main paths went through every kernel's wide layout")
+    for m, out in tails.items():
+        print(f"phase22 path_tail_risk {m} at 65 assets: {json.dumps(out)}")
+        check(out["cvar"] <= out["var"] and -1.0 <= out["dd_p95"] <= out["dd_median"] <= 0.0,
+              f"path_tail_risk {m} at 65 assets")
+    print(f"phase22 compare_tail_risk at 65 assets: {json.dumps(compare)}")
+    check(len(compare) == 7 and all("error" not in v and v["cvar"] <= v["var"]
+                                    for v in compare.values()),
+          "compare_tail_risk reports seven families at 65 assets")
+    check(risk.cvar <= risk.var and front.opt_idx >= 0, "gbm_risk and the frontier at 65")
+    return worst, launches, hw
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Equal bit for bit, a NaN (overflowed hedged wealth) equal to a NaN."""
+    return x.shape == y.shape and bool(((x == y) | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+EDGE_PATHS: dict = {}   # per hedged kernel: paths finite on one side only, at float32's edge
+
+
+def _hedged_report(prefix, name, what, kern, plain, shares) -> float:
+    """Print and check one hedged comparison (ops.hedged.hedged_held's
+    counts): every path within its bound, none astray; a path whose wealth
+    crossed float32's largest value on one side only, within the bound of
+    it (an edge path, ``ops.hedged._overflow``), is counted in EDGE_PATHS.
+    Returns the worst |kernel - plain| of the finite paths."""
+    from mcport_torch.ops.hedged import hedged_held
+
+    c = hedged_held(kern, plain)
+    print(f"{prefix} {name} {what} max_abs={c['max_abs']:.3e} max_rel={c['max_rel']:.3e} "
+          f"paths finite={c['finite']} overflowed={c['overflowed']} edge={c['edge']} "
+          f"astray={c['astray']} shares=" + " ".join(f"{n}={v:.4f}" for n, v in shares.items()))
+    check(max(shares.values()) <= 1.0 and c["astray"] == 0, f"{name} kernel vs plain, {what}")
+    EDGE_PATHS[name] = EDGE_PATHS.get(name, 0) + c["edge"]
+    return c["max_abs"]
+
+
+def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=None, nb=2):
+    """``{name: (kernel(), plain(), shares(k, p))}`` of the hedged GARCH and
+    bootstrap modes at ``a`` assets, with the plain forms' per-path bound."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+
+    if w is None:
+        w = torch.as_tensor(np.random.default_rng(w_cnt).dirichlet(np.ones(a), w_cnt),
+                            dtype=torch.float32, device=dev)
+    kw = dict(first_block=6, n_blocks=nb, hedge=hedge)
+    g = bench_garch(a).tensors(dev)
+    hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (rows, a)),
+                           dtype=torch.float32, device=dev)
+    return {"garch_multi_dd_hedged": (
+                lambda: G.garch_multi_portfolio_dd(seed, g, w, n, steps, **kw),
+                lambda: G.garch_multi_dd_reference(seed, g, w, n, steps, with_bound=True, **kw),
+                lambda k, p: G.garch_shares(k, p, g, steps, hedge=hedge)),
+            "bootstrap_multi_dd_hedged": (
+                lambda: B.bootstrap_multi_portfolio_dd(seed, hist, w, n, steps, **kw),
+                lambda: B.bootstrap_multi_dd_reference(seed, hist, w, n, steps,
+                                                       with_bound=True, **kw),
+                lambda k, p: B.bootstrap_shares(k, p, hist, w, steps, hedge=hedge))}
+
+
+def family_hedged_launches(dev) -> list[dict]:
+    """Every distinct hedged launch of kernels #5 and #7 that phase 24 makes
+    through the API (the CLI's run on the fixtures is checked by its counts):
+    path risk at both cells, path_tail_risk (parameters estimated from
+    ``bench_prices``, spots its last prices) and every 256-candidate chunk of
+    both frontiers at 252 and 52 steps."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.models.garch_mc import estimate_ccc_garch
+    from mcport_torch.ops.dirichlet import sample_weights
+
+    garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    w = bench_weights()[None]
+    spot = np.full(N_ASSETS, SPOT)
+    out = []
+    for name, g in cells().items():
+        for kernel, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+            out.append(dict(kernel=kernel, what=f"path risk {name}", seed=g.seed, n=g.path_block,
+                            w=w, first_block=0, n_blocks=g.n_paths // g.path_block, src=src,
+                            s0=spot))
+    prices = bench_prices()
+    g = GBMConfig()
+    tail = dict(seed=g.seed, n=g.path_block, w=np.full((1, N_ASSETS), 1.0 / N_ASSETS),
+                first_block=0, n_blocks=g.n_paths // g.path_block, s0=prices.prices[-1])
+    out.append(dict(kernel="garch_multi_dd_hedged", what="path_tail_risk garch",
+                    src=estimate_ccc_garch(prices.port_rets).tensors(dev), **tail))
+    out.append(dict(kernel="bootstrap_multi_dd_hedged", what="path_tail_risk bootstrap",
+                    src=torch.as_tensor(prices.port_rets, dtype=torch.float32, device=dev),
+                    **tail))
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
+                             np.ones(N_ASSETS))
+    for steps in HEDGED_FRONTIER_STEPS:   # each frontier's 16 launches of 256 candidates
+        for kernel, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+            out.append(dict(kernel=kernel, what=f"frontier {steps} steps, 16 chunks",
+                            seed=path_seed, n=FRONTIER["n_paths"], w=cand, src=src, s0=spot,
+                            steps=steps))
+    for launch in out:
+        launch.setdefault("steps", N_STEPS)
+    return out
+
+
+def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=True):
+    """One launch of ``family_hedged_launches`` through the kernel, or its
+    plain form over ``n`` paths from ``first_path`` (with its per-path bound
+    unless ``bound`` is false)."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    _, spec = bench_hedge(launch["s0"])
+    hedge = HedgeTensors.from_spec(spec, launch["s0"], dev)
+    w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+    kw = dict(first_block=launch.get("first_block", -1), n_blocks=launch.get("n_blocks", 1),
+              hedge=hedge)
+    n = launch["n"] if n is None else n
+    args = (launch["seed"], launch["src"], w, n, launch["steps"])
+    if launch["kernel"] == "garch_multi_dd_hedged":
+        if plain:
+            return G.garch_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
+                                              **kw)
+        return G.garch_multi_portfolio_dd(*args, **kw)
+    if plain:
+        return B.bootstrap_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
+                                              **kw)
+    return B.bootstrap_multi_portfolio_dd(*args, **kw)
+
+
+def _family_hedged_shares(launch, kern, plain, dev):
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    _, spec = bench_hedge(launch["s0"])
+    hedge = HedgeTensors.from_spec(spec, launch["s0"], dev)
+    if launch["kernel"] == "garch_multi_dd_hedged":
+        return G.garch_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
+    w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
+    return B.bootstrap_shares(kern, plain, launch["src"], w, launch["steps"], hedge=hedge)
+
+
+def phase_family_hedged_kernels(dev) -> dict:
+    """Phase 23: the hedged modes of kernels #5 and #7 against their plain
+    forms, path by path to the per-path bound (``ops.garch.garch_price_bound``,
+    ``ops.bootstrap.bootstrap_price_bound``: the bootstrap's prices are the
+    plain form's bit for bit): 1-3 legs of every type, W in {1, 13, 256}, the
+    bootstrap on a 365-row history (shared memory) and an 8,192-row one
+    (device memory); one-hot bootstrap candidates bit for bit; an identity
+    hedge against the unhedged mode; then every hedged launch of phase 24 over
+    a head and a tail slice of each block's paths. The GARCH candidate kernel
+    draws normal shocks only, as mcport's does."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.options import HedgeSpec
+
+    worst: dict = {}
+
+    def keep(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for n_legs in (1, 2, 3):
+        hedge = leg_mix(N_ASSETS, n_legs, dev, seed=n_legs)
+        for n_cand in (1, 13, 256):
+            for rows in (365, LONG_HISTORY):
+                calls = _family_hedged_calls(N_ASSETS, dev, hedge, MDD_PATHS, 60, n_cand,
+                                             rows=rows)
+                for name, (kern, plain, shares) in calls.items():
+                    if name.startswith("garch") and rows != 365:
+                        continue
+                    k, p = kern(), plain()
+                    keep(name, _hedged_report("phase23", name, f"L={n_legs} W={n_cand} "
+                                              f"{rows}-row history {MDD_PATHS}x2 x 60"
+                                              if name.startswith("boot") else
+                                              f"L={n_legs} W={n_cand} {MDD_PATHS}x2 x 60",
+                                              k, p, shares(k, p)))
+    # one-hot bootstrap candidates: the prices and the settlement bit for bit
+    hist = torch.as_tensor(bench_history(), device=dev)
+    hedge = leg_mix(N_ASSETS, 3, dev, seed=5)
+    eye = torch.eye(N_ASSETS, device=dev)
+    k = B.bootstrap_multi_portfolio_dd(4, hist, eye, MDD_PATHS, N_STEPS, hedge=hedge)
+    p = B.bootstrap_multi_dd_reference(4, hist, eye, MDD_PATHS, N_STEPS, hedge=hedge)
+    same = _same_bits(k[0], p[0]) and _same_bits(k[1], p[1])
+    print(f"phase23 bootstrap hedged one-hot candidates, L=3 {MDD_PATHS} x {N_STEPS}: the "
+          f"plain form bit for bit={same}")
+    check(same, "the hedged bootstrap's prices and settlement are the plain form's")
+    # an identity hedge (one BUY_ASSET leg per asset) is the unhedged mode
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(N_ASSETS)]),
+                                   np.linspace(10.0, 200.0, N_ASSETS), dev)
+    w = torch.as_tensor(np.random.default_rng(3).dirichlet(np.ones(N_ASSETS), 256),
+                        dtype=torch.float32, device=dev)
+    g = bench_garch().tensors(dev)
+    for name, kern, unh, bnd, shares in (
+            ("garch", lambda: G.garch_multi_portfolio_dd(5, g, w, MDD_PATHS, N_STEPS, hedge=ident),
+             lambda: G.garch_multi_portfolio_dd(5, g, w, MDD_PATHS, N_STEPS),
+             lambda: G.garch_multi_dd_reference(5, g, w, MDD_PATHS, N_STEPS, hedge=ident,
+                                                with_bound=True)[2],
+             lambda h, r: G.garch_shares(h, r, g, N_STEPS, hedge=ident)),
+            ("bootstrap",
+             lambda: B.bootstrap_multi_portfolio_dd(5, hist, w, MDD_PATHS, N_STEPS, hedge=ident),
+             lambda: B.bootstrap_multi_portfolio_dd(5, hist, w, MDD_PATHS, N_STEPS),
+             lambda: B.bootstrap_multi_dd_reference(5, hist, w, MDD_PATHS, N_STEPS, hedge=ident,
+                                                    with_bound=True)[2],
+             lambda h, r: B.bootstrap_shares(h, r, hist, w, N_STEPS, hedge=ident))):
+        h, r = kern(), unh()
+        sh = shares(h, (*r, bnd()))
+        print(f"phase23 {name} identity hedge vs the unhedged mode, W=256 {MDD_PATHS} x "
+              f"{N_STEPS}: max_abs={max(float((x - y).abs().max()) for x, y in zip(h, r)):.3e} "
+              "shares=" + " ".join(f"{n}={v:.4f}" for n, v in sh.items()))
+        check(max(sh.values()) <= 1.0, f"a {name} identity hedge is the unhedged mode")
+    # every launch of phase 24, over a head and a tail slice of each block
+    for launch in family_hedged_launches(dev):
+        kk = _family_hedged_call(launch, dev, plain=False)
+        for p0 in _slices(launch["n"]):
+            m = min(SLICE, launch["n"])
+            part = (kk[0][..., p0:p0 + m], kk[1][..., p0:p0 + m])
+            p = _family_hedged_call(launch, dev, plain=True, n=m, first_path=p0)
+            keep(launch["kernel"], _hedged_report(
+                "phase23", launch["kernel"], f"{launch['what']} paths {p0}..{p0 + m - 1}", part,
+                p, _family_hedged_shares(launch, part, p, dev)))
+        del kk
+    print(f"phase23 paths at float32's edge (finite on one side only, within the bound): "
+          f"{EDGE_PATHS}")
+    return worst
+
+
+def _fixture_cli_family_hedged(dev, tmp: Path) -> dict:
+    """``path-risk --hedge --models garch,bootstrap`` and ``dd-frontier
+    --model garch|bootstrap --hedge`` on the weekly fixtures, 52 weekly
+    steps; each command's JSON."""
+    runs = {"path-risk --hedge": ["path-risk", "--models", "garch,bootstrap", "--paths",
+                                  str(CLI_PATHS), "--steps", "52"]}
+    for m in ("garch", "bootstrap"):
+        runs[f"dd-frontier --model {m} --hedge"] = [
+            "dd-frontier", "--model", m, "--candidates", str(CLI_FRONTIER[0]), "--paths",
+            str(CLI_FRONTIER[1]), "--steps", "52", "--dd-budget", "1.0"]
+    return _fixture_cli_hedged(dev, tmp, runs)
+
+
+def phase_family_hedged_tier(dev) -> dict:
+    """Phase 24, the hedged GARCH and bootstrap main paths with the bench
+    hedge (a married put on asset 0 and a collar on asset 1, spot 100): path
+    risk at both cells with split + resume, path_tail_risk for both families,
+    both hedged frontiers at 4,096 x 131,072 x 252 and at 52 steps, and the
+    CLI's hedged path-risk and dd-frontier for both on the fixtures; the
+    hedged counts reset before and read after; then the drawdown quantiles
+    and each frontier's optimum against the plain forms."""
+    from mcport_torch.api import path_tail_risk
+    from mcport_torch.config import Config
+    from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
+    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
+                                               run_resumable_path_risk)
+    from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+    from mcport_torch.ops.garch import garch_multi_portfolio_dd
+
+    params, hist, w = bench_garch(), bench_history(), bench_weights()
+    spot = np.full(N_ASSETS, SPOT)
+    _, spec = bench_hedge(spot)
+    prices = bench_prices()
+    tail_legs, _ = bench_hedge(prices.prices[-1])
+    counted = {"garch_multi_dd_hedged": garch_multi_portfolio_dd,
+               "bootstrap_multi_dd_hedged": bootstrap_multi_portfolio_dd}
+
+    def timed(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def walls(fn, *a, **kw):
+        out, first = timed(fn, *a, **kw)
+        return out, (first, timed(fn, *a, **kw)[1])
+
+    for fn in counted.values():
+        fn.hedged_launches = 0
+    reports, resumes, wall = {}, {}, {}
+    for name, g in cells().items():
+        nb = g.n_paths // g.path_block
+        for model, run, src in (("garch", run_garch_path_risk, params),
+                                ("bootstrap", run_bootstrap_path_risk, hist)):
+            key = f"{model} {name}"
+            reports[key], wall[key] = walls(run, src, w, g, hedge=spec, s0=spot, device=dev)
+            _, part = run_resumable_path_risk(model, src, w, g, hedge=spec, s0=spot,
+                                              max_blocks=nb // 3, device=dev)
+            resumes[key] = run_resumable_path_risk(model, src, w, g, hedge=spec, s0=spot,
+                                                   checkpoint=part, device=dev), part
+    tails = {m: timed(path_tail_risk, prices, None, Config(), model=m, legs_by_asset=tail_legs,
+                      device=dev) for m in ("garch", "bootstrap")}
+    frontier, budget = {}, {}
+    for steps in HEDGED_FRONTIER_STEPS:
+        for m, src in (("garch", params), ("bootstrap", hist)):
+            key, cfg = f"{m} {steps}", dict(FRONTIER, n_steps=steps)
+
+            def run(**kw):
+                return family_drawdown_frontier_search(FRONTIER_SEED, m, src, hedge=spec,
+                                                       s0=spot, device=dev, **kw)
+
+            if steps == N_STEPS:
+                budget[key] = round(-reports[f"{m} default"].dd_p95 + 0.01, 4)
+            else:
+                budget[key] = round(-float(np.median(run(**dict(cfg, dd_budget=1.0)).dd_p95)), 4)
+            frontier[key], wall[f"frontier {key}"] = walls(run, **dict(cfg, dd_budget=budget[key]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cli, cli_wall = timed(_fixture_cli_family_hedged, dev, Path(tmp))
+    launches = {name: fn.hedged_launches for name, fn in counted.items()}
+    print(f"phase24 hedged family tier: hedged launches {launches}")
+    check(all(n > 0 for n in launches.values()),
+          "the hedged paths went through the hedged modes of kernels #5 and #7")
+    for key, r in reports.items():
+        first, warm = wall[key]
+        (resumed, ck), part = resumes[key]
+        same = _reports_equal(r, resumed) and ck.done and not part.done
+        print(f"phase24 path risk hedged {key}: paths={r.n_paths} wall first={first:.4f} s "
+              f"warm={warm:.4f} s var={r.var:.6f} cvar={r.cvar:.6f} dd_p95={r.dd_p95:.6f} "
+              f"dd_median={r.dd_median:.6f}; split at block {part.next_block} + resume "
+              f"bit-identical={same}")
+        check(r.cvar <= r.var and -1.0 <= r.dd_p95 <= r.dd_median <= 0.0,
+              f"hedged path risk {key}: finite and ordered")
+        check(same, f"hedged path risk {key}: resume equivalence")
+    for m, (out, t_wall) in tails.items():
+        print(f"phase24 path_tail_risk hedged {m}: wall {t_wall:.4f} s {json.dumps(out)}")
+        check(out["hedged_assets"] == ["asset0", "asset1"] and out["cvar"] <= out["var"],
+              f"path_tail_risk hedged {m}")
+    for key, r in frontier.items():
+        first, warm = wall[f"frontier {key}"]
+        i = r.opt_idx
+        print(f"phase24 frontier hedged {key} steps: {FRONTIER['n_candidates']} x "
+              f"{FRONTIER['n_paths']} budget {budget[key]} wall first={first:.4f} s "
+              f"warm={warm:.4f} s feasible={int(r.feasible.sum())} opt={i} "
+              f"ret={float(r.ret[i]):.7g} dd_p95={float(r.dd_p95[i]):.6f} candidates with "
+              f"an infinite mean return {int((~np.isfinite(r.ret)).sum())}")
+        check(0 < int(r.feasible.sum()) < FRONTIER["n_candidates"]
+              and float(r.dd_p95[i]) >= -budget[key], f"hedged {key}-step frontier")
+    print(f"phase24 cli: the hedged family commands in {cli_wall:.2f} s")
+    for name, out in cli.items():
+        print(f"phase24 cli {name}: {json.dumps(out)}")
+    check(cli["path-risk --hedge"]["settlement"] == "per-period hedged"
+          and all(cli["path-risk --hedge"][m]["cvar"] <= cli["path-risk --hedge"][m]["var"]
+                  for m in ("garch", "bootstrap"))
+          and all(cli[f"dd-frontier --model {m} --hedge"]["hedged"] is True
+                  for m in ("garch", "bootstrap")), "cli hedged garch and bootstrap")
+    _family_hedged_references(dev, w, reports, frontier)
+    return launches
+
+
+def _family_hedged_references(dev, w, reports, frontier) -> None:
+    """Phase 24's results against the plain forms: the default cell's hedged
+    drawdown quantiles over the same paths, and each hedged frontier's
+    optimum over all its paths within what the per-path bound allows (as
+    phase 20 holds #3 and #8)."""
+    from mcport_torch.engine.drawdown_frontier import frontier_seeds
+    from mcport_torch.engine.path_risk import DD_SKETCH
+
+    cfg = cells()["default"]
+    nb = cfg.n_paths // cfg.path_block
+    spot = np.full(N_ASSETS, SPOT)
+    garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
+    for m, src in (("garch", garch), ("bootstrap", hist)):
+        launch = dict(kernel=f"{m}_multi_dd_hedged", seed=cfg.seed, w=w[None], src=src, s0=spot,
+                      steps=N_STEPS, first_block=0, n_blocks=nb)
+        dd = torch.cat([_family_hedged_call(launch, dev, plain=True, n=min(2_048,
+                                                                           cfg.path_block - p0),
+                                            first_path=p0, bound=False)[1]
+                        for p0 in range(0, cfg.path_block, 2_048)], dim=-1).reshape(-1)
+        dd = torch.nan_to_num(dd, nan=-math.inf)
+        r = reports[f"{m} default"]
+        q = float(torch.kthvalue(dd, math.ceil(0.05 * dd.numel())).values)
+        med = float(torch.median(dd))
+        print(f"phase24 hedged {m} default dd vs plain form over the same paths: p95 "
+              f"{r.dd_p95:.6f} vs {q:.6f}, median {r.dd_median:.6f} vs {med:.6f} (bound "
+              f"{2 * dd_width:.2e})")
+        check(abs(r.dd_p95 - q) <= 2 * dd_width and abs(r.dd_median - med) <= 2 * dd_width,
+              f"hedged {m} drawdown quantiles agree with the plain form")
+    path_seed = frontier_seeds(FRONTIER_SEED)[0]
+    n = FRONTIER["n_paths"]
+    for key, f in frontier.items():
+        m, steps = key.split()
+        i = f.opt_idx
+        launch = dict(kernel=f"{m}_multi_dd_hedged", seed=path_seed, w=f.weights[i][None],
+                      src=garch if m == "garch" else hist, s0=spot, steps=int(steps), n=n)
+        parts = [_family_hedged_call(launch, dev, plain=True, n=min(8_192, n - p0),
+                                     first_path=p0) for p0 in range(0, n, 8_192)]
+        term, ddo, bnd = (torch.cat([p[j] for p in parts], dim=-1)[0, 0] for j in range(3))
+        ret = float(term.mean())
+        q = float(torch.kthvalue(torch.nan_to_num(ddo, nan=-math.inf),
+                                 math.ceil(0.05 * n)).values)
+        fin = torch.isfinite(term)
+        ret_tol = (float((bnd[fin].double() * (1.0 + term[fin].double().abs())).mean())
+                   + (1e-6 * (1.0 + abs(ret)) if math.isfinite(ret) else 0.0))
+        q_tol = 2.0 * float(bnd[torch.isfinite(ddo)].max()) + 1e-6
+        got_ret, got_q = float(f.ret[i]), float(f.dd_p95[i])
+        print(f"phase24 hedged frontier {key} steps optimum vs plain form: ret {got_ret:.7g} "
+              f"vs {ret:.7g} (bound {ret_tol:.3g}), dd_p95 {got_q:.7f} vs {q:.7f} (bound "
+              f"{q_tol:.3g}); paths overflowed {int((~fin).sum())} of {n}")
+        check(_within(got_ret, ret, ret_tol) and _within(got_q, q, q_tol),
+              f"hedged {key}-step frontier optimum agrees with the plain form")
+
+
+def wide_bounds(draw: float, rate: float) -> dict:
+    """Least time of each kernel's wide layout at phase 25's shapes (A = 200:
+    terminal 65,536 x 52, candidates 256 x 8,192 x 52; DCC A = 256, 4,096 x
+    8 and 256 x 4,096 x 8) from the work each function needs (the families'
+    tables at that shape; #1-#3 per path-step: the draws, the full row of L
+    z (A FMAs per asset) and, per step, exp and the score)."""
+    a, sh = 200, WIDE_TIMING
+    p, pp, n, w_cnt = sh["p"], sh["pp"], sh["n"], 256
+    score = w_cnt * (a + 6)
+    gbm_step = a * (draw + a + 3)
+    tag = "phase25 A=200"
+    work = {"terminal_noise": ((a * draw * n + a * a) * p, 4 * (a * a + a * p),
+                               f"{a} x {n} draws of {draw:.2f} + {a * a} FMAs of L sum(z) per "
+                               f"path"),
+            "path_stats": ((gbm_step + 4) * n * p, 4 * (a * a + 2 * a) + 8 * p,
+                           f"{gbm_step:.0f} per path-step: {a} draws, {a} x {a} FMAs of L z, "
+                           f"3 per asset"),
+            "multi_dd": ((gbm_step + score) * n * pp, 4 * (a * a + a + w_cnt * a) + 8 * w_cnt * pp,
+                         f"{gbm_step:.0f} per path-step + {score} for 256 candidates")}
+    out = _bound_table(work, rate, tag)
+    m = family2_bounds(draw, rate, a=a, n=n, p=p, pp=pp, tag=tag)
+    out.update(family_bounds(draw, rate, a=a, n=n, p=p, pp=pp, tag=tag))
+    out.update(m)
+    d = dcc_bounds(draw, rate, a=256, n=DCC_WIDE[1], p=4_096, pp=4_096,
+                   tag="phase25 A=256")
+    out.update(d)
+    return {f"{name} wide": b for name, b in out.items()}
+
+
+def family_hedged_bounds(draw: float, rate: float) -> dict:
+    """Least time of the hedged modes of kernels #5 and #7 at 256 x 131,072 x
+    252 with the bench hedge (L = 2 legs), from the work each function needs:
+    the unhedged mode's (``family_bounds``) plus, per asset-step, the price
+    update (2) and the legs' settlement (per leg 7, one division counted as
+    8), as ``hedged_bounds`` counts for #3 and #8."""
+    a, n, w_cnt, pp, legs = N_ASSETS, N_STEPS, 256, FRONTIER["n_paths"], 2
+    tri = a * (a + 1) / 2
+    settle = a * (7 * legs + 1 + 8 + 2)
+    score = w_cnt * (a + 6)
+    garch_step = a * (draw + 7) + tri + settle
+    boot_step = PHILOX_CALL / 2 + 8 + a + settle
+    hedge_bytes = 4 * a * (1 + 4 * legs)
+    work = {"garch_multi_dd_hedged": ((garch_step + score) * n * pp,
+                                      4 * (a * a + 6 * a + w_cnt * a) + hedge_bytes
+                                      + 8 * w_cnt * pp,
+                                      f"{garch_step:.2f} per path-step ({settle:.0f} "
+                                      f"settlement) + {score} for 256 candidates"),
+            "bootstrap_multi_dd_hedged": ((boot_step + score) * n * pp,
+                                          4 * (365 * a + w_cnt * a) + hedge_bytes
+                                          + 8 * w_cnt * pp,
+                                          f"{boot_step:.2f} per path-step ({settle:.0f} "
+                                          f"settlement) + {score} for 256 candidates")}
+    return _bound_table(work, rate, "phase25")
+
+
+def phase_wide_timing(dev) -> dict:
+    """Phase 25, with CUDA events: the hedged modes of #5 and #7 at 256 x
+    131,072 x 252 (the bench hedge, L = 2) beside their unhedged modes, their
+    plain forms (8,192-path pieces) and the score product as one torch.matmul
+    per step; then each kernel's wide layout at A = 200 (DCC 256) beside its
+    plain form (and, for the candidates, the score product as one
+    torch.matmul per step)."""
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    spot = np.full(N_ASSETS, SPOT)
+    _, spec = bench_hedge(spot)
+    hedge = HedgeTensors.from_spec(spec, spot, dev)
+    cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
+                           dtype=torch.float32, device=dev)
+    pp = FRONTIER["n_paths"]
+    res = {}
+    garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    e = torch.rand((N_ASSETS, pp), device=dev)
+    mm = _time_ms(lambda: torch.matmul(cand, e), 50)
+    for name, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+        launch = dict(kernel=name, seed=0, n=pp, w=cand, src=src, s0=spot, steps=N_STEPS)
+
+        def kern(launch=launch):
+            _family_hedged_call(launch, dev, plain=False)
+
+        def bare(name=name, src=src):
+            from mcport_torch.ops import bootstrap as B
+            from mcport_torch.ops import garch as G
+
+            if name.startswith("garch"):
+                G.garch_multi_portfolio_dd(0, src, cand, pp, N_STEPS)
+            else:
+                B.bootstrap_multi_portfolio_dd(0, src, cand, pp, N_STEPS)
+
+        def plain(launch=launch):
+            for p0 in range(0, pp, MDD_PLAIN_CHUNK):
+                _family_hedged_call(launch, dev, plain=True, n=min(MDD_PLAIN_CHUNK, pp - p0),
+                                    first_path=p0, bound=False)
+
+        kern(), bare()
+        torch.cuda.synchronize()
+        p1, k1, u1, u2, k2 = (_time_ms(plain, 1), _time_ms(kern, 3), _time_ms(bare, 3),
+                              _time_ms(bare, 3), _time_ms(kern, 3))
+        ms = (k1 + k2) / 2
+        print(f"phase25 timing {name} (L=2) 256 x {pp} x {N_STEPS}: kernel {k1:.3f} / "
+              f"{k2:.3f} ms ({256 * pp * N_STEPS / ms * 1e3:.4e} cand-path-steps/s), the "
+              f"unhedged mode {u1:.3f} / {u2:.3f} ms, plain {p1:.1f} ms, torch.matmul x "
+              f"{N_STEPS} {mm * N_STEPS:.3f} ms")
+        res[name] = [ms, p1, mm * N_STEPS]
+    # each wide layout at A = 200 (DCC 256)
+    sh = WIDE_TIMING
+    calls = {**_wide_calls(200, dev, sh["p"], sh["pp"], sh["n"], 256, nb=1),
+             **_dcc_wide_calls(256, dev, 4_096, DCC_WIDE[1], 256, nb=1)}
+    for name, (kern, plain, _) in calls.items():
+        kern()
+        torch.cuda.synchronize()
+        t1, t2 = _time_ms(kern, 2), _time_ms(kern, 2)
+        pl = _time_ms(plain, 1)
+        a = 256 if name.startswith("dcc") else 200
+        cand_paths = 4_096 if name.startswith("dcc") else sh["pp"]
+        lib = None
+        if name.endswith("dd"):
+            c = torch.rand((256, a), device=dev)
+            x = torch.rand((a, cand_paths), device=dev)
+            steps = DCC_WIDE[1] if name.startswith("dcc") else sh["n"]
+            lib = _time_ms(lambda: torch.matmul(c, x), 20) * steps
+        print(f"phase25 timing {name} wide layout A={a}: kernel {t1:.3f} / {t2:.3f} ms, plain "
+              f"{pl:.1f} ms" + (f", torch.matmul per step x steps {lib:.3f} ms" if lib else ""))
+        res[f"{name} wide"] = [(t1 + t2) / 2, pl, lib]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
@@ -3534,12 +4320,26 @@ def main() -> int:
     launches.update(phase_hedged_tier(dev))
     lap("phase 20")
     times.update(phase_hedged_timing(dev))
-    bound = bounds(issue_rate())
+    lap("phase 21")
+    wide_worst, wide_launches, hedged_wide = phase_wide_any(dev)
+    lap("phase 22")
+    worst.update(phase_family_hedged_kernels(dev))
+    for name, err in hedged_wide.items():
+        worst[name] = max(worst[name], err)
+    lap("phase 23")
+    launches.update(phase_family_hedged_tier(dev))
+    lap("phase 24")
+    times.update(phase_wide_timing(dev))
+    rate = issue_rate()
+    bound = bounds(rate)
+    draw = bound.pop("draw")
+    bound.update(family_hedged_bounds(draw, rate))
+    bound.update(wide_bounds(draw, rate))
     for key, t in times.items():
-        if " " in key:   # phase 21's variants, beside their bounds
-            print(f"phase21 {key}: {t[0]:.3f} ms, bound {bound[key][0]:.3f} ms "
+        if " " in key or key in FAMILY_HEDGED:   # phases 21 and 25, beside their bounds
+            print(f"bound {key}: {t[0]:.3f} ms, bound {bound[key][0]:.3f} ms "
                   f"({bound[key][1]}), {100 * bound[key][0] / t[0]:.1f}% of the bound")
-    lap("phase 21 and the bounds")
+    lap("phase 25 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),
           "no jax, pandas or mcport imported")
@@ -3558,10 +4358,21 @@ def main() -> int:
         # :359 and :279
         "dcc_terminal": ("dcc.cu", "mcport/ops/pallas_dcc.py:242"),
         "dcc_dd": ("dcc.cu", "mcport/ops/pallas_dcc.py:359"),
-        # the hedged modes: the hedged branches of #3 (:143-175) and #8 (:100-120)
+        # the hedged modes: the hedged branches of #3 (:143-175), #8 (:100-120),
+        # #5 (:137-167) and #7 (:147-164)
         "multi_dd_hedged": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:143"),
         "merton_multi_dd_hedged": ("jump.cu", "mcport/ops/pallas_jump.py:100"),
+        "garch_multi_dd_hedged": ("garch.cu", "mcport/ops/pallas_garch.py:137"),
+        "bootstrap_multi_dd_hedged": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:147"),
     }
+    # each kernel's layout past 64 assets (csrc/wide.cuh and its model in the
+    # kernel's file): launches on phase 22's 65-asset main paths, errors from
+    # phase 22, times and bounds at A = 200 (DCC 256) from phase 25
+    for name in WIDE_KERNELS:
+        src, replaces = kernels[name]
+        kernels[f"{name} wide"] = (src, replaces)
+        launches[f"{name} wide"] = wide_launches[name]
+        worst[f"{name} wide"] = wide_worst[name]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"mcport_torch/csrc/{src}",

@@ -36,41 +36,49 @@ _c_ll, _c_int, _c_float, _c_ptr = (ctypes.c_longlong, ctypes.c_int, ctypes.c_flo
                                    ctypes.c_void_p)
 #: Each kernel library's C entry points and their argument types (see the
 #: .cu): name, argtypes, then the next entry point's name, argtypes, ...
+_I, _F, _P = [_c_int], [_c_float], [_c_ptr]
 KERNELS = {
     "terminal_noise": ("mcport_terminal_noise", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
-        _c_ptr, _c_ptr, _c_ptr]),
+        _c_ptr, _c_ptr, _c_ptr],
+        "mcport_terminal_noise_wide", [_c_ll, _c_ll] + 5 * _I + 2 * _F + 2 * _P + _I + 2 * _P),
     "path_stats": ("mcport_path_stats", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
-        _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+        _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        "mcport_path_stats_wide",
+        [_c_ll, _c_ll] + 6 * _I + 2 * _F + 7 * _P + 2 * _I + _P),
     "multi_dd": ("mcport_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
-        _c_int, _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+        _c_int, _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        "mcport_multi_dd_wide",
+        [_c_ll, _c_ll] + 9 * _I + 2 * _F + 7 * _P + 2 * _I + _P),
     "garch": ("mcport_garch_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
         _c_ptr, _c_ptr, _c_ptr],
-        "mcport_garch_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr]),
+        "mcport_garch_multi_dd", [_c_ll, _c_ll] + 7 * _I + 6 * _P,
+        "mcport_garch_wide",
+        [_c_ll, _c_ll] + 6 * _I + 2 * _F + _I + 6 * _P + 2 * _I + _P),
     "bootstrap": ("mcport_bootstrap_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr,
         _c_ptr, _c_ptr],
-        "mcport_bootstrap_multi_dd", [
-        _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+        "mcport_bootstrap_multi_dd", [_c_ll, _c_ll] + 7 * _I + _F + _I + 6 * _P,
+        "mcport_bootstrap_wide", [_c_ll, _c_ll] + 7 * _I + _F + 6 * _P + 2 * _I + _P),
     "jump": ("mcport_merton_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr]),
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        "mcport_merton_multi_dd_wide", [_c_ll, _c_ll] + 6 * _I + _F + 6 * _P + 2 * _I + _P),
     "heston": ("mcport_heston_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
         "mcport_heston_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr]),
+        _c_ptr, _c_ptr, _c_ptr],
+        "mcport_heston_wide", [_c_ll, _c_ll] + 5 * _I + 5 * _P + 2 * _I + _P),
     "dcc": ("mcport_dcc_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
         "mcport_dcc_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr,
-        _c_ptr, _c_ptr]),
+        _c_ptr, _c_ptr],
+        "mcport_dcc_wide", [_c_ll, _c_ll] + 5 * _I + 5 * _P + _I + _P),
 }
 
 

@@ -19,8 +19,9 @@ hedge config (:func:`mcport_torch.options.hedged.legs_from_spec`), e.g.
 
     {"BTC": {"strategy": "Married Put"}, "ETH": {"strategy": "Collar"}}
 
-Hedged ``path-risk`` and ``dd-frontier`` run for the gbm, student_t and jump
-families; another family exits with a message naming it. Not ported yet:
+Hedged ``path-risk`` and ``dd-frontier`` run for the gbm, student_t, jump,
+garch and bootstrap families (against the last prices); heston and dcc exit
+with a message naming them, before any work. Not ported yet:
 ``--attribution`` and ``--ci`` (``hedged-risk --ci`` exits with a message).
 """
 

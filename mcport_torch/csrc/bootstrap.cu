@@ -3,8 +3,8 @@
 // rebalanced wealth with its maximum drawdown (kernel bootstrap_dd_kernel).
 //
 // Replaces mcport/ops/pallas_bootstrap.py::_bootstrap_kernel (the
-// bootstrap-risk main path) and ::_bootstrap_dd_kernel (its unhedged mode:
-// path-risk --models bootstrap and the bootstrap drawdown frontier). The plain
+// bootstrap-risk main path) and ::_bootstrap_dd_kernel, both modes (path-risk
+// --models bootstrap and the bootstrap drawdown frontier, hedged or not). The plain
 // torch forms of the same functions, on the same Philox counters, are
 // mcport_torch/ops/bootstrap.py::bootstrap_terminal_reference and
 // ::bootstrap_multi_dd_reference.
@@ -15,6 +15,12 @@
 // circular), and either gross *= 1 + hist[idx] per asset (terminal: out
 // gross - 1), or for every candidate w, V *= 1 + w·hist[idx], peak, dd from
 // V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
+// Hedged (kHedged, pallas_bootstrap.py:147-164): each (asset, path) item
+// carries its price from s0, P_new = P·(1 + row), one add and one multiply as
+// the plain form rounds them, so the prices and hedged.cuh's settled returns
+// equal the plain form's bit for bit; V *= 1 + w·r_h, a NaN of overflowed
+// wealth carried. Past 64 assets both functions run wide.cuh's layout with
+// the BootWide model below (the history read from device memory).
 //
 // Uniforms: Philox4x32-10 (gbm_draws.cuh), key the block seed, counter (call,
 // 0, path, STREAM_BOOT). Call 0 word 0 gives the start row; call 1 + s/2 gives
@@ -45,6 +51,8 @@
 // is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
+#include "hedged.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -138,12 +146,13 @@ struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte ali
   }
 };
 
-template <bool kShared>
+template <bool kShared, bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int t_len,
-                    int n_assets, int n_cand, int n_steps, float p_restart,
+                    int n_assets, int n_cand, int n_steps, int n_legs, float p_restart,
                     const float* __restrict__ hist, const float* __restrict__ weights,
-                    float* __restrict__ term, float* __restrict__ max_dd) {
+                    const float* __restrict__ hedge, float* __restrict__ term,
+                    float* __restrict__ max_dd) {
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
   const int w_pad = round4(n_cand);
@@ -169,6 +178,13 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
   // threads 0..15 walk the row indices of the tile's paths
   int idx = tid < kTileP ? jump_row(boot_call(0u, p0 + tid, key).w0, t_len) : 0;
   const int n_items = a_n * kTileP;
+  float price[kItems];  // hedged: each item's price, from s0
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int item = tid + r * kDdThreads;
+    price[r] = (kHedged && item < n_items) ? hedge[item / kTileP] : 0.0f;
+  }
+  const HedgeBlock legs(hedge, a_n, n_legs);  // hedged: the legs, read from device memory
 
   const int cw = tid / 4, pq = tid % 4;
   const bool scorer = 4 * cw < w_pad;
@@ -202,7 +218,14 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
         const int item = tid + r * kDdThreads;
         if (item < n_items) {
           const int a = item / kTileP, pi = item % kTileP;
-          s_e[item] = row_at<kShared>(h + s_idx[k * kTileP + pi] * a_n, a);
+          const float x = row_at<kShared>(h + s_idx[k * kTileP + pi] * a_n, a);
+          if (kHedged) {  // the settled return of the move P -> P·(1 + row)
+            const float p_new = price[r] * (1.0f + x);
+            s_e[item] = hedged_return(legs, a, price[r], p_new);
+            price[r] = p_new;
+          } else {
+            s_e[item] = x;
+          }
         }
       }
       __syncthreads();
@@ -230,8 +253,13 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             v[i][j] = v[i][j] * (1.0f + f[i][j]);
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -255,6 +283,62 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
     }
   }
 }
+
+// Kernels #6 and #7 past 64 assets: wide.cuh's layout with the narrow
+// kernels' selection and arithmetic. Thread p < tp walks tile path p's row
+// index (shared memory: the current row, then the rows of the call's two
+// steps), the same rows as the narrow kernels and the plain forms; every item
+// reads its entry of the selected row from device memory (__ldg). State: the
+// terminal's gross (bit-identical to the plain form: one add and one multiply
+// per step), the hedged candidates' price, none for the unhedged candidates.
+template <bool kCand, bool kHedged>
+struct BootWide : WideModelBase {
+  static constexpr int kState = (kCand && !kHedged) ? 0 : 1;
+  static constexpr int kPer = 2;
+  static constexpr int kValue = kHedged ? kWideHedged : kWideSimple;
+  const float *hist, *hedge;  // the (T, A) history; the hedge block
+  int t_len, n_legs;
+  float p_restart;
+
+  __host__ __device__ static int smem_floats(int, int) { return 3 * kWideTile; }
+  __device__ void begin(const WideTile& t, float* s, int tid) const {
+    if (tid < t.tp) reinterpret_cast<int*>(s)[tid] = jump_row(boot_call(0u, t.p0 + tid, t.key).w0,
+                                                              t_len);
+  }
+  __device__ void start(const WideTile& t, int a, int p) const {
+    if (kState) t.at(0, a, p) = kHedged ? __ldg(hedge + a) : 1.0f;
+  }
+  __device__ void draw(const WideTile&, float*, int, int, int, int) const {}
+  __device__ void draw_path(const WideTile& t, float* s, int call, int n, int p) const {
+    int* cur = reinterpret_cast<int*>(s);  // (16,) the current row
+    int* idx = cur + kWideTile;            // (2, 16) the call's two steps' rows
+    const Words w = boot_call(1u + call, t.p0 + p, t.key);
+    int i = next_row(cur[p], w.w0, w.w1, t_len, p_restart);
+    idx[p] = i;
+    if (n > 1) {
+      i = next_row(i, w.w2, w.w3, t_len, p_restart);
+      idx[kWideTile + p] = i;
+    }
+    cur[p] = i;
+  }
+  __device__ float step(const WideTile& t, float* s, int k, int a, int p) const {
+    const int row = reinterpret_cast<const int*>(s)[kWideTile + k * kWideTile + p];
+    const float x = __ldg(hist + static_cast<long long>(row) * t.a_n + a);
+    if (!kCand) {
+      t.at(0, a, p) *= 1.0f + x;
+      return 0.0f;
+    }
+    if (kHedged) {
+      float& price = t.at(0, a, p);
+      const float p_new = price * (1.0f + x);
+      const float e = hedged_return(HedgeBlock(hedge, t.a_n, n_legs), a, price, p_new);
+      price = p_new;
+      return e;
+    }
+    return x;
+  }
+  __device__ float out(const WideTile& t, int a, int p) const { return t.at(0, a, p) - 1.0f; }
+};
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t smem) {
@@ -303,16 +387,20 @@ int mcport_bootstrap_terminal(long long seed, long long first_block, int n_block
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. hist: (t_len, n_assets), weights: (n_cand, n_assets),
 // float32 on the device; the history in shared memory when in_shared, else
-// read from device memory. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. Returns cudaGetLastError() after the launch, or
+// read from device memory. hedge: ops/hedged.py HedgeTensors.packed for
+// n_legs legs per asset (read from device memory), or null with n_legs 0 for
+// the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
+// float32. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_blocks,
                               int block_paths, int t_len, int n_assets, int n_cand,
-                              int n_steps, float p_restart, int in_shared, const void* hist,
-                              const void* weights, void* term, void* dd, void* stream) {
+                              int n_steps, int n_legs, float p_restart, int in_shared,
+                              const void* hist, const void* weights, const void* hedge,
+                              void* term, void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_cand < 1 ||
       n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 || block_paths < 1 ||
-      n_steps < 0 || kMaxAssets * kTileP > kItems * kDdThreads) {
+      n_steps < 0 || n_legs < 0 || (n_legs > 0 && hedge == nullptr) ||
+      kMaxAssets * kTileP > kItems * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
@@ -322,12 +410,50 @@ int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_block
     int err = set_smem(kernel, smem);
     if (err) return err;
     kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, p_restart,
+        seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, n_legs, p_restart,
         static_cast<const float*>(hist), static_cast<const float*>(weights),
-        static_cast<float*>(term), static_cast<float*>(dd));
+        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
     return static_cast<int>(cudaGetLastError());
   };
-  return in_shared ? run(bootstrap_dd_kernel<true>) : run(bootstrap_dd_kernel<false>);
+  if (n_legs) {
+    return in_shared ? run(bootstrap_dd_kernel<true, true>)
+                     : run(bootstrap_dd_kernel<false, true>);
+  }
+  return in_shared ? run(bootstrap_dd_kernel<true, false>) : run(bootstrap_dd_kernel<false, false>);
+}
+
+// Both functions past 64 assets (wide.cuh's layout with the BootWide model;
+// the history in device memory): n_cand 0 runs the terminal function (output
+// out (n_blocks, block_paths, n_assets)), n_cand >= 1 the candidates' (hedged
+// when n_legs > 0, the hedge block read from device memory; outputs out and
+// dd (n_blocks, n_cand, block_paths)). scratch: WIDE_CTAS·tp·A floats on the
+// device (unread by the unhedged candidates), tp paths per tile, n_ctas
+// persistent CTAs. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the layout does not take.
+int mcport_bootstrap_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                          int t_len, int n_assets, int n_cand, int n_steps, int n_legs,
+                          float p_restart, const void* hist, const void* weights,
+                          const void* hedge, void* out, void* dd, void* scratch, int tp,
+                          int n_ctas, void* stream) {
+  if (t_len < 1 || n_cand < 0 || n_cand > kMaxCand || n_legs < 0 ||
+      (n_legs > 0 && hedge == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool cand = n_cand > 0;
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             cand ? static_cast<float*>(out) : nullptr, static_cast<float*>(dd),
+             cand ? nullptr : static_cast<float*>(out)};
+  auto run = [&](auto model) {
+    model.hist = static_cast<const float*>(hist);
+    model.hedge = static_cast<const float*>(hedge);
+    model.t_len = t_len;
+    model.n_legs = n_legs;
+    model.p_restart = p_restart;
+    return wide_launch(g, model, n_ctas, static_cast<cudaStream_t>(stream));
+  };
+  if (!cand) return run(BootWide<false, false>{});
+  return n_legs ? run(BootWide<true, true>{}) : run(BootWide<true, false>{});
 }
 
 }  // extern "C"

@@ -69,12 +69,15 @@
 // order (ascending k and j) and the correctly rounded rsqrt; the A <= 16
 // kernels are unchanged. A simple design: A barriers per step, and A/64 to
 // A/32 of the threads working in the Cholesky's late columns.
+// Past 64 assets, dcc_wider_kernel (below): one path per CTA of 256 threads,
+// the same order of every sum, Q and L in device memory past ~220 assets.
 // A dispatch group of blocks is one launch (gridDim.y).
 //
 // nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
 // and plain forms agree to ulps, not bits (bound: ops/dcc.py dcc_shares).
 
 #include "gbm_draws.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -597,6 +600,148 @@ int launch_wide(long long seed, long long first_block, int n_blocks, int block_p
   return static_cast<int>(cudaGetLastError());
 }
 
+// Both functions past 64 assets. A path's rows no longer fit one group of the
+// block: a CTA of 256 threads owns one path at a time (persistent CTAs, as in
+// wide.cuh, each walking paths gridDim.x apart), thread t its rows t, t + 256,
+// .... The design and the order of every sum are dcc_wide_kernel's: Q and L
+// packed column by column, row r of Q updated by its thread, then column by
+// column behind one barrier each the pivot computed by every thread that owns
+// a row at or below it (the same sum in the same order, once per thread) and
+// that row's L_rj, then e, the GARCH update and the gross or r = mu + eps per
+// row; candidate c = tid scores the path. Q and L stay in shared memory while
+// they fit (kShared: A(A+1) floats beside 8·A of per-row state, up to A ≈
+// 220); past that they move to the CTA's slot of a device-memory scratch,
+// the same packing, so the rows of a column are consecutive addresses. c0·S
+// is read from the parameter block (device memory) as it is needed, the
+// weights through the read-only cache.
+template <bool kScore, bool kShared>
+__global__ void __launch_bounds__(kDdThreads)
+dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_paths,
+                 int n_assets, int n_cand, int n_steps, const float* __restrict__ params,
+                 const float* __restrict__ weights, float* __restrict__ scratch,
+                 float* __restrict__ term, float* __restrict__ max_dd) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets, tid = threadIdx.x;
+  const long long t = static_cast<long long>(n) * (n + 1) / 2;
+  float* s_z = smem;        // (4, A) one Philox call's shocks
+  float* s_e = s_z + 4 * n;  // (A,) e of the last step
+  float* s_s2 = s_e + n;     // (A,) each row's variance of the coming step
+  float* s_cum = s_s2 + n;   // (A,) the terminal's grosses
+  float* s_r = s_cum + n;    // (A,) the candidates' r = mu + eps
+  float* qm = kShared ? s_r + n : scratch + static_cast<long long>(blockIdx.x) * 2 * t;
+  float* lm = qm + t;        // Q, then L, packed by column
+  const Params q(params, n);
+  const float c0 = q.c0(), a_c = q.a, b_c = q.b;
+  const bool scorer = kScore && tid < n_cand;
+  const long long n_paths = static_cast<long long>(n_blocks) * block_paths;
+  constexpr int kPer = steps_per_call<kPoly>();
+
+  for (long long pi = blockIdx.x; pi < n_paths; pi += gridDim.x) {
+    const int blk = static_cast<int>(pi / block_paths), p = static_cast<int>(pi % block_paths);
+    const uint32_t key = block_key(seed, first_block, blk);
+    __syncthreads();  // the last path's reads are done
+    for (int r = tid; r < n; r += kDdThreads) {
+      for (int j = 0; j <= r; ++j) qm[col_at(j, r, n)] = q.q0[static_cast<long long>(r) * n + j];
+      s_e[r] = q.e0[r];
+      s_s2[r] = first_sigma2(q, r);
+      s_cum[r] = 1.0f;
+    }
+    float v = 1.0f, peak = 1.0f, dd = 0.0f;
+
+    for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+      const int nk = min(kPer, n_steps - s0);
+      for (int r = tid; r < n; r += kDdThreads) {
+        float za[4];
+        call_draws<kPoly>(s0 / kPer, r, p, key, nk, 0.0f, 0.0f, za);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_z[k * n + r] = za[k];
+      }
+      __syncthreads();
+
+      for (int k = 0; k < nk; ++k) {
+        const float* z = s_z + k * n;
+        // Q update: this thread's rows of the lower triangle
+        for (int r = tid; r < n; r += kDdThreads) {
+          const float er = s_e[r];
+          for (int j = 0; j <= r; ++j) {
+            const int at = col_at(j, r, n);
+            qm[at] = fmaf(b_c, qm[at],
+                          fmaf(a_c, er * s_e[j], c0 * q.s[static_cast<long long>(r) * n + j]));
+          }
+        }
+        __syncthreads();
+        // Cholesky of Q, column by column (left-looking)
+        for (int j = 0; j < n; ++j) {
+          float d = 0.0f, inv = 0.0f;
+          bool pivot = false;
+          for (int r = tid; r < n; r += kDdThreads) {
+            if (r < j) continue;
+            if (!pivot) {
+              d = qm[col_at(j, j, n)];
+              for (int k2 = 0; k2 < j; ++k2) {
+                const float ljk = lm[col_at(k2, j, n)];
+                d = fmaf(-ljk, ljk, d);
+              }
+              inv = __frsqrt_rn(fmaxf(d, 1e-12f));
+              pivot = true;
+            }
+            float num = d;
+            if (r > j) {
+              num = qm[col_at(j, r, n)];
+              for (int k2 = 0; k2 < j; ++k2) {
+                num = fmaf(-lm[col_at(k2, r, n)], lm[col_at(k2, j, n)], num);
+              }
+            }
+            lm[col_at(j, r, n)] = num * inv;
+          }
+          __syncthreads();
+        }
+        // e = D^{-1/2} (L z), then the GARCH update and the compounding
+        for (int r = tid; r < n; r += kDdThreads) {
+          float m = lm[col_at(0, r, n)] * z[0];
+          for (int j = 1; j <= r; ++j) m = fmaf(lm[col_at(j, r, n)], z[j], m);
+          const float ei = m * __frsqrt_rn(fmaxf(qm[col_at(r, r, n)], 1e-12f));
+          const float mu = q.mu[r], s2 = s_s2[r];
+          const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
+          if (kScore) {
+            s_r[r] = mu + eps;
+          } else {
+            s_cum[r] *= (1.0f + mu) + eps;
+          }
+          s_s2[r] = q.omega[r] + q.alpha[r] * (eps * eps) + q.beta[r] * s2;
+          s_e[r] = ei;
+        }
+        __syncthreads();
+        if (scorer) {  // candidate tid over this path
+          const float* w = weights + static_cast<long long>(tid) * n;
+          float f = 0.0f;
+          for (int a = 0; a < n; ++a) f = fmaf(__ldg(w + a), s_r[a], f);
+          wide_update<kWideSimple>(f, &v, &peak, &dd);
+        }
+        // (s_r is rewritten only after the next step's barriers)
+      }
+    }
+
+    if (kScore) {
+      if (scorer) {
+        const long long o = (static_cast<long long>(blk) * n_cand + tid) * block_paths + p;
+        term[o] = v - 1.0f;
+        max_dd[o] = dd;
+      }
+    } else {
+      for (int r = tid; r < n; r += kDdThreads) {
+        term[(static_cast<long long>(blk) * block_paths + p) * n + r] = s_cum[r] - 1.0f;
+      }
+    }
+  }
+}
+
+// Whether dcc_wider_kernel keeps a path's Q and L in shared memory at A
+// assets: A(A+1) floats beside 8·A of per-row state within 200 KB.
+__host__ __device__ constexpr bool wider_in_shared(int n) {
+  return 4LL * (static_cast<long long>(n) * (n + 1) + 8 * n) <= 204800;
+}
+
 }  // namespace
 
 extern "C" {
@@ -661,6 +806,42 @@ int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int
       static_cast<const float*>(params), static_cast<const float*>(weights),
       static_cast<float*>(term), static_cast<float*>(dd));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both functions past 64 assets (dcc_wider_kernel): n_cand 0 runs the
+// terminal function (output out (n_blocks, block_paths, n_assets)), n_cand >=
+// 1 the candidates' (outputs out and dd (n_blocks, n_cand, block_paths)).
+// scratch: n_ctas·A(A+1) floats on the device, read only where Q and L leave
+// shared memory (A past ~220); n_ctas persistent CTAs, one path each at a
+// time. Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take.
+int mcport_dcc_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                    int n_assets, int n_cand, int n_steps, const void* params,
+                    const void* weights, void* out, void* dd, void* scratch, int n_ctas,
+                    void* stream) {
+  if (n_assets < 1 || n_cand < 0 || n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 ||
+      block_paths < 1 || n_steps < 0 || n_ctas < 1 || n_ctas > 65535 || scratch == nullptr ||
+      (n_cand > 0 && (weights == nullptr || dd == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool shared = wider_in_shared(n_assets);
+  const size_t smem = sizeof(float) * (8 * static_cast<size_t>(n_assets) +
+                                       (shared ? static_cast<size_t>(n_assets) * (n_assets + 1)
+                                               : 0));
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<n_ctas, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps,
+        static_cast<const float*>(params), static_cast<const float*>(weights),
+        static_cast<float*>(scratch), static_cast<float*>(out), static_cast<float*>(dd));
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (n_cand > 0) {
+    return shared ? run(dcc_wider_kernel<true, true>) : run(dcc_wider_kernel<true, false>);
+  }
+  return shared ? run(dcc_wider_kernel<false, true>) : run(dcc_wider_kernel<false, false>);
 }
 
 }  // extern "C"

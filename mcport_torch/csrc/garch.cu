@@ -3,8 +3,8 @@
 // with its maximum drawdown (kernel garch_dd_kernel).
 //
 // Replaces mcport/ops/pallas_garch.py::_garch_kernel (the garch-risk main path)
-// and ::_garch_dd_kernel (its unhedged mode: path-risk --models garch and the
-// GARCH drawdown frontier). The plain torch forms of the same functions, on the
+// and ::_garch_dd_kernel, both modes (path-risk --models garch and the GARCH
+// drawdown frontier, hedged or not). The plain torch forms of the same functions, on the
 // same Philox counters, are mcport_torch/ops/garch.py::garch_terminal_reference
 // and ::garch_multi_dd_reference.
 //
@@ -17,6 +17,11 @@
 // and either cum *= 1 + mu + eps (terminal: out cum - 1 per asset), or, for
 // every candidate w, V *= 1 + w·r, peak = max(peak, V), dd = min(dd, V/peak - 1)
 // from V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
+// Hedged (kHedged, mcport's hedged branch, pallas_garch.py:137-167): each
+// (asset, path) item also carries its price from s0, P_new = P·(1 + mu + eps)
+// (rounded (1 + mu) + eps, as the plain form), writes hedged.cuh's settled
+// return r_h(P, P_new) in place of r, and V *= 1 + w·r_h with peak and dd
+// carrying a NaN of overflowed wealth; the legs are read from device memory.
 // GARCH is nonlinear in the shocks, so unlike terminal_noise.cu it must
 // correlate every step: it cannot sum the shocks first.
 //
@@ -49,11 +54,16 @@
 //   separate instantiations, with the same operations in the same order.
 // A dispatch group of blocks is one launch (gridDim.y).
 //
+// Past 64 assets both functions run wide.cuh's layout with the GarchWide model
+// below (sigma2, the gross or the hedged price in its device-memory scratch).
+//
 // The kernels read only the lower triangle of L_R (the plain forms do too).
 // nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
 // and plain forms agree to ulps, not bits (bound: ops/garch.py garch_shares).
 
 #include "gbm_draws.cuh"
+#include "hedged.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -283,12 +293,12 @@ garch_terminal_tile_kernel(long long seed, long long first_block, int block_path
 
 // kCap: the asset bound (kGA: one (asset, path) item per thread; kMaxAssets:
 // four).
-template <int kCap>
+template <int kCap, bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-                int n_cand, int n_steps, const float* __restrict__ params,
-                const float* __restrict__ weights, float* __restrict__ term,
-                float* __restrict__ max_dd) {
+                int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
+                const float* __restrict__ weights, const float* __restrict__ hedge,
+                float* __restrict__ term, float* __restrict__ max_dd) {
   constexpr int kIt = tile_items<kCap>();
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
@@ -315,11 +325,14 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   // item / 16, path item % 16
   const int n_items = a_n * kTileP;
   float s2[kIt];
+  float price[kIt];  // hedged: each item's price, from s0
 #pragma unroll
   for (int r = 0; r < kIt; ++r) {
     const int item = tid + r * kDdThreads;
     s2[r] = item < n_items ? first_sigma2(q, item / kTileP) : 0.0f;
+    price[r] = (kHedged && item < n_items) ? hedge[item / kTileP] : 0.0f;
   }
+  const HedgeBlock legs(hedge, a_n, n_legs);  // hedged: the legs, read from device memory
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -364,7 +377,13 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
           }
           const float4 g = s_g[ia];
           const float eps = sqrtf(fmaxf(s2[r], 0.0f)) * y;
-          s_e[ia * kTileP + ip] = g.w + eps;
+          if (kHedged) {  // the settled return of the move P -> P·(1 + mu + eps)
+            const float p_new = price[r] * (1.0f + g.w + eps);
+            s_e[ia * kTileP + ip] = hedged_return(legs, ia, price[r], p_new);
+            price[r] = p_new;
+          } else {
+            s_e[ia * kTileP + ip] = g.w + eps;
+          }
           const float e2 = eps * eps;
           s2[r] = g.x + g.y * e2 + g.z * s2[r];
         }
@@ -394,8 +413,13 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             v[i][j] = v[i][j] * (1.0f + f[i][j]);
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -419,6 +443,52 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
     }
   }
 }
+
+// Kernels #4 and #5 past 64 assets: wide.cuh's layout with the narrow
+// kernels' arithmetic, operation for operation. State: the terminal's
+// (sigma2, gross), the candidates' sigma2 and, hedged, the price.
+template <int kTier, bool kCand, bool kHedged>
+struct GarchWide : WideModelBase {
+  static constexpr int kState = (kCand && !kHedged) ? 1 : 2;
+  static constexpr int kPer = steps_per_call<kTier>();
+  static constexpr int kValue = kHedged ? kWideHedged : kWideSimple;
+  const float *params, *hedge;  // GarchTensors.packed; the hedge block
+  int n_legs;
+  float df, neg2_over_df;
+
+  __host__ __device__ static int smem_floats(int a, int tp) { return kPer * a * tp; }
+  __device__ void start(const WideTile& t, int a, int p) const {
+    t.at(0, a, p) = first_sigma2(Params(params, t.a_n), a);
+    if (kState == 2) t.at(1, a, p) = kHedged ? __ldg(hedge + a) : 1.0f;
+  }
+  __device__ void draw(const WideTile& t, float* s, int call, int n, int a, int p) const {
+    float za[4];
+    wide_draw<kTier>(t, s, call, n, a, p, df, neg2_over_df, za);
+  }
+  __device__ float step(const WideTile& t, float* s, int k, int a, int p) const {
+    const Params q(params, t.a_n);
+    const float y = wide_correlate(q.l, s, t, k, a, p, a + 1);  // row a's lower triangle
+    const float mu = __ldg(q.mu + a);
+    float& s2 = t.at(0, a, p);
+    const float eps = sqrtf(fmaxf(s2, 0.0f)) * y;
+    float e = 0.0f;
+    if (!kCand) {
+      float& cum = t.at(1, a, p);
+      cum *= (1.0f + mu) + eps;
+    } else if (kHedged) {
+      float& price = t.at(1, a, p);
+      const float p_new = price * (1.0f + mu + eps);
+      e = hedged_return(HedgeBlock(hedge, t.a_n, n_legs), a, price, p_new);
+      price = p_new;
+    } else {
+      e = mu + eps;
+    }
+    const float e2 = eps * eps;
+    s2 = __ldg(q.omega + a) + __ldg(q.alpha + a) * e2 + __ldg(q.beta + a) * s2;
+    return e;
+  }
+  __device__ float out(const WideTile& t, int a, int p) const { return t.at(1, a, p) - 1.0f; }
+};
 
 }  // namespace
 
@@ -479,16 +549,19 @@ int mcport_garch_terminal(long long seed, long long first_block, int n_blocks, i
 
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: GarchTensors.packed; weights: (n_cand,
-// n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. Normal shocks (the poly tier). wide: nonzero runs the
-// 64-asset instantiation at any width. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
+// n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
+// for n_legs legs per asset (read from device memory), or null with n_legs 0
+// for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
+// float32. Normal shocks (the poly tier). wide: nonzero runs the 64-asset
+// instantiation at any width. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_garch_multi_dd(long long seed, long long first_block, int n_blocks,
                           int block_paths, int n_assets, int n_cand, int n_steps, int wide,
-                          const void* params, const void* weights, void* term, void* dd,
-                          void* stream) {
+                          int n_legs, const void* params, const void* weights,
+                          const void* hedge, void* term, void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
-      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
+      (n_legs > 0 && hedge == nullptr) ||
       kGA * kTileP != tile_items<kGA>() * kDdThreads ||
       kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -502,12 +575,58 @@ int mcport_garch_multi_dd(long long seed, long long first_block, int n_blocks,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, n_assets, n_cand, n_steps,
+        seed, first_block, block_paths, n_assets, n_cand, n_steps, n_legs,
         static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<float*>(term), static_cast<float*>(dd));
+        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
     return static_cast<int>(cudaGetLastError());
   };
-  return wide ? run(garch_dd_kernel<kMaxAssets>) : run(garch_dd_kernel<kGA>);
+  if (n_legs) {
+    return wide ? run(garch_dd_kernel<kMaxAssets, true>) : run(garch_dd_kernel<kGA, true>);
+  }
+  return wide ? run(garch_dd_kernel<kMaxAssets, false>) : run(garch_dd_kernel<kGA, false>);
+}
+
+// Both functions past 64 assets (wide.cuh's layout with the GarchWide model):
+// n_cand 0 runs the terminal function (tier 0 poly or 2 Student-t, df and
+// neg2_over_df as mcport_garch_terminal's; output out (n_blocks, block_paths,
+// n_assets)), n_cand >= 1 the candidates' (normal shocks; hedged when n_legs
+// > 0, the hedge block read from device memory; outputs out and dd (n_blocks,
+// n_cand, block_paths)). scratch: WIDE_CTAS·tp·A·2 floats on the device, tp
+// paths per tile, n_ctas persistent CTAs. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for arguments the layout does not take.
+int mcport_garch_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                      int n_assets, int n_cand, int n_steps, int tier, float df,
+                      float neg2_over_df, int n_legs, const void* params, const void* weights,
+                      const void* hedge, void* out, void* dd, void* scratch, int tp, int n_ctas,
+                      void* stream) {
+  if (n_cand < 0 || n_cand > kMaxCand || n_legs < 0 || (n_legs > 0 && hedge == nullptr) ||
+      (n_cand > 0 && tier != kPoly)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool cand = n_cand > 0;
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             cand ? static_cast<float*>(out) : nullptr, static_cast<float*>(dd),
+             cand ? nullptr : static_cast<float*>(out)};
+  auto run = [&](auto model) {
+    model.params = static_cast<const float*>(params);
+    model.hedge = static_cast<const float*>(hedge);
+    model.n_legs = n_legs;
+    model.df = df;
+    model.neg2_over_df = neg2_over_df;
+    return wide_launch(g, model, n_ctas, static_cast<cudaStream_t>(stream));
+  };
+  if (cand) {
+    return n_legs ? run(GarchWide<kPoly, true, true>{}) : run(GarchWide<kPoly, true, false>{});
+  }
+  switch (tier) {
+    case kPoly:
+      return run(GarchWide<kPoly, false, false>{});
+    case kStudentT:
+      return run(GarchWide<kStudentT, false, false>{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

@@ -33,7 +33,8 @@
 
 namespace {
 
-constexpr int kMaxAssets = 64;                // mcport_torch/ops/gbm.py MAX_ASSETS
+constexpr int kMaxAssets = 64;                // the narrow layouts' bound (ops/gbm.py MAX_ASSETS);
+                                              // past it every kernel runs wide.cuh's layout
 constexpr long long kSeedStride = 1LL << 14;  // mcport_torch/seeding.py SEED_STRIDE
 constexpr uint32_t kStreamGbm = 0;            // mcport_torch/rng.py STREAM_GBM
 constexpr uint32_t kStreamBoot = 1;           // mcport_torch/rng.py STREAM_BOOT

@@ -61,9 +61,12 @@
 //   memory. Every operation of the path is the same, in the same order and
 //   rounding, so the wide kernels' path state too equals the plain form's bit
 //   for bit. The A <= 16 kernels are unchanged.
+// Past 64 assets both run wide.cuh's layout with the HestonWide model below,
+// rounding as the plain form does: the path state stays bit for bit.
 // A dispatch group of blocks is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -438,6 +441,50 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
   }
 }
 
+// Kernels #9 and #10 past 64 assets: wide.cuh's layout with the narrow
+// kernels' path, every operation rounded as the plain form rounds it (the
+// strict draws, the column-order correlate under __fmul_rn/__fadd_rn,
+// heston_step), so the path state equals the plain form's bit for bit at any
+// width. State: the variance and the call's four variance shocks, and the
+// terminal's log sum.
+template <bool kCand>
+struct HestonWide : WideModelBase {
+  static constexpr int kState = kCand ? 5 : 6;
+  static constexpr int kPer = steps_per_call<kPolyStrict>();
+  static constexpr int kValue = kWideGross;
+  const float* params;  // HestonTensors.packed
+
+  __host__ __device__ static int smem_floats(int a, int tp) { return kPer * a * tp; }
+  __device__ void start(const WideTile& t, int a, int p) const {
+    t.at(0, a, p) = __ldg(Params(params, t.a_n).v0 + a);
+    if (!kCand) t.at(5, a, p) = 0.0f;
+  }
+  __device__ void draw(const WideTile& t, float* s, int call, int n, int a, int p) const {
+    float za[4], wa[4];
+    wide_draw<kPolyStrict>(t, s, call, n, a, p, 0.0f, 0.0f, za);
+    call_draws<kPolyStrict, kStreamHeston>(call, a, t.p0 + p, t.key, n, 0.0f, 0.0f, wa);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) t.at(1 + k, a, p) = wa[k];
+  }
+  __device__ float step(const WideTile& t, float* s, int k, int a, int p) const {
+    const Params q(params, t.a_n);
+    const float* row = q.l + static_cast<long long>(a) * t.a_n;
+    const float* z = s + k * t.a_n * t.tp + p;
+    float y = 0.0f;
+    for (int j = 0; j <= a; ++j) y = __fadd_rn(y, __fmul_rn(__ldg(row + j), z[j * t.tp]));
+    const float4 g = make_float4(__ldg(q.mu + a), __ldg(q.kappa + a), __ldg(q.theta + a),
+                                 __ldg(q.xi + a));
+    const float4 h = make_float4(__ldg(q.rho + a), __ldg(q.rho_c + a), 0.0f, 0.0f);
+    const float x = heston_step(y, t.at(1 + k, a, p), g, h, &t.at(0, a, p));
+    if (!kCand) {
+      t.at(5, a, p) = __fadd_rn(t.at(5, a, p), x);
+      return 0.0f;
+    }
+    return expf(x);
+  }
+  __device__ float out(const WideTile& t, int a, int p) const { return expm1f(t.at(5, a, p)); }
+};
+
 }  // namespace
 
 extern "C" {
@@ -506,6 +553,30 @@ int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
     return static_cast<int>(cudaGetLastError());
   };
   return wide ? run(heston_dd_kernel<kMaxAssets>) : run(heston_dd_kernel<kHA>);
+}
+
+// Both functions past 64 assets (wide.cuh's layout with the HestonWide
+// model): n_cand 0 runs the terminal function (output out (n_blocks,
+// block_paths, n_assets)), n_cand >= 1 the candidates' (outputs out and dd
+// (n_blocks, n_cand, block_paths)). scratch: WIDE_CTAS·tp·A·6 floats on the
+// device, tp paths per tile, n_ctas persistent CTAs. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
+// the layout does not take.
+int mcport_heston_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                       int n_assets, int n_cand, int n_steps, const void* params,
+                       const void* weights, void* out, void* dd, void* scratch, int tp,
+                       int n_ctas, void* stream) {
+  if (n_cand < 0 || n_cand > kMaxCand) return static_cast<int>(cudaErrorInvalidValue);
+  const bool cand = n_cand > 0;
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             cand ? static_cast<float*>(out) : nullptr, static_cast<float*>(dd),
+             cand ? nullptr : static_cast<float*>(out)};
+  auto run = [&](auto model) {
+    model.params = static_cast<const float*>(params);
+    return wide_launch(g, model, n_ctas, static_cast<cudaStream_t>(stream));
+  };
+  return cand ? run(HestonWide<true>{}) : run(HestonWide<false>{});
 }
 
 }  // extern "C"

@@ -45,11 +45,15 @@
 // drawdowns stay in registers. A dispatch group of blocks is one launch
 // (gridDim.y).
 //
+// Past 64 assets the kernel runs wide.cuh's layout with its GbmWide model
+// (the same operations; the hedge read from device memory).
+//
 // Candidate rows past W and paths past block_paths are computed (weights zero,
 // valid counters) but never stored.
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -285,6 +289,41 @@ int mcport_merton_multi_dd(long long seed, long long first_block, int n_blocks,
     return static_cast<int>(cudaGetLastError());
   };
   return n_legs ? run(jump_dd_kernel<true>) : run(jump_dd_kernel<false>);
+}
+
+// The same function past 64 assets: wide.cuh's layout with its GbmWide model
+// and the jump clock (kJump); at lam = 0 its output is mcport_multi_dd_wide's
+// rebalanced one bit for bit. The arguments of mcport_merton_multi_dd, plus
+// scratch (WIDE_CTAS·tp·A floats on the device), tp paths per tile and n_ctas
+// persistent CTAs; the hedge is read from device memory. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
+// the layout does not take.
+int mcport_merton_multi_dd_wide(long long seed, long long first_block, int n_blocks,
+                                int block_paths, int n_assets, int n_cand, int n_steps,
+                                int n_legs, float lam, const void* params, const void* weights,
+                                const void* hedge, void* term, void* dd, void* scratch, int tp,
+                                int n_ctas, void* stream) {
+  if (n_cand < 1 || n_cand > kMaxCand || n_legs < 0 || (n_legs > 0 && hedge == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             static_cast<float*>(term), static_cast<float*>(dd), nullptr};
+  const float* q = static_cast<const float*>(params);  // L (A·A), then m, muJ, sigJ
+  const long long a2 = static_cast<long long>(n_assets) * n_assets;
+  auto run = [&](auto model) {
+    model.chol = q;
+    model.mean = q + a2;
+    model.muj = q + a2 + n_assets;
+    model.sigj = q + a2 + 2 * n_assets;
+    model.hedge = static_cast<const float*>(hedge);
+    model.n_legs = n_legs;
+    model.df = model.neg2_over_df = 0.0f;
+    model.lam = lam;
+    return wide_launch(g, model, n_ctas, static_cast<cudaStream_t>(stream));
+  };
+  return n_legs ? run(GbmWide<kPoly, kWideHedged, kWideF32, true>{})
+                : run(GbmWide<kPoly, kWideGross, kWideF32, true>{});
 }
 
 }  // extern "C"

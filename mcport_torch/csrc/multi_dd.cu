@@ -51,11 +51,15 @@
 // blocks is one launch (gridDim.y). Tensor cores (wgmma) for the score product
 // are later work.
 //
+// Past 64 assets the kernel runs wide.cuh's layout with its GbmWide model
+// (the same operations; the hedge read from device memory).
+//
 // Candidate rows past W and paths past block_paths are computed (weights zero,
 // valid counters) but never stored.
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -406,6 +410,72 @@ int mcport_multi_dd(long long seed, long long first_block, int n_blocks, int blo
       return launch_mode<kPolyFast>(mode, score, g);
     case kStudentT:
       return launch_mode<kStudentT>(mode, score, g);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same function past 64 assets (the layout of wide.cuh, its GbmWide
+// model): the arguments of mcport_multi_dd, plus scratch, WIDE_CTAS·tp·A
+// floats on the device, tp paths per tile (1, 2, 4, 8 or 16) and n_ctas
+// persistent CTAs (the scratch's CTA axis). The hedge is read from device
+// memory. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the layout does not take.
+int mcport_multi_dd_wide(long long seed, long long first_block, int n_blocks, int block_paths,
+                         int n_assets, int n_cand, int n_steps, int tier, int mode, int score,
+                         int n_legs, float df, float neg2_over_df, const void* chol,
+                         const void* mean, const void* weights, const void* hedge, void* term,
+                         void* dd, void* scratch, int tp, int n_ctas, void* stream) {
+  if (n_cand < 1 || n_cand > kMaxCand || (mode == kHedged && (n_legs < 1 || hedge == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             static_cast<float*>(term), static_cast<float*>(dd), nullptr};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto model) {
+    model.chol = static_cast<const float*>(chol);
+    model.mean = static_cast<const float*>(mean);
+    model.muj = model.sigj = nullptr;
+    model.hedge = static_cast<const float*>(hedge);
+    model.n_legs = n_legs;
+    model.df = df;
+    model.neg2_over_df = neg2_over_df;
+    model.lam = 0.0f;
+    return wide_launch(g, model, n_ctas, s);
+  };
+  auto by_score = [&](auto tier_tag, auto mode_tag) {
+    constexpr int kT = decltype(tier_tag)::value, kV = decltype(mode_tag)::value;
+    switch (score) {
+      case kF32:
+        return run(GbmWide<kT, kV, kWideF32, false>{});
+      case kSplit:
+        return run(GbmWide<kT, kV, kWideSplit, false>{});
+      case kBf16:
+        return run(GbmWide<kT, kV, kWideBf16, false>{});
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  auto by_mode = [&](auto tier_tag) {
+    switch (mode) {
+      case kHold:
+        return by_score(tier_tag, std::integral_constant<int, kWideHold>{});
+      case kRebal:
+        return by_score(tier_tag, std::integral_constant<int, kWideGross>{});
+      case kHedged:
+        return by_score(tier_tag, std::integral_constant<int, kWideHedged>{});
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  switch (tier) {
+    case kPoly:
+      return by_mode(std::integral_constant<int, kPoly>{});
+    case kPolyFast:
+      return by_mode(std::integral_constant<int, kPolyFast>{});
+    case kStudentT:
+      return by_mode(std::integral_constant<int, kStudentT>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

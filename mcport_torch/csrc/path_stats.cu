@@ -28,12 +28,16 @@
 // log shows the stack frame), which is correct but slower. L, m and w sit in
 // shared memory. A dispatch group of blocks is one launch (gridDim.y).
 //
+// Past 64 assets the function runs wide.cuh's layout with its GbmWide model
+// and one candidate (kernel #3's path, as at any width).
+//
 // nvcc contracts a*b+c into FMA where the torch form rounds twice, and the
 // plain form sums log paths and portfolio values in other orders, so kernel and
 // plain form agree to ulps, not bits (bound: ops/path_stats.py
 // path_stats_tolerance).
 
 #include "gbm_draws.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -211,6 +215,49 @@ int mcport_path_stats(long long seed, long long first_block, int n_blocks, int b
     case kStudentT:
       return launch_mode<kStudentT>(rebalance != 0, grid, s, seed, first_block, block_paths,
                                     n_assets, n_steps, df, neg2_over_df, l, m, w, t, o, d);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same function past 64 assets: wide.cuh's layout with its GbmWide model
+// and one candidate, the weights (the path-stats kernel is kernel #3 with one
+// candidate, operation for operation). The arguments of mcport_path_stats,
+// plus scratch (WIDE_CTAS·tp·A floats on the device), tp paths per tile and
+// n_ctas persistent CTAs. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the layout does not take.
+int mcport_path_stats_wide(long long seed, long long first_block, int n_blocks,
+                           int block_paths, int n_assets, int n_steps, int tier, int rebalance,
+                           float df, float neg2_over_df, const void* chol, const void* mean,
+                           const void* weights, void* term, void* port, void* dd,
+                           void* scratch, int tp, int n_ctas, void* stream) {
+  if (port == nullptr || dd == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, 1, n_steps, tp,
+             static_cast<const float*>(weights), static_cast<float*>(scratch),
+             static_cast<float*>(port), static_cast<float*>(dd), static_cast<float*>(term)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto model) {
+    model.chol = static_cast<const float*>(chol);
+    model.mean = static_cast<const float*>(mean);
+    model.muj = model.sigj = model.hedge = nullptr;
+    model.n_legs = 0;
+    model.df = df;
+    model.neg2_over_df = neg2_over_df;
+    model.lam = 0.0f;
+    return wide_launch(g, model, n_ctas, s);
+  };
+  auto by_mode = [&](auto tier_tag) {
+    constexpr int kT = decltype(tier_tag)::value;
+    return rebalance ? run(GbmWide<kT, kWideGross, kWideF32, false>{})
+                     : run(GbmWide<kT, kWideHold, kWideF32, false>{});
+  };
+  switch (tier) {
+    case kPoly:
+      return by_mode(std::integral_constant<int, kPoly>{});
+    case kPolyFast:
+      return by_mode(std::integral_constant<int, kPolyFast>{});
+    case kStudentT:
+      return by_mode(std::integral_constant<int, kStudentT>{});
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -248,7 +248,8 @@ def family_drawdown_frontier_search(
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
     path stream. ``hedge`` (a HedgeSpec) with the spots ``s0``: hedged
-    per-step settlement, "jump" only."""
+    per-step settlement, "jump", "garch" and "bootstrap" (a NaN drawdown of
+    overflowed wealth ranks as the worst)."""
     if model not in ("garch", "dcc", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
@@ -260,12 +261,14 @@ def family_drawdown_frontier_search(
     block = min(w_block, n_candidates)
     if not 1 <= block <= MAX_CANDIDATES:
         raise ValueError(f"w_block must be in 1..{MAX_CANDIDATES}, got {w_block}")
+    legs = None if hedge is None else HedgeTensors.from_spec(
+        hedge, np.asarray(torch.as_tensor(s0).cpu(), np.float64), dev)
     if model == "garch":
         g = model_params.tensors(dev)
         a = model_params.n_assets
 
         def score(w_blk):
-            return garch_multi_portfolio_dd(path_seed, g, w_blk, n_paths, n_steps)
+            return garch_multi_portfolio_dd(path_seed, g, w_blk, n_paths, n_steps, hedge=legs)
     elif model == "dcc":
         dt = model_params.tensors(dev)
         a = model_params.n_assets
@@ -276,8 +279,6 @@ def family_drawdown_frontier_search(
         d, a = model_params.diffusion, model_params.n_assets
         mean, chol, muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (
             d.mean_step, d.chol_step, model_params.jump_mean, model_params.jump_vol))
-        legs = None if hedge is None else HedgeTensors.from_spec(
-            hedge, np.asarray(torch.as_tensor(s0).cpu(), np.float64), dev)
 
         def score(w_blk):
             return merton_multi_portfolio_dd(path_seed, mean, chol, model_params.jump_rate,
@@ -294,7 +295,7 @@ def family_drawdown_frontier_search(
 
         def score(w_blk):
             return bootstrap_multi_portfolio_dd(path_seed, hist, w_blk, n_paths, n_steps,
-                                                p_restart)
+                                                p_restart, hedge=legs)
     min_w = np.zeros(a) if min_weights is None else np.asarray(min_weights, np.float64)
     max_w = np.ones(a) if max_weights is None else np.asarray(max_weights, np.float64)
 

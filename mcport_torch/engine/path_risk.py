@@ -47,12 +47,13 @@ history.
 option legs at intrinsic value every simulated step against the prices from
 the spots ``s0`` and compounds ``V *= 1 + w·r_h`` (mcport's hedged branches):
 "gbm" and "student_t" score the one portfolio on the multi-dd kernel's hedged
-mode, "jump" on the jump kernel's. The hedge's bytes and the spots enter the
-checkpoint digest.
+mode, "jump", "garch" and "bootstrap" on their candidate kernels' (the GARCH
+and bootstrap families carry no spots: ``s0`` is required, as in mcport). The
+hedge's bytes and the spots enter the checkpoint digest.
 
-Not ported yet (raise ``NotImplementedError``): hedged "garch", "dcc",
-"heston" and "bootstrap" (their kernels' hedged modes, ROADMAP.md Queue 2),
-quasi-MC paths (``qmc``), bootstrap error bars (``ci_boot``) and
+Not ported yet (raise ``NotImplementedError``): hedged "dcc" and "heston"
+(their kernels' hedged modes, ROADMAP.md Queue 2), quasi-MC paths (``qmc``),
+bootstrap error bars (``ci_boot``) and
 ``run_resumable_path_risk_with_recovery``.
 """
 
@@ -101,7 +102,7 @@ DISPATCH_BLOCKS = 16
 #: mcport's path families
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
 #: the families whose hedged per-step settlement is ported
-HEDGED_FAMILIES = ("gbm", "student_t", "jump")
+HEDGED_FAMILIES = ("gbm", "student_t", "jump", "garch", "bootstrap")
 
 
 @dataclass(frozen=True)
@@ -227,6 +228,13 @@ def check_hedged_family(model: str, what: str = "path risk") -> None:
             f"{', '.join(HEDGED_FAMILIES)}")
 
 
+def _require_spots(hedge, s0, model: str) -> None:
+    """Hedged GARCH and bootstrap runs settle against spots the model does not
+    carry: raise without them, as mcport does."""
+    if hedge is not None and s0 is None:
+        raise ValueError(f"hedged {model} path risk requires s0 (asset prices)")
+
+
 def _check_unported(config: GBMConfig, hedge=None, model: str = "gbm") -> None:
     if hedge is not None:
         check_hedged_family(model)
@@ -264,7 +272,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
     ``_block_fn_for``. ``block_fn(first_block, n_blocks)`` launches one
     dispatch group and returns ``(port, dd)``, each ``(n_blocks,
     path_block)``. ``hedge`` with the spots ``s0``: hedged per-step
-    settlement ("gbm", "student_t" and "jump")."""
+    settlement (``HEDGED_FAMILIES``)."""
     w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
     n, steps, seed = config.path_block, config.n_steps, config.seed
     legs = None if hedge is None else HedgeTensors.from_spec(hedge, _host_f64(s0), dev)
@@ -294,7 +302,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
 
         def block_fn(b, group):
             term, dd = garch_multi_portfolio_dd(seed, g, w[None], n, steps, first_block=b,
-                                                n_blocks=group)
+                                                n_blocks=group, hedge=legs)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -333,9 +341,11 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
 
     def block_fn(b, group):
         term, dd = bootstrap_multi_portfolio_dd(seed, hist, w[None], n, steps, p_restart,
-                                                first_block=b, n_blocks=group)
+                                                first_block=b, n_blocks=group, hedge=legs)
         return term[:, 0], dd[:, 0]
 
+    if legs is not None:   # settlement is not bounded by the history's rows (mcport's rule)
+        return block_fn, SketchConfig()
     return block_fn, _auto_sketch_from_history(_host_f64(model_params), steps)
 
 
@@ -432,11 +442,13 @@ def run_garch_path_risk(
     """Simulated path risk under CCC-GARCH(1,1) paths on ``device``: terminal
     VaR/CVaR plus the max-drawdown distribution of one portfolio compounding
     per-period rebalanced wealth. Normal shocks, as mcport's (the config's
-    innovations enter only the checkpoint digest). ``s0`` is mcport's
-    argument for hedged runs, which are not ported."""
+    innovations enter only the checkpoint digest). ``hedge`` (a HedgeSpec)
+    settles the option legs every step against the prices ``P *= 1 + mu +
+    eps`` from the spots ``s0``, which it requires, as mcport does."""
     _check_unported(config, hedge, "garch")
+    _require_spots(hedge, s0, "garch")
     return _one_shot("garch", params, weights, config, sketch, dd_sketch, alpha, True,
-                     0.2, device)
+                     0.2, device, hedge, s0)
 
 
 def run_dcc_path_risk(
@@ -520,10 +532,15 @@ def run_bootstrap_path_risk(
     A) history ``returns`` on ``device``: terminal VaR/CVaR plus the
     max-drawdown distribution of one portfolio compounding per-period
     rebalanced wealth. ``sketch=None`` derives the covering log1p terminal
-    sketch of the history (valid for any simplex weights)."""
+    sketch of the history (valid for any simplex weights; hedged runs take
+    the default linear sketch, as mcport's, since settlement is not bounded
+    by the history's rows). ``hedge`` (a HedgeSpec) settles the option legs
+    every step against the prices ``P *= 1 + row`` from the spots ``s0``,
+    which it requires, as mcport does."""
     _check_unported(config, hedge, "bootstrap")
+    _require_spots(hedge, s0, "bootstrap")
     return _one_shot("bootstrap", returns, weights, config, sketch, dd_sketch, alpha, True,
-                     p_restart, device)
+                     p_restart, device, hedge, s0)
 
 
 def run_resumable_path_risk(
@@ -556,15 +573,18 @@ def run_resumable_path_risk(
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
     ``checkpoint_path`` persists the state after every dispatch group. The
     digest binds a checkpoint to its computation and a mismatched resume
-    raises. ``hedge`` (a HedgeSpec, "gbm", "student_t" and "jump") settles
-    the option legs every step against the spots ``s0`` (by default the
-    model's own: ``model_params.s0``, or ``.diffusion.s0`` for "jump").
+    raises. ``hedge`` (a HedgeSpec, ``HEDGED_FAMILIES``) settles the option
+    legs every step against the spots ``s0`` (by default the model's own:
+    ``model_params.s0``, or ``.diffusion.s0`` for "jump"; "garch" and
+    "bootstrap" carry none and require ``s0``, as mcport does).
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
     _check_unported(config, hedge, model)
     if hedge is not None and s0 is None:
+        if model not in ("gbm", "student_t", "jump"):
+            _require_spots(hedge, s0, model)
         s0 = (model_params.diffusion.s0 if model == "jump" else model_params.s0)
     n_blocks = _n_blocks(config)
     dev = resolve_device(device)

@@ -1,7 +1,7 @@
 """Stationary block-bootstrap paths: the CUDA bootstrap kernels and their
 plain torch forms.
 
-Port of ``mcport/ops/pallas_bootstrap.py``, its unhedged modes. Two kernels
+Port of ``mcport/ops/pallas_bootstrap.py``, both modes. Two kernels
 (``csrc/bootstrap.cu``) replace ``_bootstrap_kernel`` and
 ``_bootstrap_dd_kernel``. Each path resamples rows of a ``(T, A)`` history of
 per-period simple returns (Politis-Romano, circular): from a uniform start
@@ -12,7 +12,9 @@ or advances to the next row, wrapping at ``T``; then
   terminal simple returns ``gross - 1``;
 - :func:`bootstrap_multi_portfolio_dd` compounds ``W`` candidates' per-period
   rebalanced wealth ``V *= 1 + w·row`` with the running peak and maximum
-  drawdown.
+  drawdown; hedged (``hedge``), the prices ``P *= 1 + row`` from the spots
+  settle every option leg each step and ``V *= 1 + w·r_h``, the prices and
+  settled returns the plain form's bit for bit.
 
 The uniforms come from Philox on ``STREAM_BOOT``, key the block seed, counter
 ``(call, 0, path, STREAM_BOOT)``: call 0 word 0 gives the start row, call
@@ -27,7 +29,8 @@ history sits in the kernels' shared memory, or past a block's shared memory
 in device memory behind the read-only cache, and selection is a load.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
-plain form, a CUDA device launches the kernel or raises.
+plain form, a CUDA device launches the kernel or raises. Past 64 assets the
+kernels run the layout of ``csrc/wide.cuh`` (the history in device memory).
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import block_seeds, check_card_assets
+from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, block_seeds, check_card_assets,
+                                  wide_scratch, wide_tile)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 from mcport_torch.rng import STREAM_BOOT, philox4x32
 
@@ -48,6 +53,7 @@ __all__ = [
     "bootstrap_terminal",
     "bootstrap_multi_dd_reference",
     "bootstrap_multi_portfolio_dd",
+    "bootstrap_price_bound",
     "bootstrap_shares",
 ]
 
@@ -160,13 +166,22 @@ def _launch_terminal(seed, hist, n_paths, n_steps, p_restart, first_block, n_blo
     hist = hist.contiguous()
     with torch.cuda.device(hist.device):
         stream = torch.cuda.current_stream(hist.device).cuda_stream
-        err = lib.mcport_bootstrap_terminal(
-            seed, first_block, n_blocks, n_paths, t_len, a, n_steps, float(p_restart),
-            int(in_shared), hist.data_ptr(), out.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: the grosses; the history in device memory
+            tp = wide_tile(a, 0)
+            scratch = wide_scratch(a * WIDE_CTAS * tp, hist.device, "bootstrap")
+            err = lib.mcport_bootstrap_wide(
+                seed, first_block, n_blocks, n_paths, t_len, a, 0, n_steps, 0,
+                float(p_restart), hist.data_ptr(), None, None, out.data_ptr(), None,
+                scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_bootstrap_terminal(
+                seed, first_block, n_blocks, n_paths, t_len, a, n_steps, float(p_restart),
+                int(in_shared), hist.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"bootstrap terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     bootstrap_terminal.launches += 1
+    bootstrap_terminal.wide_launches += int(a > MAX_ASSETS)
     return out
 
 
@@ -203,6 +218,7 @@ def bootstrap_terminal(
 
 
 bootstrap_terminal.launches = 0
+bootstrap_terminal.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def bootstrap_multi_dd_reference(
@@ -216,18 +232,44 @@ def bootstrap_multi_dd_reference(
     first_block: int = -1,
     n_blocks: int = 1,
     first_path: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the bootstrap candidate kernel: ``(term, dd)``,
     each ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of
-    each block."""
+    each block. ``hedge``: the hedged mode, mcport's ``_bootstrap_dd_kernel``
+    hedged branch — ``P_0 = s0``, ``P_t = P_{t-1} · (1 + row_t)`` on the
+    selected rows, every leg settled against the move
+    (:func:`mcport_torch.ops.hedged.hedged_multi_dd`); with ``with_bound`` a
+    third output bounds each (candidate, path)'s distance from the kernel
+    (:func:`bootstrap_price_bound`: the prices are the kernel's, bit for
+    bit)."""
     t_len, _ = _check(hist, n_paths, n_steps, n_blocks)
     idx = bootstrap_indices(seed, t_len, n_paths, n_steps, p_restart,
                             first_block=first_block, n_blocks=n_blocks,
                             first_path=first_path, device=hist.device)
-    return rebalanced_dd(hist[idx], weights)
+    if hedge is None:
+        return rebalanced_dd(hist[idx], weights)
+    return hedged_multi_dd(1.0 + hist[idx], hedge, weights.to(torch.float32),
+                           price_bound=(bootstrap_price_bound(hist.shape[1], hist.device)
+                                        if with_bound else None), gross=True)
 
 
-def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_blocks):
+def bootstrap_price_bound(n_assets: int, device) -> torch.Tensor:
+    """Per-asset bound ``(A,)`` on the relative difference of the hedged
+    bootstrap kernel's price ``P`` from its plain form's at any step: zero.
+    Both sides select the same rows (integer selection on the same Philox
+    words) and compute ``P · (1 + row)``, one add and one multiply, each
+    rounded once, with nothing to contract: the prices, and so the settled
+    returns (``csrc/hedged.cuh`` rounds as the plain form does), are equal
+    bit for bit. Only the score's sum over assets differs in order, which the
+    hedged bound's rounding term covers (:func:`mcport_torch.ops.hedged
+    .hedged_multi_dd`)."""
+    return torch.zeros(n_assets, dtype=torch.float32, device=device)
+
+
+def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_blocks,
+               hedge=None):
     from mcport_torch._build import library
 
     t_len, a = hist.shape
@@ -241,16 +283,31 @@ def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_
     if n_paths == 0:
         return term, dd
     hist, weights = hist.contiguous(), weights.contiguous()
+    block = hedge.packed() if hedge is not None else None
+    n_legs = hedge.n_legs if hedge is not None else 0
+    hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(hist.device):
         stream = torch.cuda.current_stream(hist.device).cuda_stream
-        err = lib.mcport_bootstrap_multi_dd(
-            seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps,
-            float(p_restart), int(in_shared), hist.data_ptr(), weights.data_ptr(),
-            term.data_ptr(), dd.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: hedged, the prices
+            tp = wide_tile(a, 0)
+            scratch = wide_scratch((a if hedge is not None else 0) * WIDE_CTAS * tp,
+                                   hist.device, "bootstrap")
+            err = lib.mcport_bootstrap_wide(
+                seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps, n_legs,
+                float(p_restart), hist.data_ptr(), weights.data_ptr(), hp, term.data_ptr(),
+                dd.data_ptr(), scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_bootstrap_multi_dd(
+                seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps, n_legs,
+                float(p_restart), int(in_shared), hist.data_ptr(), weights.data_ptr(), hp,
+                term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"bootstrap candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     bootstrap_multi_portfolio_dd.launches += 1
+    bootstrap_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
+    if hedge is not None:
+        bootstrap_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -264,31 +321,39 @@ def bootstrap_multi_portfolio_dd(
     *,
     first_block: int = -1,
     n_blocks: int = 1,
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
     wealth over the bootstrap paths of blocks ``first_block + 1 ..
-    first_block + n_blocks`` — mcport's ``pallas_bootstrap_path_stats``,
-    unhedged.
+    first_block + n_blocks`` — mcport's ``pallas_bootstrap_path_stats``.
 
-    More than ``MAX_CANDIDATES`` candidates run as several launches over the
-    same paths. Tensors on a CUDA device launch the kernel, each launch
-    counted in ``bootstrap_multi_portfolio_dd.launches``; on the CPU the plain
-    form runs. Any other device, or a problem the kernel does not take, raises.
+    ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors` on the same
+    device) selects hedged per-step settlement, mcport's ``hedge_args``: the
+    prices move ``P *= 1 + row`` from the spots, every leg settles each step,
+    and the candidates compound ``V *= 1 + W·r_h``. More than
+    ``MAX_CANDIDATES`` candidates run as several launches over the same paths.
+    Tensors on a CUDA device launch the kernel, each launch counted in
+    ``bootstrap_multi_portfolio_dd.launches`` (a hedged one in
+    ``.hedged_launches`` too); on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
     """
     _, a = _check(hist, n_paths, n_steps, n_blocks)
     w = weights.to(torch.float32)
     if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != hist.device:
         raise ValueError(f"weights must be (W >= 1, {a}) on {hist.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
+    if hedge is not None:
+        hedge.check(a, hist.device)
     if hist.device.type == "cpu":
         return bootstrap_multi_dd_reference(seed, hist, w, n_paths, n_steps, p_restart,
-                                            first_block=first_block, n_blocks=n_blocks)
+                                            first_block=first_block, n_blocks=n_blocks,
+                                            hedge=hedge)[:2]
     if hist.device.type != "cuda":
         raise ValueError(f"no bootstrap kernel for device {hist.device}")
     check_card_assets(a, "bootstrap")
     parts = [_launch_dd(seed, hist, w[i:i + MAX_CANDIDATES], n_paths, n_steps, p_restart,
-                        first_block, n_blocks)
+                        first_block, n_blocks, hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -296,10 +361,12 @@ def bootstrap_multi_portfolio_dd(
 
 
 bootstrap_multi_portfolio_dd.launches = 0
+bootstrap_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
+bootstrap_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
 
 
 def bootstrap_shares(kernel, plain, hist: torch.Tensor, weights: torch.Tensor,
-                     n_steps: int) -> dict[str, float]:
+                     n_steps: int, hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound that ``|kernel - plain|`` of the
     candidate kernel uses, per output ``{"term", "dd"}`` (``inf`` for a
     non-finite kernel value).
@@ -310,7 +377,13 @@ def bootstrap_shares(kernel, plain, hist: torch.Tensor, weights: torch.Tensor,
     and the product (two of 2^-24). Over ``n`` steps these add up like a
     random walk; with a factor 4 of headroom ``rel = 4 sqrt(n) 2^-24 (2 + A
     h)`` bounds the value relatively, ``|Δterm| <= rel (1 + |term|)`` and
-    ``|Δdd| <= 2 rel``."""
+    ``|Δdd| <= 2 rel``. Hedged (``hedge``): path by path against the bound
+    that ``plain`` carries (:func:`bootstrap_multi_dd_reference`
+    ``with_bound``), by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, None)
     a = hist.shape[1]
     h = float((weights.abs().sum(dim=1).max() * hist.abs().max()).cpu())
     rel = 4.0 * math.sqrt(max(n_steps, 1)) * _EPS * (2.0 + a * h)

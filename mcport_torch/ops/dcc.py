@@ -30,9 +30,10 @@ every operation as IEEE float32 (``sqrt_rn``, :func:`rsqrt_rn`) and subtracts
 the Cholesky sums in ascending order, as the kernels do.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
-plain form, a CUDA device launches the kernel or raises. The plain forms
-take any number of assets; on the card the kernels take 1..64, from 17
-assets through ``dcc_wide_kernel`` (``csrc/dcc.cu``).
+plain form, a CUDA device launches the kernel or raises. The plain forms and
+the card take any number of assets: from 17 to 64 through
+``dcc_wide_kernel``, past 64 through ``dcc_wider_kernel`` (``csrc/dcc.cu``,
+a path's Q and L in device memory past ~220 assets).
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _check_args, check_card_assets, sqrt_rn, step_shocks
+from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card_assets, sqrt_rn,
+                                  step_shocks, wide_scratch)
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
@@ -192,12 +194,19 @@ def _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks):
     params = d.packed()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.mcport_dcc_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
-                                      params.data_ptr(), out.data_ptr(), stream)
+        if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
+            scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
+            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps,
+                                      params.data_ptr(), None, out.data_ptr(), None,
+                                      scratch.data_ptr(), WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_dcc_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
+                                          params.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"DCC terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     dcc_terminal.launches += 1
+    dcc_terminal.wide_launches += int(a > MAX_ASSETS)
     return out
 
 
@@ -230,6 +239,7 @@ def dcc_terminal(
 
 
 dcc_terminal.launches = 0
+dcc_terminal.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def dcc_multi_dd_reference(
@@ -265,13 +275,20 @@ def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks):
     weights = weights.contiguous()
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+        if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
+            scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
+            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
                                       params.data_ptr(), weights.data_ptr(), term.data_ptr(),
-                                      dd.data_ptr(), stream)
+                                      dd.data_ptr(), scratch.data_ptr(), WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
+                                          n_steps, params.data_ptr(), weights.data_ptr(),
+                                          term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"DCC candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     dcc_multi_portfolio_dd.launches += 1
+    dcc_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
     return term, dd
 
 
@@ -315,6 +332,7 @@ def dcc_multi_portfolio_dd(
 
 
 dcc_multi_portfolio_dd.launches = 0
+dcc_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def dcc_tolerance(d: DccTensors, n_steps: int) -> torch.Tensor:

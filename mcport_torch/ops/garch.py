@@ -1,6 +1,6 @@
 """CCC-GARCH(1,1) paths: the CUDA GARCH kernels and their plain torch forms.
 
-Port of ``mcport/ops/pallas_garch.py``, its unhedged modes. Two kernels
+Port of ``mcport/ops/pallas_garch.py``, both modes. Two kernels
 (``csrc/garch.cu``) replace ``_garch_kernel`` and ``_garch_dd_kernel``: per
 path and step they correlate the shocks with the Cholesky factor ``L_R`` of the
 constant correlation, ``zc = L_R z``, update the conditional variance
@@ -11,7 +11,9 @@ sqrt(max(sigma2, 0)) zc`` and the return ``r = mu + eps``; then
   terminal simple returns ``cum - 1``;
 - :func:`garch_multi_portfolio_dd` compounds ``W`` candidate portfolios'
   per-period rebalanced wealth ``V *= 1 + w·r`` (float32, mcport's
-  ``score_dot``) with the running peak and maximum drawdown.
+  ``score_dot``) with the running peak and maximum drawdown; hedged
+  (``hedge``), the prices ``P *= 1 + mu + eps`` from the spots settle every
+  option leg each step and ``V *= 1 + w·r_h`` (:mod:`mcport_torch.ops.hedged`).
 
 The shocks are the GBM kernels' normals on ``STREAM_GBM``
 (:func:`mcport_torch.ops.gbm.step_shocks`), so the plain forms are
@@ -21,9 +23,9 @@ sampler): ``t_df`` folds the ``1/sqrt(df/(df-2))`` scale into ``L_R``. The
 candidate kernel draws normal shocks only, as mcport's does.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
-plain form, a CUDA device launches the kernel or raises. The plain forms
-take any number of assets; on the card the kernels take 1..64, from 17
-assets through their wide variants (``csrc/garch.cu``).
+plain form, a CUDA device launches the kernel or raises. The plain forms and
+the card take any number of assets: from 17 to 64 through the kernels' wide
+variants, past 64 through the layout of ``csrc/wide.cuh``.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, _check_args, check_card_assets, sqrt_rn,
+from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, MAX_ASSETS, WIDE_CTAS, _check_args,
+                                  check_card_assets, sqrt_rn, wide_scratch, wide_tile,
                                   step_shocks, t_scaled_chol)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
@@ -46,6 +50,7 @@ __all__ = [
     "garch_multi_dd_reference",
     "garch_multi_portfolio_dd",
     "garch_tolerance",
+    "garch_price_bound",
     "garch_shares",
 ]
 
@@ -157,16 +162,25 @@ def _launch_terminal(seed, g, n_paths, n_steps, first_block, n_blocks, t_df, wid
     params = g.packed(t_scaled_chol(g.corr_chol, t_df))
     df = 0.0 if t_df is None else float(t_df)
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
+    tier = _T_CODE if t_df is not None else _BM_CODE["poly"]
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.mcport_garch_terminal(
-            seed, first_block, n_blocks, n_paths, a, n_steps, int(wide),
-            _T_CODE if t_df is not None else _BM_CODE["poly"], df, neg2_over_df,
-            params.data_ptr(), out.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: sigma2 and the gross
+            tp = wide_tile(a)
+            scratch = wide_scratch(2 * a * WIDE_CTAS * tp, g.device, "GARCH")
+            err = lib.mcport_garch_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps,
+                                        tier, df, neg2_over_df, 0, params.data_ptr(), None,
+                                        None, out.data_ptr(), None, scratch.data_ptr(), tp,
+                                        WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_garch_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
+                                            int(wide), tier, df, neg2_over_df,
+                                            params.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"GARCH terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     garch_terminal.launches += 1
+    garch_terminal.wide_launches += int(a > MAX_ASSETS)
     return out
 
 
@@ -201,6 +215,7 @@ def garch_terminal(
 
 
 garch_terminal.launches = 0
+garch_terminal.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def garch_multi_dd_reference(
@@ -213,19 +228,32 @@ def garch_multi_dd_reference(
     first_block: int = -1,
     n_blocks: int = 1,
     first_path: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the GARCH candidate kernel: ``(term, dd)``, each
     ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
-    block."""
+    block. ``hedge``: the hedged mode, mcport's ``_garch_dd_kernel`` hedged
+    branch — ``P_0 = s0``, ``P_t = P_{t-1} · (1 + mu + eps_t)`` (the gross
+    rounded as the kernel rounds it, ``(1 + mu) + eps``), every leg settled
+    against the move (:func:`mcport_torch.ops.hedged.hedged_multi_dd`); with
+    ``with_bound`` a third output bounds each (candidate, path)'s distance
+    from the kernel (:func:`garch_price_bound`)."""
     _check(g, n_paths, n_steps, n_blocks, None)
     zc = correlated_shocks(seed, g, n_paths, n_steps, first_block=first_block,
                            n_blocks=n_blocks, first_path=first_path)
-    return rebalanced_dd(g.mu + garch_innovations(zc, g), weights)
+    eps = garch_innovations(zc, g)
+    if hedge is None:
+        return rebalanced_dd(g.mu + eps, weights)
+    return hedged_multi_dd((1.0 + g.mu) + eps, hedge, weights.to(torch.float32),
+                           price_bound=(garch_price_bound(g, n_steps).to(g.device)
+                                        if with_bound else None), gross=True)
 
 
-def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=False):
-    """Launch kernel #5 for at most ``MAX_CANDIDATES``; ``wide`` takes the
-    64-asset instantiation at any width."""
+def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=False,
+               hedge=None):
+    """Launch kernel #5 for at most ``MAX_CANDIDATES``, hedged with ``hedge``;
+    ``wide`` takes the 64-asset instantiation at any width up to 64."""
     from mcport_torch._build import library
 
     lib = library("garch")
@@ -236,15 +264,31 @@ def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=F
         return term, dd
     params = g.packed(g.corr_chol)
     weights = weights.contiguous()
+    block = hedge.packed() if hedge is not None else None
+    n_legs = hedge.n_legs if hedge is not None else 0
+    hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.mcport_garch_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
-            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: sigma2 and, hedged, the price
+            tp = wide_tile(a)
+            scratch = wide_scratch((2 if hedge is not None else 1) * a * WIDE_CTAS * tp,
+                                   g.device, "GARCH")
+            err = lib.mcport_garch_wide(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+                                        _BM_CODE["poly"], 0.0, 0.0, n_legs, params.data_ptr(),
+                                        weights.data_ptr(), hp, term.data_ptr(), dd.data_ptr(),
+                                        scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_garch_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
+                                            n_steps, int(wide), n_legs, params.data_ptr(),
+                                            weights.data_ptr(), hp, term.data_ptr(),
+                                            dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"GARCH candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     garch_multi_portfolio_dd.launches += 1
+    garch_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
+    if hedge is not None:
+        garch_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -257,30 +301,39 @@ def garch_multi_portfolio_dd(
     *,
     first_block: int = -1,
     n_blocks: int = 1,
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
     wealth over the CCC-GARCH paths of blocks ``first_block + 1 ..
-    first_block + n_blocks`` — mcport's ``pallas_garch_path_stats``, unhedged.
+    first_block + n_blocks`` — mcport's ``pallas_garch_path_stats``.
 
-    More than ``MAX_CANDIDATES`` candidates run as several launches over the
-    same paths. Tensors on a CUDA device launch the kernel, each launch
-    counted in ``garch_multi_portfolio_dd.launches``; on the CPU the plain
-    form runs. Any other device, or a problem the kernel does not take, raises.
+    ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors` on the same
+    device) selects hedged per-step settlement, mcport's ``hedge_args``: the
+    prices move ``P *= 1 + mu + eps`` from the spots, every leg settles each
+    step, and the candidates compound ``V *= 1 + W·r_h``. More than
+    ``MAX_CANDIDATES`` candidates run as several launches over the same paths.
+    Tensors on a CUDA device launch the kernel, each launch counted in
+    ``garch_multi_portfolio_dd.launches`` (a hedged one in
+    ``.hedged_launches`` too); on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
     """
     a = _check(g, n_paths, n_steps, n_blocks, None)
     w = weights.to(torch.float32)
     if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != g.device:
         raise ValueError(f"weights must be (W >= 1, {a}) on {g.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
+    if hedge is not None:
+        hedge.check(a, g.device)
     if g.device.type == "cpu":
         return garch_multi_dd_reference(seed, g, w, n_paths, n_steps,
-                                        first_block=first_block, n_blocks=n_blocks)
+                                        first_block=first_block, n_blocks=n_blocks,
+                                        hedge=hedge)[:2]
     if g.device.type != "cuda":
         raise ValueError(f"no GARCH kernel for device {g.device}")
     check_card_assets(a, "GARCH")
     parts = [_launch_dd(seed, g, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
-                        n_blocks)
+                        n_blocks, hedge=hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -288,6 +341,21 @@ def garch_multi_portfolio_dd(
 
 
 garch_multi_portfolio_dd.launches = 0
+garch_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
+garch_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
+
+
+def garch_price_bound(g: GarchTensors, n_steps: int) -> torch.Tensor:
+    """Per-asset bound ``(A,)`` on the relative difference of the hedged GARCH
+    kernel's price ``P`` from its plain form's at any step. The price
+    compounds the gross ``1 + mu + eps`` as the terminal kernel's value does
+    (``P = s0 · cum``), with the same operations: so it is
+    :func:`garch_tolerance`'s relative bound, built from the same terms (the
+    draws' 2e-6 through ``sigma Σ_j |L_ij|`` and two roundings per step, a
+    random walk over ``n`` steps with a factor 4). The hedged plain form turns
+    it into a bound per (candidate, path) (:func:`mcport_torch.ops.hedged
+    .hedged_multi_dd`)."""
+    return garch_tolerance(g, n_steps)
 
 
 def garch_tolerance(g: GarchTensors, n_steps: int, t_df: float | None = None) -> torch.Tensor:
@@ -313,13 +381,20 @@ def garch_tolerance(g: GarchTensors, n_steps: int, t_df: float | None = None) ->
 
 
 def garch_shares(kernel, plain, g: GarchTensors, n_steps: int,
-                 t_df: float | None = None) -> dict[str, float]:
+                 t_df: float | None = None,
+                 hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound that ``|kernel - plain|`` uses →
     ``{"term"}`` for a terminal tensor ``(..., A)``, ``{"term", "dd"}`` for a
     candidate pair ``(term, dd)``: the candidates' values are held to the
     largest asset bound plus ``8 · 2^-24 · (A + sqrt(n))`` for the score's sum
     over assets and the product over steps, the drawdown to twice that.
-    Non-finite kernel values give ``inf``."""
+    Non-finite kernel values give ``inf``. Hedged (``hedge``): path by path
+    against the bound that ``plain`` carries (:func:`garch_multi_dd_reference`
+    ``with_bound``), by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, None)
     rel = garch_tolerance(g, n_steps, t_df).to(g.device)
 
     def share(k, p, tol):

@@ -39,7 +39,10 @@ from mcport_torch.rng import STREAM_GBM, bits_to_unit, philox4x32
 
 __all__ = [
     "MAX_ASSETS",
+    "WIDE_CTAS",
     "check_card_assets",
+    "wide_tile",
+    "wide_scratch",
     "sqrt_rn",
     "ln_poly",
     "sincos_poly",
@@ -56,9 +59,15 @@ __all__ = [
     "terminal_log_returns",
 ]
 
-#: Widest universe every kernel of the port takes on the card (the plain forms
-#: take any width). Wider universes on the card are ROADMAP.md's open item.
+#: Widest universe of the kernels' narrow layouts on the card (csrc/gbm_draws.cuh
+#: kMaxAssets). Past it every kernel runs the wide layout of csrc/wide.cuh: the
+#: card takes any width whose scratch fits its memory, as the plain forms do.
 MAX_ASSETS = 64
+#: Persistent CTAs of a wide launch (csrc/wide.cuh): four per SM of an H100.
+#: The scratch has one slot per CTA, so its size does not grow with the paths.
+WIDE_CTAS = 528
+_WIDE_SHOCK_BYTES = 100 * 1024   # the shock tile's share of a block's shared memory
+_SHARED_BYTES = 232_448          # a block's shared memory on the H100
 
 # degree-10 Chebyshev fit of ln(1+x)/x on [sqrt(2)/2-1, sqrt(2)-1], highest
 # coefficient first — mcport's _LN1P_COEF (5.1e-8 max abs error in f32)
@@ -248,13 +257,42 @@ def step_shocks(
 
 
 def check_card_assets(a: int, what: str) -> None:
-    """Raise unless the card's ``what`` kernels take ``a`` assets: 1 to
-    ``MAX_ASSETS``. Only a launch checks this; every plain form takes any
-    width (ROADMAP.md Queue 3 keeps the wider card layout open)."""
-    if not 1 <= a <= MAX_ASSETS:
-        raise ValueError(f"the {what} kernels take 1..{MAX_ASSETS} assets on the card, got "
-                         f"{a}; wider universes run on the CPU (ROADMAP.md Queue 3, the "
-                         "card's 64-asset cap)")
+    """Raise unless the card's ``what`` kernels take ``a`` assets: any ``a >=
+    1`` whose wide layout (past ``MAX_ASSETS``) keeps one path's shocks of a
+    Philox call, ``4 · 4 · a`` bytes, in a block's shared memory (up to
+    ~14,000 assets). Only a launch checks this; every plain form takes any
+    width. A launch past ``MAX_ASSETS`` also refuses a scratch that does not
+    fit the card's memory (:func:`wide_scratch`)."""
+    if a < 1:
+        raise ValueError(f"the {what} kernels take at least one asset, got {a}")
+    need = 4 * (4 * a + 2 * 64 * 16)
+    if a > MAX_ASSETS and need > _SHARED_BYTES:
+        raise ValueError(f"the {what} kernels' wide layout needs {need:,} bytes of shared "
+                         f"memory for one path's shocks at {a} assets; a block has "
+                         f"{_SHARED_BYTES:,}")
+
+
+def wide_tile(a: int, per_item: int = 4) -> int:
+    """Paths per tile of a wide launch at ``a`` assets (csrc/wide.cuh): the
+    most, up to 16 and a power of two, whose shock tile (``per_item`` floats
+    per asset and path: the steps of one Philox call) keeps within about 100
+    KB of shared memory."""
+    tp = 16
+    while tp > 1 and 4 * per_item * a * tp > _WIDE_SHOCK_BYTES:
+        tp //= 2
+    return tp
+
+
+def wide_scratch(floats: int, device: torch.device, what: str) -> torch.Tensor:
+    """The device-memory scratch of one wide launch, ``floats`` float32 (at
+    least one). Raises ``ValueError`` with the byte count when it does not fit
+    the card's free memory."""
+    n = max(int(floats), 1)
+    free, _ = torch.cuda.mem_get_info(device)
+    if 4 * n > free:
+        raise ValueError(f"the {what} kernels' scratch needs {4 * n:,} bytes of device "
+                         f"memory at this width; {free:,} are free")
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check_args(chol, n_paths, n_steps, n_blocks, bm, t_df) -> None:
@@ -341,16 +379,23 @@ def _launch(seed, chol, n_paths, n_steps, first_block, n_blocks, bm, t_df):
     chol = chol.contiguous()
     df = 0.0 if t_df is None else float(t_df)
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
+    tier = _T_CODE if t_df is not None else _BM_CODE[bm]
     with torch.cuda.device(chol.device):
         stream = torch.cuda.current_stream(chol.device).cuda_stream
-        err = lib.mcport_terminal_noise(
-            seed, first_block, n_blocks, n_paths, a, n_steps,
-            _T_CODE if t_df is not None else _BM_CODE[bm], df, neg2_over_df,
-            chol.data_ptr(), out.data_ptr(), stream)
+        if a > MAX_ASSETS:   # each thread's sums in a scratch column (csrc/terminal_noise.cu)
+            scratch = wide_scratch(a * WIDE_CTAS * 128, chol.device, "terminal-noise")
+            err = lib.mcport_terminal_noise_wide(
+                seed, first_block, n_blocks, n_paths, a, n_steps, tier, df, neg2_over_df,
+                chol.data_ptr(), scratch.data_ptr(), WIDE_CTAS, out.data_ptr(), stream)
+        else:
+            err = lib.mcport_terminal_noise(
+                seed, first_block, n_blocks, n_paths, a, n_steps, tier, df, neg2_over_df,
+                chol.data_ptr(), out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"terminal-noise kernel launch failed: CUDA error "
                            f"{err} ({lib.mcport_error_string(err).decode()})")
     gbm_terminal_noise.launches += 1
+    gbm_terminal_noise.wide_launches += int(a > MAX_ASSETS)
     return out
 
 
@@ -386,6 +431,7 @@ def gbm_terminal_noise(
 
 
 gbm_terminal_noise.launches = 0
+gbm_terminal_noise.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def t_scaled_chol(chol: torch.Tensor, t_df: float | None) -> torch.Tensor:

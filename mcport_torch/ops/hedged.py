@@ -144,10 +144,12 @@ def _leg_scales(p_prev: torch.Tensor, p_new: torch.Tensor, r: torch.Tensor,
 
 def hedged_multi_dd(x: torch.Tensor, hedge: HedgeTensors, weights: torch.Tensor,
                     score_dtype: str = "float32", price_bound: torch.Tensor | None = None,
-                    value_bound: float = 0.0) -> tuple[torch.Tensor, ...]:
+                    value_bound: float = 0.0, gross: bool = False) -> tuple[torch.Tensor, ...]:
     """(terminal returns, max drawdowns), each ``(..., W, n)``, of ``W``
     candidates ``weights (W, A)`` over log increments ``x (..., n, T, A)``:
-    ``P_0 = s0``, ``P_t = P_{t-1} · exp(x_t)``, ``V_t = V_{t-1} (1 + W·r_h)``
+    ``P_0 = s0``, ``P_t = P_{t-1} · exp(x_t)`` (with ``gross``, ``x`` holds
+    the steps' gross factors and ``P_t = P_{t-1} · x_t``: the GARCH and
+    bootstrap families), ``V_t = V_{t-1} (1 + W·r_h)``
     with :func:`hedged_returns_reference`, from ``V_0 = peak_0 = 1``, ``dd_0 =
     0`` — the hedged kernels' path, step by step, in the score tier's
     numerics (:mod:`mcport_torch.ops.multi_dd`).
@@ -183,7 +185,7 @@ def hedged_multi_dd(x: torch.Tensor, hedge: HedgeTensors, weights: torch.Tensor,
         delta, aw = price_bound.to(x.dtype), w.abs().T
         lin, walk, rounding = torch.zeros_like(v), torch.zeros_like(v), torch.zeros_like(v)
     for t in range(x.shape[-2]):
-        p_new = p * torch.exp(x[..., t, :])
+        p_new = p * (x[..., t, :] if gross else torch.exp(x[..., t, :]))
         r = hedged_returns_reference(p, p_new, hedge.type_id, hedge.strike, hedge.premium,
                                      hedge.qty)
         f = _score(r, w, score_dtype)

@@ -23,8 +23,10 @@ scheme of mcport's ``_heston_step`` in its order of operations:
 The plain forms are two :func:`mcport_torch.ops.gbm.step_shocks` calls plus
 :func:`heston_increments`. Each wrapper dispatches on the device of its
 tensors: the CPU goes to the plain form, a CUDA device launches the kernel or
-raises. The plain forms take any number of assets; on the card the kernels
-take 1..64, from 17 assets through their wide variants (``csrc/heston.cu``).
+raises. The plain forms and the card take any number of assets: from 17 to
+64 through the kernels' wide variants, past 64 through the layout of
+``csrc/wide.cuh`` (``csrc/heston.cu``'s HestonWide), the path state bit for
+bit at every width.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import _check_args, check_card_assets, sqrt_rn, step_shocks
+from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card_assets, sqrt_rn,
+                                  step_shocks, wide_scratch, wide_tile)
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 from mcport_torch.rng import STREAM_HESTON
 
@@ -172,12 +175,21 @@ def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks, wide=Fals
     params = h.packed()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.mcport_heston_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
-                                         int(wide), params.data_ptr(), out.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: v, four variance shocks, the log sum
+            tp = wide_tile(a)
+            scratch = wide_scratch(6 * a * WIDE_CTAS * tp, h.device, "Heston")
+            err = lib.mcport_heston_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps,
+                                         params.data_ptr(), None, out.data_ptr(), None,
+                                         scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_heston_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
+                                             int(wide), params.data_ptr(), out.data_ptr(),
+                                             stream)
     if err:
         raise RuntimeError(f"Heston terminal kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     heston_terminal.launches += 1
+    heston_terminal.wide_launches += int(a > MAX_ASSETS)
     return out
 
 
@@ -210,6 +222,7 @@ def heston_terminal(
 
 
 heston_terminal.launches = 0
+heston_terminal.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def heston_multi_dd_reference(
@@ -247,13 +260,22 @@ def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=F
     weights = weights.contiguous()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.mcport_heston_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
-            params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: v and four variance shocks
+            tp = wide_tile(a)
+            scratch = wide_scratch(5 * a * WIDE_CTAS * tp, h.device, "Heston")
+            err = lib.mcport_heston_wide(seed, first_block, n_blocks, n_paths, a, w_cnt,
+                                         n_steps, params.data_ptr(), weights.data_ptr(),
+                                         term.data_ptr(), dd.data_ptr(), scratch.data_ptr(), tp,
+                                         WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_heston_multi_dd(
+                seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
+                params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"Heston candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     heston_multi_portfolio_dd.launches += 1
+    heston_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
     return term, dd
 
 
@@ -299,6 +321,7 @@ def heston_multi_portfolio_dd(
 
 
 heston_multi_portfolio_dd.launches = 0
+heston_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def heston_tolerance(n_assets: int, n_steps: int) -> tuple[float, float]:

@@ -36,8 +36,8 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import (BM_VARIANTS, _check_args, _uniform_calls, check_card_assets,
-                                  step_shocks)
+from mcport_torch.ops.gbm import (BM_VARIANTS, MAX_ASSETS, WIDE_CTAS, _check_args, _uniform_calls,
+                                  check_card_assets, step_shocks, wide_scratch, wide_tile)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import (MAX_CANDIDATES, hedged_price_bound, multi_dd_from_log_paths,
                                        multi_dd_tolerance)
@@ -146,17 +146,24 @@ def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, j
         return term, dd
     weights = weights.contiguous()
     block = hedge.packed() if hedge is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcport_merton_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+    args = (seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
             hedge.n_legs if hedge is not None else 0, jump_rate, params.data_ptr(),
             weights.data_ptr(), block.data_ptr() if block is not None else None,
-            term.data_ptr(), dd.data_ptr(), stream)
+            term.data_ptr(), dd.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout
+            tp = wide_tile(a)
+            scratch = wide_scratch(a * WIDE_CTAS * tp, dev, "jump")
+            err = lib.mcport_merton_multi_dd_wide(*args, scratch.data_ptr(), tp, WIDE_CTAS,
+                                                  stream)
+        else:
+            err = lib.mcport_merton_multi_dd(*args, stream)
     if err:
         raise RuntimeError(f"jump kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     merton_multi_portfolio_dd.launches += 1
+    merton_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
     if hedge is not None:
         merton_multi_portfolio_dd.hedged_launches += 1
     return term, dd
@@ -218,6 +225,7 @@ def merton_multi_portfolio_dd(
 
 
 merton_multi_portfolio_dd.launches = 0
+merton_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 merton_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
 
 

@@ -32,7 +32,8 @@ import math
 
 import torch
 
-from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, _check_args, check_card_assets, step_shocks,
+from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, MAX_ASSETS, WIDE_CTAS, _check_args,
+                                  check_card_assets, step_shocks, wide_scratch, wide_tile,
                                   t_scaled_chol)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.path_stats import log_paths_reference, path_stats_tolerance
@@ -185,18 +186,24 @@ def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
     mode = 2 if hedge is not None else int(rebalance)
     block = hedge.packed() if hedge is not None else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcport_multi_dd(
-            seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
+    args = (seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
             _T_CODE if t_df is not None else _BM_CODE[bm], mode, SCORE_DTYPES[score_dtype],
             hedge.n_legs if hedge is not None else 0, df, neg2_over_df, chol.data_ptr(),
             mean.data_ptr(), weights.data_ptr(), block.data_ptr() if block is not None else None,
-            term.data_ptr(), dd.data_ptr(), stream)
+            term.data_ptr(), dd.data_ptr())
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout
+            tp = wide_tile(a)
+            scratch = wide_scratch(a * WIDE_CTAS * tp, dev, "multi-dd")
+            err = lib.mcport_multi_dd_wide(*args, scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_multi_dd(*args, stream)
     if err:
         raise RuntimeError(f"multi-dd kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     gbm_multi_portfolio_dd.launches += 1
+    gbm_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
     if hedge is not None:
         gbm_multi_portfolio_dd.hedged_launches += 1
     return term, dd
@@ -265,6 +272,7 @@ def gbm_multi_portfolio_dd(
 
 
 gbm_multi_portfolio_dd.launches = 0
+gbm_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 gbm_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
 
 

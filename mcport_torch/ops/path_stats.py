@@ -26,6 +26,10 @@ import math
 import torch
 
 from mcport_torch.ops.gbm import (
+    MAX_ASSETS,
+    WIDE_CTAS,
+    wide_scratch,
+    wide_tile,
     _BM_CODE,
     _T_CODE,
     _check_args,
@@ -115,18 +119,28 @@ def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
     chol, mean, weights = chol.contiguous(), mean.contiguous(), weights.contiguous()
     df = 0.0 if t_df is None else float(t_df)
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
+    tier = _T_CODE if t_df is not None else _BM_CODE[bm]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mcport_path_stats(
-            seed, first_block, n_blocks, n_paths, a, n_steps,
-            _T_CODE if t_df is not None else _BM_CODE[bm], int(rebalance), df,
-            neg2_over_df, chol.data_ptr(), mean.data_ptr(), weights.data_ptr(),
-            None if term is None else term.data_ptr(), port.data_ptr(), dd.data_ptr(),
-            stream)
+        if a > MAX_ASSETS:   # csrc/wide.cuh: kernel #3's wide layout with one candidate
+            tp = wide_tile(a)
+            scratch = wide_scratch(a * WIDE_CTAS * tp, dev, "path-stats")
+            err = lib.mcport_path_stats_wide(
+                seed, first_block, n_blocks, n_paths, a, n_steps, tier, int(rebalance), df,
+                neg2_over_df, chol.data_ptr(), mean.data_ptr(), weights.data_ptr(),
+                None if term is None else term.data_ptr(), port.data_ptr(), dd.data_ptr(),
+                scratch.data_ptr(), tp, WIDE_CTAS, stream)
+        else:
+            err = lib.mcport_path_stats(
+                seed, first_block, n_blocks, n_paths, a, n_steps, tier, int(rebalance), df,
+                neg2_over_df, chol.data_ptr(), mean.data_ptr(), weights.data_ptr(),
+                None if term is None else term.data_ptr(), port.data_ptr(), dd.data_ptr(),
+                stream)
     if err:
         raise RuntimeError(f"path-stats kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     gbm_path_stats.launches += 1
+    gbm_path_stats.wide_launches += int(a > MAX_ASSETS)
     return term, port, dd
 
 
@@ -180,6 +194,7 @@ def gbm_path_stats(
 
 
 gbm_path_stats.launches = 0
+gbm_path_stats.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
 
 
 def path_stats_tolerance(chol: torch.Tensor, mean: torch.Tensor,

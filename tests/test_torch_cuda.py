@@ -25,7 +25,13 @@ The wide variants of the GARCH, Heston and DCC kernels (17-64 assets) to
 the same bounds, the bootstrap kernels on histories past shared memory bit
 for bit, and the hedged modes of kernels #3 and #8 to ``multi_dd_shares``
 and ``merton_shares`` with the hedge (an identity hedge against the
-rebalanced mode; #8 at rate 0 equal to #3, both hedged).
+rebalanced mode; #8 at rate 0 equal to #3, both hedged). Past 64 assets
+(``csrc/wide.cuh``): every kernel at A = 65 and 200 (DCC 256, where Q and L
+leave shared memory) to the same bounds, the bit-identical pairs bit for
+bit. The hedged modes of #5 and #7 (1-3 legs, W in {1, 13, 256}, 15, 64 and
+65 assets, shared and device-memory histories) to ``garch_shares`` and
+``bootstrap_shares`` with the hedge; one-hot hedged bootstrap candidates bit
+for bit; identity hedges against the unhedged modes; overflowed wealth held.
 """
 
 import numpy as np
@@ -101,10 +107,16 @@ def test_kernel_matches_plain_form_at_the_engine_group(dev):
 
 
 def test_kernel_rejects_too_many_assets(dev):
-    from mcport_torch.ops.gbm import gbm_terminal_noise
+    """Past 64 assets the kernel runs its wide layout (csrc/wide.cuh) and
+    meets the same bound; only an empty universe is refused."""
+    from mcport_torch.ops.gbm import gbm_terminal_noise, kernel_tolerance, terminal_noise_reference
 
-    with pytest.raises(ValueError, match="1..64 assets"):
-        gbm_terminal_noise(0, _chol(65, dev), 128, 4)
+    chol = _chol(65, dev)
+    k = gbm_terminal_noise(3, chol, 1_029, 52, first_block=6, n_blocks=2)
+    p = terminal_noise_reference(3, chol, 1_029, 52, first_block=6, n_blocks=2)
+    assert _within(k, p, kernel_tolerance(chol, 52))
+    with pytest.raises(ValueError, match="at least one asset"):
+        gbm_terminal_noise(0, chol[:0, :0], 128, 4)
 
 
 def test_engine_on_card_matches_cpu_run(dev):
@@ -312,10 +324,18 @@ def test_garch_kernels_agree_on_one_asset(dev):
 
 
 def test_garch_kernels_reject_too_many_assets(dev):
-    from mcport_torch.ops.garch import garch_terminal
+    """Past 64 assets the kernels run their wide layout and meet the same
+    bound; only an empty universe is refused."""
+    from mcport_torch.ops.garch import garch_shares, garch_terminal, garch_terminal_reference
 
-    with pytest.raises(ValueError, match="1..64 assets"):
-        garch_terminal(0, _garch(65, dev), 128, 4)
+    g = _garch(65, dev)
+    k = garch_terminal(3, g, 1_029, 52, first_block=6, n_blocks=2)
+    p = garch_terminal_reference(3, g, 1_029, 52, first_block=6, n_blocks=2)
+    assert max(garch_shares(k, p, g, 52).values()) <= 1.0
+    from mcport_torch.ops.gbm import check_card_assets
+
+    with pytest.raises(ValueError, match="at least one asset"):
+        check_card_assets(0, "GARCH")
 
 
 # ---- kernels #6 and #7: stationary block bootstrap ---------------------------------
@@ -548,10 +568,19 @@ def test_heston_kernels_agree_on_one_asset(dev):
 
 
 def test_heston_kernels_reject_too_many_assets(dev):
-    from mcport_torch.ops.heston import heston_terminal
+    """Past 64 assets the kernels run their wide layout, the path state bit
+    for bit (the terminal within heston_shares' four ulps of expm1); only an
+    empty universe is refused."""
+    from mcport_torch.ops.heston import heston_shares, heston_terminal, heston_terminal_reference
 
-    with pytest.raises(ValueError, match="1..64 assets"):
-        heston_terminal(0, _heston(65, dev), 128, 4)
+    h = _heston(65, dev, 0.05)
+    k = heston_terminal(3, h, 1_029, 52, first_block=6, n_blocks=2)
+    p = heston_terminal_reference(3, h, 1_029, 52, first_block=6, n_blocks=2)
+    assert max(heston_shares(k, p, h, 52).values()) <= 1.0
+    from mcport_torch.ops.gbm import check_card_assets
+
+    with pytest.raises(ValueError, match="at least one asset"):
+        check_card_assets(0, "Heston")
 
 
 # ---- kernels #11-#14: DCC-GARCH -----------------------------------------------------
@@ -665,10 +694,17 @@ def test_dcc_multi_dd_kernel_more_than_one_launch_of_candidates(dev):
 
 
 def test_dcc_kernels_reject_too_many_assets(dev):
-    from mcport_torch.ops.dcc import dcc_terminal
+    """Past 64 assets the kernels run their wider layout and meet the same
+    bound; only an empty universe is refused."""
+    from mcport_torch.ops.dcc import dcc_shares, dcc_terminal, dcc_terminal_reference
+    from mcport_torch.ops.gbm import check_card_assets
 
-    with pytest.raises(ValueError, match="1..64 assets"):
-        dcc_terminal(0, _dcc(65, dev), 128, 4)
+    d = _dcc(65, dev)
+    k = dcc_terminal(3, d, 515, 13, first_block=6, n_blocks=2)
+    p = dcc_terminal_reference(3, d, 515, 13, first_block=6, n_blocks=2)
+    assert max(dcc_shares(k, p, d, 13).values()) <= 1.0
+    with pytest.raises(ValueError, match="at least one asset"):
+        check_card_assets(0, "DCC")
 
 
 # ---- the wide variants: 17 <= A <= 64 -----------------------------------------------
@@ -860,4 +896,279 @@ def test_hedged_kernels_carry_overflowed_wealth_as_the_plain_form(dev, kernel):
         shares = multi_dd_shares(k, p, None, chol, mean, 252, True, "float32", hedge)
     held = hedged_held(k, p)
     assert held["overflowed"] > 0 and held["astray"] == 0, held
+    assert max(shares.values()) <= 1.0, (shares, held)
+
+
+# ---- past 64 assets: the wide layout (csrc/wide.cuh) --------------------------------
+
+def _wide_cand(a, dev, n=13, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed + a).dirichlet(np.ones(a), n).astype(
+        np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("a", [65, 200])
+@pytest.mark.parametrize("bm, t_df", [("poly", None), ("poly_fast", None), ("poly", 5.5)])
+def test_gbm_tier_wide_kernels_match_plain_form(dev, a, bm, t_df):
+    """Kernels #1-#3 past 64 assets; #3 with one candidate is #2 bit for bit."""
+    from mcport_torch.ops.gbm import gbm_terminal_noise, kernel_tolerance, terminal_noise_reference
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+    from mcport_torch.ops.path_stats import (gbm_path_stats, path_stats_reference,
+                                             path_stats_shares)
+
+    mean, chol, w1 = _bench_inputs(a, dev)
+    lk = chol if t_df is None else chol / float(np.sqrt(t_df / (t_df - 2.0)))
+    kw = dict(first_block=6, n_blocks=2, bm=bm, t_df=t_df)
+    k = gbm_terminal_noise(11, lk, 1_029, 52, **kw)
+    assert _within(k, terminal_noise_reference(11, lk, 1_029, 52, **kw),
+                   kernel_tolerance(lk, 52))
+    for rebalance in (False, True):
+        ks = gbm_path_stats(11, mean, chol, w1, 1_029, 52, rebalance=rebalance, **kw)
+        ps = path_stats_reference(11, mean, lk, w1, 1_029, 52, rebalance=rebalance, **kw)
+        assert max(path_stats_shares(ks, ps, lk, mean, 52).values()) <= 1.0
+        one = gbm_multi_portfolio_dd(11, mean, chol, w1[None], 1_029, 52, rebalance=rebalance,
+                                     **kw)
+        assert torch.equal(one[0][:, 0], ks[1]) and torch.equal(one[1][:, 0], ks[2])
+    w = _wide_cand(a, dev)
+    for sd in ("float32", "tensorfloat32", "bfloat16"):
+        kk = gbm_multi_portfolio_dd(11, mean, chol, w, 1_029, 52, rebalance=True,
+                                    score_dtype=sd, **kw)
+        pp = multi_dd_reference(11, mean, lk, w, 1_029, 52, rebalance=True, score_dtype=sd,
+                                **kw)
+        p32 = multi_dd_reference(11, mean, lk, w, 1_029, 52, rebalance=True, **kw)
+        assert max(multi_dd_shares(kk, pp, p32, lk, mean, 52, True, sd).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [65, 200])
+@pytest.mark.parametrize("jump_rate", [0.0, 0.3])
+def test_merton_wide_kernel_matches_plain_form(dev, a, jump_rate):
+    """Kernel #8 past 64 assets; at rate 0 kernel #3's rebalanced wide output
+    bit for bit."""
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    mean, chol, muj, sigj = _merton(a, dev)
+    w = _wide_cand(a, dev, 256)
+    args = (11, mean, chol, jump_rate, muj, sigj, w, 1_029, 52)
+    k = merton_multi_portfolio_dd(*args, first_block=6, n_blocks=2)
+    if jump_rate == 0.0:
+        m = gbm_multi_portfolio_dd(11, mean, chol, w, 1_029, 52, rebalance=True, first_block=6,
+                                   n_blocks=2)
+        assert torch.equal(k[0], m[0]) and torch.equal(k[1], m[1])
+    p = merton_multi_dd_reference(*args, first_block=6, n_blocks=2)
+    assert max(merton_shares(k, p, chol, mean, sigj, 52).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [65, 200])
+@pytest.mark.parametrize("t_df", [None, 5.5])
+def test_garch_wide_layout_matches_plain_form(dev, a, t_df):
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares, garch_terminal, garch_terminal_reference)
+
+    g = _garch(a, dev)
+    kw = dict(first_block=6, n_blocks=2)
+    k = garch_terminal(11, g, 1_029, 52, t_df=t_df, **kw)
+    p = garch_terminal_reference(11, g, 1_029, 52, t_df=t_df, **kw)
+    assert max(garch_shares(k, p, g, 52, t_df).values()) <= 1.0
+    w = _wide_cand(a, dev, 256)
+    kk = garch_multi_portfolio_dd(11, g, w, 1_029, 52, **kw)
+    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, **kw)
+    assert max(garch_shares(kk, pp, g, 52).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [65, 200])
+@pytest.mark.parametrize("t_len", [365, 8_192])
+def test_bootstrap_wide_layout_is_its_plain_form(dev, a, t_len):
+    """Kernels #6 and #7 past 64 assets: the terminal bit for bit, one-hot
+    candidates the plain form's rows bit for bit, any weights to the bound."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares,
+                                            bootstrap_terminal, bootstrap_terminal_reference)
+
+    hist = _history(t_len, a, dev)
+    kw = dict(first_block=6, n_blocks=2)
+    k = bootstrap_terminal(11, hist, 1_029, 52, 0.2, **kw)
+    p = bootstrap_terminal_reference(11, hist, 1_029, 52, 0.2, **kw)
+    assert torch.equal(k, p)
+    onehot, _ = bootstrap_multi_portfolio_dd(11, hist, torch.eye(a, device=dev)[:7], 1_029, 52,
+                                             0.2, **kw)
+    assert torch.equal(onehot, p[..., :7].transpose(1, 2))
+    w = _wide_cand(a, dev, 256)
+    kk = bootstrap_multi_portfolio_dd(11, hist, w, 1_029, 52, 0.2, **kw)
+    pp = bootstrap_multi_dd_reference(11, hist, w, 1_029, 52, 0.2, **kw)
+    assert max(bootstrap_shares(kk, pp, hist, w, 52).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [65, 200])
+@pytest.mark.parametrize("xi", [3e-3, 0.05])
+def test_heston_wide_layout_matches_plain_form(dev, a, xi):
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares, heston_terminal,
+                                         heston_terminal_reference)
+
+    h = _heston(a, dev, xi)
+    kw = dict(first_block=6, n_blocks=2)
+    k = heston_terminal(11, h, 1_029, 63, **kw)
+    p = heston_terminal_reference(11, h, 1_029, 63, **kw)
+    assert max(heston_shares(k, p, h, 63).values()) <= 1.0
+    w = _wide_cand(a, dev, 256)
+    kk = heston_multi_portfolio_dd(11, h, w, 1_029, 63, **kw)
+    pp = heston_multi_dd_reference(11, h, w, 1_029, 63, **kw)
+    assert max(heston_shares(kk, pp, h, 63).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [65, 200, 256])
+@pytest.mark.parametrize("case", ["bench", "q0"])
+def test_dcc_wider_kernel_matches_plain_form(dev, a, case):
+    """Past 64 assets (at 256 Q and L leave shared memory for the scratch)."""
+    from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_multi_portfolio_dd,
+                                      dcc_shares, dcc_terminal, dcc_terminal_reference)
+
+    d = _dcc(a, dev, case)
+    kw = dict(first_block=6, n_blocks=2)
+    k = dcc_terminal(11, d, 131, 9, **kw)
+    p = dcc_terminal_reference(11, d, 131, 9, **kw)
+    assert max(dcc_shares(k, p, d, 9).values()) <= 1.0
+    w = _wide_cand(a, dev, 256)
+    kk = dcc_multi_portfolio_dd(11, d, w, 131, 9, **kw)
+    pp = dcc_multi_dd_reference(11, d, w, 131, 9, **kw)
+    assert max(dcc_shares(kk, pp, d, 9).values()) <= 1.0
+
+
+@pytest.mark.parametrize("a", [15, 65])
+def test_gbm_and_merton_hedged_kernels_past_64_assets(dev, a):
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_multi_portfolio_dd,
+                                       merton_shares)
+    from mcport_torch.ops.multi_dd import (gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    mean, chol, muj, sigj = _merton(a, dev)
+    hedge = _hedge(a, dev, 2, seed=a)
+    w = _wide_cand(a, dev, 256)
+    k = gbm_multi_portfolio_dd(11, mean, chol, w, 1_029, 60, hedge=hedge)
+    p = multi_dd_reference(11, mean, chol, w, 1_029, 60, hedge=hedge, with_bound=True)
+    assert max(multi_dd_shares(k, p, None, chol, mean, 60, True, "float32", hedge).values()) <= 1
+    j = merton_multi_portfolio_dd(11, mean, chol, 0.0, muj, sigj, w, 1_029, 60, hedge=hedge)
+    assert torch.equal(j[0], k[0]) and torch.equal(j[1], k[1])
+    args = (11, mean, chol, 0.3, muj, sigj, w, 1_029, 60)
+    k = merton_multi_portfolio_dd(*args, hedge=hedge)
+    p = merton_multi_dd_reference(*args, hedge=hedge, with_bound=True)
+    assert max(merton_shares(k, p, chol, mean, sigj, 60, hedge).values()) <= 1.0
+
+
+# ---- the hedged modes of kernels #5 and #7 ----------------------------------------------
+
+@pytest.mark.parametrize("a", [15, 64, 65])
+@pytest.mark.parametrize("n_legs", [1, 2, 3])
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+def test_garch_hedged_kernel_matches_plain_form(dev, a, n_legs, n_cand):
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares)
+
+    g = _garch(a, dev)
+    hedge = _hedge(a, dev, n_legs, seed=n_legs)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    before = garch_multi_portfolio_dd.hedged_launches
+    k = garch_multi_portfolio_dd(11, g, w, 1_029, 60, **kw)
+    torch.cuda.synchronize()
+    assert garch_multi_portfolio_dd.hedged_launches == before + 1
+    p = garch_multi_dd_reference(11, g, w, 1_029, 60, with_bound=True, **kw)
+    shares = garch_shares(k, p, g, 60, hedge=hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("a, t_len", [(15, 365), (15, 8_192), (64, 365), (65, 365)])
+@pytest.mark.parametrize("n_legs", [1, 2, 3])
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+def test_bootstrap_hedged_kernel_matches_plain_form(dev, a, t_len, n_legs, n_cand):
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares)
+
+    hist = _history(t_len, a, dev)
+    hedge = _hedge(a, dev, n_legs, seed=n_legs)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    before = bootstrap_multi_portfolio_dd.hedged_launches
+    k = bootstrap_multi_portfolio_dd(11, hist, w, 1_029, 60, 0.2, **kw)
+    torch.cuda.synchronize()
+    assert bootstrap_multi_portfolio_dd.hedged_launches == before + 1
+    p = bootstrap_multi_dd_reference(11, hist, w, 1_029, 60, 0.2, with_bound=True, **kw)
+    shares = bootstrap_shares(k, p, hist, w, 60, hedge=hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("a", [15, 65])
+def test_bootstrap_hedged_one_hot_candidates_are_the_plain_form(dev, a):
+    """One-hot candidates score one asset's settled return exactly: the
+    hedged kernel's prices and settlement are the plain form's, bit for bit."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd)
+
+    hist = _history(365, a, dev)
+    hedge = _hedge(a, dev, 3, seed=5)
+    eye = torch.eye(a, device=dev)[:9]
+    k = bootstrap_multi_portfolio_dd(4, hist, eye, 2_053, 60, 0.2, hedge=hedge)
+    p = bootstrap_multi_dd_reference(4, hist, eye, 2_053, 60, 0.2, hedge=hedge)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.parametrize("family", ["garch", "bootstrap"])
+@pytest.mark.parametrize("a", [15, 65])
+def test_identity_hedge_is_the_unhedged_family_mode(dev, family, a):
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares)
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares)
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.options.hedged import HedgeSpec
+
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(a)]),
+                                   np.linspace(10.0, 100.0, a), dev)
+    w = _wide_cand(a, dev, 256)
+    if family == "garch":
+        g = _garch(a, dev)
+        h = garch_multi_portfolio_dd(5, g, w, 2_053, 252, hedge=ident)
+        r = garch_multi_portfolio_dd(5, g, w, 2_053, 252)
+        bound = garch_multi_dd_reference(5, g, w, 2_053, 252, hedge=ident, with_bound=True)[2]
+        shares = garch_shares(h, (*r, bound), g, 252, hedge=ident)
+    else:
+        hist = _history(365, a, dev)
+        h = bootstrap_multi_portfolio_dd(5, hist, w, 2_053, 252, hedge=ident)
+        r = bootstrap_multi_portfolio_dd(5, hist, w, 2_053, 252)
+        bound = bootstrap_multi_dd_reference(5, hist, w, 2_053, 252, hedge=ident,
+                                             with_bound=True)[2]
+        shares = bootstrap_shares(h, (*r, bound), hist, w, 252, hedge=ident)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("family", ["garch", "bootstrap"])
+def test_family_hedged_kernels_carry_overflowed_wealth(dev, family):
+    """Deep in-the-money puts settled every step overflow the wealth; the
+    kernels give the plain form's inf and NaN on the same paths."""
+    from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd, bootstrap_shares)
+    from mcport_torch.ops.garch import (garch_multi_dd_reference, garch_multi_portfolio_dd,
+                                        garch_shares)
+    from mcport_torch.ops.hedged import HedgeTensors, hedged_held
+
+    a = 15
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    hedge = HedgeTensors(f(np.full(a, 100.0)), torch.full((a, 2), 4, dtype=torch.int32,
+                                                            device=dev),
+                         f(np.full((a, 2), 99.0)), f(np.zeros((a, 2))), f(np.full((a, 2), 3.0)))
+    w = _wide_cand(a, dev, 13)
+    if family == "garch":
+        g = _garch(a, dev)
+        k = garch_multi_portfolio_dd(3, g, w, 2_053, 252, hedge=hedge)
+        p = garch_multi_dd_reference(3, g, w, 2_053, 252, hedge=hedge, with_bound=True)
+        shares = garch_shares(k, p, g, 252, hedge=hedge)
+    else:
+        hist = _history(365, a, dev)
+        k = bootstrap_multi_portfolio_dd(3, hist, w, 2_053, 252, hedge=hedge)
+        p = bootstrap_multi_dd_reference(3, hist, w, 2_053, 252, hedge=hedge, with_bound=True)
+        shares = bootstrap_shares(k, p, hist, w, 252, hedge=hedge)
+    held = hedged_held(k, p)
+    assert held["overflowed"] > 0 and held["astray"] == 0 and held["edge"] == 0, held
     assert max(shares.values()) <= 1.0, (shares, held)

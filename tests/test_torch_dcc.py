@@ -351,10 +351,13 @@ def test_wrappers_dispatch_on_the_cpu_and_check_their_arguments():
     # a sub-range of paths regenerates bit for bit
     part = O.dcc_terminal_reference(2, d, 40, 5, first_block=3, n_blocks=2, first_path=60)
     assert torch.equal(part, p[:, 60:])
-    # the plain forms take any width; only a launch on the card checks 1..64
+    # the plain forms take any width, and so does the card (past 64 assets its wide
+    # layout, csrc/wide.cuh): a launch refuses an empty universe only
     assert O.dcc_terminal(0, _bench(17).tensors("cpu"), 8, 2).shape == (1, 8, 17)
-    with pytest.raises(ValueError, match="1..64 assets"):
-        O.check_card_assets(65, "DCC")
+    O.check_card_assets(65, "DCC")
+    O.check_card_assets(200, "DCC")
+    with pytest.raises(ValueError, match="at least one asset"):
+        O.check_card_assets(0, "DCC")
     with pytest.raises(ValueError, match="weights must be"):
         O.dcc_multi_portfolio_dd(0, d, torch.ones(2, 4), 8, 2)
     with pytest.raises(ValueError, match="float32"):

@@ -226,8 +226,7 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: run_resumable_path_risk("bootstrap", np.zeros((10, len(W))), W, CFG,
-                                    hedge=object(), device="cpu"),
+    lambda: run_resumable_path_risk("heston", None, W, CFG, hedge=object(), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, qmc="sobol"), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
     lambda: run_resumable_path_risk("dcc", DCC, W, CFG, hedge=object(), device="cpu"),
