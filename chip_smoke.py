@@ -152,26 +152,33 @@ ends:
    65 and 256, where Q and L leave shared memory) on the bench universe
    widened, against its plain form with today's bounds (the bootstrap's
    selection bit for bit, #3 at one candidate equal to #2, #8 at rate 0
-   equal to #3); the hedged #3, #5, #7 and #8 at A = 65; and the main paths
-   at 65 assets (``path_tail_risk`` for all seven families,
+   equal to #3); the hedged #3, #5, #7, #8 and #10 at A = 65; and the main
+   paths at 65 assets (``path_tail_risk`` for all seven families,
    ``compare_tail_risk``, ``gbm_risk``, a GBM frontier) with every wrapper's
-   wide count reset before and read after;
-23. the hedged modes of #5 and #7 against their plain forms path by path
-   (``ops.garch.garch_shares`` and ``ops.bootstrap.bootstrap_shares`` with
-   the hedge): 1-3 legs of every type, W in {1, 13, 256}, the bootstrap on
-   shared-memory and 8,192-row histories, one-hot bootstrap candidates bit
-   for bit, an identity hedge against the unhedged mode, and every hedged
-   launch of phase 24 over a head and a tail slice of each block's paths;
-24. the hedged GARCH and bootstrap main paths with the bench hedge: path risk
-   at both cells with split + resume, ``path_tail_risk`` for both, both
-   hedged frontiers at 4,096 x 131,072 x 252 and at 52 steps (optima against
-   the plain forms), and the CLI's ``path-risk --hedge`` and ``dd-frontier
-   --hedge`` for both on the weekly fixtures; counts reset before and read
-   after;
-25. the hedged #5 and #7 timed at 256 x 131,072 x 252 beside their unhedged
-   modes, plain forms and the score product as one ``torch.matmul`` per
-   step; each kernel's wide layout at A = 200 (DCC 256) beside its plain
-   form; every new entry's least time from the work its function needs.
+   wide count reset before and read after, then hedged Heston path risk and
+   a hedged Heston frontier at 65 assets with the hedged count reset before
+   and read after, each launch against the plain form over a head and a
+   tail slice;
+23. the hedged modes of #5, #7 and #10 against their plain forms path by
+   path (``ops.garch.garch_shares``, ``ops.bootstrap.bootstrap_shares`` and
+   ``ops.heston.heston_shares`` with the hedge): 1-3 legs of every type, W
+   in {1, 13, 256}, the bootstrap on shared-memory and 8,192-row histories,
+   one-hot bootstrap candidates bit for bit, an identity hedge against the
+   unhedged mode (Heston's also at a Feller-violating vol of vol), hedged
+   #10 on the bench hedge at A = 15, 17, 64, 65 and 200 and 16, 52 and 252
+   steps, and every hedged launch of phase 24 over a head and a tail slice
+   of each block's paths;
+24. the hedged GARCH, Heston and bootstrap main paths with the bench hedge:
+   path risk at both cells with split + resume, ``path_tail_risk`` for the
+   three, the three hedged frontiers at 4,096 x 131,072 x 252 and at 52
+   steps (optima against the plain forms), and the CLI's ``path-risk
+   --hedge`` and ``dd-frontier --hedge`` for the three on the weekly
+   fixtures; counts reset before and read after;
+25. the hedged #5, #7 and #10 timed at 256 x 131,072 x 252 beside their
+   unhedged modes, plain forms and the score product as one
+   ``torch.matmul`` per step; each kernel's wide layout at A = 200 (DCC 256)
+   beside its plain form, hedged #10's too; every new entry's least time
+   from the work its function needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -3510,7 +3517,9 @@ WIDE_TIMING = dict(p=65_536, pp=8_192, n=52)   # phase 25 at A = 200 (DCC: 4,096
 WIDE_KERNELS = ("terminal_noise", "path_stats", "multi_dd", "merton_multi_dd",
                 "garch_terminal", "garch_multi_dd", "bootstrap_terminal", "bootstrap_multi_dd",
                 "heston_terminal", "heston_multi_dd", "dcc_terminal", "dcc_dd")
-FAMILY_HEDGED = ("garch_multi_dd_hedged", "bootstrap_multi_dd_hedged")
+FAMILY_HEDGED = ("garch_multi_dd_hedged", "bootstrap_multi_dd_hedged", "heston_multi_dd_hedged")
+HESTON_HEDGED_A = (15, 17, 64, 65, 200)   # <16>, <64>, <64>, HestonWide, HestonWide
+HESTON_HEDGED_STEPS = (16, 52, N_STEPS)
 
 
 def _wide_wrappers() -> dict:
@@ -3695,8 +3704,9 @@ def phase_wide_any(dev) -> tuple[dict, dict, dict]:
     for name, (kern, plain, shares) in _family_hedged_calls(a, dev, hedge, WIDE_CAND, 60,
                                                             64).items():
         k, p = kern(), plain()
-        hw[name] = _hedged_report("phase22", name, f"A={a} L=2 W=64 2 blocks x 60", k, p,
-                                  shares(k, p))
+        err = _hedged_report("phase22", name, f"A={a} L=2 W=64 2 blocks x 60", k, p,
+                             shares(k, p))
+        hw[name + (" wide" if name == "heston_multi_dd_hedged" else "")] = err
     mean, chol = (torch.as_tensor(x, device=dev) for x in bench_universe(a))
     w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 64),
                         dtype=torch.float32, device=dev)
@@ -3744,7 +3754,66 @@ def phase_wide_any(dev) -> tuple[dict, dict, dict]:
                                     for v in compare.values()),
           "compare_tail_risk reports seven families at 65 assets")
     check(risk.cvar <= risk.var and front.opt_idx >= 0, "gbm_risk and the frontier at 65")
+    launches["heston_multi_dd_hedged"] = _hedged_heston_at_65(dev, hw)
     return worst, launches, hw
+
+
+def _hedged_heston_at_65(dev, worst: dict) -> int:
+    """Hedged Heston at 65 assets through its main paths, the bench hedge on
+    assets 0 and 1 at the parameters' spots: ``run_heston_path_risk`` at the
+    default cell (52 steps) and a 256 x 16,384 x 52 hedged frontier, the
+    hedged count reset just before and read just after (every launch at 65
+    assets runs ``HestonWide<true, true>``); then each launch against the
+    plain form over a head and a tail slice. Returns the hedged launches."""
+    from mcport_torch.config import GBMConfig
+    from mcport_torch.engine.drawdown_frontier import (family_drawdown_frontier_search,
+                                                       frontier_seeds)
+    from mcport_torch.engine.path_risk import run_heston_path_risk
+    from mcport_torch.ops.dirichlet import sample_weights
+    from mcport_torch.ops.heston import heston_multi_portfolio_dd
+
+    a = WIDE_A[0]
+    params = bench_heston(a)
+    spot = np.full(a, SPOT)
+    _, spec = bench_hedge(spot)
+    w = np.full(a, 1.0 / a)
+    cfg = GBMConfig(n_steps=DCC_STEPS)
+    front_kw = dict(dd_budget=1.0, n_candidates=256, n_paths=16_384, n_steps=DCC_STEPS)
+    heston_multi_portfolio_dd.hedged_launches = 0
+    t0 = time.perf_counter()
+    rep = run_heston_path_risk(params, w, cfg, hedge=spec, device=dev)
+    front = family_drawdown_frontier_search(FRONTIER_SEED, "heston", params, hedge=spec, s0=spot,
+                                            device=dev, **front_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = heston_multi_portfolio_dd.hedged_launches
+    print(f"phase22 hedged Heston at {a} assets: path risk {cfg.n_paths} x {cfg.n_steps} "
+          f"var={rep.var:.6f} dd_p95={rep.dd_p95:.6f}, frontier 256 x 16,384 opt="
+          f"{front.opt_idx}, in {wall:.2f} s; hedged (wide) launches {n}")
+    check(n > 0 and rep.cvar <= rep.var and -1.0 <= rep.dd_p95 <= 0.0 and front.opt_idx >= 0,
+          "hedged Heston at 65 assets went through HestonWide's hedged mode")
+    path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
+    gen = torch.Generator(device=dev).manual_seed(weight_seed)
+    cand, _ = sample_weights(gen, 256, np.zeros(a), np.ones(a))
+    h = params.tensors(dev)
+    for what, launch in (
+            ("path risk default", dict(kernel="heston_multi_dd_hedged", seed=cfg.seed,
+                                       n=cfg.path_block, w=w[None], first_block=0,
+                                       n_blocks=cfg.n_paths // cfg.path_block)),
+            ("frontier", dict(kernel="heston_multi_dd_hedged", seed=path_seed,
+                              n=front_kw["n_paths"], w=cand))):
+        launch.update(src=h, s0=spot, steps=DCC_STEPS)
+        kk = _family_hedged_call(launch, dev, plain=False)
+        for p0 in _slices(launch["n"]):
+            m = min(SLICE, launch["n"])
+            part = (kk[0][..., p0:p0 + m], kk[1][..., p0:p0 + m])
+            p = _family_hedged_call(launch, dev, plain=True, n=m, first_path=p0)
+            err = _hedged_report("phase22", "heston_multi_dd_hedged wide",
+                                 f"A={a} {what} paths {p0}..{p0 + m - 1}", part, p,
+                                 _family_hedged_shares(launch, part, p, dev))
+            worst["heston_multi_dd_hedged wide"] = max(
+                worst.get("heston_multi_dd_hedged wide", 0.0), err)
+    return n
 
 
 def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -3773,16 +3842,18 @@ def _hedged_report(prefix, name, what, kern, plain, shares) -> float:
 
 
 def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=None, nb=2):
-    """``{name: (kernel(), plain(), shares(k, p))}`` of the hedged GARCH and
-    bootstrap modes at ``a`` assets, with the plain forms' per-path bound."""
+    """``{name: (kernel(), plain(), shares(k, p))}`` of the hedged GARCH,
+    bootstrap and Heston modes at ``a`` assets, with the plain forms'
+    per-path bound."""
     from mcport_torch.ops import bootstrap as B
     from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
 
     if w is None:
         w = torch.as_tensor(np.random.default_rng(w_cnt).dirichlet(np.ones(a), w_cnt),
                             dtype=torch.float32, device=dev)
     kw = dict(first_block=6, n_blocks=nb, hedge=hedge)
-    g = bench_garch(a).tensors(dev)
+    g, h = bench_garch(a).tensors(dev), bench_heston(a).tensors(dev)
     hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (rows, a)),
                            dtype=torch.float32, device=dev)
     return {"garch_multi_dd_hedged": (
@@ -3793,26 +3864,33 @@ def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=No
                 lambda: B.bootstrap_multi_portfolio_dd(seed, hist, w, n, steps, **kw),
                 lambda: B.bootstrap_multi_dd_reference(seed, hist, w, n, steps,
                                                        with_bound=True, **kw),
-                lambda k, p: B.bootstrap_shares(k, p, hist, w, steps, hedge=hedge))}
+                lambda k, p: B.bootstrap_shares(k, p, hist, w, steps, hedge=hedge)),
+            "heston_multi_dd_hedged": (
+                lambda: H.heston_multi_portfolio_dd(seed, h, w, n, steps, **kw),
+                lambda: H.heston_multi_dd_reference(seed, h, w, n, steps, with_bound=True, **kw),
+                lambda k, p: H.heston_shares(k, p, h, steps, hedge=hedge))}
 
 
 def family_hedged_launches(dev) -> list[dict]:
-    """Every distinct hedged launch of kernels #5 and #7 that phase 24 makes
-    through the API (the CLI's run on the fixtures is checked by its counts):
-    path risk at both cells, path_tail_risk (parameters estimated from
-    ``bench_prices``, spots its last prices) and every 256-candidate chunk of
-    both frontiers at 252 and 52 steps."""
+    """Every distinct hedged launch of kernels #5, #7 and #10 that phase 24
+    makes through the API (the CLI's run on the fixtures is checked by its
+    counts): path risk at both cells, path_tail_risk (parameters estimated
+    from ``bench_prices``, spots its last prices) and every 256-candidate
+    chunk of the three frontiers at 252 and 52 steps."""
     from mcport_torch.config import GBMConfig
     from mcport_torch.engine.drawdown_frontier import frontier_seeds
     from mcport_torch.models.garch_mc import estimate_ccc_garch
     from mcport_torch.ops.dirichlet import sample_weights
 
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    heston = bench_heston().tensors(dev)   # spots 100: SPOT, the run's default s0
+    srcs = (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist),
+            ("heston_multi_dd_hedged", heston))
     w = bench_weights()[None]
     spot = np.full(N_ASSETS, SPOT)
     out = []
     for name, g in cells().items():
-        for kernel, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+        for kernel, src in srcs:
             out.append(dict(kernel=kernel, what=f"path risk {name}", seed=g.seed, n=g.path_block,
                             w=w, first_block=0, n_blocks=g.n_paths // g.path_block, src=src,
                             s0=spot))
@@ -3825,12 +3903,14 @@ def family_hedged_launches(dev) -> list[dict]:
     out.append(dict(kernel="bootstrap_multi_dd_hedged", what="path_tail_risk bootstrap",
                     src=torch.as_tensor(prices.port_rets, dtype=torch.float32, device=dev),
                     **tail))
+    out.append(dict(kernel="heston_multi_dd_hedged", what="path_tail_risk heston",
+                    src=fitted_families()["heston"].tensors(dev), **tail))
     path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
                              np.ones(N_ASSETS))
     for steps in HEDGED_FRONTIER_STEPS:   # each frontier's 16 launches of 256 candidates
-        for kernel, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+        for kernel, src in srcs:
             out.append(dict(kernel=kernel, what=f"frontier {steps} steps, 16 chunks",
                             seed=path_seed, n=FRONTIER["n_paths"], w=cand, src=src, s0=spot,
                             steps=steps))
@@ -3845,6 +3925,7 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
     unless ``bound`` is false)."""
     from mcport_torch.ops import bootstrap as B
     from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
 
     _, spec = bench_hedge(launch["s0"])
@@ -3859,6 +3940,11 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
             return G.garch_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
                                               **kw)
         return G.garch_multi_portfolio_dd(*args, **kw)
+    if launch["kernel"] == "heston_multi_dd_hedged":
+        if plain:
+            return H.heston_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
+                                               **kw)
+        return H.heston_multi_portfolio_dd(*args, **kw)
     if plain:
         return B.bootstrap_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
                                               **kw)
@@ -3868,28 +3954,38 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
 def _family_hedged_shares(launch, kern, plain, dev):
     from mcport_torch.ops import bootstrap as B
     from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
 
     _, spec = bench_hedge(launch["s0"])
     hedge = HedgeTensors.from_spec(spec, launch["s0"], dev)
     if launch["kernel"] == "garch_multi_dd_hedged":
         return G.garch_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
+    if launch["kernel"] == "heston_multi_dd_hedged":
+        return H.heston_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
     w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
     return B.bootstrap_shares(kern, plain, launch["src"], w, launch["steps"], hedge=hedge)
 
 
 def phase_family_hedged_kernels(dev) -> dict:
-    """Phase 23: the hedged modes of kernels #5 and #7 against their plain
-    forms, path by path to the per-path bound (``ops.garch.garch_price_bound``,
-    ``ops.bootstrap.bootstrap_price_bound``: the bootstrap's prices are the
-    plain form's bit for bit): 1-3 legs of every type, W in {1, 13, 256}, the
-    bootstrap on a 365-row history (shared memory) and an 8,192-row one
-    (device memory); one-hot bootstrap candidates bit for bit; an identity
-    hedge against the unhedged mode; then every hedged launch of phase 24 over
-    a head and a tail slice of each block's paths. The GARCH candidate kernel
-    draws normal shocks only, as mcport's does."""
+    """Phase 23: the hedged modes of kernels #5, #7 and #10 against their
+    plain forms, path by path to the per-path bound
+    (``ops.garch.garch_price_bound``, ``ops.bootstrap.bootstrap_price_bound``:
+    the bootstrap's prices are the plain form's bit for bit;
+    ``ops.heston.heston_price_bound``): 1-3 legs of every type, W in {1, 13,
+    256}, the bootstrap on a 365-row history (shared memory) and an 8,192-row
+    one (device memory); one-hot bootstrap candidates bit for bit; an
+    identity hedge against the unhedged mode (Heston's at the bench's vol of
+    vol and a Feller-violating one, where a variance path one ulp off would
+    leave the bound); hedged #10 on the bench hedge at every width
+    (``HESTON_HEDGED_A``) at 16, 52 and 252 steps; then every hedged launch of
+    phase 24 over a head and a tail slice of each block's paths. The GARCH
+    candidate kernel draws normal shocks only, as mcport's does. Returns each
+    kernel's worst |kernel - plain| (hedged #10 past 64 assets under
+    ``"heston_multi_dd_hedged wide"``)."""
     from mcport_torch.ops import bootstrap as B
     from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
     from mcport_torch.options import HedgeSpec
 
@@ -3905,7 +4001,7 @@ def phase_family_hedged_kernels(dev) -> dict:
                 calls = _family_hedged_calls(N_ASSETS, dev, hedge, MDD_PATHS, 60, n_cand,
                                              rows=rows)
                 for name, (kern, plain, shares) in calls.items():
-                    if name.startswith("garch") and rows != 365:
+                    if not name.startswith("bootstrap") and rows != 365:
                         continue
                     k, p = kern(), plain()
                     keep(name, _hedged_report("phase23", name, f"L={n_legs} W={n_cand} "
@@ -3923,13 +4019,42 @@ def phase_family_hedged_kernels(dev) -> dict:
     print(f"phase23 bootstrap hedged one-hot candidates, L=3 {MDD_PATHS} x {N_STEPS}: the "
           f"plain form bit for bit={same}")
     check(same, "the hedged bootstrap's prices and settlement are the plain form's")
+    # hedged #10 at every width on the bench hedge (spot 100), 16, 52 and 252
+    # steps: <16> at 15, <64> at 17 and 64, HestonWide at 65 and 200
+    top = 0.0
+    for a in HESTON_HEDGED_A:
+        spot = np.full(a, SPOT)
+        hedge = HedgeTensors.from_spec(bench_hedge(spot)[1], spot, dev)
+        for steps in HESTON_HEDGED_STEPS:
+            kern, plain, shares = _family_hedged_calls(a, dev, hedge, MDD_PATHS, steps,
+                                                       64)["heston_multi_dd_hedged"]
+            k, p = kern(), plain()
+            sh = shares(k, p)
+            top = max(top, *sh.values())
+            err = _hedged_report("phase23", "heston_multi_dd_hedged",
+                                 f"bench hedge A={a} W=64 {MDD_PATHS}x2 x {steps}", k, p, sh)
+            keep("heston_multi_dd_hedged" + (" wide" if a > 64 else ""), err)
+            del k, p
+    print(f"phase23 hedged #10 on the bench hedge at A = {HESTON_HEDGED_A}: the largest share "
+          f"of heston_price_bound's per-path bound {top:.4f}")
     # an identity hedge (one BUY_ASSET leg per asset) is the unhedged mode
     ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(N_ASSETS)]),
                                    np.linspace(10.0, 200.0, N_ASSETS), dev)
     w = torch.as_tensor(np.random.default_rng(3).dirichlet(np.ones(N_ASSETS), 256),
                         dtype=torch.float32, device=dev)
     g = bench_garch().tensors(dev)
+    hs = {xi: bench_heston(xi=xi).tensors(dev) for xi in (3e-3, FELLER_XI)}
+
+    def heston_identity(h):
+        return (lambda: H.heston_multi_portfolio_dd(5, h, w, MDD_PATHS, N_STEPS, hedge=ident),
+                lambda: H.heston_multi_portfolio_dd(5, h, w, MDD_PATHS, N_STEPS),
+                lambda: H.heston_multi_dd_reference(5, h, w, MDD_PATHS, N_STEPS, hedge=ident,
+                                                    with_bound=True)[2],
+                lambda k, r: H.heston_shares(k, r, h, N_STEPS, hedge=ident))
+
     for name, kern, unh, bnd, shares in (
+            ("heston", *heston_identity(hs[3e-3])),
+            (f"heston (xi {FELLER_XI}, Feller violated)", *heston_identity(hs[FELLER_XI])),
             ("garch", lambda: G.garch_multi_portfolio_dd(5, g, w, MDD_PATHS, N_STEPS, hedge=ident),
              lambda: G.garch_multi_portfolio_dd(5, g, w, MDD_PATHS, N_STEPS),
              lambda: G.garch_multi_dd_reference(5, g, w, MDD_PATHS, N_STEPS, hedge=ident,
@@ -3964,12 +4089,12 @@ def phase_family_hedged_kernels(dev) -> dict:
 
 
 def _fixture_cli_family_hedged(dev, tmp: Path) -> dict:
-    """``path-risk --hedge --models garch,bootstrap`` and ``dd-frontier
-    --model garch|bootstrap --hedge`` on the weekly fixtures, 52 weekly
-    steps; each command's JSON."""
-    runs = {"path-risk --hedge": ["path-risk", "--models", "garch,bootstrap", "--paths",
+    """``path-risk --hedge --models garch,bootstrap,heston`` and
+    ``dd-frontier --model garch|bootstrap|heston --hedge`` on the weekly
+    fixtures, 52 weekly steps; each command's JSON."""
+    runs = {"path-risk --hedge": ["path-risk", "--models", "garch,bootstrap,heston", "--paths",
                                   str(CLI_PATHS), "--steps", "52"]}
-    for m in ("garch", "bootstrap"):
+    for m in ("garch", "bootstrap", "heston"):
         runs[f"dd-frontier --model {m} --hedge"] = [
             "dd-frontier", "--model", m, "--candidates", str(CLI_FRONTIER[0]), "--paths",
             str(CLI_FRONTIER[1]), "--steps", "52", "--dd-budget", "1.0"]
@@ -3977,28 +4102,34 @@ def _fixture_cli_family_hedged(dev, tmp: Path) -> dict:
 
 
 def phase_family_hedged_tier(dev) -> dict:
-    """Phase 24, the hedged GARCH and bootstrap main paths with the bench
-    hedge (a married put on asset 0 and a collar on asset 1, spot 100): path
-    risk at both cells with split + resume, path_tail_risk for both families,
-    both hedged frontiers at 4,096 x 131,072 x 252 and at 52 steps, and the
-    CLI's hedged path-risk and dd-frontier for both on the fixtures; the
-    hedged counts reset before and read after; then the drawdown quantiles
-    and each frontier's optimum against the plain forms."""
+    """Phase 24, the hedged GARCH, Heston and bootstrap main paths with the
+    bench hedge (a married put on asset 0 and a collar on asset 1, spot 100,
+    Heston's default spots): path risk at both cells with split + resume,
+    path_tail_risk for the three families, the three hedged frontiers at
+    4,096 x 131,072 x 252 and at 52 steps, and the CLI's hedged path-risk and
+    dd-frontier for the three on the fixtures; the hedged counts reset before
+    and read after; then the drawdown quantiles and each frontier's optimum
+    against the plain forms."""
     from mcport_torch.api import path_tail_risk
     from mcport_torch.config import Config
     from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
     from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
-                                               run_resumable_path_risk)
+                                               run_heston_path_risk, run_resumable_path_risk)
     from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
     from mcport_torch.ops.garch import garch_multi_portfolio_dd
+    from mcport_torch.ops.heston import heston_multi_portfolio_dd
 
     params, hist, w = bench_garch(), bench_history(), bench_weights()
+    heston = bench_heston()   # its spots are SPOT: run_heston_path_risk's default s0
     spot = np.full(N_ASSETS, SPOT)
     _, spec = bench_hedge(spot)
     prices = bench_prices()
     tail_legs, _ = bench_hedge(prices.prices[-1])
     counted = {"garch_multi_dd_hedged": garch_multi_portfolio_dd,
-               "bootstrap_multi_dd_hedged": bootstrap_multi_portfolio_dd}
+               "bootstrap_multi_dd_hedged": bootstrap_multi_portfolio_dd,
+               "heston_multi_dd_hedged": heston_multi_portfolio_dd}
+    models = (("garch", run_garch_path_risk, params), ("bootstrap", run_bootstrap_path_risk, hist),
+              ("heston", run_heston_path_risk, heston))
 
     def timed(fn, *a, **kw):
         torch.cuda.synchronize()
@@ -4016,19 +4147,20 @@ def phase_family_hedged_tier(dev) -> dict:
     reports, resumes, wall = {}, {}, {}
     for name, g in cells().items():
         nb = g.n_paths // g.path_block
-        for model, run, src in (("garch", run_garch_path_risk, params),
-                                ("bootstrap", run_bootstrap_path_risk, hist)):
+        for model, run, src in models:
             key = f"{model} {name}"
-            reports[key], wall[key] = walls(run, src, w, g, hedge=spec, s0=spot, device=dev)
-            _, part = run_resumable_path_risk(model, src, w, g, hedge=spec, s0=spot,
-                                              max_blocks=nb // 3, device=dev)
-            resumes[key] = run_resumable_path_risk(model, src, w, g, hedge=spec, s0=spot,
-                                                   checkpoint=part, device=dev), part
+            # Heston's spots default to the parameters' own (SPOT), as a user's call
+            kw = {} if model == "heston" else dict(s0=spot)
+            reports[key], wall[key] = walls(run, src, w, g, hedge=spec, device=dev, **kw)
+            _, part = run_resumable_path_risk(model, src, w, g, hedge=spec, max_blocks=nb // 3,
+                                              device=dev, **kw)
+            resumes[key] = run_resumable_path_risk(model, src, w, g, hedge=spec,
+                                                   checkpoint=part, device=dev, **kw), part
     tails = {m: timed(path_tail_risk, prices, None, Config(), model=m, legs_by_asset=tail_legs,
-                      device=dev) for m in ("garch", "bootstrap")}
+                      device=dev) for m in ("garch", "bootstrap", "heston")}
     frontier, budget = {}, {}
     for steps in HEDGED_FRONTIER_STEPS:
-        for m, src in (("garch", params), ("bootstrap", hist)):
+        for m, _, src in models:
             key, cfg = f"{m} {steps}", dict(FRONTIER, n_steps=steps)
 
             def run(**kw):
@@ -4045,7 +4177,7 @@ def phase_family_hedged_tier(dev) -> dict:
     launches = {name: fn.hedged_launches for name, fn in counted.items()}
     print(f"phase24 hedged family tier: hedged launches {launches}")
     check(all(n > 0 for n in launches.values()),
-          "the hedged paths went through the hedged modes of kernels #5 and #7")
+          "the hedged paths went through the hedged modes of kernels #5, #7 and #10")
     for key, r in reports.items():
         first, warm = wall[key]
         (resumed, ck), part = resumes[key]
@@ -4076,9 +4208,10 @@ def phase_family_hedged_tier(dev) -> dict:
         print(f"phase24 cli {name}: {json.dumps(out)}")
     check(cli["path-risk --hedge"]["settlement"] == "per-period hedged"
           and all(cli["path-risk --hedge"][m]["cvar"] <= cli["path-risk --hedge"][m]["var"]
-                  for m in ("garch", "bootstrap"))
+                  for m in ("garch", "bootstrap", "heston"))
           and all(cli[f"dd-frontier --model {m} --hedge"]["hedged"] is True
-                  for m in ("garch", "bootstrap")), "cli hedged garch and bootstrap")
+                  for m in ("garch", "bootstrap", "heston")),
+          "cli hedged garch, bootstrap and heston")
     _family_hedged_references(dev, w, reports, frontier)
     return launches
 
@@ -4095,8 +4228,9 @@ def _family_hedged_references(dev, w, reports, frontier) -> None:
     nb = cfg.n_paths // cfg.path_block
     spot = np.full(N_ASSETS, SPOT)
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    srcs = {"garch": garch, "bootstrap": hist, "heston": bench_heston().tensors(dev)}
     dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
-    for m, src in (("garch", garch), ("bootstrap", hist)):
+    for m, src in srcs.items():
         launch = dict(kernel=f"{m}_multi_dd_hedged", seed=cfg.seed, w=w[None], src=src, s0=spot,
                       steps=N_STEPS, first_block=0, n_blocks=nb)
         dd = torch.cat([_family_hedged_call(launch, dev, plain=True, n=min(2_048,
@@ -4118,7 +4252,7 @@ def _family_hedged_references(dev, w, reports, frontier) -> None:
         m, steps = key.split()
         i = f.opt_idx
         launch = dict(kernel=f"{m}_multi_dd_hedged", seed=path_seed, w=f.weights[i][None],
-                      src=garch if m == "garch" else hist, s0=spot, steps=int(steps), n=n)
+                      src=srcs[m], s0=spot, steps=int(steps), n=n)
         parts = [_family_hedged_call(launch, dev, plain=True, n=min(8_192, n - p0),
                                      first_path=p0) for p0 in range(0, n, 8_192)]
         term, ddo, bnd = (torch.cat([p[j] for p in parts], dim=-1)[0, 0] for j in range(3))
@@ -4167,11 +4301,12 @@ def wide_bounds(draw: float, rate: float) -> dict:
 
 
 def family_hedged_bounds(draw: float, rate: float) -> dict:
-    """Least time of the hedged modes of kernels #5 and #7 at 256 x 131,072 x
-    252 with the bench hedge (L = 2 legs), from the work each function needs:
-    the unhedged mode's (``family_bounds``) plus, per asset-step, the price
-    update (2) and the legs' settlement (per leg 7, one division counted as
-    8), as ``hedged_bounds`` counts for #3 and #8."""
+    """Least time of the hedged modes of kernels #5, #7 and #10 at 256 x
+    131,072 x 252 with the bench hedge (L = 2 legs), and of hedged #10's wide
+    layout at A = 200 (256 x 8,192 x 52), from the work each function needs:
+    the unhedged mode's (``family_bounds``, ``family2_bounds``) plus, per
+    asset-step, the price update (2) and the legs' settlement (per leg 7, one
+    division counted as 8), as ``hedged_bounds`` counts for #3 and #8."""
     a, n, w_cnt, pp, legs = N_ASSETS, N_STEPS, 256, FRONTIER["n_paths"], 2
     tri = a * (a + 1) / 2
     settle = a * (7 * legs + 1 + 8 + 2)
@@ -4189,42 +4324,55 @@ def family_hedged_bounds(draw: float, rate: float) -> dict:
                                           + 8 * w_cnt * pp,
                                           f"{boot_step:.2f} per path-step ({settle:.0f} "
                                           f"settlement) + {score} for 256 candidates")}
+
+    def heston(a, n, pp, how):
+        tri = a * (a + 1) / 2
+        settle = a * (7 * legs + 1 + 8 + 2)
+        score = w_cnt * (a + 6)
+        step = a * (2 * draw + 12) + tri + 2 * a + settle   # family2_bounds' + exp + settlement
+        return ((step + score) * n * pp,
+                4 * (a * a + 7 * a + w_cnt * a) + 4 * a * (1 + 4 * legs) + 8 * w_cnt * pp,
+                f"{how}{step:.2f} per path-step ({settle:.0f} settlement) + {score} for 256 "
+                f"candidates")
+
+    work["heston_multi_dd_hedged"] = heston(a, n, pp, "")
+    sh = WIDE_TIMING
+    work["heston_multi_dd_hedged wide"] = heston(200, sh["n"], sh["pp"],
+                                                 f"A=200 x {sh['pp']} x {sh['n']}: ")
     return _bound_table(work, rate, "phase25")
 
 
 def phase_wide_timing(dev) -> dict:
-    """Phase 25, with CUDA events: the hedged modes of #5 and #7 at 256 x
+    """Phase 25, with CUDA events: the hedged modes of #5, #7 and #10 at 256 x
     131,072 x 252 (the bench hedge, L = 2) beside their unhedged modes, their
     plain forms (8,192-path pieces) and the score product as one torch.matmul
     per step; then each kernel's wide layout at A = 200 (DCC 256) beside its
     plain form (and, for the candidates, the score product as one
-    torch.matmul per step)."""
-    from mcport_torch.ops.hedged import HedgeTensors
+    torch.matmul per step), hedged #10's beside its unhedged mode."""
+    from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import garch as G
+    from mcport_torch.ops import heston as H
 
     spot = np.full(N_ASSETS, SPOT)
-    _, spec = bench_hedge(spot)
-    hedge = HedgeTensors.from_spec(spec, spot, dev)
     cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(N_ASSETS), 256),
                            dtype=torch.float32, device=dev)
     pp = FRONTIER["n_paths"]
     res = {}
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
+    unhedged = {"garch_multi_dd_hedged": G.garch_multi_portfolio_dd,
+                "bootstrap_multi_dd_hedged": B.bootstrap_multi_portfolio_dd,
+                "heston_multi_dd_hedged": H.heston_multi_portfolio_dd}
     e = torch.rand((N_ASSETS, pp), device=dev)
     mm = _time_ms(lambda: torch.matmul(cand, e), 50)
-    for name, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist)):
+    for name, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist),
+                      ("heston_multi_dd_hedged", bench_heston().tensors(dev))):
         launch = dict(kernel=name, seed=0, n=pp, w=cand, src=src, s0=spot, steps=N_STEPS)
 
         def kern(launch=launch):
             _family_hedged_call(launch, dev, plain=False)
 
         def bare(name=name, src=src):
-            from mcport_torch.ops import bootstrap as B
-            from mcport_torch.ops import garch as G
-
-            if name.startswith("garch"):
-                G.garch_multi_portfolio_dd(0, src, cand, pp, N_STEPS)
-            else:
-                B.bootstrap_multi_portfolio_dd(0, src, cand, pp, N_STEPS)
+            unhedged[name](0, src, cand, pp, N_STEPS)
 
         def plain(launch=launch):
             for p0 in range(0, pp, MDD_PLAIN_CHUNK):
@@ -4241,6 +4389,29 @@ def phase_wide_timing(dev) -> dict:
               f"unhedged mode {u1:.3f} / {u2:.3f} ms, plain {p1:.1f} ms, torch.matmul x "
               f"{N_STEPS} {mm * N_STEPS:.3f} ms")
         res[name] = [ms, p1, mm * N_STEPS]
+    # hedged #10's wide layout at A = 200 (HestonWide<true, true>), the bench
+    # hedge, beside its unhedged mode in the same call
+    a, sh = 200, WIDE_TIMING
+    wa = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 256), dtype=torch.float32,
+                         device=dev)
+    launch = dict(kernel="heston_multi_dd_hedged", seed=0, n=sh["pp"], w=wa,
+                  src=bench_heston(a).tensors(dev), s0=np.full(a, SPOT), steps=sh["n"])
+    def kern():
+        _family_hedged_call(launch, dev, plain=False)
+
+    def bare():
+        H.heston_multi_portfolio_dd(0, launch["src"], wa, sh["pp"], sh["n"])
+
+    kern(), bare()
+    torch.cuda.synchronize()
+    k1, u1, u2, k2 = _time_ms(kern, 2), _time_ms(bare, 2), _time_ms(bare, 2), _time_ms(kern, 2)
+    pl = _time_ms(lambda: _family_hedged_call(launch, dev, plain=True, bound=False), 1)
+    x = torch.rand((a, sh["pp"]), device=dev)
+    lib = _time_ms(lambda: torch.matmul(wa, x), 20) * sh["n"]
+    print(f"phase25 timing heston_multi_dd_hedged wide layout A={a} (L=2) 256 x {sh['pp']} x "
+          f"{sh['n']}: kernel {k1:.3f} / {k2:.3f} ms, the unhedged mode {u1:.3f} / {u2:.3f} ms, "
+          f"plain {pl:.1f} ms, torch.matmul per step x steps {lib:.3f} ms")
+    res["heston_multi_dd_hedged wide"] = [(k1 + k2) / 2, pl, lib]
     # each wide layout at A = 200 (DCC 256)
     sh = WIDE_TIMING
     calls = {**_wide_calls(200, dev, sh["p"], sh["pp"], sh["n"], 256, nb=1),
@@ -4359,11 +4530,12 @@ def main() -> int:
         "dcc_terminal": ("dcc.cu", "mcport/ops/pallas_dcc.py:242"),
         "dcc_dd": ("dcc.cu", "mcport/ops/pallas_dcc.py:359"),
         # the hedged modes: the hedged branches of #3 (:143-175), #8 (:100-120),
-        # #5 (:137-167) and #7 (:147-164)
+        # #5 (:137-167), #7 (:147-164) and #10 (:208-235)
         "multi_dd_hedged": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:143"),
         "merton_multi_dd_hedged": ("jump.cu", "mcport/ops/pallas_jump.py:100"),
         "garch_multi_dd_hedged": ("garch.cu", "mcport/ops/pallas_garch.py:137"),
         "bootstrap_multi_dd_hedged": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:147"),
+        "heston_multi_dd_hedged": ("heston.cu", "mcport/ops/pallas_heston.py:208"),
     }
     # each kernel's layout past 64 assets (csrc/wide.cuh and its model in the
     # kernel's file): launches on phase 22's 65-asset main paths, errors from
@@ -4373,6 +4545,11 @@ def main() -> int:
         kernels[f"{name} wide"] = (src, replaces)
         launches[f"{name} wide"] = wide_launches[name]
         worst[f"{name} wide"] = wide_worst[name]
+    # hedged #10's layout past 64 (HestonWide<true, true>): launches on phase
+    # 22's hedged 65-asset main paths, errors from phases 22-23 (A = 65, 200),
+    # time and bound at A = 200 from phase 25
+    kernels["heston_multi_dd_hedged wide"] = kernels["heston_multi_dd_hedged"]
+    launches["heston_multi_dd_hedged wide"] = wide_launches["heston_multi_dd_hedged"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"mcport_torch/csrc/{src}",

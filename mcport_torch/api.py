@@ -5,12 +5,12 @@ Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
 engine, hedged or not), of ``mcport.api.path_tail_risk`` for all seven
 families (terminal VaR/CVaR plus the simulated max-drawdown distribution;
-hedged for gbm, student_t, jump, garch and bootstrap), of
+hedged for every family but dcc), of
 ``mcport.api.hedged_tail_risk`` (option legs settled against every family's
 terminal prices), of ``mcport.api.bootstrap_tail_risk`` and of
 ``mcport.api.compare_tail_risk`` (one portfolio under every family). The mesh
-and quasi-MC branches, the hedged path risk of dcc and heston, and bootstrap
-error bars are not ported yet and raise.
+and quasi-MC branches, the hedged path risk of dcc, and bootstrap error bars
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -139,9 +139,8 @@ def path_tail_risk(
     ``legs_by_asset`` settles every asset's option legs per simulated step
     against the prices from the last row of ``prices`` (hedged per-step
     settlement, the rebalanced recursion ``V *= 1 + w·r_h``; ``rebalance`` is
-    not read) and adds ``hedged_assets``. Ported for "gbm", "student_t",
-    "jump", "garch" and "bootstrap"; another family raises
-    ``NotImplementedError`` naming it.
+    not read) and adds ``hedged_assets``. Ported for every family but "dcc",
+    which raises ``NotImplementedError`` naming it.
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
@@ -187,7 +186,7 @@ def path_tail_risk(
     elif model == "jump":
         rep = run_merton_path_risk(params, w, g, alpha=alpha, hedge=spec, device=device)
     elif model == "heston":
-        rep = run_heston_path_risk(params, w, g, alpha=alpha, device=device)
+        rep = run_heston_path_risk(params, w, g, alpha=alpha, hedge=spec, device=device)
     elif model == "bootstrap":
         rep = run_bootstrap_path_risk(params, w, g, p_restart=p_restart, alpha=alpha,
                                       hedge=spec,

@@ -20,8 +20,8 @@ hedge config (:func:`mcport_torch.options.hedged.legs_from_spec`), e.g.
     {"BTC": {"strategy": "Married Put"}, "ETH": {"strategy": "Collar"}}
 
 Hedged ``path-risk`` and ``dd-frontier`` run for the gbm, student_t, jump,
-garch and bootstrap families (against the last prices); heston and dcc exit
-with a message naming them, before any work. Not ported yet:
+garch, heston and bootstrap families (against the last prices); dcc exits
+with a message naming it, before any work. Not ported yet:
 ``--attribution`` and ``--ci`` (``hedged-risk --ci`` exits with a message).
 """
 

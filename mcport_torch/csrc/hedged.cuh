@@ -4,7 +4,8 @@
 // Replaces mcport/ops/pallas_multi_dd.py::make_hedged_returns, the settlement
 // shared by the TPU kernels' hedged modes; the plain torch form of the same
 // function is mcport_torch/ops/hedged.py::hedged_returns_reference. Included by
-// multi_dd.cu (kernel #3) and jump.cu (kernel #8).
+// multi_dd.cu (kernel #3), garch.cu (#5), bootstrap.cu (#7), jump.cu (#8),
+// heston.cu (#10) and wide.cuh (their layouts past 64 assets).
 //
 // What it computes. For a move p_prev -> p_new of one asset and its L legs
 // (type, strike K, premium, qty; ops/hedged.py HedgeTensors.packed, in shared

@@ -3,9 +3,10 @@
 // rebalanced wealth with its maximum drawdown (kernel heston_dd_kernel).
 //
 // Replaces mcport/ops/pallas_heston.py::_heston_kernel (heston_terminal_returns)
-// and ::_heston_dd_kernel (its unhedged mode: path-risk --models heston and
-// the Heston drawdown frontier). The plain torch forms of the same functions,
-// on the same Philox counters, are mcport_torch/ops/heston.py
+// and ::_heston_dd_kernel (path-risk --models heston and the Heston drawdown
+// frontier), both its modes: unhedged, and hedged (its hedge_args branch:
+// path-risk --hedge and dd-frontier --hedge). The plain torch forms of the
+// same functions, on the same Philox counters, are mcport_torch/ops/heston.py
 // ::heston_terminal_reference and ::heston_multi_dd_reference.
 //
 // What they compute. For block b of a dispatch group and path p < block_paths,
@@ -19,7 +20,12 @@
 // and either acc += x (terminal: out expm1(acc) per asset), or, for every
 // candidate w, V *= W_w·exp(x), peak = max(peak, V), dd = min(dd, V/peak - 1)
 // from V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
-// rho_c = sqrt(1 - rho^2) arrives precomputed in float32 (ops/heston.py).
+// Hedged, every (asset, path) also carries its price P from the spot s0: per
+// step P_new = P·exp(x), the option legs settle against the move
+// (hedged.cuh's hedged_return r_h), P = P_new, and every candidate compounds
+// V *= 1 + W_w·r_h, the peak and drawdown carrying the NaN of overflowed
+// wealth. rho_c = sqrt(1 - rho^2) arrives precomputed in float32
+// (ops/heston.py).
 //
 // Bit-identical path state. With full truncation the recursion is chaotic
 // where the Feller condition fails: sqrt at v ≈ 0 turns one ulp of v into
@@ -32,7 +38,10 @@
 // torch form does, with __fmul_rn/__fadd_rn/__fsqrt_rn and no contraction:
 // v, x and acc equal the plain form's bit for bit. Only the final expm1, the
 // per-step exp and the candidates' score (FP32 FMAs) differ by ulps, and no
-// difference feeds back into the path.
+// difference feeds back into the path. The hedged mode adds the price update
+// P·exp(x) (one rounded product) and the settlement, rounded as the torch form
+// rounds them: the prices differ only through the exp, which
+// ops/heston.py::heston_price_bound bounds.
 //
 // What bounds them on the card. Per path-step and asset: two draws (half a
 // Philox call and one Box-Muller pair each, kernel #1's 54.75 instructions
@@ -51,8 +60,11 @@
 //   path) of the tile has a thread that keeps its variance and the variance
 //   shocks of one Philox call in registers, draws the return shocks into
 //   shared memory, and per step correlates them and writes exp(x) to shared
-//   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
-//   values, peaks and drawdowns stay in registers (multi_dd.cu's scoring).
+//   memory (hedged: the price too in registers, and the settled return r_h
+//   written instead, the legs read from device memory as garch.cu's hedged
+//   mode reads them); then each thread updates a 4-candidate x 4-path
+//   micro-tile whose values, peaks and drawdowns stay in registers
+//   (multi_dd.cu's scoring).
 // - wider universes, 17 <= A <= 64 (garch.cu's wide variants): the candidate
 //   kernel keeps its design with four (asset, path) items per thread, each
 //   item's variance and variance shocks in registers; the terminal kernel
@@ -66,6 +78,7 @@
 // A dispatch group of blocks is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
+#include "hedged.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -301,13 +314,14 @@ heston_terminal_tile_kernel(long long seed, long long first_block, int block_pat
 }
 
 // kCap: the asset bound (kHA: one (asset, path) item per thread; kMaxAssets:
-// four).
-template <int kCap>
+// four). kHedged: per-step settlement of the n_legs legs per asset of the
+// hedge block (ops/hedged.py HedgeTensors.packed, in device memory).
+template <int kCap, bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-                 int n_cand, int n_steps, const float* __restrict__ params,
-                 const float* __restrict__ weights, float* __restrict__ term,
-                 float* __restrict__ max_dd) {
+                 int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
+                 const float* __restrict__ weights, const float* __restrict__ hedge,
+                 float* __restrict__ term, float* __restrict__ max_dd) {
   constexpr int kIt = tile_items<kCap>();
   extern __shared__ __align__(16) float smem[];
   const int a_n = n_assets;
@@ -318,7 +332,7 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
   float4* s_h = reinterpret_cast<float4*>(smem + lay.h);  // (rho, rho_c, v0, 0)
   float* s_w = smem + lay.w;                              // (A, w_pad) weights
   float* s_z = smem + lay.z;                              // (4, A, kTileP) return shocks
-  float* s_e = smem + lay.e;                              // (A, kTileP) exp(x)
+  float* s_e = smem + lay.e;                              // (A, kTileP) exp(x), hedged r_h
 
   const int tid = threadIdx.x;
   const Params q(params, a_n);
@@ -350,11 +364,14 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
   }
   __syncthreads();
   float var[kIt];  // each item's variance, from v0
+  float price[kIt];  // hedged: each item's price, from s0
 #pragma unroll
   for (int r = 0; r < kIt; ++r) {
     const int item = tid + r * kDdThreads;
     var[r] = item < n_items ? s_h[item / kTileP].z : 0.0f;
+    price[r] = (kHedged && item < n_items) ? hedge[item / kTileP] : 0.0f;
   }
+  const HedgeBlock legs(hedge, a_n, n_legs);  // hedged: the legs, read from device memory
 
   constexpr int kPer = steps_per_call<kPolyStrict>();
   for (int s0 = 0; s0 < n_steps; s0 += kPer) {
@@ -387,7 +404,14 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
           for (int j = 0; j <= ia; ++j) {
             y = __fadd_rn(y, __fmul_rn(s_l[ia * kCap + j], s_z[(k * a_n + j) * kTileP + ip]));
           }
-          s_e[ia * kTileP + ip] = expf(heston_step(y, wa[r][k], s_g[ia], s_h[ia], &var[r]));
+          const float g = expf(heston_step(y, wa[r][k], s_g[ia], s_h[ia], &var[r]));
+          if (kHedged) {  // the settled return of the move P -> P·exp(x)
+            const float p_new = __fmul_rn(price[r], g);
+            s_e[ia * kTileP + ip] = hedged_return(legs, ia, price[r], p_new);
+            price[r] = p_new;
+          } else {
+            s_e[ia * kTileP + ip] = g;
+          }
         }
       }
       __syncthreads();
@@ -414,9 +438,15 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            v[i][j] = v[i][j] * f[i][j];
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              v[i][j] = v[i][j] * (1.0f + f[i][j]);
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              v[i][j] = v[i][j] * f[i][j];
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -446,18 +476,20 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
 // strict draws, the column-order correlate under __fmul_rn/__fadd_rn,
 // heston_step), so the path state equals the plain form's bit for bit at any
 // width. State: the variance and the call's four variance shocks, and the
-// terminal's log sum.
-template <bool kCand>
+// terminal's log sum or, hedged, the price.
+template <bool kCand, bool kHedged = false>
 struct HestonWide : WideModelBase {
-  static constexpr int kState = kCand ? 5 : 6;
+  static constexpr int kState = (kCand && !kHedged) ? 5 : 6;
   static constexpr int kPer = steps_per_call<kPolyStrict>();
-  static constexpr int kValue = kWideGross;
-  const float* params;  // HestonTensors.packed
+  static constexpr int kValue = kHedged ? kWideHedged : kWideGross;
+  const float *params, *hedge;  // HestonTensors.packed; the hedge block
+  int n_legs;
 
   __host__ __device__ static int smem_floats(int a, int tp) { return kPer * a * tp; }
   __device__ void start(const WideTile& t, int a, int p) const {
     t.at(0, a, p) = __ldg(Params(params, t.a_n).v0 + a);
     if (!kCand) t.at(5, a, p) = 0.0f;
+    if (kHedged) t.at(5, a, p) = __ldg(hedge + a);
   }
   __device__ void draw(const WideTile& t, float* s, int call, int n, int a, int p) const {
     float za[4], wa[4];
@@ -479,6 +511,13 @@ struct HestonWide : WideModelBase {
     if (!kCand) {
       t.at(5, a, p) = __fadd_rn(t.at(5, a, p), x);
       return 0.0f;
+    }
+    if (kHedged) {  // the settled return of the move P -> P·exp(x)
+      float& price = t.at(5, a, p);
+      const float p_new = __fmul_rn(price, expf(x));
+      const float e = hedged_return(HedgeBlock(hedge, t.a_n, n_legs), a, price, p_new);
+      price = p_new;
+      return e;
     }
     return expf(x);
   }
@@ -524,16 +563,19 @@ int mcport_heston_terminal(long long seed, long long first_block, int n_blocks,
 
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: HestonTensors.packed; weights: (n_cand,
-// n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. wide: nonzero runs the 64-asset instantiation at any
-// width. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
+// for n_legs legs per asset (read from device memory), or null with n_legs 0
+// for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
+// float32. wide: nonzero runs the 64-asset instantiation at any width.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the kernel does not take.
 int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
                            int block_paths, int n_assets, int n_cand, int n_steps, int wide,
-                           const void* params, const void* weights, void* term, void* dd,
-                           void* stream) {
+                           int n_legs, const void* params, const void* weights,
+                           const void* hedge, void* term, void* dd, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
-      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
+      (n_legs > 0 && hedge == nullptr) ||
       kHA * kTileP != tile_items<kHA>() * kDdThreads ||
       kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -547,26 +589,33 @@ int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, n_assets, n_cand, n_steps,
+        seed, first_block, block_paths, n_assets, n_cand, n_steps, n_legs,
         static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<float*>(term), static_cast<float*>(dd));
+        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
     return static_cast<int>(cudaGetLastError());
   };
-  return wide ? run(heston_dd_kernel<kMaxAssets>) : run(heston_dd_kernel<kHA>);
+  if (n_legs) {
+    return wide ? run(heston_dd_kernel<kMaxAssets, true>) : run(heston_dd_kernel<kHA, true>);
+  }
+  return wide ? run(heston_dd_kernel<kMaxAssets, false>) : run(heston_dd_kernel<kHA, false>);
 }
 
 // Both functions past 64 assets (wide.cuh's layout with the HestonWide
 // model): n_cand 0 runs the terminal function (output out (n_blocks,
-// block_paths, n_assets)), n_cand >= 1 the candidates' (outputs out and dd
-// (n_blocks, n_cand, block_paths)). scratch: WIDE_CTAS·tp·A·6 floats on the
-// device, tp paths per tile, n_ctas persistent CTAs. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
-// the layout does not take.
+// block_paths, n_assets)), n_cand >= 1 the candidates' (hedged when n_legs >
+// 0, the hedge block read from device memory; outputs out and dd (n_blocks,
+// n_cand, block_paths)). scratch: WIDE_CTAS·tp·A·kState floats on the device
+// (6, the unhedged candidates' 5), tp paths per tile, n_ctas persistent CTAs.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments the layout does not take.
 int mcport_heston_wide(long long seed, long long first_block, int n_blocks, int block_paths,
-                       int n_assets, int n_cand, int n_steps, const void* params,
-                       const void* weights, void* out, void* dd, void* scratch, int tp,
-                       int n_ctas, void* stream) {
-  if (n_cand < 0 || n_cand > kMaxCand) return static_cast<int>(cudaErrorInvalidValue);
+                       int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
+                       const void* weights, const void* hedge, void* out, void* dd,
+                       void* scratch, int tp, int n_ctas, void* stream) {
+  if (n_cand < 0 || n_cand > kMaxCand || n_legs < 0 || (n_legs > 0 && hedge == nullptr) ||
+      (n_cand == 0 && n_legs > 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool cand = n_cand > 0;
   WideArgs g{seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, tp,
              static_cast<const float*>(weights), static_cast<float*>(scratch),
@@ -574,9 +623,12 @@ int mcport_heston_wide(long long seed, long long first_block, int n_blocks, int 
              cand ? nullptr : static_cast<float*>(out)};
   auto run = [&](auto model) {
     model.params = static_cast<const float*>(params);
+    model.hedge = static_cast<const float*>(hedge);
+    model.n_legs = n_legs;
     return wide_launch(g, model, n_ctas, static_cast<cudaStream_t>(stream));
   };
-  return cand ? run(HestonWide<true>{}) : run(HestonWide<false>{});
+  if (!cand) return run(HestonWide<false>{});
+  return n_legs ? run(HestonWide<true, true>{}) : run(HestonWide<true, false>{});
 }
 
 }  // extern "C"

@@ -38,9 +38,9 @@ generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 candidate on hedged per-step settlement against the prices from the spots —
 always the settled recursion ``V *= 1 + w·r_h`` (mcport: buy-and-hold of an
 intrinsic-settled position is not defined mid-path) — for GBM and, in the
-family search, "jump". Not ported yet (raises ``NotImplementedError``): the
-hedged GARCH, DCC, Heston and bootstrap frontiers (their kernels' hedged
-modes, ROADMAP.md Queue 2).
+family search, "garch", "jump", "heston" and "bootstrap". Not ported yet
+(raises ``NotImplementedError``): the hedged DCC frontier (its kernel's
+hedged mode, ROADMAP.md Queue 2).
 """
 
 from __future__ import annotations
@@ -248,8 +248,8 @@ def family_drawdown_frontier_search(
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
     path stream. ``hedge`` (a HedgeSpec) with the spots ``s0``: hedged
-    per-step settlement, "jump", "garch" and "bootstrap" (a NaN drawdown of
-    overflowed wealth ranks as the worst)."""
+    per-step settlement, "jump", "garch", "heston" and "bootstrap" (a NaN
+    drawdown of overflowed wealth ranks as the worst)."""
     if model not in ("garch", "dcc", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
@@ -288,7 +288,8 @@ def family_drawdown_frontier_search(
         a = model_params.n_assets
 
         def score(w_blk):
-            return heston_multi_portfolio_dd(path_seed, h, w_blk, n_paths, n_steps)
+            return heston_multi_portfolio_dd(path_seed, h, w_blk, n_paths, n_steps,
+                                             hedge=legs)
     else:
         hist = torch.as_tensor(np.asarray(model_params, np.float32), device=dev)
         a = hist.shape[1]

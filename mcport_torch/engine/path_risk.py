@@ -3,7 +3,7 @@ GBM, CCC-GARCH, DCC-GARCH, common-jump Merton, Heston and stationary-bootstrap
 paths.
 
 Port of ``mcport/engine/path_risk.py``: every family unhedged, and hedged
-per-step settlement for "gbm", "student_t" and "jump". Each family has a
+per-step settlement for every family but "dcc". Each family has a
 block function (mcport's ``_block_fn_for``) that evolves every path of
 a dispatch group on its kernel and returns the portfolio's terminal return
 and maximum drawdown per path:
@@ -47,12 +47,13 @@ history.
 option legs at intrinsic value every simulated step against the prices from
 the spots ``s0`` and compounds ``V *= 1 + w·r_h`` (mcport's hedged branches):
 "gbm" and "student_t" score the one portfolio on the multi-dd kernel's hedged
-mode, "jump", "garch" and "bootstrap" on their candidate kernels' (the GARCH
-and bootstrap families carry no spots: ``s0`` is required, as in mcport). The
-hedge's bytes and the spots enter the checkpoint digest.
+mode, "jump", "garch", "heston" and "bootstrap" on their candidate kernels'
+(the spots default to the model's own for "gbm", "student_t", "jump" and
+"heston"; the GARCH and bootstrap families carry none: ``s0`` is required, as
+in mcport). The hedge's bytes and the spots enter the checkpoint digest.
 
-Not ported yet (raise ``NotImplementedError``): hedged "dcc" and "heston"
-(their kernels' hedged modes, ROADMAP.md Queue 2), quasi-MC paths (``qmc``),
+Not ported yet (raise ``NotImplementedError``): hedged "dcc" (its kernel's
+hedged mode, ROADMAP.md Queue 2), quasi-MC paths (``qmc``),
 bootstrap error bars (``ci_boot``) and
 ``run_resumable_path_risk_with_recovery``.
 """
@@ -102,7 +103,7 @@ DISPATCH_BLOCKS = 16
 #: mcport's path families
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
 #: the families whose hedged per-step settlement is ported
-HEDGED_FAMILIES = ("gbm", "student_t", "jump", "garch", "bootstrap")
+HEDGED_FAMILIES = ("gbm", "student_t", "jump", "garch", "heston", "bootstrap")
 
 
 @dataclass(frozen=True)
@@ -333,7 +334,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
 
         def block_fn(b, group):
             term, dd = heston_multi_portfolio_dd(seed, h, w[None], n, steps, first_block=b,
-                                                 n_blocks=group)
+                                                 n_blocks=group, hedge=legs)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -509,10 +510,14 @@ def run_heston_path_risk(
     """Simulated path risk under Heston stochastic-volatility paths on
     ``device``: terminal VaR/CVaR plus the max-drawdown distribution of one
     portfolio compounding per-period rebalanced wealth ``V *= w'exp(x)``.
-    ``s0`` is mcport's argument for hedged runs, which are not ported."""
+    ``hedge`` (a HedgeSpec) settles the option legs every step against the
+    prices ``P *= exp(x)`` from the spots ``s0``, by default ``params.s0``
+    (mcport's default), and compounds ``V *= 1 + w·r_h``."""
     _check_unported(config, hedge, "heston")
+    if hedge is not None and s0 is None:
+        s0 = params.s0
     return _one_shot("heston", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
-                     device)
+                     device, hedge, s0)
 
 
 def run_bootstrap_path_risk(
@@ -575,15 +580,16 @@ def run_resumable_path_risk(
     digest binds a checkpoint to its computation and a mismatched resume
     raises. ``hedge`` (a HedgeSpec, ``HEDGED_FAMILIES``) settles the option
     legs every step against the spots ``s0`` (by default the model's own:
-    ``model_params.s0``, or ``.diffusion.s0`` for "jump"; "garch" and
-    "bootstrap" carry none and require ``s0``, as mcport does).
+    ``model_params.s0`` for "gbm", "student_t" and "heston", or
+    ``.diffusion.s0`` for "jump"; "garch" and "bootstrap" carry none and
+    require ``s0``, as mcport does).
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
     _check_unported(config, hedge, model)
     if hedge is not None and s0 is None:
-        if model not in ("gbm", "student_t", "jump"):
+        if model not in ("gbm", "student_t", "jump", "heston"):
             _require_spots(hedge, s0, model)
         s0 = (model_params.diffusion.s0 if model == "jump" else model_params.s0)
     n_blocks = _n_blocks(config)

@@ -1,7 +1,8 @@
 """Heston stochastic-volatility paths: the CUDA Heston kernels and their plain
 torch forms.
 
-Port of ``mcport/ops/pallas_heston.py``, its unhedged modes. Two kernels
+Port of ``mcport/ops/pallas_heston.py``, the unhedged modes and the hedged
+mode of ``_heston_dd_kernel``. Two kernels
 (``csrc/heston.cu``) replace ``_heston_kernel`` and ``_heston_dd_kernel``:
 per path and step they draw two normal fields — the return shocks ``z``
 (``STREAM_GBM``, the GBM kernels' layout) and the variance shocks ``w``
@@ -18,7 +19,10 @@ scheme of mcport's ``_heston_step`` in its order of operations:
   returns ``expm1(acc)`` (mcport's lax form);
 - :func:`heston_multi_portfolio_dd` compounds ``W`` candidate portfolios'
   per-period rebalanced wealth ``V *= W·exp(x)`` (float32, mcport's
-  ``score_dot``) with the running peak and maximum drawdown.
+  ``score_dot``) with the running peak and maximum drawdown; hedged, every
+  path carries its prices ``P *= exp(x)`` from the spots, settles the option
+  legs against each move and compounds ``V *= 1 + W·r_h``
+  (:mod:`mcport_torch.ops.hedged`).
 
 The plain forms are two :func:`mcport_torch.ops.gbm.step_shocks` calls plus
 :func:`heston_increments`. Each wrapper dispatches on the device of its
@@ -38,6 +42,7 @@ import torch
 
 from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card_assets, sqrt_rn,
                                   step_shocks, wide_scratch, wide_tile)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 from mcport_torch.rng import STREAM_HESTON
 
@@ -49,6 +54,7 @@ __all__ = [
     "heston_terminal",
     "heston_multi_dd_reference",
     "heston_multi_portfolio_dd",
+    "heston_price_bound",
     "heston_tolerance",
     "heston_shares",
 ]
@@ -178,8 +184,8 @@ def _launch_terminal(seed, h, n_paths, n_steps, first_block, n_blocks, wide=Fals
         if a > MAX_ASSETS:   # csrc/wide.cuh's layout: v, four variance shocks, the log sum
             tp = wide_tile(a)
             scratch = wide_scratch(6 * a * WIDE_CTAS * tp, h.device, "Heston")
-            err = lib.mcport_heston_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps,
-                                         params.data_ptr(), None, out.data_ptr(), None,
+            err = lib.mcport_heston_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps, 0,
+                                         params.data_ptr(), None, None, out.data_ptr(), None,
                                          scratch.data_ptr(), tp, WIDE_CTAS, stream)
         else:
             err = lib.mcport_heston_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
@@ -235,19 +241,31 @@ def heston_multi_dd_reference(
     first_block: int = -1,
     n_blocks: int = 1,
     first_path: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the Heston candidate kernel: ``(term, dd)``, each
     ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
-    block."""
+    block. ``hedge``: the hedged mode, mcport's ``_heston_dd_kernel`` hedged
+    branch — ``P_0 = s0``, ``P_t = P_{t-1} · exp(x_t)`` on the same log
+    increments, every leg settled against the move
+    (:func:`mcport_torch.ops.hedged.hedged_multi_dd`); with ``with_bound`` a
+    third output bounds each (candidate, path)'s distance from the kernel
+    (:func:`heston_price_bound`)."""
     _check(h, n_paths, n_steps, n_blocks)
     x = heston_increments(*heston_shocks(seed, h, n_paths, n_steps, first_block=first_block,
                                          n_blocks=n_blocks, first_path=first_path), h)
-    return rebalanced_dd(torch.exp(x), weights, gross=True)
+    if hedge is None:
+        return rebalanced_dd(torch.exp(x), weights, gross=True)
+    return hedged_multi_dd(x, hedge, weights.to(torch.float32),
+                           price_bound=(heston_price_bound(h, n_steps).to(h.device)
+                                        if with_bound else None))
 
 
-def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=False):
-    """Launch kernel #10 for at most ``MAX_CANDIDATES``; ``wide`` takes the
-    64-asset instantiation at any width."""
+def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=False,
+               hedge=None):
+    """Launch kernel #10 for at most ``MAX_CANDIDATES``, hedged with ``hedge``;
+    ``wide`` takes the 64-asset instantiation at any width up to 64."""
     from mcport_torch._build import library
 
     lib = library("heston")
@@ -258,24 +276,31 @@ def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=F
         return term, dd
     params = h.packed()
     weights = weights.contiguous()
+    block = hedge.packed() if hedge is not None else None
+    n_legs = hedge.n_legs if hedge is not None else 0
+    hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: v and four variance shocks
+        if a > MAX_ASSETS:   # csrc/wide.cuh's layout: v, four variance shocks, hedged the price
             tp = wide_tile(a)
-            scratch = wide_scratch(5 * a * WIDE_CTAS * tp, h.device, "Heston")
+            scratch = wide_scratch((6 if hedge is not None else 5) * a * WIDE_CTAS * tp,
+                                   h.device, "Heston")
             err = lib.mcport_heston_wide(seed, first_block, n_blocks, n_paths, a, w_cnt,
-                                         n_steps, params.data_ptr(), weights.data_ptr(),
-                                         term.data_ptr(), dd.data_ptr(), scratch.data_ptr(), tp,
-                                         WIDE_CTAS, stream)
+                                         n_steps, n_legs, params.data_ptr(), weights.data_ptr(),
+                                         hp, term.data_ptr(), dd.data_ptr(), scratch.data_ptr(),
+                                         tp, WIDE_CTAS, stream)
         else:
             err = lib.mcport_heston_multi_dd(
-                seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide),
-                params.data_ptr(), weights.data_ptr(), term.data_ptr(), dd.data_ptr(), stream)
+                seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide), n_legs,
+                params.data_ptr(), weights.data_ptr(), hp, term.data_ptr(), dd.data_ptr(),
+                stream)
     if err:
         raise RuntimeError(f"Heston candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     heston_multi_portfolio_dd.launches += 1
     heston_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
+    if hedge is not None:
+        heston_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -288,32 +313,39 @@ def heston_multi_portfolio_dd(
     *,
     first_block: int = -1,
     n_blocks: int = 1,
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
     wealth ``V *= W·exp(x)`` over the Heston paths of blocks ``first_block +
-    1 .. first_block + n_blocks`` — mcport's ``pallas_heston_path_stats``,
-    unhedged.
+    1 .. first_block + n_blocks`` — mcport's ``pallas_heston_path_stats``.
 
-    More than ``MAX_CANDIDATES`` candidates run as several launches over the
-    same paths. Tensors on a CUDA device launch the kernel, each launch
-    counted in ``heston_multi_portfolio_dd.launches``; on the CPU the plain
-    form runs. Any other device, or a problem the kernel does not take,
-    raises.
+    ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors` on the same
+    device) selects hedged per-step settlement, mcport's ``hedge_args``: the
+    prices move ``P *= exp(x)`` from the spots, every leg settles each step,
+    and the candidates compound ``V *= 1 + W·r_h``. More than
+    ``MAX_CANDIDATES`` candidates run as several launches over the same
+    paths. Tensors on a CUDA device launch the kernel, each launch counted in
+    ``heston_multi_portfolio_dd.launches`` (a hedged one in
+    ``.hedged_launches`` too); on the CPU the plain form runs. Any other
+    device, or a problem the kernel does not take, raises.
     """
     a = _check(h, n_paths, n_steps, n_blocks)
     w = weights.to(torch.float32)
     if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != h.device:
         raise ValueError(f"weights must be (W >= 1, {a}) on {h.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
+    if hedge is not None:
+        hedge.check(a, h.device)
     if h.device.type == "cpu":
         return heston_multi_dd_reference(seed, h, w, n_paths, n_steps,
-                                         first_block=first_block, n_blocks=n_blocks)
+                                         first_block=first_block, n_blocks=n_blocks,
+                                         hedge=hedge)[:2]
     if h.device.type != "cuda":
         raise ValueError(f"no Heston kernel for device {h.device}")
     check_card_assets(a, "Heston")
     parts = [_launch_dd(seed, h, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
-                        n_blocks)
+                        n_blocks, hedge=hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -322,6 +354,31 @@ def heston_multi_portfolio_dd(
 
 heston_multi_portfolio_dd.launches = 0
 heston_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
+heston_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
+
+
+def heston_price_bound(h: HestonTensors, n_steps: int) -> torch.Tensor:
+    """Per-asset bound ``(A,)`` on the relative difference of the hedged
+    Heston kernel's price ``P`` from its plain form's at any step.
+
+    The log increments ``x`` are the same bits on both sides (the variance
+    path is bit for bit), so only the price update ``P·exp(x)`` differs. Per
+    step, each side's ``exp`` lies within 2 ulps of ``e^x`` (CUDA's
+    ``expf``; torch's ``exp``) — 2 ulps are at most ``2 · 2^-23`` of the
+    value — so the two factors differ by at most ``8 · 2^-24`` relatively,
+    and each side rounds its product ``P·g`` once, ``2^-24`` each: ``10 ·
+    2^-24`` per step. Those differences are rounding artefacts, independent
+    from step to step, so over ``n`` steps they add up like a random walk,
+    with the factor 4 of headroom of :func:`mcport_torch.ops.garch
+    .garch_tolerance`: ``4 sqrt(n) · 10 · 2^-24``. (Added up in the worst
+    case, ``n · 10 · 2^-24``, the bound would grow with ``n`` as a drawdown
+    error does, and could no longer tell settlement in bfloat16 from a sound
+    kernel at 252 steps.) Nothing else enters; the hedged plain form turns it
+    into a bound per (candidate, path) (:func:`mcport_torch.ops.hedged
+    .hedged_multi_dd`)."""
+    per_step = 10.0 * _EPS
+    a = h.corr_chol.shape[0]
+    return torch.full((a,), 4.0 * math.sqrt(max(n_steps, 1)) * per_step, dtype=torch.float32)
 
 
 def heston_tolerance(n_assets: int, n_steps: int) -> tuple[float, float]:
@@ -340,11 +397,18 @@ def heston_tolerance(n_assets: int, n_steps: int) -> tuple[float, float]:
     return 2.0 ** -21, 8.0 * _EPS * (n_assets + 2.0 * math.sqrt(max(n_steps, 1)))
 
 
-def heston_shares(kernel, plain, h: HestonTensors, n_steps: int) -> dict[str, float]:
+def heston_shares(kernel, plain, h: HestonTensors, n_steps: int,
+                  hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound (:func:`heston_tolerance`) that ``|kernel
     - plain|`` uses → ``{"term"}`` for a terminal tensor ``(..., A)``,
     ``{"term", "dd"}`` for a candidate pair ``(term, dd)``. Non-finite kernel
-    values give ``inf``."""
+    values give ``inf``. Hedged (``hedge``): path by path against the bound
+    that ``plain`` carries (:func:`heston_multi_dd_reference` ``with_bound``),
+    by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, None)
     term_rel, rel = heston_tolerance(h.corr_chol.shape[0], n_steps)
 
     def share(k, p, tol):

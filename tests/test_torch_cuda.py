@@ -32,6 +32,9 @@ bit. The hedged modes of #5 and #7 (1-3 legs, W in {1, 13, 256}, 15, 64 and
 65 assets, shared and device-memory histories) to ``garch_shares`` and
 ``bootstrap_shares`` with the hedge; one-hot hedged bootstrap candidates bit
 for bit; identity hedges against the unhedged modes; overflowed wealth held.
+The hedged mode of #10 (15, 17, 64, 65 and 200 assets) to ``heston_shares``
+with the hedge (``heston_price_bound``), each C entry point's signature, the
+identity hedge at a Feller-violating vol of vol, overflowed wealth held.
 """
 
 import numpy as np
@@ -1172,3 +1175,103 @@ def test_family_hedged_kernels_carry_overflowed_wealth(dev, family):
     held = hedged_held(k, p)
     assert held["overflowed"] > 0 and held["astray"] == 0 and held["edge"] == 0, held
     assert max(shares.values()) <= 1.0, (shares, held)
+
+
+# ---- the hedged mode of kernel #10 (Heston) ---------------------------------------------
+
+@pytest.mark.parametrize("a", [15, 17, 64, 65, 200])
+@pytest.mark.parametrize("n_legs", [1, 2, 3])
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+def test_heston_hedged_kernel_matches_plain_form(dev, a, n_legs, n_cand):
+    """Every width: ``heston_dd_kernel<16, true>`` (15), ``<64, true>`` (17,
+    64) and ``HestonWide<true, true>`` (65, 200), path by path to the bound
+    of ``ops.heston.heston_price_bound``."""
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares)
+
+    h = _heston(a, dev)
+    hedge = _hedge(a, dev, n_legs, seed=n_legs)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    before = (heston_multi_portfolio_dd.hedged_launches, heston_multi_portfolio_dd.wide_launches)
+    k = heston_multi_portfolio_dd(11, h, w, 1_029, 60, **kw)
+    torch.cuda.synchronize()
+    assert heston_multi_portfolio_dd.hedged_launches == before[0] + 1
+    assert heston_multi_portfolio_dd.wide_launches == before[1] + int(a > 64)
+    p = heston_multi_dd_reference(11, h, w, 1_029, 60, with_bound=True, **kw)
+    shares = heston_shares(k, p, h, 60, hedge=hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("a", [15, 17, 65])
+def test_heston_entry_points_take_their_arguments(dev, a):
+    """The ctypes signatures of ``mcport_heston_multi_dd`` and
+    ``mcport_heston_wide`` against the C parameters: a launch of each mode
+    through each entry point (the <16> and <64> kernels at 15 assets, <64>
+    at 17, the wide layout at 65), hedged at 252 steps against the plain
+    form, unhedged and the terminal function to ``heston_tolerance``; a hedge
+    for another width is refused."""
+    from mcport_torch.ops.heston import (_launch_dd, heston_multi_dd_reference, heston_shares,
+                                         heston_terminal, heston_terminal_reference)
+
+    h = _heston(a, dev, seed=a)
+    k = heston_terminal(5, h, 517, 252, first_block=2, n_blocks=2)
+    p = heston_terminal_reference(5, h, 517, 252, first_block=2, n_blocks=2)
+    assert max(heston_shares(k, p, h, 252).values()) <= 1.0
+    hedge = _hedge(a, dev, 2, seed=a)
+    w = _wide_cand(a, dev, 13)
+    for wide in ((False, True) if a <= 16 else (False,)):
+        k = _launch_dd(5, h, w, 517, 252, 2, 2, wide=wide, hedge=hedge)
+        p = heston_multi_dd_reference(5, h, w, 517, 252, first_block=2, n_blocks=2,
+                                      hedge=hedge, with_bound=True)
+        assert max(heston_shares(k, p, h, 252, hedge=hedge).values()) <= 1.0
+        k = _launch_dd(5, h, w, 517, 252, 2, 2, wide=wide)
+        p = heston_multi_dd_reference(5, h, w, 517, 252, first_block=2, n_blocks=2)
+        assert max(heston_shares(k, p, h, 252).values()) <= 1.0
+    with pytest.raises(ValueError, match="hedge must cover"):
+        from mcport_torch.ops.heston import heston_multi_portfolio_dd
+        heston_multi_portfolio_dd(5, h, w, 517, 8, hedge=_hedge(a + 1, dev, 2))
+
+
+@pytest.mark.parametrize("a", [15, 65])
+@pytest.mark.parametrize("xi", [3e-3, 0.05])
+def test_heston_identity_hedge_is_the_unhedged_mode(dev, a, xi):
+    """One BUY_ASSET leg per asset: the unhedged mode to the per-path bound,
+    also at a Feller-violating vol of vol (0.05), where a variance path one
+    ulp off the unhedged one would grow to O(1) in 252 steps: the hedged
+    template keeps every rounding of heston_step."""
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares)
+    from mcport_torch.options.hedged import HedgeSpec
+
+    h = _heston(a, dev, xi=xi)
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(a)]),
+                                   np.linspace(10.0, 100.0, a), dev)
+    w = _wide_cand(a, dev, 256)
+    hk = heston_multi_portfolio_dd(5, h, w, 2_053, 252, hedge=ident)
+    r = heston_multi_portfolio_dd(5, h, w, 2_053, 252)
+    bound = heston_multi_dd_reference(5, h, w, 2_053, 252, hedge=ident, with_bound=True)[2]
+    shares = heston_shares(hk, (*r, bound), h, 252, hedge=ident)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_heston_hedged_kernel_carries_overflowed_wealth(dev):
+    """Deep in-the-money puts settled every step overflow the wealth; the
+    kernel gives the plain form's inf and NaN on the same paths."""
+    from mcport_torch.ops.hedged import HedgeTensors, hedged_held
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_multi_portfolio_dd,
+                                         heston_shares)
+
+    a = 15
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    hedge = HedgeTensors(f(np.full(a, 100.0)), torch.full((a, 2), 4, dtype=torch.int32,
+                                                            device=dev),
+                         f(np.full((a, 2), 99.0)), f(np.zeros((a, 2))), f(np.full((a, 2), 3.0)))
+    h = _heston(a, dev)
+    w = _wide_cand(a, dev, 13)
+    k = heston_multi_portfolio_dd(3, h, w, 2_053, 252, hedge=hedge)
+    p = heston_multi_dd_reference(3, h, w, 2_053, 252, hedge=hedge, with_bound=True)
+    held = hedged_held(k, p)
+    assert held["overflowed"] > 0 and held["astray"] == 0, held
+    assert max(heston_shares(k, p, h, 252, hedge=hedge).values()) <= 1.0, (held,)

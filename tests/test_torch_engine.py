@@ -166,7 +166,7 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: path_tail_risk(object(), model="heston", legs_by_asset={}, device="cpu"),
+    lambda: path_tail_risk(object(), model="dcc", legs_by_asset={}, device="cpu"),
     lambda: run_resumable_mc(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
     lambda: run_resumable_mc_with_recovery(PARAMS, W, CFG),
     lambda: gbm_risk(PARAMS, W, Config(gbm=dataclasses.replace(CFG, qmc="sobol")),

@@ -376,7 +376,7 @@ def test_hedged_tail_risk_refuses_error_bars(weekly):
                          device="cpu")
 
 
-@pytest.mark.parametrize("model", ["dcc", "heston"])
+@pytest.mark.parametrize("model", ["dcc"])
 def test_unported_hedged_families_raise_with_their_name(weekly, model):
     data, _ = weekly
     with pytest.raises(NotImplementedError, match=f"hedged {model} path risk"):

@@ -1,5 +1,6 @@
 """Hedged per-step settlement of the GARCH and bootstrap families: the port
-against mcport, on the CPU.
+against mcport, on the CPU (the Heston family's engines and frontier:
+``tests/test_torch_hedged_heston.py``).
 
 - Settlement on identical moves: the hedged plain forms' core
   (``ops/hedged.py`` ``hedged_multi_dd`` with ``gross``) against mcport's
@@ -16,10 +17,11 @@ against mcport, on the CPU.
   unhedged mode to its bound; split + resume bit-identical; the hedge binds
   the digest; hedged runs without spots raise, as mcport's do.
 - The per-path bounds (``ops.garch.garch_price_bound``,
-  ``ops.bootstrap.bootstrap_price_bound``) reject planted faults by more
-  than 2x at 252 steps on the bench hedge (settlement in bfloat16, a
-  drawdown off by 1e-3, a dropped premium, a put settled as a call), and
-  the GARCH bound holds returns moved by a sound kernel's rounding.
+  ``ops.bootstrap.bootstrap_price_bound``, ``ops.heston.heston_price_bound``)
+  reject planted faults by more than 2x at 252 steps on the bench hedge
+  (settlement in bfloat16, a drawdown off by 1e-3, a dropped premium, a put
+  settled as a call), the GARCH bound holds returns moved by a sound
+  kernel's rounding, and the Heston bound gross factors 2 ulps apart.
 """
 
 import math
@@ -36,6 +38,7 @@ from mcport.engine.path_risk import run_garch_path_risk as ref_garch_run
 from mcport.models.bootstrap import bootstrap_path_stats as ref_bootstrap_stats
 from mcport.models.garch_mc import CCCGarchParams as RefGarch
 from mcport.models.garch_mc import garch_path_stats as ref_garch_stats
+from mcport.models.heston import HestonParams as RefHeston
 from mcport.ops.pallas_multi_dd import make_hedged_returns
 from mcport.options import HedgeSpec as RefHedgeSpec
 from mcport.options import LegType as RefLegType
@@ -49,6 +52,7 @@ from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_pa
 from mcport_torch.ops import bootstrap as OB
 from mcport_torch.ops import garch as OG
 from mcport_torch.ops import hedged as OH
+from mcport_torch.ops import heston as OHS
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd
 from mcport_torch.options import HedgeSpec
 from mcport_torch.options.strategies import collar, married_put
@@ -65,6 +69,14 @@ REF_GARCH = RefGarch(
     corr_chol=np.linalg.cholesky(0.5 * np.eye(A) + 0.5),
     sigma2_0=np.array([1e-4, 2e-4, 1.5e-4, 3e-4]), eps2_0=np.array([1e-4, 2e-4, 3e-4, 1e-4]))
 GARCH = from_mcport(REF_GARCH)
+# the same universe under Heston: the GARCH parameters' means, their long-run
+# variances omega / (1 - alpha - beta) as theta and v0, the same correlation
+_LONG_RUN = REF_GARCH.omega / (1.0 - REF_GARCH.alpha - REF_GARCH.beta)
+REF_HESTON = RefHeston(
+    mu=REF_GARCH.mu, kappa=np.array([0.15, 0.1, 0.2, 0.15]), theta=_LONG_RUN,
+    xi=np.array([3e-3, 4e-3, 2e-3, 3e-3]), rho=np.array([-0.5, -0.4, -0.6, -0.5]),
+    v0=_LONG_RUN, corr_chol=REF_GARCH.corr_chol, s0=S0)
+HESTON = from_mcport(REF_HESTON)
 HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.02 + 0.002).astype(np.float32)
 ROWS = {0: [(RefLegType.BUY_ASSET, 0.0, 0.0, 1.0), (RefLegType.BUY_PUT, 95.0, 0.5, 1.0)],
         1: [(RefLegType.BUY_PUT, 45.0, 0.2, 1.0), (RefLegType.SELL_CALL, 56.0, 0.3, 1.0)]}
@@ -203,6 +215,12 @@ def _family_call(family, w, steps, **kw):
                 lambda: OG.garch_multi_dd_reference(6, g, w, 512, steps, hedge=BENCH,
                                                     with_bound=True, **kw),
                 lambda k, p: OG.garch_shares(k, p, g, steps, hedge=BENCH))
+    if family == "heston":
+        h = HESTON.tensors("cpu")
+        return (lambda: OHS.heston_multi_portfolio_dd(6, h, w, 512, steps, hedge=BENCH, **kw),
+                lambda: OHS.heston_multi_dd_reference(6, h, w, 512, steps, hedge=BENCH,
+                                                      with_bound=True, **kw),
+                lambda k, p: OHS.heston_shares(k, p, h, steps, hedge=BENCH))
     hist = torch.as_tensor(HISTORY)
     return (lambda: OB.bootstrap_multi_portfolio_dd(6, hist, w, 512, steps, 0.2, hedge=BENCH,
                                                     **kw),
@@ -212,7 +230,7 @@ def _family_call(family, w, steps, **kw):
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
-@pytest.mark.parametrize("family", ["garch", "bootstrap"])
+@pytest.mark.parametrize("family", ["garch", "bootstrap", "heston"])
 def test_hedged_price_bounds_reject_planted_faults(monkeypatch, family, fault):
     """The per-path bound (the plain form's ``with_bound``) rejects each
     planted fault by more than 2x on the bench hedge at 252 steps."""
@@ -245,6 +263,35 @@ def test_garch_price_bound_holds_returns_a_kernel_apart(steps):
     gen = torch.Generator().manual_seed(steps)
     moved = hedged_multi_dd(gross + 2e-6 * sigma * (2.0 * torch.rand(gross.shape, generator=gen)
                                                     - 1.0), BENCH, w, gross=True)
+    shares = OH.hedged_shares(moved, right, None)
+    assert 0.0 < max(shares.values()) <= 1.0, shares
+
+
+def _ulps_away(x: torch.Tensor, k: int, gen: torch.Generator) -> torch.Tensor:
+    """``x`` moved ``k`` float32 ulps up or down, the direction at random per
+    element."""
+    up = torch.rand(x.shape, generator=gen) < 0.5
+    target = torch.where(up, torch.full_like(x, math.inf), torch.full_like(x, -math.inf))
+    for _ in range(k):
+        x = torch.nextafter(x, target)
+    return x
+
+
+@pytest.mark.parametrize("steps", [16, 252])
+def test_heston_price_bound_holds_gross_factors_two_ulps_apart(steps):
+    """The Heston kernel's log increments are the plain form's bits; its
+    ``exp`` may sit 2 ulps from torch's. Gross factors ``exp(x)`` moved 2
+    ulps per step, in a random direction, stay within the per-path bound of
+    :func:`mcport_torch.ops.heston.heston_price_bound`."""
+    h = HESTON.tensors("cpu")
+    x = OHS.heston_increments(*OHS.heston_shocks(8, h, 512, steps), h)
+    gross = torch.exp(x)
+    w = _f32(np.random.default_rng(4).dirichlet(np.ones(A), 5))
+    right = hedged_multi_dd(x, BENCH, w, price_bound=OHS.heston_price_bound(h, steps))
+    assert all(torch.equal(a, b) for a, b in zip(hedged_multi_dd(gross, BENCH, w, gross=True),
+                                                 right[:2]))
+    gen = torch.Generator().manual_seed(steps)
+    moved = hedged_multi_dd(_ulps_away(gross, 2, gen), BENCH, w, gross=True)
     shares = OH.hedged_shares(moved, right, None)
     assert 0.0 < max(shares.values()) <= 1.0, shares
 

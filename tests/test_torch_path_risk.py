@@ -226,13 +226,10 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: run_resumable_path_risk("heston", None, W, CFG, hedge=object(), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, qmc="sobol"), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
     lambda: run_resumable_path_risk("dcc", DCC, W, CFG, hedge=object(), device="cpu"),
     lambda: run_resumable_path_risk_with_recovery("gbm", PARAMS, W, CFG),
-    lambda: family_drawdown_frontier_search(0, "heston", None, hedge=object(),
-                                            device="cpu"),
     lambda: family_drawdown_frontier_search(0, "dcc", DCC, hedge=object(), device="cpu"),
     lambda: path_tail_risk(object(), model="dcc", legs_by_asset={}, device="cpu"),
     lambda: run_dcc_path_risk(DCC, W, CFG, hedge=object(), device="cpu"),

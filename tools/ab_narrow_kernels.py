@@ -1,12 +1,21 @@
-"""Same-call A/B of two trees' unhedged GARCH and bootstrap candidate kernels
-(the narrow layouts, at 256 x 131,072 x 252 on the bench universe), timed
-with CUDA events in turns: other / this / this / other.
+"""Same-call A/B of two trees' unhedged candidate kernels in their narrow
+layouts (GARCH, bootstrap, Heston; at 256 x 131,072 x 252 on the bench
+universe) and the Heston terminal kernel (1,048,576 x 252), timed with CUDA
+events in turns: other / this / this / other. First, per library, whether
+each kernel of the other tree has this tree's instructions (``cuobjdump
+-sass``; a template parameter added with its default, ``<16>`` against
+``<16, false>``, names the same kernel, and kernel-parameter offsets
+``c[0x0][...]`` are masked, so an added parameter alone does not count as a
+change).
 
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
     python3 tools/ab_narrow_kernels.py DIR              # from the repository root
 
-Needs one card; builds both trees' libraries."""
+Needs one card; builds both trees' GARCH, bootstrap and Heston libraries."""
+import re
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -14,6 +23,7 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke as S
 
+FAMILIES = ("garch", "bootstrap", "heston")
 dev = torch.device("cuda", 0)
 print(S.phase_card())
 
@@ -23,31 +33,71 @@ def load(root):
         del sys.modules[m]
     sys.path.insert(0, root)
     import mcport_torch._build as B
-    B.build_libraries(("garch", "bootstrap"))
-    import mcport_torch.ops.garch as G
+    B.build_libraries(FAMILIES)
     import mcport_torch.ops.bootstrap as O
+    import mcport_torch.ops.garch as G
+    import mcport_torch.ops.heston as H
     sys.path.remove(root)
     mods = {m: v for m, v in sys.modules.items()
             if m == "mcport_torch" or m.startswith("mcport_torch.")}
-    return G, O, mods
+    return G, O, H, mods
+
+
+def sass(so: Path) -> dict:
+    """``{kernel key: [instruction, ...]}`` of a library, parameter offsets
+    masked; the key drops the anonymous namespace, a trailing ``false``
+    template argument and the parameter types."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    text = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    out, key = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            key = re.sub(r"_GLOBAL__N__\w+?_[0-9a-f]{8}", "", m.group(1))
+            key = re.sub(r"ELb0EE", "EE", re.sub(r"Ev\w*$", "", key))
+            out[key] = []
+        elif key and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+            ins = re.sub(r"/\*.*?\*/", "", line).strip()
+            out[key].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins))
+    return out
 
 
 mods = {"other": load(sys.argv[1]), "this": load(".")}
+for fam in FAMILIES:
+    libs = {}
+    for side, root in (("other", sys.argv[1]), ("this", ".")):
+        libs[side] = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.so"),
+                            key=lambda p: p.stat().st_mtime)[-1]
+    a, b = sass(libs["other"]), sass(libs["this"])
+    for key, ins in sorted(a.items()):
+        same = b.get(key) == ins
+        print(f"sass {fam} {key}: {len(ins)} instructions, "
+              f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}")
 cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(15), 256), dtype=torch.float32,
                        device=dev)
-pp = 131_072
+pp, p_term = 131_072, 1 << 20
 g = S.bench_garch().tensors(dev)
-h = torch.as_tensor(S.bench_history(), device=dev)
+hist = torch.as_tensor(S.bench_history(), device=dev)
+hp = S.bench_heston().tensors(dev)
 res = {}
 for order in ("other", "this", "this", "other"):
-    G, O, side = mods[order]
+    G, O, H, side = mods[order]
     sys.modules.update(side)   # the launchers import their own package's _build at call time
-    runs = (("garch_multi_dd <16>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1)),
-            ("garch_multi_dd <64>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1, wide=True)),
-            ("bootstrap_multi_dd", lambda: O.bootstrap_multi_portfolio_dd(0, h, cand, pp, 252)))
-    for name, fn in runs:
-        fn()
-        torch.cuda.synchronize()
-        res.setdefault((name, order), []).append(S._time_ms(fn, 5))
+    runs = {"garch": (("garch_multi_dd <16>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1)),
+                      ("garch_multi_dd <64>",
+                       lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1, wide=True))),
+            "bootstrap": (("bootstrap_multi_dd",
+                           lambda: O.bootstrap_multi_portfolio_dd(0, hist, cand, pp, 252)),),
+            "heston": (("heston_multi_dd <16>", lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1)),
+                       ("heston_multi_dd <64>",
+                        lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1, wide=True)),
+                       ("heston_terminal", lambda: H.heston_terminal(0, hp, p_term, 252)))}
+    for fam in FAMILIES:
+        for name, fn in runs[fam]:
+            fn()
+            torch.cuda.synchronize()
+            res.setdefault((name, order), []).append(S._time_ms(fn, 5))
 for (name, order), t in sorted(res.items()):
     print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
