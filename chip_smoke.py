@@ -152,33 +152,37 @@ ends:
    65 and 256, where Q and L leave shared memory) on the bench universe
    widened, against its plain form with today's bounds (the bootstrap's
    selection bit for bit, #3 at one candidate equal to #2, #8 at rate 0
-   equal to #3); the hedged #3, #5, #7, #8 and #10 at A = 65; and the main
-   paths at 65 assets (``path_tail_risk`` for all seven families,
+   equal to #3); the hedged #3, #5, #7, #8, #10 and #13 at A = 65; and the
+   main paths at 65 assets (``path_tail_risk`` for all seven families,
    ``compare_tail_risk``, ``gbm_risk``, a GBM frontier) with every wrapper's
-   wide count reset before and read after, then hedged Heston path risk and
-   a hedged Heston frontier at 65 assets with the hedged count reset before
-   and read after, each launch against the plain form over a head and a
-   tail slice;
-23. the hedged modes of #5, #7 and #10 against their plain forms path by
-   path (``ops.garch.garch_shares``, ``ops.bootstrap.bootstrap_shares`` and
-   ``ops.heston.heston_shares`` with the hedge): 1-3 legs of every type, W
-   in {1, 13, 256}, the bootstrap on shared-memory and 8,192-row histories,
-   one-hot bootstrap candidates bit for bit, an identity hedge against the
-   unhedged mode (Heston's also at a Feller-violating vol of vol), hedged
-   #10 on the bench hedge at A = 15, 17, 64, 65 and 200 and 16, 52 and 252
-   steps, and every hedged launch of phase 24 over a head and a tail slice
-   of each block's paths;
-24. the hedged GARCH, Heston and bootstrap main paths with the bench hedge:
-   path risk at both cells with split + resume, ``path_tail_risk`` for the
-   three, the three hedged frontiers at 4,096 x 131,072 x 252 and at 52
-   steps (optima against the plain forms), and the CLI's ``path-risk
-   --hedge`` and ``dd-frontier --hedge`` for the three on the weekly
-   fixtures; counts reset before and read after;
-25. the hedged #5, #7 and #10 timed at 256 x 131,072 x 252 beside their
-   unhedged modes, plain forms and the score product as one
-   ``torch.matmul`` per step; each kernel's wide layout at A = 200 (DCC 256)
-   beside its plain form, hedged #10's too; every new entry's least time
-   from the work its function needs.
+   wide count reset before and read after, then hedged Heston and hedged
+   DCC path risk and frontiers at 65 assets with the hedged counts reset
+   before and read after, each launch against the plain form over a head
+   and a tail slice;
+23. the hedged modes of #5, #7, #10 and #13 against their plain forms path
+   by path (``ops.garch.garch_shares``, ``ops.bootstrap.bootstrap_shares``,
+   ``ops.heston.heston_shares`` and ``ops.dcc.dcc_shares`` with the hedge;
+   DCC's bound ``dcc_price_bound`` from each path's own volatility and
+   condition): 1-3 legs of every type, W in {1, 13, 256}, the bootstrap on
+   shared-memory and 8,192-row histories, one-hot bootstrap candidates bit
+   for bit, an identity hedge against the unhedged mode (Heston's also at a
+   Feller-violating vol of vol), hedged #10 on the bench hedge at A = 15,
+   17, 64, 65 and 200 and 16, 52 and 252 steps, hedged #13 at A = 15, 16,
+   17, 64, 65 and 256 and 16 and 52 steps (252 up to 16 assets) and at W =
+   5 and 257, deep puts that overflow #13's wealth, and every hedged launch
+   of phase 24 over a head and a tail slice of each block's paths;
+24. the hedged GARCH, Heston, bootstrap and DCC main paths with the bench
+   hedge: path risk at both cells with split + resume, ``path_tail_risk``
+   for the four, the four hedged frontiers at 4,096 x 131,072 x 252 and at
+   52 steps with budgets that bind (optima against the plain forms), and
+   the CLI's ``path-risk --hedge`` and ``dd-frontier --hedge`` for the four
+   on the weekly fixtures; counts reset before and read after;
+25. the hedged #5, #7 and #10 timed at 256 x 131,072 x 252 and #13 at 256 x
+   131,072 x 52 beside their unhedged modes, plain forms and the score
+   product as one ``torch.matmul`` per step; each kernel's wide layout at A
+   = 200 (DCC 256) beside its plain form, hedged #10's (A = 200) and #13's
+   (A = 256) beside their unhedged modes; every new entry's least time from
+   the work its function needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -1098,7 +1102,7 @@ def phase_path_timing(dev) -> dict:
     def plain2():
         _plain_path_stats(0, mean, chol, w, LAW_PATHS, N_STEPS)
 
-    kernel2(), plain2()
+    kernel2()
     torch.cuda.synchronize()
     p1, k1, k2 = _time_ms(plain2, 1), _time_ms(kernel2, 10), _time_ms(kernel2, 10)
     ms, plain_ms = (k1 + k2) / 2, p1
@@ -1127,8 +1131,7 @@ def phase_path_timing(dev) -> dict:
         ms = (k1 + k2) / 2
         line = (f"phase8 timing multi_dd {n_cand} x {pp} x {N_STEPS} score={sd}: kernel "
                 f"{k1:.3f} / {k2:.3f} ms ({work / ms * 1e3:.4e} cand-path-steps/s)")
-        if sd == "float32":  # the plain form (float32) between the kernel's two timings
-            plain3()
+        if sd == "float32":  # the plain form (float32), its first call, after the kernel's
             p1 = _time_ms(plain3, 1)
             line += f", plain {p1:.1f} ms"
             res["multi_dd"] = (ms, p1)
@@ -1179,9 +1182,10 @@ def _family_kernels():
                                      bootstrap_terminal, bootstrap_multi_portfolio_dd)))
 
 
-def _slices(n_paths: int) -> list[int]:
-    """First paths of the slices the plain forms re-run: the head and the tail."""
-    return sorted({0, max(0, n_paths - SLICE)})
+def _slices(n_paths: int, m: int | None = None) -> list[int]:
+    """First paths of the slices the plain forms re-run, ``m`` paths each
+    (``SLICE``): the head and the tail."""
+    return sorted({0, max(0, n_paths - (SLICE if m is None else m))})
 
 
 def family_launches(dev) -> list[dict]:
@@ -1678,9 +1682,10 @@ def phase_family_timing(dev) -> dict:
     }
     res = {}
     for name, (kern, plain, work, reps) in runs.items():
-        kern(), plain()
+        kern()
         torch.cuda.synchronize()
-        # the plain form once, after its warm-up: a yardstick of arithmetic
+        # the plain form once, its first call (a warm-up would double the
+        # phase's time): a yardstick of arithmetic
         p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
         ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
@@ -2241,9 +2246,10 @@ def phase_family2_timing(dev) -> dict:
     }
     res = {}
     for name, (kern, plain, work, reps) in runs.items():
-        kern(), plain()
+        kern()
         torch.cuda.synchronize()
-        # the plain form once, after its warm-up: a yardstick of arithmetic
+        # the plain form once, its first call (a warm-up would double the
+        # phase's time): a yardstick of arithmetic
         p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
         ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if "multi" in name else "path-steps/s"
@@ -2690,9 +2696,10 @@ def phase_dcc_timing(dev) -> dict:
     }
     res = {}
     for name, (kern, plain, work, reps) in runs.items():
-        kern(), plain()
+        kern()
         torch.cuda.synchronize()
-        # the plain form once, after its warm-up: a yardstick of arithmetic
+        # the plain form once, its first call (a warm-up would double the
+        # phase's time): a yardstick of arithmetic
         p1, k1, k2 = _time_ms(plain, 1), _time_ms(kern, reps), _time_ms(kern, reps)
         ms, plain_ms = (k1 + k2) / 2, p1
         unit = "cand-path-steps/s" if name == "dcc_dd" else "path-steps/s"
@@ -3207,8 +3214,9 @@ def phase_hedged_tier(dev) -> dict:
             key, cfg = f"{m} {steps}", dict(FRONTIER, n_steps=steps)
             if steps == N_STEPS:
                 budget[key] = round(-reports[f"{m} default"].dd_p95 + 0.01, 4)
-            else:
-                budget[key] = round(-float(np.median(run(**dict(cfg, dd_budget=1.0)).dd_p95)), 4)
+            else:   # the median candidate's, over those whose wealth stays finite
+                q = run(**dict(cfg, dd_budget=1.0)).dd_p95
+                budget[key] = round(-float(np.median(q[np.isfinite(q)])), 4)
             frontier[key], wall[f"frontier {key}"] = walls(run, **dict(cfg, dd_budget=budget[key]))
     hedged_tail, t_wall = {}, {}
     for m in ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap"):
@@ -3517,9 +3525,17 @@ WIDE_TIMING = dict(p=65_536, pp=8_192, n=52)   # phase 25 at A = 200 (DCC: 4,096
 WIDE_KERNELS = ("terminal_noise", "path_stats", "multi_dd", "merton_multi_dd",
                 "garch_terminal", "garch_multi_dd", "bootstrap_terminal", "bootstrap_multi_dd",
                 "heston_terminal", "heston_multi_dd", "dcc_terminal", "dcc_dd")
-FAMILY_HEDGED = ("garch_multi_dd_hedged", "bootstrap_multi_dd_hedged", "heston_multi_dd_hedged")
+FAMILY_HEDGED = ("garch_multi_dd_hedged", "bootstrap_multi_dd_hedged", "heston_multi_dd_hedged",
+                 "dcc_dd_hedged")
+#: each family's hedged kernel
+HEDGED_KERNEL = {"garch": "garch_multi_dd_hedged", "bootstrap": "bootstrap_multi_dd_hedged",
+                 "heston": "heston_multi_dd_hedged", "dcc": "dcc_dd_hedged"}
 HESTON_HEDGED_A = (15, 17, 64, 65, 200)   # <16>, <64>, <64>, HestonWide, HestonWide
 HESTON_HEDGED_STEPS = (16, 52, N_STEPS)
+# hedged #13: <true> at 15 and 16, dcc_wide_kernel at 17 and 64, dcc_wider_kernel at
+# 65 and 256 (Q and L in device memory); 16 and 52 steps, and 252 where A <= 16
+DCC_HEDGED_A = (15, 16, 17, 64, 65, 256)
+DCC_HEDGED_PATHS = {65: 1_024, 256: 128}   # paths per block past 64: the plain form costs A^3
 
 
 def _wide_wrappers() -> dict:
@@ -3706,7 +3722,7 @@ def phase_wide_any(dev) -> tuple[dict, dict, dict]:
         k, p = kern(), plain()
         err = _hedged_report("phase22", name, f"A={a} L=2 W=64 2 blocks x 60", k, p,
                              shares(k, p))
-        hw[name + (" wide" if name == "heston_multi_dd_hedged" else "")] = err
+        hw[name + (" wide" if name in ("heston_multi_dd_hedged", "dcc_dd_hedged") else "")] = err
     mean, chol = (torch.as_tensor(x, device=dev) for x in bench_universe(a))
     w = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 64),
                         dtype=torch.float32, device=dev)
@@ -3754,65 +3770,74 @@ def phase_wide_any(dev) -> tuple[dict, dict, dict]:
                                     for v in compare.values()),
           "compare_tail_risk reports seven families at 65 assets")
     check(risk.cvar <= risk.var and front.opt_idx >= 0, "gbm_risk and the frontier at 65")
-    launches["heston_multi_dd_hedged"] = _hedged_heston_at_65(dev, hw)
+    for model in ("heston", "dcc"):
+        launches[HEDGED_KERNEL[model]] = _hedged_at_65(dev, hw, model)
     return worst, launches, hw
 
 
-def _hedged_heston_at_65(dev, worst: dict) -> int:
-    """Hedged Heston at 65 assets through its main paths, the bench hedge on
-    assets 0 and 1 at the parameters' spots: ``run_heston_path_risk`` at the
-    default cell (52 steps) and a 256 x 16,384 x 52 hedged frontier, the
-    hedged count reset just before and read just after (every launch at 65
-    assets runs ``HestonWide<true, true>``); then each launch against the
-    plain form over a head and a tail slice. Returns the hedged launches."""
+def _hedged_at_65(dev, worst: dict, model: str) -> int:
+    """Hedged Heston or DCC at 65 assets through its main paths, the bench
+    hedge on assets 0 and 1 at spot 100 (Heston's parameters' own): path
+    risk at the default cell and a 256 x 16,384 hedged frontier, 52 steps
+    (DCC 16: its plain form costs A^3 per step), the hedged count reset just
+    before and read just after (every launch at 65 assets runs the wide
+    layout's hedged mode: ``HestonWide<true, true>``, ``dcc_wider_kernel<true,
+    true, true>``); then each launch against the plain form over a head and a
+    tail slice (DCC's 1,024 paths). Returns the hedged launches."""
     from mcport_torch.config import GBMConfig
     from mcport_torch.engine.drawdown_frontier import (family_drawdown_frontier_search,
                                                        frontier_seeds)
-    from mcport_torch.engine.path_risk import run_heston_path_risk
+    from mcport_torch.engine.path_risk import run_dcc_path_risk, run_heston_path_risk
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
     from mcport_torch.ops.dirichlet import sample_weights
     from mcport_torch.ops.heston import heston_multi_portfolio_dd
 
-    a = WIDE_A[0]
-    params = bench_heston(a)
+    a, kernel = WIDE_A[0], HEDGED_KERNEL[model]
     spot = np.full(a, SPOT)
+    if model == "heston":
+        params, run, wrapper, steps, piece = (bench_heston(a), run_heston_path_risk,
+                                              heston_multi_portfolio_dd, DCC_STEPS, SLICE)
+        spots = {}
+    else:
+        params, run, wrapper, steps, piece = (bench_dcc(a), run_dcc_path_risk,
+                                              dcc_multi_portfolio_dd, 16, 1_024)
+        spots = dict(s0=spot)
     _, spec = bench_hedge(spot)
     w = np.full(a, 1.0 / a)
-    cfg = GBMConfig(n_steps=DCC_STEPS)
-    front_kw = dict(dd_budget=1.0, n_candidates=256, n_paths=16_384, n_steps=DCC_STEPS)
-    heston_multi_portfolio_dd.hedged_launches = 0
+    cfg = GBMConfig(n_steps=steps)
+    front_kw = dict(dd_budget=1.0, n_candidates=256, n_paths=16_384, n_steps=steps)
+    wrapper.hedged_launches = 0
     t0 = time.perf_counter()
-    rep = run_heston_path_risk(params, w, cfg, hedge=spec, device=dev)
-    front = family_drawdown_frontier_search(FRONTIER_SEED, "heston", params, hedge=spec, s0=spot,
+    rep = run(params, w, cfg, hedge=spec, device=dev, **spots)
+    front = family_drawdown_frontier_search(FRONTIER_SEED, model, params, hedge=spec, s0=spot,
                                             device=dev, **front_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    n = heston_multi_portfolio_dd.hedged_launches
-    print(f"phase22 hedged Heston at {a} assets: path risk {cfg.n_paths} x {cfg.n_steps} "
+    n = wrapper.hedged_launches
+    print(f"phase22 hedged {model} at {a} assets: path risk {cfg.n_paths} x {cfg.n_steps} "
           f"var={rep.var:.6f} dd_p95={rep.dd_p95:.6f}, frontier 256 x 16,384 opt="
           f"{front.opt_idx}, in {wall:.2f} s; hedged (wide) launches {n}")
     check(n > 0 and rep.cvar <= rep.var and -1.0 <= rep.dd_p95 <= 0.0 and front.opt_idx >= 0,
-          "hedged Heston at 65 assets went through HestonWide's hedged mode")
+          f"hedged {model} at 65 assets went through its wide layout's hedged mode")
     path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, 256, np.zeros(a), np.ones(a))
-    h = params.tensors(dev)
+    src = params.tensors(dev)
     for what, launch in (
-            ("path risk default", dict(kernel="heston_multi_dd_hedged", seed=cfg.seed,
-                                       n=cfg.path_block, w=w[None], first_block=0,
+            ("path risk default", dict(kernel=kernel, seed=cfg.seed, n=cfg.path_block,
+                                       w=w[None], first_block=0,
                                        n_blocks=cfg.n_paths // cfg.path_block)),
-            ("frontier", dict(kernel="heston_multi_dd_hedged", seed=path_seed,
-                              n=front_kw["n_paths"], w=cand))):
-        launch.update(src=h, s0=spot, steps=DCC_STEPS)
+            ("frontier", dict(kernel=kernel, seed=path_seed, n=front_kw["n_paths"], w=cand))):
+        launch.update(src=src, s0=spot, steps=steps)
         kk = _family_hedged_call(launch, dev, plain=False)
-        for p0 in _slices(launch["n"]):
-            m = min(SLICE, launch["n"])
+        m = min(piece, launch["n"])
+        for p0 in _slices(launch["n"], m):
             part = (kk[0][..., p0:p0 + m], kk[1][..., p0:p0 + m])
             p = _family_hedged_call(launch, dev, plain=True, n=m, first_path=p0)
-            err = _hedged_report("phase22", "heston_multi_dd_hedged wide",
+            err = _hedged_report("phase22", f"{kernel} wide",
                                  f"A={a} {what} paths {p0}..{p0 + m - 1}", part, p,
                                  _family_hedged_shares(launch, part, p, dev))
-            worst["heston_multi_dd_hedged wide"] = max(
-                worst.get("heston_multi_dd_hedged wide", 0.0), err)
+            worst[f"{kernel} wide"] = max(worst.get(f"{kernel} wide", 0.0), err)
     return n
 
 
@@ -3843,9 +3868,10 @@ def _hedged_report(prefix, name, what, kern, plain, shares) -> float:
 
 def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=None, nb=2):
     """``{name: (kernel(), plain(), shares(k, p))}`` of the hedged GARCH,
-    bootstrap and Heston modes at ``a`` assets, with the plain forms'
+    bootstrap, Heston and DCC modes at ``a`` assets, with the plain forms'
     per-path bound."""
     from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
     from mcport_torch.ops import heston as H
 
@@ -3853,7 +3879,7 @@ def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=No
         w = torch.as_tensor(np.random.default_rng(w_cnt).dirichlet(np.ones(a), w_cnt),
                             dtype=torch.float32, device=dev)
     kw = dict(first_block=6, n_blocks=nb, hedge=hedge)
-    g, h = bench_garch(a).tensors(dev), bench_heston(a).tensors(dev)
+    g, h, d = bench_garch(a).tensors(dev), bench_heston(a).tensors(dev), bench_dcc(a).tensors(dev)
     hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (rows, a)),
                            dtype=torch.float32, device=dev)
     return {"garch_multi_dd_hedged": (
@@ -3868,15 +3894,19 @@ def _family_hedged_calls(a, dev, hedge, n, steps, w_cnt, rows=365, seed=11, w=No
             "heston_multi_dd_hedged": (
                 lambda: H.heston_multi_portfolio_dd(seed, h, w, n, steps, **kw),
                 lambda: H.heston_multi_dd_reference(seed, h, w, n, steps, with_bound=True, **kw),
-                lambda k, p: H.heston_shares(k, p, h, steps, hedge=hedge))}
+                lambda k, p: H.heston_shares(k, p, h, steps, hedge=hedge)),
+            "dcc_dd_hedged": (
+                lambda: D.dcc_multi_portfolio_dd(seed, d, w, n, steps, **kw),
+                lambda: D.dcc_multi_dd_reference(seed, d, w, n, steps, with_bound=True, **kw),
+                lambda k, p: D.dcc_shares(k, p, d, steps, hedge=hedge))}
 
 
 def family_hedged_launches(dev) -> list[dict]:
-    """Every distinct hedged launch of kernels #5, #7 and #10 that phase 24
-    makes through the API (the CLI's run on the fixtures is checked by its
+    """Every distinct hedged launch of kernels #5, #7, #10 and #13 that phase
+    24 makes through the API (the CLI's run on the fixtures is checked by its
     counts): path risk at both cells, path_tail_risk (parameters estimated
     from ``bench_prices``, spots its last prices) and every 256-candidate
-    chunk of the three frontiers at 252 and 52 steps."""
+    chunk of the four frontiers at 252 and 52 steps."""
     from mcport_torch.config import GBMConfig
     from mcport_torch.engine.drawdown_frontier import frontier_seeds
     from mcport_torch.models.garch_mc import estimate_ccc_garch
@@ -3885,7 +3915,7 @@ def family_hedged_launches(dev) -> list[dict]:
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
     heston = bench_heston().tensors(dev)   # spots 100: SPOT, the run's default s0
     srcs = (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist),
-            ("heston_multi_dd_hedged", heston))
+            ("heston_multi_dd_hedged", heston), ("dcc_dd_hedged", bench_dcc().tensors(dev)))
     w = bench_weights()[None]
     spot = np.full(N_ASSETS, SPOT)
     out = []
@@ -3905,6 +3935,8 @@ def family_hedged_launches(dev) -> list[dict]:
                     **tail))
     out.append(dict(kernel="heston_multi_dd_hedged", what="path_tail_risk heston",
                     src=fitted_families()["heston"].tensors(dev), **tail))
+    out.append(dict(kernel="dcc_dd_hedged", what="path_tail_risk dcc",
+                    src=fitted_dcc()["dcc"].tensors(dev), **tail))
     path_seed, weight_seed = frontier_seeds(FRONTIER_SEED)
     gen = torch.Generator(device=dev).manual_seed(weight_seed)
     cand, _ = sample_weights(gen, FRONTIER["n_candidates"], np.zeros(N_ASSETS),
@@ -3924,6 +3956,7 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
     plain form over ``n`` paths from ``first_path`` (with its per-path bound
     unless ``bound`` is false)."""
     from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
     from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
@@ -3945,6 +3978,10 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
             return H.heston_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
                                                **kw)
         return H.heston_multi_portfolio_dd(*args, **kw)
+    if launch["kernel"] == "dcc_dd_hedged":
+        if plain:
+            return D.dcc_multi_dd_reference(*args, first_path=first_path, with_bound=bound, **kw)
+        return D.dcc_multi_portfolio_dd(*args, **kw)
     if plain:
         return B.bootstrap_multi_dd_reference(*args, first_path=first_path, with_bound=bound,
                                               **kw)
@@ -3953,6 +3990,7 @@ def _family_hedged_call(launch, dev, plain: bool, n=None, first_path=0, bound=Tr
 
 def _family_hedged_shares(launch, kern, plain, dev):
     from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
     from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
@@ -3963,27 +4001,34 @@ def _family_hedged_shares(launch, kern, plain, dev):
         return G.garch_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
     if launch["kernel"] == "heston_multi_dd_hedged":
         return H.heston_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
+    if launch["kernel"] == "dcc_dd_hedged":
+        return D.dcc_shares(kern, plain, launch["src"], launch["steps"], hedge=hedge)
     w = torch.as_tensor(launch["w"], dtype=torch.float32, device=dev)
     return B.bootstrap_shares(kern, plain, launch["src"], w, launch["steps"], hedge=hedge)
 
 
 def phase_family_hedged_kernels(dev) -> dict:
-    """Phase 23: the hedged modes of kernels #5, #7 and #10 against their
-    plain forms, path by path to the per-path bound
+    """Phase 23: the hedged modes of kernels #5, #7, #10 and #13 against
+    their plain forms, path by path to the per-path bound
     (``ops.garch.garch_price_bound``, ``ops.bootstrap.bootstrap_price_bound``:
     the bootstrap's prices are the plain form's bit for bit;
-    ``ops.heston.heston_price_bound``): 1-3 legs of every type, W in {1, 13,
-    256}, the bootstrap on a 365-row history (shared memory) and an 8,192-row
-    one (device memory); one-hot bootstrap candidates bit for bit; an
-    identity hedge against the unhedged mode (Heston's at the bench's vol of
-    vol and a Feller-violating one, where a variance path one ulp off would
-    leave the bound); hedged #10 on the bench hedge at every width
-    (``HESTON_HEDGED_A``) at 16, 52 and 252 steps; then every hedged launch of
-    phase 24 over a head and a tail slice of each block's paths. The GARCH
-    candidate kernel draws normal shocks only, as mcport's does. Returns each
-    kernel's worst |kernel - plain| (hedged #10 past 64 assets under
-    ``"heston_multi_dd_hedged wide"``)."""
+    ``ops.heston.heston_price_bound``; ``ops.dcc.dcc_price_bound``, from each
+    path's own volatility and condition): 1-3 legs of every type, W in {1,
+    13, 256}, the bootstrap on a 365-row history (shared memory) and an
+    8,192-row one (device memory); one-hot bootstrap candidates bit for bit;
+    an identity hedge against the unhedged mode (Heston's at the bench's vol
+    of vol and a Feller-violating one, where a variance path one ulp off
+    would leave the bound); hedged #10 on the bench hedge at every width
+    (``HESTON_HEDGED_A``) at 16, 52 and 252 steps, hedged #13 at every width
+    (``DCC_HEDGED_A``) at 16 and 52 steps and 252 up to 16 assets, and at W =
+    5 and 257 (past one launch); deep puts that overflow #13's wealth; then
+    every hedged launch of phase 24 over a head and a tail slice of each
+    block's paths. The GARCH candidate kernel draws normal shocks only, as
+    mcport's does. Returns each kernel's worst |kernel - plain| (hedged #10
+    and #13 past 64 assets under ``"heston_multi_dd_hedged wide"`` and
+    ``"dcc_dd_hedged wide"``)."""
     from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
     from mcport_torch.ops import heston as H
     from mcport_torch.ops.hedged import HedgeTensors
@@ -4019,30 +4064,57 @@ def phase_family_hedged_kernels(dev) -> dict:
     print(f"phase23 bootstrap hedged one-hot candidates, L=3 {MDD_PATHS} x {N_STEPS}: the "
           f"plain form bit for bit={same}")
     check(same, "the hedged bootstrap's prices and settlement are the plain form's")
-    # hedged #10 at every width on the bench hedge (spot 100), 16, 52 and 252
-    # steps: <16> at 15, <64> at 17 and 64, HestonWide at 65 and 200
-    top = 0.0
-    for a in HESTON_HEDGED_A:
-        spot = np.full(a, SPOT)
-        hedge = HedgeTensors.from_spec(bench_hedge(spot)[1], spot, dev)
-        for steps in HESTON_HEDGED_STEPS:
-            kern, plain, shares = _family_hedged_calls(a, dev, hedge, MDD_PATHS, steps,
-                                                       64)["heston_multi_dd_hedged"]
-            k, p = kern(), plain()
-            sh = shares(k, p)
-            top = max(top, *sh.values())
-            err = _hedged_report("phase23", "heston_multi_dd_hedged",
-                                 f"bench hedge A={a} W=64 {MDD_PATHS}x2 x {steps}", k, p, sh)
-            keep("heston_multi_dd_hedged" + (" wide" if a > 64 else ""), err)
-            del k, p
-    print(f"phase23 hedged #10 on the bench hedge at A = {HESTON_HEDGED_A}: the largest share "
-          f"of heston_price_bound's per-path bound {top:.4f}")
+    # hedged #10 and #13 at every width on the bench hedge (spot 100): #10
+    # <16> at 15, <64> at 17 and 64, HestonWide at 65 and 200; #13 as
+    # DCC_HEDGED_A says
+    for name, widths, bound in (("heston_multi_dd_hedged", HESTON_HEDGED_A, "heston_price_bound"),
+                                ("dcc_dd_hedged", DCC_HEDGED_A, "dcc_price_bound")):
+        top = 0.0
+        for a in widths:
+            spot = np.full(a, SPOT)
+            hedge = HedgeTensors.from_spec(bench_hedge(spot)[1], spot, dev)
+            n = MDD_PATHS if name.startswith("heston") else DCC_HEDGED_PATHS.get(a, MDD_PATHS)
+            steps_all = (HESTON_HEDGED_STEPS if name.startswith("heston")
+                         else (16, DCC_STEPS) + ((N_STEPS,) if a <= 16 else ()))
+            for steps in steps_all:
+                kern, plain, shares = _family_hedged_calls(a, dev, hedge, n, steps, 64)[name]
+                k, p = kern(), plain()
+                sh = shares(k, p)
+                top = max(top, *sh.values())
+                err = _hedged_report("phase23", name, f"bench hedge A={a} W=64 {n}x2 x {steps}",
+                                     k, p, sh)
+                keep(name + (" wide" if a > 64 else ""), err)
+                del k, p
+        print(f"phase23 {name} on the bench hedge at A = {widths}: the largest share of "
+              f"{bound}'s per-path bound {top:.4f}")
+    # hedged #13 past one launch's 256 candidates, and deep in-the-money puts
+    # settled every step, which overflow the wealth on both sides
+    spot = np.full(N_ASSETS, SPOT)
+    hedge = HedgeTensors.from_spec(bench_hedge(spot)[1], spot, dev)
+    for n_cand in (5, 257):
+        kern, plain, shares = _family_hedged_calls(N_ASSETS, dev, hedge, MDD_PATHS, DCC_STEPS,
+                                                   n_cand)["dcc_dd_hedged"]
+        k, p = kern(), plain()
+        keep("dcc_dd_hedged", _hedged_report("phase23", "dcc_dd_hedged", f"bench hedge "
+                                             f"W={n_cand} {MDD_PATHS}x2 x {DCC_STEPS}", k, p,
+                                             shares(k, p)))
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    puts = HedgeTensors(f(np.full(N_ASSETS, 100.0)),
+                        torch.full((N_ASSETS, 2), 4, dtype=torch.int32, device=dev),
+                        f(np.full((N_ASSETS, 2), 99.0)), f(np.zeros((N_ASSETS, 2))),
+                        f(np.full((N_ASSETS, 2), 3.0)))
+    kern, plain, shares = _family_hedged_calls(N_ASSETS, dev, puts, 2_053, N_STEPS, 13,
+                                               nb=1)["dcc_dd_hedged"]
+    k, p = kern(), plain()
+    _hedged_report("phase23", "dcc_dd_hedged", f"deep puts W=13 2053 x {N_STEPS}", k, p,
+                   shares(k, p))
+    check(int((~torch.isfinite(p[0])).sum()) > 0, "hedged #13 carries overflowed wealth")
     # an identity hedge (one BUY_ASSET leg per asset) is the unhedged mode
     ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(N_ASSETS)]),
                                    np.linspace(10.0, 200.0, N_ASSETS), dev)
     w = torch.as_tensor(np.random.default_rng(3).dirichlet(np.ones(N_ASSETS), 256),
                         dtype=torch.float32, device=dev)
-    g = bench_garch().tensors(dev)
+    g, d = bench_garch().tensors(dev), bench_dcc().tensors(dev)
     hs = {xi: bench_heston(xi=xi).tensors(dev) for xi in (3e-3, FELLER_XI)}
 
     def heston_identity(h):
@@ -4065,7 +4137,12 @@ def phase_family_hedged_kernels(dev) -> dict:
              lambda: B.bootstrap_multi_portfolio_dd(5, hist, w, MDD_PATHS, N_STEPS),
              lambda: B.bootstrap_multi_dd_reference(5, hist, w, MDD_PATHS, N_STEPS, hedge=ident,
                                                     with_bound=True)[2],
-             lambda h, r: B.bootstrap_shares(h, r, hist, w, N_STEPS, hedge=ident))):
+             lambda h, r: B.bootstrap_shares(h, r, hist, w, N_STEPS, hedge=ident)),
+            ("dcc", lambda: D.dcc_multi_portfolio_dd(5, d, w, MDD_PATHS, N_STEPS, hedge=ident),
+             lambda: D.dcc_multi_portfolio_dd(5, d, w, MDD_PATHS, N_STEPS),
+             lambda: D.dcc_multi_dd_reference(5, d, w, MDD_PATHS, N_STEPS, hedge=ident,
+                                              with_bound=True)[2],
+             lambda h, r: D.dcc_shares(h, r, d, N_STEPS, hedge=ident))):
         h, r = kern(), unh()
         sh = shares(h, (*r, bnd()))
         print(f"phase23 {name} identity hedge vs the unhedged mode, W=256 {MDD_PATHS} x "
@@ -4089,12 +4166,12 @@ def phase_family_hedged_kernels(dev) -> dict:
 
 
 def _fixture_cli_family_hedged(dev, tmp: Path) -> dict:
-    """``path-risk --hedge --models garch,bootstrap,heston`` and
-    ``dd-frontier --model garch|bootstrap|heston --hedge`` on the weekly
+    """``path-risk --hedge --models garch,bootstrap,heston,dcc`` and
+    ``dd-frontier --model garch|bootstrap|heston|dcc --hedge`` on the weekly
     fixtures, 52 weekly steps; each command's JSON."""
-    runs = {"path-risk --hedge": ["path-risk", "--models", "garch,bootstrap,heston", "--paths",
-                                  str(CLI_PATHS), "--steps", "52"]}
-    for m in ("garch", "bootstrap", "heston"):
+    runs = {"path-risk --hedge": ["path-risk", "--models", "garch,bootstrap,heston,dcc",
+                                  "--paths", str(CLI_PATHS), "--steps", "52"]}
+    for m in ("garch", "bootstrap", "heston", "dcc"):
         runs[f"dd-frontier --model {m} --hedge"] = [
             "dd-frontier", "--model", m, "--candidates", str(CLI_FRONTIER[0]), "--paths",
             str(CLI_FRONTIER[1]), "--steps", "52", "--dd-budget", "1.0"]
@@ -4102,20 +4179,23 @@ def _fixture_cli_family_hedged(dev, tmp: Path) -> dict:
 
 
 def phase_family_hedged_tier(dev) -> dict:
-    """Phase 24, the hedged GARCH, Heston and bootstrap main paths with the
-    bench hedge (a married put on asset 0 and a collar on asset 1, spot 100,
-    Heston's default spots): path risk at both cells with split + resume,
-    path_tail_risk for the three families, the three hedged frontiers at
-    4,096 x 131,072 x 252 and at 52 steps, and the CLI's hedged path-risk and
-    dd-frontier for the three on the fixtures; the hedged counts reset before
-    and read after; then the drawdown quantiles and each frontier's optimum
-    against the plain forms."""
+    """Phase 24, the hedged GARCH, Heston, bootstrap and DCC main paths with
+    the bench hedge (a married put on asset 0 and a collar on asset 1, spot
+    100, Heston's default spots): path risk at both cells with split +
+    resume, path_tail_risk for the four families, the four hedged frontiers
+    at 4,096 x 131,072 x 252 and at 52 steps, each with a budget that binds,
+    and the CLI's hedged path-risk and dd-frontier for the four on the
+    fixtures; the hedged counts reset before and read after; then the
+    drawdown quantiles and each frontier's optimum against the plain
+    forms."""
     from mcport_torch.api import path_tail_risk
     from mcport_torch.config import Config
     from mcport_torch.engine.drawdown_frontier import family_drawdown_frontier_search
-    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
-                                               run_heston_path_risk, run_resumable_path_risk)
+    from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_dcc_path_risk,
+                                               run_garch_path_risk, run_heston_path_risk,
+                                               run_resumable_path_risk)
     from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
     from mcport_torch.ops.garch import garch_multi_portfolio_dd
     from mcport_torch.ops.heston import heston_multi_portfolio_dd
 
@@ -4127,9 +4207,11 @@ def phase_family_hedged_tier(dev) -> dict:
     tail_legs, _ = bench_hedge(prices.prices[-1])
     counted = {"garch_multi_dd_hedged": garch_multi_portfolio_dd,
                "bootstrap_multi_dd_hedged": bootstrap_multi_portfolio_dd,
-               "heston_multi_dd_hedged": heston_multi_portfolio_dd}
+               "heston_multi_dd_hedged": heston_multi_portfolio_dd,
+               "dcc_dd_hedged": dcc_multi_portfolio_dd}
     models = (("garch", run_garch_path_risk, params), ("bootstrap", run_bootstrap_path_risk, hist),
-              ("heston", run_heston_path_risk, heston))
+              ("heston", run_heston_path_risk, heston), ("dcc", run_dcc_path_risk, bench_dcc()))
+    fitted_dcc()   # the DCC estimation of path_tail_risk, once, outside its wall
 
     def timed(fn, *a, **kw):
         torch.cuda.synchronize()
@@ -4157,7 +4239,7 @@ def phase_family_hedged_tier(dev) -> dict:
             resumes[key] = run_resumable_path_risk(model, src, w, g, hedge=spec,
                                                    checkpoint=part, device=dev, **kw), part
     tails = {m: timed(path_tail_risk, prices, None, Config(), model=m, legs_by_asset=tail_legs,
-                      device=dev) for m in ("garch", "bootstrap", "heston")}
+                      device=dev) for m in ("garch", "bootstrap", "heston", "dcc")}
     frontier, budget = {}, {}
     for steps in HEDGED_FRONTIER_STEPS:
         for m, _, src in models:
@@ -4169,15 +4251,16 @@ def phase_family_hedged_tier(dev) -> dict:
 
             if steps == N_STEPS:
                 budget[key] = round(-reports[f"{m} default"].dd_p95 + 0.01, 4)
-            else:
-                budget[key] = round(-float(np.median(run(**dict(cfg, dd_budget=1.0)).dd_p95)), 4)
+            else:   # the median candidate's, over those whose wealth stays finite
+                q = run(**dict(cfg, dd_budget=1.0)).dd_p95
+                budget[key] = round(-float(np.median(q[np.isfinite(q)])), 4)
             frontier[key], wall[f"frontier {key}"] = walls(run, **dict(cfg, dd_budget=budget[key]))
     with tempfile.TemporaryDirectory() as tmp:
         cli, cli_wall = timed(_fixture_cli_family_hedged, dev, Path(tmp))
     launches = {name: fn.hedged_launches for name, fn in counted.items()}
     print(f"phase24 hedged family tier: hedged launches {launches}")
     check(all(n > 0 for n in launches.values()),
-          "the hedged paths went through the hedged modes of kernels #5, #7 and #10")
+          "the hedged paths went through the hedged modes of kernels #5, #7, #10 and #13")
     for key, r in reports.items():
         first, warm = wall[key]
         (resumed, ck), part = resumes[key]
@@ -4208,10 +4291,10 @@ def phase_family_hedged_tier(dev) -> dict:
         print(f"phase24 cli {name}: {json.dumps(out)}")
     check(cli["path-risk --hedge"]["settlement"] == "per-period hedged"
           and all(cli["path-risk --hedge"][m]["cvar"] <= cli["path-risk --hedge"][m]["var"]
-                  for m in ("garch", "bootstrap", "heston"))
+                  for m in ("garch", "bootstrap", "heston", "dcc"))
           and all(cli[f"dd-frontier --model {m} --hedge"]["hedged"] is True
-                  for m in ("garch", "bootstrap", "heston")),
-          "cli hedged garch, bootstrap and heston")
+                  for m in ("garch", "bootstrap", "heston", "dcc")),
+          "cli hedged garch, bootstrap, heston and dcc")
     _family_hedged_references(dev, w, reports, frontier)
     return launches
 
@@ -4228,10 +4311,11 @@ def _family_hedged_references(dev, w, reports, frontier) -> None:
     nb = cfg.n_paths // cfg.path_block
     spot = np.full(N_ASSETS, SPOT)
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
-    srcs = {"garch": garch, "bootstrap": hist, "heston": bench_heston().tensors(dev)}
+    srcs = {"garch": garch, "bootstrap": hist, "heston": bench_heston().tensors(dev),
+            "dcc": bench_dcc().tensors(dev)}
     dd_width = (DD_SKETCH.hi - DD_SKETCH.lo) / DD_SKETCH.n_bins
     for m, src in srcs.items():
-        launch = dict(kernel=f"{m}_multi_dd_hedged", seed=cfg.seed, w=w[None], src=src, s0=spot,
+        launch = dict(kernel=HEDGED_KERNEL[m], seed=cfg.seed, w=w[None], src=src, s0=spot,
                       steps=N_STEPS, first_block=0, n_blocks=nb)
         dd = torch.cat([_family_hedged_call(launch, dev, plain=True, n=min(2_048,
                                                                            cfg.path_block - p0),
@@ -4251,7 +4335,7 @@ def _family_hedged_references(dev, w, reports, frontier) -> None:
     for key, f in frontier.items():
         m, steps = key.split()
         i = f.opt_idx
-        launch = dict(kernel=f"{m}_multi_dd_hedged", seed=path_seed, w=f.weights[i][None],
+        launch = dict(kernel=HEDGED_KERNEL[m], seed=path_seed, w=f.weights[i][None],
                       src=srcs[m], s0=spot, steps=int(steps), n=n)
         parts = [_family_hedged_call(launch, dev, plain=True, n=min(8_192, n - p0),
                                      first_path=p0) for p0 in range(0, n, 8_192)]
@@ -4302,8 +4386,10 @@ def wide_bounds(draw: float, rate: float) -> dict:
 
 def family_hedged_bounds(draw: float, rate: float) -> dict:
     """Least time of the hedged modes of kernels #5, #7 and #10 at 256 x
-    131,072 x 252 with the bench hedge (L = 2 legs), and of hedged #10's wide
-    layout at A = 200 (256 x 8,192 x 52), from the work each function needs:
+    131,072 x 252 with the bench hedge (L = 2 legs), of hedged #10's wide
+    layout at A = 200 (256 x 8,192 x 52), and of hedged #13 at 256 x 131,072
+    x 52 and past 64 at A = 256 (256 x 1,024 x 16), from the work each
+    function needs:
     the unhedged mode's (``family_bounds``, ``family2_bounds``) plus, per
     asset-step, the price update (2) and the legs' settlement (per leg 7, one
     division counted as 8), as ``hedged_bounds`` counts for #3 and #8."""
@@ -4339,17 +4425,35 @@ def family_hedged_bounds(draw: float, rate: float) -> dict:
     sh = WIDE_TIMING
     work["heston_multi_dd_hedged wide"] = heston(200, sh["n"], sh["pp"],
                                                  f"A=200 x {sh['pp']} x {sh['n']}: ")
+
+    def dcc(a, n, pp):   # dcc_bounds' step + the settlement (phase 28's shapes)
+        tri = a * (a + 1) / 2
+        chol = a * (a * a - 1) / 6 + a * (a - 1) / 2 + a
+        settle = a * (7 * legs + 1 + 8 + 2)
+        score = w_cnt * (a + 6)
+        step = a * draw + 3 * tri + chol + tri + 9 * a + settle
+        return ((step + score) * n * pp,
+                4 * (2 * a * a + 7 * a + 2 + w_cnt * a) + 4 * a * (1 + 4 * legs)
+                + 8 * w_cnt * pp,
+                f"A={a} x {pp} x {n}: {step:.2f} per path-step ({settle:.0f} settlement) + "
+                f"{score} for 256 candidates")
+
+    work["dcc_dd_hedged"] = dcc(a, DCC_STEPS, pp)
+    work["dcc_dd_hedged wide"] = dcc(256, 16, 1_024)
     return _bound_table(work, rate, "phase25")
 
 
 def phase_wide_timing(dev) -> dict:
     """Phase 25, with CUDA events: the hedged modes of #5, #7 and #10 at 256 x
-    131,072 x 252 (the bench hedge, L = 2) beside their unhedged modes, their
-    plain forms (8,192-path pieces) and the score product as one torch.matmul
-    per step; then each kernel's wide layout at A = 200 (DCC 256) beside its
-    plain form (and, for the candidates, the score product as one
-    torch.matmul per step), hedged #10's beside its unhedged mode."""
+    131,072 x 252 and of #13 at 256 x 131,072 x 52 (the bench hedge, L = 2)
+    beside their unhedged modes, their plain forms (8,192-path pieces) and
+    the score product as one torch.matmul per step; then each kernel's wide
+    layout at A = 200 (DCC 256) beside its plain form (and, for the
+    candidates, the score product as one torch.matmul per step), hedged
+    #10's (A = 200, 256 x 8,192 x 52) and #13's (A = 256, 256 x 1,024 x 16)
+    beside their unhedged modes."""
     from mcport_torch.ops import bootstrap as B
+    from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
     from mcport_torch.ops import heston as H
 
@@ -4361,18 +4465,21 @@ def phase_wide_timing(dev) -> dict:
     garch, hist = bench_garch().tensors(dev), torch.as_tensor(bench_history(), device=dev)
     unhedged = {"garch_multi_dd_hedged": G.garch_multi_portfolio_dd,
                 "bootstrap_multi_dd_hedged": B.bootstrap_multi_portfolio_dd,
-                "heston_multi_dd_hedged": H.heston_multi_portfolio_dd}
+                "heston_multi_dd_hedged": H.heston_multi_portfolio_dd,
+                "dcc_dd_hedged": D.dcc_multi_portfolio_dd}
     e = torch.rand((N_ASSETS, pp), device=dev)
     mm = _time_ms(lambda: torch.matmul(cand, e), 50)
     for name, src in (("garch_multi_dd_hedged", garch), ("bootstrap_multi_dd_hedged", hist),
-                      ("heston_multi_dd_hedged", bench_heston().tensors(dev))):
-        launch = dict(kernel=name, seed=0, n=pp, w=cand, src=src, s0=spot, steps=N_STEPS)
+                      ("heston_multi_dd_hedged", bench_heston().tensors(dev)),
+                      ("dcc_dd_hedged", bench_dcc().tensors(dev))):
+        steps = DCC_STEPS if name == "dcc_dd_hedged" else N_STEPS
+        launch = dict(kernel=name, seed=0, n=pp, w=cand, src=src, s0=spot, steps=steps)
 
         def kern(launch=launch):
             _family_hedged_call(launch, dev, plain=False)
 
-        def bare(name=name, src=src):
-            unhedged[name](0, src, cand, pp, N_STEPS)
+        def bare(name=name, src=src, steps=steps):
+            unhedged[name](0, src, cand, pp, steps)
 
         def plain(launch=launch):
             for p0 in range(0, pp, MDD_PLAIN_CHUNK):
@@ -4384,34 +4491,44 @@ def phase_wide_timing(dev) -> dict:
         p1, k1, u1, u2, k2 = (_time_ms(plain, 1), _time_ms(kern, 3), _time_ms(bare, 3),
                               _time_ms(bare, 3), _time_ms(kern, 3))
         ms = (k1 + k2) / 2
-        print(f"phase25 timing {name} (L=2) 256 x {pp} x {N_STEPS}: kernel {k1:.3f} / "
-              f"{k2:.3f} ms ({256 * pp * N_STEPS / ms * 1e3:.4e} cand-path-steps/s), the "
+        print(f"phase25 timing {name} (L=2) 256 x {pp} x {steps}: kernel {k1:.3f} / "
+              f"{k2:.3f} ms ({256 * pp * steps / ms * 1e3:.4e} cand-path-steps/s), the "
               f"unhedged mode {u1:.3f} / {u2:.3f} ms, plain {p1:.1f} ms, torch.matmul x "
-              f"{N_STEPS} {mm * N_STEPS:.3f} ms")
-        res[name] = [ms, p1, mm * N_STEPS]
-    # hedged #10's wide layout at A = 200 (HestonWide<true, true>), the bench
-    # hedge, beside its unhedged mode in the same call
-    a, sh = 200, WIDE_TIMING
-    wa = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 256), dtype=torch.float32,
-                         device=dev)
-    launch = dict(kernel="heston_multi_dd_hedged", seed=0, n=sh["pp"], w=wa,
-                  src=bench_heston(a).tensors(dev), s0=np.full(a, SPOT), steps=sh["n"])
-    def kern():
-        _family_hedged_call(launch, dev, plain=False)
+              f"{steps} {mm * steps:.3f} ms")
+        res[name] = [ms, p1, mm * steps]
+    # hedged #10's and #13's layouts past 64 (HestonWide<true, true> at A =
+    # 200; dcc_wider_kernel<true, false, true> at A = 256, Q and L in device
+    # memory), the bench hedge, beside the unhedged mode in the same call
+    sh = WIDE_TIMING
+    for name, a, pw, n, src, unh in (
+            ("heston_multi_dd_hedged", 200, sh["pp"], sh["n"], bench_heston(200).tensors(dev),
+             H.heston_multi_portfolio_dd),
+            ("dcc_dd_hedged", 256, 1_024, 16, bench_dcc(256).tensors(dev),
+             D.dcc_multi_portfolio_dd)):
+        wa = torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 256),
+                             dtype=torch.float32, device=dev)
+        launch = dict(kernel=name, seed=0, n=pw, w=wa, src=src, s0=np.full(a, SPOT), steps=n)
 
-    def bare():
-        H.heston_multi_portfolio_dd(0, launch["src"], wa, sh["pp"], sh["n"])
+        def kern(launch=launch):
+            _family_hedged_call(launch, dev, plain=False)
 
-    kern(), bare()
-    torch.cuda.synchronize()
-    k1, u1, u2, k2 = _time_ms(kern, 2), _time_ms(bare, 2), _time_ms(bare, 2), _time_ms(kern, 2)
-    pl = _time_ms(lambda: _family_hedged_call(launch, dev, plain=True, bound=False), 1)
-    x = torch.rand((a, sh["pp"]), device=dev)
-    lib = _time_ms(lambda: torch.matmul(wa, x), 20) * sh["n"]
-    print(f"phase25 timing heston_multi_dd_hedged wide layout A={a} (L=2) 256 x {sh['pp']} x "
-          f"{sh['n']}: kernel {k1:.3f} / {k2:.3f} ms, the unhedged mode {u1:.3f} / {u2:.3f} ms, "
-          f"plain {pl:.1f} ms, torch.matmul per step x steps {lib:.3f} ms")
-    res["heston_multi_dd_hedged wide"] = [(k1 + k2) / 2, pl, lib]
+        def bare(unh=unh, src=src, wa=wa, pw=pw, n=n):
+            unh(0, src, wa, pw, n)
+
+        kern(), bare()
+        torch.cuda.synchronize()
+        k1, u1, u2, k2 = (_time_ms(kern, 2), _time_ms(bare, 2), _time_ms(bare, 2),
+                          _time_ms(kern, 2))
+        piece = pw if name.startswith("heston") else 256   # DCC's plain form costs A^3
+        pl = _time_ms(lambda launch=launch, pw=pw, piece=piece: [
+            _family_hedged_call(launch, dev, plain=True, n=min(piece, pw - p0), first_path=p0,
+                                bound=False) for p0 in range(0, pw, piece)], 1)
+        x = torch.rand((a, pw), device=dev)
+        lib = _time_ms(lambda wa=wa, x=x: torch.matmul(wa, x), 20) * n
+        print(f"phase25 timing {name} wide layout A={a} (L=2) 256 x {pw} x {n}: kernel "
+              f"{k1:.3f} / {k2:.3f} ms, the unhedged mode {u1:.3f} / {u2:.3f} ms, plain "
+              f"{pl:.1f} ms, torch.matmul per step x steps {lib:.3f} ms")
+        res[f"{name} wide"] = [(k1 + k2) / 2, pl, lib]
     # each wide layout at A = 200 (DCC 256)
     sh = WIDE_TIMING
     calls = {**_wide_calls(200, dev, sh["p"], sh["pp"], sh["n"], 256, nb=1),
@@ -4536,6 +4653,8 @@ def main() -> int:
         "garch_multi_dd_hedged": ("garch.cu", "mcport/ops/pallas_garch.py:137"),
         "bootstrap_multi_dd_hedged": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:147"),
         "heston_multi_dd_hedged": ("heston.cu", "mcport/ops/pallas_heston.py:208"),
+        # #13's hedged branch (:378-406); #14 has no hedged mode (:585-587)
+        "dcc_dd_hedged": ("dcc.cu", "mcport/ops/pallas_dcc.py:378"),
     }
     # each kernel's layout past 64 assets (csrc/wide.cuh and its model in the
     # kernel's file): launches on phase 22's 65-asset main paths, errors from
@@ -4550,6 +4669,10 @@ def main() -> int:
     # time and bound at A = 200 from phase 25
     kernels["heston_multi_dd_hedged wide"] = kernels["heston_multi_dd_hedged"]
     launches["heston_multi_dd_hedged wide"] = wide_launches["heston_multi_dd_hedged"]
+    # hedged #13's layout past 64 (dcc_wider_kernel<true, *, true>): the same,
+    # errors at A = 65 and 256, time and bound at A = 256
+    kernels["dcc_dd_hedged wide"] = kernels["dcc_dd_hedged"]
+    launches["dcc_dd_hedged wide"] = wide_launches["dcc_dd_hedged"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": f"mcport_torch/csrc/{src}",

@@ -4,13 +4,12 @@
 Ports of the single-device, pseudo-random branches of ``mcport.api.gbm_risk``
 (correlated-GBM tail risk for one portfolio through the chunked, resumable
 engine, hedged or not), of ``mcport.api.path_tail_risk`` for all seven
-families (terminal VaR/CVaR plus the simulated max-drawdown distribution;
-hedged for every family but dcc), of
-``mcport.api.hedged_tail_risk`` (option legs settled against every family's
-terminal prices), of ``mcport.api.bootstrap_tail_risk`` and of
-``mcport.api.compare_tail_risk`` (one portfolio under every family). The mesh
-and quasi-MC branches, the hedged path risk of dcc, and bootstrap error bars
-are not ported yet and raise.
+families (terminal VaR/CVaR plus the simulated max-drawdown distribution,
+hedged or not), of ``mcport.api.hedged_tail_risk`` (option legs settled
+against every family's terminal prices), of ``mcport.api.bootstrap_tail_risk``
+and of ``mcport.api.compare_tail_risk`` (one portfolio under every family).
+The mesh and quasi-MC branches and bootstrap error bars are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import MCCheckpoint, RiskReport, run_resumable_mc
 from mcport_torch.engine.path_risk import (
     FAMILIES,
-    check_hedged_family,
     PathRiskCheckpoint,
     run_bootstrap_path_risk,
     run_dcc_path_risk,
@@ -139,14 +137,11 @@ def path_tail_risk(
     ``legs_by_asset`` settles every asset's option legs per simulated step
     against the prices from the last row of ``prices`` (hedged per-step
     settlement, the rebalanced recursion ``V *= 1 + w·r_h``; ``rebalance`` is
-    not read) and adds ``hedged_assets``. Ported for every family but "dcc",
-    which raises ``NotImplementedError`` naming it.
+    not read) and adds ``hedged_assets``, for every family.
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
-    if legs_by_asset is not None:   # before the estimation, which may take seconds
-        check_hedged_family(model)
     spec = None if legs_by_asset is None else HedgeSpec.build(legs_by_asset, data.names)
     a = len(data.names)
     w = np.full(a, 1.0 / a) if weights is None else np.asarray(weights, np.float64)
@@ -182,7 +177,9 @@ def path_tail_risk(
                                   s0=None if spec is None else np.asarray(data.prices[-1]),
                                   device=device)
     elif model == "dcc":
-        rep = run_dcc_path_risk(params, w, g, alpha=alpha, device=device)
+        rep = run_dcc_path_risk(params, w, g, alpha=alpha, hedge=spec,
+                                s0=None if spec is None else np.asarray(data.prices[-1]),
+                                device=device)
     elif model == "jump":
         rep = run_merton_path_risk(params, w, g, alpha=alpha, hedge=spec, device=device)
     elif model == "heston":

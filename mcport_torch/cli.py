@@ -19,9 +19,8 @@ hedge config (:func:`mcport_torch.options.hedged.legs_from_spec`), e.g.
 
     {"BTC": {"strategy": "Married Put"}, "ETH": {"strategy": "Collar"}}
 
-Hedged ``path-risk`` and ``dd-frontier`` run for the gbm, student_t, jump,
-garch, heston and bootstrap families (against the last prices); dcc exits
-with a message naming it, before any work. Not ported yet:
+Hedged ``path-risk`` and ``dd-frontier`` run for every family (against the
+last prices). Not ported yet:
 ``--attribution`` and ``--ci`` (``hedged-risk --ci`` exits with a message).
 """
 
@@ -87,18 +86,6 @@ def _hedge_from_args(args, d):
         return legs, HedgeSpec.build(legs, d.names)
     except ValueError as e:
         raise SystemExit(f"--hedge {path}: {e}")
-
-
-def _refuse_unported_hedge(models, hedge, what: str) -> None:
-    """Exit before any work when a hedged run asks for a family whose hedged
-    mode is not ported: it must not run that family unhedged."""
-    from mcport_torch.engine.path_risk import check_hedged_family
-
-    for model in models if hedge is not None else ():
-        try:
-            check_hedged_family(model, what)
-        except NotImplementedError as e:
-            raise SystemExit(f"--hedge: {e}") from None
 
 
 def cmd_gbm_risk(args) -> None:
@@ -269,7 +256,6 @@ def cmd_path_risk(args) -> None:
                  simulation=SimulationConfig(alpha=args.alpha))
     rebalance = not args.buy_and_hold
     models = args.models.split(",")
-    _refuse_unported_hedge(models, hedge, "path risk")
     if args.checkpoint and len(models) != 1:
         raise SystemExit("--checkpoint requires a single --models entry")
     ck = None
@@ -297,7 +283,6 @@ def cmd_dd_frontier(args) -> None:
 
     d = _universe(args)
     _, hedge = _hedge_from_args(args, d)
-    _refuse_unported_hedge([args.model], hedge, "drawdown frontier")
     t_dof = None
     if args.model == "gbm":
         t_dof = estimate_t_dof(d.prices) if args.innovations == "student_t" else None

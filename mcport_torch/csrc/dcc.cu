@@ -5,12 +5,13 @@
 // dcc_terminal_kernel replaces mcport/ops/pallas_dcc.py::_dcc_pack_kernel (the
 // garch-risk --correlation dcc and compare-models path) and ::_dcc_kernel (the
 // same function in the TPU's tile layout); dcc_dd_kernel replaces
-// ::_dcc_dd_kernel, unhedged (path-risk --models dcc, the DCC drawdown frontier
-// and path_tail_risk), and ::_dcc_pack_dd_kernel (the same function, scored in
-// the TPU's pack layout). Pack and tile are TPU layouts; on the card each
-// function is one kernel. The plain torch forms of the same functions, on the
-// same Philox counters, are mcport_torch/ops/dcc.py::dcc_terminal_reference
-// and ::dcc_multi_dd_reference.
+// ::_dcc_dd_kernel, both its modes (path-risk --models dcc, the DCC drawdown
+// frontier and path_tail_risk, hedged or not), and ::_dcc_pack_dd_kernel (the
+// unhedged function, scored in the TPU's pack layout, which takes no hedge).
+// Pack and tile are TPU layouts; on the card each function is one kernel.
+// The plain torch forms of the same functions, on the same Philox counters,
+// are mcport_torch/ops/dcc.py::dcc_terminal_reference and
+// ::dcc_multi_dd_reference.
 //
 // What they compute (pallas_dcc.py::_make_pack_asset_step). For block b of a
 // dispatch group and path p < block_paths, from Q = q0, e = e0 and the GARCH
@@ -25,9 +26,17 @@
 // and either cum *= 1 + mu + eps (terminal: out cum - 1 per asset), or, for
 // every candidate w, V *= 1 + w·r, peak = max(peak, V), dd = min(dd, V/peak - 1)
 // from V_0 = peak_0 = 1, dd_0 = 0 (out V_T - 1 and dd per candidate and path).
-// The Cholesky subtracts its sums in ascending k, as the plain form does; the
-// reciprocal square roots are correctly rounded (__frsqrt_rn), as the plain
-// form's are. With a = b = 0 and q0 = S the recursion is CCC-GARCH on the same
+// Hedged (kHedged, mcport's hedged branch, pallas_dcc.py:378-406): each
+// (asset, path) also carries its price from s0, P_new = P·((1 + mu) + eps)
+// (one rounded sum and one rounded product, as the plain form and the
+// terminal's cum), writes hedged.cuh's settled return r_h(P, P_new) in place
+// of r, and V *= 1 + w·r_h with peak and dd carrying a NaN of overflowed
+// wealth; the legs are read from device memory. The DCC recursion is the
+// unhedged mode's, so the price differs from the plain form's by the draws'
+// and the recursion's roundings (bound: ops/dcc.py dcc_price_bound, along
+// each path). The Cholesky subtracts its sums in ascending k, as the plain
+// form does; the reciprocal square roots are correctly rounded (__frsqrt_rn),
+// as the plain form's are. With a = b = 0 and q0 = S the recursion is CCC-GARCH on the same
 // shocks: garch.cu's terminal kernel up to the float32 Cholesky of S.
 //
 // What bounds them on the card. Per path-step at A assets: the draws (A x
@@ -53,6 +62,7 @@
 //   updates its 4-candidate x 4-path micro-tile of values, peaks and
 //   drawdowns in registers (FP32 FMAs: mcport's score_dot is float32). The
 //   recursion spreads over all 256 threads, so at W = 1 it does not idle 240.
+//   Hedged, lane i also keeps row i's price in a register and writes r_h.
 // For 17 <= A <= 64 (dcc_wide_kernel, both functions): a path's triangle is
 // 2,080 floats at A = 64, past any thread's registers and past a half-warp's.
 // A group of 32 threads (A <= 32) or 64 (A <= 64) owns one path, thread r its
@@ -65,10 +75,11 @@
 // the same order as thread j, so every thread holds the same rounded
 // reciprocal) and its L_rj; then e_r, the GARCH update and either the gross or
 // r = mu + eps into a shared (A, paths) tile, which thread c scores for
-// candidate c over the block's paths. The sums keep the narrow kernels'
-// order (ascending k and j) and the correctly rounded rsqrt; the A <= 16
-// kernels are unchanged. A simple design: A barriers per step, and A/64 to
-// A/32 of the threads working in the Cholesky's late columns.
+// candidate c over the block's paths (hedged: thread r keeps row r's price in
+// a register and settles it before the tile is scored). The sums keep the
+// narrow kernels' order (ascending k and j) and the correctly rounded rsqrt.
+// A simple design: A barriers per step, and A/64 to A/32 of the threads
+// working in the Cholesky's late columns.
 // Past 64 assets, dcc_wider_kernel (below): one path per CTA of 256 threads,
 // the same order of every sum, Q and L in device memory past ~220 assets.
 // A dispatch group of blocks is one launch (gridDim.y).
@@ -259,11 +270,14 @@ struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte ali
   }
 };
 
+// kHedged: per-step settlement of the n_legs legs per asset of the hedge block
+// (ops/hedged.py HedgeTensors.packed, in device memory).
+template <bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-              int n_cand, int n_steps, const float* __restrict__ params,
-              const float* __restrict__ weights, float* __restrict__ term,
-              float* __restrict__ max_dd) {
+              int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
+              const float* __restrict__ weights, const float* __restrict__ hedge,
+              float* __restrict__ term, float* __restrict__ max_dd) {
   extern __shared__ __align__(16) float smem[];
   const int n = n_assets;
   const int w_pad = round4(n_cand);
@@ -280,7 +294,7 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
     const int r = i % kDA, c = i / kDA;       // s_cs[c * kDA + r] = c0 S_rc
     s_cs[i] = (r < n && c < n) ? c0 * q.s[r * n + c] : 0.0f;
   }
-  load_garch(q, n, false, s_g, tid, kDdThreads);
+  load_garch(q, n, kHedged, s_g, tid, kDdThreads);  // hedged: the gross's 1 + mu
   for (int i = tid; i < n * w_pad; i += kDdThreads) {
     const int a = i / w_pad, w = i % w_pad;
     s_w[i] = w < n_cand ? weights[w * n + a] : 0.0f;
@@ -300,6 +314,8 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
   }
   float e = item ? q.e0[ia] : 0.0f;
   float s2 = item ? first_sigma2(q, ia) : 0.0f;
+  float price = (kHedged && item) ? hedge[ia] : 0.0f;  // hedged: this item's price, from s0
+  const HedgeBlock legs(hedge, n, n_legs);              // hedged: the legs, read from device memory
 
   // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
   const int cw = tid / 4, pq = tid % 4;
@@ -358,7 +374,13 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
       }
       const float ei = m * __frsqrt_rn(fmaxf(qd, 1e-12f));
       const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
-      if (item) s_r[ia * kTileP + ip] = g.w + eps;
+      if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
+        const float p_new = __fmul_rn(price, __fadd_rn(g.w, eps));
+        if (item) s_r[ia * kTileP + ip] = hedged_return(legs, ia, price, p_new);
+        price = p_new;
+      } else {
+        if (item) s_r[ia * kTileP + ip] = g.w + eps;
+      }
       s2 = g.x + g.y * (eps * eps) + g.z * s2;
       e = item ? ei : 0.0f;
       __syncthreads();
@@ -386,8 +408,13 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             v[i][j] = v[i][j] * (1.0f + f[i][j]);
-            peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-            dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              peak[i][j] = max_nan(peak[i][j], v[i][j]);
+              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            } else {
+              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
+              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+            }
           }
         }
       }
@@ -432,12 +459,12 @@ struct WideLayout {  // offsets into dynamic shared memory, in floats, 16-byte a
 // Threads per path in the wide kernel: a row each, rounded up to whole warps.
 __host__ __device__ constexpr int wide_rows(int n) { return n <= 32 ? 32 : 64; }
 
-template <bool kScore>
+template <bool kScore, bool kHedged = false>
 __global__ void __launch_bounds__(kDdThreads)
 dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-                int n_cand, int n_steps, const float* __restrict__ params,
-                const float* __restrict__ weights, float* __restrict__ term,
-                float* __restrict__ max_dd) {
+                int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
+                const float* __restrict__ weights, const float* __restrict__ hedge,
+                float* __restrict__ term, float* __restrict__ max_dd) {
   constexpr int kMaxPaths = kDdThreads / 32;
   extern __shared__ __align__(16) float smem[];
   const int n = n_assets;
@@ -462,8 +489,9 @@ dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_as
     const int r = i / n, c = i % n;
     if (c <= r) s_cs[col_at(c, r, n)] = c0 * q.s[r * n + c];
   }
-  for (int i = tid; i < n; i += kDdThreads) {
-    s_g[i] = make_float4(q.omega[i], q.alpha[i], q.beta[i], kScore ? q.mu[i] : 1.0f + q.mu[i]);
+  for (int i = tid; i < n; i += kDdThreads) {  // last: mu for r, 1 + mu for a gross
+    s_g[i] = make_float4(q.omega[i], q.alpha[i], q.beta[i],
+                         (kScore && !kHedged) ? q.mu[i] : 1.0f + q.mu[i]);
   }
   for (int i = tid; i < n * w_pad; i += kDdThreads) {
     const int a = i / w_pad, w = i % w_pad;
@@ -475,6 +503,8 @@ dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_as
   }
   float s2 = active ? first_sigma2(q, row) : 0.0f;  // the variance of the coming step
   float cum = 1.0f;
+  float price = (kHedged && active) ? hedge[row] : 0.0f;  // hedged: row's price, from s0
+  const HedgeBlock legs(hedge, n, n_legs);                 // hedged: the legs (device memory)
 
   const int blk = blockIdx.y;
   const int p = blockIdx.x * n_p + pl;  // this thread's path of the dispatch block
@@ -539,7 +569,11 @@ dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_as
         const float ei = m * __frsqrt_rn(fmaxf(s_q[col_at(row, row, n)], 1e-12f));
         const float4 g = s_g[row];
         const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
-        if (kScore) {
+        if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
+          const float p_new = __fmul_rn(price, __fadd_rn(g.w, eps));
+          s_r[row * n_p + pl] = hedged_return(legs, row, price, p_new);
+          price = p_new;
+        } else if (kScore) {
           s_r[row * n_p + pl] = g.w + eps;
         } else {
           cum *= g.w + eps;
@@ -555,8 +589,13 @@ dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_as
             float f = 0.0f;
             for (int a = 0; a < n; ++a) f = fmaf(s_w[a * w_pad + tid], s_r[a * n_p + i], f);
             v[i] = v[i] * (1.0f + f);
-            peak[i] = fmaxf(peak[i], v[i]);
-            dd[i] = fminf(dd[i], v[i] / peak[i] - 1.0f);
+            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
+              peak[i] = max_nan(peak[i], v[i]);
+              dd[i] = min_nan(dd[i], v[i] / peak[i] - 1.0f);
+            } else {
+              peak[i] = fmaxf(peak[i], v[i]);
+              dd[i] = fminf(dd[i], v[i] / peak[i] - 1.0f);
+            }
           }
         }
       }
@@ -582,21 +621,22 @@ dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_as
 }
 
 // Launches the wide kernel: the terminal function (out in term) or, kScore,
-// the candidates'.
-template <bool kScore>
+// the candidates' (kHedged: settling the n_legs legs of the hedge block).
+template <bool kScore, bool kHedged = false>
 int launch_wide(long long seed, long long first_block, int n_blocks, int block_paths,
-                int n_assets, int n_cand, int n_steps, const float* params, const float* w,
-                float* term, float* dd, cudaStream_t stream) {
+                int n_assets, int n_cand, int n_steps, int n_legs, const float* params,
+                const float* w, const float* hedge, float* term, float* dd,
+                cudaStream_t stream) {
   const int n_p = kDdThreads / wide_rows(n_assets);
   const dim3 grid((block_paths + n_p - 1) / n_p, n_blocks);
   const size_t smem =
       sizeof(float) * WideLayout(n_assets, n_p, kScore ? round4(n_cand) : 0).total;
-  auto kernel = dcc_wide_kernel<kScore>;
+  auto kernel = dcc_wide_kernel<kScore, kHedged>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kDdThreads, smem, stream>>>(seed, first_block, block_paths, n_assets, n_cand,
-                                             n_steps, params, w, term, dd);
+                                             n_steps, n_legs, params, w, hedge, term, dd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -608,17 +648,20 @@ int launch_wide(long long seed, long long first_block, int n_blocks, int block_p
 // column behind one barrier each the pivot computed by every thread that owns
 // a row at or below it (the same sum in the same order, once per thread) and
 // that row's L_rj, then e, the GARCH update and the gross or r = mu + eps per
-// row; candidate c = tid scores the path. Q and L stay in shared memory while
-// they fit (kShared: A(A+1) floats beside 8·A of per-row state, up to A ≈
-// 220); past that they move to the CTA's slot of a device-memory scratch,
-// the same packing, so the rows of a column are consecutive addresses. c0·S
+// row; candidate c = tid scores the path (hedged: each row's price in A more
+// floats of shared memory, settled before the path is scored). Q and L stay
+// in shared memory while they fit (kShared: A(A+1) floats beside 8·A of
+// per-row state, 9·A hedged, up to A ≈ 220); past that they move to the
+// CTA's slot of a device-memory scratch, the same packing, so the rows of a
+// column are consecutive addresses. c0·S
 // is read from the parameter block (device memory) as it is needed, the
 // weights through the read-only cache.
-template <bool kScore, bool kShared>
+template <bool kScore, bool kShared, bool kHedged = false>
 __global__ void __launch_bounds__(kDdThreads)
 dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_paths,
-                 int n_assets, int n_cand, int n_steps, const float* __restrict__ params,
-                 const float* __restrict__ weights, float* __restrict__ scratch,
+                 int n_assets, int n_cand, int n_steps, int n_legs,
+                 const float* __restrict__ params, const float* __restrict__ weights,
+                 const float* __restrict__ hedge, float* __restrict__ scratch,
                  float* __restrict__ term, float* __restrict__ max_dd) {
   extern __shared__ __align__(16) float smem[];
   const int n = n_assets, tid = threadIdx.x;
@@ -627,12 +670,15 @@ dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_
   float* s_e = s_z + 4 * n;  // (A,) e of the last step
   float* s_s2 = s_e + n;     // (A,) each row's variance of the coming step
   float* s_cum = s_s2 + n;   // (A,) the terminal's grosses
-  float* s_r = s_cum + n;    // (A,) the candidates' r = mu + eps
-  float* qm = kShared ? s_r + n : scratch + static_cast<long long>(blockIdx.x) * 2 * t;
+  float* s_r = s_cum + n;    // (A,) the candidates' r = mu + eps (hedged: r_h)
+  float* s_p = s_r + n;      // (A,) hedged: each row's price
+  float* qm = kShared ? s_r + (kHedged ? 2 : 1) * n
+                      : scratch + static_cast<long long>(blockIdx.x) * 2 * t;
   float* lm = qm + t;        // Q, then L, packed by column
   const Params q(params, n);
   const float c0 = q.c0(), a_c = q.a, b_c = q.b;
   const bool scorer = kScore && tid < n_cand;
+  const HedgeBlock legs(hedge, n, n_legs);  // hedged: the legs, read from device memory
   const long long n_paths = static_cast<long long>(n_blocks) * block_paths;
   constexpr int kPer = steps_per_call<kPoly>();
 
@@ -645,6 +691,7 @@ dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_
       s_e[r] = q.e0[r];
       s_s2[r] = first_sigma2(q, r);
       s_cum[r] = 1.0f;
+      if (kHedged) s_p[r] = hedge[r];
     }
     float v = 1.0f, peak = 1.0f, dd = 0.0f;
 
@@ -703,7 +750,11 @@ dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_
           const float ei = m * __frsqrt_rn(fmaxf(qm[col_at(r, r, n)], 1e-12f));
           const float mu = q.mu[r], s2 = s_s2[r];
           const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
-          if (kScore) {
+          if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
+            const float p = s_p[r], p_new = __fmul_rn(p, __fadd_rn(__fadd_rn(1.0f, mu), eps));
+            s_r[r] = hedged_return(legs, r, p, p_new);
+            s_p[r] = p_new;
+          } else if (kScore) {
             s_r[r] = mu + eps;
           } else {
             s_cum[r] *= (1.0f + mu) + eps;
@@ -716,7 +767,7 @@ dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_
           const float* w = weights + static_cast<long long>(tid) * n;
           float f = 0.0f;
           for (int a = 0; a < n; ++a) f = fmaf(__ldg(w + a), s_r[a], f);
-          wide_update<kWideSimple>(f, &v, &peak, &dd);
+          wide_update<kHedged ? kWideHedged : kWideSimple>(f, &v, &peak, &dd);
         }
         // (s_r is rewritten only after the next step's barriers)
       }
@@ -736,10 +787,16 @@ dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_
   }
 }
 
+// Floats of dcc_wider_kernel's per-row state at A assets: shocks (4), e,
+// sigma2, gross and r, and hedged the price.
+__host__ __device__ constexpr long long wider_rows(int n, bool hedged) {
+  return (hedged ? 9LL : 8LL) * n;
+}
+
 // Whether dcc_wider_kernel keeps a path's Q and L in shared memory at A
-// assets: A(A+1) floats beside 8·A of per-row state within 200 KB.
-__host__ __device__ constexpr bool wider_in_shared(int n) {
-  return 4LL * (static_cast<long long>(n) * (n + 1) + 8 * n) <= 204800;
+// assets: A(A+1) floats beside its per-row state within 200 KB.
+__host__ __device__ constexpr bool wider_in_shared(int n, bool hedged) {
+  return 4LL * (static_cast<long long>(n) * (n + 1) + wider_rows(n, hedged)) <= 204800;
 }
 
 }  // namespace
@@ -758,8 +815,8 @@ int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_assets > kDA) {
-    return launch_wide<false>(seed, first_block, n_blocks, block_paths, n_assets, 1, n_steps,
-                              static_cast<const float*>(params), nullptr,
+    return launch_wide<false>(seed, first_block, n_blocks, block_paths, n_assets, 1, n_steps, 0,
+                              static_cast<const float*>(params), nullptr, nullptr,
                               static_cast<float*>(out), nullptr,
                               static_cast<cudaStream_t>(stream));
   }
@@ -777,55 +834,66 @@ int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int
 
 // Launches the candidate kernel on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: DccTensors.packed; weights: (n_cand,
-// n_assets); float32 on the device. Outputs term and dd: (n_blocks, n_cand,
-// block_paths) float32. Normal shocks (the poly tier). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for arguments
-// the kernel does not take.
+// n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
+// for n_legs legs per asset (read from device memory), or null with n_legs 0
+// for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
+// float32. Normal shocks (the poly tier). Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int block_paths,
-                        int n_assets, int n_cand, int n_steps, const void* params,
-                        const void* weights, void* term, void* dd, void* stream) {
+                        int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
+                        const void* weights, const void* hedge, void* term, void* dd,
+                        void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
-      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 ||
-      kDA * kTileP != kDdThreads || kMaxCand > kDdThreads) {
+      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
+      (n_legs > 0 && hedge == nullptr) || kDA * kTileP != kDdThreads ||
+      kMaxCand > kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const float* p = static_cast<const float*>(params);
+  const float* w = static_cast<const float*>(weights);
+  const float* h = static_cast<const float*>(hedge);
+  float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_assets > kDA) {
-    return launch_wide<true>(seed, first_block, n_blocks, block_paths, n_assets, n_cand,
-                             n_steps, static_cast<const float*>(params),
-                             static_cast<const float*>(weights), static_cast<float*>(term),
-                             static_cast<float*>(dd), static_cast<cudaStream_t>(stream));
+    return n_legs ? launch_wide<true, true>(seed, first_block, n_blocks, block_paths, n_assets,
+                                            n_cand, n_steps, n_legs, p, w, h, out, out_dd, st)
+                  : launch_wide<true>(seed, first_block, n_blocks, block_paths, n_assets,
+                                      n_cand, n_steps, 0, p, w, nullptr, out, out_dd, st);
   }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
   const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
-  cudaError_t err = cudaFuncSetAttribute(dcc_dd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dcc_dd_kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      seed, first_block, block_paths, n_assets, n_cand, n_steps,
-      static_cast<const float*>(params), static_cast<const float*>(weights),
-      static_cast<float*>(term), static_cast<float*>(dd));
-  return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, n_assets, n_cand,
+                                           n_steps, n_legs, p, w, h, out, out_dd);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return n_legs ? run(dcc_dd_kernel<true>) : run(dcc_dd_kernel<false>);
 }
 
 // Both functions past 64 assets (dcc_wider_kernel): n_cand 0 runs the
 // terminal function (output out (n_blocks, block_paths, n_assets)), n_cand >=
-// 1 the candidates' (outputs out and dd (n_blocks, n_cand, block_paths)).
+// 1 the candidates' (outputs out and dd (n_blocks, n_cand, block_paths);
+// hedged when n_legs > 0, the hedge block HedgeTensors.packed read from device
+// memory and each row's price in A more floats of shared memory).
 // scratch: n_ctas·A(A+1) floats on the device, read only where Q and L leave
 // shared memory (A past ~220); n_ctas persistent CTAs, one path each at a
 // time. Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for arguments the kernel does not take.
 int mcport_dcc_wide(long long seed, long long first_block, int n_blocks, int block_paths,
-                    int n_assets, int n_cand, int n_steps, const void* params,
-                    const void* weights, void* out, void* dd, void* scratch, int n_ctas,
-                    void* stream) {
+                    int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
+                    const void* weights, const void* hedge, void* out, void* dd, void* scratch,
+                    int n_ctas, void* stream) {
   if (n_assets < 1 || n_cand < 0 || n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 ||
       block_paths < 1 || n_steps < 0 || n_ctas < 1 || n_ctas > 65535 || scratch == nullptr ||
-      (n_cand > 0 && (weights == nullptr || dd == nullptr))) {
+      (n_cand > 0 && (weights == nullptr || dd == nullptr)) || n_legs < 0 ||
+      (n_legs > 0 && (hedge == nullptr || n_cand == 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool shared = wider_in_shared(n_assets);
-  const size_t smem = sizeof(float) * (8 * static_cast<size_t>(n_assets) +
+  const bool hedged = n_legs > 0, shared = wider_in_shared(n_assets, hedged);
+  const size_t smem = sizeof(float) * (static_cast<size_t>(wider_rows(n_assets, hedged)) +
                                        (shared ? static_cast<size_t>(n_assets) * (n_assets + 1)
                                                : 0));
   auto run = [&](auto kernel) {
@@ -833,11 +901,16 @@ int mcport_dcc_wide(long long seed, long long first_block, int n_blocks, int blo
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<n_ctas, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps,
+        seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, n_legs,
         static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<float*>(scratch), static_cast<float*>(out), static_cast<float*>(dd));
+        static_cast<const float*>(hedge), static_cast<float*>(scratch),
+        static_cast<float*>(out), static_cast<float*>(dd));
     return static_cast<int>(cudaGetLastError());
   };
+  if (hedged) {
+    return shared ? run(dcc_wider_kernel<true, true, true>)
+                  : run(dcc_wider_kernel<true, false, true>);
+  }
   if (n_cand > 0) {
     return shared ? run(dcc_wider_kernel<true, true>) : run(dcc_wider_kernel<true, false>);
   }

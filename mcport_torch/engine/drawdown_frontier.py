@@ -37,10 +37,8 @@ generator; ``w_block`` defaults to the kernel's 256 candidates per launch
 ``hedge`` (a :class:`mcport_torch.options.hedged.HedgeSpec`) scores every
 candidate on hedged per-step settlement against the prices from the spots —
 always the settled recursion ``V *= 1 + w·r_h`` (mcport: buy-and-hold of an
-intrinsic-settled position is not defined mid-path) — for GBM and, in the
-family search, "garch", "jump", "heston" and "bootstrap". Not ported yet
-(raises ``NotImplementedError``): the hedged DCC frontier (its kernel's
-hedged mode, ROADMAP.md Queue 2).
+intrinsic-settled position is not defined mid-path) — for GBM and every
+family of the family search.
 """
 
 from __future__ import annotations
@@ -52,7 +50,6 @@ import numpy as np
 import torch
 
 from mcport_torch.device import resolve_device
-from mcport_torch.engine.path_risk import check_hedged_family
 from mcport_torch.models.gbm import GBMParams
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
@@ -248,13 +245,11 @@ def family_drawdown_frontier_search(
     restart probability). Candidates compound per-period rebalanced wealth,
     scored in float32 in chunks of at most ``MAX_CANDIDATES`` over one shared
     path stream. ``hedge`` (a HedgeSpec) with the spots ``s0``: hedged
-    per-step settlement, "jump", "garch", "heston" and "bootstrap" (a NaN
-    drawdown of overflowed wealth ranks as the worst)."""
+    per-step settlement, every family (a NaN drawdown of overflowed wealth
+    ranks as the worst)."""
     if model not in ("garch", "dcc", "jump", "heston", "bootstrap"):
         raise ValueError(f"model must be 'garch', 'dcc', 'jump', 'heston' or 'bootstrap', "
                          f"got {model!r}")
-    if hedge is not None:
-        check_hedged_family(model, "drawdown frontier")
     if hedge is not None and s0 is None:
         raise ValueError("hedged family frontier requires s0 (asset prices)")
     dev = resolve_device(device)
@@ -274,7 +269,7 @@ def family_drawdown_frontier_search(
         a = model_params.n_assets
 
         def score(w_blk):
-            return dcc_multi_portfolio_dd(path_seed, dt, w_blk, n_paths, n_steps)
+            return dcc_multi_portfolio_dd(path_seed, dt, w_blk, n_paths, n_steps, hedge=legs)
     elif model == "jump":
         d, a = model_params.diffusion, model_params.n_assets
         mean, chol, muj, sigj = (torch.as_tensor(x).to(dev, torch.float32) for x in (

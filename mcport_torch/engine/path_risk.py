@@ -2,8 +2,8 @@
 GBM, CCC-GARCH, DCC-GARCH, common-jump Merton, Heston and stationary-bootstrap
 paths.
 
-Port of ``mcport/engine/path_risk.py``: every family unhedged, and hedged
-per-step settlement for every family but "dcc". Each family has a
+Port of ``mcport/engine/path_risk.py``: every family, unhedged and with
+hedged per-step settlement. Each family has a
 block function (mcport's ``_block_fn_for``) that evolves every path of
 a dispatch group on its kernel and returns the portfolio's terminal return
 and maximum drawdown per path:
@@ -47,13 +47,13 @@ history.
 option legs at intrinsic value every simulated step against the prices from
 the spots ``s0`` and compounds ``V *= 1 + w·r_h`` (mcport's hedged branches):
 "gbm" and "student_t" score the one portfolio on the multi-dd kernel's hedged
-mode, "jump", "garch", "heston" and "bootstrap" on their candidate kernels'
-(the spots default to the model's own for "gbm", "student_t", "jump" and
-"heston"; the GARCH and bootstrap families carry none: ``s0`` is required, as
-in mcport). The hedge's bytes and the spots enter the checkpoint digest.
+mode, "jump", "garch", "dcc", "heston" and "bootstrap" on their candidate
+kernels' (the spots default to the model's own for "gbm", "student_t", "jump"
+and "heston"; the GARCH, DCC and bootstrap families carry none: ``s0`` is
+required, as in mcport). The hedge's bytes and the spots enter the checkpoint
+digest.
 
-Not ported yet (raise ``NotImplementedError``): hedged "dcc" (its kernel's
-hedged mode, ROADMAP.md Queue 2), quasi-MC paths (``qmc``),
+Not ported yet (raise ``NotImplementedError``): quasi-MC paths (``qmc``),
 bootstrap error bars (``ci_boot``) and
 ``run_resumable_path_risk_with_recovery``.
 """
@@ -87,10 +87,9 @@ from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd, multi_dd_from_log_
 from mcport_torch.ops.path_stats import gbm_path_stats
 from mcport_torch.ops.quantile import histogram, sketch_quantile, sketch_var_cvar
 
-__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "HEDGED_FAMILIES", "check_hedged_family",
-           "PathRiskReport", "PathRiskCheckpoint", "run_path_risk", "run_garch_path_risk",
-           "run_dcc_path_risk", "run_merton_path_risk", "run_heston_path_risk",
-           "run_bootstrap_path_risk", "run_resumable_path_risk",
+__all__ = ["DD_SKETCH", "DISPATCH_BLOCKS", "FAMILIES", "PathRiskReport", "PathRiskCheckpoint",
+           "run_path_risk", "run_garch_path_risk", "run_dcc_path_risk", "run_merton_path_risk",
+           "run_heston_path_risk", "run_bootstrap_path_risk", "run_resumable_path_risk",
            "run_resumable_path_risk_with_recovery", "load_path_risk_checkpoint",
            "stats_from_log_paths"]
 
@@ -102,8 +101,6 @@ DISPATCH_BLOCKS = 16
 
 #: mcport's path families
 FAMILIES = ("gbm", "student_t", "garch", "dcc", "jump", "heston", "bootstrap")
-#: the families whose hedged per-step settlement is ported
-HEDGED_FAMILIES = ("gbm", "student_t", "jump", "garch", "heston", "bootstrap")
 
 
 @dataclass(frozen=True)
@@ -219,26 +216,14 @@ def _digest(model: str, model_params, weights, config: GBMConfig, rebalance: boo
     return h.hexdigest()
 
 
-def check_hedged_family(model: str, what: str = "path risk") -> None:
-    """Raise ``NotImplementedError`` naming ``model`` unless its hedged
-    per-step settlement is ported (``HEDGED_FAMILIES``)."""
-    if model not in HEDGED_FAMILIES:
-        raise NotImplementedError(
-            f"hedged {model} {what} is not ported to mcport_torch yet (its kernel's "
-            f"hedged mode, ROADMAP.md Queue 2); hedged runs take "
-            f"{', '.join(HEDGED_FAMILIES)}")
-
-
 def _require_spots(hedge, s0, model: str) -> None:
-    """Hedged GARCH and bootstrap runs settle against spots the model does not
-    carry: raise without them, as mcport does."""
+    """Hedged GARCH, DCC and bootstrap runs settle against spots the model
+    does not carry: raise without them, as mcport does."""
     if hedge is not None and s0 is None:
         raise ValueError(f"hedged {model} path risk requires s0 (asset prices)")
 
 
-def _check_unported(config: GBMConfig, hedge=None, model: str = "gbm") -> None:
-    if hedge is not None:
-        check_hedged_family(model)
+def _check_unported(config: GBMConfig) -> None:
     if config.qmc != "none":
         raise NotImplementedError("quasi-MC path risk is not ported to mcport_torch yet")
     if config.ci_boot > 0:
@@ -273,7 +258,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
     ``_block_fn_for``. ``block_fn(first_block, n_blocks)`` launches one
     dispatch group and returns ``(port, dd)``, each ``(n_blocks,
     path_block)``. ``hedge`` with the spots ``s0``: hedged per-step
-    settlement (``HEDGED_FAMILIES``)."""
+    settlement."""
     w = torch.as_tensor(_host_f64(weights), device=dev).to(torch.float32)
     n, steps, seed = config.path_block, config.n_steps, config.seed
     legs = None if hedge is None else HedgeTensors.from_spec(hedge, _host_f64(s0), dev)
@@ -312,7 +297,7 @@ def _block_fn(model: str, model_params, weights, config: GBMConfig, rebalance: b
 
         def block_fn(b, group):
             term, dd = dcc_multi_portfolio_dd(seed, dt, w[None], n, steps, first_block=b,
-                                              n_blocks=group)
+                                              n_blocks=group, hedge=legs)
             return term[:, 0], dd[:, 0]
 
         return block_fn, SketchConfig()
@@ -423,7 +408,7 @@ def run_path_risk(
     prices from ``params.s0`` (the rebalanced recursion ``V *= 1 + w·r_h``;
     ``rebalance`` is not read).
     """
-    _check_unported(config, hedge)
+    _check_unported(config)
     return _one_shot("gbm", params, weights, config, sketch, dd_sketch, alpha, rebalance,
                      0.2, device, hedge, None if hedge is None else params.s0)
 
@@ -446,7 +431,7 @@ def run_garch_path_risk(
     innovations enter only the checkpoint digest). ``hedge`` (a HedgeSpec)
     settles the option legs every step against the prices ``P *= 1 + mu +
     eps`` from the spots ``s0``, which it requires, as mcport does."""
-    _check_unported(config, hedge, "garch")
+    _check_unported(config)
     _require_spots(hedge, s0, "garch")
     return _one_shot("garch", params, weights, config, sketch, dd_sketch, alpha, True,
                      0.2, device, hedge, s0)
@@ -467,10 +452,13 @@ def run_dcc_path_risk(
     """Simulated path risk under DCC-GARCH(1,1) paths on ``device``: terminal
     VaR/CVaR plus the max-drawdown distribution of one portfolio compounding
     per-period rebalanced wealth, under correlations that rise in stress.
-    ``s0`` is mcport's argument for hedged runs, which are not ported."""
-    _check_unported(config, hedge, "dcc")
+    ``hedge`` (a HedgeSpec) settles the option legs every step against the
+    prices ``P *= 1 + mu + eps`` from the spots ``s0``, which it requires, as
+    mcport does."""
+    _check_unported(config)
+    _require_spots(hedge, s0, "dcc")
     return _one_shot("dcc", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
-                     device)
+                     device, hedge, s0)
 
 
 def run_merton_path_risk(
@@ -490,7 +478,7 @@ def run_merton_path_risk(
     per-step Bernoulli systemic jump clock (:mod:`mcport_torch.ops.jump`).
     ``hedge`` settles the option legs every step against the prices from
     ``params.diffusion.s0`` (``V *= 1 + w·r_h``)."""
-    _check_unported(config, hedge, "jump")
+    _check_unported(config)
     return _one_shot("jump", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
                      device, hedge, None if hedge is None else params.diffusion.s0)
 
@@ -513,7 +501,7 @@ def run_heston_path_risk(
     ``hedge`` (a HedgeSpec) settles the option legs every step against the
     prices ``P *= exp(x)`` from the spots ``s0``, by default ``params.s0``
     (mcport's default), and compounds ``V *= 1 + w·r_h``."""
-    _check_unported(config, hedge, "heston")
+    _check_unported(config)
     if hedge is not None and s0 is None:
         s0 = params.s0
     return _one_shot("heston", params, weights, config, sketch, dd_sketch, alpha, True, 0.2,
@@ -542,7 +530,7 @@ def run_bootstrap_path_risk(
     by the history's rows). ``hedge`` (a HedgeSpec) settles the option legs
     every step against the prices ``P *= 1 + row`` from the spots ``s0``,
     which it requires, as mcport does."""
-    _check_unported(config, hedge, "bootstrap")
+    _check_unported(config)
     _require_spots(hedge, s0, "bootstrap")
     return _one_shot("bootstrap", returns, weights, config, sketch, dd_sketch, alpha, True,
                      p_restart, device, hedge, s0)
@@ -578,16 +566,16 @@ def run_resumable_path_risk(
     far (check ``checkpoint.done``). ``max_blocks`` bounds this call's work;
     ``checkpoint_path`` persists the state after every dispatch group. The
     digest binds a checkpoint to its computation and a mismatched resume
-    raises. ``hedge`` (a HedgeSpec, ``HEDGED_FAMILIES``) settles the option
-    legs every step against the spots ``s0`` (by default the model's own:
-    ``model_params.s0`` for "gbm", "student_t" and "heston", or
-    ``.diffusion.s0`` for "jump"; "garch" and "bootstrap" carry none and
-    require ``s0``, as mcport does).
+    raises. ``hedge`` (a HedgeSpec) settles the option legs every step
+    against the spots ``s0`` (by default the model's own: ``model_params.s0``
+    for "gbm", "student_t" and "heston", or ``.diffusion.s0`` for "jump";
+    "garch", "dcc" and "bootstrap" carry none and require ``s0``, as mcport
+    does).
     """
     if model not in FAMILIES:
         raise ValueError(f"model must be 'gbm', 'student_t', 'garch', 'dcc', 'jump', "
                          f"'heston' or 'bootstrap', got {model!r}")
-    _check_unported(config, hedge, model)
+    _check_unported(config)
     if hedge is not None and s0 is None:
         if model not in ("gbm", "student_t", "jump", "heston"):
             _require_spots(hedge, s0, model)

@@ -1,6 +1,6 @@
 """DCC-GARCH(1,1) paths: the CUDA DCC kernels and their plain torch forms.
 
-Port of ``mcport/ops/pallas_dcc.py``, its unhedged modes. Two kernels
+Port of ``mcport/ops/pallas_dcc.py``, every mode. Two kernels
 (``csrc/dcc.cu``) replace the four TPU kernels — ``_dcc_pack_kernel`` and
 ``_dcc_kernel`` (the terminal returns in the TPU's pack and tile layouts) and
 ``_dcc_dd_kernel`` and ``_dcc_pack_dd_kernel`` (the candidates). Per path and
@@ -19,7 +19,10 @@ eps``; then
   terminal simple returns ``cum - 1``;
 - :func:`dcc_multi_portfolio_dd` compounds ``W`` candidate portfolios'
   per-period rebalanced wealth ``V *= 1 + w·r`` (float32, mcport's
-  ``score_dot``) with the running peak and maximum drawdown.
+  ``score_dot``) with the running peak and maximum drawdown; hedged
+  (``hedge``), the prices ``P *= 1 + mu + eps`` from the spots settle every
+  option leg each step and ``V *= 1 + w·r_h`` (:mod:`mcport_torch.ops.hedged`),
+  held to its plain form path by path by :func:`dcc_price_bound`.
 
 The shocks ``z`` are the GBM kernels' normals on ``STREAM_GBM``
 (:func:`mcport_torch.ops.gbm.step_shocks`), with the GARCH kernels' path, step
@@ -45,10 +48,12 @@ import torch
 
 from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card_assets, sqrt_rn,
                                   step_shocks, wide_scratch)
+from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
 __all__ = [
     "DccTensors",
+    "DccPath",
     "rsqrt_rn",
     "dcc_innovations",
     "dcc_terminal_reference",
@@ -56,6 +61,7 @@ __all__ = [
     "dcc_multi_dd_reference",
     "dcc_multi_portfolio_dd",
     "dcc_tolerance",
+    "dcc_price_bound",
     "dcc_shares",
 ]
 
@@ -115,13 +121,34 @@ def rsqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(x.to(torch.float64)).to(torch.float32)
 
 
-def dcc_innovations(z: torch.Tensor, d: DccTensors) -> torch.Tensor:
+class DccPath(NamedTuple):
+    """The plain form's own path quantities that :func:`dcc_price_bound`
+    reads, per path and step: ``sigma (..., T, A)`` each step's volatility
+    ``sqrt(max(sigma2, 0))``, ``row_l1 (..., T, A)`` the absolute row sums
+    ``Σ_j |chol(R_t)_ij|`` of the step's correlation factor (``chol(R) =
+    D^{-1/2} chol(Q)``, at most ``sqrt(i + 1)``) and ``q_max (..., T)`` the
+    largest diagonal entry of ``Q_t``."""
+
+    sigma: torch.Tensor
+    row_l1: torch.Tensor
+    q_max: torch.Tensor
+
+
+def dcc_innovations(z: torch.Tensor, d: DccTensors, with_path: bool = False):
     """Innovations ``eps_t`` ``(..., T, A)`` from unit normal shocks ``z (...,
     T, A)``: the DCC recursion of the module docstring, one IEEE float32
     operation at a time in the kernels' order — the Q update as ``c0 S + a (e_i
     e_j) + b Q`` with ``c0 = (1 - a) - b``; the Cholesky column by column, each
     entry's sum subtracted in ascending k; ``L z`` summed in ascending j. The
-    step's return is ``mu + eps_t``."""
+    step's return is ``mu + eps_t``. With ``with_path``, also the path's
+    :class:`DccPath`.
+
+    The Cholesky runs right-looking: once column k is scaled, ``L_ik L_jk``
+    is subtracted from every entry of the trailing block at once. Each entry
+    still receives its products one at a time in ascending k, each product
+    and each difference rounded once, so the result is the left-looking
+    column-by-column sum of the kernels bit for bit, in ``A`` torch
+    operations per step rather than ``A^2 / 2``."""
     a_c, b_c = d.ab[0], d.ab[1]
     cs = ((1.0 - a_c) - b_c) * d.s
     n = d.n_assets
@@ -130,28 +157,47 @@ def dcc_innovations(z: torch.Tensor, d: DccTensors) -> torch.Tensor:
     e = d.e0.expand(batch + (n,))
     s2 = d.sigma2_0.expand(batch + (n,))
     e2 = d.eps2_0.expand(batch + (n,))
-    out = []
+    out, sig, rows, q_max = [], [], [], []
     for t in range(z.shape[-2]):
         q = cs + a_c * (e[..., :, None] * e[..., None, :]) + b_c * q
-        cols = []            # cols[j]: L[j:, j]
-        for j in range(n):
-            num = q[..., j:, j]
-            for k in range(j):
-                num = num - cols[k][..., j - k:] * cols[k][..., j - k:j - k + 1]
+        w = q.clone()        # the trailing block, reduced column by column
+        cols = []            # cols[k]: L[k:, k]
+        for k in range(n):
+            num = w[..., k:, k]
             inv = rsqrt_rn(torch.clamp_min(num[..., :1], _FLOOR))
-            cols.append(num * inv)
+            col = num * inv
+            cols.append(col)
+            if k + 1 < n:
+                w[..., k + 1:, k + 1:] -= col[..., 1:, None] * col[..., None, 1:]
         zt = z[..., t, :]
         m = cols[0] * zt[..., :1]
         for j in range(1, n):
             m[..., j:] += cols[j] * zt[..., j:j + 1]
-        e = m * rsqrt_rn(torch.clamp_min(torch.diagonal(q, dim1=-2, dim2=-1), _FLOOR))
+        diag = torch.diagonal(q, dim1=-2, dim2=-1)
+        inv_d = rsqrt_rn(torch.clamp_min(diag, _FLOOR))
+        e = m * inv_d
         s2 = d.omega + d.alpha * e2 + d.beta * s2
-        eps = sqrt_rn(torch.clamp_min(s2, 0.0)) * e
+        vol = sqrt_rn(torch.clamp_min(s2, 0.0))
+        eps = vol * e
         e2 = eps * eps
         out.append(eps)
+        if with_path:
+            l1 = cols[0].abs()
+            for j in range(1, n):
+                l1[..., j:] += cols[j].abs()
+            sig.append(vol)
+            rows.append(l1 * inv_d)
+            q_max.append(diag.amax(dim=-1))
     if not out:
-        return z.new_zeros(z.shape)
-    return torch.stack(out, dim=-2)
+        eps = z.new_zeros(z.shape)
+        if not with_path:
+            return eps
+        return eps, DccPath(eps, eps, z.new_zeros(z.shape[:-1]))
+    eps = torch.stack(out, dim=-2)
+    if not with_path:
+        return eps
+    return eps, DccPath(torch.stack(sig, dim=-2), torch.stack(rows, dim=-2),
+                        torch.stack(q_max, dim=-1))
 
 
 def _shocks(seed, d, n_paths, n_steps, first_block, n_blocks, first_path):
@@ -196,8 +242,8 @@ def _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
             scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
-            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps,
-                                      params.data_ptr(), None, out.data_ptr(), None,
+            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps, 0,
+                                      params.data_ptr(), None, None, out.data_ptr(), None,
                                       scratch.data_ptr(), WIDE_CTAS, stream)
         else:
             err = lib.mcport_dcc_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
@@ -252,17 +298,33 @@ def dcc_multi_dd_reference(
     first_block: int = -1,
     n_blocks: int = 1,
     first_path: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    hedge: HedgeTensors | None = None,
+    with_bound: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Plain torch form of the DCC candidate kernel: ``(term, dd)``, each
     ``(n_blocks, W, n_paths)`` float32, for paths ``first_path ..`` of each
-    block."""
+    block. ``hedge``: the hedged mode, mcport's ``_dcc_dd_kernel`` hedged
+    branch — ``P_0 = s0``, ``P_t = P_{t-1} · (1 + mu + eps_t)`` (the gross
+    rounded ``(1 + mu) + eps``, as :func:`dcc_terminal_reference` compounds
+    it), every leg settled against the move
+    (:func:`mcport_torch.ops.hedged.hedged_multi_dd`); with ``with_bound`` a
+    third output bounds each (candidate, path)'s distance from the kernel,
+    from this path's own :func:`dcc_price_bound`."""
     _check(d, n_paths, n_steps, n_blocks)
-    eps = dcc_innovations(_shocks(seed, d, n_paths, n_steps, first_block, n_blocks,
-                                  first_path), d)
-    return rebalanced_dd(d.mu + eps, weights)
+    z = _shocks(seed, d, n_paths, n_steps, first_block, n_blocks, first_path)
+    if hedge is None:
+        return rebalanced_dd(d.mu + dcc_innovations(z, d), weights)
+    if not with_bound:
+        return hedged_multi_dd((1.0 + d.mu) + dcc_innovations(z, d), hedge,
+                               weights.to(torch.float32), gross=True)
+    eps, path = dcc_innovations(z, d, with_path=True)
+    return hedged_multi_dd((1.0 + d.mu) + eps, hedge, weights.to(torch.float32),
+                           price_bound=dcc_price_bound(d, path), gross=True)
 
 
-def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks):
+def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks, hedge=None):
+    """Launch the candidate kernel for at most ``MAX_CANDIDATES``, hedged with
+    ``hedge``."""
     from mcport_torch._build import library
 
     lib = library("dcc")
@@ -273,22 +335,29 @@ def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks):
         return term, dd
     params = d.packed()
     weights = weights.contiguous()
+    block = hedge.packed() if hedge is not None else None
+    n_legs = hedge.n_legs if hedge is not None else 0
+    hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
             scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
             err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
-                                      params.data_ptr(), weights.data_ptr(), term.data_ptr(),
-                                      dd.data_ptr(), scratch.data_ptr(), WIDE_CTAS, stream)
+                                      n_legs, params.data_ptr(), weights.data_ptr(), hp,
+                                      term.data_ptr(), dd.data_ptr(), scratch.data_ptr(),
+                                      WIDE_CTAS, stream)
         else:
             err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
-                                          n_steps, params.data_ptr(), weights.data_ptr(),
-                                          term.data_ptr(), dd.data_ptr(), stream)
+                                          n_steps, n_legs, params.data_ptr(),
+                                          weights.data_ptr(), hp, term.data_ptr(),
+                                          dd.data_ptr(), stream)
     if err:
         raise RuntimeError(f"DCC candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
     dcc_multi_portfolio_dd.launches += 1
     dcc_multi_portfolio_dd.wide_launches += int(a > MAX_ASSETS)
+    if hedge is not None:
+        dcc_multi_portfolio_dd.hedged_launches += 1
     return term, dd
 
 
@@ -301,30 +370,38 @@ def dcc_multi_portfolio_dd(
     *,
     first_block: int = -1,
     n_blocks: int = 1,
+    hedge: HedgeTensors | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(terminal returns, max drawdowns), each ``(n_blocks, W, n_paths)``
     float32, of ``W`` candidates ``weights (W, A)`` compounding rebalanced
     wealth over the DCC-GARCH paths of blocks ``first_block + 1 ..
-    first_block + n_blocks`` — mcport's ``pallas_dcc_path_stats``, unhedged.
+    first_block + n_blocks`` — mcport's ``pallas_dcc_path_stats``.
 
-    More than ``MAX_CANDIDATES`` candidates run as several launches over the
-    same paths. Tensors on a CUDA device launch the kernel, each launch
-    counted in ``dcc_multi_portfolio_dd.launches``; on the CPU the plain form
-    runs. Any other device, or a problem the kernel does not take, raises.
+    ``hedge`` (a :class:`mcport_torch.ops.hedged.HedgeTensors` on the same
+    device) selects hedged per-step settlement, mcport's ``hedge_args``: the
+    prices move ``P *= 1 + mu + eps`` from the spots, every leg settles each
+    step, and the candidates compound ``V *= 1 + W·r_h``. More than
+    ``MAX_CANDIDATES`` candidates run as several launches over the same paths.
+    Tensors on a CUDA device launch the kernel, each launch counted in
+    ``dcc_multi_portfolio_dd.launches`` (a hedged one in ``.hedged_launches``
+    too); on the CPU the plain form runs. Any other device, or a problem the
+    kernel does not take, raises.
     """
     a = _check(d, n_paths, n_steps, n_blocks)
     w = weights.to(torch.float32)
     if w.dim() != 2 or w.shape[1] != a or w.shape[0] < 1 or w.device != d.device:
         raise ValueError(f"weights must be (W >= 1, {a}) on {d.device}, got "
                          f"{tuple(w.shape)} on {w.device}")
+    if hedge is not None:
+        hedge.check(a, d.device)
     if d.device.type == "cpu":
         return dcc_multi_dd_reference(seed, d, w, n_paths, n_steps, first_block=first_block,
-                                      n_blocks=n_blocks)
+                                      n_blocks=n_blocks, hedge=hedge)[:2]
     if d.device.type != "cuda":
         raise ValueError(f"no DCC kernel for device {d.device}")
     check_card_assets(a, "DCC")
     parts = [_launch_dd(seed, d, w[i:i + MAX_CANDIDATES], n_paths, n_steps, first_block,
-                        n_blocks)
+                        n_blocks, hedge)
              for i in range(0, w.shape[0], MAX_CANDIDATES)]
     if len(parts) == 1:
         return parts[0]
@@ -333,6 +410,60 @@ def dcc_multi_portfolio_dd(
 
 dcc_multi_portfolio_dd.launches = 0
 dcc_multi_portfolio_dd.wide_launches = 0   # the wide layout's share of ``launches`` (A > 64)
+dcc_multi_portfolio_dd.hedged_launches = 0   # the hedged mode's share of ``launches``
+
+
+def _least_eigenvalues(d: DccTensors, n_steps: int) -> torch.Tensor:
+    """``(T,)`` float64 lower bounds on the least eigenvalue of every path's
+    ``Q_t``: ``Q_t ⪰ c0 S + b Q_{t-1}`` (``a e e'`` is positive
+    semidefinite), so ``lambda_t >= c0 lambda(S) + b lambda_{t-1}`` from
+    ``lambda_0 = lambda_min(q0)``, with ``lambda(S)`` the least eigenvalue of
+    ``S`` (its largest where ``c0 < 0``)."""
+    a_c, b_c = (float(x) for x in d.ab.to(torch.float64).cpu())
+    c0 = 1.0 - a_c - b_c
+    ev_s = torch.linalg.eigvalsh(d.s.to(torch.float64).cpu())
+    q0 = d.q0.to(torch.float64).cpu()
+    lam = float(torch.linalg.eigvalsh(0.5 * (q0 + q0.T)).min())
+    floor = c0 * float(ev_s.min() if c0 >= 0.0 else ev_s.max())
+    out = []
+    for _ in range(n_steps):
+        lam = floor + b_c * lam
+        out.append(lam)
+    return torch.tensor(out, dtype=torch.float64)
+
+
+def dcc_price_bound(d: DccTensors, path: DccPath) -> torch.Tensor:
+    """Bound ``(..., T, A)`` on the relative difference of the hedged DCC
+    kernel's price ``P_t`` from its plain form's, at every step of every
+    path, from the path's own quantities (``path``, :func:`dcc_innovations`
+    ``with_path``).
+
+    :func:`dcc_tolerance`'s terms, with this path's values where that bound
+    takes the worst case over every path: per step the two sides differ by
+    the draws (at most 2e-6 each, through this step's row of ``chol(R_t)``:
+    ``2e-6 Σ_j |chol(R_t)_ij|``), by nvcc's contractions in the Q update, the
+    Cholesky and ``L z`` (``4 (A + 2)`` roundings of ``e``, amplified by the
+    square root of this step's condition bound ``kappa_t = A q_max,t /
+    lambda_t``: ``q_max,t`` this path's largest diagonal of ``Q_t``,
+    ``lambda_t`` a lower bound on every path's least eigenvalue of ``Q_t``,
+    :func:`_least_eigenvalues`) — both scaled by this step's volatility
+    ``sigma_t`` and :func:`dcc_tolerance`'s gain ``1 + 4a/(1-b)`` for a
+    change of ``e`` that re-enters Q — and by two roundings of the gross
+    return. Those differences add up like a random walk along the path,
+    with the factor 4 of headroom of :func:`dcc_tolerance`: ``delta_t = 4
+    sqrt(Σ_{s<=t} per_step_s^2)``. The hedged plain form turns it into a
+    bound per (candidate, path) (:func:`mcport_torch.ops.hedged
+    .hedged_multi_dd`, whose ``price_bound`` takes it step by step)."""
+    n, steps = d.n_assets, path.sigma.shape[-2]
+    a_c, b_c = (float(x) for x in d.ab.to(torch.float64).cpu())
+    gain = 1.0 + (4.0 * a_c / (1.0 - b_c) if b_c < 1.0 else 0.0)
+    dev = path.sigma.device
+    lam = _least_eigenvalues(d, steps).to(dev).clamp_min(1e-12)
+    kappa = n * path.q_max.to(torch.float64) / lam
+    per_e = (2e-6 * path.row_l1.to(torch.float64)
+             + 4.0 * (n + 2) * torch.sqrt(kappa)[..., None] * _EPS)
+    per_step = 2.0 * _EPS + path.sigma.to(torch.float64) * gain * per_e
+    return (4.0 * torch.sqrt(torch.cumsum(per_step ** 2, dim=-2))).to(torch.float32)
 
 
 def dcc_tolerance(d: DccTensors, n_steps: int) -> torch.Tensor:
@@ -379,13 +510,20 @@ def dcc_tolerance(d: DccTensors, n_steps: int) -> torch.Tensor:
     return (4.0 * math.sqrt(max(n_steps, 1)) * per_step).to(torch.float32)
 
 
-def dcc_shares(kernel, plain, d: DccTensors, n_steps: int) -> dict[str, float]:
+def dcc_shares(kernel, plain, d: DccTensors, n_steps: int,
+               hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound that ``|kernel - plain|`` uses →
     ``{"term"}`` for a terminal tensor ``(..., A)``, ``{"term", "dd"}`` for a
     candidate pair ``(term, dd)``: the candidates' values are held to the
     largest asset bound plus ``8 · 2^-24 · (A + sqrt(n))`` for the score's sum
     over assets and the product over steps, the drawdown to twice that.
-    Non-finite kernel values give ``inf``."""
+    Non-finite kernel values give ``inf``. Hedged (``hedge``): path by path
+    against the bound that ``plain`` carries (:func:`dcc_multi_dd_reference`
+    ``with_bound``), by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if hedge is not None:
+        if len(plain) != 3:
+            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
+        return hedged_shares(kernel, plain, None)
     rel = dcc_tolerance(d, n_steps).to(d.device)
 
     def share(k, p, tol):

@@ -154,11 +154,13 @@ def hedged_multi_dd(x: torch.Tensor, hedge: HedgeTensors, weights: torch.Tensor,
     0`` — the hedged kernels' path, step by step, in the score tier's
     numerics (:mod:`mcport_torch.ops.multi_dd`).
 
-    With ``price_bound`` ``(A,)``, a kernel family's bound on the relative
-    difference of each asset's price from this form's at any step (its log
-    paths' bound), a third output ``(..., W, n)`` bounds the relative
-    difference of each (candidate, path)'s value at every step, along this
-    path, to first order in the bound: with ``c_t = 1 / |1 + W·r_h|`` and
+    With ``price_bound``, a kernel family's bound on the relative difference
+    of each asset's price from this form's — ``(A,)`` at any step (its log
+    paths' bound), or ``(..., n, T, A)`` step by step along each path (DCC's,
+    :func:`mcport_torch.ops.dcc.dcc_price_bound`) — a third output ``(...,
+    W, n)`` bounds the relative difference of each (candidate, path)'s value
+    at every step, along this path, to first order in the bound: with ``c_t
+    = 1 / |1 + W·r_h|`` and
     :func:`_leg_scales`,
 
         Σ_t c_t Σ_a |w_a| δ_a s_a,t                     (the price levels)
@@ -182,7 +184,7 @@ def hedged_multi_dd(x: torch.Tensor, hedge: HedgeTensors, weights: torch.Tensor,
     v = torch.ones(x.shape[:-2] + (w.shape[0],), dtype=x.dtype, device=x.device)
     peak, dd = torch.ones_like(v), torch.zeros_like(v)
     if price_bound is not None:
-        delta, aw = price_bound.to(x.dtype), w.abs().T
+        aw = w.abs().T
         lin, walk, rounding = torch.zeros_like(v), torch.zeros_like(v), torch.zeros_like(v)
     for t in range(x.shape[-2]):
         p_new = p * (x[..., t, :] if gross else torch.exp(x[..., t, :]))
@@ -190,6 +192,8 @@ def hedged_multi_dd(x: torch.Tensor, hedge: HedgeTensors, weights: torch.Tensor,
                                      hedge.qty)
         f = _score(r, w, score_dtype)
         if price_bound is not None:
+            delta = (price_bound[..., t, :] if price_bound.dim() > 1
+                     else price_bound).to(x.dtype)
             s, g, u = _leg_scales(p, p_new, r, hedge, delta)
             c = 1.0 / (1.0 + f).abs()
             lin = lin + c * ((delta * s) @ aw)

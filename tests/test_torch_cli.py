@@ -17,9 +17,8 @@ dcc`` emit mcport's keys; ``compare-models`` gives mcport's seven families
 with their keys, VaR/CVaR/mean within Monte Carlo error and the same DCC
 fit. ``hedged-risk``, ``gbm-risk --hedge``, ``path-risk --hedge`` and
 ``dd-frontier --hedge`` (mcport's JSON hedge file: a married put on BTC, a
-collar on ETH; the path families gbm, student_t, jump, garch, heston and
-bootstrap) emit mcport's keys, and the unported hedged family (dcc) and
-``--ci`` exit with a message. A subprocess imports every ``mcport_torch``
+collar on ETH; every path family) emit mcport's keys, and ``--ci`` exits
+with a message. A subprocess imports every ``mcport_torch``
 module and finds neither jax nor pandas loaded.
 """
 
@@ -327,6 +326,9 @@ def hedge_file(weekly, tmp_path_factory):
     ["path-risk", "--models", "heston", "--paths", "8192", "--steps", "8"],
     ["dd-frontier", "--model", "heston", "--candidates", "32", "--paths", "1024", "--steps",
      "8", "--dd-budget", "0.9"],
+    ["path-risk", "--models", "dcc", "--paths", "8192", "--steps", "8"],
+    ["dd-frontier", "--model", "dcc", "--candidates", "32", "--paths", "1024", "--steps",
+     "8", "--dd-budget", "0.9"],
 ])
 def test_hedged_commands_have_mcport_keys(weekly, hedge_file, argv):
     common = [argv[0], *weekly, "--period", "W", "--hedge", hedge_file, *argv[1:]]
@@ -350,10 +352,6 @@ def test_hedged_commands_exit_on_what_is_not_ported(weekly, hedge_file):
     common = [*weekly, "--period", "W", "--hedge", hedge_file, "--device", "cpu"]
     with pytest.raises(SystemExit, match="bootstrap error bars"):
         _run(port_main, ["hedged-risk", *common, "--ci", "50"])
-    for argv in (["dd-frontier", "--model", "dcc"],
-                 ["path-risk", "--models", "garch,bootstrap,dcc"]):
-        with pytest.raises(SystemExit, match="is not ported"):
-            _run(port_main, [argv[0], *common, *argv[1:], "--paths", "1024"])
     with pytest.raises(SystemExit, match="requires --hedge"):
         _run(port_main, ["hedged-risk", *weekly, "--period", "W", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not in the universe"):

@@ -34,7 +34,11 @@ bit. The hedged modes of #5 and #7 (1-3 legs, W in {1, 13, 256}, 15, 64 and
 for bit; identity hedges against the unhedged modes; overflowed wealth held.
 The hedged mode of #10 (15, 17, 64, 65 and 200 assets) to ``heston_shares``
 with the hedge (``heston_price_bound``), each C entry point's signature, the
-identity hedge at a Feller-violating vol of vol, overflowed wealth held.
+identity hedge at a Feller-violating vol of vol, overflowed wealth held. The
+hedged mode of #13 (4, 15, 16, 17, 64, 65 and 256 assets, W up to 257) to
+``dcc_shares`` with the hedge (``dcc_price_bound``), each C entry point's
+signature, the identity hedge against the unhedged kernel, overflowed
+wealth held.
 """
 
 import numpy as np
@@ -1275,3 +1279,99 @@ def test_heston_hedged_kernel_carries_overflowed_wealth(dev):
     held = hedged_held(k, p)
     assert held["overflowed"] > 0 and held["astray"] == 0, held
     assert max(heston_shares(k, p, h, 252, hedge=hedge).values()) <= 1.0, (held,)
+
+
+# ---- the hedged mode of kernel #13 (DCC) ------------------------------------------------
+
+@pytest.mark.parametrize("a", [4, 15, 16, 17, 64, 65, 256])
+@pytest.mark.parametrize("n_legs", [1, 3])
+@pytest.mark.parametrize("n_cand", [1, 5, 256, 257])
+def test_dcc_hedged_kernel_matches_plain_form(dev, a, n_legs, n_cand):
+    """Every width: ``dcc_dd_kernel<true>`` (4, 15, 16), ``dcc_wide_kernel<true,
+    true>`` (17, 64) and ``dcc_wider_kernel<true, *, true>`` (65; 256, where Q
+    and L leave shared memory), W past one launch's 256, path by path to the
+    bound of ``ops.dcc.dcc_price_bound``."""
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
+
+    d = _dcc(a, dev)
+    hedge = _hedge(a, dev, n_legs, seed=n_legs)
+    w = _wide_cand(a, dev, n_cand)
+    paths, steps = (131, 16) if a > 64 else (1_029, 52)
+    kw = dict(first_block=6, n_blocks=2, hedge=hedge)
+    before = (dcc_multi_portfolio_dd.hedged_launches, dcc_multi_portfolio_dd.wide_launches)
+    k = dcc_multi_portfolio_dd(11, d, w, paths, steps, **kw)
+    torch.cuda.synchronize()
+    chunks = -(-n_cand // 256)
+    assert dcc_multi_portfolio_dd.hedged_launches == before[0] + chunks
+    assert dcc_multi_portfolio_dd.wide_launches == before[1] + chunks * int(a > 64)
+    p = dcc_multi_dd_reference(11, d, w, paths, steps, with_bound=True, **kw)
+    shares = dcc_shares(k, p, d, steps, hedge=hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("a", [15, 17, 65])
+def test_dcc_entry_points_take_their_arguments(dev, a):
+    """The ctypes signatures of ``mcport_dcc_multi_dd`` and ``mcport_dcc_wide``
+    against the C parameters: each mode through its entry point, hedged at
+    252 steps against the plain form, unhedged and the terminal function to
+    ``dcc_tolerance``; a hedge for another width is refused."""
+    from mcport_torch.ops.dcc import (_launch_dd, dcc_multi_dd_reference, dcc_multi_portfolio_dd,
+                                      dcc_shares, dcc_terminal, dcc_terminal_reference)
+
+    d = _dcc(a, dev, seed=a)
+    k = dcc_terminal(5, d, 517, 60, first_block=2, n_blocks=2)
+    p = dcc_terminal_reference(5, d, 517, 60, first_block=2, n_blocks=2)
+    assert max(dcc_shares(k, p, d, 60).values()) <= 1.0
+    hedge = _hedge(a, dev, 2, seed=a)
+    w = _wide_cand(a, dev, 13)
+    steps = 252 if a <= 64 else 16
+    k = _launch_dd(5, d, w, 517, steps, 2, 2, hedge=hedge)
+    p = dcc_multi_dd_reference(5, d, w, 517, steps, first_block=2, n_blocks=2, hedge=hedge,
+                               with_bound=True)
+    assert max(dcc_shares(k, p, d, steps, hedge=hedge).values()) <= 1.0
+    k = _launch_dd(5, d, w, 517, steps, 2, 2)
+    p = dcc_multi_dd_reference(5, d, w, 517, steps, first_block=2, n_blocks=2)
+    assert max(dcc_shares(k, p, d, steps).values()) <= 1.0
+    with pytest.raises(ValueError, match="hedge must cover"):
+        dcc_multi_portfolio_dd(5, d, w, 517, 8, hedge=_hedge(a + 1, dev, 2))
+
+
+@pytest.mark.parametrize("a", [15, 17, 65])
+def test_dcc_identity_hedge_is_the_unhedged_mode(dev, a):
+    """One BUY_ASSET leg per asset settles to the asset's return: the
+    unhedged kernel on the same draws and recursion, within the hedged
+    bound."""
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
+    from mcport_torch.ops.hedged import HedgeTensors
+    from mcport_torch.options.hedged import HedgeSpec
+
+    d = _dcc(a, dev)
+    ident = HedgeTensors.from_spec(HedgeSpec.build(None, [str(i) for i in range(a)]),
+                                   np.linspace(10.0, 100.0, a), dev)
+    w = _wide_cand(a, dev, 256)
+    paths, steps = (515, 16) if a > 64 else (2_053, 252)
+    h = dcc_multi_portfolio_dd(5, d, w, paths, steps, hedge=ident)
+    r = dcc_multi_portfolio_dd(5, d, w, paths, steps)
+    bound = dcc_multi_dd_reference(5, d, w, paths, steps, hedge=ident, with_bound=True)[2]
+    shares = dcc_shares(h, (*r, bound), d, steps, hedge=ident)
+    assert max(shares.values()) <= 1.0, shares
+
+
+def test_dcc_hedged_kernel_carries_overflowed_wealth(dev):
+    """Deep in-the-money puts settled every step overflow the wealth; the
+    kernel gives the plain form's inf and NaN on the same paths."""
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
+    from mcport_torch.ops.hedged import HedgeTensors, hedged_held
+
+    a = 15
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    hedge = HedgeTensors(f(np.full(a, 100.0)), torch.full((a, 2), 4, dtype=torch.int32,
+                                                            device=dev),
+                         f(np.full((a, 2), 99.0)), f(np.zeros((a, 2))), f(np.full((a, 2), 3.0)))
+    d = _dcc(a, dev)
+    w = _wide_cand(a, dev, 13)
+    k = dcc_multi_portfolio_dd(3, d, w, 2_053, 252, hedge=hedge)
+    p = dcc_multi_dd_reference(3, d, w, 2_053, 252, hedge=hedge, with_bound=True)
+    held = hedged_held(k, p)
+    assert held["overflowed"] > 0 and held["astray"] == 0, held
+    assert max(dcc_shares(k, p, d, 252, hedge=hedge).values()) <= 1.0, (held,)

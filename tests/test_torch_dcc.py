@@ -21,6 +21,8 @@ mcport's, on the CPU.
 - The kernel-vs-plain bound (``dcc_tolerance``) holds a float64 evaluation of
   the same recursion against the float32 plain form with room to spare, and
   planted faults exceed it more than twice over.
+- The plain form's right-looking Cholesky equals the kernels' left-looking
+  column loop bit for bit (A = 1 to 33).
 """
 
 import math
@@ -268,6 +270,54 @@ def test_plain_form_rounds_as_ieee_float32():
     d = PARAMS.tensors("cpu")
     z = step_shocks(0, A, 64, 5, device="cpu")
     assert O.dcc_innovations(z, d).dtype == torch.float32
+
+
+def _left_looking(z, d):
+    """The kernels' Cholesky as they run it, column by column: each entry's
+    products subtracted in ascending k from ``Q``'s entry, each product and
+    difference rounded once; then ``e = D^{-1/2} L z`` and the GARCH step."""
+    a_c, b_c = d.ab[0], d.ab[1]
+    cs = ((1.0 - a_c) - b_c) * d.s
+    n, batch = d.n_assets, z.shape[:-2]
+    q, e = d.q0.expand(batch + (n, n)), d.e0.expand(batch + (n,))
+    s2, e2 = d.sigma2_0.expand(batch + (n,)), d.eps2_0.expand(batch + (n,))
+    out = []
+    for t in range(z.shape[-2]):
+        q = cs + a_c * (e[..., :, None] * e[..., None, :]) + b_c * q
+        cols = []
+        for j in range(n):
+            num = q[..., j:, j]
+            for k in range(j):
+                num = num - cols[k][..., j - k:] * cols[k][..., j - k:j - k + 1]
+            cols.append(num * O.rsqrt_rn(torch.clamp_min(num[..., :1], 1e-12)))
+        zt = z[..., t, :]
+        m = cols[0] * zt[..., :1]
+        for j in range(1, n):
+            m[..., j:] += cols[j] * zt[..., j:j + 1]
+        e = m * O.rsqrt_rn(torch.clamp_min(torch.diagonal(q, dim1=-2, dim2=-1), 1e-12))
+        s2 = d.omega + d.alpha * e2 + d.beta * s2
+        eps = O.sqrt_rn(torch.clamp_min(s2, 0.0)) * e
+        e2 = eps * eps
+        out.append(eps)
+    return torch.stack(out, dim=-2)
+
+
+@pytest.mark.parametrize("a, ab, e0", [(1, (0.05, 0.9), 0.0), (2, (0.06, 0.9), 1.0),
+                                        (5, (0.2, 0.79), -2.0), (17, (0.05, 0.9), 0.5),
+                                        (33, (0.0, 1.0), 0.0)])
+def test_right_looking_cholesky_is_the_kernels_order(a, ab, e0):
+    """The plain form's right-looking Cholesky (the trailing block reduced
+    once per column) subtracts every entry's products in the kernels'
+    ascending order: its innovations equal the left-looking loop's bit for
+    bit, and the path quantities of ``with_path`` are the loop's own."""
+    d = _bench(a, ab, e0).tensors("cpu")
+    z = step_shocks(4, a, 96, 6, device="cpu")
+    eps, path = O.dcc_innovations(z, d, with_path=True)
+    assert torch.equal(eps, _left_looking(z, d))
+    assert torch.equal(O.dcc_innovations(z, d), eps)
+    assert path.sigma.shape == eps.shape == path.row_l1.shape and path.q_max.shape == eps.shape[:-1]
+    assert bool((path.row_l1 >= 1.0 - 1e-6).all())   # a unit-norm row of chol(R_t)
+    assert bool((path.row_l1 <= math.sqrt(a) * (1.0 + 1e-5)).all())
 
 
 def _innovations(z, d, fault=None, dtype=torch.float32):

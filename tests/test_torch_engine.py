@@ -21,7 +21,7 @@ import torch
 from mcport.config import Config, GBMConfig, SketchConfig
 from mcport.engine.mc_engine import run_resumable_mc as ref_run
 from mcport.models.gbm import GBMParams as RefParams
-from mcport_torch.api import gbm_risk, hedged_tail_risk, path_tail_risk
+from mcport_torch.api import gbm_risk, hedged_tail_risk
 from mcport_torch.convert import from_mcport, gbm_params_from_numpy
 from mcport_torch.device import resolve_device
 from mcport_torch.engine.mc_engine import (
@@ -166,7 +166,6 @@ def test_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: path_tail_risk(object(), model="dcc", legs_by_asset={}, device="cpu"),
     lambda: run_resumable_mc(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
     lambda: run_resumable_mc_with_recovery(PARAMS, W, CFG),
     lambda: gbm_risk(PARAMS, W, Config(gbm=dataclasses.replace(CFG, qmc="sobol")),

@@ -15,7 +15,8 @@
   + resume bit-identical (``run_resumable_mc`` and the path-risk driver),
   ``hedged_tail_risk`` for all seven families against mcport's in law, the
   hedged GBM and jump frontiers scoring as the plain scorer on one weight
-  matrix, and the unported hedged families raising with their name.
+  matrix, and hedged DCC through ``path_tail_risk`` and its frontier with
+  mcport's keys.
 """
 
 import math
@@ -377,13 +378,29 @@ def test_hedged_tail_risk_refuses_error_bars(weekly):
 
 
 @pytest.mark.parametrize("model", ["dcc"])
-def test_unported_hedged_families_raise_with_their_name(weekly, model):
-    data, _ = weekly
-    with pytest.raises(NotImplementedError, match=f"hedged {model} path risk"):
-        path_tail_risk(data, None, Config(gbm=CFG), model=model,
-                       legs_by_asset=_weekly_legs(data), device="cpu")
-    with pytest.raises(NotImplementedError, match=f"hedged {model} drawdown frontier"):
-        family_drawdown_frontier_search(0, model, None, hedge=SPEC, s0=S0, device="cpu")
+def test_hedged_family_calls_run_on_the_weekly_fixtures(weekly, model):
+    """The last family whose hedged mode was ported: ``path_tail_risk`` with
+    legs has mcport's keys and hedged assets, and the hedged frontier on the
+    same fit settles every candidate (the laws:
+    ``tests/test_torch_hedged_dcc.py``)."""
+    from mcport.api import path_tail_risk as ref_tail
+    from mcport_torch.models.dcc import estimate_dcc_garch
+
+    data, ref_data = weekly
+    legs = _weekly_legs(data)
+    small = GBMConfig(n_paths=8_192, n_steps=8, path_block=4_096, seed=1)
+    got = path_tail_risk(data, None, Config(gbm=small), model=model, legs_by_asset=legs,
+                         device="cpu")
+    want = ref_tail(ref_data, None, RefConfig(gbm=RefGBMConfig(
+        n_paths=8_192, n_steps=8, path_block=4_096, use_pallas=False)), model=model,
+        legs_by_asset=legs)
+    assert set(got) == set(want) and got["hedged_assets"] == want["hedged_assets"]
+    assert got["cvar"] <= got["var"] and -1.0 <= got["dd_p95"] <= got["dd_median"] <= 0.0
+    r = family_drawdown_frontier_search(0, model, estimate_dcc_garch(data.port_rets),
+                                        dd_budget=0.9, n_candidates=16, n_paths=512, n_steps=8,
+                                        hedge=HedgeSpec.build(legs, data.names),
+                                        s0=data.prices[-1], device="cpu")
+    assert r.opt_idx >= 0 and np.isfinite(r.ret).all()
 
 
 def _scores(term, dd, k_tail):

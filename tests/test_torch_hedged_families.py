@@ -17,11 +17,13 @@ against mcport, on the CPU (the Heston family's engines and frontier:
   unhedged mode to its bound; split + resume bit-identical; the hedge binds
   the digest; hedged runs without spots raise, as mcport's do.
 - The per-path bounds (``ops.garch.garch_price_bound``,
-  ``ops.bootstrap.bootstrap_price_bound``, ``ops.heston.heston_price_bound``)
-  reject planted faults by more than 2x at 252 steps on the bench hedge
-  (settlement in bfloat16, a drawdown off by 1e-3, a dropped premium, a put
-  settled as a call), the GARCH bound holds returns moved by a sound
-  kernel's rounding, and the Heston bound gross factors 2 ulps apart.
+  ``ops.bootstrap.bootstrap_price_bound``, ``ops.heston.heston_price_bound``,
+  ``ops.dcc.dcc_price_bound``) reject planted faults by more than 2x at 252
+  steps on the bench hedge (settlement in bfloat16, a drawdown off by 1e-3, a
+  dropped premium, a put settled as a call), the GARCH bound holds returns
+  moved by a sound kernel's rounding, the Heston bound gross factors 2 ulps
+  apart, and the DCC bound innovations of shocks 2e-6 apart through a
+  recursion rounded otherwise.
 """
 
 import math
@@ -49,7 +51,9 @@ from mcport_torch.engine.drawdown_frontier import (family_drawdown_frontier_sear
                                                    frontier_seeds)
 from mcport_torch.engine.path_risk import (run_bootstrap_path_risk, run_garch_path_risk,
                                            run_resumable_path_risk)
+from mcport_torch.convert import dcc_params_from_numpy
 from mcport_torch.ops import bootstrap as OB
+from mcport_torch.ops import dcc as OD
 from mcport_torch.ops import garch as OG
 from mcport_torch.ops import hedged as OH
 from mcport_torch.ops import heston as OHS
@@ -77,6 +81,9 @@ REF_HESTON = RefHeston(
     xi=np.array([3e-3, 4e-3, 2e-3, 3e-3]), rho=np.array([-0.5, -0.4, -0.6, -0.5]),
     v0=_LONG_RUN, corr_chol=REF_GARCH.corr_chol, s0=S0)
 HESTON = from_mcport(REF_HESTON)
+# the same universe under DCC: the GARCH base, chip_smoke's bench a 0.05, b 0.9,
+# q0 = 0.5 I + 0.5, e0 = 0
+DCC = dcc_params_from_numpy(GARCH, 0.05, 0.9, 0.5 * np.eye(A) + 0.5, np.zeros(A))
 HISTORY = (np.random.default_rng(42).standard_t(5, (150, A)) * 0.02 + 0.002).astype(np.float32)
 ROWS = {0: [(RefLegType.BUY_ASSET, 0.0, 0.0, 1.0), (RefLegType.BUY_PUT, 95.0, 0.5, 1.0)],
         1: [(RefLegType.BUY_PUT, 45.0, 0.2, 1.0), (RefLegType.SELL_CALL, 56.0, 0.3, 1.0)]}
@@ -215,6 +222,12 @@ def _family_call(family, w, steps, **kw):
                 lambda: OG.garch_multi_dd_reference(6, g, w, 512, steps, hedge=BENCH,
                                                     with_bound=True, **kw),
                 lambda k, p: OG.garch_shares(k, p, g, steps, hedge=BENCH))
+    if family == "dcc":
+        d = DCC.tensors("cpu")
+        return (lambda: OD.dcc_multi_portfolio_dd(6, d, w, 512, steps, hedge=BENCH, **kw),
+                lambda: OD.dcc_multi_dd_reference(6, d, w, 512, steps, hedge=BENCH,
+                                                  with_bound=True, **kw),
+                lambda k, p: OD.dcc_shares(k, p, d, steps, hedge=BENCH))
     if family == "heston":
         h = HESTON.tensors("cpu")
         return (lambda: OHS.heston_multi_portfolio_dd(6, h, w, 512, steps, hedge=BENCH, **kw),
@@ -230,7 +243,7 @@ def _family_call(family, w, steps, **kw):
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
-@pytest.mark.parametrize("family", ["garch", "bootstrap", "heston"])
+@pytest.mark.parametrize("family", ["garch", "bootstrap", "heston", "dcc"])
 def test_hedged_price_bounds_reject_planted_faults(monkeypatch, family, fault):
     """The per-path bound (the plain form's ``with_bound``) rejects each
     planted fault by more than 2x on the bench hedge at 252 steps."""
@@ -263,6 +276,31 @@ def test_garch_price_bound_holds_returns_a_kernel_apart(steps):
     gen = torch.Generator().manual_seed(steps)
     moved = hedged_multi_dd(gross + 2e-6 * sigma * (2.0 * torch.rand(gross.shape, generator=gen)
                                                     - 1.0), BENCH, w, gross=True)
+    shares = OH.hedged_shares(moved, right, None)
+    assert 0.0 < max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("steps", [16, 252])
+def test_dcc_price_bound_holds_innovations_a_kernel_apart(monkeypatch, steps):
+    """A sound DCC kernel draws its shocks up to 2e-6 from the plain form's
+    and rounds the recursion otherwise (nvcc contracts its sums). Shocks
+    moved by up to 2e-6 at random, through the recursion evaluated in
+    float64, give prices within the per-path bound of
+    :func:`mcport_torch.ops.dcc.dcc_price_bound`, which the plain form
+    computes from its own path."""
+    d = DCC.tensors("cpu")
+    z = OD._shocks(8, d, 512, steps, -1, 1, 0)
+    eps, path = OD.dcc_innovations(z, d, with_path=True)
+    w = _f32(np.random.default_rng(4).dirichlet(np.ones(A), 5))
+    right = hedged_multi_dd((1.0 + d.mu) + eps, BENCH, w,
+                            price_bound=OD.dcc_price_bound(d, path), gross=True)
+    gen = torch.Generator().manual_seed(steps)
+    z_k = z.double() + 2e-6 * (2.0 * torch.rand(z.shape, generator=gen, dtype=torch.float64)
+                               - 1.0)
+    monkeypatch.setattr(OD, "rsqrt_rn", torch.rsqrt)
+    monkeypatch.setattr(OD, "sqrt_rn", torch.sqrt)
+    eps_k = OD.dcc_innovations(z_k, OD.DccTensors(*(x.double() for x in d))).float()
+    moved = hedged_multi_dd((1.0 + d.mu) + eps_k, BENCH, w, gross=True)
     shares = OH.hedged_shares(moved, right, None)
     assert 0.0 < max(shares.values()) <= 1.0, shares
 

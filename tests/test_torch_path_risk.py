@@ -75,6 +75,7 @@ from mcport_torch.engine.path_risk import (
     run_resumable_path_risk_with_recovery,
     stats_from_log_paths,
 )
+from mcport_torch.options import HedgeSpec
 from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
 from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
 from mcport_torch.ops.garch import garch_multi_portfolio_dd
@@ -228,15 +229,52 @@ def test_path_tail_risk_has_mcport_keys(universe, model, tmp_path):
 @pytest.mark.parametrize("call", [
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, qmc="sobol"), device="cpu"),
     lambda: run_path_risk(PARAMS, W, dataclasses.replace(CFG, ci_boot=10), device="cpu"),
-    lambda: run_resumable_path_risk("dcc", DCC, W, CFG, hedge=object(), device="cpu"),
     lambda: run_resumable_path_risk_with_recovery("gbm", PARAMS, W, CFG),
-    lambda: family_drawdown_frontier_search(0, "dcc", DCC, hedge=object(), device="cpu"),
-    lambda: path_tail_risk(object(), model="dcc", legs_by_asset={}, device="cpu"),
-    lambda: run_dcc_path_risk(DCC, W, CFG, hedge=object(), device="cpu"),
 ])
 def test_unported_branches_raise(call):
     with pytest.raises(NotImplementedError, match="not ported"):
         call()
+
+
+def _hedged_dcc_data():
+    """Three assets' 120 weekly prices (a common factor) as ``path_tail_risk``
+    takes them, and a married put on asset 0 at its last price."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(3)
+    rets = rng.normal(1e-3, 0.02, (119, 3)) + rng.normal(0.0, 0.01, (119, 1))
+    prices = 100.0 * np.cumprod(np.vstack([np.ones((1, 3)), 1.0 + rets]), axis=0)
+    data = SimpleNamespace(names=("X0", "X1", "X2"), prices=prices,
+                           port_rets=np.vstack([np.zeros((1, 3)), rets]))
+    return data, {0: [("BUY_ASSET", 0.0, 0.0, 1.0), ("BUY_PUT", 0.95 * prices[-1, 0], 0.5, 1.0)]}
+
+
+_DCC_SPEC = HedgeSpec.build({0: [("BUY_PUT", 0.95, 0.01, 1.0)],
+                             2: [("SELL_CALL", 1.05, 0.01, 1.0)]}, [f"a{i}" for i in range(A)])
+_DCC_CFG = GBMConfig(n_paths=4_096, n_steps=8, path_block=1_024, seed=1)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: run_resumable_path_risk("dcc", DCC, W, _DCC_CFG, hedge=_DCC_SPEC, s0=np.ones(A),
+                                    device="cpu")[0],
+    lambda: family_drawdown_frontier_search(0, "dcc", DCC, dd_budget=0.9, n_candidates=16,
+                                            n_paths=512, n_steps=8, hedge=_DCC_SPEC,
+                                            s0=np.ones(A), device="cpu"),
+    lambda: path_tail_risk(_hedged_dcc_data()[0], model="dcc", config=Config(gbm=_DCC_CFG),
+                           legs_by_asset=_hedged_dcc_data()[1], device="cpu"),
+    lambda: run_dcc_path_risk(DCC, W, _DCC_CFG, hedge=_DCC_SPEC, s0=np.ones(A), device="cpu"),
+], ids=["resumable", "frontier", "path_tail_risk", "one-shot"])
+def test_hedged_dcc_branches_run(call):
+    """The calls that refused a hedged DCC run before its kernel's hedged mode
+    was ported now run it: finite, ordered results."""
+    out = call()
+    if isinstance(out, dict):
+        assert out["hedged_assets"] == ["X0"] and out["cvar"] <= out["var"]
+    elif hasattr(out, "opt_idx"):
+        assert out.opt_idx >= 0 and np.isfinite(out.ret).all()
+    else:
+        assert out.n_paths == _DCC_CFG.n_paths and out.cvar <= out.var
+        assert -1.0 <= out.dd_p95 <= out.dd_median <= 0.0
 
 
 def test_unknown_model_raises():
