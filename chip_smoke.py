@@ -146,10 +146,12 @@ ends:
    frontier's optimum against the plain form;
 21. the hedged modes timed at 256 x 131,072 x 252 beside their plain forms and
    the score product as one ``torch.matmul`` per step, each wide variant at
-   A = 64, and the bootstrap kernels on the long history; the hedged modes'
-   least times from the work their functions need.
+   A = 64 (DCC's beside ``torch.linalg.cholesky`` of a (paths, 64, 64) batch
+   once per step and the score product), and the bootstrap kernels on the
+   long history; the hedged modes' least times from the work their
+   functions need.
 22. widths past 64 (``csrc/wide.cuh``): every kernel at A = 65 and 200 (DCC
-   65 and 256, where Q and L leave shared memory) on the bench universe
+   65 and 256, where Q leaves shared memory) on the bench universe
    widened, against its plain form with today's bounds (the bootstrap's
    selection bit for bit, #3 at one candidate equal to #2, #8 at rate 0
    equal to #3); the hedged #3, #5, #7, #8, #10 and #13 at A = 65; and the
@@ -180,9 +182,10 @@ ends:
 25. the hedged #5, #7 and #10 timed at 256 x 131,072 x 252 and #13 at 256 x
    131,072 x 52 beside their unhedged modes, plain forms and the score
    product as one ``torch.matmul`` per step; each kernel's wide layout at A
-   = 200 (DCC 256) beside its plain form, hedged #10's (A = 200) and #13's
-   (A = 256) beside their unhedged modes; every new entry's least time from
-   the work its function needs.
+   = 200 (DCC 256, beside ``torch.linalg.cholesky`` of a (paths, 256, 256)
+   batch once per step and the score product) beside its plain form,
+   hedged #10's (A = 200) and #13's (A = 256) beside their unhedged modes;
+   every new entry's least time from the work its function needs.
 
 It prints a JSON line with each kernel's launches, error, times and bound,
 then, as the last line, ``{"ok": true, "device": {...}}`` — only when every
@@ -3377,6 +3380,22 @@ def hedged_bounds(draw: float, rate: float) -> dict:
     return _bound_table(work, rate, "phase21")
 
 
+def _dcc_yardsticks(d, w, n: int, steps: int, dev) -> tuple[float, float | None]:
+    """One-call yardsticks of a DCC kernel at ``n`` paths x ``steps``, in ms:
+    ``torch.linalg.cholesky`` of the (n, A, A) batch of the start's Q once per
+    step x steps (the factorisation alone), and with candidates ``w`` the
+    score product ``torch.matmul`` (W, A) x (A, n) once per step x steps."""
+    a = d.n_assets
+    qb = d.q0.expand(n, a, a).contiguous()
+    ch = _time_ms(lambda: torch.linalg.cholesky(qb), 3) * steps
+    del qb
+    mm = None
+    if w is not None:
+        x = torch.rand((a, n), device=dev)
+        mm = _time_ms(lambda: torch.matmul(w, x), 20) * steps
+    return ch, mm
+
+
 def phase_hedged_timing(dev) -> dict:
     """Phase 21: the hedged modes of #3 and #8 timed with CUDA events at 256 x
     131,072 x 252 beside their plain forms (in 8,192-path pieces) and the
@@ -3443,6 +3462,13 @@ def phase_hedged_timing(dev) -> dict:
               f"({work / ((t1 + t2) / 2) * 1e3:.4e} {'cand-' if work > n * steps else ''}"
               f"path-steps/s)")
         res[f"{name} A=64"] = [(t1 + t2) / 2, None, None]
+    # the DCC yardsticks at A = 64: the factorisation alone and the score alone
+    for name, n in (("dcc_terminal", tp // 4), ("dcc_dd", dp // 4)):
+        ch, mm = _dcc_yardsticks(d, c64 if name == "dcc_dd" else None, n, steps, dev)
+        print(f"phase21 timing {name} A={a} yardsticks: torch.linalg.cholesky ({n}, {a}, {a}) "
+              f"per step x {steps} {ch:.3f} ms" + (f", torch.matmul (256, {a}) x ({a}, {n}) per "
+                                                  f"step x {steps} {mm:.3f} ms" if mm else ""))
+        res[f"{name} A=64"][2] = ch
     _tile_at_15(dev, cand, res)
     # the bootstrap on the long history, from device memory
     hist = torch.as_tensor(np.random.default_rng(8).normal(1e-3, 0.02, (LONG_HISTORY, N_ASSETS)),
@@ -3518,7 +3544,7 @@ def _tile_at_15(dev, cand, res: dict) -> None:
 # ---- past 64 assets, and the hedged GARCH and bootstrap modes: phases 22-25 -------------
 
 WIDE_A = (65, 200)                  # widths of the wide layout (csrc/wide.cuh)
-DCC_WIDE_A = (65, 256)              # DCC's: at 256 a path's Q and L leave shared memory
+DCC_WIDE_A = (65, 256)              # DCC's: at 256 a path's Q leaves shared memory
 WIDE_TERM, WIDE_CAND, WIDE_STEPS = 32_768, 8_192, 52   # per block; two blocks each check
 DCC_WIDE = (2_048, 8)               # DCC: paths per block, steps
 WIDE_TIMING = dict(p=65_536, pp=8_192, n=52)   # phase 25 at A = 200 (DCC: 4,096 x 8)
@@ -3532,8 +3558,8 @@ HEDGED_KERNEL = {"garch": "garch_multi_dd_hedged", "bootstrap": "bootstrap_multi
                  "heston": "heston_multi_dd_hedged", "dcc": "dcc_dd_hedged"}
 HESTON_HEDGED_A = (15, 17, 64, 65, 200)   # <16>, <64>, <64>, HestonWide, HestonWide
 HESTON_HEDGED_STEPS = (16, 52, N_STEPS)
-# hedged #13: <true> at 15 and 16, dcc_wide_kernel at 17 and 64, dcc_wider_kernel at
-# 65 and 256 (Q and L in device memory); 16 and 52 steps, and 252 where A <= 16
+# hedged #13: <true> at 15 and 16, dcc_group_kernel at 17, 64, 65 and 256 (Q in
+# device memory); 16 and 52 steps, and 252 where A <= 16
 DCC_HEDGED_A = (15, 16, 17, 64, 65, 256)
 DCC_HEDGED_PATHS = {65: 1_024, 256: 128}   # paths per block past 64: the plain form costs A^3
 
@@ -3650,7 +3676,7 @@ def _dcc_wide_calls(a: int, dev, p: int, n: int, w_cnt: int, nb: int = 2):
 
 def phase_wide_any(dev) -> tuple[dict, dict, dict]:
     """Phase 22, widths past 64: every kernel at A = 65 and 200 (DCC 65 and
-    256, where Q and L leave shared memory) on the bench universe widened,
+    256, where Q leaves shared memory) on the bench universe widened,
     against its plain form on the card with today's bounds (the bootstrap
     terminal and one-hot candidates bit for bit, Heston's path state through
     heston_shares' four ulps, #8 at rate 0 equal to #3 and #3 with one
@@ -3781,8 +3807,8 @@ def _hedged_at_65(dev, worst: dict, model: str) -> int:
     risk at the default cell and a 256 x 16,384 hedged frontier, 52 steps
     (DCC 16: its plain form costs A^3 per step), the hedged count reset just
     before and read just after (every launch at 65 assets runs the wide
-    layout's hedged mode: ``HestonWide<true, true>``, ``dcc_wider_kernel<true,
-    true, true>``); then each launch against the plain form over a head and a
+    layout's hedged mode: ``HestonWide<true, true>``, ``dcc_group_kernel<128,
+    true, true, true, true>``); then each launch against the plain form over a head and a
     tail slice (DCC's 1,024 paths). Returns the hedged launches."""
     from mcport_torch.config import GBMConfig
     from mcport_torch.engine.drawdown_frontier import (family_drawdown_frontier_search,
@@ -4449,9 +4475,10 @@ def phase_wide_timing(dev) -> dict:
     beside their unhedged modes, their plain forms (8,192-path pieces) and
     the score product as one torch.matmul per step; then each kernel's wide
     layout at A = 200 (DCC 256) beside its plain form (and, for the
-    candidates, the score product as one torch.matmul per step), hedged
-    #10's (A = 200, 256 x 8,192 x 52) and #13's (A = 256, 256 x 1,024 x 16)
-    beside their unhedged modes."""
+    candidates, the score product as one torch.matmul per step; for DCC
+    also torch.linalg.cholesky of the (paths, 256, 256) batch once per step,
+    the terminal's yardstick), hedged #10's (A = 200, 256 x 8,192 x 52) and
+    #13's (A = 256, 256 x 1,024 x 16) beside their unhedged modes."""
     from mcport_torch.ops import bootstrap as B
     from mcport_torch.ops import dcc as D
     from mcport_torch.ops import garch as G
@@ -4497,8 +4524,8 @@ def phase_wide_timing(dev) -> dict:
               f"{steps} {mm * steps:.3f} ms")
         res[name] = [ms, p1, mm * steps]
     # hedged #10's and #13's layouts past 64 (HestonWide<true, true> at A =
-    # 200; dcc_wider_kernel<true, false, true> at A = 256, Q and L in device
-    # memory), the bench hedge, beside the unhedged mode in the same call
+    # 200; dcc_group_kernel hedged at A = 256, Q in device memory), the bench
+    # hedge, beside the unhedged mode in the same call
     sh = WIDE_TIMING
     for name, a, pw, n, src, unh in (
             ("heston_multi_dd_hedged", 200, sh["pp"], sh["n"], bench_heston(200).tensors(dev),
@@ -4525,9 +4552,12 @@ def phase_wide_timing(dev) -> dict:
                                 bound=False) for p0 in range(0, pw, piece)], 1)
         x = torch.rand((a, pw), device=dev)
         lib = _time_ms(lambda wa=wa, x=x: torch.matmul(wa, x), 20) * n
+        chol = (f", torch.linalg.cholesky ({pw}, {a}, {a}) per step x steps "
+                f"{_dcc_yardsticks(src, None, pw, n, dev)[0]:.3f} ms"
+                if name.startswith("dcc") else "")
         print(f"phase25 timing {name} wide layout A={a} (L=2) 256 x {pw} x {n}: kernel "
               f"{k1:.3f} / {k2:.3f} ms, the unhedged mode {u1:.3f} / {u2:.3f} ms, plain "
-              f"{pl:.1f} ms, torch.matmul per step x steps {lib:.3f} ms")
+              f"{pl:.1f} ms, torch.matmul per step x steps {lib:.3f} ms{chol}")
         res[f"{name} wide"] = [(k1 + k2) / 2, pl, lib]
     # each wide layout at A = 200 (DCC 256)
     sh = WIDE_TIMING
@@ -4540,14 +4570,19 @@ def phase_wide_timing(dev) -> dict:
         pl = _time_ms(plain, 1)
         a = 256 if name.startswith("dcc") else 200
         cand_paths = 4_096 if name.startswith("dcc") else sh["pp"]
-        lib = None
+        lib, chol = None, ""
         if name.endswith("dd"):
             c = torch.rand((256, a), device=dev)
             x = torch.rand((a, cand_paths), device=dev)
             steps = DCC_WIDE[1] if name.startswith("dcc") else sh["n"]
             lib = _time_ms(lambda: torch.matmul(c, x), 20) * steps
+        if name.startswith("dcc"):   # the factorisation alone, beside the score product
+            ch = _dcc_yardsticks(bench_dcc(a).tensors(dev), None, 4_096, DCC_WIDE[1], dev)[0]
+            chol = f", torch.linalg.cholesky (4096, {a}, {a}) per step x steps {ch:.3f} ms"
+            lib = ch if lib is None else lib   # the terminal's yardstick: the Cholesky
         print(f"phase25 timing {name} wide layout A={a}: kernel {t1:.3f} / {t2:.3f} ms, plain "
-              f"{pl:.1f} ms" + (f", torch.matmul per step x steps {lib:.3f} ms" if lib else ""))
+              f"{pl:.1f} ms" + (f", torch.matmul per step x steps {lib:.3f} ms"
+                                if name.endswith("dd") else "") + chol)
         res[f"{name} wide"] = [(t1 + t2) / 2, pl, lib]
     return res
 
@@ -4669,7 +4704,7 @@ def main() -> int:
     # time and bound at A = 200 from phase 25
     kernels["heston_multi_dd_hedged wide"] = kernels["heston_multi_dd_hedged"]
     launches["heston_multi_dd_hedged wide"] = wide_launches["heston_multi_dd_hedged"]
-    # hedged #13's layout past 64 (dcc_wider_kernel<true, *, true>): the same,
+    # hedged #13's layout past 64 (dcc_group_kernel hedged): the same,
     # errors at A = 65 and 256, time and bound at A = 256
     kernels["dcc_dd_hedged wide"] = kernels["dcc_dd_hedged"]
     launches["dcc_dd_hedged wide"] = wide_launches["dcc_dd_hedged"]

@@ -1,14 +1,16 @@
 // DCC-GARCH(1,1) paths on Hopper: the terminal simple returns of every asset
 // (kernel dcc_terminal_kernel) and W candidate portfolios' rebalanced wealth
-// with its maximum drawdown (kernel dcc_dd_kernel).
+// with its maximum drawdown (kernel dcc_dd_kernel), up to 16 assets; from 17
+// on both functions in dcc_group_kernel.
 //
 // dcc_terminal_kernel replaces mcport/ops/pallas_dcc.py::_dcc_pack_kernel (the
 // garch-risk --correlation dcc and compare-models path) and ::_dcc_kernel (the
 // same function in the TPU's tile layout); dcc_dd_kernel replaces
 // ::_dcc_dd_kernel, both its modes (path-risk --models dcc, the DCC drawdown
 // frontier and path_tail_risk, hedged or not), and ::_dcc_pack_dd_kernel (the
-// unhedged function, scored in the TPU's pack layout, which takes no hedge).
-// Pack and tile are TPU layouts; on the card each function is one kernel.
+// unhedged function, scored in the TPU's pack layout, which takes no hedge);
+// dcc_group_kernel replaces all four past 16 assets. Pack and tile are TPU
+// layouts; on the card each function is one kernel.
 // The plain torch forms of the same functions, on the same Philox counters,
 // are mcport_torch/ops/dcc.py::dcc_terminal_reference and
 // ::dcc_multi_dd_reference.
@@ -63,26 +65,51 @@
 //   drawdowns in registers (FP32 FMAs: mcport's score_dot is float32). The
 //   recursion spreads over all 256 threads, so at W = 1 it does not idle 240.
 //   Hedged, lane i also keeps row i's price in a register and writes r_h.
-// For 17 <= A <= 64 (dcc_wide_kernel, both functions): a path's triangle is
-// 2,080 floats at A = 64, past any thread's registers and past a half-warp's.
-// A group of 32 threads (A <= 32) or 64 (A <= 64) owns one path, thread r its
-// row r, and a 256-thread block owns 8 or 4 paths. Each path's Q, its
-// Cholesky factor L, the shocks of one Philox call and e live in shared
-// memory, Q and L packed column by column (entry (r, j) at j·A - j(j-1)/2 + r
-// - j), so that the rows of a column sit on consecutive banks. Per step:
-// thread r updates row r of Q; then column by column, behind one barrier
-// each, thread r >= j computes the pivot of column j itself (the same sum in
-// the same order as thread j, so every thread holds the same rounded
-// reciprocal) and its L_rj; then e_r, the GARCH update and either the gross or
-// r = mu + eps into a shared (A, paths) tile, which thread c scores for
-// candidate c over the block's paths (hedged: thread r keeps row r's price in
-// a register and settles it before the tile is scored). The sums keep the
-// narrow kernels' order (ascending k and j) and the correctly rounded rsqrt.
-// A simple design: A barriers per step, and A/64 to A/32 of the threads
-// working in the Cholesky's late columns.
-// Past 64 assets, dcc_wider_kernel (below): one path per CTA of 256 threads,
-// the same order of every sum, Q and L in device memory past ~220 assets.
-// A dispatch group of blocks is one launch (gridDim.y).
+// From 17 assets on (dcc_group_kernel, both functions, any width): a
+// path's triangle no longer fits a thread's registers or a half-warp's. A
+// group of kG threads owns a path: a warp up to 32 assets, 64 threads up to
+// 64, 128 up to 128, the whole 256-thread block past that (256/kG paths per
+// block; a barrier per group: __syncwarp, a named barrier over the group's
+// warps, or __syncthreads). Q and the Cholesky factor are lower triangles of
+// 4 x 4 tiles, stored tile column by tile column, a tile's column one float4
+// (the factor's tiles padded to 20 floats, so that neighbouring tiles' float4
+// fall on distinct banks). Per step, by panels of nb = 4 columns (one tile
+// column; nb = 8, two tile columns, past 128 assets):
+// - the Q update, tile by tile over the group; the thread that updates the
+//   corner tile (0, 0) factors it at once in registers;
+// - per panel: each tile below the factored corner (kt, kt) solves against
+//   it, one thread per tile (the pivots' reciprocals computed once, by the
+//   corner's thread); a barrier; every thread updates its 4 x 4 tiles of the
+//   trailing triangle in registers with the panel's products (two float4
+//   loads per 16 FMAs), the thread that owns the next corner first, which it
+//   then factors while the others update; a barrier. With nb = 8 the
+//   panel's second tile column first takes the first one's products (its
+//   corner factored) and its tiles below solve, two more barriers; the
+//   trailing triangle then takes 8 products per load and store of a tile.
+//   Two barriers per 4 columns (128 per step at A = 256, where a
+//   left-looking sweep needs one per column), and every column's pivot
+//   computed once;
+// - e = D^{-1/2} (L z), the GARCH update and the gross or r = mu + eps (hedged:
+//   hedged.cuh's settled r_h) row by row; then the block's candidates, one per
+//   thread, score its paths (weights transposed, through the read-only cache;
+//   one block barrier per step, the returns double-buffered).
+// Every entry of the factor starts from Q_rc and receives its products
+// L_rk·L_ck one fmaf at a time in ascending k, within and across panels; the
+// pivot is __frsqrt_rn(fmaxf(d, 1e-12f)), L_rc = num·inv: the narrow kernels'
+// arithmetic in another schedule, bit for bit what a left-looking sweep of
+// the same sums gives. Where the data lives (GroupLayout): a path's Q and
+// factor in shared memory while the block holds them (up to 220 assets);
+// past that Q moves to the CTA's slot of a device-memory scratch (at A = 256,
+// 132 slots of 133 KB: 17.6 MB, inside the 50 MB L2), and past 292 assets
+// the factor too. The CTAs are persistent, as many as the occupancy calculator fits on
+// the SMs, each walking units of 256/kG paths gridDim.x apart; c0·S is read
+// from the parameter block as it is needed. What bounds it: the trailing
+// updates' shared-memory traffic (per tile and 4-column panel 12 float4
+// loads and 4 stores for 64 FMAs; 20 and 4 for 128 with nb = 8), then the
+// panels' serial chain (a corner's four dependent pivots, the solve)
+// wherever one path fills the SM.
+// A dispatch group of blocks is one launch (the narrow kernels' gridDim.y;
+// dcc_group_kernel's units span the group's blocks).
 //
 // nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
 // and plain forms agree to ulps, not bits (bound: ops/dcc.py dcc_shares).
@@ -439,386 +466,473 @@ dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_asse
   }
 }
 
-// Entry (r, j), r >= j, of an n x n lower triangle packed column by column.
-__device__ __forceinline__ int col_at(int j, int r, int n) { return j * n - j * (j - 1) / 2 + r - j; }
+// ---- 17 assets and more: dcc_group_kernel ---------------------------------------
 
-struct WideLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
-  int cs, g, w, r, paths, per_path, total;
-  __host__ __device__ WideLayout(int n, int n_p, int w_pad) {
-    const int t = n * (n + 1) / 2;
-    cs = 0;                               // (1-a-b) S, packed by column
-    g = round4(t);                        // A float4 (omega, alpha, beta, last)
-    w = g + 4 * n;                        // (A, w_pad) weights (candidates only)
-    r = w + n * w_pad;                    // (A, paths) r = mu + eps (candidates only)
-    paths = round4(r + n * n_p);
-    per_path = round4(2 * t + 5 * n);     // Q and L packed by column, z (4, A), e (A)
-    total = paths + n_p * per_path;
+constexpr int kGroupBlock = 256;        // threads per block, at every group size
+constexpr int kTs = 20;                 // floats per 4 x 4 tile of the factor: 16, padded so
+                                        // that consecutive tiles' float4 hit distinct banks
+constexpr int kQs = 16;                 // floats per 4 x 4 tile of Q
+constexpr int kGroupSmem = 232448 / 4;  // a block's shared memory on the H100, in floats
+
+// Threads per path: a warp up to 32 assets, two warps up to 64, four up to
+// 128, the whole block past that.
+__host__ __device__ constexpr int group_threads(int n) {
+  return n <= 32 ? 32 : n <= 64 ? 64 : n <= 128 ? 128 : kGroupBlock;
+}
+
+// Tile (ti, tj), ti >= tj, of a lower triangle of t x t tiles stored tile
+// column by tile column; entry (i, j) of a tile (row 4·ti + i, column 4·tj +
+// j) sits at j·4 + i, so that a tile's column is one float4.
+__host__ __device__ constexpr int tix(int ti, int tj, int t) {
+  return tj * t - tj * (tj - 1) / 2 + ti - tj;
+}
+
+// The idx-th tile of the triangle of tile rows and columns k0 .. t-1 in the
+// same column-major order: idx 0 is its corner (k0, k0).
+__device__ __forceinline__ void tile_of(int idx, int k0, int t, int& ti, int& tj) {
+  const int r = t - k0, q = r * (r + 1) / 2 - 1 - idx;  // counted from the last tile
+  const float x = 8.0f * static_cast<float>(q) + 1.0f;
+  int m = static_cast<int>((x * rsqrtf(x) - 1.0f) * 0.5f);  // its column from the last, +-1
+  if ((m + 1) * (m + 2) / 2 <= q) ++m;
+  if (m * (m + 1) / 2 > q) --m;
+  ti = t - 1 - (q - m * (m + 1) / 2);
+  tj = t - 1 - m;
+}
+
+__device__ __forceinline__ void load_tile(const float* p, float* x) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float4 c = *reinterpret_cast<const float4*>(p + 4 * j);
+    x[4 * j] = c.x;
+    x[4 * j + 1] = c.y;
+    x[4 * j + 2] = c.z;
+    x[4 * j + 3] = c.w;
+  }
+}
+
+__device__ __forceinline__ void store_tile(float* p, const float* x) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    *reinterpret_cast<float4*>(p + 4 * j) =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+  }
+}
+
+// Factors a diagonal tile in registers whose entries hold every product of
+// the earlier columns: column by column the pivot, its correctly rounded
+// reciprocal square root (into inv[j]) and the column, each entry's products
+// subtracted in ascending k.
+__device__ __forceinline__ void factor_diag(float* x, float* inv) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float d = x[j * 4 + j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) d = fmaf(-x[k * 4 + j], x[k * 4 + j], d);
+    const float rs = __frsqrt_rn(fmaxf(d, 1e-12f));
+    x[j * 4 + j] = d * rs;
+#pragma unroll
+    for (int i = j + 1; i < 4; ++i) {
+      float num = x[j * 4 + i];
+#pragma unroll
+      for (int k = 0; k < j; ++k) num = fmaf(-x[k * 4 + i], x[k * 4 + j], num);
+      x[j * 4 + i] = num * rs;
+    }
+    inv[j] = rs;
+  }
+}
+
+// The tiles (ti, kt), ti > kt, below the factored corner (kt, kt) of the
+// factor wm, each solved against the corner (inv: its reciprocal pivots) by
+// one of the group's g threads: entry (r, c) subtracts the products of the
+// corner's earlier columns in ascending k, then takes the pivot's reciprocal.
+__device__ __forceinline__ void solve_below(float* wm, const float* inv, int kt, int t, int gt,
+                                            int g) {
+  const float* dk = wm + tix(kt, kt, t) * kTs;
+  for (int ti = kt + 1 + gt; ti < t; ti += g) {
+    float d[16], x[16];
+    load_tile(dk, d);
+    const float4 i4 = *reinterpret_cast<const float4*>(inv);
+    const float iv[4] = {i4.x, i4.y, i4.z, i4.w};
+    float* xp = wm + tix(ti, kt, t) * kTs;
+    load_tile(xp, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float num = x[j * 4 + i];
+#pragma unroll
+        for (int k = 0; k < j; ++k) num = fmaf(-x[k * 4 + i], d[k * 4 + j], num);
+        x[j * 4 + i] = num * iv[j];
+      }
+    }
+    store_tile(xp, x);
+  }
+}
+
+// The first `count` tiles of the triangle from tile row and column k0
+// (tile_of's order), each reduced in registers by the products of the kNp
+// solved tile columns kt .. kt + kNp - 1 of the factor wm, in ascending k (per
+// column two float4 loads per 16 FMAs); the thread with idx 0, the corner
+// (k0, k0), then factors it (into inv).
+template <int kNp>
+__device__ __forceinline__ void update_tiles(float* wm, float* inv, int k0, int count, int kt,
+                                             int t, int gt, int g) {
+  for (int idx = gt; idx < count; idx += g) {
+    int ti, tj;
+    tile_of(idx, k0, t, ti, tj);
+    float* xp = wm + tix(ti, tj, t) * kTs;
+    float x[16];
+    load_tile(xp, x);
+#pragma unroll
+    for (int p = kt; p < kt + kNp; ++p) {
+      const float* li = wm + tix(ti, p, t) * kTs;
+      const float* lj = wm + tix(tj, p, t) * kTs;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 a4 = *reinterpret_cast<const float4*>(li + 4 * k);
+        const float4 b4 = *reinterpret_cast<const float4*>(lj + 4 * k);
+        const float lr[4] = {a4.x, a4.y, a4.z, a4.w}, lc[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[j * 4 + i] = fmaf(-lr[i], lc[j], x[j * 4 + i]);
+        }
+      }
+    }
+    if (idx == 0) factor_diag(x, inv);
+    store_tile(xp, x);
+  }
+}
+
+// A barrier over the kG threads of group gi: the warp's, a named barrier of
+// gi's warps, or the block's.
+template <int kG>
+__device__ __forceinline__ void group_sync(int gi) {
+  if constexpr (kG == 32) {
+    __syncwarp();
+  } else if constexpr (kG == kGroupBlock) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(gi + 1), "r"(kG) : "memory");
+  }
+}
+
+// dcc_group_kernel's memory at A assets, in floats (each region a multiple of
+// 4): per path the factor's tiles (kTs each), Q's tiles (kQs each), one
+// Philox call's shocks (4 rows of 4·ceil(A/4)), per row e, sigma2, Q's
+// diagonal, the gross and (hedged) the price, and the four reciprocal pivots
+// of the corner being factored; per block the candidates' returns, (2, rows,
+// paths), double-buffered by step. Where the block cannot hold them, Q and
+// then the factor move to the CTA's slot of a device-memory scratch (`slot`
+// floats), the same tile layout.
+struct GroupLayout {
+  int g, paths, t, nt, ap;
+  int w, q, z, e, s2, qd, cum, price, inv, per_path, r, total;
+  bool w_shared, q_shared;
+  long long slot;
+  __host__ __device__ GroupLayout(int n, bool hedged) {
+    g = group_threads(n);
+    paths = kGroupBlock / g;
+    t = (n + 3) / 4;
+    nt = t * (t + 1) / 2;
+    ap = 4 * t;
+    for (int mode = 0; mode < 3; ++mode) {
+      w_shared = mode < 2;
+      q_shared = mode < 1;
+      w = 0;
+      q = w + (w_shared ? nt * kTs : 0);
+      z = q + (q_shared ? nt * kQs : 0);
+      e = z + 4 * ap;
+      s2 = e + ap;
+      qd = s2 + ap;
+      cum = qd + ap;
+      price = cum + ap;
+      inv = price + (hedged ? ap : 0);
+      per_path = inv + 4;
+      r = paths * per_path;
+      total = r + 2 * ap * paths;
+      slot = paths * ((w_shared ? 0LL : 1LL * nt * kTs) + (q_shared ? 0LL : 1LL * nt * kQs));
+      if (total <= kGroupSmem) break;
+    }
   }
 };
 
-// Threads per path in the wide kernel: a row each, rounded up to whole warps.
-__host__ __device__ constexpr int wide_rows(int n) { return n <= 32 ? 32 : 64; }
-
-template <bool kScore, bool kHedged = false>
-__global__ void __launch_bounds__(kDdThreads)
-dcc_wide_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-                int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
-                const float* __restrict__ weights, const float* __restrict__ hedge,
-                float* __restrict__ term, float* __restrict__ max_dd) {
-  constexpr int kMaxPaths = kDdThreads / 32;
-  extern __shared__ __align__(16) float smem[];
-  const int n = n_assets;
-  const int rows = wide_rows(n), n_p = kDdThreads / rows;
-  const int w_pad = kScore ? round4(n_cand) : 0;
-  const WideLayout lay(n, n_p, w_pad);
-  const int tid = threadIdx.x, pl = tid / rows, row = tid % rows;
-  const bool active = row < n;
-  const int t = n * (n + 1) / 2;
-  float* s_cs = smem + lay.cs;
-  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);
-  float* s_w = smem + lay.w;
-  float* s_r = smem + lay.r;
-  float* s_q = smem + lay.paths + pl * lay.per_path;  // this path's Q
-  float* s_l = s_q + t;                               // its Cholesky factor
-  float* s_z = s_l + t;                               // (4, A) one Philox call's shocks
-  float* s_e = s_z + 4 * n;                           // (A,) e of the last step
-
-  const Params q(params, n);
-  const float c0 = q.c0(), a_c = q.a, b_c = q.b;
-  for (int i = tid; i < n * n; i += kDdThreads) {
-    const int r = i / n, c = i % n;
-    if (c <= r) s_cs[col_at(c, r, n)] = c0 * q.s[r * n + c];
-  }
-  for (int i = tid; i < n; i += kDdThreads) {  // last: mu for r, 1 + mu for a gross
-    s_g[i] = make_float4(q.omega[i], q.alpha[i], q.beta[i],
-                         (kScore && !kHedged) ? q.mu[i] : 1.0f + q.mu[i]);
-  }
-  for (int i = tid; i < n * w_pad; i += kDdThreads) {
-    const int a = i / w_pad, w = i % w_pad;
-    s_w[i] = w < n_cand ? weights[w * n + a] : 0.0f;
-  }
-  if (active) {
-    for (int j = 0; j <= row; ++j) s_q[col_at(j, row, n)] = q.q0[row * n + j];
-    s_e[row] = q.e0[row];
-  }
-  float s2 = active ? first_sigma2(q, row) : 0.0f;  // the variance of the coming step
-  float cum = 1.0f;
-  float price = (kHedged && active) ? hedge[row] : 0.0f;  // hedged: row's price, from s0
-  const HedgeBlock legs(hedge, n, n_legs);                 // hedged: the legs (device memory)
-
-  const int blk = blockIdx.y;
-  const int p = blockIdx.x * n_p + pl;  // this thread's path of the dispatch block
-  const uint32_t key = block_key(seed, first_block, blk);
-  // candidate tid's values, peaks and drawdowns over the block's paths
-  const bool scorer = kScore && tid < n_cand;
-  float v[kMaxPaths], peak[kMaxPaths], dd[kMaxPaths];
-#pragma unroll
-  for (int i = 0; i < kMaxPaths; ++i) {
-    v[i] = 1.0f;
-    peak[i] = 1.0f;
-    dd[i] = 0.0f;
-  }
-  __syncthreads();
-
-  constexpr int kPer = steps_per_call<kPoly>();
-  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
-    const int nk = min(kPer, n_steps - s0);
-    if (active) {
-      float za[4];
-      call_draws<kPoly>(s0 / kPer, row, p, key, nk, 0.0f, 0.0f, za);
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) s_z[k * n + row] = za[k];
-    }
-    __syncthreads();
-
-    for (int k = 0; k < nk; ++k) {
-      const float* z = s_z + k * n;
-      // Q update: row `row` of the lower triangle
-      if (active) {
-        const float er = s_e[row];
-        for (int j = 0; j <= row; ++j) {
-          const int at = col_at(j, row, n);
-          s_q[at] = fmaf(b_c, s_q[at], fmaf(a_c, er * s_e[j], s_cs[at]));
-        }
-      }
-      __syncthreads();
-      // Cholesky of Q, column by column (left-looking)
-      for (int j = 0; j < n; ++j) {
-        if (active && row >= j) {
-          float d = s_q[col_at(j, j, n)];
-          for (int k2 = 0; k2 < j; ++k2) {
-            const float ljk = s_l[col_at(k2, j, n)];
-            d = fmaf(-ljk, ljk, d);
-          }
-          const float inv = __frsqrt_rn(fmaxf(d, 1e-12f));
-          float num = d;
-          if (row > j) {
-            num = s_q[col_at(j, row, n)];
-            for (int k2 = 0; k2 < j; ++k2) {
-              num = fmaf(-s_l[col_at(k2, row, n)], s_l[col_at(k2, j, n)], num);
-            }
-          }
-          s_l[col_at(j, row, n)] = num * inv;
-        }
-        __syncthreads();
-      }
-      // e = D^{-1/2} (L z), then the GARCH update and the compounding
-      if (active) {
-        float m = s_l[col_at(0, row, n)] * z[0];
-        for (int j = 1; j <= row; ++j) m = fmaf(s_l[col_at(j, row, n)], z[j], m);
-        const float ei = m * __frsqrt_rn(fmaxf(s_q[col_at(row, row, n)], 1e-12f));
-        const float4 g = s_g[row];
-        const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
-        if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
-          const float p_new = __fmul_rn(price, __fadd_rn(g.w, eps));
-          s_r[row * n_p + pl] = hedged_return(legs, row, price, p_new);
-          price = p_new;
-        } else if (kScore) {
-          s_r[row * n_p + pl] = g.w + eps;
-        } else {
-          cum *= g.w + eps;
-        }
-        s2 = g.x + g.y * (eps * eps) + g.z * s2;
-        s_e[row] = ei;
-      }
-      __syncthreads();
-      if (scorer) {  // candidate tid over the block's paths
-#pragma unroll
-        for (int i = 0; i < kMaxPaths; ++i) {
-          if (i < n_p) {
-            float f = 0.0f;
-            for (int a = 0; a < n; ++a) f = fmaf(s_w[a * w_pad + tid], s_r[a * n_p + i], f);
-            v[i] = v[i] * (1.0f + f);
-            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
-              peak[i] = max_nan(peak[i], v[i]);
-              dd[i] = min_nan(dd[i], v[i] / peak[i] - 1.0f);
-            } else {
-              peak[i] = fmaxf(peak[i], v[i]);
-              dd[i] = fminf(dd[i], v[i] / peak[i] - 1.0f);
-            }
-          }
-        }
-      }
-      // (s_r is rewritten only after the next step's barriers)
-    }
-  }
-
-  if (kScore) {
-    if (scorer) {
-#pragma unroll
-      for (int i = 0; i < kMaxPaths; ++i) {
-        const int path = blockIdx.x * n_p + i;
-        if (i < n_p && path < block_paths) {
-          const long long o = (static_cast<long long>(blk) * n_cand + tid) * block_paths + path;
-          term[o] = v[i] - 1.0f;
-          max_dd[o] = dd[i];
-        }
-      }
-    }
-  } else if (active && p < block_paths) {
-    term[(static_cast<long long>(blk) * block_paths + p) * n + row] = cum - 1.0f;
-  }
-}
-
-// Launches the wide kernel: the terminal function (out in term) or, kScore,
-// the candidates' (kHedged: settling the n_legs legs of the hedge block).
-template <bool kScore, bool kHedged = false>
-int launch_wide(long long seed, long long first_block, int n_blocks, int block_paths,
-                int n_assets, int n_cand, int n_steps, int n_legs, const float* params,
-                const float* w, const float* hedge, float* term, float* dd,
-                cudaStream_t stream) {
-  const int n_p = kDdThreads / wide_rows(n_assets);
-  const dim3 grid((block_paths + n_p - 1) / n_p, n_blocks);
-  const size_t smem =
-      sizeof(float) * WideLayout(n_assets, n_p, kScore ? round4(n_cand) : 0).total;
-  auto kernel = dcc_wide_kernel<kScore, kHedged>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kDdThreads, smem, stream>>>(seed, first_block, block_paths, n_assets, n_cand,
-                                             n_steps, n_legs, params, w, hedge, term, dd);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Both functions past 64 assets. A path's rows no longer fit one group of the
-// block: a CTA of 256 threads owns one path at a time (persistent CTAs, as in
-// wide.cuh, each walking paths gridDim.x apart), thread t its rows t, t + 256,
-// .... The design and the order of every sum are dcc_wide_kernel's: Q and L
-// packed column by column, row r of Q updated by its thread, then column by
-// column behind one barrier each the pivot computed by every thread that owns
-// a row at or below it (the same sum in the same order, once per thread) and
-// that row's L_rj, then e, the GARCH update and the gross or r = mu + eps per
-// row; candidate c = tid scores the path (hedged: each row's price in A more
-// floats of shared memory, settled before the path is scored). Q and L stay
-// in shared memory while they fit (kShared: A(A+1) floats beside 8·A of
-// per-row state, 9·A hedged, up to A ≈ 220); past that they move to the
-// CTA's slot of a device-memory scratch, the same packing, so the rows of a
-// column are consecutive addresses. c0·S
-// is read from the parameter block (device memory) as it is needed, the
-// weights through the read-only cache.
-template <bool kScore, bool kShared, bool kHedged = false>
-__global__ void __launch_bounds__(kDdThreads)
-dcc_wider_kernel(long long seed, long long first_block, int n_blocks, int block_paths,
+// Both functions from 17 assets on, any width. A group of kG threads owns a
+// path (kP = 256/kG paths per block; persistent CTAs walk units of kP paths
+// gridDim.x apart); kScore: the candidates', kHedged: settled, kQShared and
+// kWShared: where Q and the factor live (GroupLayout).
+template <int kG, bool kQShared, bool kWShared, bool kScore, bool kHedged>
+__global__ void __launch_bounds__(kGroupBlock, 2)
+dcc_group_kernel(long long seed, long long first_block, int n_blocks, int block_paths,
                  int n_assets, int n_cand, int n_steps, int n_legs,
-                 const float* __restrict__ params, const float* __restrict__ weights,
+                 const float* __restrict__ params, const float* __restrict__ wt,
                  const float* __restrict__ hedge, float* __restrict__ scratch,
                  float* __restrict__ term, float* __restrict__ max_dd) {
+  constexpr int kP = kGroupBlock / kG;
   extern __shared__ __align__(16) float smem[];
-  const int n = n_assets, tid = threadIdx.x;
-  const long long t = static_cast<long long>(n) * (n + 1) / 2;
-  float* s_z = smem;        // (4, A) one Philox call's shocks
-  float* s_e = s_z + 4 * n;  // (A,) e of the last step
-  float* s_s2 = s_e + n;     // (A,) each row's variance of the coming step
-  float* s_cum = s_s2 + n;   // (A,) the terminal's grosses
-  float* s_r = s_cum + n;    // (A,) the candidates' r = mu + eps (hedged: r_h)
-  float* s_p = s_r + n;      // (A,) hedged: each row's price
-  float* qm = kShared ? s_r + (kHedged ? 2 : 1) * n
-                      : scratch + static_cast<long long>(blockIdx.x) * 2 * t;
-  float* lm = qm + t;        // Q, then L, packed by column
+  const int n = n_assets;
+  const GroupLayout lay(n, kHedged);
+  const int t = lay.t, nt = lay.nt, ap = lay.ap;
+  const int tid = threadIdx.x, gi = tid / kG, gt = tid % kG;
+  float* own = smem + gi * lay.per_path;
+  float* slot = (kQShared && kWShared)
+                    ? nullptr
+                    : scratch + (static_cast<long long>(blockIdx.x) * kP + gi) * (lay.slot / kP);
+  float* wm = kWShared ? own + lay.w : slot;                                // the factor
+  float* qm = kQShared ? own + lay.q : slot + (kWShared ? 0 : nt * kTs);  // Q
+  float* s_z = own + lay.z;      // (4, rows) one Philox call's shocks
+  float* s_e = own + lay.e;      // e of the last step (0 past A)
+  float* s_s2 = own + lay.s2;    // each row's variance of the coming step
+  float* s_qd = own + lay.qd;    // Q's diagonal
+  float* s_cum = own + lay.cum;  // the terminal's grosses
+  float* s_p = own + lay.price;  // hedged: each row's price
+  float* s_inv = own + lay.inv;  // the corner's reciprocal pivots
+  float* s_r = smem + lay.r;     // (2, rows, kP) r = mu + eps (hedged: r_h)
   const Params q(params, n);
   const float c0 = q.c0(), a_c = q.a, b_c = q.b;
-  const bool scorer = kScore && tid < n_cand;
   const HedgeBlock legs(hedge, n, n_legs);  // hedged: the legs, read from device memory
-  const long long n_paths = static_cast<long long>(n_blocks) * block_paths;
+  const bool scorer = kScore && tid < n_cand;
+  const long long per_blk = (block_paths + kP - 1) / kP, units = per_blk * n_blocks;
   constexpr int kPer = steps_per_call<kPoly>();
 
-  for (long long pi = blockIdx.x; pi < n_paths; pi += gridDim.x) {
-    const int blk = static_cast<int>(pi / block_paths), p = static_cast<int>(pi % block_paths);
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const int blk = static_cast<int>(u / per_blk);
+    const int p0 = static_cast<int>(u % per_blk) * kP, p = p0 + gi;
     const uint32_t key = block_key(seed, first_block, blk);
-    __syncthreads();  // the last path's reads are done
-    for (int r = tid; r < n; r += kDdThreads) {
-      for (int j = 0; j <= r; ++j) qm[col_at(j, r, n)] = q.q0[static_cast<long long>(r) * n + j];
-      s_e[r] = q.e0[r];
-      s_s2[r] = first_sigma2(q, r);
-      s_cum[r] = 1.0f;
-      if (kHedged) s_p[r] = hedge[r];
+    __syncthreads();  // the last unit's reads are done
+    for (int idx = gt; idx < nt; idx += kG) {  // Q = q0, zero past A and above the diagonal
+      int ti, tj;
+      tile_of(idx, 0, t, ti, tj);
+      float x[16];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * ti + i, c = 4 * tj + j;
+          x[j * 4 + i] = (r < n && c <= r) ? q.q0[static_cast<long long>(r) * n + c] : 0.0f;
+        }
+      }
+      store_tile(qm + tix(ti, tj, t) * kQs, x);
     }
-    float v = 1.0f, peak = 1.0f, dd = 0.0f;
+    for (int r = gt; r < ap; r += kG) {
+      const bool real = r < n;
+      s_e[r] = real ? q.e0[r] : 0.0f;
+      s_s2[r] = real ? first_sigma2(q, r) : 0.0f;
+      s_cum[r] = 1.0f;
+      if (kHedged) s_p[r] = real ? hedge[r] : 0.0f;
+    }
+    float v[kP], peak[kP], dd[kP];
+#pragma unroll
+    for (int i = 0; i < kP; ++i) {
+      v[i] = 1.0f;
+      peak[i] = 1.0f;
+      dd[i] = 0.0f;
+    }
 
     for (int s0 = 0; s0 < n_steps; s0 += kPer) {
       const int nk = min(kPer, n_steps - s0);
-      for (int r = tid; r < n; r += kDdThreads) {
+      for (int r = gt; r < n; r += kG) {
         float za[4];
         call_draws<kPoly>(s0 / kPer, r, p, key, nk, 0.0f, 0.0f, za);
 #pragma unroll
-        for (int k = 0; k < kPer; ++k) s_z[k * n + r] = za[k];
+        for (int k = 0; k < kPer; ++k) s_z[k * ap + r] = za[k];
       }
-      __syncthreads();
+      group_sync<kG>(gi);
 
       for (int k = 0; k < nk; ++k) {
-        const float* z = s_z + k * n;
-        // Q update: this thread's rows of the lower triangle
-        for (int r = tid; r < n; r += kDdThreads) {
-          const float er = s_e[r];
-          for (int j = 0; j <= r; ++j) {
-            const int at = col_at(j, r, n);
-            qm[at] = fmaf(b_c, qm[at],
-                          fmaf(a_c, er * s_e[j], c0 * q.s[static_cast<long long>(r) * n + j]));
-          }
-        }
-        __syncthreads();
-        // Cholesky of Q, column by column (left-looking)
-        for (int j = 0; j < n; ++j) {
-          float d = 0.0f, inv = 0.0f;
-          bool pivot = false;
-          for (int r = tid; r < n; r += kDdThreads) {
-            if (r < j) continue;
-            if (!pivot) {
-              d = qm[col_at(j, j, n)];
-              for (int k2 = 0; k2 < j; ++k2) {
-                const float ljk = lm[col_at(k2, j, n)];
-                d = fmaf(-ljk, ljk, d);
-              }
-              inv = __frsqrt_rn(fmaxf(d, 1e-12f));
-              pivot = true;
-            }
-            float num = d;
-            if (r > j) {
-              num = qm[col_at(j, r, n)];
-              for (int k2 = 0; k2 < j; ++k2) {
-                num = fmaf(-lm[col_at(k2, r, n)], lm[col_at(k2, j, n)], num);
+        // Q update, tile by tile, into Q and the factor's tiles (the identity
+        // past A); thread 0 owns the corner (0, 0) and factors it at once
+        for (int idx = gt; idx < nt; idx += kG) {
+          int ti, tj;
+          tile_of(idx, 0, t, ti, tj);
+          float* qp = qm + tix(ti, tj, t) * kQs;
+          float x[16], qv[16];
+          load_tile(qp, qv);
+          const float4 e4 = *reinterpret_cast<const float4*>(s_e + 4 * ti);
+          const float4 f4 = *reinterpret_cast<const float4*>(s_e + 4 * tj);
+          const float er[4] = {e4.x, e4.y, e4.z, e4.w}, ec[4] = {f4.x, f4.y, f4.z, f4.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = 4 * ti + i, c = 4 * tj + j;
+              if (r < n && c <= r) {
+                const float cs = c0 * __ldg(q.s + static_cast<long long>(r) * n + c);
+                const float upd = fmaf(b_c, qv[j * 4 + i], fmaf(a_c, er[i] * ec[j], cs));
+                qv[j * 4 + i] = upd;
+                x[j * 4 + i] = upd;
+                if (r == c) s_qd[r] = upd;
+              } else {
+                x[j * 4 + i] = r == c ? 1.0f : 0.0f;
               }
             }
-            lm[col_at(j, r, n)] = num * inv;
           }
-          __syncthreads();
+          store_tile(qp, qv);
+          if (idx == 0) factor_diag(x, s_inv);
+          store_tile(wm + tix(ti, tj, t) * kTs, x);
         }
-        // e = D^{-1/2} (L z), then the GARCH update and the compounding
-        for (int r = tid; r < n; r += kDdThreads) {
-          float m = lm[col_at(0, r, n)] * z[0];
-          for (int j = 1; j <= r; ++j) m = fmaf(lm[col_at(j, r, n)], z[j], m);
-          const float ei = m * __frsqrt_rn(fmaxf(qm[col_at(r, r, n)], 1e-12f));
+        group_sync<kG>(gi);
+        // Cholesky of Q, right-looking by panels of nb columns: the tiles
+        // below the factored corner (kt, kt) solve against it; then the
+        // trailing triangle takes the panel's products, thread 0 first the
+        // next corner, which it then factors. Every entry receives its
+        // products in ascending k. nb = 4 up to 128 assets; past that nb = 8
+        // (two tile columns kt, kt + 1: column kt + 1 first takes column kt's
+        // products, its corner is factored and its tiles below solve; then
+        // the trailing triangle takes both columns' 8 products, half the
+        // tile loads and stores per FMA).
+        if constexpr (kG == kGroupBlock) {
+          for (int kt = 0; kt + 1 < t; kt += 2) {
+            solve_below(wm, s_inv, kt, t, gt, kG);
+            group_sync<kG>(gi);
+            update_tiles<1>(wm, s_inv, kt + 1, t - kt - 1, kt, t, gt, kG);
+            group_sync<kG>(gi);
+            if (kt + 2 < t) {
+              const int rt = t - kt - 2;
+              solve_below(wm, s_inv, kt + 1, t, gt, kG);
+              group_sync<kG>(gi);
+              update_tiles<2>(wm, s_inv, kt + 2, rt * (rt + 1) / 2, kt, t, gt, kG);
+              group_sync<kG>(gi);
+            }
+          }
+        } else {
+          for (int kt = 0; kt + 1 < t; ++kt) {
+            const int rt = t - kt - 1;
+            solve_below(wm, s_inv, kt, t, gt, kG);
+            group_sync<kG>(gi);
+            update_tiles<1>(wm, s_inv, kt + 1, rt * (rt + 1) / 2, kt, t, gt, kG);
+            group_sync<kG>(gi);
+          }
+        }
+        // e = D^{-1/2} (L z), then the GARCH update and the gross or r = mu + eps
+        const float* zk = s_z + k * ap;
+        float* rb = s_r + ((s0 + k) & 1) * ap * kP;
+        for (int r = gt; r < n; r += kG) {
+          const int ti = r / 4, i = r % 4;
+          const float* lp = wm + tix(ti, 0, t) * kTs + i;
+          float4 z4 = *reinterpret_cast<const float4*>(zk);
+          int last = ti > 0 ? 3 : i;
+          float m = lp[0] * z4.x;
+          if (last >= 1) m = fmaf(lp[4], z4.y, m);
+          if (last >= 2) m = fmaf(lp[8], z4.z, m);
+          if (last >= 3) m = fmaf(lp[12], z4.w, m);
+          for (int tj = 1; tj <= ti; ++tj) {
+            lp = wm + tix(ti, tj, t) * kTs + i;
+            z4 = *reinterpret_cast<const float4*>(zk + 4 * tj);
+            last = tj < ti ? 3 : i;
+            m = fmaf(lp[0], z4.x, m);
+            if (last >= 1) m = fmaf(lp[4], z4.y, m);
+            if (last >= 2) m = fmaf(lp[8], z4.z, m);
+            if (last >= 3) m = fmaf(lp[12], z4.w, m);
+          }
+          const float ei = m * __frsqrt_rn(fmaxf(s_qd[r], 1e-12f));
           const float mu = q.mu[r], s2 = s_s2[r];
           const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
           if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
-            const float p = s_p[r], p_new = __fmul_rn(p, __fadd_rn(__fadd_rn(1.0f, mu), eps));
-            s_r[r] = hedged_return(legs, r, p, p_new);
+            const float pr = s_p[r], p_new = __fmul_rn(pr, __fadd_rn(__fadd_rn(1.0f, mu), eps));
+            rb[r * kP + gi] = hedged_return(legs, r, pr, p_new);
             s_p[r] = p_new;
           } else if (kScore) {
-            s_r[r] = mu + eps;
+            rb[r * kP + gi] = mu + eps;
           } else {
             s_cum[r] *= (1.0f + mu) + eps;
           }
           s_s2[r] = q.omega[r] + q.alpha[r] * (eps * eps) + q.beta[r] * s2;
           s_e[r] = ei;
         }
-        __syncthreads();
-        if (scorer) {  // candidate tid over this path
-          const float* w = weights + static_cast<long long>(tid) * n;
-          float f = 0.0f;
-          for (int a = 0; a < n; ++a) f = fmaf(__ldg(w + a), s_r[a], f);
-          wide_update<kHedged ? kWideHedged : kWideSimple>(f, &v, &peak, &dd);
+        if (kScore) {
+          __syncthreads();
+        } else {
+          group_sync<kG>(gi);
         }
-        // (s_r is rewritten only after the next step's barriers)
+        if (scorer) {  // candidate tid over the block's paths; rb is rewritten
+                       // only after the next step's block barrier
+          float f[kP];
+#pragma unroll
+          for (int i = 0; i < kP; ++i) f[i] = 0.0f;
+          for (int a = 0; a < n; ++a) {
+            const float w = __ldg(wt + static_cast<long long>(a) * n_cand + tid);
+#pragma unroll
+            for (int i = 0; i < kP; ++i) f[i] = fmaf(w, rb[a * kP + i], f[i]);
+          }
+#pragma unroll
+          for (int i = 0; i < kP; ++i) {
+            wide_update<kHedged ? kWideHedged : kWideSimple>(f[i], &v[i], &peak[i], &dd[i]);
+          }
+        }
       }
     }
 
     if (kScore) {
       if (scorer) {
-        const long long o = (static_cast<long long>(blk) * n_cand + tid) * block_paths + p;
-        term[o] = v - 1.0f;
-        max_dd[o] = dd;
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          if (p0 + i < block_paths) {
+            const long long o =
+                (static_cast<long long>(blk) * n_cand + tid) * block_paths + p0 + i;
+            term[o] = v[i] - 1.0f;
+            max_dd[o] = dd[i];
+          }
+        }
       }
-    } else {
-      for (int r = tid; r < n; r += kDdThreads) {
+    } else if (p < block_paths) {
+      for (int r = gt; r < n; r += kG) {
         term[(static_cast<long long>(blk) * block_paths + p) * n + r] = s_cum[r] - 1.0f;
       }
     }
   }
 }
 
-// Floats of dcc_wider_kernel's per-row state at A assets: shocks (4), e,
-// sigma2, gross and r, and hedged the price.
-__host__ __device__ constexpr long long wider_rows(int n, bool hedged) {
-  return (hedged ? 9LL : 8LL) * n;
-}
-
-// Whether dcc_wider_kernel keeps a path's Q and L in shared memory at A
-// assets: A(A+1) floats beside its per-row state within 200 KB.
-__host__ __device__ constexpr bool wider_in_shared(int n, bool hedged) {
-  return 4LL * (static_cast<long long>(n) * (n + 1) + wider_rows(n, hedged)) <= 204800;
+// Launches dcc_group_kernel<kG, kQShared, kWShared, ...> for the function
+// its arguments select: persistent CTAs, as many as the occupancy calculator
+// puts on the card's SMs, no more than the units of work nor than the
+// scratch has slots for.
+template <int kG, bool kQShared, bool kWShared>
+int launch_group(const GroupLayout& lay, long long seed, long long first_block, int n_blocks,
+                 int block_paths, int n_assets, int n_cand, int n_steps, int n_legs,
+                 const float* params, const float* wt, const float* hedge, float* scratch,
+                 long long scratch_floats, float* out, float* dd, cudaStream_t stream) {
+  auto run = [&](auto kernel) {
+    const int smem = static_cast<int>(sizeof(float) * lay.total);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           smem);
+    int per_sm = 0, dev = 0, sms = 0;
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGroupBlock, smem);
+    }
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long units = static_cast<long long>(n_blocks) *
+                            ((block_paths + lay.paths - 1) / lay.paths);
+    long long ctas = static_cast<long long>(per_sm) * sms;
+    if (ctas > units) ctas = units;
+    if (lay.slot > 0 && ctas > scratch_floats / lay.slot) ctas = scratch_floats / lay.slot;
+    if (ctas < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    kernel<<<static_cast<unsigned>(ctas), kGroupBlock, smem, stream>>>(
+        seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, n_legs, params, wt,
+        hedge, scratch, out, dd);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (n_legs > 0) return run(dcc_group_kernel<kG, kQShared, kWShared, true, true>);
+  if (n_cand > 0) return run(dcc_group_kernel<kG, kQShared, kWShared, true, false>);
+  return run(dcc_group_kernel<kG, kQShared, kWShared, false, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the terminal kernel on `stream` for blocks first_block+1 ..
-// first_block+n_blocks. params: ops/dcc.py DccTensors.packed, float32 on the
+// Launches the terminal kernel (up to 16 assets) on `stream` for blocks
+// first_block+1 .. first_block+n_blocks. params: ops/dcc.py DccTensors.packed, float32 on the
 // device. Output out: (n_blocks, block_paths, n_assets) float32. Normal shocks
 // (the poly tier). Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int block_paths,
                         int n_assets, int n_steps, const void* params, void* out, void* stream) {
-  if (n_assets < 1 || n_assets > kMaxAssets || n_blocks < 1 || n_blocks > 65535 ||
-      block_paths < 1 || n_steps < 0) {
+  if (n_assets < 1 || n_assets > kDA || n_blocks < 1 || n_blocks > 65535 || block_paths < 1 ||
+      n_steps < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n_assets > kDA) {
-    return launch_wide<false>(seed, first_block, n_blocks, block_paths, n_assets, 1, n_steps, 0,
-                              static_cast<const float*>(params), nullptr, nullptr,
-                              static_cast<float*>(out), nullptr,
-                              static_cast<cudaStream_t>(stream));
   }
   const dim3 grid((block_paths + kTermThreads - 1) / kTermThreads, n_blocks);
   const size_t smem = sizeof(float) * TermLayout(n_assets).total;
@@ -832,8 +946,8 @@ int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the candidate kernel on `stream` for blocks first_block+1 ..
-// first_block+n_blocks. params: DccTensors.packed; weights: (n_cand,
+// Launches the candidate kernel (up to 16 assets) on `stream` for blocks
+// first_block+1 .. first_block+n_blocks. params: DccTensors.packed; weights: (n_cand,
 // n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
 // for n_legs legs per asset (read from device memory), or null with n_legs 0
 // for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
@@ -843,8 +957,8 @@ int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int
                         int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
                         const void* weights, const void* hedge, void* term, void* dd,
                         void* stream) {
-  if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
-      n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
+  if (n_assets < 1 || n_assets > kDA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
+      n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
       (n_legs > 0 && hedge == nullptr) || kDA * kTileP != kDdThreads ||
       kMaxCand > kDdThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -854,12 +968,6 @@ int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int
   const float* h = static_cast<const float*>(hedge);
   float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n_assets > kDA) {
-    return n_legs ? launch_wide<true, true>(seed, first_block, n_blocks, block_paths, n_assets,
-                                            n_cand, n_steps, n_legs, p, w, h, out, out_dd, st)
-                  : launch_wide<true>(seed, first_block, n_blocks, block_paths, n_assets,
-                                      n_cand, n_steps, 0, p, w, nullptr, out, out_dd, st);
-  }
   const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
   const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
   auto run = [&](auto kernel) {
@@ -873,48 +981,56 @@ int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int
   return n_legs ? run(dcc_dd_kernel<true>) : run(dcc_dd_kernel<false>);
 }
 
-// Both functions past 64 assets (dcc_wider_kernel): n_cand 0 runs the
-// terminal function (output out (n_blocks, block_paths, n_assets)), n_cand >=
-// 1 the candidates' (outputs out and dd (n_blocks, n_cand, block_paths);
-// hedged when n_legs > 0, the hedge block HedgeTensors.packed read from device
-// memory and each row's price in A more floats of shared memory).
-// scratch: n_ctas·A(A+1) floats on the device, read only where Q and L leave
-// shared memory (A past ~220); n_ctas persistent CTAs, one path each at a
-// time. Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for arguments the kernel does not take.
+// Both functions from 17 assets on (dcc_group_kernel; it takes any A >= 1):
+// n_cand 0 runs the terminal function (output out (n_blocks, block_paths,
+// n_assets)), n_cand >= 1 the candidates' (outputs out and dd (n_blocks,
+// n_cand, block_paths); weights_t (n_assets, n_cand), the weights
+// transposed; hedged when n_legs > 0, the hedge block HedgeTensors.packed
+// read from device memory). scratch: scratch_floats floats on the device,
+// one slot per CTA where Q (and past ~300 assets the factor) leave shared
+// memory (GroupLayout; ops/dcc.py dcc_wide_plan sizes it), else unused and
+// may be null. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_dcc_wide(long long seed, long long first_block, int n_blocks, int block_paths,
                     int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
-                    const void* weights, const void* hedge, void* out, void* dd, void* scratch,
-                    int n_ctas, void* stream) {
+                    const void* weights_t, const void* hedge, void* out, void* dd, void* scratch,
+                    long long scratch_floats, void* stream) {
   if (n_assets < 1 || n_cand < 0 || n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 ||
-      block_paths < 1 || n_steps < 0 || n_ctas < 1 || n_ctas > 65535 || scratch == nullptr ||
-      (n_cand > 0 && (weights == nullptr || dd == nullptr)) || n_legs < 0 ||
-      (n_legs > 0 && (hedge == nullptr || n_cand == 0))) {
+      block_paths < 1 || n_steps < 0 || (n_cand > 0 && (weights_t == nullptr || dd == nullptr)) ||
+      n_legs < 0 || (n_legs > 0 && (hedge == nullptr || n_cand == 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool hedged = n_legs > 0, shared = wider_in_shared(n_assets, hedged);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(wider_rows(n_assets, hedged)) +
-                                       (shared ? static_cast<size_t>(n_assets) * (n_assets + 1)
-                                               : 0));
-  auto run = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<n_ctas, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, n_blocks, block_paths, n_assets, n_cand, n_steps, n_legs,
-        static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<const float*>(hedge), static_cast<float*>(scratch),
-        static_cast<float*>(out), static_cast<float*>(dd));
-    return static_cast<int>(cudaGetLastError());
-  };
-  if (hedged) {
-    return shared ? run(dcc_wider_kernel<true, true, true>)
-                  : run(dcc_wider_kernel<true, false, true>);
+  static_assert(kMaxCand <= kGroupBlock, "a block's threads score its candidates");
+  const GroupLayout lay(n_assets, n_legs > 0);
+  if (lay.total > kGroupSmem ||
+      (lay.slot > 0 && (scratch == nullptr || scratch_floats < lay.slot))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_cand > 0) {
-    return shared ? run(dcc_wider_kernel<true, true>) : run(dcc_wider_kernel<true, false>);
+  const float* p = static_cast<const float*>(params);
+  const float* w = static_cast<const float*>(weights_t);
+  const float* h = static_cast<const float*>(hedge);
+  float* s = static_cast<float*>(scratch);
+  float *o = static_cast<float*>(out), *o_dd = static_cast<float*>(dd);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MCPORT_DCC_GROUP(G, QS, WS)                                                            \
+  launch_group<G, QS, WS>(lay, seed, first_block, n_blocks, block_paths, n_assets, n_cand,     \
+                          n_steps, n_legs, p, w, h, s, scratch_floats, o, o_dd, st)
+  if (lay.g < kGroupBlock && !(lay.q_shared && lay.w_shared)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return shared ? run(dcc_wider_kernel<false, true>) : run(dcc_wider_kernel<false, false>);
+  switch (lay.g) {
+    case 32:
+      return MCPORT_DCC_GROUP(32, true, true);
+    case 64:
+      return MCPORT_DCC_GROUP(64, true, true);
+    case 128:
+      return MCPORT_DCC_GROUP(128, true, true);
+    default:
+      return lay.q_shared   ? MCPORT_DCC_GROUP(kGroupBlock, true, true)
+             : lay.w_shared ? MCPORT_DCC_GROUP(kGroupBlock, false, true)
+                            : MCPORT_DCC_GROUP(kGroupBlock, false, false);
+  }
+#undef MCPORT_DCC_GROUP
 }
 
 }  // extern "C"

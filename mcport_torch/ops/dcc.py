@@ -34,9 +34,10 @@ the Cholesky sums in ascending order, as the kernels do.
 
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
 plain form, a CUDA device launches the kernel or raises. The plain forms and
-the card take any number of assets: from 17 to 64 through
-``dcc_wide_kernel``, past 64 through ``dcc_wider_kernel`` (``csrc/dcc.cu``,
-a path's Q and L in device memory past ~220 assets).
+the card take any number of assets: past 16 through ``dcc_group_kernel``
+(``csrc/dcc.cu``: a group of threads per path, a blocked right-looking
+Cholesky bit for bit with the narrow kernels' sums; :func:`dcc_wide_plan`
+sizes its grid and the device-memory slots of Q past ~220 assets).
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ from typing import NamedTuple
 
 import torch
 
-from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card_assets, sqrt_rn,
-                                  step_shocks, wide_scratch)
+from mcport_torch.ops.gbm import (MAX_ASSETS, _check_args, check_card_assets, sqrt_rn, step_shocks,
+                                  wide_scratch)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
 
@@ -63,10 +64,97 @@ __all__ = [
     "dcc_tolerance",
     "dcc_price_bound",
     "dcc_shares",
+    "DccWidePlan",
+    "dcc_wide_plan",
 ]
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
 _FLOOR = 1e-12       # the pivot and diagonal floor of mcport's kernels
+NARROW_ASSETS = 16   # the narrow kernels' widest universe (csrc/dcc.cu kDA)
+
+# csrc/dcc.cu GroupLayout: threads per block, floats per tile of the factor
+# and of Q, a block's shared memory (H100), and the H100's defaults for
+# dcc_wide_plan
+_GROUP_BLOCK, _TS, _QS, _GROUP_SMEM = 256, 20, 16, 232_448
+_H100_SMS, _H100_SMEM_PER_SM = 132, 233_472
+
+
+class DccWidePlan(NamedTuple):
+    """Where ``dcc_group_kernel`` keeps a path at one width, and what its
+    launch needs: ``group`` threads per path, ``paths`` per 256-thread block,
+    ``shared_bytes`` of shared memory per block, whether Q and the Cholesky
+    factor fit there (``q_shared``, ``w_shared``), ``slot_floats`` of a
+    CTA's device-memory slot for those that do not, ``ctas`` the persistent
+    grid and ``scratch_floats`` = ``ctas · slot_floats``."""
+
+    group: int
+    paths: int
+    shared_bytes: int
+    q_shared: bool
+    w_shared: bool
+    slot_floats: int
+    ctas: int
+    scratch_floats: int
+
+
+def dcc_wide_plan(n_assets: int, hedged: bool, n_sms: int = _H100_SMS,
+                  smem_per_sm: int = _H100_SMEM_PER_SM) -> DccWidePlan:
+    """``dcc_group_kernel``'s layout at ``n_assets`` (csrc/dcc.cu
+    ``GroupLayout``, the same arithmetic) and its grid on a card of ``n_sms``
+    SMs with ``smem_per_sm`` bytes of shared memory each: as many blocks per
+    SM as their shared memory (plus the 1 KB the CUDA runtime reserves per block) and
+    2,048 threads allow, one where a path needs a slot. Q and then the
+    factor move to a device-memory slot per path when a block cannot hold
+    them (past 220 and 292 assets), so the scratch is sized by the SMs, not
+    by the paths: 17.6 MB at 256 assets on an H100, inside its 50 MB L2. The
+    kernel launches no more CTAs than this (fewer where its registers or the
+    work allow fewer)."""
+    a = int(n_assets)
+    if a < 1:
+        raise ValueError("the DCC kernels need at least one asset")
+    group = 32 if a <= 32 else 64 if a <= 64 else 128 if a <= 128 else _GROUP_BLOCK
+    paths = _GROUP_BLOCK // group
+    t = (a + 3) // 4
+    nt, ap = t * (t + 1) // 2, 4 * t
+    for w_shared, q_shared in ((True, True), (True, False), (False, False)):
+        per_path = ((nt * _TS if w_shared else 0) + (nt * _QS if q_shared else 0) + 8 * ap
+                    + (ap if hedged else 0) + 4)
+        shared = 4 * (paths * per_path + 2 * ap * paths)
+        if shared <= _GROUP_SMEM:
+            break
+    else:
+        raise ValueError(f"the DCC kernels' per-row state at {a} assets needs {shared:,} bytes "
+                         f"of shared memory; a block has {_GROUP_SMEM:,}")
+    slot = paths * ((0 if w_shared else nt * _TS) + (0 if q_shared else nt * _QS))
+    per_sm = min(2048 // _GROUP_BLOCK if not slot else 1, int(smem_per_sm) // (shared + 1024))
+    if per_sm < 1:
+        raise ValueError(f"a DCC block needs {shared + 1024:,} bytes of shared memory; an SM "
+                         f"has {int(smem_per_sm):,}")
+    ctas = per_sm * int(n_sms)
+    return DccWidePlan(group, paths, shared, q_shared, w_shared, slot, ctas, ctas * slot)
+
+
+def _launch_wide(lib, seed, d, n_paths, n_steps, first_block, n_blocks, out, weights=None,
+                 dd=None, hedge=None):
+    """``mcport_dcc_wide`` on the current stream: the terminal function, or
+    with ``weights`` the candidates' (hedged with ``hedge``); returns its
+    error code."""
+    a = d.n_assets
+    props = torch.cuda.get_device_properties(d.device)
+    plan = dcc_wide_plan(a, hedge is not None, props.multi_processor_count,
+                         getattr(props, "shared_memory_per_multiprocessor", _H100_SMEM_PER_SM))
+    scratch = (wide_scratch(plan.scratch_floats, d.device, "DCC") if plan.scratch_floats
+               else None)
+    params = d.packed()
+    wt = weights.t().contiguous() if weights is not None else None
+    block = hedge.packed() if hedge is not None else None
+    n_cand = weights.shape[0] if weights is not None else 0
+    stream = torch.cuda.current_stream(d.device).cuda_stream
+    ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
+    return lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, n_cand, n_steps,
+                               hedge.n_legs if hedge is not None else 0, params.data_ptr(),
+                               ptr(wt), ptr(block), out.data_ptr(), ptr(dd), ptr(scratch),
+                               plan.scratch_floats, stream)
 
 
 class DccTensors(NamedTuple):
@@ -237,15 +325,12 @@ def _launch_terminal(seed, d, n_paths, n_steps, first_block, n_blocks):
     out = torch.empty((n_blocks, n_paths, a), dtype=torch.float32, device=d.device)
     if n_paths == 0:
         return out
-    params = d.packed()
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
-            scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
-            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, 0, n_steps, 0,
-                                      params.data_ptr(), None, None, out.data_ptr(), None,
-                                      scratch.data_ptr(), WIDE_CTAS, stream)
+        if a > NARROW_ASSETS:   # dcc_group_kernel
+            err = _launch_wide(lib, seed, d, n_paths, n_steps, first_block, n_blocks, out)
         else:
+            params = d.packed()
+            stream = torch.cuda.current_stream(d.device).cuda_stream
             err = lib.mcport_dcc_terminal(seed, first_block, n_blocks, n_paths, a, n_steps,
                                           params.data_ptr(), out.data_ptr(), stream)
     if err:
@@ -333,20 +418,17 @@ def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks, hedge=
     dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=d.device)
     if n_paths == 0:
         return term, dd
-    params = d.packed()
-    weights = weights.contiguous()
-    block = hedge.packed() if hedge is not None else None
-    n_legs = hedge.n_legs if hedge is not None else 0
-    hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream(d.device).cuda_stream
-        if a > MAX_ASSETS:   # one path per CTA; Q and L in the scratch past ~220 assets
-            scratch = wide_scratch(WIDE_CTAS * a * (a + 1), d.device, "DCC")
-            err = lib.mcport_dcc_wide(seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
-                                      n_legs, params.data_ptr(), weights.data_ptr(), hp,
-                                      term.data_ptr(), dd.data_ptr(), scratch.data_ptr(),
-                                      WIDE_CTAS, stream)
+        if a > NARROW_ASSETS:   # dcc_group_kernel
+            err = _launch_wide(lib, seed, d, n_paths, n_steps, first_block, n_blocks, term,
+                               weights, dd, hedge)
         else:
+            params = d.packed()
+            weights = weights.contiguous()
+            block = hedge.packed() if hedge is not None else None
+            n_legs = hedge.n_legs if hedge is not None else 0
+            hp = block.data_ptr() if block is not None else None
+            stream = torch.cuda.current_stream(d.device).cuda_stream
             err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
                                           n_steps, n_legs, params.data_ptr(),
                                           weights.data_ptr(), hp, term.data_ptr(),

@@ -38,7 +38,10 @@ identity hedge at a Feller-violating vol of vol, overflowed wealth held. The
 hedged mode of #13 (4, 15, 16, 17, 64, 65 and 256 assets, W up to 257) to
 ``dcc_shares`` with the hedge (``dcc_price_bound``), each C entry point's
 signature, the identity hedge against the unhedged kernel, overflowed
-wealth held.
+wealth held. The DCC kernel past 16 assets (``dcc_group_kernel``) at each
+group size's edges, off the 4-column panels and on each side of where Q and
+the factor leave shared memory: the terminal, W = 1 to 257 and the hedged
+mode to the same bounds; its scratch check.
 """
 
 import numpy as np
@@ -1028,7 +1031,7 @@ def test_heston_wide_layout_matches_plain_form(dev, a, xi):
 @pytest.mark.parametrize("a", [65, 200, 256])
 @pytest.mark.parametrize("case", ["bench", "q0"])
 def test_dcc_wider_kernel_matches_plain_form(dev, a, case):
-    """Past 64 assets (at 256 Q and L leave shared memory for the scratch)."""
+    """Past 64 assets (at 256 Q leaves shared memory for the scratch)."""
     from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_multi_portfolio_dd,
                                       dcc_shares, dcc_terminal, dcc_terminal_reference)
 
@@ -1287,10 +1290,9 @@ def test_heston_hedged_kernel_carries_overflowed_wealth(dev):
 @pytest.mark.parametrize("n_legs", [1, 3])
 @pytest.mark.parametrize("n_cand", [1, 5, 256, 257])
 def test_dcc_hedged_kernel_matches_plain_form(dev, a, n_legs, n_cand):
-    """Every width: ``dcc_dd_kernel<true>`` (4, 15, 16), ``dcc_wide_kernel<true,
-    true>`` (17, 64) and ``dcc_wider_kernel<true, *, true>`` (65; 256, where Q
-    and L leave shared memory), W past one launch's 256, path by path to the
-    bound of ``ops.dcc.dcc_price_bound``."""
+    """Every width: ``dcc_dd_kernel<true>`` (4, 15, 16) and ``dcc_group_kernel``
+    hedged (17, 64, 65; 256, where Q leaves shared memory), W past one
+    launch's 256, path by path to the bound of ``ops.dcc.dcc_price_bound``."""
     from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
 
     d = _dcc(a, dev)
@@ -1307,6 +1309,86 @@ def test_dcc_hedged_kernel_matches_plain_form(dev, a, n_legs, n_cand):
     p = dcc_multi_dd_reference(11, d, w, paths, steps, with_bound=True, **kw)
     shares = dcc_shares(k, p, d, steps, hedge=hedge)
     assert max(shares.values()) <= 1.0, shares
+
+
+#: dcc_group_kernel's widths: each group size's edges (32, 64, 128 threads per
+#: path), widths off the 4-column panels, and each side of where Q (221) and
+#: the factor (293) leave shared memory
+DCC_GROUP_A = [17, 31, 32, 33, 47, 63, 64, 65, 97, 128, 129, 220, 221, 255, 256, 292, 293]
+
+
+@pytest.mark.parametrize("a", DCC_GROUP_A)
+@pytest.mark.parametrize("fn", ["terminal", "candidates", "hedged"])
+def test_dcc_group_kernel_matches_plain_form(dev, a, fn):
+    """``dcc_group_kernel`` against the plain forms under today's bounds: the
+    terminal function to ``dcc_shares``, the candidates at W = 1, 64, 256 and
+    257 (two launches) to ``dcc_shares``, and the hedged mode (two legs per
+    asset of every type) path by path to ``dcc_price_bound``, on two blocks
+    of a ragged path count."""
+    from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_multi_portfolio_dd,
+                                      dcc_shares, dcc_terminal, dcc_terminal_reference,
+                                      dcc_wide_plan)
+
+    d = _dcc(a, dev, "q0" if a % 2 else "bench")
+    paths, steps = (515, 13) if a <= 64 else (131, 9)
+    kw = dict(first_block=6, n_blocks=2)
+    plan = dcc_wide_plan(a, fn == "hedged")
+    assert plan.q_shared == (a <= 220) and plan.w_shared == (a <= 292)
+    if fn == "terminal":
+        before = (dcc_terminal.launches, dcc_terminal.wide_launches)
+        k = dcc_terminal(11, d, paths, steps, **kw)
+        torch.cuda.synchronize()
+        assert (dcc_terminal.launches, dcc_terminal.wide_launches) == (
+            before[0] + 1, before[1] + int(a > 64))
+        p = dcc_terminal_reference(11, d, paths, steps, **kw)
+        assert max(dcc_shares(k, p, d, steps).values()) <= 1.0
+        return
+    hedge = _hedge(a, dev, 2, seed=a) if fn == "hedged" else None
+    for n_cand in (1, 64, 256, 257):
+        w = _wide_cand(a, dev, n_cand)
+        before = (dcc_multi_portfolio_dd.launches, dcc_multi_portfolio_dd.hedged_launches)
+        k = dcc_multi_portfolio_dd(11, d, w, paths, steps, hedge=hedge, **kw)
+        torch.cuda.synchronize()
+        chunks = -(-n_cand // 256)
+        assert dcc_multi_portfolio_dd.launches == before[0] + chunks
+        assert dcc_multi_portfolio_dd.hedged_launches == before[1] + chunks * int(hedge is not None)
+        p = dcc_multi_dd_reference(11, d, w, paths, steps, hedge=hedge,
+                                   with_bound=hedge is not None, **kw)
+        shares = dcc_shares(k, p, d, steps, hedge=hedge)
+        assert max(shares.values()) <= 1.0, (n_cand, shares)
+
+
+@pytest.mark.parametrize("a", [17, 221, 293])
+def test_dcc_group_kernel_takes_its_scratch(dev, a):
+    """``mcport_dcc_wide`` refuses a scratch smaller than one CTA's slot (and
+    a null one) where Q leaves shared memory, needs none where it stays, and
+    launches no more CTAs than the scratch has slots for: one slot gives the
+    wrapper's result on the same paths."""
+    from mcport_torch._build import library
+    from mcport_torch.ops.dcc import dcc_terminal, dcc_wide_plan
+
+    lib = library("dcc")
+    d = _dcc(a, dev)
+    plan = dcc_wide_plan(a, False)
+    out = torch.empty((1, 33, a), device=dev)
+    params = d.packed()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(scratch, floats):
+        return lib.mcport_dcc_wide(3, -1, 1, 33, a, 0, 5, 0, params.data_ptr(), None, None,
+                                   out.data_ptr(), None,
+                                   scratch.data_ptr() if scratch is not None else None, floats,
+                                   stream)
+
+    if plan.slot_floats == 0:
+        assert launch(None, 0) == 0
+    else:
+        one = torch.empty(plan.slot_floats, device=dev)
+        assert launch(None, plan.slot_floats) != 0
+        assert launch(one, plan.slot_floats - 1) != 0
+        assert launch(one, plan.slot_floats) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, dcc_terminal(3, d, 33, 5))
 
 
 @pytest.mark.parametrize("a", [15, 17, 65])

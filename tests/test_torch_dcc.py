@@ -21,8 +21,12 @@ mcport's, on the CPU.
 - The kernel-vs-plain bound (``dcc_tolerance``) holds a float64 evaluation of
   the same recursion against the float32 plain form with room to spare, and
   planted faults exceed it more than twice over.
-- The plain form's right-looking Cholesky equals the kernels' left-looking
-  column loop bit for bit (A = 1 to 33).
+- The plain form's right-looking Cholesky equals the narrow kernels'
+  left-looking column loop bit for bit (A = 1 to 33), and the tiled
+  schedules of ``dcc_group_kernel`` (panels of 4 and 8 columns, A = 4 to
+  130).
+- ``dcc_wide_plan`` keeps the group kernel's scratch within 32 MB up to 256
+  assets.
 """
 
 import math
@@ -318,6 +322,99 @@ def test_right_looking_cholesky_is_the_kernels_order(a, ab, e0):
     assert path.sigma.shape == eps.shape == path.row_l1.shape and path.q_max.shape == eps.shape[:-1]
     assert bool((path.row_l1 >= 1.0 - 1e-6).all())   # a unit-norm row of chol(R_t)
     assert bool((path.row_l1 <= math.sqrt(a) * (1.0 + 1e-5)).all())
+
+
+def _tiled(z, d, nb=4):
+    """``dcc_group_kernel``'s Cholesky in its order: Q in 4 x 4 tiles (the
+    identity past A), by panels of ``nb`` columns: each tile column of the
+    panel first takes the products of the panel's earlier columns, then its
+    corner tile is factored column by column and the tiles below solve
+    against it; then the trailing triangle takes the panel's products one k
+    at a time; each product and difference rounded once, as the plain form
+    rounds them. Then ``e = D^{-1/2} L z`` and the GARCH step."""
+    a_c, b_c = d.ab[0], d.ab[1]
+    cs = ((1.0 - a_c) - b_c) * d.s
+    n, batch = d.n_assets, z.shape[:-2]
+    ap = 4 * ((n + 3) // 4)
+    q, e = d.q0.expand(batch + (n, n)), d.e0.expand(batch + (n,))
+    s2, e2 = d.sigma2_0.expand(batch + (n,)), d.eps2_0.expand(batch + (n,))
+    out = []
+    for t in range(z.shape[-2]):
+        q = cs + a_c * (e[..., :, None] * e[..., None, :]) + b_c * q
+        w = torch.eye(ap).expand(batch + (ap, ap)).clone()
+        w[..., :n, :n] = q
+        for p0 in range(0, ap, nb):
+            end = min(p0 + nb, ap)
+            for c0 in range(p0, end, 4):
+                for k in range(p0, c0):       # the panel's earlier columns
+                    w[..., c0:, c0:c0 + 4] -= (w[..., c0:, k:k + 1]
+                                               * w[..., c0:c0 + 4, k][..., None, :])
+                inv = []
+                for c in range(c0, c0 + 4):   # the corner, column by column
+                    num = w[..., c:c0 + 4, c].clone()
+                    for k in range(c0, c):
+                        num = num - w[..., c:c0 + 4, k] * w[..., c, k:k + 1]
+                    inv.append(O.rsqrt_rn(torch.clamp_min(num[..., :1], 1e-12)))
+                    w[..., c:c0 + 4, c] = num * inv[-1]
+                for j in range(4):            # the tiles below, against the corner
+                    num = w[..., c0 + 4:, c0 + j].clone()
+                    for k in range(j):
+                        num = num - w[..., c0 + 4:, c0 + k] * w[..., c0 + j, c0 + k:c0 + k + 1]
+                    w[..., c0 + 4:, c0 + j] = num * inv[j]
+            for k in range(p0, end):          # the trailing triangle, k ascending
+                col = w[..., end:, k]
+                w[..., end:, end:] -= col[..., :, None] * col[..., None, :]
+        zt = z[..., t, :]
+        m = w[..., :n, 0] * zt[..., :1]
+        for j in range(1, n):
+            m[..., j:] += w[..., j:n, j] * zt[..., j:j + 1]
+        e = m * O.rsqrt_rn(torch.clamp_min(torch.diagonal(q, dim1=-2, dim2=-1), 1e-12))
+        s2 = d.omega + d.alpha * e2 + d.beta * s2
+        eps = O.sqrt_rn(torch.clamp_min(s2, 0.0)) * e
+        e2 = eps * eps
+        out.append(eps)
+    return torch.stack(out, dim=-2)
+
+
+@pytest.mark.parametrize("a, ab, e0, nb", [(4, (0.05, 0.9), 0.0, 4), (17, (0.05, 0.9), 0.5, 4),
+                                            (31, (0.2, 0.79), -2.0, 4), (33, (0.0, 1.0), 0.0, 4),
+                                            (70, (0.06, 0.9), 1.0, 4), (9, (0.05, 0.9), 0.5, 8),
+                                            (130, (0.06, 0.9), 1.0, 8)])
+def test_tiled_cholesky_is_the_plain_forms_order(a, ab, e0, nb):
+    """``dcc_group_kernel``'s schedules (tiles of 4, right-looking by panels
+    of 4 columns, of 8 past 128 assets) subtract every entry's products in
+    the plain form's ascending order: the same innovations bit for bit, also
+    where A is not a multiple of 4 or of 8."""
+    d = _bench(a, ab, e0).tensors("cpu")
+    z = step_shocks(4, a, 32, 5, device="cpu")
+    assert torch.equal(_tiled(z, d, nb), O.dcc_innovations(z, d))
+
+
+@pytest.mark.parametrize("hedged", [False, True])
+def test_wide_plan_keeps_the_scratch_in_l2(hedged):
+    """``dcc_wide_plan`` on an H100 (132 SMs, 233,472 bytes of shared memory
+    each) at every width up to 256: the group of 32, 64, 128 or 256 threads
+    per path, every block within 227 KB, Q beside the factor in shared memory
+    up to 220 assets and no scratch there; past that one slot of Q's tiles
+    per CTA and one CTA per SM, the scratch at most 32 MB (17.6 MB at 256,
+    inside the 50 MB L2). Past 292 the factor leaves too; the grid follows
+    the SM count."""
+    for a in range(1, 257):
+        p = O.dcc_wide_plan(a, hedged, 132, 233_472)
+        tiles = ((a + 3) // 4) * ((a + 3) // 4 + 1) // 2
+        assert p.group == (32 if a <= 32 else 64 if a <= 64 else 128 if a <= 128 else 256)
+        assert p.group * p.paths == 256 and p.shared_bytes <= 232_448 and p.w_shared
+        assert p.q_shared == (a <= 220) and (p.scratch_floats == 0) == p.q_shared
+        if not p.q_shared:
+            assert p.slot_floats == 16 * tiles and p.ctas == 132
+        assert 4 * p.scratch_floats <= 32 * 2 ** 20
+        assert p.ctas >= 132
+    assert 4 * O.dcc_wide_plan(256, hedged).scratch_floats == 17_571_840
+    past = O.dcc_wide_plan(293, hedged, 132, 233_472)
+    assert not past.w_shared and not past.q_shared and past.ctas == 132
+    assert O.dcc_wide_plan(64, hedged, 66, 233_472).ctas * 2 == O.dcc_wide_plan(64, hedged).ctas
+    with pytest.raises(ValueError, match="at least one asset"):
+        O.dcc_wide_plan(0, hedged)
 
 
 def _innovations(z, d, fault=None, dtype=torch.float32):

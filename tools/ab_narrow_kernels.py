@@ -1,21 +1,32 @@
-"""Same-call A/B of two trees' unhedged candidate kernels in their narrow
-layouts (GARCH, bootstrap, Heston; at 256 x 131,072 x 252 on the bench
-universe), the Heston terminal kernel (1,048,576 x 252) and the three DCC
-candidate kernels and its terminal kernel (``dcc_dd_kernel`` at 15 assets,
-256 x 131,072 x 52; ``dcc_wide_kernel`` at 64, 256 x 16,384 x 52;
-``dcc_wider_kernel`` at 65, 256 x 4,096 x 16; the terminal at 1,048,576 x
-52), timed with CUDA events in turns: other / this / this / other. First,
-per library, whether each kernel of the other tree has this tree's
-instructions (``cuobjdump -sass``; a template parameter added with its
-default, ``<16>`` against ``<16, false>``, names the same kernel, as does a
-kernel made a template against its ``<false>`` instantiation, and
-kernel-parameter offsets ``c[0x0][...]`` are masked, so an added parameter
-alone does not count as a change).
+"""Same-call A/B of two trees' kernels, timed with CUDA events in turns:
+other / this / this / other.
+
+- The unhedged candidate kernels in their narrow layouts (GARCH, bootstrap,
+  Heston; at 256 x 131,072 x 252 on the bench universe), the Heston
+  terminal kernel (1,048,576 x 252), the narrow DCC kernels
+  (``dcc_dd_kernel`` at 15 assets, 256 x 131,072 x 52; the terminal at
+  1,048,576 x 52).
+- The DCC kernels past 16 assets (``dcc_group_kernel`` in this tree): their
+  outputs against the other tree's with ``torch.equal`` (the terminal, the
+  candidates at W = 1, 64 and 256, the hedged mode with every leg type) at A
+  = 17, 33, 64, 65, 200 and 256, then timed at the widths and shapes of
+  the DCC predictions in PERF.md §6 (each turn the best of three timings of two
+  launches, each tree its best turn; the timed outputs held equal too).
+- First, per library, whether each kernel of the other tree has this tree's
+  instructions (``cuobjdump -sass``; a template parameter added with its
+  default, ``<16>`` against ``<16, false>``, names the same kernel, as does
+  a kernel made a template against its ``<false>`` instantiation, and
+  kernel-parameter offsets ``c[0x0][...]`` are masked, so an added
+  parameter alone does not count as a change); every kernel but the
+  redesigned DCC ones (``REDESIGNED``) must keep them.
 
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
     python3 tools/ab_narrow_kernels.py DIR              # from the repository root
 
-Needs one card; builds both trees' GARCH, bootstrap and Heston libraries."""
+Needs one card; builds both trees' GARCH, bootstrap, Heston and DCC
+libraries. Exits 1 when a kept kernel changed its SASS or a DCC output
+differs from the other tree's."""
+import math
 import re
 import subprocess
 import sys
@@ -73,7 +84,10 @@ def sass(so: Path) -> dict:
     return out
 
 
+#: the other tree's DCC kernels past 16 assets, which this tree replaces
+REDESIGNED = ("dcc_wide_kernel", "dcc_wider_kernel", "dcc_group_kernel")
 mods = {"other": load(sys.argv[1]), "this": load(".")}
+kept = [0, 0]
 for fam in FAMILIES:
     libs = {}
     for side, root in (("other", sys.argv[1]), ("this", ".")):
@@ -82,22 +96,91 @@ for fam in FAMILIES:
     a, b = sass(libs["other"]), sass(libs["this"])
     for key, ins in sorted(a.items()):
         same = b.get(key) == ins
+        redesigned = any(r in key for r in REDESIGNED)
+        kept[0] += int(same and not redesigned)
+        kept[1] += int(not redesigned)
         print(f"sass {fam} {key}: {len(ins)} instructions, "
-              f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}")
-cand = torch.as_tensor(np.random.default_rng(0).dirichlet(np.ones(15), 256), dtype=torch.float32,
-                       device=dev)
+              f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}"
+              f"{' (redesigned)' if redesigned else ''}")
+print(f"sass: {kept[0]} of {kept[1]} kept kernels the same in this tree")
+
+
+def simplex(a, n, seed=0):
+    return torch.as_tensor(np.random.default_rng(seed + a).dirichlet(np.ones(a), n),
+                           dtype=torch.float32, device=dev)
+
+
+def bits(out):
+    return [x.clone().view(torch.int32) for x in (out if isinstance(out, tuple) else (out,))]
+
+
+def run_on(side, fn):
+    """fn(D) with side's package in sys.modules (its launchers import their
+    own _build at call time)."""
+    sys.modules.update(mods[side][4])
+    out = fn(mods[side][3])
+    torch.cuda.synchronize()
+    return out
+
+
+# ---- the DCC kernels past 16 assets: outputs bit for bit -------------------------
+DCC_A = (17, 33, 64, 65, 200, 256)
+unequal = []
+for a in DCC_A:
+    d = S.bench_dcc(a).tensors(dev)
+    legs = S.leg_mix(a, 2, dev, seed=a)
+    w = {n: simplex(a, n) for n in (1, 64, 256)}
+    paths, steps = (515, 13) if a <= 64 else (131, 9)
+    kw = dict(first_block=6, n_blocks=2)
+    cases = {"terminal": lambda D: D.dcc_terminal(11, d, paths, steps, **kw)}
+    for n in (1, 64, 256):
+        cases[f"candidates W={n}"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
+            11, d, w[n], paths, steps, **kw))
+        cases[f"hedged W={n} L=2"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
+            11, d, w[n], paths, steps, hedge=legs, **kw))
+    for name, fn in cases.items():
+        x, y = bits(run_on("other", fn)), bits(run_on("this", fn))
+        same = all(torch.equal(p, q) for p, q in zip(x, y))
+        if not same:
+            unequal.append(f"A={a} {name}")
+        print(f"equal dcc A={a} {name} ({paths} x 2 blocks x {steps}): "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+
+# ---- timing, in turns ---------------------------------------------------------------
+cand = simplex(15, 256, seed=-15)
 pp, p_term = 131_072, 1 << 20
 g = S.bench_garch().tensors(dev)
 hist = torch.as_tensor(S.bench_history(), device=dev)
 hp = S.bench_heston().tensors(dev)
-dccs = {a: S.bench_dcc(a).tensors(dev) for a in (15, 64, 65)}
-dcand = {a: torch.as_tensor(np.random.default_rng(a).dirichlet(np.ones(a), 256),
-                            dtype=torch.float32, device=dev) for a in (64, 65)}
-dcand[15] = cand
-res = {}
+d15 = S.bench_dcc(15).tensors(dev)
+#: (function, A, paths, steps): the DCC predictions in PERF.md §6, then the other widths
+DCC_TIMED = (("terminal", 256, 4_096, 8), ("candidates", 256, 4_096, 8), ("hedged", 256, 1_024, 16),
+             ("terminal", 64, 65_536, 52), ("candidates", 64, 4_096, 52), ("hedged", 64, 4_096, 52),
+             ("terminal", 17, 65_536, 52), ("candidates", 17, 4_096, 52), ("hedged", 17, 4_096, 52),
+             ("terminal", 33, 65_536, 52), ("candidates", 33, 4_096, 52), ("hedged", 33, 4_096, 52),
+             ("terminal", 65, 16_384, 16), ("candidates", 65, 4_096, 16), ("hedged", 65, 4_096, 16),
+             ("terminal", 200, 4_096, 8), ("candidates", 200, 4_096, 8), ("hedged", 200, 1_024, 16))
+dcc_in = {}
+for a in sorted({c[1] for c in DCC_TIMED}):
+    spots = np.full(a, S.SPOT)
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    dcc_in[a] = (S.bench_dcc(a).tensors(dev), simplex(a, 256),
+                 HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev))
+
+
+def dcc_call(fun, a, n, steps):
+    d, w, hedge = dcc_in[a]
+    if fun == "terminal":
+        return lambda D: D.dcc_terminal(0, d, n, steps)
+    return lambda D: D.dcc_multi_portfolio_dd(0, d, w, n, steps,
+                                              hedge=hedge if fun == "hedged" else None)
+
+
+res, firsts = {}, {}
 for order in ("other", "this", "this", "other"):
     G, O, H, D, side = mods[order]
-    sys.modules.update(side)   # the launchers import their own package's _build at call time
+    sys.modules.update(side)
     runs = {"garch": (("garch_multi_dd <16>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1)),
                       ("garch_multi_dd <64>",
                        lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1, wide=True))),
@@ -107,16 +190,40 @@ for order in ("other", "this", "this", "other"):
                        ("heston_multi_dd <64>",
                         lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1, wide=True)),
                        ("heston_terminal", lambda: H.heston_terminal(0, hp, p_term, 252))),
-            "dcc": (("dcc_dd <15>", lambda: D._launch_dd(0, dccs[15], dcand[15], pp, 52, -1, 1)),
-                    ("dcc_dd wide <64>",
-                     lambda: D._launch_dd(0, dccs[64], dcand[64], 16_384, 52, -1, 1)),
-                    ("dcc_dd wider <65>",
-                     lambda: D._launch_dd(0, dccs[65], dcand[65], 4_096, 16, -1, 1)),
-                    ("dcc_terminal", lambda: D.dcc_terminal(0, dccs[15], p_term, 52)))}
+            "dcc": (("dcc_dd <15>", lambda: D._launch_dd(0, d15, cand, pp, 52, -1, 1)),
+                    ("dcc_terminal <15>", lambda: D.dcc_terminal(0, d15, p_term, 52)))}
     for fam in FAMILIES:
         for name, fn in runs[fam]:
             fn()
             torch.cuda.synchronize()
             res.setdefault((name, order), []).append(S._time_ms(fn, 5))
+    for fun, a, n, steps in DCC_TIMED:
+        call = dcc_call(fun, a, n, steps)
+        out = call(D)
+        torch.cuda.synchronize()
+        firsts.setdefault((fun, a, order), bits(out))
+        name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
+        # the best of three timings of two launches: a turn's first launches
+        # can wait on the host (allocations, a shared CPU)
+        res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
+                                                     for _ in range(3)))
 for (name, order), t in sorted(res.items()):
     print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+worst_64_256, worst_slower = math.inf, 0.0
+for fun, a, n, steps in DCC_TIMED:
+    name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
+    other, this = min(res[(name, "other")]), min(res[(name, "this")])
+    same = all(torch.equal(p, q) for p, q in zip(firsts[(fun, a, "other")],
+                                                  firsts[(fun, a, "this")]))
+    if not same:
+        unequal.append(name)
+    print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
+          f"{'bit for bit' if same else 'DIFFERENT'}")
+    if a in (64, 256):
+        worst_64_256 = min(worst_64_256, other / this)
+    worst_slower = max(worst_slower, this / other - 1.0)
+print(f"summary: sass {kept[0]} of {kept[1]} kept; DCC outputs "
+      f"{'all bit for bit' if not unequal else 'DIFFERENT: ' + ', '.join(unequal)}; "
+      f"least speedup at A = 64 and 256 {worst_64_256:.2f}x; most slower "
+      f"{100 * worst_slower:.2f}%")
+sys.exit(0 if kept[0] == kept[1] and not unequal else 1)
