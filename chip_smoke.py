@@ -1065,7 +1065,7 @@ def bounds(rate: float) -> dict:
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
     res.update(family_bounds(draw, rate))
     res.update(family2_bounds(draw, rate))
-    res.update(dcc_bounds(draw, rate))
+    res.update(dcc_bounds(draw, rate, w1_steps=N_STEPS))
     res.update(hedged_bounds(draw, rate))
     # phase 21's variants, keyed as it keys their times: the widened kernels at
     # A = 64 (52 steps; terminal 262,144 paths, DCC 65,536; candidates 256 x
@@ -2648,13 +2648,16 @@ def _dcc_references(dev, dcc, w, reports, frontier) -> None:
 
 def dcc_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = DCC_STEPS,
                p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"],
-               tag: str = "phase17") -> dict:
+               tag: str = "phase17", w1_steps: int | None = None) -> dict:
     """Least time of the DCC kernels at their timing shapes (1,048,576 x 52 x
     15 and 256 x 131,072 x 52, or the shape given), from the work each
     function needs per path-step: the draws, the Q update (3 per triangle
     entry), the Cholesky (A(A^2-1)/6 FMAs, A(A-1)/2 multiplies, A rsqrt), the
     correlate (A(A+1)/2 FMAs) and 9 per asset for the rescale, GARCH and
-    compounding; the candidate kernel adds 256 x (A + 6) for the score."""
+    compounding; the candidate kernel adds 256 x (A + 6) for the score. With
+    ``w1_steps``, also the candidate kernel at one candidate (the path-risk
+    engine's W = 1) over ``pp`` paths x ``w1_steps``: the recursion + 1 x (A +
+    6), as ``"dcc_dd W=1"``."""
     w_cnt = 256
     tri = a * (a + 1) / 2
     chol = a * (a * a - 1) / 6 + a * (a - 1) / 2 + a
@@ -2667,6 +2670,10 @@ def dcc_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = DCC_STEP
             "dcc_dd": ((step + score) * n * pp,
                              4 * (2 * a * a + 7 * a + 2 + w_cnt * a) + 8 * w_cnt * pp,
                              f"{step:.2f} per path-step + {score} for 256 candidates")}
+    if w1_steps is not None:
+        work["dcc_dd W=1"] = ((step + a + 6) * w1_steps * pp, 4 * (2 * a * a + 8 * a + 2) + 8 * pp,
+                              f"{step:.2f} per path-step + {a + 6} for one candidate, "
+                              f"{pp} x {w1_steps}")
     return _bound_table(work, rate, tag)
 
 
@@ -2675,7 +2682,9 @@ def phase_dcc_timing(dev) -> dict:
     their plain forms (in 131,072- and 8,192-path pieces), and the one-call
     yardsticks: torch.linalg.cholesky of a (1,048,576, 15, 15) batch x 52
     (the factorisation alone) and the score product as one torch.matmul per
-    step x 52."""
+    step x 52. The candidate kernel also at one candidate, the path-risk
+    engine's W = 1, at 131,072 x 252 (``"dcc_dd W=1"``, printed beside its
+    bound; its plain form is timed at 256 candidates only)."""
     from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_terminal_reference
 
     k = _dcc_kernels()
@@ -2721,6 +2730,14 @@ def phase_dcc_timing(dev) -> dict:
           f"step, x {DCC_STEPS} = {mm * DCC_STEPS:.3f} ms")
     res["dcc_terminal"][2] = ch * DCC_STEPS
     res["dcc_dd"][2] = mm * DCC_STEPS
+    one = torch.as_tensor(bench_weights()[None], dtype=torch.float32, device=dev)
+    w1 = lambda: k["dcc_dd"](0, d, one, pp, N_STEPS)  # noqa: E731
+    w1()
+    torch.cuda.synchronize()
+    t1, t2 = _time_ms(w1, 5), _time_ms(w1, 5)
+    print(f"phase17 timing dcc_dd W=1 {pp} x {N_STEPS}: kernel {t1:.3f} / {t2:.3f} ms "
+          f"({pp * N_STEPS / ((t1 + t2) / 2) * 1e3:.4e} path-steps/s)")
+    res["dcc_dd W=1"] = [(t1 + t2) / 2, None, None]
     return res
 
 

@@ -73,7 +73,7 @@ KERNELS = {
         "mcport_heston_wide", [_c_ll, _c_ll] + 6 * _I + 6 * _P + 2 * _I + _P),
     "dcc": ("mcport_dcc_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
-        "mcport_dcc_multi_dd", [_c_ll, _c_ll] + 6 * _I + 6 * _P,
+        "mcport_dcc_multi_dd", [_c_ll, _c_ll] + 6 * _I + 6 * _P + [_c_ll] + _P,
         "mcport_dcc_wide", [_c_ll, _c_ll] + 6 * _I + 6 * _P + [_c_ll] + _P),
 }
 

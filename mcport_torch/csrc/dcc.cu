@@ -56,15 +56,24 @@
 //   place on a register copy of the step's Q (all loops over assets unrolled,
 //   the zero upper triangle skipped at compile time), beside e, sigma2 and
 //   cum. 100 KB of shared memory per 128 threads: two blocks per SM.
-// - candidates: garch.cu's tile. A block owns 16 paths and all <= 256
-//   candidates, 256 threads; here a half-warp owns one path and lane i holds
-//   row i of Q and of L in registers. The column-by-column Cholesky
-//   broadcasts each pivot and each L_jk by __shfl_sync within the half-warp;
-//   the step's r = mu + eps goes to shared memory, and each thread then
-//   updates its 4-candidate x 4-path micro-tile of values, peaks and
-//   drawdowns in registers (FP32 FMAs: mcport's score_dot is float32). The
-//   recursion spreads over all 256 threads, so at W = 1 it does not idle 240.
-//   Hedged, lane i also keeps row i's price in a register and writes r_h.
+// - candidates: the terminal kernel's recursion, a thread per path (64 per
+//   block, 4 blocks per SM: 8 warps). Up to 4 candidates (the path-risk
+//   engine's W = 1) the thread scores its own candidates from the step's
+//   returns in registers, their values, peaks and drawdowns in shared memory:
+//   one launch, no barrier. Past 4 a thread cannot hold 256 candidates'
+//   state, and the few paths an SM could hold would leave the recursion's
+//   latency bare (a producer warp of 32 paths feeding 8 scoring warps, one
+//   block per SM, was slower on an H100 than a half-warp per path): the
+//   recursion writes every step's returns to a device scratch, tile-major
+//   (16 paths of a step and asset contiguous; the chunk's paths where the
+//   scratch holds fewer than all), and 256-thread blocks score them from
+//   shared memory, each thread 4 candidates x 4 paths, the block as many
+//   paths as ceil(W/4) candidate groups leave threads (16 at W = 256, 512 at
+//   W = 5-8). The score is one FP32 fmaf per asset, ascending from 0.0f
+//   (mcport's score_dot is float32). Hedged, the price lives in shared
+//   memory and every asset's legs settle leg by leg across the assets
+//   (hedged.cuh's operations, branch-free), the legs staged in shared
+//   memory.
 // From 17 assets on (dcc_group_kernel, both functions, any width): a
 // path's triangle no longer fits a thread's registers or a half-warp's. A
 // group of kG threads owns a path: a warp up to 32 assets, 64 threads up to
@@ -122,8 +131,6 @@ namespace {
 constexpr int kDA = 16;                      // the narrow kernels' asset bound
 constexpr int kTri = kDA * (kDA + 1) / 2;    // entries of a lower triangle
 constexpr int kTermThreads = 128;
-constexpr int kDdThreads = 256;
-constexpr int kTileP = 16;                   // paths per candidate block
 constexpr int kMaxCand = 256;                // ops/multi_dd.py MAX_CANDIDATES
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -286,182 +293,392 @@ dcc_terminal_kernel(long long seed, long long first_block, int block_paths, int 
   }
 }
 
-struct DdLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
-  int cs, g, w, r, total;
-  __host__ __device__ DdLayout(int n, int w_pad) {
-    cs = 0;                    // (1-a-b) S transposed: cs[j * kDA + i] = c0 S_ij
-    g = kDA * kDA;             // kDA float4 (omega, alpha, beta, mu)
-    w = g + 4 * kDA;           // (A, w_pad) weights
-    r = w + n * w_pad;         // (A, kTileP) r = mu + eps
-    total = r + n * kTileP;
+// ---- up to 16 assets, candidates: dcc_dd_kernel ------------------------------------
+
+// The candidate kernel's modes, chosen by W (ops/dcc.py dcc_narrow_plan
+// mirrors the choice, the memory and the scratch):
+// - kSolo, W <= kSoloMaxCand: a thread per path runs the recursion and scores
+//   its own candidates from the step's returns in registers, one launch, no
+//   barrier;
+// - W > kSoloMaxCand, two launches per chunk of paths: kReturns, the solo
+//   layout's recursion, writes every step's returns to a device scratch; then
+//   kScore scores them, 256 threads per block, each 4 candidates x 4 paths:
+//   ceil(W/4) groups of candidates x score_groups(W) groups of paths.
+constexpr int kSoloThreads = 64;                     // paths (and threads) per solo block
+constexpr int kSoloMaxCand = 4;                      // the solo layout's widest W
+constexpr int kScoreThreads = 256;                   // threads of a scoring block
+constexpr int kTile = 16;                            // paths of a tile of the scratch
+constexpr int kStageFloats = 8192;                   // returns a scoring block stages at once
+enum NarrowMode { kSolo = 0, kReturns = 1, kScore = 2 };
+
+__host__ __device__ constexpr int narrow_mode(int n_cand) {
+  return n_cand <= kSoloMaxCand ? kSolo : kReturns;
+}
+
+// The scoring block's groups of 4 paths at W candidates: the most, a power of
+// two from 4, that ceil(W/4) groups of candidates leave of its 256 threads
+// (4 at W = 256, 16 paths; 128 at W = 5-8, 512 paths).
+__host__ __device__ constexpr int score_groups(int n_cand) {
+  int pg = 4;
+  while (pg * 2 * ((n_cand + 3) / 4) <= kScoreThreads) pg *= 2;
+  return pg;
+}
+
+// Steps of returns a scoring block stages in shared memory at once: what
+// kStageFloats hold of its paths, 1 to 16 (16 at W = 256, 1 at W = 5-8).
+__host__ __device__ constexpr int score_steps(int n, int n_cand) {
+  const int k = kStageFloats / (n * 4 * score_groups(n_cand));
+  return k < 1 ? 1 : k > 16 ? 16 : k;
+}
+
+struct NarrowLayout {  // offsets into dynamic shared memory, in floats, 16-byte aligned
+  int cs, g, w, w_pad, h, q, z, p, st, total;
+  __host__ __device__ NarrowLayout(int n, int n_cand, int mode, int n_legs) {
+    w_pad = round4(n_cand);
+    const bool recur = mode != kScore;
+    const int paths = recur ? kSoloThreads : 0;
+    cs = 0;                                   // (1-a-b) S, lower triangle (kTri)
+    g = round4(kTri);                         // kDA float4 (omega, alpha, beta, mu or 1 + mu)
+    w = g + 4 * kDA;                          // solo: (W, kDA) weights; score: (A, w_pad)
+    h = w + (mode == kSolo ? n_cand * kDA : mode == kScore ? n * w_pad : 0);
+    q = h + (recur && n_legs > 0 ? round4(hedge_floats(n, n_legs)) : 0);  // the hedge block
+    z = q + round4(tri(n, 0) * paths);        // Q, tri(n) x paths, element-major
+    p = z + 4 * n * paths;                    // one Philox call's shocks, (4 x A) x paths
+    st = p + n * paths;                       // hedged: the prices, A x paths
+    // solo: v, peak, dd, (3 x W) x paths; score: the staged returns, (steps, A, paths)
+    total = st + (mode == kSolo    ? 3 * n_cand * kSoloThreads
+                  : mode == kScore ? score_steps(n, n_cand) * n * 4 * score_groups(n_cand)
+                                   : 0);
   }
 };
 
-// kHedged: per-step settlement of the n_legs legs per asset of the hedge block
-// (ops/hedged.py HedgeTensors.packed, in device memory).
+// One step of one path's DCC recursion, the terminal kernel's arithmetic: Q
+// (element-major at stride kS) updated in shared memory, its Cholesky in place
+// on a register copy, e = D^{-1/2} (L z) from the step's shocks z (z[j * kS]),
+// then the GARCH update; out r[i] the step's return mu + eps (hedged: the
+// settled return of the move P -> P·((1 + mu) + eps), the price at s_p[i *
+// kS]). Every loop over assets is unrolled and the zero upper triangle skipped
+// at compile time.
+template <bool kHedged, int kS>
+__device__ __forceinline__ void narrow_step(int n, const float* s_cs, const float4* s_g,
+                                            float* s_q, const float* z, float* s_p, float a_c,
+                                            float b_c, const HedgeBlock& legs, float (&e)[kDA],
+                                            float (&s2)[kDA], float (&r)[kDA]) {
+  float w[kTri];
+  // Q update, into shared memory and into the working copy
+#pragma unroll
+  for (int i = 0; i < kDA; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) {
+      if (i < n) {
+        float* qij = s_q + tri(i, j) * kS;
+        const float v = fmaf(b_c, *qij, fmaf(a_c, e[i] * e[j], s_cs[tri(i, j)]));
+        *qij = v;
+        w[tri(i, j)] = v;
+      }
+    }
+  }
+  // Cholesky of Q, in place, column by column (left-looking)
+#pragma unroll
+  for (int j = 0; j < kDA; ++j) {
+    if (j < n) {
+      float d = w[tri(j, j)];
+#pragma unroll
+      for (int k2 = 0; k2 < j; ++k2) d = fmaf(-w[tri(j, k2)], w[tri(j, k2)], d);
+      const float inv = __frsqrt_rn(fmaxf(d, 1e-12f));
+      w[tri(j, j)] = d * inv;
+#pragma unroll
+      for (int i = j + 1; i < kDA; ++i) {
+        if (i < n) {
+          float num = w[tri(i, j)];
+#pragma unroll
+          for (int k2 = 0; k2 < j; ++k2) num = fmaf(-w[tri(i, k2)], w[tri(j, k2)], num);
+          w[tri(i, j)] = num * inv;
+        }
+      }
+    }
+  }
+  // e = D^{-1/2} (L z), then the GARCH update and the step's return
+#pragma unroll
+  for (int i = 0; i < kDA; ++i) {
+    r[i] = 0.0f;
+    if (i < n) {
+      float m = w[tri(i, 0)] * z[0];
+#pragma unroll
+      for (int j = 1; j <= i; ++j) m = fmaf(w[tri(i, j)], z[j * kS], m);
+      const float ei = m * __frsqrt_rn(fmaxf(s_q[tri(i, i) * kS], 1e-12f));
+      const float4 g = s_g[i];
+      const float eps = sqrtf(fmaxf(s2[i], 0.0f)) * ei;
+      if (kHedged) {  // the move P -> P·((1 + mu) + eps), settled below
+        r[i] = __fmul_rn(s_p[i * kS], __fadd_rn(g.w, eps));
+      } else {
+        r[i] = g.w + eps;
+      }
+      s2[i] = g.x + g.y * (eps * eps) + g.z * s2[i];
+      e[i] = ei;
+    }
+  }
+  if (kHedged) {
+    // hedged.cuh's hedged_return for every asset at once, leg by leg (each
+    // asset's legs in ascending order, every operation rounded as there), so
+    // that the assets' settlements interleave
+    float up[kDA], acc[kDA];
+#pragma unroll
+    for (int i = 0; i < kDA; ++i) {
+      up[i] = i < n ? __fsub_rn(r[i], s_p[i * kS]) : 0.0f;
+      acc[i] = 0.0f;
+    }
+    for (int l = 0; l < legs.n_legs; ++l) {
+#pragma unroll
+      for (int i = 0; i < kDA; ++i) {
+        if (i < n) {
+          const int at = i * legs.n_legs + l;
+          const float k = legs.strike[at], prem = legs.premium[at], p_new = r[i];
+          const float call_iv = fmaxf(__fsub_rn(p_new, k), 0.0f);
+          const float put_iv = fmaxf(__fsub_rn(k, p_new), 0.0f);
+          const int ty = static_cast<int>(legs.type[at]);
+          const float numer = ty == 0                ? up[i]
+                              : ty == 1 || ty == 6   ? -up[i]
+                              : ty == 2              ? __fsub_rn(call_iv, prem)
+                              : ty == 3              ? __fsub_rn(prem, call_iv)
+                              : ty == 4              ? __fsub_rn(put_iv, prem)
+                              : ty == 5              ? __fsub_rn(prem, put_iv)
+                                                     : 0.0f;
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(legs.qty[at], numer));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kDA; ++i) {
+      if (i < n) {
+        const float price = s_p[i * kS];
+        s_p[i * kS] = r[i];
+        r[i] = __fdiv_rn(acc[i], price);
+      }
+    }
+  }
+}
+
+// One (candidate, path)'s wealth after a step whose score is f: V *= 1 + f,
+// its running peak and drawdown (hedged: a NaN of overflowed wealth carries on).
 template <bool kHedged>
-__global__ void __launch_bounds__(kDdThreads, 2)
-dcc_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
-              int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
-              const float* __restrict__ weights, const float* __restrict__ hedge,
+__device__ __forceinline__ void narrow_update(float f, float& v, float& peak, float& dd) {
+  v = v * (1.0f + f);
+  if (kHedged) {
+    peak = max_nan(peak, v);
+    dd = min_nan(dd, v / peak - 1.0f);
+  } else {
+    peak = fmaxf(peak, v);
+    dd = fminf(dd, v / peak - 1.0f);
+  }
+}
+
+// The candidate function up to 16 assets, both modes (kHedged: per-step
+// settlement of the n_legs legs per asset of the hedge block, ops/hedged.py
+// HedgeTensors.packed, in device memory), in the part kMode of its layout,
+// over paths first_path .. first_path + chunk - 1 of each dispatch block.
+// kReturns writes step s's return of asset a and chunk path c = 16·t + l to
+// rets[(((blk · tiles + t) · n_steps + s) · A + a) · 16 + l] (tiles =
+// ceil(chunk / 16): a tile's returns are contiguous); kScore reads them
+// there.
+template <bool kHedged, int kMode>
+__global__ void __launch_bounds__(kMode == kScore ? kScoreThreads : kSoloThreads,
+                                  kMode == kScore ? 2 : 4)
+dcc_dd_kernel(long long seed, long long first_block, int block_paths, int first_path,
+              int chunk, int n_assets, int n_cand, int n_steps, int n_legs,
+              const float* __restrict__ params, const float* __restrict__ weights,
+              const float* __restrict__ hedge, float* __restrict__ rets,
               float* __restrict__ term, float* __restrict__ max_dd) {
+  constexpr int kS = kSoloThreads;  // the recursion's element-major stride
+  constexpr int kThreads = kMode == kScore ? kScoreThreads : kSoloThreads;
   extern __shared__ __align__(16) float smem[];
   const int n = n_assets;
-  const int w_pad = round4(n_cand);
-  const DdLayout lay(n, w_pad);
+  const NarrowLayout lay(n, n_cand, kMode, n_legs);
   float* s_cs = smem + lay.cs;
   float4* s_g = reinterpret_cast<float4*>(smem + lay.g);
   float* s_w = smem + lay.w;
-  float* s_r = smem + lay.r;
-
   const int tid = threadIdx.x;
-  const Params q(params, n);
-  const float c0 = q.c0(), a_c = q.a, b_c = q.b;
-  for (int i = tid; i < kDA * kDA; i += kDdThreads) {
-    const int r = i % kDA, c = i / kDA;       // s_cs[c * kDA + r] = c0 S_rc
-    s_cs[i] = (r < n && c < n) ? c0 * q.s[r * n + c] : 0.0f;
-  }
-  load_garch(q, n, kHedged, s_g, tid, kDdThreads);  // hedged: the gross's 1 + mu
-  for (int i = tid; i < n * w_pad; i += kDdThreads) {
-    const int a = i / w_pad, w = i % w_pad;
-    s_w[i] = w < n_cand ? weights[w * n + a] : 0.0f;
-  }
-
   const int blk = blockIdx.y;
-  const int p0 = blockIdx.x * kTileP;
-  const uint32_t key = block_key(seed, first_block, blk);
-  // this thread's (path, asset): a half-warp per path, lane ia holds row ia
-  const int ip = tid / kDA, ia = tid % kDA;
-  const bool item = ia < n;
-  float qr[kDA], l[kDA];
-#pragma unroll
-  for (int k = 0; k < kDA; ++k) {
-    qr[k] = (item && k <= ia) ? q.q0[ia * n + k] : 0.0f;
-    l[k] = 0.0f;
-  }
-  float e = item ? q.e0[ia] : 0.0f;
-  float s2 = item ? first_sigma2(q, ia) : 0.0f;
-  float price = (kHedged && item) ? hedge[ia] : 0.0f;  // hedged: this item's price, from s0
-  const HedgeBlock legs(hedge, n, n_legs);              // hedged: the legs, read from device memory
 
-  // this thread's micro-tile: candidates 4·cw .. +3, tile paths 4·pq .. +3
-  const int cw = tid / 4, pq = tid % 4;
-  const bool scorer = 4 * cw < w_pad;
-  float v[4][4], peak[4][4], dd[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[i][j] = 1.0f;
-      peak[i][j] = 1.0f;
-      dd[i][j] = 0.0f;
+  if (kMode == kScore) {
+    // thread tid holds candidates 4·cw .. +3 of the block's paths 4·pq .. +3,
+    // their values, peaks and drawdowns in registers; the block's returns are
+    // staged in shared memory ks steps at a time
+    for (int i = tid; i < n * lay.w_pad; i += kThreads) {
+      const int a = i / lay.w_pad, c = i % lay.w_pad;
+      s_w[i] = c < n_cand ? weights[c * n + a] : 0.0f;
     }
-  }
-  __syncthreads();
-  const float4 g = s_g[ia];
-
-  constexpr int kPer = steps_per_call<kPoly>();
-  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
-    const int nk = min(kPer, n_steps - s0);
-    float za[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (item) call_draws<kPoly>(s0 / kPer, ia, p0 + ip, key, nk, 0.0f, 0.0f, za);
-
-    for (int k = 0; k < nk; ++k) {
-      const float zk = k == 0 ? za[0] : k == 1 ? za[1] : k == 2 ? za[2] : za[3];
-      // Q update: row ia of the lower triangle, e_j from lane j
-      float qd = 0.0f;
+    const int pg = score_groups(n_cand), bp = 4 * pg, ks = score_steps(n, n_cand);
+    const int cw = tid / pg, pq = tid % pg;
+    const int b0 = blockIdx.x * bp;  // the block's first path of the chunk
+    const long long tiles = (chunk + kTile - 1) / kTile;
+    const int bt = min(bp / kTile, static_cast<int>(tiles - b0 / kTile));  // its tiles
+    const bool scorer = 4 * cw < lay.w_pad && 4 * pq < bt * kTile;
+    const float* rg = rets + ((blk * tiles + b0 / kTile) * n_steps) * n * kTile;
+    float* s_r = smem + lay.st;  // (ks, A, bp)
+    float v[4][4], peak[4][4], dd[4][4];
 #pragma unroll
-      for (int j = 0; j < kDA; ++j) {
-        if (j < n) {
-          const float ej = __shfl_sync(kFull, e, j, kDA);
-          const float upd = fmaf(b_c, qr[j], fmaf(a_c, e * ej, s_cs[j * kDA + ia]));
-          qr[j] = j <= ia ? upd : 0.0f;
-          qd = j == ia ? upd : qd;
-        }
-      }
-      // Cholesky of Q, column by column: lane j broadcasts its pivot and L_jk
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < kDA; ++j) {
-        if (j < n) {
-          float num = qr[j];
-#pragma unroll
-          for (int k2 = 0; k2 < j; ++k2) {
-            num = fmaf(-l[k2], __shfl_sync(kFull, l[k2], j, kDA), num);
-          }
-          const float d = __shfl_sync(kFull, num, j, kDA);
-          const float inv = __frsqrt_rn(fmaxf(d, 1e-12f));
-          l[j] = ia >= j ? num * inv : 0.0f;
-        }
+      for (int j = 0; j < 4; ++j) {
+        v[i][j] = 1.0f;
+        peak[i][j] = 1.0f;
+        dd[i][j] = 0.0f;
       }
-      // e = D^{-1/2} (L z), z_j from lane j; then the GARCH update
-      float m = l[0] * __shfl_sync(kFull, zk, 0, kDA);
-#pragma unroll
-      for (int j = 1; j < kDA; ++j) {
-        if (j < n) m = fmaf(l[j], __shfl_sync(kFull, zk, j, kDA), m);
+    }
+    for (int s0 = 0; s0 < n_steps; s0 += ks) {
+      const int nk = min(ks, n_steps - s0);
+      __syncthreads();  // the last stage's reads are done (and the weights stored)
+      // float4 i of the stage: tile t, step k, asset a, lanes 4·l4 .. +3
+      for (int i = tid; i < bt * nk * n * (kTile / 4); i += kThreads) {
+        const int l4 = i % (kTile / 4), a = (i / (kTile / 4)) % n;
+        const int k = (i / (kTile / 4 * n)) % nk, tl = i / (kTile / 4 * n * nk);
+        const float4 x = *reinterpret_cast<const float4*>(
+            rg + ((static_cast<long long>(tl) * n_steps + s0 + k) * n + a) * kTile + 4 * l4);
+        *reinterpret_cast<float4*>(s_r + (k * n + a) * bp + tl * kTile + 4 * l4) = x;
       }
-      const float ei = m * __frsqrt_rn(fmaxf(qd, 1e-12f));
-      const float eps = sqrtf(fmaxf(s2, 0.0f)) * ei;
-      if (kHedged) {  // the settled return of the move P -> P·((1 + mu) + eps)
-        const float p_new = __fmul_rn(price, __fadd_rn(g.w, eps));
-        if (item) s_r[ia * kTileP + ip] = hedged_return(legs, ia, price, p_new);
-        price = p_new;
-      } else {
-        if (item) s_r[ia * kTileP + ip] = g.w + eps;
-      }
-      s2 = g.x + g.y * (eps * eps) + g.z * s2;
-      e = item ? ei : 0.0f;
       __syncthreads();
-
       if (scorer) {
-        float f[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
-        }
-        for (int a = 0; a < n; ++a) {
-          const float4 w4 = *reinterpret_cast<const float4*>(s_w + a * w_pad + 4 * cw);
-          const float4 r4 = *reinterpret_cast<const float4*>(s_r + a * kTileP + 4 * pq);
-          const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
-          const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
+        for (int k = 0; k < nk; ++k) {
+          const float* rk = s_r + k * n * bp + 4 * pq;
+          float f[4][4];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) f[i][j] = fmaf(wv[i], rv[j], f[i][j]);
+            for (int j = 0; j < 4; ++j) f[i][j] = 0.0f;
           }
-        }
+          for (int a = 0; a < n; ++a) {
+            const float4 w4 = *reinterpret_cast<const float4*>(s_w + a * lay.w_pad + 4 * cw);
+            const float4 r4 = *reinterpret_cast<const float4*>(rk + a * bp);
+            const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+            const float rv[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+            for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            v[i][j] = v[i][j] * (1.0f + f[i][j]);
-            if (kHedged) {  // wealth may overflow: NaN carries on (hedged.cuh)
-              peak[i][j] = max_nan(peak[i][j], v[i][j]);
-              dd[i][j] = min_nan(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
-            } else {
-              peak[i][j] = fmaxf(peak[i][j], v[i][j]);
-              dd[i][j] = fminf(dd[i][j], v[i][j] / peak[i][j] - 1.0f);
+              for (int j = 0; j < 4; ++j) f[i][j] = fmaf(wv[i], rv[j], f[i][j]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              narrow_update<kHedged>(f[i][j], v[i][j], peak[i][j], dd[i][j]);
             }
           }
         }
       }
-      __syncthreads();
     }
+    if (scorer) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * cw + i;
+        if (c >= n_cand) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int cp = b0 + 4 * pq + j;
+          if (cp >= chunk) continue;
+          const long long o =
+              (static_cast<long long>(blk) * n_cand + c) * block_paths + first_path + cp;
+          term[o] = v[i][j] - 1.0f;
+          max_dd[o] = dd[i][j];
+        }
+      }
+    }
+    return;
   }
 
-  if (scorer) {
+  // the recursion, a thread per path
+  const Params q(params, n);
+  const float c0 = q.c0(), a_c = q.a, b_c = q.b;
+  for (int i = tid; i < kDA * kDA; i += kThreads) {
+    const int r = i / kDA, c = i % kDA;
+    if (c <= r) s_cs[tri(r, c)] = (r < n) ? c0 * q.s[r * n + c] : 0.0f;
+  }
+  load_garch(q, n, kHedged, s_g, tid, kThreads);  // hedged: the gross's 1 + mu
+  if (kMode == kSolo) {
+    for (int i = tid; i < n_cand * kDA; i += kThreads) {
+      const int c = i / kDA, a = i % kDA;
+      s_w[i] = a < n ? weights[c * n + a] : 0.0f;
+    }
+  }
+  float* s_h = smem + lay.h;  // hedged: the hedge block, read every asset-step
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(n, n_legs); i += kThreads) s_h[i] = hedge[i];
+  }
+  __syncthreads();
+
+  const int cp = blockIdx.x * kSoloThreads + tid;  // this thread's path of the chunk
+  const int p = first_path + cp;
+  const uint32_t key = block_key(seed, first_block, blk);
+  const HedgeBlock legs(s_h, n, n_legs);
+  constexpr int kPer = steps_per_call<kPoly>();
+  float* s_q = smem + lay.q + tid;
+  float* s_z = smem + lay.z + tid;
+  float* s_p = smem + lay.p + tid;
+  float* s_st = smem + lay.st + tid;  // solo: v, peak, dd per candidate
+  float e[kDA], s2[kDA];  // s2: the variance of the coming step
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int w = 4 * cw + i;
-      if (w >= n_cand) continue;
+  for (int i = 0; i < kDA; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = p0 + 4 * pq + j;
-        if (p >= block_paths) continue;
-        const long long o = (static_cast<long long>(blk) * n_cand + w) * block_paths + p;
-        term[o] = v[i][j] - 1.0f;
-        max_dd[o] = dd[i][j];
+    for (int j = 0; j <= i; ++j) {
+      if (i < n) s_q[tri(i, j) * kS] = q.q0[i * n + j];
+    }
+    e[i] = i < n ? q.e0[i] : 0.0f;
+    s2[i] = i < n ? first_sigma2(q, i) : 0.0f;
+    if (kHedged && i < n) s_p[i * kS] = s_h[i];  // the price, from s0
+  }
+  if (kMode == kSolo) {
+    for (int c = 0; c < n_cand; ++c) {
+      s_st[(3 * c) * kS] = 1.0f;
+      s_st[(3 * c + 1) * kS] = 1.0f;
+      s_st[(3 * c + 2) * kS] = 0.0f;
+    }
+  }
+  const long long tiles = (chunk + kTile - 1) / kTile;
+  float* rg = rets + ((blk * tiles + cp / kTile) * n_steps) * n * kTile + cp % kTile;
+  for (int s = 0; s < n_steps; ++s) {
+    if (s % kPer == 0) {
+      const int nk = min(kPer, n_steps - s);
+#pragma unroll
+      for (int i = 0; i < kDA; ++i) {
+        if (i < n) {
+          float za[4];
+          call_draws<kPoly>(s / kPer, i, p, key, nk, 0.0f, 0.0f, za);
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) s_z[(k * n + i) * kS] = za[k];
+        }
       }
+    }
+    float r[kDA];
+    narrow_step<kHedged, kS>(n, s_cs, s_g, s_q, s_z + (s % kPer) * n * kS, s_p, a_c, b_c, legs,
+                             e, s2, r);
+    if (kMode == kSolo) {
+      // this path's candidates, scored from the returns in registers
+      for (int c = 0; c < n_cand; ++c) {
+        const float* wc = s_w + c * kDA;
+        float f = 0.0f;
+#pragma unroll
+        for (int a = 0; a < kDA; ++a) {
+          if (a < n) f = fmaf(wc[a], r[a], f);
+        }
+        float v = s_st[(3 * c) * kS], peak = s_st[(3 * c + 1) * kS], dd = s_st[(3 * c + 2) * kS];
+        narrow_update<kHedged>(f, v, peak, dd);
+        s_st[(3 * c) * kS] = v;
+        s_st[(3 * c + 1) * kS] = peak;
+        s_st[(3 * c + 2) * kS] = dd;
+      }
+    } else if (cp < tiles * kTile) {
+#pragma unroll
+      for (int i = 0; i < kDA; ++i) {
+        if (i < n) rg[(s * n + i) * kTile] = r[i];
+      }
+    }
+  }
+  if (kMode == kSolo && cp < chunk) {
+    for (int c = 0; c < n_cand; ++c) {
+      const long long o = (static_cast<long long>(blk) * n_cand + c) * block_paths + p;
+      term[o] = s_st[(3 * c) * kS] - 1.0f;
+      max_dd[o] = s_st[(3 * c + 2) * kS];
     }
   }
 }
@@ -951,34 +1168,69 @@ int mcport_dcc_terminal(long long seed, long long first_block, int n_blocks, int
 // n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
 // for n_legs legs per asset (read from device memory), or null with n_legs 0
 // for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
-// float32. Normal shocks (the poly tier). Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
+// float32. Normal shocks (the poly tier). Past kSoloMaxCand candidates the
+// returns go through scratch (scratch_floats floats on the device), in
+// chunks of paths that it holds for every block and step (a multiple of 64
+// paths; ops/dcc.py dcc_narrow_plan sizes it); up to kSoloMaxCand it is
+// unused and may be null. Returns cudaGetLastError() after the last launch,
+// or cudaErrorInvalidValue for arguments the kernel does not take.
 int mcport_dcc_multi_dd(long long seed, long long first_block, int n_blocks, int block_paths,
                         int n_assets, int n_cand, int n_steps, int n_legs, const void* params,
                         const void* weights, const void* hedge, void* term, void* dd,
-                        void* stream) {
+                        void* scratch, long long scratch_floats, void* stream) {
   if (n_assets < 1 || n_assets > kDA || n_cand < 1 || n_cand > kMaxCand || n_blocks < 1 ||
       n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
-      (n_legs > 0 && hedge == nullptr) || kDA * kTileP != kDdThreads ||
-      kMaxCand > kDdThreads) {
+      (n_legs > 0 && hedge == nullptr) || scratch_floats < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  static_assert(kMaxCand / 4 * score_groups(kMaxCand) <= kScoreThreads &&
+                    4 * score_groups(kMaxCand) % kTile == 0 && kSoloThreads % kTile == 0,
+                "a scoring block covers 256 candidates of whole tiles");
   const float* p = static_cast<const float*>(params);
   const float* w = static_cast<const float*>(weights);
   const float* h = static_cast<const float*>(hedge);
+  float* r = static_cast<float*>(scratch);
   float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand)).total;
-  auto run = [&](auto kernel) {
+  auto run = [&](auto kernel, int mode, int threads, int paths, int first, int chunk) {
+    const size_t smem = sizeof(float) * NarrowLayout(n_assets, n_cand, mode, n_legs).total;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, n_assets, n_cand,
-                                           n_steps, n_legs, p, w, h, out, out_dd);
+    const dim3 grid((chunk + paths - 1) / paths, n_blocks);
+    kernel<<<grid, threads, smem, st>>>(seed, first_block, block_paths, first, chunk, n_assets,
+                                        n_cand, n_steps, n_legs, p, w, h, r, out, out_dd);
     return static_cast<int>(cudaGetLastError());
   };
-  return n_legs ? run(dcc_dd_kernel<true>) : run(dcc_dd_kernel<false>);
+  if (narrow_mode(n_cand) == kSolo) {
+    return n_legs ? run(dcc_dd_kernel<true, kSolo>, kSolo, kSoloThreads, kSoloThreads, 0,
+                        block_paths)
+                  : run(dcc_dd_kernel<false, kSolo>, kSolo, kSoloThreads, kSoloThreads, 0,
+                        block_paths);
+  }
+  // the paths of a chunk: every path where the scratch holds them all (in
+  // whole 16-path tiles), else what it holds in whole solo blocks
+  const long long per_path = static_cast<long long>(n_blocks) * n_steps * n_assets;
+  const long long all = (block_paths + kTile - 1) / kTile * kTile;
+  long long chunk = block_paths;
+  if (per_path > 0 && scratch_floats / per_path < all) {
+    chunk = scratch_floats / per_path / kSoloThreads * kSoloThreads;
+  }
+  if (chunk < 1 || (per_path > 0 && r == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  for (int first = 0; first < block_paths; first += static_cast<int>(chunk)) {
+    const int m = static_cast<int>(chunk < block_paths - first ? chunk : block_paths - first);
+    int err = n_steps == 0 ? 0
+              : n_legs     ? run(dcc_dd_kernel<true, kReturns>, kReturns, kSoloThreads,
+                                 kSoloThreads, first, m)
+                           : run(dcc_dd_kernel<false, kReturns>, kReturns, kSoloThreads,
+                                 kSoloThreads, first, m);
+    if (err) return err;
+    const int paths = 4 * score_groups(n_cand);
+    err = n_legs ? run(dcc_dd_kernel<true, kScore>, kScore, kScoreThreads, paths, first, m)
+                 : run(dcc_dd_kernel<false, kScore>, kScore, kScoreThreads, paths, first, m);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Both functions from 17 assets on (dcc_group_kernel; it takes any A >= 1):

@@ -37,7 +37,11 @@ plain form, a CUDA device launches the kernel or raises. The plain forms and
 the card take any number of assets: past 16 through ``dcc_group_kernel``
 (``csrc/dcc.cu``: a group of threads per path, a blocked right-looking
 Cholesky bit for bit with the narrow kernels' sums; :func:`dcc_wide_plan`
-sizes its grid and the device-memory slots of Q past ~220 assets).
+sizes its grid and the device-memory slots of Q past ~220 assets). Up to 16
+the candidates run ``dcc_dd_kernel`` in the layout :func:`dcc_narrow_plan`
+gives their count: a thread per path scoring its own few candidates, or
+past 4 candidates the recursion's returns through a device scratch that
+the wrapper allocates, then blocks that score them.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ __all__ = [
     "dcc_shares",
     "DccWidePlan",
     "dcc_wide_plan",
+    "DccNarrowPlan",
+    "dcc_narrow_plan",
 ]
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
@@ -77,6 +83,91 @@ NARROW_ASSETS = 16   # the narrow kernels' widest universe (csrc/dcc.cu kDA)
 # dcc_wide_plan
 _GROUP_BLOCK, _TS, _QS, _GROUP_SMEM = 256, 20, 16, 232_448
 _H100_SMS, _H100_SMEM_PER_SM = 132, 233_472
+# csrc/dcc.cu dcc_dd_kernel (up to 16 assets): the solo layout's threads (a
+# path each) and widest W, the scoring block's threads, the scratch's tile of
+# paths and the returns a scoring block stages at once; and the most floats
+# of returns a launch keeps in its scratch (2 GiB)
+_SOLO_THREADS, _SOLO_MAX_CAND = 64, 4
+_SCORE_THREADS, _TILE, _STAGE_FLOATS = 256, 16, 8192
+NARROW_SCRATCH_FLOATS = 1 << 29
+
+
+class DccNarrowPlan(NamedTuple):
+    """How ``dcc_dd_kernel`` (up to 16 assets) runs W candidates:
+    ``layout`` "solo" (a thread per path runs the recursion and scores its
+    own candidates, one launch) or "split" (the same recursion writes every
+    step's returns to a device scratch, then 256-thread blocks score them:
+    two launches per chunk of paths); per launch, in launch order, its
+    ``threads`` and ``paths`` per block and ``shared_bytes`` per block;
+    ``scratch_floats`` of the returns and ``chunk`` paths per pair of
+    launches (``block_paths`` where the scratch holds them all, else a
+    multiple of 64)."""
+
+    layout: str
+    threads: tuple[int, ...]
+    paths: tuple[int, ...]
+    shared_bytes: tuple[int, ...]
+    scratch_floats: int
+    chunk: int
+
+
+def _score_groups(n_cand: int) -> int:
+    """csrc/dcc.cu ``score_groups``: the scoring block's groups of 4 paths."""
+    pg = 4
+    while pg * 2 * -(-n_cand // 4) <= _SCORE_THREADS:
+        pg *= 2
+    return pg
+
+
+def _narrow_shared(n_assets: int, n_cand: int, mode: str, n_legs: int) -> int:
+    """csrc/dcc.cu ``NarrowLayout(n_assets, n_cand, mode, n_legs).total``, in
+    bytes."""
+    r4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    tri = NARROW_ASSETS * (NARROW_ASSETS + 1) // 2
+    recur = mode != "score"
+    paths = _SOLO_THREADS if recur else 0
+    h = r4(tri) + 4 * NARROW_ASSETS + {"solo": n_cand * NARROW_ASSETS,
+                                       "score": n_assets * r4(n_cand)}.get(mode, 0)
+    q = h + (r4(n_assets * (1 + 4 * n_legs)) if recur and n_legs > 0 else 0)
+    st = q + r4(n_assets * (n_assets + 1) // 2 * paths) + 5 * n_assets * paths
+    bp = 4 * _score_groups(n_cand)
+    staged = min(max(_STAGE_FLOATS // (n_assets * bp), 1), 16) * n_assets * bp
+    return 4 * (st + {"solo": 3 * n_cand * _SOLO_THREADS, "score": staged}.get(mode, 0))
+
+
+def dcc_narrow_plan(n_assets: int, n_cand: int, n_steps: int = 52, block_paths: int = 131_072,
+                    n_blocks: int = 1, n_legs: int = 0,
+                    scratch_floats: int = NARROW_SCRATCH_FLOATS) -> DccNarrowPlan:
+    """``dcc_dd_kernel``'s layout for ``n_cand`` candidates (W <= 256) at
+    ``n_assets <= 16`` (csrc/dcc.cu ``narrow_mode`` and ``NarrowLayout``,
+    the same arithmetic): solo up to 4 candidates, where the scoring is a few
+    instructions beside the recursion's ~2,100 per path-step; split past
+    them, where a thread per path could not hold the candidates' state and
+    enough paths per SM to hide the recursion's latency. The split layout's
+    scratch holds ``n_blocks x chunk x n_steps x n_assets`` returns, no more
+    than ``scratch_floats``: the whole launch where that fits (up to 2 GiB:
+    the frontier's 131,072 x 252 x 15 takes 1.98 GB), else chunks of whole
+    64-path blocks."""
+    a, w = int(n_assets), int(n_cand)
+    if not 1 <= a <= NARROW_ASSETS or not 1 <= w <= MAX_CANDIDATES:
+        raise ValueError(f"dcc_dd_kernel takes 1-{NARROW_ASSETS} assets and 1-{MAX_CANDIDATES} "
+                         f"candidates, got {a} and {w}")
+    if w <= _SOLO_MAX_CAND:
+        return DccNarrowPlan("solo", (_SOLO_THREADS,), (_SOLO_THREADS,),
+                             (_narrow_shared(a, w, "solo", n_legs),), 0, int(block_paths))
+    per_path = int(n_blocks) * int(n_steps) * a
+    tiles = lambda n: -(-n // _TILE) * _TILE  # noqa: E731
+    chunk = int(block_paths)
+    if per_path and int(scratch_floats) // per_path < tiles(chunk):
+        chunk = int(scratch_floats) // per_path // _SOLO_THREADS * _SOLO_THREADS
+        if chunk < 1:
+            raise ValueError(f"a scratch of {int(scratch_floats):,} floats holds no "
+                             f"{_SOLO_THREADS}-path chunk of {per_path:,} returns per path")
+    return DccNarrowPlan("split", (_SOLO_THREADS, _SCORE_THREADS),
+                         (_SOLO_THREADS, 4 * _score_groups(w)),
+                         (_narrow_shared(a, w, "returns", n_legs),
+                          _narrow_shared(a, w, "score", n_legs)),
+                         per_path * tiles(chunk), chunk)
 
 
 class DccWidePlan(NamedTuple):
@@ -422,7 +513,10 @@ def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks, hedge=
         if a > NARROW_ASSETS:   # dcc_group_kernel
             err = _launch_wide(lib, seed, d, n_paths, n_steps, first_block, n_blocks, term,
                                weights, dd, hedge)
-        else:
+        else:   # dcc_dd_kernel, its returns through a scratch past a few candidates
+            plan = dcc_narrow_plan(a, w_cnt, n_steps, n_paths, n_blocks)
+            scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=d.device)
+                       if plan.scratch_floats else None)
             params = d.packed()
             weights = weights.contiguous()
             block = hedge.packed() if hedge is not None else None
@@ -432,7 +526,9 @@ def _launch_dd(seed, d, weights, n_paths, n_steps, first_block, n_blocks, hedge=
             err = lib.mcport_dcc_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
                                           n_steps, n_legs, params.data_ptr(),
                                           weights.data_ptr(), hp, term.data_ptr(),
-                                          dd.data_ptr(), stream)
+                                          dd.data_ptr(),
+                                          scratch.data_ptr() if scratch is not None else None,
+                                          plan.scratch_floats, stream)
     if err:
         raise RuntimeError(f"DCC candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")

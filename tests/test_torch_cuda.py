@@ -41,7 +41,11 @@ signature, the identity hedge against the unhedged kernel, overflowed
 wealth held. The DCC kernel past 16 assets (``dcc_group_kernel``) at each
 group size's edges, off the 4-column panels and on each side of where Q and
 the factor leave shared memory: the terminal, W = 1 to 257 and the hedged
-mode to the same bounds; its scratch check.
+mode to the same bounds; its scratch check. The narrow candidate kernel
+(``dcc_dd_kernel``) in each layout ``ops.dcc.dcc_narrow_plan`` picks (W = 1
+to 256 on each side of every switch, A = 1 to 16, 0 to 52 steps, hedged
+with one and two legs of every type) to the same bounds, and its scratch
+taken in chunks bit for bit with the whole launch.
 """
 
 import numpy as np
@@ -1457,3 +1461,81 @@ def test_dcc_hedged_kernel_carries_overflowed_wealth(dev):
     held = hedged_held(k, p)
     assert held["overflowed"] > 0 and held["astray"] == 0, held
     assert max(dcc_shares(k, p, d, 252, hedge=hedge).values()) <= 1.0, (held,)
+
+
+# ---- the narrow DCC candidate kernel's layouts (dcc_dd_kernel, A <= 16) ----------------
+
+#: each side of every layout switch of ``ops.dcc.dcc_narrow_plan``: solo up to 4
+#: candidates, split past them, its scoring blocks of 512, 256, 128, 64, 32 and
+#: 16 paths
+DCC_NARROW_W = [1, 2, 3, 4, 5, 16, 17, 64, 255, 256]
+
+
+@pytest.mark.parametrize("a", [1, 2, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", DCC_NARROW_W)
+@pytest.mark.parametrize("steps", [0, 1, 5, 52])
+def test_dcc_narrow_kernel_layouts_match_plain_form(dev, a, n_cand, steps):
+    """``dcc_dd_kernel`` in the layout its W picks, unhedged within
+    ``dcc_shares`` and hedged (one and two legs per asset, every leg type)
+    path by path within ``dcc_price_bound``, on two blocks of 1,029 paths (a
+    multiple of neither the 64-path recursion blocks nor the 16-path tiles);
+    q0 off S with a large e0 on odd widths; every call one launch. At 0
+    steps every output is the plain form's 0 exactly."""
+    from mcport_torch.ops.dcc import dcc_multi_dd_reference, dcc_multi_portfolio_dd, dcc_shares
+
+    d = _dcc(a, dev, "q0" if a % 2 else "bench", seed=a)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2)
+    for hedge in (None, _hedge(a, dev, 1, seed=n_cand), _hedge(a, dev, 2, seed=steps)):
+        before = (dcc_multi_portfolio_dd.launches, dcc_multi_portfolio_dd.hedged_launches)
+        k = dcc_multi_portfolio_dd(11, d, w, 1_029, steps, hedge=hedge, **kw)
+        torch.cuda.synchronize()
+        assert dcc_multi_portfolio_dd.launches == before[0] + 1
+        assert dcc_multi_portfolio_dd.hedged_launches == before[1] + int(hedge is not None)
+        p = dcc_multi_dd_reference(11, d, w, 1_029, steps, hedge=hedge,
+                                   with_bound=hedge is not None, **kw)
+        if steps == 0:   # nothing moves: the plain form's zeros exactly (its bound is 0)
+            assert all(torch.equal(x, y) for x, y in zip(k, p[:2]))
+            assert not bool(k[0].any()) and not bool(k[1].any())
+            continue
+        shares = dcc_shares(k, p, d, steps, hedge=hedge)
+        assert max(shares.values()) <= 1.0, (hedge is not None, shares)
+
+
+@pytest.mark.parametrize("n_cand, hedged", [(17, False), (256, True), (5, True)])
+def test_dcc_narrow_kernel_chunks_its_scratch(dev, n_cand, hedged):
+    """Past 4 candidates ``mcport_dcc_multi_dd`` takes its returns through the
+    scratch it is given, in chunks of 64 paths where the scratch holds fewer
+    than all: one chunk's scratch and a ragged one give the wrapper's outputs
+    bit for bit; a null scratch, or one smaller than a chunk, is refused."""
+    from mcport_torch._build import library
+    from mcport_torch.ops.dcc import dcc_multi_portfolio_dd
+
+    lib = library("dcc")
+    a, paths, steps, nb = 15, 300, 13, 2
+    d = _dcc(a, dev, seed=n_cand)
+    w = _wide_cand(a, dev, n_cand)
+    hedge = _hedge(a, dev, 2, seed=n_cand) if hedged else None
+    want = dcc_multi_portfolio_dd(3, d, w, paths, steps, first_block=1, n_blocks=nb, hedge=hedge)
+    params, block = d.packed(), hedge.packed() if hedged else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    chunk = nb * steps * a * 64
+
+    def launch(scratch, floats):
+        term = torch.full((nb, n_cand, paths), -9.0, device=dev)
+        dd = torch.full_like(term, -9.0)
+        err = lib.mcport_dcc_multi_dd(3, 1, nb, paths, a, n_cand, steps, 2 if hedged else 0,
+                                      params.data_ptr(), w.data_ptr(),
+                                      block.data_ptr() if hedged else None, term.data_ptr(),
+                                      dd.data_ptr(),
+                                      scratch.data_ptr() if scratch is not None else None,
+                                      floats, stream)
+        torch.cuda.synchronize()
+        return err, (term, dd)
+
+    scratch = torch.empty(2 * chunk + 7, device=dev)
+    for floats in (chunk, 2 * chunk + 7):
+        err, got = launch(scratch, floats)
+        assert err == 0 and all(torch.equal(x, y) for x, y in zip(got, want)), floats
+    assert launch(None, chunk)[0] != 0
+    assert launch(scratch, chunk - 1)[0] != 0

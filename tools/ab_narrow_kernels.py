@@ -3,15 +3,19 @@ other / this / this / other.
 
 - The unhedged candidate kernels in their narrow layouts (GARCH, bootstrap,
   Heston; at 256 x 131,072 x 252 on the bench universe), the Heston
-  terminal kernel (1,048,576 x 252), the narrow DCC kernels
-  (``dcc_dd_kernel`` at 15 assets, 256 x 131,072 x 52; the terminal at
-  1,048,576 x 52).
+  terminal kernel (1,048,576 x 252), the narrow DCC terminal kernel (15
+  assets, 1,048,576 x 52).
 - The DCC kernels past 16 assets (``dcc_group_kernel`` in this tree): their
   outputs against the other tree's with ``torch.equal`` (the terminal, the
   candidates at W = 1, 64 and 256, the hedged mode with every leg type) at A
   = 17, 33, 64, 65, 200 and 256, then timed at the widths and shapes of
   the DCC predictions in PERF.md §6 (each turn the best of three timings of two
   launches, each tree its best turn; the timed outputs held equal too).
+- The narrow DCC candidate kernel (``dcc_dd_kernel``, A <= 16): its outputs
+  against the other tree's with ``torch.equal`` at A = 1, 7, 15 and 16, W =
+  1, 5 and 256, unhedged and hedged (two legs per asset of every type), then
+  timed the same way at the bench universe: W = 256 at 256 x 131,072 x 52
+  and W = 1 at 131,072 x 252, each unhedged and hedged.
 - First, per library, whether each kernel of the other tree has this tree's
   instructions (``cuobjdump -sass``; a template parameter added with its
   default, ``<16>`` against ``<16, false>``, names the same kernel, as does
@@ -84,8 +88,9 @@ def sass(so: Path) -> dict:
     return out
 
 
-#: the other tree's DCC kernels past 16 assets, which this tree replaces
-REDESIGNED = ("dcc_wide_kernel", "dcc_wider_kernel", "dcc_group_kernel")
+#: the other tree's DCC kernels that this tree redesigns: past 16 assets, and
+#: the narrow candidate kernel
+REDESIGNED = ("dcc_wide_kernel", "dcc_wider_kernel", "dcc_group_kernel", "dcc_dd_kernel")
 mods = {"other": load(sys.argv[1]), "this": load(".")}
 kept = [0, 0]
 for fam in FAMILIES:
@@ -146,6 +151,24 @@ for a in DCC_A:
         print(f"equal dcc A={a} {name} ({paths} x 2 blocks x {steps}): "
               f"{'bit for bit' if same else 'DIFFERENT'}")
 
+# ---- the narrow DCC candidate kernel: outputs bit for bit ---------------------------
+for a in (1, 7, 15, 16):
+    d = S.bench_dcc(a).tensors(dev)
+    legs = S.leg_mix(a, 2, dev, seed=a)
+    kw = dict(first_block=6, n_blocks=2)
+    for n in (1, 5, 256):
+        w = simplex(a, n)
+        for hedge in (None, legs):
+            name = f"W={n}" + (" hedged L=2" if hedge is not None else "")
+            fn = (lambda D, w=w, hedge=hedge: D.dcc_multi_portfolio_dd(
+                11, d, w, 1_029, 52, hedge=hedge, **kw))
+            x, y = bits(run_on("other", fn)), bits(run_on("this", fn))
+            same = all(torch.equal(p, q) for p, q in zip(x, y))
+            if not same:
+                unequal.append(f"narrow A={a} {name}")
+            print(f"equal dcc_dd A={a} {name} (1,029 x 2 blocks x 52): "
+                  f"{'bit for bit' if same else 'DIFFERENT'}")
+
 # ---- timing, in turns ---------------------------------------------------------------
 cand = simplex(15, 256, seed=-15)
 pp, p_term = 131_072, 1 << 20
@@ -160,6 +183,10 @@ DCC_TIMED = (("terminal", 256, 4_096, 8), ("candidates", 256, 4_096, 8), ("hedge
              ("terminal", 33, 65_536, 52), ("candidates", 33, 4_096, 52), ("hedged", 33, 4_096, 52),
              ("terminal", 65, 16_384, 16), ("candidates", 65, 4_096, 16), ("hedged", 65, 4_096, 16),
              ("terminal", 200, 4_096, 8), ("candidates", 200, 4_096, 8), ("hedged", 200, 1_024, 16))
+#: the narrow candidate kernel at the bench universe: (name, W, paths, steps, hedged)
+NARROW_TIMED = (("W=256", 256, pp, 52, False), ("W=256 hedged", 256, pp, 52, True),
+                ("W=1", 1, pp, 252, False), ("W=1 hedged", 1, pp, 252, True))
+w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
 dcc_in = {}
 for a in sorted({c[1] for c in DCC_TIMED}):
     spots = np.full(a, S.SPOT)
@@ -167,6 +194,8 @@ for a in sorted({c[1] for c in DCC_TIMED}):
 
     dcc_in[a] = (S.bench_dcc(a).tensors(dev), simplex(a, 256),
                  HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev))
+spots15 = np.full(15, S.SPOT)
+h15 = HedgeTensors.from_spec(S.bench_hedge(spots15)[1], spots15, dev)
 
 
 def dcc_call(fun, a, n, steps):
@@ -190,13 +219,22 @@ for order in ("other", "this", "this", "other"):
                        ("heston_multi_dd <64>",
                         lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1, wide=True)),
                        ("heston_terminal", lambda: H.heston_terminal(0, hp, p_term, 252))),
-            "dcc": (("dcc_dd <15>", lambda: D._launch_dd(0, d15, cand, pp, 52, -1, 1)),
-                    ("dcc_terminal <15>", lambda: D.dcc_terminal(0, d15, p_term, 52)))}
+            "dcc": (("dcc_terminal <15>", lambda: D.dcc_terminal(0, d15, p_term, 52)),)}
     for fam in FAMILIES:
         for name, fn in runs[fam]:
             fn()
             torch.cuda.synchronize()
             res.setdefault((name, order), []).append(S._time_ms(fn, 5))
+    for label, n, paths, steps, hedged in NARROW_TIMED:
+        def call(D, n=n, paths=paths, steps=steps, hedged=hedged):
+            return D.dcc_multi_portfolio_dd(0, d15, cand if n > 1 else w_one, paths, steps,
+                                            hedge=h15 if hedged else None)
+        out = call(D)
+        torch.cuda.synchronize()
+        firsts.setdefault((label, 15, order), bits(out))
+        name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
+        res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
+                                                     for _ in range(3)))
     for fun, a, n, steps in DCC_TIMED:
         call = dcc_call(fun, a, n, steps)
         out = call(D)
@@ -209,6 +247,15 @@ for order in ("other", "this", "this", "other"):
                                                      for _ in range(3)))
 for (name, order), t in sorted(res.items()):
     print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+for label, n, paths, steps, hedged in NARROW_TIMED:
+    name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
+    other, this = min(res[(name, "other")]), min(res[(name, "this")])
+    same = all(torch.equal(p, q) for p, q in zip(firsts[(label, 15, "other")],
+                                                  firsts[(label, 15, "this")]))
+    if not same:
+        unequal.append(name)
+    print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
+          f"{'bit for bit' if same else 'DIFFERENT'}")
 worst_64_256, worst_slower = math.inf, 0.0
 for fun, a, n, steps in DCC_TIMED:
     name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"

@@ -1,8 +1,9 @@
 // Host emulation of the few CUDA features the DCC kernel sources use, for
 // checking their logic on a machine without nvcc or a card (tools/cuda_emu/
 // dcc_ab.py): each CUDA thread of a block is a std::thread, __syncthreads,
-// __syncwarp and named barriers are std::barriers, a launch runs its blocks
-// one after the other. The arithmetic is the host's IEEE float32 without
+// __syncwarp and named barriers are std::barriers, __shfl_sync an exchange
+// through a per-warp buffer between two warp barriers, a launch runs its
+// blocks one after the other. The arithmetic is the host's IEEE float32 without
 // contraction (g++ -ffp-contract=off): nvcc contracts a*b+c where the
 // source leaves it free, so the emulated bits equal the card's only where
 // the source rounds explicitly; two trees' emulated outputs compare like for
@@ -43,7 +44,8 @@ struct Block {
   std::mutex mu;
   std::map<int, std::unique_ptr<std::barrier<>>> named;
   std::vector<float> smem;
-  explicit Block(int n, size_t bytes) : all(n), smem(bytes / 4 + 16) {
+  std::vector<uint64_t> shfl;  // __shfl_sync's exchange: one word per thread
+  explicit Block(int n, size_t bytes) : all(n), smem(bytes / 4 + 16), shfl(n) {
     for (int w = 0; w < n / 32; ++w) warps.emplace_back(new std::barrier<>(32));
   }
 };
@@ -64,7 +66,21 @@ inline void shim_bar(int id, int count) {
   }
   b->arrive_and_wait();
 }
-template <class T> T __shfl_sync(unsigned, T v, int, int = 32) { std::abort(); return v; }
+// Every lane of the warp posts its value, then reads lane src of its segment
+// of `width` lanes; the whole warp takes part (the kernels shuffle with a full
+// mask from converged code).
+template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a shuffled value fits a word");
+  const int t = static_cast<int>(threadIdx.x), lane = t % 32;
+  uint64_t word = 0;
+  std::memcpy(&word, &v, sizeof(T));
+  tl_block->shfl[t] = word;
+  __syncwarp();
+  const int from = t - lane + (lane / width) * width + (src % width);
+  std::memcpy(&v, &tl_block->shfl[from], sizeof(T));
+  __syncwarp();
+  return v;
+}
 
 inline float __frsqrt_rn(float x) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(x))); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }

@@ -1,20 +1,43 @@
 // One DCC launch of a tree's csrc/dcc.cu under the host emulation
 // (cuda_runtime.h), its outputs written as raw float32 (tools/cuda_emu/dcc_ab.py
 // builds and runs it):
-//   dcc_emu MODE A PATHS STEPS NBLOCKS NCAND NLEGS CASE OUTFILE
+//   dcc_emu MODE A PATHS STEPS NBLOCKS NCAND NLEGS CASE OUTFILE [SCRATCH_FLOATS]
+// Its inputs go to OUTFILE.in, raw float32: the parameter block, the weights
+// (NCAND, A) and the hedge block (tests/test_torch_dcc_narrow.py rebuilds the
+// launch from them). `dcc_emu layout OUTFILE` (trees built with
+// -DDCC_NARROW_SCRATCH) writes the narrow candidate kernel's layout as int32
+// rows (A, W, legs, mode, NarrowLayout total, score_groups, score_steps) for
+// A = 1-16, W = 1-256, legs 0-4 and its three modes.
 // MODE 0 the terminal function, 1 the candidates' (hedged when NLEGS > 0,
 // every leg type); CASE 0 q0 = S, e0 = 0, 1 q0 = S + 0.05 I, e0 = 3. S is
 // 0.5 I + 0.5 with small asymmetric perturbations, the GARCH parameters the
 // bench's, a = 0.05, b = 0.9. Built with -DDCC_CTAS_API for trees whose
 // mcport_dcc_wide takes a CTA count and whose narrow entry points take up to
 // 64 assets; otherwise the weights go to mcport_dcc_wide transposed, with
-// the scratch's float count.
+// the scratch's float count. Built with -DDCC_NARROW_SCRATCH for trees whose
+// narrow candidate entry point takes a scratch (its returns past a few
+// candidates), sized for the whole launch.
 #include "cuda_runtime.h"
 #include "dcc.cu"
 #include <random>
 #include <string>
 
 int main(int argc, char** argv) {
+#ifdef DCC_NARROW_SCRATCH
+  if (std::string(argv[1]) == "layout") {
+    std::vector<int> rows;
+    for (int a = 1; a <= kDA; ++a)
+      for (int w = 1; w <= kMaxCand; ++w)
+        for (int l = 0; l <= 4; ++l)
+          for (int m : {kSolo, kReturns, kScore})
+            rows.insert(rows.end(), {a, w, l, m, NarrowLayout(a, w, m, l).total,
+                                     score_groups(w), score_steps(a, w)});
+    FILE* f = std::fopen(argv[2], "wb");
+    std::fwrite(rows.data(), 4, rows.size(), f);
+    std::fclose(f);
+    return 0;
+  }
+#endif
   const int mode = std::atoi(argv[1]), a = std::atoi(argv[2]), paths = std::atoi(argv[3]),
             steps = std::atoi(argv[4]), nb = std::atoi(argv[5]), w_cnt = std::atoi(argv[6]),
             legs = std::atoi(argv[7]), cs = std::atoi(argv[8]);
@@ -75,9 +98,21 @@ int main(int argc, char** argv) {
   }
 #else
   if (a <= 16) {
+#ifdef DCC_NARROW_SCRATCH
+    // the narrow candidates' scratch: the whole launch's returns, or
+    // SCRATCH_FLOATS (chunks of paths)
+    std::vector<float> rets(argc > 10 ? std::atoll(argv[10])
+                                      : 1LL * nb * ((paths + 15) / 16 * 16) * steps * a + 1);
+    err = mode == 0 ? mcport_dcc_terminal(11, 6, nb, paths, a, steps, p.data(), out.data(), nullptr)
+                    : mcport_dcc_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, p.data(), w.data(),
+                                          legs ? h.data() : nullptr, out.data(), dd.data(),
+                                          rets.data(), static_cast<long long>(rets.size()),
+                                          nullptr);
+#else
     err = mode == 0 ? mcport_dcc_terminal(11, 6, nb, paths, a, steps, p.data(), out.data(), nullptr)
                     : mcport_dcc_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, p.data(), w.data(),
                                           legs ? h.data() : nullptr, out.data(), dd.data(), nullptr);
+#endif
   } else {
     err = mcport_dcc_wide(11, 6, nb, paths, a, mode == 0 ? 0 : w_cnt, steps, legs, p.data(),
                           mode ? wt.data() : nullptr, legs ? h.data() : nullptr, out.data(),
@@ -86,6 +121,11 @@ int main(int argc, char** argv) {
   }
 #endif
   if (err) { std::fprintf(stderr, "error %d\n", err); return 1; }
+  FILE* in = std::fopen((std::string(argv[9]) + ".in").c_str(), "wb");
+  std::fwrite(p.data(), 4, p.size(), in);
+  std::fwrite(w.data(), 4, w.size(), in);
+  std::fwrite(h.data(), 4, h.size(), in);
+  std::fclose(in);
   FILE* f = std::fopen(argv[9], "wb");
   std::fwrite(out.data(), 4, out.size(), f);
   if (mode) std::fwrite(dd.data(), 4, dd.size(), f);

@@ -1,6 +1,6 @@
 """Copy a tree's ``csrc`` into a directory, rewritten for the host emulation
 (``cuda_runtime.h`` beside this file): dynamic shared memory becomes the
-block's buffer, ``bar.sync`` a named std::barrier, ``<<<...>>>`` a call of
+block's buffer, each ``bar.sync`` a named std::barrier, ``<<<...>>>`` a call of
 ``shim_launch``.
 
     python3 tools/cuda_emu/prep.py SRC_CSRC_DIR DST_DIR
@@ -15,8 +15,8 @@ def prep(src: Path, dst: Path) -> None:
     for f in [*src.glob("*.cu"), *src.glob("*.cuh")]:
         t = f.read_text()
         t = t.replace("extern __shared__ __align__(16) float smem[];", "float* smem = g_smem;")
-        t = t.replace('asm volatile("bar.sync %0, %1;" ::"r"(gi + 1), "r"(kG) : "memory");',
-                      "shim_bar(gi + 1, kG);")
+        t = re.sub(r'asm volatile\("bar\.sync %0, %1;" ::"r"\((.*?)\), "r"\((.*?)\) : "memory"\);',
+                   lambda m: f"shim_bar({m.group(1)}, {m.group(2)});", t)
         t = re.sub(r"(\w+)<<<(.*?)>>>\(", lambda m: f"shim_launch({m.group(1)}, {m.group(2)}, ",
                    t, flags=re.S)
         (dst / f.name).write_text(t)
