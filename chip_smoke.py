@@ -29,7 +29,7 @@ ends:
    15, and its other two tiers;
 6. the path-stats kernel (#2) against its plain form — tiers, buy-and-hold and
    rebalanced, A in {1, 15, 64}, 252 and 7 steps, a ragged 16,385-path count
-   over two blocks, and every launch of phase 7 over a head and a tail slice
+   over two blocks, and every launch of phase 7 over a head slice
    of each block's paths (bound: ``ops.path_stats.path_stats_tolerance``); #2's terminal against #1's at the
    same seed; the multi-dd kernel (#3) against its plain form — the three
    score tiers, both modes, W in {1, 13, 256}, A = 15, 252 steps, the draw
@@ -61,7 +61,7 @@ ends:
    bit for bit; the candidate kernel (#7) within ``ops.bootstrap
    .bootstrap_shares`` and, with one-hot candidates, bit for bit against its
    plain form and #6 (the selection); and every launch of phase 10 over a
-   head and a tail slice of each block's paths;
+   head slice of each block's paths;
 10. the family tier's main paths at the bench's GARCH parameters and a
    365 x 15 history: ``garch_risk`` (normal, t(5.5)) and ``bootstrap_risk``
    at 1,048,576 x 252, ``run_garch_path_risk`` and ``run_bootstrap_path_risk``
@@ -79,13 +79,18 @@ ends:
    score of #5 and #7), and each one's least time from the work its function
    needs;
 12. the Merton and Heston kernels against their plain forms: the Merton
-   candidate kernel (#8; W in {1, 13, 256}, A in {1, 15, 64}, rates 0.02
-   and 0.3) within ``ops.jump.merton_shares``, its jumped paths the plain
+   candidate kernel (#8; A in {1, 15, 64}, rates 0.02 and 0.3, W = 1, 256
+   and each side of every layout switch of ``ops.jump.merton_narrow_plan``:
+   10 and 11) within ``ops.jump.merton_shares``, its jumped paths the plain
    form's with unmissable jumps, and at rate 0 kernel #3's rebalanced output
    bit for bit; the Heston terminal (#9; A in {1, 15, 16}) and candidate
-   (#10) kernels within ``ops.heston.heston_shares`` at the bench's vol of
-   vol and a Feller-violating one (0.05); and every launch of phase 13 over
-   a head and a tail slice of each block's paths;
+   (#10; W = 1, 12, 13, 128, 129, 256, the switches of
+   ``ops.heston.heston_narrow_plan``) kernels within
+   ``ops.heston.heston_shares`` at the bench's vol of vol and a
+   Feller-violating one (0.05); both candidate kernels hedged at those W (A
+   = 15 and 16, two legs per asset of every type, 52 steps) path by path
+   within the price bounds; and every launch of phase 13 over a head
+   slice of each block's paths;
 13. the Merton and Heston main paths at bench.py's parameters: ``merton_risk``
    and ``heston_terminal_returns`` at 1,048,576 x 252, ``run_merton_path_risk``
    and ``run_heston_path_risk`` at both sizes with split + resume,
@@ -107,7 +112,7 @@ ends:
    bench.py's DCC parameters, with q0 off S (a non-unit diagonal and a large
    common e0) and frozen (a = 0, b = 1); the zero-vol closed form; a = b = 0
    against kernel #4 on the same seed; and every launch of phase 16 over a
-   head and a tail slice of each block's paths;
+   head slice of each block's paths;
 16. the DCC main paths at bench.py's DCC parameters: ``dcc_risk`` at
    1,048,576 x 52, ``run_dcc_path_risk`` at both sizes with split + resume,
    ``path_tail_risk`` (the estimation's host seconds printed), the DCC
@@ -133,7 +138,7 @@ ends:
    of every type, the score tiers and t(5.5), W in {1, 13, 256}, rates 0.02
    and 0.3), an identity hedge against the rebalanced mode, #8 at rate 0
    against #3 bit for bit, and every hedged launch of phase 20 over a head
-   and a tail slice of each block's paths (bounds: ``ops.multi_dd
+   slice of each block's paths (bounds: ``ops.multi_dd
    .multi_dd_shares`` and ``ops.jump.merton_shares`` with the hedge);
 20. the hedged main paths with a married put on asset 0 and a collar on
    asset 1: ``gbm_risk`` at both cells, path risk for gbm, student_t and jump
@@ -160,7 +165,7 @@ ends:
    wide count reset before and read after, then hedged Heston and hedged
    DCC path risk and frontiers at 65 assets with the hedged counts reset
    before and read after, each launch against the plain form over a head
-   and a tail slice;
+   slice;
 23. the hedged modes of #5, #7, #10 and #13 against their plain forms path
    by path (``ops.garch.garch_shares``, ``ops.bootstrap.bootstrap_shares``,
    ``ops.heston.heston_shares`` and ``ops.dcc.dcc_shares`` with the hedge;
@@ -172,7 +177,7 @@ ends:
    17, 64, 65 and 200 and 16, 52 and 252 steps, hedged #13 at A = 15, 16,
    17, 64, 65 and 256 and 16 and 52 steps (252 up to 16 assets) and at W =
    5 and 257, deep puts that overflow #13's wealth, and every hedged launch
-   of phase 24 over a head and a tail slice of each block's paths;
+   of phase 24 over a head slice of each block's paths;
 24. the hedged GARCH, Heston, bootstrap and DCC main paths with the bench
    hedge: path risk at both cells with split + resume, ``path_tail_risk``
    for the four, the four hedged frontiers at 4,096 x 131,072 x 252 and at
@@ -680,8 +685,8 @@ def phase_path_kernels(dev) -> dict:
                             f"paths={KERNEL_PATHS}x2", k, p, lk, mean, steps)
                     del k, p
 
-    # every launch of phase 7, against the plain form over a head and a tail
-    # slice of each block's paths
+    # every launch of phase 7, against the plain form over a head slice of
+    # each block's paths
     for launch in path_launches():
         mean, chol, w = t(launch["mean"]), t(launch["chol"]), t(launch["w"])
         lk = t_scaled_chol(chol, launch["t_df"])
@@ -1187,8 +1192,10 @@ def _family_kernels():
 
 def _slices(n_paths: int, m: int | None = None) -> list[int]:
     """First paths of the slices the plain forms re-run, ``m`` paths each
-    (``SLICE``): the head and the tail."""
-    return sorted({0, max(0, n_paths - (SLICE if m is None else m))})
+    (``SLICE``): the head of each block. The plain forms' time goes by their
+    steps and calls (a torch op per step), hardly by their paths: one slice
+    per launch, not a head and a tail."""
+    return [0]
 
 
 def family_launches(dev) -> list[dict]:
@@ -1243,7 +1250,7 @@ def family_launches(dev) -> list[dict]:
 
 def phase_family_kernels(dev) -> dict:
     """Kernels #4-#7 against their plain forms: test shapes, then every launch
-    of phase 10 over a head and a tail slice of each block's paths. The
+    of phase 10 over a head slice of each block's paths. The
     bootstrap's selection is held bit for bit."""
     from mcport_torch.ops.bootstrap import (bootstrap_multi_dd_reference, bootstrap_shares,
                                             bootstrap_terminal_reference)
@@ -1312,7 +1319,7 @@ def phase_family_kernels(dev) -> dict:
     same("bootstrap_multi_dd", "one-hot terminal against kernel #6", t7[0],
          k["bootstrap_terminal"](11, hist, KERNEL_PATHS, N_STEPS, 0.2, **kw).transpose(1, 2))
 
-    # every launch of phase 10, over a head and a tail slice of each block
+    # every launch of phase 10, over a head slice of each block
     for launch in family_launches(dev):
         name, n, src, seed = launch["kernel"], launch["n"], launch["src"], launch["seed"]
         blocks = dict(first_block=launch.get("first_block", -1),
@@ -1599,14 +1606,14 @@ PHILOX_CALL = 60      # 10 rounds of 2 IMAD.WIDE.U32, 2 LOP3 and 2 IADD (key sch
 
 def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STEPS,
                   p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"], rows: int = 365,
-                  names=None, tag: str = "phase11") -> dict:
+                  names=None, tag: str = "phase11", w_cnt: int = 256) -> dict:
     """Least time of kernels #4-#7 at their timing shapes (or at ``a``
     assets, ``n`` steps, ``p`` terminal and ``pp`` candidate paths, a
     ``rows``-row history; only ``names`` if given), from the work each
     function needs: the larger of its instructions over the issue rate and
     its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
-    instructions per normal draw (its pair loop per Philox call / 4)."""
-    w_cnt = 256
+    instructions per normal draw (its pair loop per Philox call / 4);
+    ``w_cnt`` candidates."""
     tri = a * (a + 1) / 2
     garch_step = a * (draw + 7) + tri          # draw, (A+1)/2 FMAs, sqrt + 6 per asset
     score = w_cnt * (a + 6)                    # W·A FMAs, 1 + f, V·, peak, dd
@@ -1617,7 +1624,7 @@ def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STE
                            f"{tri:.0f} correlate FMAs: {garch_step:.2f} per path-step"),
         "garch_multi_dd": ((garch_step + score) * n * pp,
                            4 * (a * a + 6 * a + w_cnt * a) + 8 * w_cnt * pp,
-                           f"{garch_step:.2f} per path-step + {score} for 256 candidates "
+                           f"{garch_step:.2f} per path-step + {score} for {w_cnt} candidates "
                            f"(A + 6 each)"),
         "bootstrap_terminal": ((boot_step + 2 * a) * n * p, 4 * rows * a + 4 * a * p,
                                f"{boot_step:.0f} per path-step (half a {PHILOX_CALL}-"
@@ -1625,7 +1632,7 @@ def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STE
         "bootstrap_multi_dd": ((boot_step + a + score) * n * pp,
                                4 * (rows * a + w_cnt * a) + 8 * w_cnt * pp,
                                f"{boot_step + a:.0f} per path-step (selection and the "
-                               f"row's loads) + {score} for 256 candidates"),
+                               f"row's loads) + {score} for {w_cnt} candidates"),
     }
     return _bound_table(work, rate, tag, names)
 
@@ -1737,6 +1744,18 @@ def bench_heston(a: int = N_ASSETS, xi: float = 3e-3):
                                     np.linalg.cholesky(0.5 * np.eye(a) + 0.5), 100.0 * full)
 
 
+def layout_switches(plan) -> tuple[int, ...]:
+    """W = 1, each side of every layout switch of a candidate kernel's plan
+    up to 16 assets (``ops.jump.merton_narrow_plan``,
+    ``ops.heston.heston_narrow_plan``) at the bench's 15 assets, and 256."""
+    names = [plan(N_ASSETS, w).layout for w in range(1, 257)]
+    out = {1, 256}
+    for w in range(1, 256):
+        if names[w] != names[w - 1]:
+            out |= {w, w + 1}
+    return tuple(sorted(out))
+
+
 def _family2_kernels():
     from mcport_torch.ops.heston import heston_multi_portfolio_dd, heston_terminal
     from mcport_torch.ops.jump import merton_multi_portfolio_dd
@@ -1815,14 +1834,17 @@ def family2_launches(dev) -> list[dict]:
 def phase_family2_kernels(dev) -> dict:
     """Kernels #8-#10 against their plain forms: test shapes (Heston at the
     bench's xi and a Feller-violating one), #8's jump steps and its rate-0
-    identity with kernel #3, then every launch of phase 13 over a head and a
-    tail slice of each block's paths."""
-    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_shares,
-                                         heston_terminal_reference)
-    from mcport_torch.ops.jump import merton_multi_dd_reference, merton_shares
+    identity with kernel #3, then every launch of phase 13 over a head
+    slice of each block's paths."""
+    from mcport_torch.ops.heston import (heston_multi_dd_reference, heston_narrow_plan,
+                                         heston_shares, heston_terminal_reference)
+    from mcport_torch.ops.jump import (merton_multi_dd_reference, merton_narrow_plan,
+                                       merton_shares)
     from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
 
     k = _family2_kernels()
+    switches = {"merton_multi_dd": layout_switches(merton_narrow_plan),
+                "heston_multi_dd": layout_switches(heston_narrow_plan)}
     worst = dict.fromkeys(FAMILY2_KERNELS, 0.0)
 
     def t(x):
@@ -1840,7 +1862,7 @@ def phase_family2_kernels(dev) -> dict:
     for a, steps in ((15, N_STEPS), (15, 7), (1, 9), (64, 8)):
         mean, chol = (t(x) for x in bench_universe(a))
         muj, sigj = t(np.full(a, -0.08)), t(np.full(a, 0.04))
-        for n_cand in (1, 13, 256):
+        for n_cand in switches["merton_multi_dd"]:
             cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(a), n_cand))
             for rate in (0.02, 0.3):
                 kk = k["merton_multi_dd"](11, mean, chol, rate, muj, sigj, cand, MDD_PATHS,
@@ -1877,6 +1899,32 @@ def phase_family2_kernels(dev) -> dict:
               f"{float((k8[0] - k3[0]).abs().max()):.3e}/{float((k8[1] - k3[1]).abs().max()):.3e}")
         check(ident, "kernel #8 at rate 0 is kernel #3's rebalanced output")
 
+    # each layout up to 16 assets hedged: two legs per asset of every type, on
+    # each side of every layout switch and at 256, 52 steps; path by path
+    # within the price bounds (the unhedged layouts are the test shapes above)
+    for a in (15, 16):
+        mean, chol = (t(x) for x in bench_universe(a))
+        muj, sigj = t(np.full(a, -0.08)), t(np.full(a, 0.04))
+        h = bench_heston(a, FELLER_XI).tensors(dev)
+        for name, widths in switches.items():
+            for n_cand in widths:
+                cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(a), n_cand))
+                hedge = leg_mix(a, 2, dev, seed=n_cand)
+                what = f"hedged L=2 W={n_cand} A={a} steps=52 paths={MDD_PATHS}x2"
+                if name == "merton_multi_dd":
+                    kk = k[name](11, mean, chol, 0.3, muj, sigj, cand, MDD_PATHS, 52, hedge=hedge,
+                                 **kw)
+                    p = merton_multi_dd_reference(11, mean, chol, 0.3, muj, sigj, cand, MDD_PATHS,
+                                                  52, hedge=hedge, with_bound=True, **kw)
+                    held(name, what + " rate=0.3", kk, p[:2],
+                         merton_shares(kk, p, chol, mean, sigj, 52, hedge))
+                else:
+                    kk = k[name](11, h, cand, MDD_PATHS, 52, hedge=hedge, **kw)
+                    p = heston_multi_dd_reference(11, h, cand, MDD_PATHS, 52, hedge=hedge,
+                                                  with_bound=True, **kw)
+                    held(name, what + f" xi={FELLER_XI}", kk, p[:2],
+                         heston_shares(kk, p, h, 52, hedge=hedge))
+
     for xi in (3e-3, FELLER_XI):
         for a in (1, 15, 16):
             h = bench_heston(a, xi).tensors(dev)
@@ -1887,14 +1935,14 @@ def phase_family2_kernels(dev) -> dict:
                      kk, p, heston_shares(kk, p, h, steps))
         for a, steps in ((15, N_STEPS), (15, 7), (1, 9), (16, 8)):
             h = bench_heston(a, xi).tensors(dev)
-            for n_cand in (1, 13, 256):
+            for n_cand in switches["heston_multi_dd"]:
                 cand = t(np.random.default_rng(n_cand).dirichlet(np.ones(a), n_cand))
                 kk = k["heston_multi_dd"](11, h, cand, MDD_PATHS, steps, **kw)
                 p = heston_multi_dd_reference(11, h, cand, MDD_PATHS, steps, **kw)
                 held("heston_multi_dd", f"W={n_cand} A={a} xi={xi} steps={steps} "
                      f"paths={MDD_PATHS}x2", kk, p, heston_shares(kk, p, h, steps))
 
-    # every launch of phase 13, over a head and a tail slice of each block
+    # every launch of phase 13, over a head slice of each block
     for launch in family2_launches(dev):
         name, n, src, seed = launch["kernel"], launch["n"], launch["src"], launch["seed"]
         blocks = dict(first_block=launch.get("first_block", -1),
@@ -2182,13 +2230,12 @@ BOX_MULLER_PAIR = 79.5   # kernel #1's draw: 54.75 = a quarter of a Philox call 
 
 def family2_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STEPS,
                    p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"], names=None,
-                   tag: str = "phase14") -> dict:
+                   tag: str = "phase14", w_cnt: int = 256) -> dict:
     """Least time of kernels #8-#10 at their timing shapes (or at the shape
     given, only ``names`` if given), from the work each function needs: the
     larger of its instructions over the issue rate and its bytes over HBM
     bandwidth. ``draw`` is kernel #1's measured instructions per normal draw
-    (its pair loop per Philox call / 4)."""
-    w_cnt = 256
+    (its pair loop per Philox call / 4); ``w_cnt`` candidates."""
     tri = a * (a + 1) / 2
     score = w_cnt * (a + 6)                    # W·A FMAs, V·f, peak, dd
     lam = 0.02
@@ -2200,16 +2247,19 @@ def family2_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_ST
                             f"{draw:.2f} per draw + 3 per asset-step (m, exp) + {tri:.0f} "
                             f"correlate FMAs + half a Philox call and half a Box-Muller pair "
                             f"+ {lam} x A jump adds: {merton_step:.2f} per path-step + {score} "
-                            f"for 256 candidates"),
+                            f"for {w_cnt} candidates"),
         "heston_terminal": (heston_step * n * p, 4 * (a * a + 7 * a) + 4 * a * p,
                             f"2 x {draw:.2f} per asset-step (two draws) + 12 for the update + "
                             f"{tri:.0f} correlate FMAs: {heston_step:.2f} per path-step"),
         "heston_multi_dd": ((heston_step + 2 * a + score) * n * pp,
                             4 * (a * a + 7 * a + w_cnt * a) + 8 * w_cnt * pp,
                             f"{heston_step:.2f} per path-step + 2 per asset-step (exp) + "
-                            f"{score} for 256 candidates"),
+                            f"{score} for {w_cnt} candidates"),
     }
     return _bound_table(work, rate, tag, names)
+
+
+W1_TIMES = {}   # phase 14: kernels #5, #7, #8 and #10 at W = 1, ms
 
 
 def phase_family2_timing(dev) -> dict:
@@ -2265,6 +2315,23 @@ def phase_family2_timing(dev) -> dict:
           f"step, x {N_STEPS} = {mm * N_STEPS:.3f} ms")
     res["merton_multi_dd"][2] = res["heston_multi_dd"][2] = mm * N_STEPS
     g = bench_garch().tensors(dev)
+    # W = 1, the path-risk engine's launches, at 131,072 x 252: kernels #5,
+    # #7, #8 and #10 (their bounds are printed with the others')
+    one = torch.as_tensor(bench_weights()[None], dtype=torch.float32, device=dev)
+    hist = torch.as_tensor(bench_history(), device=dev)
+    fk = _family_kernels()
+    for name, fn in (("garch_multi_dd", lambda: fk["garch_multi_dd"](0, g, one, pp, N_STEPS)),
+                     ("bootstrap_multi_dd",
+                      lambda: fk["bootstrap_multi_dd"](0, hist, one, pp, N_STEPS)),
+                     ("merton_multi_dd", lambda: k["merton_multi_dd"](0, mean, chol, 0.02, muj,
+                                                                      sigj, one, pp, N_STEPS)),
+                     ("heston_multi_dd", lambda: k["heston_multi_dd"](0, h, one, pp, N_STEPS))):
+        fn()
+        torch.cuda.synchronize()
+        t1, t2 = _time_ms(fn, 10), _time_ms(fn, 10)
+        W1_TIMES[name] = (t1 + t2) / 2
+        print(f"phase14 timing {name} W=1 {pp} x {N_STEPS} x {N_ASSETS}: kernel {t1:.3f} / "
+              f"{t2:.3f} ms ({pp * N_STEPS / W1_TIMES[name] * 1e3:.4e} path-steps/s)")
 
     def garch_t():
         garch_terminal(0, g, FAMILY_PATHS, N_STEPS, t_df=5.5)
@@ -2350,7 +2417,7 @@ def phase_dcc_kernels(dev) -> dict:
     over two blocks, W in {1, 13, 256}; q0 with a non-unit diagonal and a
     large common e0; the frozen case a = 0, b = 1), the zero-vol closed form,
     a = b = 0 against kernel #4 on the same seed, then every launch of phase
-    16 over a head and a tail slice of each block's paths."""
+    16 over a head slice of each block's paths."""
     from mcport_torch.ops.dcc import (dcc_multi_dd_reference, dcc_shares, dcc_terminal_reference,
                                       dcc_tolerance)
     from mcport_torch.ops.garch import garch_terminal
@@ -2412,7 +2479,7 @@ def phase_dcc_kernels(dev) -> dict:
               f"{float(dcc_tolerance(d, N_STEPS).max()):.3e})")
         check(sh["term"] <= 1.0, "kernel #11 at a = b = 0 is kernel #4 up to chol(S)")
 
-    # every launch of phase 16, over a head and a tail slice of each block
+    # every launch of phase 16, over a head slice of each block
     for launch in dcc_launches(dev):
         name, n, seed, steps = launch["kernel"], launch["n"], launch["seed"], launch["steps"]
         d = launch["src"].tensors(dev)
@@ -3033,7 +3100,7 @@ def phase_hedged_kernels(dev) -> dict:
     with the hedge): test shapes with 1-3 legs of every type, the score tiers
     and t(5.5) shocks, W in {1, 13, 256}; an identity hedge against the
     rebalanced mode on the card; #8 at rate 0 against #3, both hedged, bit for
-    bit; then every launch of phase 20 over a head and a tail slice of each
+    bit; then every launch of phase 20 over a head slice of each
     block's paths. Each comparison holds every (candidate, path): finite ones
     to the plain form's bound path by path, overflowed ones to the same
     non-finite values (``ops.hedged.hedged_shares``); it prints how many of
@@ -3112,7 +3179,7 @@ def phase_hedged_kernels(dev) -> dict:
     print(f"phase19 merton hedged at rate 0 vs multi_dd hedged, W=256 {MDD_PATHS} x "
           f"{N_STEPS}: bit for bit={same}")
     check(same, "kernel #8 hedged at rate 0 is kernel #3 hedged")
-    # every launch of phase 20, over a head and a tail slice of each block
+    # every launch of phase 20, over a head slice of each block
     for launch in hedged_launches(dev):
         kk = _hedged_call(launch, dev, plain=False)
         for p0 in _slices(launch["n"]):
@@ -3825,8 +3892,8 @@ def _hedged_at_65(dev, worst: dict, model: str) -> int:
     (DCC 16: its plain form costs A^3 per step), the hedged count reset just
     before and read just after (every launch at 65 assets runs the wide
     layout's hedged mode: ``HestonWide<true, true>``, ``dcc_group_kernel<128,
-    true, true, true, true>``); then each launch against the plain form over a head and a
-    tail slice (DCC's 1,024 paths). Returns the hedged launches."""
+    true, true, true, true>``); then each launch against the plain form over a head
+    slice (DCC's 1,024 paths). Returns the hedged launches."""
     from mcport_torch.config import GBMConfig
     from mcport_torch.engine.drawdown_frontier import (family_drawdown_frontier_search,
                                                        frontier_seeds)
@@ -4065,7 +4132,7 @@ def phase_family_hedged_kernels(dev) -> dict:
     (``HESTON_HEDGED_A``) at 16, 52 and 252 steps, hedged #13 at every width
     (``DCC_HEDGED_A``) at 16 and 52 steps and 252 up to 16 assets, and at W =
     5 and 257 (past one launch); deep puts that overflow #13's wealth; then
-    every hedged launch of phase 24 over a head and a tail slice of each
+    every hedged launch of phase 24 over a head slice of each
     block's paths. The GARCH candidate kernel draws normal shocks only, as
     mcport's does. Returns each kernel's worst |kernel - plain| (hedged #10
     and #13 past 64 assets under ``"heston_multi_dd_hedged wide"`` and
@@ -4192,7 +4259,7 @@ def phase_family_hedged_kernels(dev) -> dict:
               f"{N_STEPS}: max_abs={max(float((x - y).abs().max()) for x, y in zip(h, r)):.3e} "
               "shares=" + " ".join(f"{n}={v:.4f}" for n, v in sh.items()))
         check(max(sh.values()) <= 1.0, f"a {name} identity hedge is the unhedged mode")
-    # every launch of phase 24, over a head and a tail slice of each block
+    # every launch of phase 24, over a head slice of each block
     for launch in family_hedged_launches(dev):
         kk = _family_hedged_call(launch, dev, plain=False)
         for p0 in _slices(launch["n"]):
@@ -4679,6 +4746,14 @@ def main() -> int:
         if " " in key or key in FAMILY_HEDGED:   # phases 21 and 25, beside their bounds
             print(f"bound {key}: {t[0]:.3f} ms, bound {bound[key][0]:.3f} ms "
                   f"({bound[key][1]}), {100 * bound[key][0] / t[0]:.1f}% of the bound")
+    # phase 14's W = 1 times beside the least time of one candidate's work
+    one = family_bounds(draw, rate, w_cnt=1, names=("garch_multi_dd", "bootstrap_multi_dd"),
+                        tag="phase14 W=1")
+    one.update(family2_bounds(draw, rate, w_cnt=1, names=("merton_multi_dd", "heston_multi_dd"),
+                              tag="phase14 W=1"))
+    for key, t in W1_TIMES.items():
+        print(f"bound {key} W=1: {t:.3f} ms, bound {one[key][0]:.3f} ms ({one[key][1]}), "
+              f"{100 * one[key][0] / t:.1f}% of the bound")
     lap("phase 25 and the bounds")
     check("jax" not in sys.modules and "pandas" not in sys.modules
           and not any(m == "mcport" or m.startswith("mcport.") for m in sys.modules),

@@ -65,11 +65,11 @@ KERNELS = {
         "mcport_bootstrap_wide", [_c_ll, _c_ll] + 7 * _I + _F + 6 * _P + 2 * _I + _P),
     "jump": ("mcport_merton_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,
-        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
+        _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ll, _c_int, _c_ptr],
         "mcport_merton_multi_dd_wide", [_c_ll, _c_ll] + 6 * _I + _F + 6 * _P + 2 * _I + _P),
     "heston": ("mcport_heston_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],
-        "mcport_heston_multi_dd", [_c_ll, _c_ll] + 7 * _I + 6 * _P,
+        "mcport_heston_multi_dd", [_c_ll, _c_ll] + 7 * _I + 6 * _P + [_c_ll, _c_int, _c_ptr],
         "mcport_heston_wide", [_c_ll, _c_ll] + 6 * _I + 6 * _P + 2 * _I + _P),
     "dcc": ("mcport_dcc_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr],

@@ -56,29 +56,37 @@
 //   and the per-asset (mu, kappa, theta, xi) and (rho, rho_c) sit in shared
 //   memory behind volatile 16-byte loads; the unrolled correlate skips the
 //   zero upper triangle at compile time: A(A+1)/2 terms per step, not A².
-// - candidates: a block owns 16 paths and all <= 256 candidates; each (asset,
-//   path) of the tile has a thread that keeps its variance and the variance
-//   shocks of one Philox call in registers, draws the return shocks into
-//   shared memory, and per step correlates them and writes exp(x) to shared
-//   memory (hedged: the price too in registers, and the settled return r_h
-//   written instead, the legs read from device memory as garch.cu's hedged
-//   mode reads them); then each thread updates a 4-candidate x 4-path
-//   micro-tile whose values, peaks and drawdowns stay in registers
-//   (multi_dd.cu's scoring).
+// - candidates up to 16 assets, the layout narrow_layout picks by W
+//   (narrow_dd.cuh; ops/heston.py heston_narrow_plan): up to 12 candidates a
+//   thread per path (64 per block) runs the terminal kernel's recursion (the
+//   variance and the return shocks in registers, the variance shocks in a
+//   per-thread slice of shared memory) and scores its own candidates; up to
+//   128 the same recursion writes its returns to a device scratch and scoring
+//   blocks read them; past 128 a block owns 16 paths and every candidate,
+//   each (asset, path) item computing one Philox call's four steps of returns
+//   into shared memory while the scorers (4 candidates x 4 paths a thread)
+//   run the previous call's, one barrier per call. Hedged, the legs are
+//   staged in shared memory; a thread that owns a path settles leg by leg
+//   across its assets.
 // - wider universes, 17 <= A <= 64 (garch.cu's wide variants): the candidate
-//   kernel keeps its design with four (asset, path) items per thread, each
+//   kernel (heston_dd_kernel<kMaxAssets>) owns a 16-path tile and every
+//   candidate, per step each (asset, path) item writing exp(x) (hedged r_h,
+//   the legs read from device memory) to shared memory before a 4-candidate
+//   x 4-path micro-tile per thread scores it; four (asset, path) items per
+//   thread, each
 //   item's variance and variance shocks in registers; the terminal kernel
 //   takes the same 16-path tile (heston_terminal_tile_kernel), each item's v
 //   and acc in registers, the return shocks of one Philox call in shared
 //   memory. Every operation of the path is the same, in the same order and
 //   rounding, so the wide kernels' path state too equals the plain form's bit
-//   for bit. The A <= 16 kernels are unchanged.
+//   for bit.
 // Past 64 assets both run wide.cuh's layout with the HestonWide model below,
 // rounding as the plain form does: the path state stays bit for bit.
 // A dispatch group of blocks is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
+#include "narrow_dd.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -313,9 +321,9 @@ heston_terminal_tile_kernel(long long seed, long long first_block, int block_pat
   }
 }
 
-// kCap: the asset bound (kHA: one (asset, path) item per thread; kMaxAssets:
-// four). kHedged: per-step settlement of the n_legs legs per asset of the
-// hedge block (ops/hedged.py HedgeTensors.packed, in device memory).
+// kCap: the asset bound (kMaxAssets: four (asset, path) items per thread).
+// kHedged: per-step settlement of the n_legs legs per asset of the hedge block
+// (ops/hedged.py HedgeTensors.packed, in device memory).
 template <int kCap, bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
@@ -471,6 +479,275 @@ heston_dd_kernel(long long seed, long long first_block, int block_paths, int n_a
   }
 }
 
+// ---- kernel #10 up to 16 assets: the redesigned layouts (narrow_dd.cuh) -----------------
+
+// Where the layouts switch (ops/heston.py heston_narrow_plan mirrors them): a
+// thread per path scores its own candidates up to kSoloMaxCand, the split
+// layout runs up to kSplitMaxCand, the tile layout past that (narrow_dd.cuh).
+// Measured on an H100 at 15 assets and 131,072 x 252
+// (tools/ab_narrow_kernels.py): solo is the faster up to about 12 candidates
+// in both modes, split up to 128 (64 hedged, 1% apart at 128), tile from 192
+// (4% faster at 256, 14% hedged).
+constexpr int kSoloMaxCand = 12;
+constexpr int kSplitMaxCand = 128;
+
+__host__ __device__ constexpr int narrow_layout(int n_cand) {
+  return n_cand <= kSoloMaxCand ? kSolo : n_cand <= kSplitMaxCand ? kSplit : kTileLayout;
+}
+
+// The recursion part's shared memory, in floats: L's lower triangle (kHA x
+// kHA), (mu, kappa, theta, xi) and (rho, rho_c, v0, 0) per asset, the hedge
+// block (hedged), the solo part's weights (W, kHA); then per thread slices
+// (stride kSoloThreads): one Philox call's variance shocks (4 x kHA), the
+// prices (kHA, hedged) and the solo part's values, peaks and drawdowns (3 x
+// W).
+struct RecurLayout {
+  int l, g, h, hedge, w, wv, p, st, total;
+  __host__ __device__ RecurLayout(int n, int n_cand, int mode, int n_legs) {
+    l = 0;
+    g = kHA * kHA;
+    h = g + 4 * kHA;
+    hedge = h + 4 * kHA;
+    w = hedge + (n_legs ? round4n(hedge_floats(n, n_legs)) : 0);
+    wv = w + (mode == kOwn ? n_cand * kHA : 0);
+    p = wv + 4 * kHA * kSoloThreads;
+    st = p + (n_legs ? kHA * kSoloThreads : 0);
+    total = st + (mode == kOwn ? 3 * n_cand * kSoloThreads : 0);
+  }
+};
+
+// The recursion, a thread per path, for chunk paths 0 .. chunk-1 (path
+// first_path + cp of each dispatch block): the terminal kernel's path (the
+// strict draws, the column-order correlate of the lower triangle under
+// __fmul_rn/__fadd_rn, heston_step) with its variance in registers, then
+// exp(x), hedged the price __fmul_rn(P, exp(x)) and the settled return.
+// kOwn scores the thread's own candidates (narrow_dd.cuh solo_score),
+// kReturns writes the returns to rets (returns_slot).
+template <bool kHedged, int kMode>
+__global__ void __launch_bounds__(kSoloThreads, 4)
+heston_recur_kernel(long long seed, long long first_block, int block_paths, int first_path,
+                    int chunk, int n_assets, int n_cand, int n_steps, int n_legs,
+                    const float* __restrict__ params, const float* __restrict__ weights,
+                    const float* __restrict__ hedge, float* __restrict__ rets,
+                    float* __restrict__ term, float* __restrict__ max_dd) {
+  constexpr int kS = kSoloThreads;  // the per-thread slices' stride
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets, tid = threadIdx.x, blk = blockIdx.y;
+  const RecurLayout lay(n, n_cand, kMode, kHedged ? n_legs : 0);
+  float* s_l = smem + lay.l;
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);
+  float4* s_hh = reinterpret_cast<float4*>(smem + lay.h);
+  float* s_hedge = smem + lay.hedge;
+  float* s_w = smem + lay.w;
+  const Params q(params, n);
+  load_params(q, n, s_l, s_g, s_hh, tid, kS);
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(n, n_legs); i += kS) s_hedge[i] = hedge[i];
+  }
+  if (kMode == kOwn) {
+    for (int i = tid; i < n_cand * kHA; i += kS) {
+      const int c = i / kHA, a = i % kHA;
+      s_w[i] = a < n ? weights[c * n + a] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int cp = blockIdx.x * kS + tid;  // this thread's path of the chunk
+  const uint32_t p = static_cast<uint32_t>(first_path + cp);
+  const uint32_t key = block_key(seed, first_block, blk);
+  const HedgeBlock legs(s_hedge, n, n_legs);
+  float* s_wv = smem + lay.wv + tid;  // the call's variance shocks, (4, kHA)
+  float* s_p = smem + lay.p + tid;    // hedged: the prices, from s0
+  float* s_st = smem + lay.st + tid;
+  if (kHedged) {
+    for (int a = 0; a < n; ++a) s_p[a * kS] = s_hedge[a];
+  }
+  if (kMode == kOwn) solo_start(n_cand, s_st);
+  float* rg = kMode == kReturns ? returns_slot(rets, blk, chunk, cp, n_steps, n) : nullptr;
+  const bool writes = cp < (chunk + kTile - 1) / kTile * kTile;  // whole tiles of the scratch
+  float var[kHA];
+#pragma unroll
+  for (int a = 0; a < kHA; ++a) var[a] = a < n ? s_hh[a].z : 0.0f;
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int nk = min(kPer, n_steps - s0);
+    float z[kPer][kHA];
+#pragma unroll
+    for (int a = 0; a < kHA; ++a) {
+      float za[4] = {0.0f, 0.0f, 0.0f, 0.0f}, wa[4];
+      if (a < n) {
+        call_draws<kPolyStrict>(s0 / kPer, a, p, key, nk, 0.0f, 0.0f, za);
+        call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, a, p, key, nk, 0.0f, 0.0f, wa);
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) s_wv[(k * kHA + a) * kS] = wa[k];
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= nk) continue;  // (not break: a loop that may break is not unrolled)
+      float e[kHA];
+#pragma unroll
+      for (int i = 0; i < kHA; ++i) {
+        e[i] = 0.0f;
+        if (i < n) {
+          float y = 0.0f;
+#pragma unroll
+          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only, in column order
+            const float4 l = lds128(s_l + i * kHA + j);
+            y = __fadd_rn(y, __fmul_rn(l.x, z[k][j]));
+            if (j + 1 <= i) y = __fadd_rn(y, __fmul_rn(l.y, z[k][j + 1]));
+            if (j + 2 <= i) y = __fadd_rn(y, __fmul_rn(l.z, z[k][j + 2]));
+            if (j + 3 <= i) y = __fadd_rn(y, __fmul_rn(l.w, z[k][j + 3]));
+          }
+          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+          const float4 h = lds128(reinterpret_cast<const float*>(s_hh + i));
+          const float gx = expf(heston_step(y, s_wv[(k * kHA + i) * kS], g, h, &var[i]));
+          // hedged: the move P -> P·exp(x), settled below
+          e[i] = kHedged ? __fmul_rn(s_p[i * kS], gx) : gx;
+        }
+      }
+      if (kHedged) settle_all<kS>(legs, n, s_p, e);
+      if (kMode == kOwn) {
+        solo_score<kHedged>(n, n_cand, s_w, s_st, e);
+      } else if (writes) {
+#pragma unroll
+        for (int i = 0; i < kHA; ++i) {
+          if (i < n) rg[((s0 + k) * n + i) * kTile] = e[i];
+        }
+      }
+    }
+  }
+  if (kMode == kOwn && cp < chunk) solo_store(n_cand, blk, block_paths, p, s_st, term, max_dd);
+}
+
+// The tile layout's shared memory, in floats: L's lower triangle (kHA x kHA),
+// (mu, kappa, theta, xi) and (rho, rho_c, v0, 0) per asset, the hedge block
+// (hedged), the weights (A, w_pad), then two buffers each of one Philox
+// call's return shocks (4, A, kTile) and of its returns (4, A, kTile).
+struct TileLayout {
+  int l, g, h, hedge, w, z, e, total;
+  __host__ __device__ TileLayout(int n, int w_pad, int n_legs) {
+    l = 0;
+    g = kHA * kHA;
+    h = g + 4 * kHA;
+    hedge = h + 4 * kHA;
+    w = hedge + (n_legs ? round4n(hedge_floats(n, n_legs)) : 0);
+    z = w + n * w_pad;
+    e = z + 2 * 4 * n * kTile;
+    total = e + 2 * 4 * n * kTile;
+  }
+};
+
+// The tile layout: a block owns 16 paths and every candidate; thread tid is
+// the (asset, path) item (tid / 16, tid % 16) of the tile, its variance and
+// one Philox call's variance shocks in registers, and the scorer of
+// candidates 4·(tid / 4) .. +3 of tile paths 4·(tid % 4) .. +3. Per Philox
+// call c, between two barriers: the items compute call c's four steps of
+// returns from its return shocks (buffer c % 2) into s_e (buffer c % 2),
+// then draw call c + 1's shocks into the other buffer, and the scorers run
+// call c - 1's four steps of returns.
+template <bool kHedged>
+__global__ void __launch_bounds__(kDdThreads, 2)
+heston_tile_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                   int n_cand, int n_steps, int n_legs, const float* __restrict__ params,
+                   const float* __restrict__ weights, const float* __restrict__ hedge,
+                   float* __restrict__ term, float* __restrict__ max_dd) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets, tid = threadIdx.x;
+  const int w_pad = round4(n_cand);
+  const TileLayout lay(n, w_pad, kHedged ? n_legs : 0);
+  float* s_l = smem + lay.l;
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);
+  float4* s_hh = reinterpret_cast<float4*>(smem + lay.h);
+  float* s_hedge = smem + lay.hedge;
+  float* s_w = smem + lay.w;
+  const Params q(params, n);
+  load_params(q, n, s_l, s_g, s_hh, tid, kDdThreads);
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(n, n_legs); i += kDdThreads) s_hedge[i] = hedge[i];
+  }
+  for (int i = tid; i < n * w_pad; i += kDdThreads) {
+    const int a = i / w_pad, w = i % w_pad;
+    s_w[i] = w < n_cand ? weights[w * n + a] : 0.0f;
+  }
+
+  const int b = blockIdx.y;
+  const int p0 = blockIdx.x * kTile;
+  const uint32_t key = block_key(seed, first_block, b);
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+  const bool item = tid < n * kTile;
+  const int ia = tid / kTile, ip = tid % kTile;
+  const HedgeBlock legs(s_hedge, n, n_legs);
+  const int cw = tid / 4, pq = tid % 4;
+  const bool scorer = 4 * cw < w_pad;
+  float v[4][4], peak[4][4], dd[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = 1.0f;
+      peak[i][j] = 1.0f;
+      dd[i][j] = 0.0f;
+    }
+  }
+  float wa[4];  // the item's variance shocks of the call it computes next
+  // call c's return shocks into buffer c % 2, its variance shocks into wa
+  auto draw = [&](int c) {
+    if (item) {
+      const int nk = min(kPer, n_steps - c * kPer);
+      float za[4];
+      call_draws<kPolyStrict>(c, ia, p0 + ip, key, nk, 0.0f, 0.0f, za);
+      call_draws<kPolyStrict, kStreamHeston>(c, ia, p0 + ip, key, nk, 0.0f, 0.0f, wa);
+      float* zb = smem + lay.z + (c % 2) * 4 * n * kTile;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) zb[(k * n + ia) * kTile + ip] = za[k];
+    }
+  };
+  const int calls = (n_steps + kPer - 1) / kPer;
+  __syncthreads();
+  float var = item ? s_hh[ia].z : 0.0f;                   // from v0
+  float price = (kHedged && item) ? s_hedge[ia] : 0.0f;  // hedged: from s0
+  if (calls > 0) draw(0);
+  __syncthreads();
+  for (int c = 0; c <= calls; ++c) {
+    if (c < calls) {
+      const int nk = min(kPer, n_steps - c * kPer), buf = c % 2;
+      if (item) {
+        const float* zb = smem + lay.z + buf * 4 * n * kTile;
+        float* eb = smem + lay.e + buf * 4 * n * kTile;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          if (k >= nk) continue;
+          float y = 0.0f;
+          for (int j = 0; j <= ia; ++j) {
+            y = __fadd_rn(y, __fmul_rn(s_l[ia * kHA + j], zb[(k * n + j) * kTile + ip]));
+          }
+          const float gx = expf(heston_step(y, wa[k], s_g[ia], s_hh[ia], &var));
+          if (kHedged) {  // the settled return of the move P -> P·exp(x)
+            const float p_new = __fmul_rn(price, gx);
+            eb[(k * n + ia) * kTile + ip] = settle(legs, ia, price, p_new);
+            price = p_new;
+          } else {
+            eb[(k * n + ia) * kTile + ip] = gx;
+          }
+        }
+      }
+      if (c + 1 < calls) draw(c + 1);
+    }
+    if (c > 0 && scorer) {
+      const int nk = min(kPer, n_steps - (c - 1) * kPer);
+      const float* eb = smem + lay.e + ((c - 1) % 2) * 4 * n * kTile;
+      for (int k = 0; k < nk; ++k) {
+        tile_score<kHedged>(n, w_pad, cw, pq, s_w, eb + k * n * kTile, kTile, v, peak, dd);
+      }
+    }
+    __syncthreads();
+  }
+  if (scorer) tile_store(n_cand, b, block_paths, p0, cw, pq, v, dd, term, max_dd);
+}
+
 // Kernels #9 and #10 past 64 assets: wide.cuh's layout with the narrow
 // kernels' path, every operation rounded as the plain form rounds it (the
 // strict draws, the column-order correlate under __fmul_rn/__fadd_rn,
@@ -561,43 +838,122 @@ int mcport_heston_terminal(long long seed, long long first_block, int n_blocks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// Launches the candidate function on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: HestonTensors.packed; weights: (n_cand,
 // n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
-// for n_legs legs per asset (read from device memory), or null with n_legs 0
-// for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
-// float32. wide: nonzero runs the 64-asset instantiation at any width.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// for n_legs legs per asset, or null with n_legs 0 for the unhedged mode.
+// Outputs term and dd: (n_blocks, n_cand, block_paths) float32. Up to 16
+// assets the layout is narrow_layout(n_cand) (layout -1), or the one named (0
+// solo, 1 split, 2 tile); the split layout takes its
+// returns through scratch (scratch_floats floats on the device) in chunks of
+// paths that it holds for every block and step (a multiple of 64 paths;
+// ops/heston.py heston_narrow_plan sizes it), the others take no scratch
+// (null, 0). From 17 assets, or with wide nonzero at any width, the 64-asset
+// instantiation runs (the hedge read from device memory; layout -1). Returns
+// cudaGetLastError() after the last launch, or cudaErrorInvalidValue for
 // arguments the kernel does not take.
 int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
                            int block_paths, int n_assets, int n_cand, int n_steps, int wide,
                            int n_legs, const void* params, const void* weights,
-                           const void* hedge, void* term, void* dd, void* stream) {
+                           const void* hedge, void* term, void* dd, void* scratch,
+                           long long scratch_floats, int layout, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
       n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
       (n_legs > 0 && hedge == nullptr) ||
       kHA * kTileP != tile_items<kHA>() * kDdThreads ||
-      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
+      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads || scratch_floats < 0 ||
+      layout < -1 || layout > kTileLayout || ((wide || n_assets > kHA) && layout >= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  wide = wide || n_assets > kHA;
-  const size_t smem =
-      sizeof(float) * DdLayout(n_assets, round4(n_cand), wide ? kMaxAssets : kHA).total;
-  auto run = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, n_assets, n_cand, n_steps, n_legs,
-        static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
+  static_assert(kHA == kNA && kMaxCand / 4 * score_groups(kMaxCand) <= kScoreThreads &&
+                    4 * score_groups(kMaxCand) % kTile == 0 && kSoloThreads % kTile == 0,
+                "the redesigned layouts' universe; a scoring block covers 256 candidates of "
+                "whole tiles");
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* prm = static_cast<const float*>(params);
+  const float* wts = static_cast<const float*>(weights);
+  const float* hdg = static_cast<const float*>(hedge);
+  float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
+  // one launch of `kernel` with `smem` bytes of dynamic shared memory
+  auto start = [&](auto kernel, size_t smem) {
+    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaFuncSetAttribute(kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem)));
+  };
+  if (wide || n_assets > kHA) {  // heston_dd_kernel<kMaxAssets>, the 17-64-asset layout
+    const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+    const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand), kMaxAssets).total;
+    auto run = [&](auto kernel) {
+      int err = start(kernel, smem);
+      if (err) return err;
+      kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, n_assets, n_cand,
+                                             n_steps, n_legs, prm, wts, hdg, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    return n_legs ? run(heston_dd_kernel<kMaxAssets, true>)
+                  : run(heston_dd_kernel<kMaxAssets, false>);
+  }
+  if (layout < 0) layout = narrow_layout(n_cand);
+  if (layout == kTileLayout) {
+    const dim3 grid((block_paths + kTile - 1) / kTile, n_blocks);
+    const size_t smem = sizeof(float) * TileLayout(n_assets, round4(n_cand), n_legs).total;
+    auto run = [&](auto kernel) {
+      int err = start(kernel, smem);
+      if (err) return err;
+      kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, n_assets, n_cand,
+                                             n_steps, n_legs, prm, wts, hdg, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    return n_legs ? run(heston_tile_kernel<true>) : run(heston_tile_kernel<false>);
+  }
+  float* r = static_cast<float*>(scratch);
+  // the recursion over chunk paths from `first`, scoring its own candidates
+  // (kOwn) or writing their returns to the scratch (kReturns)
+  auto recur = [&](auto kernel, int mode, int first, int chunk) {
+    const size_t smem = sizeof(float) * RecurLayout(n_assets, n_cand, mode, n_legs).total;
+    int err = start(kernel, smem);
+    if (err) return err;
+    const dim3 grid((chunk + kSoloThreads - 1) / kSoloThreads, n_blocks);
+    kernel<<<grid, kSoloThreads, smem, st>>>(seed, first_block, block_paths, first, chunk,
+                                             n_assets, n_cand, n_steps, n_legs, prm, wts, hdg,
+                                             r, out, out_dd);
     return static_cast<int>(cudaGetLastError());
   };
-  if (n_legs) {
-    return wide ? run(heston_dd_kernel<kMaxAssets, true>) : run(heston_dd_kernel<kHA, true>);
+  if (layout == kSolo) {
+    return n_legs ? recur(heston_recur_kernel<true, kOwn>, kOwn, 0, block_paths)
+                  : recur(heston_recur_kernel<false, kOwn>, kOwn, 0, block_paths);
   }
-  return wide ? run(heston_dd_kernel<kMaxAssets, false>) : run(heston_dd_kernel<kHA, false>);
+  // the split layout: the paths of a chunk are every path where the scratch
+  // holds them all (in whole 16-path tiles), else what it holds in whole
+  // recursion blocks
+  const long long per_path = static_cast<long long>(n_blocks) * n_steps * n_assets;
+  const long long all = (block_paths + kTile - 1) / kTile * kTile;
+  long long chunk = block_paths;
+  if (per_path > 0 && scratch_floats / per_path < all) {
+    chunk = scratch_floats / per_path / kSoloThreads * kSoloThreads;
+  }
+  if (chunk < 1 || (per_path > 0 && r == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const int paths = 4 * score_groups(n_cand);
+  const size_t score_smem = sizeof(float) * score_floats(n_assets, n_cand);
+  for (int first = 0; first < block_paths; first += static_cast<int>(chunk)) {
+    const int m = static_cast<int>(chunk < block_paths - first ? chunk : block_paths - first);
+    int err = n_steps == 0 ? 0
+              : n_legs     ? recur(heston_recur_kernel<true, kReturns>, kReturns, first, m)
+                           : recur(heston_recur_kernel<false, kReturns>, kReturns, first, m);
+    if (err) return err;
+    auto score = [&](auto kernel) {
+      int e = start(kernel, score_smem);
+      if (e) return e;
+      const dim3 grid((m + paths - 1) / paths, n_blocks);
+      kernel<<<grid, kScoreThreads, score_smem, st>>>(block_paths, first, m, n_assets, n_cand,
+                                                      n_steps, wts, r, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    err = n_legs ? score(score_kernel<true>) : score(score_kernel<false>);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Both functions past 64 assets (wide.cuh's layout with the HestonWide

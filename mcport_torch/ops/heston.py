@@ -30,7 +30,13 @@ tensors: the CPU goes to the plain form, a CUDA device launches the kernel or
 raises. The plain forms and the card take any number of assets: from 17 to
 64 through the kernels' wide variants, past 64 through the layout of
 ``csrc/wide.cuh`` (``csrc/heston.cu``'s HestonWide), the path state bit for
-bit at every width.
+bit at every width. Up to 16 assets the candidate kernel runs the layout
+:func:`heston_narrow_plan` gives its candidate count
+(:mod:`mcport_torch.ops.narrow`): a thread per path scoring its own few
+candidates, for more the same recursion's returns through a device scratch,
+scored by blocks of candidates, and past 128 candidates a 16-path tile whose
+items and scorers run one Philox call apart; the layouts' outputs are equal
+bit for bit.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, _check_args, check_card
                                   step_shocks, wide_scratch, wide_tile)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+from mcport_torch.ops.narrow import (LAYOUTS, NARROW_ASSETS, NARROW_SCRATCH_FLOATS, NarrowPlan,
+                                     narrow_plan, r4)
 from mcport_torch.rng import STREAM_HESTON
 
 __all__ = [
@@ -57,7 +65,41 @@ __all__ = [
     "heston_price_bound",
     "heston_tolerance",
     "heston_shares",
+    "heston_narrow_plan",
 ]
+
+#: csrc/heston.cu ``kSoloMaxCand`` and ``kSplitMaxCand``: the solo and split
+#: layouts' widest W (the tile layout past them)
+_SOLO_MAX_CAND, _SPLIT_MAX_CAND = 12, 128
+
+
+def _recur_floats(a: int, w: int, own: bool, legs: int) -> int:
+    """csrc/heston.cu ``RecurLayout(a, w, own ? kOwn : kReturns, legs).total``."""
+    wv = 16 * 16 + 2 * 4 * 16 + (r4(a * (1 + 4 * legs)) if legs else 0) + (w * 16 if own else 0)
+    return wv + 4 * 16 * 64 + (16 * 64 if legs else 0) + (3 * w * 64 if own else 0)
+
+
+def _tile_floats(a: int, w: int, legs: int) -> int:
+    """csrc/heston.cu ``TileLayout(a, round4(w), legs).total``."""
+    h = 16 * 16 + 2 * 4 * 16 + (r4(a * (1 + 4 * legs)) if legs else 0)
+    return h + a * r4(w) + 2 * 2 * 4 * a * 16
+
+
+def heston_narrow_plan(n_assets: int, n_cand: int, n_steps: int = 252,
+                       block_paths: int = 131_072, n_blocks: int = 1, n_legs: int = 0,
+                       scratch_floats: int = NARROW_SCRATCH_FLOATS,
+                       layout: str | None = None) -> NarrowPlan:
+    """The Heston candidate kernel's layout for ``n_cand`` candidates (W <=
+    256) at ``n_assets <= 16`` (csrc/heston.cu ``narrow_layout`` and its
+    layouts' shared memory, the same arithmetic): solo up to 12 candidates,
+    split up to 128, tile past them (on an H100 the fastest of the three at
+    each W, measured by ``tools/ab_narrow_kernels.py``), or ``layout`` by
+    name. The split layout's scratch holds ``n_blocks x chunk x n_steps x
+    n_assets`` returns, no more than ``scratch_floats``."""
+    return narrow_plan("the Heston candidate kernel", n_assets, n_cand, n_steps, block_paths,
+                       n_blocks, n_legs, scratch_floats, _SOLO_MAX_CAND, _SPLIT_MAX_CAND,
+                       _recur_floats, _tile_floats, layout)
+
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
 
@@ -263,9 +305,11 @@ def heston_multi_dd_reference(
 
 
 def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=False,
-               hedge=None):
+               hedge=None, layout=None):
     """Launch kernel #10 for at most ``MAX_CANDIDATES``, hedged with ``hedge``;
-    ``wide`` takes the 64-asset instantiation at any width up to 64."""
+    up to 16 assets in the layout of :func:`heston_narrow_plan`, or in
+    ``layout`` by name; ``wide`` takes the 64-asset instantiation at any width
+    up to 64."""
     from mcport_torch._build import library
 
     lib = library("heston")
@@ -290,10 +334,19 @@ def _launch_dd(seed, h, weights, n_paths, n_steps, first_block, n_blocks, wide=F
                                          hp, term.data_ptr(), dd.data_ptr(), scratch.data_ptr(),
                                          tp, WIDE_CTAS, stream)
         else:
+            scratch, code = None, -1
+            if a <= NARROW_ASSETS and not wide:
+                plan = heston_narrow_plan(a, w_cnt, n_steps, n_paths, n_blocks, n_legs,
+                                          layout=layout)
+                code = -1 if layout is None else LAYOUTS[plan.layout]
+                if plan.scratch_floats:
+                    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                          device=h.device)
             err = lib.mcport_heston_multi_dd(
                 seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide), n_legs,
                 params.data_ptr(), weights.data_ptr(), hp, term.data_ptr(), dd.data_ptr(),
-                stream)
+                scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0, code, stream)
     if err:
         raise RuntimeError(f"Heston candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")

@@ -21,6 +21,12 @@ the uniforms, 4-7 two Box-Muller pairs); this is that grid halved. The event
 test compares float32 uniforms, exact on both sides, with ``float32(λ)``, so
 the kernel and the plain form pick identical jump steps.
 
+Up to 16 assets the kernel runs the layout :func:`merton_narrow_plan` gives
+its candidate count (:mod:`mcport_torch.ops.narrow`): a thread per path
+scoring its own few candidates, or for more the same recursion's returns
+through a device scratch, scored by blocks of candidates; the layouts'
+outputs are equal bit for bit.
+
 The plain form adds the jump term to the increments that
 :func:`mcport_torch.ops.path_stats.log_paths_reference` sums and scores them
 with :func:`mcport_torch.ops.multi_dd.multi_dd_from_log_paths` (rebalanced):
@@ -41,6 +47,8 @@ from mcport_torch.ops.gbm import (BM_VARIANTS, MAX_ASSETS, WIDE_CTAS, _check_arg
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import (MAX_CANDIDATES, hedged_price_bound, multi_dd_from_log_paths,
                                        multi_dd_tolerance)
+from mcport_torch.ops.narrow import (LAYOUTS, NARROW_ASSETS, NARROW_SCRATCH_FLOATS, NarrowPlan,
+                                     narrow_plan, r4)
 from mcport_torch.rng import STREAM_JUMP
 
 __all__ = [
@@ -51,7 +59,34 @@ __all__ = [
     "merton_tolerance",
     "merton_price_bound",
     "merton_shares",
+    "merton_narrow_plan",
 ]
+
+#: csrc/jump.cu ``kSoloMaxCand``: the solo layout's widest W (the split layout past it)
+_SOLO_MAX_CAND = 10
+
+
+def _recur_floats(a: int, w: int, own: bool, legs: int) -> int:
+    """csrc/jump.cu ``RecurLayout(a, w, own ? kOwn : kReturns, legs).total``."""
+    h = 16 * 16 + 4 * 16
+    p = h + (r4(a * (1 + 4 * legs)) if legs else 0) + (w * 16 if own else 0)
+    return p + (16 * 64 if legs else 0) + (3 * w * 64 if own else 0)
+
+
+def merton_narrow_plan(n_assets: int, n_cand: int, n_steps: int = 252,
+                       block_paths: int = 131_072, n_blocks: int = 1, n_legs: int = 0,
+                       scratch_floats: int = NARROW_SCRATCH_FLOATS,
+                       layout: str | None = None) -> NarrowPlan:
+    """The jump kernel's layout for ``n_cand`` candidates (W <= 256) at
+    ``n_assets <= 16`` (csrc/jump.cu ``narrow_layout`` and its layouts'
+    shared memory, the same arithmetic): solo up to 10 candidates, split past
+    them (the faster two on an H100 at every W, measured by
+    ``tools/ab_narrow_kernels.py``), or ``layout`` by name. The split
+    layout's scratch holds ``n_blocks x chunk x n_steps x n_assets`` returns,
+    no more than ``scratch_floats``."""
+    return narrow_plan("the jump kernel", n_assets, n_cand, n_steps, block_paths, n_blocks,
+                       n_legs, scratch_floats, _SOLO_MAX_CAND, MAX_CANDIDATES, _recur_floats,
+                       None, layout)
 
 
 def jump_clock(seed: int, jump_rate: float, n_paths: int, n_steps: int, *,
@@ -134,7 +169,10 @@ def merton_multi_dd_reference(
 
 
 def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, jump_rate,
-            hedge):
+            hedge, layout=None):
+    """Launch the jump kernel for at most ``MAX_CANDIDATES``, hedged with
+    ``hedge``; up to 16 assets in the layout of :func:`merton_narrow_plan`,
+    or in ``layout`` by name."""
     from mcport_torch._build import library
 
     lib = library("jump")
@@ -145,10 +183,10 @@ def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, j
     if n_paths == 0:
         return term, dd
     weights = weights.contiguous()
+    n_legs = hedge.n_legs if hedge is not None else 0
     block = hedge.packed() if hedge is not None else None
-    args = (seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
-            hedge.n_legs if hedge is not None else 0, jump_rate, params.data_ptr(),
-            weights.data_ptr(), block.data_ptr() if block is not None else None,
+    args = (seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, n_legs, jump_rate,
+            params.data_ptr(), weights.data_ptr(), block.data_ptr() if block is not None else None,
             term.data_ptr(), dd.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -158,7 +196,16 @@ def _launch(seed, params, weights, a, n_paths, n_steps, first_block, n_blocks, j
             err = lib.mcport_merton_multi_dd_wide(*args, scratch.data_ptr(), tp, WIDE_CTAS,
                                                   stream)
         else:
-            err = lib.mcport_merton_multi_dd(*args, stream)
+            scratch, code = None, -1
+            if a <= NARROW_ASSETS:
+                plan = merton_narrow_plan(a, w_cnt, n_steps, n_paths, n_blocks, n_legs,
+                                          layout=layout)
+                code = -1 if layout is None else LAYOUTS[plan.layout]
+                if plan.scratch_floats:
+                    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
+            err = lib.mcport_merton_multi_dd(
+                *args, scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0, code, stream)
     if err:
         raise RuntimeError(f"jump kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")

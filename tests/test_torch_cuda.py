@@ -45,7 +45,14 @@ mode to the same bounds; its scratch check. The narrow candidate kernel
 (``dcc_dd_kernel``) in each layout ``ops.dcc.dcc_narrow_plan`` picks (W = 1
 to 256 on each side of every switch, A = 1 to 16, 0 to 52 steps, hedged
 with one and two legs of every type) to the same bounds, and its scratch
-taken in chunks bit for bit with the whole launch.
+taken in chunks bit for bit with the whole launch. The Merton and Heston
+candidate kernels up to 16 assets (``csrc/narrow_dd.cuh``) in the layout
+their W picks (on each side of every switch of ``merton_narrow_plan`` and
+``heston_narrow_plan`` and at 256, A = 1, 7, 15, 16, hedged with two legs of
+every type, Heston also at a Feller-violating vol of vol) to the same bounds,
+every layout by name bit for bit with it, the jump kernel's layouts at rate
+0 equal to kernel #3, and the split layout's scratch taken in chunks bit for
+bit with the whole launch.
 """
 
 import numpy as np
@@ -1537,5 +1544,161 @@ def test_dcc_narrow_kernel_chunks_its_scratch(dev, n_cand, hedged):
     for floats in (chunk, 2 * chunk + 7):
         err, got = launch(scratch, floats)
         assert err == 0 and all(torch.equal(x, y) for x, y in zip(got, want)), floats
+    assert launch(None, chunk)[0] != 0
+    assert launch(scratch, chunk - 1)[0] != 0
+
+
+# ---- the Merton (#8) and Heston (#10) candidate kernels' layouts up to 16 assets -----------
+
+#: each side of every layout switch of ``ops.jump.merton_narrow_plan`` (solo up to
+#: 10 candidates, split past them) and ``ops.heston.heston_narrow_plan`` (solo up to
+#: 12, split up to 128, tile past it), and 256
+GROSS_NARROW_W = [1, 10, 11, 12, 13, 128, 129, 256]
+
+
+def _named_layouts(plan, a, n_cand, hedge):
+    """The layouts by name whose blocks an H100's shared memory holds here."""
+    names = []
+    for layout in ("solo", "split", "tile"):
+        try:
+            plan(a, n_cand, 52, 1_029, 2, hedge.n_legs if hedge is not None else 0,
+                 layout=layout)
+        except ValueError:
+            continue
+        names.append(layout)
+    return names
+
+
+def _same(x, y):
+    return all(torch.equal(p, q) for p, q in zip(x, y))
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", GROSS_NARROW_W)
+def test_merton_narrow_layouts_match_plain_form(dev, a, n_cand):
+    """The jump kernel in the layout its W picks, within ``merton_shares``
+    of the plain form (hedged with two legs per asset of every type, path by
+    path), and in every layout by name bit for bit with it; two blocks of
+    1,029 paths (a multiple of no block or tile), 52 steps, rate 0.3."""
+    from mcport_torch.ops.jump import (_launch, merton_multi_dd_reference,
+                                       merton_multi_portfolio_dd, merton_narrow_plan,
+                                       merton_shares)
+
+    mean, chol, muj, sigj = _merton(a, dev)
+    params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2)
+    for hedge in (None, _hedge(a, dev, 2, seed=n_cand)):
+        before = merton_multi_portfolio_dd.launches
+        k = merton_multi_portfolio_dd(11, mean, chol, 0.3, muj, sigj, w, 1_029, 52, hedge=hedge,
+                                      **kw)
+        torch.cuda.synchronize()
+        assert merton_multi_portfolio_dd.launches == before + 1
+        for layout in _named_layouts(merton_narrow_plan, a, n_cand, hedge):
+            assert _same(_launch(11, params, w, a, 1_029, 52, 6, 2, 0.3, hedge, layout), k), layout
+        p = merton_multi_dd_reference(11, mean, chol, 0.3, muj, sigj, w, 1_029, 52, hedge=hedge,
+                                      with_bound=hedge is not None, **kw)
+        shares = merton_shares(k, p, chol, mean, sigj, 52, hedge)
+        assert max(shares.values()) <= 1.0, (hedge is not None, shares)
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", GROSS_NARROW_W)
+def test_heston_narrow_layouts_match_plain_form(dev, a, n_cand):
+    """The Heston candidate kernel in the layout its W picks, within
+    ``heston_shares`` of the plain form (hedged with two legs per asset of
+    every type, path by path), and in every layout by name bit for bit with
+    it; at the bench's vol of vol and at a Feller-violating one (0.05), where
+    a path state one ulp off the plain form's would grow to O(1) in 52 steps
+    and leave the bound; two blocks of 1,029 paths, 52 steps."""
+    from mcport_torch.ops.heston import (_launch_dd, heston_multi_dd_reference,
+                                         heston_multi_portfolio_dd, heston_narrow_plan,
+                                         heston_shares)
+
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2)
+    for xi in (3e-3, 0.05):
+        h = _heston(a, dev, xi, seed=a)
+        for hedge in (None, _hedge(a, dev, 2, seed=n_cand)):
+            before = heston_multi_portfolio_dd.launches
+            k = heston_multi_portfolio_dd(11, h, w, 1_029, 52, hedge=hedge, **kw)
+            torch.cuda.synchronize()
+            assert heston_multi_portfolio_dd.launches == before + 1
+            for layout in _named_layouts(heston_narrow_plan, a, n_cand, hedge):
+                got = _launch_dd(11, h, w, 1_029, 52, 6, 2, hedge=hedge, layout=layout)
+                assert _same(got, k), (xi, layout)
+            p = heston_multi_dd_reference(11, h, w, 1_029, 52, hedge=hedge,
+                                          with_bound=hedge is not None, **kw)
+            shares = heston_shares(k, p, h, 52, hedge=hedge)
+            assert max(shares.values()) <= 1.0, (xi, hedge is not None, shares)
+
+
+@pytest.mark.parametrize("n_cand", [1, 11, 256])
+@pytest.mark.parametrize("hedged", [False, True])
+def test_merton_narrow_layouts_at_zero_rate_are_the_multi_dd_kernel(dev, n_cand, hedged):
+    """At lambda = 0 every layout of the jump kernel is kernel #3's
+    rebalanced output bit for bit, hedged too."""
+    from mcport_torch.ops.jump import _launch, merton_narrow_plan
+    from mcport_torch.ops.multi_dd import gbm_multi_portfolio_dd
+
+    a = 15
+    mean, chol, muj, sigj = _merton(a, dev)
+    params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
+    w = _wide_cand(a, dev, n_cand, seed=3)
+    hedge = _hedge(a, dev, 2, seed=2) if hedged else None
+    want = gbm_multi_portfolio_dd(7, mean, chol, w, 2_053, 60, rebalance=True, hedge=hedge,
+                                  first_block=0, n_blocks=2)
+    for layout in _named_layouts(merton_narrow_plan, a, n_cand, hedge):
+        assert _same(_launch(7, params, w, a, 2_053, 60, 0, 2, 0.0, hedge, layout), want), layout
+
+
+@pytest.mark.parametrize("family", ["jump", "heston"])
+@pytest.mark.parametrize("n_cand, hedged", [(17, False), (256, True), (64, True)])
+def test_narrow_split_layout_chunks_its_scratch(dev, family, n_cand, hedged):
+    """The split layout takes its returns through the scratch it is given, in
+    chunks of 64 paths where the scratch holds fewer than all: one chunk's
+    scratch and a ragged one give the wrapper's outputs bit for bit; a null
+    scratch, or one smaller than a chunk, is refused."""
+    from mcport_torch._build import library
+    from mcport_torch.ops.heston import heston_multi_portfolio_dd
+    from mcport_torch.ops.jump import merton_multi_portfolio_dd
+
+    a, paths, steps, nb = 15, 300, 13, 2
+    w = _wide_cand(a, dev, n_cand, seed=n_cand)
+    hedge = _hedge(a, dev, 2, seed=n_cand) if hedged else None
+    n_legs = 2 if hedged else 0
+    if family == "jump":
+        mean, chol, muj, sigj = _merton(a, dev)
+        want = merton_multi_portfolio_dd(3, mean, chol, 0.3, muj, sigj, w, paths, steps,
+                                         first_block=1, n_blocks=nb, hedge=hedge)
+        params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
+    else:
+        h = _heston(a, dev, 0.05)
+        want = heston_multi_portfolio_dd(3, h, w, paths, steps, first_block=1, n_blocks=nb,
+                                         hedge=hedge)
+        params = h.packed()
+    block = hedge.packed() if hedged else None
+    lib = library(family)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    chunk = nb * steps * a * 64
+
+    def launch(scratch, floats):
+        term = torch.full((nb, n_cand, paths), -9.0, device=dev)
+        dd = torch.full_like(term, -9.0)
+        ptrs = (params.data_ptr(), w.data_ptr(), block.data_ptr() if hedged else None,
+                term.data_ptr(), dd.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None, floats, 1, stream)
+        if family == "jump":
+            err = lib.mcport_merton_multi_dd(3, 1, nb, paths, a, n_cand, steps, n_legs, 0.3,
+                                             *ptrs)
+        else:
+            err = lib.mcport_heston_multi_dd(3, 1, nb, paths, a, n_cand, steps, 0, n_legs, *ptrs)
+        torch.cuda.synchronize()
+        return err, (term, dd)
+
+    scratch = torch.empty(2 * chunk + 7, device=dev)
+    for floats in (chunk, 2 * chunk + 7):
+        err, got = launch(scratch, floats)
+        assert err == 0 and _same(got, want), floats
     assert launch(None, chunk)[0] != 0
     assert launch(scratch, chunk - 1)[0] != 0

@@ -1,35 +1,36 @@
 """Same-call A/B of two trees' kernels, timed with CUDA events in turns:
 other / this / this / other.
 
-- The unhedged candidate kernels in their narrow layouts (GARCH, bootstrap,
-  Heston; at 256 x 131,072 x 252 on the bench universe), the Heston
-  terminal kernel (1,048,576 x 252), the narrow DCC terminal kernel (15
-  assets, 1,048,576 x 52).
-- The DCC kernels past 16 assets (``dcc_group_kernel`` in this tree): their
-  outputs against the other tree's with ``torch.equal`` (the terminal, the
-  candidates at W = 1, 64 and 256, the hedged mode with every leg type) at A
-  = 17, 33, 64, 65, 200 and 256, then timed at the widths and shapes of
-  the DCC predictions in PERF.md §6 (each turn the best of three timings of two
-  launches, each tree its best turn; the timed outputs held equal too).
-- The narrow DCC candidate kernel (``dcc_dd_kernel``, A <= 16): its outputs
-  against the other tree's with ``torch.equal`` at A = 1, 7, 15 and 16, W =
-  1, 5 and 256, unhedged and hedged (two legs per asset of every type), then
-  timed the same way at the bench universe: W = 256 at 256 x 131,072 x 52
-  and W = 1 at 131,072 x 252, each unhedged and hedged.
-- First, per library, whether each kernel of the other tree has this tree's
-  instructions (``cuobjdump -sass``; a template parameter added with its
-  default, ``<16>`` against ``<16, false>``, names the same kernel, as does
-  a kernel made a template against its ``<false>`` instantiation, and
-  kernel-parameter offsets ``c[0x0][...]`` are masked, so an added
-  parameter alone does not count as a change); every kernel but the
-  redesigned DCC ones (``REDESIGNED``) must keep them.
-
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
-    python3 tools/ab_narrow_kernels.py DIR              # from the repository root
+    python3 tools/ab_narrow_kernels.py DIR [merton-heston|dcc|all]
 
-Needs one card; builds both trees' GARCH, bootstrap, Heston and DCC
-libraries. Exits 1 when a kept kernel changed its SASS or a DCC output
-differs from the other tree's."""
+- First, per library (jump, Heston, GARCH, bootstrap, DCC), whether each
+  kernel of the other tree has this tree's instructions (``cuobjdump
+  -sass``; a template parameter added with its default, ``<16>`` against
+  ``<16, false>``, names the same kernel, as does a kernel made a template
+  against its ``<false>`` instantiation, and kernel-parameter offsets
+  ``c[0x0][...]`` are masked, so an added parameter alone does not count as
+  a change); every kernel of the other tree must keep them.
+- ``merton-heston`` (the default): the Merton (#8) and Heston (#10)
+  candidate kernels up to 16 assets, their outputs against the other
+  tree's with ``torch.equal`` at A = 1, 7, 15 and 16, W = 1, each side of
+  every layout switch (10/11, 12/13, 128/129) and 256, unhedged and hedged (two legs per
+  asset of every type), at two jump rates or vols of vol, 52 steps on two
+  blocks of 1,029 paths: this tree in the layout its W picks and in every
+  layout by name (solo, split and, for Heston, tile). Then both trees timed
+  in turns at the bench universe, W = 256 at 256 x 131,072 x 252 and W = 1
+  at 131,072 x 252, unhedged and hedged (the bench hedge), each turn the best
+  of three timings of two launches, each tree its best turn, the timed
+  outputs held equal; and this tree's layouts by name at W = 1 to 256.
+- ``dcc``: the DCC kernels past 16 assets (``dcc_group_kernel``) and the
+  narrow DCC candidate kernel (``dcc_dd_kernel``): their outputs against the
+  other tree's with ``torch.equal`` (A = 17, 33, 64, 65, 200, 256 and 1, 7,
+  15, 16; the terminal, W = 1/5/64/256, hedged), then timed at the widths
+  and shapes of the DCC rows of PERF.md §6.
+
+Needs one card; builds both trees' jump, Heston, GARCH, bootstrap and DCC
+libraries. Exits 1 when a kept kernel changed its SASS or an output differs
+from the other tree's."""
 import math
 import re
 import subprocess
@@ -42,7 +43,8 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke as S
 
-FAMILIES = ("garch", "bootstrap", "heston", "dcc")
+PART = sys.argv[2] if len(sys.argv) > 2 else "merton-heston"
+FAMILIES = ("jump", "heston", "garch", "bootstrap", "dcc")
 dev = torch.device("cuda", 0)
 print(S.phase_card())
 
@@ -57,10 +59,11 @@ def load(root):
     import mcport_torch.ops.dcc as D
     import mcport_torch.ops.garch as G
     import mcport_torch.ops.heston as H
+    import mcport_torch.ops.jump as J
     sys.path.remove(root)
     mods = {m: v for m, v in sys.modules.items()
             if m == "mcport_torch" or m.startswith("mcport_torch.")}
-    return G, O, H, D, mods
+    return G, O, H, D, mods, J
 
 
 def sass(so: Path) -> dict:
@@ -88,9 +91,9 @@ def sass(so: Path) -> dict:
     return out
 
 
-#: the other tree's DCC kernels that this tree redesigns: past 16 assets, and
-#: the narrow candidate kernel
-REDESIGNED = ("dcc_wide_kernel", "dcc_wider_kernel", "dcc_group_kernel", "dcc_dd_kernel")
+#: the other tree's kernels that this tree no longer has: Heston's candidate
+#: kernel up to 16 assets, now the layouts of csrc/narrow_dd.cuh
+REDESIGNED = ("heston_dd_kernelILi16E",)
 mods = {"other": load(sys.argv[1]), "this": load(".")}
 kept = [0, 0]
 for fam in FAMILIES:
@@ -104,6 +107,11 @@ for fam in FAMILIES:
         redesigned = any(r in key for r in REDESIGNED)
         kept[0] += int(same and not redesigned)
         kept[1] += int(not redesigned)
+        if key in b and not same:   # both listings, for a diff
+            for side, listing in (("other", ins), ("this", b[key])):
+                Path("chiprun_out").mkdir(exist_ok=True)
+                Path(f"chiprun_out/sass_{fam}_{key[-40:]}_{side}.txt").write_text(
+                    "\n".join(listing))
         print(f"sass {fam} {key}: {len(ins)} instructions, "
               f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}"
               f"{' (redesigned)' if redesigned else ''}")
@@ -128,149 +136,306 @@ def run_on(side, fn):
     return out
 
 
-# ---- the DCC kernels past 16 assets: outputs bit for bit -------------------------
-DCC_A = (17, 33, 64, 65, 200, 256)
 unequal = []
-for a in DCC_A:
-    d = S.bench_dcc(a).tensors(dev)
-    legs = S.leg_mix(a, 2, dev, seed=a)
-    w = {n: simplex(a, n) for n in (1, 64, 256)}
-    paths, steps = (515, 13) if a <= 64 else (131, 9)
-    kw = dict(first_block=6, n_blocks=2)
-    cases = {"terminal": lambda D: D.dcc_terminal(11, d, paths, steps, **kw)}
-    for n in (1, 64, 256):
-        cases[f"candidates W={n}"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
-            11, d, w[n], paths, steps, **kw))
-        cases[f"hedged W={n} L=2"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
-            11, d, w[n], paths, steps, hedge=legs, **kw))
-    for name, fn in cases.items():
-        x, y = bits(run_on("other", fn)), bits(run_on("this", fn))
-        same = all(torch.equal(p, q) for p, q in zip(x, y))
-        if not same:
-            unequal.append(f"A={a} {name}")
-        print(f"equal dcc A={a} {name} ({paths} x 2 blocks x {steps}): "
-              f"{'bit for bit' if same else 'DIFFERENT'}")
 
-# ---- the narrow DCC candidate kernel: outputs bit for bit ---------------------------
-for a in (1, 7, 15, 16):
-    d = S.bench_dcc(a).tensors(dev)
-    legs = S.leg_mix(a, 2, dev, seed=a)
-    kw = dict(first_block=6, n_blocks=2)
-    for n in (1, 5, 256):
-        w = simplex(a, n)
-        for hedge in (None, legs):
-            name = f"W={n}" + (" hedged L=2" if hedge is not None else "")
-            fn = (lambda D, w=w, hedge=hedge: D.dcc_multi_portfolio_dd(
-                11, d, w, 1_029, 52, hedge=hedge, **kw))
+
+def dcc_part():
+    """The DCC kernels' outputs against the other tree's, then their times."""
+    # ---- the DCC kernels past 16 assets: outputs bit for bit -------------------------
+    DCC_A = (17, 33, 64, 65, 200, 256)
+    for a in DCC_A:
+        d = S.bench_dcc(a).tensors(dev)
+        legs = S.leg_mix(a, 2, dev, seed=a)
+        w = {n: simplex(a, n) for n in (1, 64, 256)}
+        paths, steps = (515, 13) if a <= 64 else (131, 9)
+        kw = dict(first_block=6, n_blocks=2)
+        cases = {"terminal": lambda D: D.dcc_terminal(11, d, paths, steps, **kw)}
+        for n in (1, 64, 256):
+            cases[f"candidates W={n}"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
+                11, d, w[n], paths, steps, **kw))
+            cases[f"hedged W={n} L=2"] = (lambda D, n=n: D.dcc_multi_portfolio_dd(
+                11, d, w[n], paths, steps, hedge=legs, **kw))
+        for name, fn in cases.items():
             x, y = bits(run_on("other", fn)), bits(run_on("this", fn))
             same = all(torch.equal(p, q) for p, q in zip(x, y))
             if not same:
-                unequal.append(f"narrow A={a} {name}")
-            print(f"equal dcc_dd A={a} {name} (1,029 x 2 blocks x 52): "
+                unequal.append(f"A={a} {name}")
+            print(f"equal dcc A={a} {name} ({paths} x 2 blocks x {steps}): "
                   f"{'bit for bit' if same else 'DIFFERENT'}")
 
-# ---- timing, in turns ---------------------------------------------------------------
-cand = simplex(15, 256, seed=-15)
-pp, p_term = 131_072, 1 << 20
-g = S.bench_garch().tensors(dev)
-hist = torch.as_tensor(S.bench_history(), device=dev)
-hp = S.bench_heston().tensors(dev)
-d15 = S.bench_dcc(15).tensors(dev)
-#: (function, A, paths, steps): the DCC predictions in PERF.md §6, then the other widths
-DCC_TIMED = (("terminal", 256, 4_096, 8), ("candidates", 256, 4_096, 8), ("hedged", 256, 1_024, 16),
-             ("terminal", 64, 65_536, 52), ("candidates", 64, 4_096, 52), ("hedged", 64, 4_096, 52),
-             ("terminal", 17, 65_536, 52), ("candidates", 17, 4_096, 52), ("hedged", 17, 4_096, 52),
-             ("terminal", 33, 65_536, 52), ("candidates", 33, 4_096, 52), ("hedged", 33, 4_096, 52),
-             ("terminal", 65, 16_384, 16), ("candidates", 65, 4_096, 16), ("hedged", 65, 4_096, 16),
-             ("terminal", 200, 4_096, 8), ("candidates", 200, 4_096, 8), ("hedged", 200, 1_024, 16))
-#: the narrow candidate kernel at the bench universe: (name, W, paths, steps, hedged)
-NARROW_TIMED = (("W=256", 256, pp, 52, False), ("W=256 hedged", 256, pp, 52, True),
-                ("W=1", 1, pp, 252, False), ("W=1 hedged", 1, pp, 252, True))
-w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
-dcc_in = {}
-for a in sorted({c[1] for c in DCC_TIMED}):
-    spots = np.full(a, S.SPOT)
+    # ---- the narrow DCC candidate kernel: outputs bit for bit ---------------------------
+    for a in (1, 7, 15, 16):
+        d = S.bench_dcc(a).tensors(dev)
+        legs = S.leg_mix(a, 2, dev, seed=a)
+        kw = dict(first_block=6, n_blocks=2)
+        for n in (1, 5, 256):
+            w = simplex(a, n)
+            for hedge in (None, legs):
+                name = f"W={n}" + (" hedged L=2" if hedge is not None else "")
+                fn = (lambda D, w=w, hedge=hedge: D.dcc_multi_portfolio_dd(
+                    11, d, w, 1_029, 52, hedge=hedge, **kw))
+                x, y = bits(run_on("other", fn)), bits(run_on("this", fn))
+                same = all(torch.equal(p, q) for p, q in zip(x, y))
+                if not same:
+                    unequal.append(f"narrow A={a} {name}")
+                print(f"equal dcc_dd A={a} {name} (1,029 x 2 blocks x 52): "
+                      f"{'bit for bit' if same else 'DIFFERENT'}")
+
+    # ---- timing, in turns ---------------------------------------------------------------
+    cand = simplex(15, 256, seed=-15)
+    pp, p_term = 131_072, 1 << 20
+    g = S.bench_garch().tensors(dev)
+    hist = torch.as_tensor(S.bench_history(), device=dev)
+    hp = S.bench_heston().tensors(dev)
+    d15 = S.bench_dcc(15).tensors(dev)
+    #: (function, A, paths, steps): the DCC predictions in PERF.md §6, then the other widths
+    DCC_TIMED = (("terminal", 256, 4_096, 8), ("candidates", 256, 4_096, 8), ("hedged", 256, 1_024, 16),
+                 ("terminal", 64, 65_536, 52), ("candidates", 64, 4_096, 52), ("hedged", 64, 4_096, 52),
+                 ("terminal", 17, 65_536, 52), ("candidates", 17, 4_096, 52), ("hedged", 17, 4_096, 52),
+                 ("terminal", 33, 65_536, 52), ("candidates", 33, 4_096, 52), ("hedged", 33, 4_096, 52),
+                 ("terminal", 65, 16_384, 16), ("candidates", 65, 4_096, 16), ("hedged", 65, 4_096, 16),
+                 ("terminal", 200, 4_096, 8), ("candidates", 200, 4_096, 8), ("hedged", 200, 1_024, 16))
+    #: the narrow candidate kernel at the bench universe: (name, W, paths, steps, hedged)
+    NARROW_TIMED = (("W=256", 256, pp, 52, False), ("W=256 hedged", 256, pp, 52, True),
+                    ("W=1", 1, pp, 252, False), ("W=1 hedged", 1, pp, 252, True))
+    w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
+    dcc_in = {}
+    for a in sorted({c[1] for c in DCC_TIMED}):
+        spots = np.full(a, S.SPOT)
+        from mcport_torch.ops.hedged import HedgeTensors
+
+        dcc_in[a] = (S.bench_dcc(a).tensors(dev), simplex(a, 256),
+                     HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev))
+    spots15 = np.full(15, S.SPOT)
+    h15 = HedgeTensors.from_spec(S.bench_hedge(spots15)[1], spots15, dev)
+
+    def dcc_call(fun, a, n, steps):
+        d, w, hedge = dcc_in[a]
+        if fun == "terminal":
+            return lambda D: D.dcc_terminal(0, d, n, steps)
+        return lambda D: D.dcc_multi_portfolio_dd(0, d, w, n, steps,
+                                                  hedge=hedge if fun == "hedged" else None)
+
+    res, firsts = {}, {}
+    for order in ("other", "this", "this", "other"):
+        G, O, H, D, side, _ = mods[order]
+        sys.modules.update(side)
+        runs = {"garch": (("garch_multi_dd <16>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1)),
+                          ("garch_multi_dd <64>",
+                           lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1, wide=True))),
+                "bootstrap": (("bootstrap_multi_dd",
+                               lambda: O.bootstrap_multi_portfolio_dd(0, hist, cand, pp, 252)),),
+                "heston": (("heston_multi_dd <16>", lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1)),
+                           ("heston_multi_dd <64>",
+                            lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1, wide=True)),
+                           ("heston_terminal", lambda: H.heston_terminal(0, hp, p_term, 252))),
+                "dcc": (("dcc_terminal <15>", lambda: D.dcc_terminal(0, d15, p_term, 52)),)}
+        for fam in runs:
+            for name, fn in runs[fam]:
+                fn()
+                torch.cuda.synchronize()
+                res.setdefault((name, order), []).append(S._time_ms(fn, 5))
+        for label, n, paths, steps, hedged in NARROW_TIMED:
+            def call(D, n=n, paths=paths, steps=steps, hedged=hedged):
+                return D.dcc_multi_portfolio_dd(0, d15, cand if n > 1 else w_one, paths, steps,
+                                                hedge=h15 if hedged else None)
+            out = call(D)
+            torch.cuda.synchronize()
+            firsts.setdefault((label, 15, order), bits(out))
+            name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
+            res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
+                                                         for _ in range(3)))
+        for fun, a, n, steps in DCC_TIMED:
+            call = dcc_call(fun, a, n, steps)
+            out = call(D)
+            torch.cuda.synchronize()
+            firsts.setdefault((fun, a, order), bits(out))
+            name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
+            # the best of three timings of two launches: a turn's first launches
+            # can wait on the host (allocations, a shared CPU)
+            res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
+                                                         for _ in range(3)))
+    for (name, order), t in sorted(res.items()):
+        print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+    for label, n, paths, steps, hedged in NARROW_TIMED:
+        name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
+        other, this = min(res[(name, "other")]), min(res[(name, "this")])
+        same = all(torch.equal(p, q) for p, q in zip(firsts[(label, 15, "other")],
+                                                      firsts[(label, 15, "this")]))
+        if not same:
+            unequal.append(name)
+        print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+    worst_64_256, worst_slower = math.inf, 0.0
+    for fun, a, n, steps in DCC_TIMED:
+        name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
+        other, this = min(res[(name, "other")]), min(res[(name, "this")])
+        same = all(torch.equal(p, q) for p, q in zip(firsts[(fun, a, "other")],
+                                                      firsts[(fun, a, "this")]))
+        if not same:
+            unequal.append(name)
+        print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+        if a in (64, 256):
+            worst_64_256 = min(worst_64_256, other / this)
+        worst_slower = max(worst_slower, this / other - 1.0)
+    return (f"least DCC speedup at A = 64 and 256 {worst_64_256:.2f}x; most slower "
+            f"{100 * worst_slower:.2f}%")
+
+
+# ---- kernels #8 and #10 up to 16 assets ---------------------------------------------
+
+#: W = 1, each side of every layout switch (ops/jump.py merton_narrow_plan: 10/11;
+#: ops/heston.py heston_narrow_plan: 12/13, 128/129), and the frontier's W
+NARROW_W = (1, 10, 11, 12, 13, 128, 129, 256)
+#: this tree's layouts by name (ops/narrow.py LAYOUTS; the jump kernel has no tile)
+LAYOUTS = ("solo", "split", "tile")
+SWEEP_W = (1, 2, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 64, 128, 192, 256)
+
+
+def on(side):
+    """side's modules (G, O, H, D, modules, J), its package in sys.modules."""
+    sys.modules.update(mods[side][4])
+    return mods[side]
+
+
+def held_equal(label, want, got) -> None:
+    same = all(torch.equal(p, q) for p, q in zip(want, got))
+    if not same:
+        unequal.append(label)
+    print(f"equal {label}: {'bit for bit' if same else 'DIFFERENT'}")
+
+
+def taken(plan, a, n, hedge):
+    """The layouts by name that a block's shared memory holds at A = a, W = n
+    and the hedge's legs (the solo layout's candidates' state grows with W)."""
+    out = []
+    for layout in LAYOUTS:
+        try:
+            plan(a, n, 52, 1_029, 2, hedge.n_legs if hedge is not None else 0, layout=layout)
+        except ValueError as e:
+            print(f"layout {layout} not taken: {e}")
+        else:
+            out.append(layout)
+    return out
+
+
+def merton(a):
+    mean, chol, muj, sigj = S._merton_tensors(S.bench_merton(a), dev)
+    return mean, chol, muj, sigj, torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
+
+
+def merton_heston_part():
+    """#8 and #10: outputs against the other tree's in every layout, then
+    the times."""
+    kw = dict(first_block=6, n_blocks=2)
+    for a in (1, 7, 15, 16):
+        mean, chol, muj, sigj, params = merton(a)
+        legs = S.leg_mix(a, 2, dev, seed=a)
+        for n in NARROW_W:
+            w = simplex(a, n)
+            for hedge in (None, legs):
+                tag = f"A={a} W={n}" + (" hedged L=2" if hedge is not None else "")
+                for rate in (0.02, 0.3):
+                    J = on("other")[5]
+                    want = bits(J.merton_multi_portfolio_dd(11, mean, chol, rate, muj, sigj, w,
+                                                            1_029, 52, hedge=hedge, **kw))
+                    J = on("this")[5]
+                    got = J.merton_multi_portfolio_dd(11, mean, chol, rate, muj, sigj, w, 1_029,
+                                                      52, hedge=hedge, **kw)
+                    held_equal(f"jump {tag} rate={rate} by W", want, bits(got))
+                    for layout in taken(J.merton_narrow_plan, a, n, hedge):
+                        got = J._launch(11, params, w, a, 1_029, 52, 6, 2, rate, hedge, layout)
+                        torch.cuda.synchronize()
+                        held_equal(f"jump {tag} rate={rate} {layout}", want, bits(got))
+                for xi in (3e-3, S.FELLER_XI):
+                    h = S.bench_heston(a, xi).tensors(dev)
+                    H = on("other")[2]
+                    want = bits(H.heston_multi_portfolio_dd(11, h, w, 1_029, 52, hedge=hedge,
+                                                            **kw))
+                    H = on("this")[2]
+                    got = H.heston_multi_portfolio_dd(11, h, w, 1_029, 52, hedge=hedge, **kw)
+                    held_equal(f"heston {tag} xi={xi} by W", want, bits(got))
+                    for layout in taken(H.heston_narrow_plan, a, n, hedge):
+                        got = H._launch_dd(11, h, w, 1_029, 52, 6, 2, hedge=hedge, layout=layout)
+                        torch.cuda.synchronize()
+                        held_equal(f"heston {tag} xi={xi} {layout}", want, bits(got))
+
     from mcport_torch.ops.hedged import HedgeTensors
 
-    dcc_in[a] = (S.bench_dcc(a).tensors(dev), simplex(a, 256),
-                 HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev))
-spots15 = np.full(15, S.SPOT)
-h15 = HedgeTensors.from_spec(S.bench_hedge(spots15)[1], spots15, dev)
+    pp = 131_072
+    cand = simplex(15, 256, seed=-15)
+    w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
+    mean, chol, muj, sigj, params = merton(15)
+    hp = S.bench_heston().tensors(dev)
+    spots = np.full(15, S.SPOT)
+    h15 = HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev)
 
+    def call(fam, mod, w, hedged, layout=None):
+        hedge = h15 if hedged else None
+        if fam == "jump":
+            if layout is None:
+                return lambda: mod.merton_multi_portfolio_dd(0, mean, chol, 0.02, muj, sigj, w,
+                                                             pp, 252, hedge=hedge)
+            return lambda: mod._launch(0, params, w, 15, pp, 252, -1, 1, 0.02, hedge, layout)
+        if layout is None:
+            return lambda: mod.heston_multi_portfolio_dd(0, hp, w, pp, 252, hedge=hedge)
+        return lambda: mod._launch_dd(0, hp, w, pp, 252, -1, 1, hedge=hedge, layout=layout)
 
-def dcc_call(fun, a, n, steps):
-    d, w, hedge = dcc_in[a]
-    if fun == "terminal":
-        return lambda D: D.dcc_terminal(0, d, n, steps)
-    return lambda D: D.dcc_multi_portfolio_dd(0, d, w, n, steps,
-                                              hedge=hedge if fun == "hedged" else None)
-
-
-res, firsts = {}, {}
-for order in ("other", "this", "this", "other"):
-    G, O, H, D, side = mods[order]
-    sys.modules.update(side)
-    runs = {"garch": (("garch_multi_dd <16>", lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1)),
-                      ("garch_multi_dd <64>",
-                       lambda: G._launch_dd(0, g, cand, pp, 252, -1, 1, wide=True))),
-            "bootstrap": (("bootstrap_multi_dd",
-                           lambda: O.bootstrap_multi_portfolio_dd(0, hist, cand, pp, 252)),),
-            "heston": (("heston_multi_dd <16>", lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1)),
-                       ("heston_multi_dd <64>",
-                        lambda: H._launch_dd(0, hp, cand, pp, 252, -1, 1, wide=True)),
-                       ("heston_terminal", lambda: H.heston_terminal(0, hp, p_term, 252))),
-            "dcc": (("dcc_terminal <15>", lambda: D.dcc_terminal(0, d15, p_term, 52)),)}
-    for fam in FAMILIES:
-        for name, fn in runs[fam]:
-            fn()
-            torch.cuda.synchronize()
-            res.setdefault((name, order), []).append(S._time_ms(fn, 5))
-    for label, n, paths, steps, hedged in NARROW_TIMED:
-        def call(D, n=n, paths=paths, steps=steps, hedged=hedged):
-            return D.dcc_multi_portfolio_dd(0, d15, cand if n > 1 else w_one, paths, steps,
-                                            hedge=h15 if hedged else None)
-        out = call(D)
-        torch.cuda.synchronize()
-        firsts.setdefault((label, 15, order), bits(out))
-        name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
-        res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
-                                                     for _ in range(3)))
-    for fun, a, n, steps in DCC_TIMED:
-        call = dcc_call(fun, a, n, steps)
-        out = call(D)
-        torch.cuda.synchronize()
-        firsts.setdefault((fun, a, order), bits(out))
-        name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
+    def best(fn):
         # the best of three timings of two launches: a turn's first launches
         # can wait on the host (allocations, a shared CPU)
-        res.setdefault((name, order), []).append(min(S._time_ms(lambda: call(D), 2)
-                                                     for _ in range(3)))
-for (name, order), t in sorted(res.items()):
-    print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
-for label, n, paths, steps, hedged in NARROW_TIMED:
-    name = f"dcc_dd {label} A=15 {n} x {paths} x {steps}"
-    other, this = min(res[(name, "other")]), min(res[(name, "this")])
-    same = all(torch.equal(p, q) for p, q in zip(firsts[(label, 15, "other")],
-                                                  firsts[(label, 15, "this")]))
-    if not same:
-        unequal.append(name)
-    print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
-          f"{'bit for bit' if same else 'DIFFERENT'}")
-worst_64_256, worst_slower = math.inf, 0.0
-for fun, a, n, steps in DCC_TIMED:
-    name = f"dcc {fun} A={a} {'256 x ' if fun != 'terminal' else ''}{n} x {steps}"
-    other, this = min(res[(name, "other")]), min(res[(name, "this")])
-    same = all(torch.equal(p, q) for p, q in zip(firsts[(fun, a, "other")],
-                                                  firsts[(fun, a, "this")]))
-    if not same:
-        unequal.append(name)
-    print(f"speedup {name}: {other:.3f} -> {this:.3f} ms, {other / this:.2f}x, outputs "
-          f"{'bit for bit' if same else 'DIFFERENT'}")
-    if a in (64, 256):
-        worst_64_256 = min(worst_64_256, other / this)
-    worst_slower = max(worst_slower, this / other - 1.0)
-print(f"summary: sass {kept[0]} of {kept[1]} kept; DCC outputs "
+        return min(S._time_ms(fn, 2) for _ in range(3))
+
+    timed = (("W=256", cand, False), ("W=256 hedged", cand, True), ("W=1", w_one, False),
+             ("W=1 hedged", w_one, True))
+    res, firsts = {}, {}
+    for order in ("other", "this", "this", "other"):
+        side = on(order)
+        for fam, mod in (("jump", side[5]), ("heston", side[2])):
+            for label, w, hedged in timed:
+                fn = call(fam, mod, w, hedged)
+                out = fn()
+                torch.cuda.synchronize()
+                firsts.setdefault((fam, label, order), bits(out))
+                res.setdefault((f"{fam} {label}", order), []).append(best(fn))
+    for (name, order), t in sorted(res.items()):
+        print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+    worst = 0.0
+    for fam in ("jump", "heston"):
+        for label, w, hedged in timed:
+            name = f"{fam} {label}"
+            other, this = min(res[(name, "other")]), min(res[(name, "this")])
+            held_equal(f"{name} timed outputs", firsts[(fam, label, "other")],
+                       firsts[(fam, label, "this")])
+            worst = max(worst, this / other - 1.0)
+            shape = f"{w.shape[0]} x {pp} x 252" if w.shape[0] > 1 else f"{pp} x 252"
+            print(f"speedup {name} A=15 {shape}: {other:.3f} -> {this:.3f} ms, "
+                  f"{other / this:.2f}x")
+    # this tree's layouts by name, W = 1 to 256 at 131,072 x 252
+    side = on("this")
+    for n in SWEEP_W:
+        w = cand[:n] if n > 1 else w_one
+        for fam, mod in (("jump", side[5]), ("heston", side[2])):
+            for hedged in (False, True):
+                times = []
+                plan = mod.merton_narrow_plan if fam == "jump" else mod.heston_narrow_plan
+                for layout in taken(plan, 15, n, h15 if hedged else None):
+                    fn = call(fam, mod, w, hedged, layout)
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append(f"{layout} {best(fn):.3f}")
+                print(f"layouts {fam} W={n}{' hedged' if hedged else ''} A=15 {pp} x 252: "
+                      + ", ".join(times) + " ms")
+    return f"#8/#10 most slower than the other tree {100 * worst:.2f}%"
+
+
+notes = []
+if PART in ("merton-heston", "all"):
+    notes.append(merton_heston_part())
+if PART in ("dcc", "all"):
+    notes.append(dcc_part())
+print(f"summary: sass {kept[0]} of {kept[1]} kept; outputs "
       f"{'all bit for bit' if not unequal else 'DIFFERENT: ' + ', '.join(unequal)}; "
-      f"least speedup at A = 64 and 256 {worst_64_256:.2f}x; most slower "
-      f"{100 * worst_slower:.2f}%")
+      + "; ".join(notes))
 sys.exit(0 if kept[0] == kept[1] and not unequal else 1)

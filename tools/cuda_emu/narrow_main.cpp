@@ -1,0 +1,138 @@
+// One candidate launch of a tree's csrc/jump.cu (-DFAMILY_JUMP, kernel #8) or
+// csrc/heston.cu (-DFAMILY_HESTON, kernel #10) under the host emulation
+// (cuda_runtime.h), its outputs written as raw float32 (tools/cuda_emu/
+// narrow_ab.py and tests/test_torch_narrow_plans.py build and run it):
+//   narrow_emu A PATHS STEPS NBLOCKS NCAND NLEGS LAYOUT CASE OUTFILE [SCRATCH_FLOATS]
+// Seed 11, blocks 7 .. 6 + NBLOCKS. Its inputs go to OUTFILE.in, raw float32:
+// the parameter block, (jump) the rate, the weights (NCAND, A) and the hedge
+// block (NLEGS legs per asset of every type, or none). LAYOUT -1 lets the
+// entry point pick; 0-2 name one (trees built with -DNARROW_LAYOUTS, whose
+// entry points take a scratch and a layout; the scratch holds the whole
+// launch's returns, or SCRATCH_FLOATS; the jump kernel has no layout 2).
+// CASE 0: the bench's jump rate 0.02 or Heston vol of vol 3e-3; 1: rate
+// 0.3, or a Feller-violating 0.05.
+// `narrow_emu layout OUTFILE` (trees built with -DNARROW_LAYOUTS) writes the
+// redesigned layouts' arithmetic as int32 rows (A, W, legs, narrow_layout,
+// RecurLayout kOwn and kReturns totals, TileLayout total (jump: 0),
+// score_floats, score_groups) for A = 1-16, W = 1-256 and legs 0-4.
+#include "cuda_runtime.h"
+#ifdef FAMILY_JUMP
+#include "jump.cu"
+#else
+#include "heston.cu"
+#endif
+#include <random>
+#include <string>
+
+int main(int argc, char** argv) {
+#ifdef NARROW_LAYOUTS
+  if (std::string(argv[1]) == "layout") {
+    std::vector<int> rows;
+    for (int a = 1; a <= kNA; ++a)
+      for (int w = 1; w <= 256; ++w)
+        for (int l = 0; l <= 4; ++l)
+          rows.insert(rows.end(), {a, w, l, narrow_layout(w), RecurLayout(a, w, kOwn, l).total,
+                                   RecurLayout(a, w, kReturns, l).total,
+#ifdef FAMILY_JUMP
+                                   0,  // the jump kernel has no tile layout
+#else
+                                   TileLayout(a, round4(w), l).total,
+#endif
+                                   score_floats(a, w), score_groups(w)});
+    FILE* f = std::fopen(argv[2], "wb");
+    std::fwrite(rows.data(), 4, rows.size(), f);
+    std::fclose(f);
+    return 0;
+  }
+#endif
+  const int a = std::atoi(argv[1]), paths = std::atoi(argv[2]), steps = std::atoi(argv[3]),
+            nb = std::atoi(argv[4]), w_cnt = std::atoi(argv[5]), legs = std::atoi(argv[6]),
+            layout = std::atoi(argv[7]), cs = std::atoi(argv[8]);
+  std::mt19937 rng(a * 7 + 1);
+  std::uniform_real_distribution<float> u(0.0f, 1.0f);
+  // the shocks' factor: the Cholesky factor of 0.5 I + 0.5, perturbed
+  std::vector<double> c(a * a, 0.0);
+  for (int i = 0; i < a; ++i) {
+    for (int j = 0; j <= i; ++j) {
+      double s = (i == j ? 1.0 : 0.5 + 0.02 * (u(rng) - 0.5));
+      for (int k = 0; k < j; ++k) s -= c[i * a + k] * c[j * a + k];
+      c[i * a + j] = i == j ? std::sqrt(s) : s / c[j * a + j];
+    }
+  }
+  std::vector<float> p;
+#ifdef FAMILY_JUMP
+  for (int i = 0; i < a * a; ++i) p.push_back(static_cast<float>(0.02 * c[i]));   // L
+  for (int i = 0; i < a; ++i) p.push_back(5e-4f + 1e-3f * (u(rng) - 0.5f));      // mean
+  for (int i = 0; i < a; ++i) p.push_back(cs ? -0.2f : -0.08f);                   // muJ
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 0.1f : 0.04f);                     // sigJ
+  const float lam = cs ? 0.3f : 0.02f;
+#else
+  for (int i = 0; i < a * a; ++i) p.push_back(static_cast<float>(c[i]));          // L_R
+  for (int i = 0; i < a; ++i) p.push_back(1e-3f + 1e-3f * (u(rng) - 0.5f));       // mu
+  for (int i = 0; i < a; ++i) p.push_back(0.15f);                                 // kappa
+  for (int i = 0; i < a; ++i) p.push_back(4e-4f);                                 // theta
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 0.05f : 3e-3f);                    // xi
+  for (int i = 0; i < a; ++i) p.push_back(-0.5f);                                 // rho
+  for (int i = 0; i < a; ++i) p.push_back(static_cast<float>(std::sqrt(1.0 - 0.25)));  // rho_c
+  for (int i = 0; i < a; ++i) p.push_back(4e-4f);                                 // v0
+#endif
+  std::vector<float> w(w_cnt * a);
+  for (int k = 0; k < w_cnt; ++k) {
+    float t = 0;
+    for (int i = 0; i < a; ++i) t += (w[k * a + i] = u(rng) + 0.01f);
+    for (int i = 0; i < a; ++i) w[k * a + i] /= t;
+  }
+  std::vector<float> h;
+  if (legs > 0) {
+    std::vector<float> s0(a), ty(a * legs), k(a * legs), pr(a * legs), qt(a * legs);
+    for (int i = 0; i < a; ++i) s0[i] = 20.0f + 180.0f * u(rng);
+    for (int i = 0; i < a * legs; ++i) {
+      ty[i] = static_cast<float>(i % 7);
+      k[i] = s0[i / legs] * (0.9f + 0.2f * u(rng));
+      pr[i] = s0[i / legs] * 0.02f * u(rng);
+      qt[i] = 0.2f + 0.6f * u(rng);
+    }
+    qt.back() = 0.0f;
+    for (auto* v : {&s0, &ty, &k, &pr, &qt}) h.insert(h.end(), v->begin(), v->end());
+  }
+  const long long out_n = 1LL * nb * w_cnt * paths;
+  std::vector<float> out(out_n, -999.0f), dd(out_n, -999.0f);
+  const float* hp = legs ? h.data() : nullptr;
+  int err;
+#ifdef NARROW_LAYOUTS
+  std::vector<float> rets(argc > 10 ? std::atoll(argv[10])
+                                    : 1LL * nb * ((paths + 15) / 16 * 16) * steps * a + 1);
+#ifdef FAMILY_JUMP
+  err = mcport_merton_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, lam, p.data(), w.data(),
+                               hp, out.data(), dd.data(), rets.data(),
+                               static_cast<long long>(rets.size()), layout, nullptr);
+#else
+  err = mcport_heston_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(),
+                               hp, out.data(), dd.data(), rets.data(),
+                               static_cast<long long>(rets.size()), layout, nullptr);
+#endif
+#else
+  (void)layout;
+#ifdef FAMILY_JUMP
+  err = mcport_merton_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, lam, p.data(), w.data(),
+                               hp, out.data(), dd.data(), nullptr);
+#else
+  err = mcport_heston_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(),
+                               hp, out.data(), dd.data(), nullptr);
+#endif
+#endif
+  if (err) { std::fprintf(stderr, "error %d\n", err); return 1; }
+  FILE* in = std::fopen((std::string(argv[9]) + ".in").c_str(), "wb");
+  std::fwrite(p.data(), 4, p.size(), in);
+#ifdef FAMILY_JUMP
+  std::fwrite(&lam, 4, 1, in);
+#endif
+  std::fwrite(w.data(), 4, w.size(), in);
+  std::fwrite(h.data(), 4, h.size(), in);
+  std::fclose(in);
+  FILE* f = std::fopen(argv[9], "wb");
+  std::fwrite(out.data(), 4, out.size(), f);
+  std::fwrite(dd.data(), 4, dd.size(), f);
+  std::fclose(f);
+  return 0;
+}

@@ -1,7 +1,7 @@
 """Copy a tree's ``csrc`` into a directory, rewritten for the host emulation
 (``cuda_runtime.h`` beside this file): dynamic shared memory becomes the
 block's buffer, each ``bar.sync`` a named std::barrier, ``<<<...>>>`` a call of
-``shim_launch``.
+``shim_launch``, a volatile ``ld.shared.v4.f32`` a plain load.
 
     python3 tools/cuda_emu/prep.py SRC_CSRC_DIR DST_DIR
 """
@@ -19,6 +19,9 @@ def prep(src: Path, dst: Path) -> None:
                    lambda m: f"shim_bar({m.group(1)}, {m.group(2)});", t)
         t = re.sub(r"(\w+)<<<(.*?)>>>\(", lambda m: f"shim_launch({m.group(1)}, {m.group(2)}, ",
                    t, flags=re.S)
+        # the volatile 16-byte shared loads (lds128, lds4): a plain load
+        t = re.sub(r'asm volatile\("ld\.shared\.v4\.f32.*?__cvta_generic_to_shared\(p\)\)\)\);',
+                   "v = *reinterpret_cast<const float4*>(p);", t, flags=re.S)
         (dst / f.name).write_text(t)
 
 

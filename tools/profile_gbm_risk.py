@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one warm call of the PyTorch port's main paths goes on a card.
 
-    python3 tools/profile_gbm_risk.py [gbm|family|dcc]   # needs one CUDA card; all by default
+    python3 tools/profile_gbm_risk.py [gbm|family|merton-heston|dcc]   # needs one CUDA card;
+                                                                       # all by default
 
 GBM tier: for each size of ``chip_smoke.py``'s main paths (GBMConfig
 defaults and BASELINE config-4 scale, on the bench's synthetic 15-asset
@@ -12,10 +13,10 @@ tier ("auto", float32 on a card) and as the bf16 screen plus rescore. Family
 tier: ``garch_risk`` and ``bootstrap_risk`` at 1,048,576 x 252 (the bench's
 GARCH parameters, a 365 x 15 history), ``run_garch_path_risk`` and
 ``run_bootstrap_path_risk`` at both sizes, and both family frontiers at the
-bench's size; then the Merton and Heston families at the bench's parameters:
-``merton_risk`` and ``heston_terminal_returns`` at 1,048,576 x 252,
-``run_merton_path_risk`` and ``run_heston_path_risk`` at both sizes, and both
-frontiers. DCC tier: ``dcc_risk`` at 1,048,576 x 52 (bench.py's DCC
+bench's size; then (alone: ``merton-heston``) the Merton and Heston families
+at the bench's parameters: ``merton_risk`` and ``heston_terminal_returns`` at
+1,048,576 x 252, ``run_merton_path_risk`` and ``run_heston_path_risk`` at
+both sizes, and both frontiers. DCC tier: ``dcc_risk`` at 1,048,576 x 52 (bench.py's DCC
 parameters and horizon), ``run_dcc_path_risk`` at both sizes, the DCC
 frontier at the bench's size, and ``compare_tail_risk`` on the weekly BTC/ETH
 fixtures at the ``compare-models`` defaults (262,144 paths x 52 steps,
@@ -152,9 +153,9 @@ def main() -> int:
                          lambda sd=sd: drawdown_frontier_search(FRONTIER_SEED, params,
                                                                 score_dtype=sd, device=dev,
                                                                 **FRONTIER))
+    steps, wb = FRONTIER["n_steps"], bench_weights()
     if "family" in tiers:
-        garch, hist, wb = bench_garch(), bench_history(), bench_weights()
-        steps = FRONTIER["n_steps"]
+        garch, hist = bench_garch(), bench_history()
         profile_cell(f"garch_risk ({FAMILY_PATHS} x {steps})",
                      lambda: garch_risk(FAMILY_SEED, garch, wb, FAMILY_PATHS, steps,
                                         device=dev))
@@ -171,6 +172,7 @@ def main() -> int:
             profile_cell(f"family_drawdown_frontier_search {model} {front}",
                          lambda model=model, src=src: family_drawdown_frontier_search(
                              FRONTIER_SEED, model, src, device=dev, **FRONTIER))
+    if "family" in tiers or "merton-heston" in tiers:
         merton, heston = bench_merton(), bench_heston()
         profile_cell(f"merton_risk ({FAMILY_PATHS} x {steps})",
                      lambda: merton_risk(FAMILY_SEED, merton, wb, FAMILY_PATHS, steps,
