@@ -55,13 +55,14 @@ KERNELS = {
     "garch": ("mcport_garch_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_float,
         _c_ptr, _c_ptr, _c_ptr],
-        "mcport_garch_multi_dd", [_c_ll, _c_ll] + 7 * _I + 6 * _P,
+        "mcport_garch_multi_dd", [_c_ll, _c_ll] + 7 * _I + 6 * _P + [_c_ll, _c_int, _c_ptr],
         "mcport_garch_wide",
         [_c_ll, _c_ll] + 6 * _I + 2 * _F + _I + 6 * _P + 2 * _I + _P),
     "bootstrap": ("mcport_bootstrap_terminal", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_ptr,
         _c_ptr, _c_ptr],
-        "mcport_bootstrap_multi_dd", [_c_ll, _c_ll] + 7 * _I + _F + _I + 6 * _P,
+        "mcport_bootstrap_multi_dd",
+        [_c_ll, _c_ll] + 7 * _I + _F + _I + 6 * _P + [_c_ll, _c_int, _c_ptr],
         "mcport_bootstrap_wide", [_c_ll, _c_ll] + 7 * _I + _F + 6 * _P + 2 * _I + _P),
     "jump": ("mcport_merton_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float, _c_ptr,

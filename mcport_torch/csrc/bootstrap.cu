@@ -42,16 +42,28 @@
 // through the read-only cache (__ldg): the same rows, the same arithmetic, so
 // the same results; only the load's source moves. Terminal: one thread
 // per path, the asset grosses in registers for A <= 16 (local memory from 17
-// to 64). Candidates: multi_dd.cu's block design — a block owns 16 paths and
-// all <= 256 candidates; 16 threads keep the tile's row indices and write the
-// rows of two steps' indices to shared memory per Philox call; per step the
-// block copies the selected rows into a (A, 16) tile, then each thread updates
-// a 4-candidate x 4-path micro-tile of values, peaks and drawdowns held in
-// registers (FP32 FMAs, mcport's float32 score). A dispatch group of blocks
-// is one launch (gridDim.y).
+// to 64). Candidates up to 16 assets, the layout narrow_layout picks by W
+// (narrow_dd.cuh; ops/bootstrap.py bootstrap_narrow_plan): for few
+// candidates a thread per path (kBootThreads per block: the recursion is
+// light, and a block's history takes a share of the SM's shared memory)
+// walks its row index, reads its row and scores its own candidates
+// (bootstrap_recur_kernel<shared, hedged, kOwn>); for more the same walk
+// writes its rows to a device scratch and scoring blocks (each thread 4
+// candidates x 4 paths) read them (kReturns, then narrow_dd.cuh's
+// score_kernel). Hedged, the thread keeps its prices in a slice of shared
+// memory and settles leg by leg across the assets. Whether the history sits
+// in shared memory is decided per layout, from that layout's own block.
+// From 17 to 64 assets: multi_dd.cu's block design
+// — a block owns 16 paths and all <= 256 candidates; 16 threads keep the
+// tile's row indices and write the rows of two steps' indices to shared
+// memory per Philox call; per step the block copies the selected rows into a
+// (A, 16) tile, then each thread updates a 4-candidate x 4-path micro-tile of
+// values, peaks and drawdowns held in registers (FP32 FMAs, mcport's float32
+// score). A dispatch group of blocks is one launch (gridDim.y).
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
+#include "narrow_dd.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -284,6 +296,126 @@ bootstrap_dd_kernel(long long seed, long long first_block, int block_paths, int 
   }
 }
 
+// ---- kernel #7 up to 16 assets: the redesigned layouts (narrow_dd.cuh) -----------------
+
+constexpr int kBootThreads = 128;  // paths (and threads) per recursion block
+
+// Where the layouts switch (ops/bootstrap.py bootstrap_narrow_plan mirrors
+// it): a thread per path scores its own candidates up to kSoloMaxCand
+// (kSoloMaxHedged hedged), the split layout past that. Measured on an H100 at
+// 15 assets and 131,072 x 252 (tools/ab_narrow_kernels.py): solo is the
+// faster up to 22 candidates unhedged (by 11% at 22) and split from 24, and
+// solo up to 14 hedged (by 1-3% at 14; 2% behind split at 15, 5% at 16);
+// split beat bootstrap_dd_kernel (the 17-64-asset kernel) at every W, by 12%
+// at 256 (21% hedged).
+constexpr int kSoloMaxCand = 22;
+constexpr int kSoloMaxHedged = 14;
+
+__host__ __device__ constexpr int narrow_layout(int n_cand, bool hedged) {
+  return n_cand <= (hedged ? kSoloMaxHedged : kSoloMaxCand) ? kSolo : kSplit;
+}
+
+// The recursion part's shared memory, in floats: the (T, A) history (when
+// shared), the hedge block (hedged), the solo part's weights (W, kNA); then
+// per thread slices (stride kBootThreads): the prices (kNA, hedged) and the
+// solo part's values, peaks and drawdowns (3 x W).
+struct RecurLayout {
+  int hist, h, w, p, st, total;
+  __host__ __device__ RecurLayout(int t_len, int n, int n_cand, int mode, int n_legs,
+                                  bool shared) {
+    hist = 0;
+    h = shared ? round4n(t_len * n) : 0;
+    w = h + (n_legs ? round4n(hedge_floats(n, n_legs)) : 0);
+    p = w + (mode == kOwn ? n_cand * kNA : 0);
+    st = p + (n_legs ? kNA * kBootThreads : 0);
+    total = st + (mode == kOwn ? 3 * n_cand * kBootThreads : 0);
+  }
+};
+
+// The walk, a thread per path, for chunk paths 0 .. chunk-1 (path first_path
+// + cp of each dispatch block): bootstrap_dd_kernel's per-path operations in
+// their order — half a Philox call per step (boot_call, next_row), the row
+// read from shared memory or through __ldg, hedged the price P·(1 + row) and
+// the settled return. kOwn scores the thread's own candidates (narrow_dd.cuh
+// solo_score), kReturns writes the rows (hedged: the settled returns) to
+// rets (returns_slot).
+template <bool kShared, bool kHedged, int kMode>
+__global__ void __launch_bounds__(kBootThreads, 4)
+bootstrap_recur_kernel(long long seed, long long first_block, int block_paths, int first_path,
+                       int chunk, int t_len, int n_assets, int n_cand, int n_steps, int n_legs,
+                       float p_restart, const float* __restrict__ hist,
+                       const float* __restrict__ weights, const float* __restrict__ hedge,
+                       float* __restrict__ rets, float* __restrict__ term,
+                       float* __restrict__ max_dd) {
+  constexpr int kS = kBootThreads;  // the per-thread slices' stride
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets, tid = threadIdx.x, blk = blockIdx.y;
+  const RecurLayout lay(t_len, n, n_cand, kMode, kHedged ? n_legs : 0, kShared);
+  float* s_hist = smem + lay.hist;
+  float* s_h = smem + lay.h;
+  float* s_w = smem + lay.w;
+  if (kShared) {
+    for (int i = tid; i < t_len * n; i += kS) s_hist[i] = hist[i];
+  }
+  const float* h = kShared ? s_hist : hist;
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(n, n_legs); i += kS) s_h[i] = hedge[i];
+  }
+  if (kMode == kOwn) {
+    for (int i = tid; i < n_cand * kNA; i += kS) {
+      const int c = i / kNA, a = i % kNA;
+      s_w[i] = a < n ? weights[c * n + a] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int cp = blockIdx.x * kS + tid;  // this thread's path of the chunk
+  const int p = first_path + cp;
+  const uint32_t key = block_key(seed, first_block, blk);
+  const HedgeBlock legs(s_h, n, n_legs);
+  float* s_p = smem + lay.p + tid;  // hedged: the prices, from s0
+  float* s_st = smem + lay.st + tid;
+  if (kHedged) {
+    for (int a = 0; a < n; ++a) s_p[a * kS] = s_h[a];
+  }
+  if (kMode == kOwn) solo_start<kS>(n_cand, s_st);
+  float* rg = kMode == kReturns ? returns_slot(rets, blk, chunk, cp, n_steps, n) : nullptr;
+  const bool writes = cp < (chunk + kTile - 1) / kTile * kTile;  // whole tiles of the scratch
+  int idx = jump_row(boot_call(0u, p, key).w0, t_len);
+  for (int s0 = 0; s0 < n_steps; s0 += 2) {
+    const Words wd = boot_call(1u + s0 / 2, p, key);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (s0 + k >= n_steps) continue;
+      idx = k ? next_row(idx, wd.w2, wd.w3, t_len, p_restart)
+              : next_row(idx, wd.w0, wd.w1, t_len, p_restart);
+      const float* row = h + idx * n;
+      float e[kNA];
+#pragma unroll
+      for (int i = 0; i < kNA; ++i) {
+        e[i] = 0.0f;
+        if (i < n) {
+          const float x = row_at<kShared>(row, i);
+          // hedged: the move P -> P·(1 + row), settled below
+          e[i] = kHedged ? __fmul_rn(s_p[i * kS], __fadd_rn(1.0f, x)) : x;
+        }
+      }
+      if (kHedged) settle_all<kS>(legs, n, s_p, e);
+      if (kMode == kOwn) {
+        solo_score<kHedged ? kSimpleNan : kSimple, kS>(n, n_cand, s_w, s_st, e);
+      } else if (writes) {
+#pragma unroll
+        for (int i = 0; i < kNA; ++i) {
+          if (i < n) rg[((s0 + k) * n + i) * kTile] = e[i];
+        }
+      }
+    }
+  }
+  if (kMode == kOwn && cp < chunk) {
+    solo_store<kS>(n_cand, blk, block_paths, p, s_st, term, max_dd);
+  }
+}
+
 // Kernels #6 and #7 past 64 assets: wide.cuh's layout with the narrow
 // kernels' selection and arithmetic. Thread p < tp walks tile path p's row
 // index (shared memory: the current row, then the rows of the call's two
@@ -384,42 +516,126 @@ int mcport_bootstrap_terminal(long long seed, long long first_block, int n_block
                    : run(bootstrap_terminal_kernel<kMaxAssets, 1, false>);
 }
 
-// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// Launches the candidate function on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. hist: (t_len, n_assets), weights: (n_cand, n_assets),
 // float32 on the device; the history in shared memory when in_shared, else
 // read from device memory. hedge: ops/hedged.py HedgeTensors.packed for
-// n_legs legs per asset (read from device memory), or null with n_legs 0 for
-// the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
-// float32. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// n_legs legs per asset, or null with n_legs 0 for the unhedged mode.
+// Outputs term and dd: (n_blocks, n_cand, block_paths) float32. Up to 16
+// assets the layout is narrow_layout(n_cand, hedged) (layout -1), or the one
+// named (0 solo, 1 split); the split layout takes its returns through scratch
+// (scratch_floats floats on the device) in chunks of paths that it holds for
+// every block and step (a multiple of kBootThreads paths; ops/bootstrap.py
+// bootstrap_narrow_plan sizes it, and says for each layout whether its block
+// holds the history), the others take no scratch (null, 0). From 17 assets
+// bootstrap_dd_kernel runs (layout -1; the hedge read from device memory).
+// Returns cudaGetLastError() after the last launch, or cudaErrorInvalidValue
+// for arguments the kernel does not take (among them a layout whose block the
+// shared memory cannot hold).
 int mcport_bootstrap_multi_dd(long long seed, long long first_block, int n_blocks,
                               int block_paths, int t_len, int n_assets, int n_cand,
                               int n_steps, int n_legs, float p_restart, int in_shared,
                               const void* hist, const void* weights, const void* hedge,
-                              void* term, void* dd, void* stream) {
+                              void* term, void* dd, void* scratch, long long scratch_floats,
+                              int layout, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || t_len < 1 || n_cand < 1 ||
       n_cand > kMaxCand || n_blocks < 1 || n_blocks > 65535 || block_paths < 1 ||
       n_steps < 0 || n_legs < 0 || (n_legs > 0 && hedge == nullptr) ||
-      kMaxAssets * kTileP > kItems * kDdThreads) {
+      kMaxAssets * kTileP > kItems * kDdThreads || scratch_floats < 0 || layout < -1 ||
+      layout > kSplit || (n_assets > kNA && layout >= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  const size_t smem =
-      sizeof(float) * DdLayout(t_len, n_assets, round4(n_cand), in_shared != 0).total;
-  auto run = [&](auto kernel) {
-    int err = set_smem(kernel, smem);
+  static_assert(kMaxCand / 4 * score_groups(kMaxCand) <= kScoreThreads &&
+                    4 * score_groups(kMaxCand) % kTile == 0 && kBootThreads % kTile == 0,
+                "a scoring block covers 256 candidates of whole tiles");
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool shared = in_shared != 0;
+  const float* hst = static_cast<const float*>(hist);
+  const float* wts = static_cast<const float*>(weights);
+  const float* hdg = static_cast<const float*>(hedge);
+  float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
+  // one launch of `kernel` with `smem` bytes of dynamic shared memory
+  auto start = [&](auto kernel, size_t smem) {
+    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+    return set_smem(kernel, smem);
+  };
+  if (layout < 0 && n_assets <= kNA) layout = narrow_layout(n_cand, n_legs > 0);
+  if (layout < 0) {  // bootstrap_dd_kernel: 17-64 assets
+    const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+    const size_t smem = sizeof(float) * DdLayout(t_len, n_assets, round4(n_cand), shared).total;
+    auto run = [&](auto kernel) {
+      int err = start(kernel, smem);
+      if (err) return err;
+      kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, t_len, n_assets,
+                                             n_cand, n_steps, n_legs, p_restart, hst, wts, hdg,
+                                             out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if (n_legs) {
+      return shared ? run(bootstrap_dd_kernel<true, true>)
+                    : run(bootstrap_dd_kernel<false, true>);
+    }
+    return shared ? run(bootstrap_dd_kernel<true, false>)
+                  : run(bootstrap_dd_kernel<false, false>);
+  }
+  float* r = static_cast<float*>(scratch);
+  // the walk over chunk paths from `first`, scoring its own candidates (kOwn)
+  // or writing their rows to the scratch (kReturns)
+  auto recur = [&](auto kernel, int mode, int first, int chunk) {
+    const size_t smem =
+        sizeof(float) * RecurLayout(t_len, n_assets, n_cand, mode, n_legs, shared).total;
+    int err = start(kernel, smem);
     if (err) return err;
-    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, t_len, n_assets, n_cand, n_steps, n_legs, p_restart,
-        static_cast<const float*>(hist), static_cast<const float*>(weights),
-        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
+    const dim3 grid((chunk + kBootThreads - 1) / kBootThreads, n_blocks);
+    kernel<<<grid, kBootThreads, smem, st>>>(seed, first_block, block_paths, first, chunk,
+                                             t_len, n_assets, n_cand, n_steps, n_legs,
+                                             p_restart, hst, wts, hdg, r, out, out_dd);
     return static_cast<int>(cudaGetLastError());
   };
-  if (n_legs) {
-    return in_shared ? run(bootstrap_dd_kernel<true, true>)
-                     : run(bootstrap_dd_kernel<false, true>);
+  // the walk's instantiation for the history's place and the hedge: kernels
+  // (shared, hedged), (shared), (hedged), ()
+  auto walk = [&](auto sh_h, auto sh, auto h, auto none, int mode, int first, int chunk) {
+    if (n_legs) return shared ? recur(sh_h, mode, first, chunk) : recur(h, mode, first, chunk);
+    return shared ? recur(sh, mode, first, chunk) : recur(none, mode, first, chunk);
+  };
+  if (layout == kSolo) {
+    return walk(bootstrap_recur_kernel<true, true, kOwn>, bootstrap_recur_kernel<true, false, kOwn>,
+                bootstrap_recur_kernel<false, true, kOwn>,
+                bootstrap_recur_kernel<false, false, kOwn>, kOwn, 0, block_paths);
   }
-  return in_shared ? run(bootstrap_dd_kernel<true, false>) : run(bootstrap_dd_kernel<false, false>);
+  // the split layout: the paths of a chunk are every path where the scratch
+  // holds them all (in whole 16-path tiles), else what it holds in whole
+  // recursion blocks
+  const long long per_path = static_cast<long long>(n_blocks) * n_steps * n_assets;
+  const long long all = (block_paths + kTile - 1) / kTile * kTile;
+  long long chunk = block_paths;
+  if (per_path > 0 && scratch_floats / per_path < all) {
+    chunk = scratch_floats / per_path / kBootThreads * kBootThreads;
+  }
+  if (chunk < 1 || (per_path > 0 && r == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const int paths = 4 * score_groups(n_cand);
+  const size_t score_smem = sizeof(float) * score_floats(n_assets, n_cand);
+  for (int first = 0; first < block_paths; first += static_cast<int>(chunk)) {
+    const int m = static_cast<int>(chunk < block_paths - first ? chunk : block_paths - first);
+    int err = n_steps == 0 ? 0
+                           : walk(bootstrap_recur_kernel<true, true, kReturns>,
+                                  bootstrap_recur_kernel<true, false, kReturns>,
+                                  bootstrap_recur_kernel<false, true, kReturns>,
+                                  bootstrap_recur_kernel<false, false, kReturns>, kReturns,
+                                  first, m);
+    if (err) return err;
+    auto score = [&](auto kernel) {
+      int e = start(kernel, score_smem);
+      if (e) return e;
+      const dim3 grid((m + paths - 1) / paths, n_blocks);
+      kernel<<<grid, kScoreThreads, score_smem, st>>>(block_paths, first, m, n_assets, n_cand,
+                                                      n_steps, wts, r, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    err = n_legs ? score(score_kernel<kSimpleNan>) : score(score_kernel<kSimple>);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Both functions past 64 assets (wide.cuh's layout with the BootWide model;

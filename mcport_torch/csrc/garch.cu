@@ -36,22 +36,30 @@
 //   L_R's rows and the per-asset (omega, alpha, beta, 1 + mu) sit in shared
 //   memory, read with 16-byte loads; the unrolled correlate skips the zero
 //   upper triangle at compile time: A(A+1)/2 FMAs per step, not A².
-// - candidates: multi_dd.cu's block design. A block owns 16 paths and all
-//   <= 256 candidates; each (asset, path) of the tile has a thread that keeps
-//   its sigma2 in a register, draws the shocks of one Philox call into shared
-//   memory, and per step correlates them and writes r = mu + eps to shared
-//   memory; then each thread updates a 4-candidate x 4-path micro-tile whose
-//   values, peaks and drawdowns stay in registers. Scores are FP32 FMAs
-//   (mcport's score_dot is float32).
+// - candidates up to 16 assets, the layout narrow_layout picks by W
+//   (narrow_dd.cuh; ops/garch.py garch_narrow_plan): for few candidates a
+//   thread per path (64 per block) runs the terminal kernel's recursion, one
+//   Philox call's shocks and the variances in registers, and scores its own
+//   candidates (garch_recur_kernel<hedged, kOwn>); for more the same
+//   recursion writes its returns to a device scratch and scoring blocks (each
+//   thread 4 candidates x 4 paths) read them (<hedged, kReturns>, then
+//   narrow_dd.cuh's score_kernel). Hedged, the thread keeps its prices in a
+//   slice of shared memory and settles leg by leg across the assets. Scores
+//   are FP32 FMAs (mcport's score_dot is float32).
 // - wider universes, 17 <= A <= 64: a path's state (A variances, A
 //   compounded grosses and 4·A shocks) no longer fits one thread's
-//   registers. The candidate kernel keeps its design with kItems = 4 (asset,
-//   path) items per thread (multi_dd.cu's mapping), each item's sigma2 in a
-//   register. The terminal kernel takes the same tile (garch_terminal_tile_kernel):
-//   16 paths per block, each (asset, path) item's sigma2 and gross in a
+//   registers. The candidate kernel (garch_dd_kernel<64, hedged>) takes
+//   multi_dd.cu's block design: a block owns 16 paths and all <= 256
+//   candidates; each thread keeps the sigma2 of kItems = 4 (asset, path)
+//   items of the tile in registers, draws the shocks of one Philox call into
+//   shared memory, and per step correlates them and writes r = mu + eps to
+//   shared memory; then each thread updates a 4-candidate x 4-path
+//   micro-tile whose values, peaks and drawdowns stay in registers. The
+//   terminal kernel takes the same tile (garch_terminal_tile_kernel): 16
+//   paths per block, each (asset, path) item's sigma2 and gross in a
 //   thread's registers, the Philox call's shocks in shared memory, one barrier
-//   per four steps. The A <= 16 kernels are unchanged: the wide variants are
-//   separate instantiations, with the same operations in the same order.
+//   per four steps. The A <= 16 terminal kernel is unchanged: the wide
+//   variant is a separate kernel, with the same operations in the same order.
 // A dispatch group of blocks is one launch (gridDim.y).
 //
 // Past 64 assets both functions run wide.cuh's layout with the GarchWide model
@@ -60,9 +68,14 @@
 // The kernels read only the lower triangle of L_R (the plain forms do too).
 // nvcc contracts a*b+c into FMA where the torch forms round twice, so kernels
 // and plain forms agree to ulps, not bits (bound: ops/garch.py garch_shares).
+// The recursion kernel up to 16 assets writes out the contractions nvcc made
+// in the former candidate kernel up to 16 assets, garch_dd_kernel<16, *>
+// (__fmaf_rn, __fmul_rn, __fadd_rn), so every layout's outputs are that
+// kernel's bit for bit.
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
+#include "narrow_dd.cuh"
 #include "wide.cuh"
 
 namespace {
@@ -291,8 +304,9 @@ garch_terminal_tile_kernel(long long seed, long long first_block, int block_path
   }
 }
 
-// kCap: the asset bound (kGA: one (asset, path) item per thread; kMaxAssets:
-// four).
+// The candidate kernel of 17-64 assets (and of any width up to 64 with
+// `wide`). kCap: the asset bound, kMaxAssets (four (asset, path) items per
+// thread); up to 16 assets the layouts above run instead.
 template <int kCap, bool kHedged>
 __global__ void __launch_bounds__(kDdThreads, 2)
 garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_assets,
@@ -444,6 +458,148 @@ garch_dd_kernel(long long seed, long long first_block, int block_paths, int n_as
   }
 }
 
+// ---- kernel #5 up to 16 assets: the redesigned layouts (narrow_dd.cuh) -----------------
+
+// Where the layouts switch (ops/garch.py garch_narrow_plan mirrors it): a
+// thread per path scores its own candidates up to kSoloMaxCand, the split
+// layout past that. Measured on an H100 at 15 assets and 131,072 x 252
+// (tools/ab_narrow_kernels.py): solo is the faster up to 13 candidates in
+// both modes (by 1.3%, hedged 0.3%, at 13) and split from 14; split beat the
+// former candidate kernel (garch_dd_kernel<16, *>, a 16-path tile) at every
+// W, by 11% at 256 (3% hedged), which this file therefore no longer
+// instantiates.
+constexpr int kSoloMaxCand = 13;
+
+__host__ __device__ constexpr int narrow_layout(int n_cand) {
+  return n_cand <= kSoloMaxCand ? kSolo : kSplit;
+}
+
+// The recursion part's shared memory, in floats: L's lower triangle (kGA x
+// kGA, zero elsewhere), per asset (omega, alpha, beta, mu), the hedge block
+// (hedged), the solo part's weights (W, kNA); then per thread slices (stride
+// kSoloThreads): the prices (kNA, hedged) and the solo part's values, peaks
+// and drawdowns (3 x W).
+struct RecurLayout {
+  int l, g, h, w, p, st, total;
+  __host__ __device__ RecurLayout(int n, int n_cand, int mode, int n_legs) {
+    l = 0;
+    g = kGA * kGA;
+    h = g + 4 * kGA;
+    w = h + (n_legs ? round4n(hedge_floats(n, n_legs)) : 0);
+    p = w + (mode == kOwn ? n_cand * kNA : 0);
+    st = p + (n_legs ? kNA * kSoloThreads : 0);
+    total = st + (mode == kOwn ? 3 * n_cand * kSoloThreads : 0);
+  }
+};
+
+// The recursion, a thread per path, for chunk paths 0 .. chunk-1 (path
+// first_path + cp of each dispatch block): the per-path operations of the
+// former candidate kernel up to 16 assets in their order, with the
+// contractions nvcc made there written out (read from its SASS) — the
+// shocks of one Philox call in
+// registers (all loops over assets unrolled), the correlate one fmaf per term
+// of row i's lower triangle, sigma2_1 = fma(beta, s2_0, fma(alpha, e2_0,
+// omega)), eps = sqrt(max(s2, 0))·y rounded, the return mu + eps, not
+// contracted (hedged: the price P·((1 + mu) + eps) and the settled return),
+// sigma2' = fma(beta, s2, fma(alpha, eps², omega)).
+// kOwn scores the thread's own candidates (narrow_dd.cuh solo_score),
+// kReturns writes the returns to rets (returns_slot).
+template <bool kHedged, int kMode>
+__global__ void __launch_bounds__(kSoloThreads, 4)
+garch_recur_kernel(long long seed, long long first_block, int block_paths, int first_path,
+                   int chunk, int n_assets, int n_cand, int n_steps, int n_legs,
+                   const float* __restrict__ params, const float* __restrict__ weights,
+                   const float* __restrict__ hedge, float* __restrict__ rets,
+                   float* __restrict__ term, float* __restrict__ max_dd) {
+  constexpr int kS = kSoloThreads;  // the per-thread slices' stride
+  extern __shared__ __align__(16) float smem[];
+  const int n = n_assets, tid = threadIdx.x, blk = blockIdx.y;
+  const RecurLayout lay(n, n_cand, kMode, kHedged ? n_legs : 0);
+  float* s_l = smem + lay.l;
+  float4* s_g = reinterpret_cast<float4*>(smem + lay.g);  // (omega, alpha, beta, mu)
+  float* s_h = smem + lay.h;
+  float* s_w = smem + lay.w;
+  const Params q(params, n);
+  load_params<kGA>(q, n, false, s_l, s_g, tid, kS);
+  if (kHedged) {
+    for (int i = tid; i < hedge_floats(n, n_legs); i += kS) s_h[i] = hedge[i];
+  }
+  if (kMode == kOwn) {
+    for (int i = tid; i < n_cand * kNA; i += kS) {
+      const int c = i / kNA, a = i % kNA;
+      s_w[i] = a < n ? weights[c * n + a] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  const int cp = blockIdx.x * kS + tid;  // this thread's path of the chunk
+  const uint32_t p = static_cast<uint32_t>(first_path + cp);
+  const uint32_t key = block_key(seed, first_block, blk);
+  const HedgeBlock legs(s_h, n, n_legs);
+  float* s_p = smem + lay.p + tid;  // hedged: the prices, from s0
+  float* s_st = smem + lay.st + tid;
+  if (kHedged) {
+    for (int a = 0; a < n; ++a) s_p[a * kS] = s_h[a];
+  }
+  if (kMode == kOwn) solo_start(n_cand, s_st);
+  float* rg = kMode == kReturns ? returns_slot(rets, blk, chunk, cp, n_steps, n) : nullptr;
+  const bool writes = cp < (chunk + kTile - 1) / kTile * kTile;  // whole tiles of the scratch
+  float s2[kGA];  // the variance of the coming step
+#pragma unroll
+  for (int a = 0; a < kGA; ++a) {
+    s2[a] = a < n ? __fmaf_rn(q.beta[a], q.s2_0[a], __fmaf_rn(q.alpha[a], q.e2_0[a], q.omega[a]))
+                  : 0.0f;
+  }
+  constexpr int kPer = steps_per_call<kPoly>();
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int nk = min(kPer, n_steps - s0);
+    float z[kPer][kGA];
+#pragma unroll
+    for (int a = 0; a < kGA; ++a) {
+      float za[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (a < n) call_draws<kPoly>(s0 / kPer, a, p, key, nk, 0.0f, 0.0f, za);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= nk) continue;  // (not break: a loop that may break is not unrolled)
+      float e[kNA];
+#pragma unroll
+      for (int i = 0; i < kGA; ++i) {
+        e[i] = 0.0f;
+        if (i < n) {
+          float y = 0.0f;
+#pragma unroll
+          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only, in column order
+            const float4 l = lds128(s_l + i * kGA + j);
+            y = fmaf(l.x, z[k][j], y);
+            if (j + 1 <= i) y = fmaf(l.y, z[k][j + 1], y);
+            if (j + 2 <= i) y = fmaf(l.z, z[k][j + 2], y);
+            if (j + 3 <= i) y = fmaf(l.w, z[k][j + 3], y);
+          }
+          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+          const float eps = __fmul_rn(sqrtf(fmaxf(s2[i], 0.0f)), y);
+          // hedged: the move P -> P·((1 + mu) + eps), settled below
+          e[i] = kHedged ? __fmul_rn(s_p[i * kS], __fadd_rn(__fadd_rn(1.0f, g.w), eps))
+                         : __fadd_rn(g.w, eps);
+          s2[i] = __fmaf_rn(g.z, s2[i], __fmaf_rn(g.y, __fmul_rn(eps, eps), g.x));
+        }
+      }
+      if (kHedged) settle_all<kS>(legs, n, s_p, e);
+      if (kMode == kOwn) {
+        solo_score<kHedged ? kSimpleNan : kSimple>(n, n_cand, s_w, s_st, e);
+      } else if (writes) {
+#pragma unroll
+        for (int i = 0; i < kGA; ++i) {
+          if (i < n) rg[((s0 + k) * n + i) * kTile] = e[i];
+        }
+      }
+    }
+  }
+  if (kMode == kOwn && cp < chunk) solo_store(n_cand, blk, block_paths, p, s_st, term, max_dd);
+}
+
 // Kernels #4 and #5 past 64 assets: wide.cuh's layout with the narrow
 // kernels' arithmetic, operation for operation. State: the terminal's
 // (sigma2, gross), the candidates' sigma2 and, hedged, the price.
@@ -547,43 +703,110 @@ int mcport_garch_terminal(long long seed, long long first_block, int n_blocks, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the candidate kernel on `stream` for blocks first_block+1 ..
+// Launches the candidate function on `stream` for blocks first_block+1 ..
 // first_block+n_blocks. params: GarchTensors.packed; weights: (n_cand,
 // n_assets); float32 on the device. hedge: ops/hedged.py HedgeTensors.packed
-// for n_legs legs per asset (read from device memory), or null with n_legs 0
-// for the unhedged mode. Outputs term and dd: (n_blocks, n_cand, block_paths)
-// float32. Normal shocks (the poly tier). wide: nonzero runs the 64-asset
-// instantiation at any width. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// for n_legs legs per asset, or null with n_legs 0 for the unhedged mode.
+// Outputs term and dd: (n_blocks, n_cand, block_paths) float32. Normal shocks
+// (the poly tier). Up to 16 assets the layout is narrow_layout(n_cand)
+// (layout -1), or the one named (0 solo, 1 split); the split layout takes its
+// returns through scratch (scratch_floats floats on the
+// device) in chunks of paths that it holds for every block and step (a
+// multiple of 64 paths; ops/garch.py garch_narrow_plan sizes it), the others
+// take no scratch (null, 0). From 17 assets, or with wide nonzero at any
+// width, the 64-asset instantiation runs (the hedge read from device memory;
+// layout -1). Returns cudaGetLastError() after the last launch, or
+// cudaErrorInvalidValue for arguments the kernel does not take (among them a
+// layout whose block the shared memory cannot hold).
 int mcport_garch_multi_dd(long long seed, long long first_block, int n_blocks,
                           int block_paths, int n_assets, int n_cand, int n_steps, int wide,
                           int n_legs, const void* params, const void* weights,
-                          const void* hedge, void* term, void* dd, void* stream) {
+                          const void* hedge, void* term, void* dd, void* scratch,
+                          long long scratch_floats, int layout, void* stream) {
   if (n_assets < 1 || n_assets > kMaxAssets || n_cand < 1 || n_cand > kMaxCand ||
       n_blocks < 1 || n_blocks > 65535 || block_paths < 1 || n_steps < 0 || n_legs < 0 ||
       (n_legs > 0 && hedge == nullptr) ||
-      kGA * kTileP != tile_items<kGA>() * kDdThreads ||
-      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads) {
+      kMaxAssets * kTileP != tile_items<kMaxAssets>() * kDdThreads || scratch_floats < 0 ||
+      layout < -1 || layout > kSplit || ((wide || n_assets > kGA) && layout >= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
-  wide = wide || n_assets > kGA;
-  const size_t smem =
-      sizeof(float) * DdLayout(n_assets, round4(n_cand), wide ? kMaxAssets : kGA).total;
-  auto run = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kDdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        seed, first_block, block_paths, n_assets, n_cand, n_steps, n_legs,
-        static_cast<const float*>(params), static_cast<const float*>(weights),
-        static_cast<const float*>(hedge), static_cast<float*>(term), static_cast<float*>(dd));
+  static_assert(kGA == kNA && kMaxCand / 4 * score_groups(kMaxCand) <= kScoreThreads &&
+                    4 * score_groups(kMaxCand) % kTile == 0 && kSoloThreads % kTile == 0,
+                "the redesigned layouts' universe; a scoring block covers 256 candidates of "
+                "whole tiles");
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* prm = static_cast<const float*>(params);
+  const float* wts = static_cast<const float*>(weights);
+  const float* hdg = static_cast<const float*>(hedge);
+  float *out = static_cast<float*>(term), *out_dd = static_cast<float*>(dd);
+  // one launch of `kernel` with `smem` bytes of dynamic shared memory
+  auto start = [&](auto kernel, size_t smem) {
+    if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaFuncSetAttribute(kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem)));
+  };
+  if (wide || n_assets > kGA) {  // garch_dd_kernel<kMaxAssets>, the 17-64-asset layout
+    const dim3 grid((block_paths + kTileP - 1) / kTileP, n_blocks);
+    const size_t smem = sizeof(float) * DdLayout(n_assets, round4(n_cand), kMaxAssets).total;
+    auto run = [&](auto kernel) {
+      int err = start(kernel, smem);
+      if (err) return err;
+      kernel<<<grid, kDdThreads, smem, st>>>(seed, first_block, block_paths, n_assets, n_cand,
+                                             n_steps, n_legs, prm, wts, hdg, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    return n_legs ? run(garch_dd_kernel<kMaxAssets, true>)
+                  : run(garch_dd_kernel<kMaxAssets, false>);
+  }
+  if (layout < 0) layout = narrow_layout(n_cand);
+  float* r = static_cast<float*>(scratch);
+  // the recursion over chunk paths from `first`, scoring its own candidates
+  // (kOwn) or writing their returns to the scratch (kReturns)
+  auto recur = [&](auto kernel, int mode, int first, int chunk) {
+    const size_t smem = sizeof(float) * RecurLayout(n_assets, n_cand, mode, n_legs).total;
+    int err = start(kernel, smem);
+    if (err) return err;
+    const dim3 grid((chunk + kSoloThreads - 1) / kSoloThreads, n_blocks);
+    kernel<<<grid, kSoloThreads, smem, st>>>(seed, first_block, block_paths, first, chunk,
+                                             n_assets, n_cand, n_steps, n_legs, prm, wts, hdg,
+                                             r, out, out_dd);
     return static_cast<int>(cudaGetLastError());
   };
-  if (n_legs) {
-    return wide ? run(garch_dd_kernel<kMaxAssets, true>) : run(garch_dd_kernel<kGA, true>);
+  if (layout == kSolo) {
+    return n_legs ? recur(garch_recur_kernel<true, kOwn>, kOwn, 0, block_paths)
+                  : recur(garch_recur_kernel<false, kOwn>, kOwn, 0, block_paths);
   }
-  return wide ? run(garch_dd_kernel<kMaxAssets, false>) : run(garch_dd_kernel<kGA, false>);
+  // the split layout: the paths of a chunk are every path where the scratch
+  // holds them all (in whole 16-path tiles), else what it holds in whole
+  // recursion blocks
+  const long long per_path = static_cast<long long>(n_blocks) * n_steps * n_assets;
+  const long long all = (block_paths + kTile - 1) / kTile * kTile;
+  long long chunk = block_paths;
+  if (per_path > 0 && scratch_floats / per_path < all) {
+    chunk = scratch_floats / per_path / kSoloThreads * kSoloThreads;
+  }
+  if (chunk < 1 || (per_path > 0 && r == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const int paths = 4 * score_groups(n_cand);
+  const size_t score_smem = sizeof(float) * score_floats(n_assets, n_cand);
+  for (int first = 0; first < block_paths; first += static_cast<int>(chunk)) {
+    const int m = static_cast<int>(chunk < block_paths - first ? chunk : block_paths - first);
+    int err = n_steps == 0 ? 0
+              : n_legs     ? recur(garch_recur_kernel<true, kReturns>, kReturns, first, m)
+                           : recur(garch_recur_kernel<false, kReturns>, kReturns, first, m);
+    if (err) return err;
+    auto score = [&](auto kernel) {
+      int e = start(kernel, score_smem);
+      if (e) return e;
+      const dim3 grid((m + paths - 1) / paths, n_blocks);
+      kernel<<<grid, kScoreThreads, score_smem, st>>>(block_paths, first, m, n_assets, n_cand,
+                                                      n_steps, wts, r, out, out_dd);
+      return static_cast<int>(cudaGetLastError());
+    };
+    err = n_legs ? score(score_kernel<kSimpleNan>) : score(score_kernel<kSimple>);
+    if (err) return err;
+  }
+  return 0;
 }
 
 // Both functions past 64 assets (wide.cuh's layout with the GarchWide model):

@@ -610,7 +610,7 @@ heston_recur_kernel(long long seed, long long first_block, int block_paths, int 
       }
       if (kHedged) settle_all<kS>(legs, n, s_p, e);
       if (kMode == kOwn) {
-        solo_score<kHedged>(n, n_cand, s_w, s_st, e);
+        solo_score<kHedged ? kSimpleNan : kGross>(n, n_cand, s_w, s_st, e);
       } else if (writes) {
 #pragma unroll
         for (int i = 0; i < kHA; ++i) {
@@ -740,7 +740,8 @@ heston_tile_kernel(long long seed, long long first_block, int block_paths, int n
       const int nk = min(kPer, n_steps - (c - 1) * kPer);
       const float* eb = smem + lay.e + ((c - 1) % 2) * 4 * n * kTile;
       for (int k = 0; k < nk; ++k) {
-        tile_score<kHedged>(n, w_pad, cw, pq, s_w, eb + k * n * kTile, kTile, v, peak, dd);
+        tile_score<kHedged ? kSimpleNan : kGross>(n, w_pad, cw, pq, s_w, eb + k * n * kTile,
+                                                  kTile, v, peak, dd);
       }
     }
     __syncthreads();
@@ -950,7 +951,7 @@ int mcport_heston_multi_dd(long long seed, long long first_block, int n_blocks,
                                                       n_steps, wts, r, out, out_dd);
       return static_cast<int>(cudaGetLastError());
     };
-    err = n_legs ? score(score_kernel<true>) : score(score_kernel<false>);
+    err = n_legs ? score(score_kernel<kSimpleNan>) : score(score_kernel<kGross>);
     if (err) return err;
   }
   return 0;

@@ -412,7 +412,7 @@ jump_recur_kernel(long long seed, long long first_block, int block_paths, int fi
       }
       if (kHedged) settle_all<kS>(legs, n, s_p, e);
       if (kMode == kOwn) {
-        solo_score<kHedged>(n, n_cand, s_w, s_st, e);
+        solo_score<kHedged ? kSimpleNan : kGross>(n, n_cand, s_w, s_st, e);
       } else if (writes) {
 #pragma unroll
         for (int i = 0; i < kNA; ++i) {
@@ -525,7 +525,7 @@ int mcport_merton_multi_dd(long long seed, long long first_block, int n_blocks,
                                                       n_steps, wts, r, out, out_dd);
       return static_cast<int>(cudaGetLastError());
     };
-    err = n_legs ? score(score_kernel<true>) : score(score_kernel<false>);
+    err = n_legs ? score(score_kernel<kSimpleNan>) : score(score_kernel<kGross>);
     if (err) return err;
   }
   return 0;

@@ -1,29 +1,34 @@
-// The candidate kernels' layouts up to 16 assets for the gross-return families
-// (jump.cu's kernel #8, heston.cu's kernel #10): what they share.
+// The candidate kernels' layouts up to 16 assets (jump.cu's kernel #8,
+// heston.cu's #10, garch.cu's #5, bootstrap.cu's #7): what they share.
 //
-// No TPU kernel of its own: the pieces that jump.cu and heston.cu assemble
-// into their redesigned candidate kernels (ops/jump.py merton_narrow_plan and
-// ops/heston.py heston_narrow_plan pick a layout by W, where each measured
-// the fastest on an H100):
+// No TPU kernel of its own: the pieces that jump.cu, heston.cu, garch.cu and
+// bootstrap.cu assemble into their redesigned candidate kernels (ops/jump.py
+// merton_narrow_plan, ops/heston.py heston_narrow_plan, ops/garch.py
+// garch_narrow_plan and ops/bootstrap.py bootstrap_narrow_plan pick a layout
+// by W, where each measured the fastest on an H100):
 // - kSolo, few candidates (the path-risk engine's W = 1): a thread per path
 //   runs the recursion and scores its own candidates from the step's returns
 //   in registers, their values, peaks and drawdowns in shared memory; one
-//   launch, no barrier;
+//   launch, no barrier (64 threads a block; the bootstrap's light recursion
+//   128);
 // - kSplit: the same recursion (kReturns) writes every step's returns to a
 //   device scratch the wrapper allocates (tile-major: 16 paths of a step and
 //   asset contiguous), then score_kernel below scores them, each thread 4
 //   candidates x 4 paths, its block as many paths as ceil(W/4) candidate
 //   groups leave of 256 threads;
-// - kTile (heston.cu past 128 candidates): a block owns a 16-path tile and
-//   every candidate; each (asset, path) item writes one Philox call's four
+// - kTile: a block owns a 16-path tile and every candidate (heston.cu past
+//   128 candidates: each (asset, path) item writes one Philox call's four
 //   steps of returns to shared memory, the scorers then run those four
 //   steps, and the block's phases are pipelined with double buffers so that
-//   one barrier per Philox call separates them.
+//   one barrier per Philox call separates them; bootstrap.cu, by name
+//   only: its kernel of 17-64 assets, two barriers per step).
 // The score is one FP32 fmaf per asset, ascending from 0.0f (mcport's
-// score_dot is float32), the update V *= W·g (unhedged: g the gross returns
-// exp(x)) or V *= 1 + W·r_h (hedged), then the running peak and the drawdown:
-// the 17-64-asset kernels' operations in their order, so every layout's
-// output is theirs bit for bit. Hedged, the legs settle with hedged.cuh's
+// score_dot is float32), then the value update (ValueUpdate): V *= W·g for
+// the gross returns g = exp(x) of #8 and #10 (kGross), V *= 1 + W·r for the
+// simple returns of #5 and #7 (kSimple), and V *= 1 + W·r_h hedged (every
+// family: kSimpleNan, a NaN of overflowed wealth carried), then the running
+// peak and the drawdown: the 17-64-asset kernels' operations in their order,
+// so every layout's output is theirs bit for bit. Hedged, the legs settle with hedged.cuh's
 // operations in its order, but branch-free (the leg type picks its numerator
 // by selects), so items of different assets in one warp do not diverge, and
 // a thread that owns a path settles leg by leg across its assets.
@@ -45,6 +50,11 @@ enum NarrowLayout { kSolo = 0, kSplit = 1, kTileLayout = 2 };
 // The recursion kernel's two parts: scoring its own candidates, or writing
 // its returns to the scratch.
 enum RecurMode { kOwn = 0, kReturns = 1 };
+
+// A candidate's value update from its step's score f: V *= f on gross returns
+// (kGross), V *= 1 + f on simple ones (kSimple), and V *= 1 + f with a NaN of
+// overflowed wealth carried on (kSimpleNan, the hedged modes).
+enum ValueUpdate { kGross = 0, kSimple = 1, kSimpleNan = 2 };
 
 // The scoring block's groups of 4 paths at W candidates: the most, a power of
 // two from 4, that ceil(W/4) groups of candidates leave of its 256 threads
@@ -136,26 +146,25 @@ __device__ __forceinline__ void settle_all(const HedgeBlock& h, int n, float* s_
   }
 }
 
-// One (candidate, path)'s wealth after a step whose score is f: unhedged V *=
-// f (f the weighted gross return), hedged V *= 1 + f with a NaN of overflowed
-// wealth carried on (hedged.cuh); then its running peak and drawdown.
-template <bool kHedged>
-__device__ __forceinline__ void gross_update(float f, float& v, float& peak, float& dd) {
-  if (kHedged) {
+// One (candidate, path)'s wealth after a step whose score is f (ValueUpdate
+// kUpd), then its running peak and drawdown.
+template <int kUpd>
+__device__ __forceinline__ void value_update(float f, float& v, float& peak, float& dd) {
+  if (kUpd == kSimpleNan) {  // hedged: wealth may overflow, NaN carries on (hedged.cuh)
     v = v * (1.0f + f);
     peak = max_nan(peak, v);
     dd = min_nan(dd, v / peak - 1.0f);
   } else {
-    v = v * f;
+    v = kUpd == kSimple ? v * (1.0f + f) : v * f;
     peak = fmaxf(peak, v);
     dd = fminf(dd, v / peak - 1.0f);
   }
 }
 
 // The solo part's candidates: the values, peaks and drawdowns of candidate c
-// at s_st[(3c + 0/1/2) * kSoloThreads] (this thread's slice), weights (W, kNA)
-// at s_w; the step's returns e[] of n assets.
-template <bool kHedged>
+// at s_st[(3c + 0/1/2) * kS] (this thread's slice of a kS-thread block),
+// weights (W, kNA) at s_w; the step's returns e[] of n assets.
+template <int kUpd, int kS = kSoloThreads>
 __device__ __forceinline__ void solo_score(int n, int n_cand, const float* s_w, float* s_st,
                                            const float (&e)[kNA]) {
   for (int c = 0; c < n_cand; ++c) {
@@ -165,30 +174,32 @@ __device__ __forceinline__ void solo_score(int n, int n_cand, const float* s_w, 
     for (int a = 0; a < kNA; ++a) {
       if (a < n) f = fmaf(wc[a], e[a], f);
     }
-    float* st = s_st + 3 * c * kSoloThreads;
-    float v = st[0], peak = st[kSoloThreads], dd = st[2 * kSoloThreads];
-    gross_update<kHedged>(f, v, peak, dd);
+    float* st = s_st + 3 * c * kS;
+    float v = st[0], peak = st[kS], dd = st[2 * kS];
+    value_update<kUpd>(f, v, peak, dd);
     st[0] = v;
-    st[kSoloThreads] = peak;
-    st[2 * kSoloThreads] = dd;
+    st[kS] = peak;
+    st[2 * kS] = dd;
   }
 }
 
 // The solo part's start and end: V = peak = 1, dd = 0; out V_T - 1 and dd.
+template <int kS = kSoloThreads>
 __device__ __forceinline__ void solo_start(int n_cand, float* s_st) {
   for (int c = 0; c < n_cand; ++c) {
-    s_st[3 * c * kSoloThreads] = 1.0f;
-    s_st[(3 * c + 1) * kSoloThreads] = 1.0f;
-    s_st[(3 * c + 2) * kSoloThreads] = 0.0f;
+    s_st[3 * c * kS] = 1.0f;
+    s_st[(3 * c + 1) * kS] = 1.0f;
+    s_st[(3 * c + 2) * kS] = 0.0f;
   }
 }
 
+template <int kS = kSoloThreads>
 __device__ __forceinline__ void solo_store(int n_cand, int blk, int block_paths, int p,
                                            const float* s_st, float* term, float* max_dd) {
   for (int c = 0; c < n_cand; ++c) {
     const long long o = (static_cast<long long>(blk) * n_cand + c) * block_paths + p;
-    term[o] = s_st[3 * c * kSoloThreads] - 1.0f;
-    max_dd[o] = s_st[(3 * c + 2) * kSoloThreads];
+    term[o] = s_st[3 * c * kS] - 1.0f;
+    max_dd[o] = s_st[(3 * c + 2) * kS];
   }
 }
 
@@ -204,7 +215,7 @@ __device__ __forceinline__ float* returns_slot(float* rets, int blk, int chunk, 
 // A scorer's step: thread (cw, pq) updates candidates 4·cw .. +3 of paths
 // 4·pq .. +3 with the step's returns s_e (A rows of `stride` paths) and the
 // weights s_w (A, w_pad).
-template <bool kHedged>
+template <int kUpd>
 __device__ __forceinline__ void tile_score(int n, int w_pad, int cw, int pq, const float* s_w,
                                            const float* s_e, int stride, float (&v)[4][4],
                                            float (&peak)[4][4], float (&dd)[4][4]) {
@@ -228,7 +239,7 @@ __device__ __forceinline__ void tile_score(int n, int w_pad, int cw, int pq, con
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) gross_update<kHedged>(f[i][j], v[i][j], peak[i][j], dd[i][j]);
+    for (int j = 0; j < 4; ++j) value_update<kUpd>(f[i][j], v[i][j], peak[i][j], dd[i][j]);
   }
 }
 
@@ -237,8 +248,9 @@ __device__ __forceinline__ void tile_score(int n, int w_pad, int cw, int pq, con
 // candidates, weights (W, A); outputs at paths first_path + cp of each
 // block's rows. Thread tid holds candidates 4·cw .. +3 of the block's paths
 // 4·pq .. +3, their values, peaks and drawdowns in registers; the block's
-// returns are staged in shared memory score_steps steps at a time.
-template <bool kHedged>
+// returns are staged in shared memory score_steps steps at a time; kUpd the
+// family's value update (ValueUpdate).
+template <int kUpd>
 __global__ void __launch_bounds__(kScoreThreads, 2)
 score_kernel(int block_paths, int first_path, int chunk, int n, int n_cand, int n_steps,
              const float* __restrict__ weights, const float* __restrict__ rets,
@@ -282,7 +294,7 @@ score_kernel(int block_paths, int first_path, int chunk, int n, int n_cand, int 
     __syncthreads();
     if (scorer) {
       for (int k = 0; k < nk; ++k) {
-        tile_score<kHedged>(n, w_pad, cw, pq, s_w, s_r + k * n * bp, bp, v, peak, dd);
+        tile_score<kUpd>(n, w_pad, cw, pq, s_w, s_r + k * n * bp, bp, v, peak, dd);
       }
     }
   }

@@ -28,6 +28,14 @@ are not ported: the one-hot matmul gather and its 3-way bf16 split; the
 history sits in the kernels' shared memory, or past a block's shared memory
 in device memory behind the read-only cache, and selection is a load.
 
+Up to 16 assets the candidate kernel runs the layout
+:func:`bootstrap_narrow_plan` gives its candidate count
+(:mod:`mcport_torch.ops.narrow`): a thread per path walking its rows and
+scoring its own few candidates, or for more the same walk's rows through a
+device scratch, scored by blocks of candidates; each layout's block holds the
+history where its own shared memory has room for it. The layouts' outputs
+are equal bit for bit.
+
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
 plain form, a CUDA device launches the kernel or raises. Past 64 assets the
 kernels run the layout of ``csrc/wide.cuh`` (the history in device memory).
@@ -43,6 +51,8 @@ from mcport_torch.ops.gbm import (MAX_ASSETS, WIDE_CTAS, block_seeds, check_card
                                   wide_scratch, wide_tile)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+from mcport_torch.ops.narrow import (LAYOUTS, NARROW_ASSETS, NARROW_SCRATCH_FLOATS, NarrowPlan,
+                                     narrow_plan, r4)
 from mcport_torch.rng import STREAM_BOOT, philox4x32
 
 __all__ = [
@@ -55,12 +65,74 @@ __all__ = [
     "bootstrap_multi_portfolio_dd",
     "bootstrap_price_bound",
     "bootstrap_shares",
+    "bootstrap_narrow_plan",
+    "bootstrap_layout_holds_history",
 ]
 
 #: Shared memory one block of the kernels may hold: the H100's 227 KB per block.
 SHARED_BYTES = 232_448
 _EPS = 2.0 ** -24    # float32 unit roundoff
 _TILE_P = 16         # paths per block of the candidate kernel
+#: csrc/bootstrap.cu ``kBootThreads``: paths (and threads) per block of the walk
+_BOOT_THREADS = 128
+#: csrc/bootstrap.cu ``kSoloMaxCand`` and ``kSoloMaxHedged``: the solo layout's
+#: widest W, unhedged and hedged (the split layout past it)
+_SOLO_MAX_CAND, _SOLO_MAX_HEDGED = 22, 14
+
+
+def _recur_floats(a: int, w: int, own: bool, legs: int, hist: int = 0) -> int:
+    """csrc/bootstrap.cu ``RecurLayout(T, a, w, own ? kOwn : kReturns, legs,
+    shared).total``, ``hist`` the history's ``T·A`` floats when shared."""
+    h = r4(hist) + (r4(a * (1 + 4 * legs)) if legs else 0) + (w * 16 if own else 0)
+    return h + (16 * _BOOT_THREADS if legs else 0) + (3 * w * _BOOT_THREADS if own else 0)
+
+
+def _dd_floats(a: int, w: int, hist: int = 0) -> int:
+    """csrc/bootstrap.cu ``DdLayout(T, a, round4(w), shared).total``, the
+    block of ``bootstrap_dd_kernel`` (17-64 assets; the hedge is read from
+    device memory)."""
+    return r4(hist) + a * r4(w) + a * _TILE_P + 2 * _TILE_P
+
+
+def bootstrap_layout_holds_history(layout: str | None, n_assets: int, n_cand: int,
+                                   t_len: int, n_legs: int = 0) -> bool:
+    """Whether ``layout``'s block (its first launch's: the walk of ``solo``
+    and ``split``; None: ``bootstrap_dd_kernel`` of 17-64 assets) keeps the
+    ``(t_len, n_assets)`` history in shared memory: where its own bytes and
+    the history's fit a block's ``SHARED_BYTES``. Else the history stays in
+    device memory and each step's row is read through the read-only cache."""
+    a, w, hist = int(n_assets), int(n_cand), int(t_len) * int(n_assets)
+    if layout is None:
+        return history_in_shared(4 * _dd_floats(a, w, hist))
+    return history_in_shared(4 * _recur_floats(a, w, layout == "solo", n_legs, hist))
+
+
+def bootstrap_narrow_plan(n_assets: int, n_cand: int, t_len: int = 365, n_steps: int = 252,
+                          block_paths: int = 131_072, n_blocks: int = 1, n_legs: int = 0,
+                          scratch_floats: int = NARROW_SCRATCH_FLOATS,
+                          layout: str | None = None) -> NarrowPlan:
+    """The bootstrap candidate kernel's layout for ``n_cand`` candidates (W <=
+    256) at ``n_assets <= 16`` over a ``t_len``-row history (csrc/bootstrap.cu
+    ``narrow_layout`` and its layouts' shared memory, the same arithmetic):
+    solo up to 22 candidates (14 hedged), split past them (on an H100 split
+    is faster than solo from 24 candidates, 15 hedged, and than the 17-64-
+    asset kernel's layout at every W; measured by
+    ``tools/ab_narrow_kernels.py``), or ``layout`` by name; blocks of 128
+    paths for the walk. Each layout's shared memory holds the
+    history where it fits (:func:`bootstrap_layout_holds_history`). The
+    split layout's scratch holds ``n_blocks x chunk x n_steps x n_assets``
+    rows, no more than ``scratch_floats``."""
+    hist = int(t_len) * int(n_assets)
+
+    def recur(a, w, own, legs):
+        base = _recur_floats(a, w, own, legs)
+        with_hist = _recur_floats(a, w, own, legs, hist)
+        return with_hist if history_in_shared(4 * with_hist) else base
+
+    solo_max = _SOLO_MAX_HEDGED if n_legs else _SOLO_MAX_CAND
+    return narrow_plan("the bootstrap candidate kernel", n_assets, n_cand, n_steps, block_paths,
+                       n_blocks, n_legs, scratch_floats, solo_max, MAX_CANDIDATES, recur,
+                       None, layout, solo_threads=_BOOT_THREADS)
 
 
 def _check(hist: torch.Tensor, n_paths: int, n_steps: int, n_blocks: int) -> tuple[int, int]:
@@ -269,14 +341,21 @@ def bootstrap_price_bound(n_assets: int, device) -> torch.Tensor:
 
 
 def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_blocks,
-               hedge=None):
+               hedge=None, layout=None):
+    """Launch kernel #7 for at most ``MAX_CANDIDATES``, hedged with ``hedge``;
+    up to 16 assets in the layout of :func:`bootstrap_narrow_plan`, or in
+    ``layout`` by name."""
     from mcport_torch._build import library
 
     t_len, a = hist.shape
     w_cnt = weights.shape[0]
-    w_pad = -(-w_cnt // 4) * 4
-    in_shared = history_in_shared(
-        4 * (-(-t_len * a // 4) * 4 + a * w_pad + a * _TILE_P + 2 * _TILE_P))
+    n_legs = hedge.n_legs if hedge is not None else 0
+    plan = None
+    if a <= NARROW_ASSETS:
+        plan = bootstrap_narrow_plan(a, w_cnt, t_len, n_steps, n_paths, n_blocks, n_legs,
+                                     layout=layout)
+    in_shared = bootstrap_layout_holds_history(plan.layout if plan else None, a, w_cnt,
+                                               t_len, n_legs)
     lib = library("bootstrap")
     term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
     dd = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=hist.device)
@@ -284,7 +363,6 @@ def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_
         return term, dd
     hist, weights = hist.contiguous(), weights.contiguous()
     block = hedge.packed() if hedge is not None else None
-    n_legs = hedge.n_legs if hedge is not None else 0
     hp = block.data_ptr() if block is not None else None
     with torch.cuda.device(hist.device):
         stream = torch.cuda.current_stream(hist.device).cuda_stream
@@ -297,10 +375,17 @@ def _launch_dd(seed, hist, weights, n_paths, n_steps, p_restart, first_block, n_
                 float(p_restart), hist.data_ptr(), weights.data_ptr(), hp, term.data_ptr(),
                 dd.data_ptr(), scratch.data_ptr(), tp, WIDE_CTAS, stream)
         else:
+            scratch = None
+            if plan is not None and plan.scratch_floats:
+                scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                      device=hist.device)
             err = lib.mcport_bootstrap_multi_dd(
                 seed, first_block, n_blocks, n_paths, t_len, a, w_cnt, n_steps, n_legs,
                 float(p_restart), int(in_shared), hist.data_ptr(), weights.data_ptr(), hp,
-                term.data_ptr(), dd.data_ptr(), stream)
+                term.data_ptr(), dd.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0,
+                -1 if layout is None else LAYOUTS[plan.layout], stream)
     if err:
         raise RuntimeError(f"bootstrap candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")

@@ -22,6 +22,13 @@ kernel also takes unit-variance Student-t shocks (mcport's GARCH-t lax
 sampler): ``t_df`` folds the ``1/sqrt(df/(df-2))`` scale into ``L_R``. The
 candidate kernel draws normal shocks only, as mcport's does.
 
+Up to 16 assets the candidate kernel runs the layout
+:func:`garch_narrow_plan` gives its candidate count
+(:mod:`mcport_torch.ops.narrow`): a thread per path scoring its own few
+candidates, or for more the same recursion's returns through a device
+scratch, scored by blocks of candidates; the layouts' outputs are equal bit
+for bit.
+
 Each wrapper dispatches on the device of its tensors: the CPU goes to the
 plain form, a CUDA device launches the kernel or raises. The plain forms and
 the card take any number of assets: from 17 to 64 through the kernels' wide
@@ -40,6 +47,8 @@ from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, MAX_ASSETS, WIDE_CTAS, _che
                                   step_shocks, t_scaled_chol)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
 from mcport_torch.ops.multi_dd import MAX_CANDIDATES, rebalanced_dd
+from mcport_torch.ops.narrow import (LAYOUTS, NARROW_ASSETS, NARROW_SCRATCH_FLOATS, NarrowPlan,
+                                     narrow_plan, r4)
 
 __all__ = [
     "GarchTensors",
@@ -52,9 +61,37 @@ __all__ = [
     "garch_tolerance",
     "garch_price_bound",
     "garch_shares",
+    "garch_value_bound",
+    "garch_narrow_plan",
 ]
 
 _EPS = 2.0 ** -24    # float32 unit roundoff
+#: csrc/garch.cu ``kSoloMaxCand``: the solo layout's widest W (the split layout past it)
+_SOLO_MAX_CAND = 13
+
+
+def _recur_floats(a: int, w: int, own: bool, legs: int) -> int:
+    """csrc/garch.cu ``RecurLayout(a, w, own ? kOwn : kReturns, legs).total``."""
+    h = 16 * 16 + 4 * 16
+    p = h + (r4(a * (1 + 4 * legs)) if legs else 0) + (w * 16 if own else 0)
+    return p + (16 * 64 if legs else 0) + (3 * w * 64 if own else 0)
+
+
+def garch_narrow_plan(n_assets: int, n_cand: int, n_steps: int = 252,
+                      block_paths: int = 131_072, n_blocks: int = 1, n_legs: int = 0,
+                      scratch_floats: int = NARROW_SCRATCH_FLOATS,
+                      layout: str | None = None) -> NarrowPlan:
+    """The GARCH candidate kernel's layout for ``n_cand`` candidates (W <= 256)
+    at ``n_assets <= 16`` (csrc/garch.cu ``narrow_layout`` and its layouts'
+    shared memory, the same arithmetic): solo up to 13 candidates, split past
+    them (the faster two on an H100 at every W, and split faster than the
+    former 16-path tile kernel at every W, measured by
+    ``tools/ab_narrow_kernels.py``), or ``layout`` by name. The split
+    layout's scratch holds ``n_blocks x chunk x n_steps x n_assets`` returns,
+    no more than ``scratch_floats``."""
+    return narrow_plan("the GARCH candidate kernel", n_assets, n_cand, n_steps, block_paths,
+                       n_blocks, n_legs, scratch_floats, _SOLO_MAX_CAND, MAX_CANDIDATES,
+                       _recur_floats, None, layout)
 
 
 class GarchTensors(NamedTuple):
@@ -238,22 +275,30 @@ def garch_multi_dd_reference(
     rounded as the kernel rounds it, ``(1 + mu) + eps``), every leg settled
     against the move (:func:`mcport_torch.ops.hedged.hedged_multi_dd`); with
     ``with_bound`` a third output bounds each (candidate, path)'s distance
-    from the kernel (:func:`garch_price_bound`)."""
+    from the kernel (:func:`garch_price_bound`), unhedged each candidate's
+    relative one ``(W, 1)`` (:func:`garch_value_bound` of these returns)."""
     _check(g, n_paths, n_steps, n_blocks, None)
     zc = correlated_shocks(seed, g, n_paths, n_steps, first_block=first_block,
                            n_blocks=n_blocks, first_path=first_path)
     eps = garch_innovations(zc, g)
     if hedge is None:
-        return rebalanced_dd(g.mu + eps, weights)
+        r = g.mu + eps
+        out = rebalanced_dd(r, weights)
+        if not with_bound:
+            return out
+        r_max = float(r.abs().max()) if r.numel() else 0.0
+        return (*out, garch_value_bound(g, weights, r_max, n_steps).to(g.device))
     return hedged_multi_dd((1.0 + g.mu) + eps, hedge, weights.to(torch.float32),
                            price_bound=(garch_price_bound(g, n_steps).to(g.device)
                                         if with_bound else None), gross=True)
 
 
 def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=False,
-               hedge=None):
+               hedge=None, layout=None):
     """Launch kernel #5 for at most ``MAX_CANDIDATES``, hedged with ``hedge``;
-    ``wide`` takes the 64-asset instantiation at any width up to 64."""
+    up to 16 assets in the layout of :func:`garch_narrow_plan`, or in
+    ``layout`` by name; ``wide`` takes the 64-asset instantiation at any width
+    up to 64."""
     from mcport_torch._build import library
 
     lib = library("garch")
@@ -278,10 +323,19 @@ def _launch_dd(seed, g, weights, n_paths, n_steps, first_block, n_blocks, wide=F
                                         weights.data_ptr(), hp, term.data_ptr(), dd.data_ptr(),
                                         scratch.data_ptr(), tp, WIDE_CTAS, stream)
         else:
-            err = lib.mcport_garch_multi_dd(seed, first_block, n_blocks, n_paths, a, w_cnt,
-                                            n_steps, int(wide), n_legs, params.data_ptr(),
-                                            weights.data_ptr(), hp, term.data_ptr(),
-                                            dd.data_ptr(), stream)
+            scratch, code = None, -1
+            if a <= NARROW_ASSETS and not wide:
+                plan = garch_narrow_plan(a, w_cnt, n_steps, n_paths, n_blocks, n_legs,
+                                         layout=layout)
+                code = -1 if layout is None else LAYOUTS[plan.layout]
+                if plan.scratch_floats:
+                    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                          device=g.device)
+            err = lib.mcport_garch_multi_dd(
+                seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps, int(wide), n_legs,
+                params.data_ptr(), weights.data_ptr(), hp, term.data_ptr(), dd.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0, code, stream)
     if err:
         raise RuntimeError(f"GARCH candidate kernel launch failed: CUDA error {err} "
                            f"({lib.mcport_error_string(err).decode()})")
@@ -380,20 +434,44 @@ def garch_tolerance(g: GarchTensors, n_steps: int, t_df: float | None = None) ->
     return (4.0 * math.sqrt(max(n_steps, 1)) * per_step).to(torch.float32)
 
 
+def garch_value_bound(g: GarchTensors, weights: torch.Tensor, r_max: float,
+                      n_steps: int) -> torch.Tensor:
+    """Relative bound ``(W, 1)`` on ``|kernel - plain form|`` of each
+    candidate's value over returns no larger than ``r_max`` in magnitude:
+    ``|Δterm| <= rel (1 + |term|)``, ``|Δdd| <= 2 rel``.
+
+    The largest asset bound (:func:`garch_tolerance`) plus the score's share.
+    At every step the score sums its ``A`` terms ``w_a r_a`` in an order of
+    its own (the kernels ascend the assets, the plain form's ``r @ w.T``
+    sums in whatever order the library picks for the problem's size): ``A``
+    roundings of at most ``2^-24 h``, ``h = Σ_a |w_a| · r_max`` bounding
+    ``Σ_a |w_a r_a|``; and the roundings of ``1 + f`` and the product (two
+    of ``2^-24``). Every one of these enters at every step, so over ``n``
+    steps they add up like a random walk; with a factor 4 of headroom the
+    score's share is ``4 sqrt(n) 2^-24 (2 + A h)``, as
+    :func:`mcport_torch.ops.bootstrap.bootstrap_shares` has it for the same
+    score, and never below the former share, which counted the score's
+    roundings once at a full ``2^-24`` each (``8 · 2^-24 · (A + sqrt(n))``)."""
+    a, n = g.corr_chol.shape[0], max(n_steps, 1)
+    h = weights.detach().to("cpu", torch.float64).abs().sum(dim=1) * float(r_max)
+    score = torch.clamp(4.0 * _EPS * math.sqrt(n) * (2.0 + a * h),
+                        min=8.0 * _EPS * (a + math.sqrt(n)))
+    return (float(garch_tolerance(g, n_steps).max()) + score).to(torch.float32).view(-1, 1)
+
+
 def garch_shares(kernel, plain, g: GarchTensors, n_steps: int,
                  t_df: float | None = None,
                  hedge: HedgeTensors | None = None) -> dict[str, float]:
     """The largest share of its bound that ``|kernel - plain|`` uses →
-    ``{"term"}`` for a terminal tensor ``(..., A)``, ``{"term", "dd"}`` for a
-    candidate pair ``(term, dd)``: the candidates' values are held to the
-    largest asset bound plus ``8 · 2^-24 · (A + sqrt(n))`` for the score's sum
-    over assets and the product over steps, the drawdown to twice that.
-    Non-finite kernel values give ``inf``. Hedged (``hedge``): path by path
-    against the bound that ``plain`` carries (:func:`garch_multi_dd_reference`
-    ``with_bound``), by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    ``{"term"}`` for a terminal tensor ``(..., A)`` (:func:`garch_tolerance`),
+    ``{"term", "dd"}`` for a candidate pair ``(term, dd)`` against the bound
+    that ``plain`` carries (:func:`garch_multi_dd_reference` ``with_bound``;
+    :func:`garch_value_bound`). Non-finite kernel values give ``inf``.
+    Hedged (``hedge``): path by path against the bound that ``plain``
+    carries, by :func:`mcport_torch.ops.hedged.hedged_shares`."""
+    if not isinstance(kernel, torch.Tensor) and len(plain) != 3:
+        raise ValueError("a candidate comparison needs the plain form's bound (with_bound)")
     if hedge is not None:
-        if len(plain) != 3:
-            raise ValueError("a hedged comparison needs the plain form's bound (with_bound)")
         return hedged_shares(kernel, plain, None)
     rel = garch_tolerance(g, n_steps, t_df).to(g.device)
 
@@ -404,7 +482,6 @@ def garch_shares(kernel, plain, g: GarchTensors, n_steps: int,
 
     if isinstance(kernel, torch.Tensor):
         return {"term": share(kernel, plain, rel * (1.0 + plain.abs()))}
-    a = g.corr_chol.shape[0]
-    r = float(rel.max()) + 8.0 * _EPS * (a + math.sqrt(max(n_steps, 1)))
+    r = plain[2].to(plain[0].device)
     return {"term": share(kernel[0], plain[0], r * (1.0 + plain[0].abs())),
-            "dd": share(kernel[1], plain[1], torch.full_like(plain[1], 2.0 * r))}
+            "dd": share(kernel[1], plain[1], (2.0 * r).expand_as(plain[1]))}

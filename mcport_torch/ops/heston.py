@@ -441,13 +441,19 @@ def heston_tolerance(n_assets: int, n_steps: int) -> tuple[float, float]:
     bit for bit, so only the transcendentals that leave the path and the
     candidates' score differ. Terminal: ``expm1`` of the same ``acc`` on two
     implementations, each within an ulp, four ulps with headroom: ``|Δ| <=
-    2^-21 |plain|``. Value: per step each ``exp`` within two ulps on either
-    side, the score's sum over ``A`` positive terms in another order (``A``
-    roundings) and the product, over ``n`` steps as a random walk with a
-    factor 8 of headroom: ``8 · 2^-24 · (A + 2 sqrt(n))``; the terminal return
-    then differs by at most ``rel · (1 + |term|)``, the drawdown by ``2 ·
-    rel``."""
-    return 2.0 ** -21, 8.0 * _EPS * (n_assets + 2.0 * math.sqrt(max(n_steps, 1)))
+    2^-21 |plain|``. Value: at every step each ``exp`` lies within two ulps
+    on either side (``8 · 2^-24`` between them), the score sums its ``A``
+    positive terms in an order of its own (``A`` roundings: the kernels
+    ascend the assets, the plain form's ``r @ w.T`` sums in whatever order
+    the library picks for the problem's size) and each side rounds its
+    product once: ``(A + 10) · 2^-24`` per step. Every one of these enters
+    at every step, so over ``n`` steps they add up like a random walk,
+    ``sqrt(n) (A + 10) 2^-24``; the bound is ``8 · 2^-24 · (A + 2)
+    sqrt(n)``, at least twice that at every ``A`` and never below the
+    former bound, which counted the score's roundings once (``8 · 2^-24 ·
+    (A + 2 sqrt(n))``). The terminal return then differs by at most ``rel ·
+    (1 + |term|)``, the drawdown by ``2 · rel``."""
+    return 2.0 ** -21, 8.0 * _EPS * (n_assets + 2.0) * math.sqrt(max(n_steps, 1))
 
 
 def heston_shares(kernel, plain, h: HestonTensors, n_steps: int,

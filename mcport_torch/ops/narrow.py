@@ -1,19 +1,22 @@
-"""The layouts of the Merton (#8) and Heston (#10) candidate kernels up to 16
-assets (``csrc/narrow_dd.cuh``): what their plans share.
+"""The layouts of the Merton (#8), Heston (#10), GARCH (#5) and bootstrap
+(#7) candidate kernels up to 16 assets (``csrc/narrow_dd.cuh``): what their
+plans share.
 
 Each kernel picks its layout by the number of candidates W (the C side's
-``narrow_layout``; :func:`mcport_torch.ops.jump.merton_narrow_plan` and
-:func:`mcport_torch.ops.heston.heston_narrow_plan` mirror it, with each
+``narrow_layout``; :func:`mcport_torch.ops.jump.merton_narrow_plan`,
+:func:`mcport_torch.ops.heston.heston_narrow_plan`,
+:func:`mcport_torch.ops.garch.garch_narrow_plan` and
+:func:`mcport_torch.ops.bootstrap.bootstrap_narrow_plan` mirror it, with each
 kernel's shared-memory arithmetic):
 
 - ``solo`` up to a few candidates (the path-risk engine's W = 1): a thread
   per path runs the recursion and scores its own candidates; one launch of
-  64-thread blocks;
+  64-thread blocks (the bootstrap's 128);
 - ``split``: the same recursion writes every step's returns to a device
   scratch the wrapper allocates (up to 2 GiB: 131,072 x 252 x 15 takes
-  1.98 GB; chunks of 64 paths past it), then 256-thread blocks score them,
-  their paths widening as W shrinks (16 at W = 256, 512 at W = 5-8): two
-  launches per chunk;
+  1.98 GB; chunks of a recursion block's paths past it), then 256-thread
+  blocks score them, their paths widening as W shrinks (16 at W = 256, 512
+  at W = 5-8): two launches per chunk;
 - ``tile`` (Heston past 128 candidates): a 256-thread block owns a 16-path
   tile and every candidate, its items' and scorers' phases pipelined one
   Philox call apart with one barrier per call.
@@ -47,7 +50,7 @@ class NarrowPlan(NamedTuple):
     order, its ``threads`` and ``paths`` per block and ``shared_bytes`` per
     block; ``scratch_floats`` of the split layout's returns and ``chunk``
     paths per pair of its launches (``block_paths`` where the scratch holds
-    them all, else a multiple of 64)."""
+    them all, else a multiple of the recursion block's paths)."""
 
     layout: str
     threads: tuple[int, ...]
@@ -86,12 +89,13 @@ def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_pat
                 n_blocks: int, n_legs: int, scratch_floats: int, solo_max: int, split_max: int,
                 recur_floats: Callable[[int, int, bool, int], int],
                 tile_floats: Callable[[int, int, int], int] | None,
-                layout: str | None = None) -> NarrowPlan:
+                layout: str | None = None, solo_threads: int = SOLO_THREADS) -> NarrowPlan:
     """The plan of ``kernel`` (its name, for errors): ``layout``, or by W
     ``solo`` up to ``solo_max`` candidates, ``split`` up to ``split_max`` and
     ``tile`` past it, with the kernel's shared memory in floats from
     ``recur_floats(a, W, own, legs)`` and ``tile_floats(a, W, legs)`` (None:
-    the kernel has no tile layout)."""
+    the kernel has no tile layout), and ``solo_threads`` threads (a path
+    each) per recursion block."""
     a, w = int(n_assets), int(n_cand)
     if not 1 <= a <= NARROW_ASSETS or not 1 <= w <= 256:
         raise ValueError(f"{kernel} takes 1-{NARROW_ASSETS} assets and 1-256 candidates in "
@@ -102,14 +106,14 @@ def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_pat
         raise ValueError(f"{kernel} has no {layout!r} layout")
     legs = int(n_legs)
     if layout == "solo":
-        plan = NarrowPlan("solo", (SOLO_THREADS,), (SOLO_THREADS,),
+        plan = NarrowPlan("solo", (solo_threads,), (solo_threads,),
                           (4 * recur_floats(a, w, True, legs),), 0, int(block_paths))
     elif layout == "tile":
         plan = NarrowPlan("tile", (TILE_THREADS,), (TILE,), (4 * tile_floats(a, w, legs),), 0,
                           int(block_paths))
     else:
         plan = _split(a, w, int(n_steps), int(block_paths), int(n_blocks), legs,
-                      int(scratch_floats), recur_floats)
+                      int(scratch_floats), recur_floats, solo_threads)
     if max(plan.shared_bytes) > SMEM:
         raise ValueError(f"{kernel}'s {plan.layout} layout needs {max(plan.shared_bytes):,} "
                          f"bytes of shared memory per block at {a} assets, {w} candidates and "
@@ -117,16 +121,15 @@ def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_pat
     return plan
 
 
-def _split(a, w, n_steps, block_paths, n_blocks, legs, scratch_floats, recur_floats):
+def _split(a, w, n_steps, block_paths, n_blocks, legs, scratch_floats, recur_floats, threads):
     per_path = n_blocks * n_steps * a
     tiles = lambda n: -(-n // TILE) * TILE  # noqa: E731
     chunk = block_paths
     if per_path and scratch_floats // per_path < tiles(chunk):
-        chunk = scratch_floats // per_path // SOLO_THREADS * SOLO_THREADS
+        chunk = scratch_floats // per_path // threads * threads
         if chunk < 1:
             raise ValueError(f"a scratch of {scratch_floats:,} floats holds no "
-                             f"{SOLO_THREADS}-path chunk of {per_path:,} returns per path")
-    return NarrowPlan("split", (SOLO_THREADS, SCORE_THREADS),
-                      (SOLO_THREADS, 4 * score_groups(w)),
+                             f"{threads}-path chunk of {per_path:,} returns per path")
+    return NarrowPlan("split", (threads, SCORE_THREADS), (threads, 4 * score_groups(w)),
                       (4 * recur_floats(a, w, False, legs), 4 * score_floats(a, w)),
                       per_path * tiles(chunk), chunk)

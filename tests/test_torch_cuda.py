@@ -52,7 +52,11 @@ their W picks (on each side of every switch of ``merton_narrow_plan`` and
 every type, Heston also at a Feller-violating vol of vol) to the same bounds,
 every layout by name bit for bit with it, the jump kernel's layouts at rate
 0 equal to kernel #3, and the split layout's scratch taken in chunks bit for
-bit with the whole launch.
+bit with the whole launch. The GARCH and bootstrap candidate kernels up to
+16 assets the same way (on each side of every switch of
+``garch_narrow_plan`` and ``bootstrap_narrow_plan`` and at 256, A = 1, 7,
+15, 16, hedged with two legs of every type, the bootstrap over a history in
+shared memory and one in device memory), their split scratch in chunks too.
 """
 
 import numpy as np
@@ -325,7 +329,7 @@ def test_garch_multi_dd_kernel_matches_plain_form(dev, n_cand, a, steps):
     k = garch_multi_portfolio_dd(11, g, w, 2_053, steps, **kw)
     torch.cuda.synchronize()
     assert garch_multi_portfolio_dd.launches == before + 1
-    p = garch_multi_dd_reference(11, g, w, 2_053, steps, **kw)
+    p = garch_multi_dd_reference(11, g, w, 2_053, steps, with_bound=True, **kw)
     shares = garch_shares(k, p, g, steps)
     assert max(shares.values()) <= 1.0, shares
 
@@ -744,7 +748,7 @@ def test_garch_wide_kernels_match_plain_form(dev, a, t_df):
     w = torch.from_numpy(np.random.default_rng(a).dirichlet(np.ones(a), 13).astype(
         np.float32)).to(dev)
     kk = garch_multi_portfolio_dd(11, g, w, 1_029, 52, **kw)
-    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, **kw)
+    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, with_bound=True, **kw)
     assert max(garch_shares(kk, pp, g, 52).values()) <= 1.0
 
 
@@ -994,7 +998,7 @@ def test_garch_wide_layout_matches_plain_form(dev, a, t_df):
     assert max(garch_shares(k, p, g, 52, t_df).values()) <= 1.0
     w = _wide_cand(a, dev, 256)
     kk = garch_multi_portfolio_dd(11, g, w, 1_029, 52, **kw)
-    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, **kw)
+    pp = garch_multi_dd_reference(11, g, w, 1_029, 52, with_bound=True, **kw)
     assert max(garch_shares(kk, pp, g, 52).values()) <= 1.0
 
 
@@ -1652,14 +1656,17 @@ def test_merton_narrow_layouts_at_zero_rate_are_the_multi_dd_kernel(dev, n_cand,
         assert _same(_launch(7, params, w, a, 2_053, 60, 0, 2, 0.0, hedge, layout), want), layout
 
 
-@pytest.mark.parametrize("family", ["jump", "heston"])
+@pytest.mark.parametrize("family", ["jump", "heston", "garch", "bootstrap"])
 @pytest.mark.parametrize("n_cand, hedged", [(17, False), (256, True), (64, True)])
 def test_narrow_split_layout_chunks_its_scratch(dev, family, n_cand, hedged):
     """The split layout takes its returns through the scratch it is given, in
-    chunks of 64 paths where the scratch holds fewer than all: one chunk's
-    scratch and a ragged one give the wrapper's outputs bit for bit; a null
-    scratch, or one smaller than a chunk, is refused."""
+    chunks of a recursion block's paths (64, the bootstrap's 128) where the
+    scratch holds fewer than all: one chunk's scratch and a ragged one give
+    the wrapper's outputs bit for bit; a null scratch, or one smaller than a
+    chunk, is refused."""
     from mcport_torch._build import library
+    from mcport_torch.ops.bootstrap import bootstrap_multi_portfolio_dd
+    from mcport_torch.ops.garch import garch_multi_portfolio_dd
     from mcport_torch.ops.heston import heston_multi_portfolio_dd
     from mcport_torch.ops.jump import merton_multi_portfolio_dd
 
@@ -1667,20 +1674,26 @@ def test_narrow_split_layout_chunks_its_scratch(dev, family, n_cand, hedged):
     w = _wide_cand(a, dev, n_cand, seed=n_cand)
     hedge = _hedge(a, dev, 2, seed=n_cand) if hedged else None
     n_legs = 2 if hedged else 0
+    kw = dict(first_block=1, n_blocks=nb, hedge=hedge)
     if family == "jump":
         mean, chol, muj, sigj = _merton(a, dev)
-        want = merton_multi_portfolio_dd(3, mean, chol, 0.3, muj, sigj, w, paths, steps,
-                                         first_block=1, n_blocks=nb, hedge=hedge)
+        want = merton_multi_portfolio_dd(3, mean, chol, 0.3, muj, sigj, w, paths, steps, **kw)
         params = torch.cat([chol.reshape(-1), mean, muj, sigj]).contiguous()
-    else:
+    elif family == "heston":
         h = _heston(a, dev, 0.05)
-        want = heston_multi_portfolio_dd(3, h, w, paths, steps, first_block=1, n_blocks=nb,
-                                         hedge=hedge)
+        want = heston_multi_portfolio_dd(3, h, w, paths, steps, **kw)
         params = h.packed()
+    elif family == "garch":
+        g = _garch(a, dev)
+        want = garch_multi_portfolio_dd(3, g, w, paths, steps, **kw)
+        params = g.packed(g.corr_chol)
+    else:
+        params = _history(365, a, dev)
+        want = bootstrap_multi_portfolio_dd(3, params, w, paths, steps, 0.2, **kw)
     block = hedge.packed() if hedged else None
     lib = library(family)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    chunk = nb * steps * a * 64
+    chunk = nb * steps * a * (128 if family == "bootstrap" else 64)
 
     def launch(scratch, floats):
         term = torch.full((nb, n_cand, paths), -9.0, device=dev)
@@ -1691,8 +1704,13 @@ def test_narrow_split_layout_chunks_its_scratch(dev, family, n_cand, hedged):
         if family == "jump":
             err = lib.mcport_merton_multi_dd(3, 1, nb, paths, a, n_cand, steps, n_legs, 0.3,
                                              *ptrs)
-        else:
+        elif family == "heston":
             err = lib.mcport_heston_multi_dd(3, 1, nb, paths, a, n_cand, steps, 0, n_legs, *ptrs)
+        elif family == "garch":
+            err = lib.mcport_garch_multi_dd(3, 1, nb, paths, a, n_cand, steps, 0, n_legs, *ptrs)
+        else:   # the 365-row history in the walk's shared memory
+            err = lib.mcport_bootstrap_multi_dd(3, 1, nb, paths, 365, a, n_cand, steps, n_legs,
+                                                0.2, 1, *ptrs)
         torch.cuda.synchronize()
         return err, (term, dd)
 
@@ -1702,3 +1720,74 @@ def test_narrow_split_layout_chunks_its_scratch(dev, family, n_cand, hedged):
         assert err == 0 and _same(got, want), floats
     assert launch(None, chunk)[0] != 0
     assert launch(scratch, chunk - 1)[0] != 0
+
+
+# ---- the GARCH (#5) and bootstrap (#7) candidate kernels' layouts up to 16 assets ---------
+
+#: each side of every layout switch of ``ops.garch.garch_narrow_plan`` (solo up to
+#: 13 candidates, split past them) and ``ops.bootstrap.bootstrap_narrow_plan``
+#: (solo up to 22, 14 hedged, split past them), and 256
+SIMPLE_NARROW_W = [1, 13, 14, 15, 22, 23, 256]
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", SIMPLE_NARROW_W)
+def test_garch_narrow_layouts_match_plain_form(dev, a, n_cand):
+    """The GARCH candidate kernel in the layout its W picks, within
+    ``garch_shares`` of the plain form (hedged with two legs per asset of
+    every type, path by path), and in every layout by name bit for bit with
+    it; two blocks of 1,029 paths (a multiple of no block or tile), 52
+    steps."""
+    from mcport_torch.ops.garch import (_launch_dd, garch_multi_dd_reference,
+                                        garch_multi_portfolio_dd, garch_narrow_plan,
+                                        garch_shares)
+
+    g = _garch(a, dev)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2)
+    for hedge in (None, _hedge(a, dev, 2, seed=n_cand)):
+        before = garch_multi_portfolio_dd.launches
+        k = garch_multi_portfolio_dd(11, g, w, 1_029, 52, hedge=hedge, **kw)
+        torch.cuda.synchronize()
+        assert garch_multi_portfolio_dd.launches == before + 1
+        for layout in _named_layouts(garch_narrow_plan, a, n_cand, hedge):
+            got = _launch_dd(11, g, w, 1_029, 52, 6, 2, hedge=hedge, layout=layout)
+            assert _same(got, k), layout
+        p = garch_multi_dd_reference(11, g, w, 1_029, 52, hedge=hedge, with_bound=True, **kw)
+        shares = garch_shares(k, p, g, 52, hedge=hedge)
+        assert max(shares.values()) <= 1.0, (hedge is not None, shares)
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", SIMPLE_NARROW_W)
+@pytest.mark.parametrize("t_len", [365, 8_192])
+def test_bootstrap_narrow_layouts_match_plain_form(dev, a, n_cand, t_len):
+    """The bootstrap candidate kernel in the layout its W picks, within
+    ``bootstrap_shares`` of the plain form (hedged with two legs per asset of
+    every type, path by path: the prices and settled returns are the plain
+    form's bit for bit), and in every layout by name bit for bit with it;
+    the history in the layouts' shared memory (365 rows) or in device memory
+    (8,192); two blocks of 1,029 paths, 52 steps."""
+    from mcport_torch.ops.bootstrap import (_launch_dd, bootstrap_multi_dd_reference,
+                                            bootstrap_multi_portfolio_dd,
+                                            bootstrap_narrow_plan, bootstrap_shares)
+
+    hist = _history(t_len, a, dev)
+    w = _wide_cand(a, dev, n_cand)
+    kw = dict(first_block=6, n_blocks=2)
+
+    def plan(a, w, *args, **k):
+        return bootstrap_narrow_plan(a, w, t_len, *args, **k)
+
+    for hedge in (None, _hedge(a, dev, 2, seed=n_cand)):
+        before = bootstrap_multi_portfolio_dd.launches
+        k = bootstrap_multi_portfolio_dd(11, hist, w, 1_029, 52, 0.2, hedge=hedge, **kw)
+        torch.cuda.synchronize()
+        assert bootstrap_multi_portfolio_dd.launches == before + 1
+        for layout in _named_layouts(plan, a, n_cand, hedge):
+            got = _launch_dd(11, hist, w, 1_029, 52, 0.2, 6, 2, hedge=hedge, layout=layout)
+            assert _same(got, k), layout
+        p = bootstrap_multi_dd_reference(11, hist, w, 1_029, 52, 0.2, hedge=hedge,
+                                         with_bound=hedge is not None, **kw)
+        shares = bootstrap_shares(k, p, hist, w, 52, hedge=hedge)
+        assert max(shares.values()) <= 1.0, (hedge is not None, shares)

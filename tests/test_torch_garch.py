@@ -266,7 +266,7 @@ def test_garch_tolerance_rejects_planted_faults(monkeypatch, fault, steps):
                         dtype=torch.float32)
     kw = dict(first_block=6, n_blocks=2)
     right_t = O.garch_terminal_reference(11, g, 256, steps, **kw)
-    right_c = O.garch_multi_dd_reference(11, g, w, 256, steps, **kw)
+    right_c = O.garch_multi_dd_reference(11, g, w, 256, steps, with_bound=True, **kw)
     assert max(O.garch_shares(right_t, right_t, g, steps).values()) == 0.0
     monkeypatch.setattr(O, "garch_innovations", fault)
     wrong_t = O.garch_terminal_reference(11, g, 256, steps, **kw)

@@ -2,7 +2,7 @@
 other / this / this / other.
 
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
-    python3 tools/ab_narrow_kernels.py DIR [merton-heston|dcc|all]
+    python3 tools/ab_narrow_kernels.py DIR [merton-heston|garch-bootstrap|dcc|all]
 
 - First, per library (jump, Heston, GARCH, bootstrap, DCC), whether each
   kernel of the other tree has this tree's instructions (``cuobjdump
@@ -22,6 +22,17 @@ other / this / this / other.
   at 131,072 x 252, unhedged and hedged (the bench hedge), each turn the best
   of three timings of two launches, each tree its best turn, the timed
   outputs held equal; and this tree's layouts by name at W = 1 to 256.
+- ``garch-bootstrap``: the GARCH (#5) and bootstrap (#7) candidate kernels
+  up to 16 assets, the same checks as ``merton-heston`` (at the bench's
+  GARCH parameters; the bootstrap over a 365-row history in shared memory
+  and an 8,192-row one in device memory), both trees timed in turns at W =
+  256 and W = 1, and at their main paths: ``run_garch_path_risk`` and
+  ``run_bootstrap_path_risk`` at config-4 (16,777,216 x 252, the bench
+  weights), plain and hedged (the bench hedge), and both family frontiers
+  (4,096 x 131,072 x 252); then this tree's layouts by name at W = 1 to
+  256, and the registers and spills ptxas reports for the kernels of both
+  libraries. The other tree's ``garch_dd_kernel<16, *>`` listings are kept
+  under ``chiprun_out/`` (which multiply-adds nvcc contracts).
 - ``dcc``: the DCC kernels past 16 assets (``dcc_group_kernel``) and the
   narrow DCC candidate kernel (``dcc_dd_kernel``): their outputs against the
   other tree's with ``torch.equal`` (A = 17, 33, 64, 65, 200, 256 and 1, 7,
@@ -60,6 +71,8 @@ def load(root):
     import mcport_torch.ops.garch as G
     import mcport_torch.ops.heston as H
     import mcport_torch.ops.jump as J
+    import mcport_torch.engine.drawdown_frontier  # noqa: F401  (each tree its own engines)
+    import mcport_torch.engine.path_risk  # noqa: F401
     sys.path.remove(root)
     mods = {m: v for m, v in sys.modules.items()
             if m == "mcport_torch" or m.startswith("mcport_torch.")}
@@ -91,9 +104,21 @@ def sass(so: Path) -> dict:
     return out
 
 
-#: the other tree's kernels that this tree no longer has: Heston's candidate
-#: kernel up to 16 assets, now the layouts of csrc/narrow_dd.cuh
-REDESIGNED = ("heston_dd_kernelILi16E",)
+#: the other tree's kernels that this tree no longer has: Heston's and GARCH's
+#: candidate kernels up to 16 assets, now the layouts of csrc/narrow_dd.cuh
+REDESIGNED = ("heston_dd_kernelILi16E", "garch_dd_kernelILi16E")
+#: kernels renamed in this tree, other key -> this key: narrow_dd.cuh's
+#: scoring kernel took the value update (kGross, kSimpleNan) for its flag
+RENAMED = {"score_kernelE": "score_kernelILi0EE", "score_kernelILb1EE": "score_kernelILi2EE"}
+
+
+def renamed(key: str) -> str:
+    for old, new in RENAMED.items():
+        if key.endswith(old):
+            return key[:-len(old)] + new
+    return key
+
+
 mods = {"other": load(sys.argv[1]), "this": load(".")}
 kept = [0, 0]
 for fam in FAMILIES:
@@ -102,18 +127,24 @@ for fam in FAMILIES:
         libs[side] = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.so"),
                             key=lambda p: p.stat().st_mtime)[-1]
     a, b = sass(libs["other"]), sass(libs["this"])
+    if fam == "garch":   # the former candidate kernel's listings: which adds nvcc fuses
+        Path("chiprun_out").mkdir(exist_ok=True)
+        for key, ins in a.items():
+            if "garch_dd_kernelILi16E" in key:
+                Path(f"chiprun_out/sass_other_{key[-40:]}.txt").write_text("\n".join(ins))
     for key, ins in sorted(a.items()):
-        same = b.get(key) == ins
+        key_b = renamed(key)
+        same = b.get(key_b) == ins
         redesigned = any(r in key for r in REDESIGNED)
         kept[0] += int(same and not redesigned)
         kept[1] += int(not redesigned)
-        if key in b and not same:   # both listings, for a diff
-            for side, listing in (("other", ins), ("this", b[key])):
+        if key_b in b and not same:   # both listings, for a diff
+            for side, listing in (("other", ins), ("this", b[key_b])):
                 Path("chiprun_out").mkdir(exist_ok=True)
                 Path(f"chiprun_out/sass_{fam}_{key[-40:]}_{side}.txt").write_text(
                     "\n".join(listing))
         print(f"sass {fam} {key}: {len(ins)} instructions, "
-              f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}"
+              f"{'the same in this tree' if same else 'CHANGED' if key_b in b else 'not found'}"
               f"{' (redesigned)' if redesigned else ''}")
 print(f"sass: {kept[0]} of {kept[1]} kept kernels the same in this tree")
 
@@ -290,7 +321,7 @@ def dcc_part():
 NARROW_W = (1, 10, 11, 12, 13, 128, 129, 256)
 #: this tree's layouts by name (ops/narrow.py LAYOUTS; the jump kernel has no tile)
 LAYOUTS = ("solo", "split", "tile")
-SWEEP_W = (1, 2, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32, 64, 128, 192, 256)
+SWEEP_W = (1, 2, 4, 5, 6, 7, 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 22, 23, 24, 32, 64, 128, 192, 256)
 
 
 def on(side):
@@ -430,9 +461,185 @@ def merton_heston_part():
     return f"#8/#10 most slower than the other tree {100 * worst:.2f}%"
 
 
+# ---- kernels #5 and #7 up to 16 assets ----------------------------------------------
+
+
+def ptxas_report(libs=("garch", "bootstrap")) -> None:
+    """Registers, stack frames and spills of every kernel of both trees'
+    libraries, from the ``-Xptxas -v`` report kept beside each library."""
+    for side, root in (("other", sys.argv[1]), ("this", ".")):
+        for fam in libs:
+            log = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.log"),
+                         key=lambda p: p.stat().st_mtime)[-1].read_text()
+            name, spill = None, ""
+            for line in log.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    name = re.sub(r"_GLOBAL__N__\w+?_[0-9a-f]{8}", "", m.group(1))
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+                if m and name:
+                    spill = f"frame {m.group(1)}, spills {m.group(2)}/{m.group(3)}"
+                m = re.search(r"Used (\d+) registers", line)
+                if m and name:
+                    print(f"ptxas {side} {fam} {name}: {m.group(1)} registers, {spill}")
+                    name = None
+
+
+def garch_bootstrap_part():
+    """#5 and #7: outputs against the other tree's in every layout, then the
+    times: the kernels, their main paths, this tree's layouts by name."""
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    kw = dict(first_block=6, n_blocks=2)
+    this_g, this_o = on("this")[0], on("this")[1]
+    switches = {"garch": S.layout_switches(this_g.garch_narrow_plan),
+                "bootstrap": S.layout_switches(this_o.bootstrap_narrow_plan)}
+    print(f"layout switches (W each side, and 1 and 256): {switches}")
+    long_hist = np.random.default_rng(8).normal(1e-3, 0.02, (S.LONG_HISTORY, 16)).astype(
+        np.float32)
+    for a in (1, 7, 15, 16):
+        g = S.bench_garch(a).tensors(dev)
+        hists = {"365 rows": torch.as_tensor(S.bench_history(a), device=dev),
+                 f"{S.LONG_HISTORY} rows": torch.as_tensor(long_hist[:, :a].copy(), device=dev)}
+        legs = S.leg_mix(a, 2, dev, seed=a)
+        for n in sorted(set(switches["garch"]) | set(switches["bootstrap"])):
+            w = simplex(a, n)
+            for hedge in (None, legs):
+                tag = f"A={a} W={n}" + (" hedged L=2" if hedge is not None else "")
+                G = on("other")[0]
+                want = bits(G.garch_multi_portfolio_dd(11, g, w, 1_029, 52, hedge=hedge, **kw))
+                G = on("this")[0]
+                got = G.garch_multi_portfolio_dd(11, g, w, 1_029, 52, hedge=hedge, **kw)
+                held_equal(f"garch {tag} by W", want, bits(got))
+                for layout in taken(G.garch_narrow_plan, a, n, hedge):
+                    got = G._launch_dd(11, g, w, 1_029, 52, 6, 2, hedge=hedge, layout=layout)
+                    torch.cuda.synchronize()
+                    held_equal(f"garch {tag} {layout}", want, bits(got))
+                for hname, hist in hists.items():
+                    O = on("other")[1]
+                    want = bits(O.bootstrap_multi_portfolio_dd(11, hist, w, 1_029, 52,
+                                                               hedge=hedge, **kw))
+                    O = on("this")[1]
+                    got = O.bootstrap_multi_portfolio_dd(11, hist, w, 1_029, 52, hedge=hedge, **kw)
+                    held_equal(f"bootstrap {tag} {hname} by W", want, bits(got))
+                    plan = (lambda *x, t=hist.shape[0], **k: O.bootstrap_narrow_plan(
+                        x[0], x[1], t, *x[2:], **k))
+                    for layout in taken(plan, a, n, hedge):
+                        got = O._launch_dd(11, hist, w, 1_029, 52, 0.2, 6, 2, hedge=hedge,
+                                           layout=layout)
+                        torch.cuda.synchronize()
+                        held_equal(f"bootstrap {tag} {hname} {layout}", want, bits(got))
+
+    pp = 131_072
+    cand = simplex(15, 256, seed=-15)
+    w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
+    g15 = S.bench_garch().tensors(dev)
+    hist15 = torch.as_tensor(S.bench_history(), device=dev)
+    spots = np.full(15, S.SPOT)
+    h15 = HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev)
+
+    def call(fam, mod, w, hedged, layout=None):
+        hedge = h15 if hedged else None
+        if fam == "garch":
+            if layout is None:
+                return lambda: mod.garch_multi_portfolio_dd(0, g15, w, pp, 252, hedge=hedge)
+            return lambda: mod._launch_dd(0, g15, w, pp, 252, -1, 1, hedge=hedge, layout=layout)
+        if layout is None:
+            return lambda: mod.bootstrap_multi_portfolio_dd(0, hist15, w, pp, 252, hedge=hedge)
+        return lambda: mod._launch_dd(0, hist15, w, pp, 252, 0.2, -1, 1, hedge=hedge,
+                                      layout=layout)
+
+    def best(fn):
+        return min(S._time_ms(fn, 2) for _ in range(3))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = S.time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (S.time.perf_counter() - t0)
+
+    timed = (("W=256", cand, False), ("W=256 hedged", cand, True), ("W=1", w_one, False),
+             ("W=1 hedged", w_one, True))
+    config4 = S.cells()["config4"]
+    weights = S.bench_weights()
+    _, spec = S.bench_hedge(spots)
+    garch_p, hist_np = S.bench_garch(), S.bench_history()
+    res, firsts = {}, {}
+    for order in ("other", "this", "this", "other"):
+        side = on(order)
+        for fam, mod in (("garch", side[0]), ("bootstrap", side[1])):
+            for label, w, hedged in timed:
+                fn = call(fam, mod, w, hedged)
+                out = fn()
+                torch.cuda.synchronize()
+                firsts.setdefault((fam, label, order), bits(out))
+                res.setdefault((f"{fam} {label}", order), []).append(best(fn))
+        pr = side[4]["mcport_torch.engine.path_risk"]
+        fr = side[4]["mcport_torch.engine.drawdown_frontier"]
+        for fam, run, src in (("garch", pr.run_garch_path_risk, garch_p),
+                              ("bootstrap", pr.run_bootstrap_path_risk, hist_np)):
+            for hedged in (False, True):
+                extra = dict(hedge=spec, s0=spots) if hedged else {}
+                name = f"config-4 run_{fam}_path_risk" + (" hedged" if hedged else "")
+                rep, ms = wall(lambda: run(src, weights, config4, device=dev, **extra))
+                firsts.setdefault((name, order), (rep.var, rep.cvar, rep.dd_p95))
+                res.setdefault((name, order), []).append(ms)
+            budget = {"garch": 0.6527, "bootstrap": 0.1177}[fam]
+            kwf = dict(S.FRONTIER, dd_budget=budget)
+            name = f"{fam} frontier 4,096 x 131,072 x 252"
+            r, ms = wall(lambda: fr.family_drawdown_frontier_search(S.FRONTIER_SEED, fam, src,
+                                                                    device=dev, **kwf))
+            firsts.setdefault((name, order), (int(r.opt_idx), float(r.ret[r.opt_idx])))
+            res.setdefault((name, order), []).append(ms)
+    for (name, order), t in sorted(res.items()):
+        print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+    worst = 0.0
+    for fam in ("garch", "bootstrap"):
+        for label, w, hedged in timed:
+            name = f"{fam} {label}"
+            other, this = min(res[(name, "other")]), min(res[(name, "this")])
+            held_equal(f"{name} timed outputs", firsts[(fam, label, "other")],
+                       firsts[(fam, label, "this")])
+            worst = max(worst, this / other - 1.0)
+            shape = f"{w.shape[0]} x {pp} x 252" if w.shape[0] > 1 else f"{pp} x 252"
+            print(f"speedup {name} A=15 {shape}: {other:.3f} -> {this:.3f} ms, "
+                  f"{other / this:.2f}x")
+    for name in sorted({k[0] for k in res if k[0].startswith(("config-4", "garch frontier",
+                                                              "bootstrap frontier"))}):
+        other, this = min(res[(name, "other")]), min(res[(name, "this")])
+        same = firsts[(name, "other")] == firsts[(name, "this")]
+        if not same:
+            unequal.append(name)
+        print(f"speedup {name}: {other:.1f} -> {this:.1f} ms (best of 2 walls each), "
+              f"{other / this:.2f}x, results {'equal' if same else 'DIFFERENT'} "
+              f"({firsts[(name, 'this')]})")
+    # this tree's layouts by name, W = 1 to 256 at 131,072 x 252
+    side = on("this")
+    for n in SWEEP_W:
+        w = cand[:n] if n > 1 else w_one
+        for fam, mod in (("garch", side[0]), ("bootstrap", side[1])):
+            plan = mod.garch_narrow_plan if fam == "garch" else (
+                lambda *x, m=mod, **k: m.bootstrap_narrow_plan(x[0], x[1], 365, *x[2:], **k))
+            for hedged in (False, True):
+                times = []
+                for layout in taken(plan, 15, n, h15 if hedged else None):
+                    fn = call(fam, mod, w, hedged, layout)
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append(f"{layout} {best(fn):.3f}")
+                print(f"layouts {fam} W={n}{' hedged' if hedged else ''} A=15 {pp} x 252: "
+                      + ", ".join(times) + " ms")
+    ptxas_report()
+    return f"#5/#7 most slower than the other tree {100 * worst:.2f}%"
+
+
 notes = []
 if PART in ("merton-heston", "all"):
     notes.append(merton_heston_part())
+if PART in ("garch-bootstrap", "all"):
+    notes.append(garch_bootstrap_part())
 if PART in ("dcc", "all"):
     notes.append(dcc_part())
 print(f"summary: sass {kept[0]} of {kept[1]} kept; outputs "

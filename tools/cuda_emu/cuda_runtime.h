@@ -7,7 +7,8 @@
 // contraction (g++ -ffp-contract=off): nvcc contracts a*b+c where the
 // source leaves it free, so the emulated bits equal the card's only where
 // the source rounds explicitly; two trees' emulated outputs compare like for
-// like. fmaf is the C library's correctly rounded fused multiply-add;
+// like. fmaf and __fmaf_rn are the C library's correctly rounded fused
+// multiply-add;
 // __frsqrt_rn is the float64 reciprocal square root rounded to float32.
 #pragma once
 #include <barrier>
@@ -88,6 +89,7 @@ inline float __fsqrt_rn(float x) { return std::sqrt(x); }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }

@@ -1,23 +1,32 @@
-// One candidate launch of a tree's csrc/jump.cu (-DFAMILY_JUMP, kernel #8) or
-// csrc/heston.cu (-DFAMILY_HESTON, kernel #10) under the host emulation
+// One candidate launch of a tree's csrc/jump.cu (-DFAMILY_JUMP, kernel #8),
+// csrc/heston.cu (-DFAMILY_HESTON, #10), csrc/garch.cu (-DFAMILY_GARCH, #5) or
+// csrc/bootstrap.cu (-DFAMILY_BOOTSTRAP, #7) under the host emulation
 // (cuda_runtime.h), its outputs written as raw float32 (tools/cuda_emu/
 // narrow_ab.py and tests/test_torch_narrow_plans.py build and run it):
 //   narrow_emu A PATHS STEPS NBLOCKS NCAND NLEGS LAYOUT CASE OUTFILE [SCRATCH_FLOATS]
 // Seed 11, blocks 7 .. 6 + NBLOCKS. Its inputs go to OUTFILE.in, raw float32:
-// the parameter block, (jump) the rate, the weights (NCAND, A) and the hedge
-// block (NLEGS legs per asset of every type, or none). LAYOUT -1 lets the
-// entry point pick; 0-2 name one (trees built with -DNARROW_LAYOUTS, whose
-// entry points take a scratch and a layout; the scratch holds the whole
-// launch's returns, or SCRATCH_FLOATS; the jump kernel has no layout 2).
-// CASE 0: the bench's jump rate 0.02 or Heston vol of vol 3e-3; 1: rate
-// 0.3, or a Feller-violating 0.05.
+// the parameter block (bootstrap: the history), (jump) the rate, the weights
+// (NCAND, A) and the hedge block (NLEGS legs per asset of every type, or
+// none). LAYOUT -1 lets the entry point pick; 0-2 name one (trees built with
+// -DNARROW_LAYOUTS, whose entry points take a scratch and a layout; the
+// scratch holds the whole launch's returns, or SCRATCH_FLOATS; only the
+// Heston kernel has layout 2). CASE 0: the bench's jump rate 0.02, Heston vol of
+// vol 3e-3, GARCH persistence, a 365-row history in shared memory; 1: rate
+// 0.3, a Feller-violating 0.05, a GARCH of larger shocks, a 4,099-row history
+// read from device memory.
 // `narrow_emu layout OUTFILE` (trees built with -DNARROW_LAYOUTS) writes the
 // redesigned layouts' arithmetic as int32 rows (A, W, legs, narrow_layout,
-// RecurLayout kOwn and kReturns totals, TileLayout total (jump: 0),
-// score_floats, score_groups) for A = 1-16, W = 1-256 and legs 0-4.
+// RecurLayout kOwn and kReturns totals, the tile layout's total (jump, GARCH,
+// bootstrap: 0), score_floats, score_groups; the bootstrap's layouts without
+// the history, then its RecurLayout kOwn and kReturns totals with a 365-row
+// history in shared memory) for A = 1-16, W = 1-256 and legs 0-4.
 #include "cuda_runtime.h"
-#ifdef FAMILY_JUMP
+#if defined(FAMILY_JUMP)
 #include "jump.cu"
+#elif defined(FAMILY_GARCH)
+#include "garch.cu"
+#elif defined(FAMILY_BOOTSTRAP)
+#include "bootstrap.cu"
 #else
 #include "heston.cu"
 #endif
@@ -30,15 +39,26 @@ int main(int argc, char** argv) {
     std::vector<int> rows;
     for (int a = 1; a <= kNA; ++a)
       for (int w = 1; w <= 256; ++w)
-        for (int l = 0; l <= 4; ++l)
+        for (int l = 0; l <= 4; ++l) {
+#if defined(FAMILY_BOOTSTRAP)
+          rows.insert(rows.end(), {a, w, l, narrow_layout(w, l > 0),
+                                   RecurLayout(365, a, w, kOwn, l, false).total,
+                                   RecurLayout(365, a, w, kReturns, l, false).total,
+                                   0,  // no tile layout up to 16 assets
+                                   score_floats(a, w), score_groups(w),
+                                   RecurLayout(365, a, w, kOwn, l, true).total,
+                                   RecurLayout(365, a, w, kReturns, l, true).total});
+#else
           rows.insert(rows.end(), {a, w, l, narrow_layout(w), RecurLayout(a, w, kOwn, l).total,
                                    RecurLayout(a, w, kReturns, l).total,
-#ifdef FAMILY_JUMP
-                                   0,  // the jump kernel has no tile layout
+#if defined(FAMILY_JUMP) || defined(FAMILY_GARCH)
+                                   0,  // the jump and GARCH kernels have no tile layout
 #else
                                    TileLayout(a, round4(w), l).total,
 #endif
                                    score_floats(a, w), score_groups(w)});
+#endif
+        }
     FILE* f = std::fopen(argv[2], "wb");
     std::fwrite(rows.data(), 4, rows.size(), f);
     std::fclose(f);
@@ -60,12 +80,25 @@ int main(int argc, char** argv) {
     }
   }
   std::vector<float> p;
-#ifdef FAMILY_JUMP
+#if defined(FAMILY_JUMP)
   for (int i = 0; i < a * a; ++i) p.push_back(static_cast<float>(0.02 * c[i]));   // L
   for (int i = 0; i < a; ++i) p.push_back(5e-4f + 1e-3f * (u(rng) - 0.5f));      // mean
   for (int i = 0; i < a; ++i) p.push_back(cs ? -0.2f : -0.08f);                   // muJ
   for (int i = 0; i < a; ++i) p.push_back(cs ? 0.1f : 0.04f);                     // sigJ
   const float lam = cs ? 0.3f : 0.02f;
+#elif defined(FAMILY_GARCH)
+  for (int i = 0; i < a * a; ++i) p.push_back(static_cast<float>(c[i]));          // L_R
+  for (int i = 0; i < a; ++i) p.push_back(1e-3f + 1e-3f * (u(rng) - 0.5f));       // mu
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 1e-4f : 4e-5f);                    // omega
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 0.15f : 0.08f);                    // alpha
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 0.8f : 0.9f);                      // beta
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 1e-3f : 4e-4f);                    // sigma2_0
+  for (int i = 0; i < a; ++i) p.push_back(cs ? 2e-3f : 4e-4f);                    // eps2_0
+#elif defined(FAMILY_BOOTSTRAP)
+  const int t_len = cs ? 4099 : 365;
+  std::normal_distribution<float> ret(1e-3f, 0.02f);
+  for (int i = 0; i < t_len * a; ++i) p.push_back(ret(rng));                     // history
+  const float p_restart = 0.2f;
 #else
   for (int i = 0; i < a * a; ++i) p.push_back(static_cast<float>(c[i]));          // L_R
   for (int i = 0; i < a; ++i) p.push_back(1e-3f + 1e-3f * (u(rng) - 0.5f));       // mu
@@ -102,20 +135,33 @@ int main(int argc, char** argv) {
 #ifdef NARROW_LAYOUTS
   std::vector<float> rets(argc > 10 ? std::atoll(argv[10])
                                     : 1LL * nb * ((paths + 15) / 16 * 16) * steps * a + 1);
-#ifdef FAMILY_JUMP
+  const long long rn = static_cast<long long>(rets.size());
+#if defined(FAMILY_JUMP)
   err = mcport_merton_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, lam, p.data(), w.data(),
-                               hp, out.data(), dd.data(), rets.data(),
-                               static_cast<long long>(rets.size()), layout, nullptr);
+                               hp, out.data(), dd.data(), rets.data(), rn, layout, nullptr);
+#elif defined(FAMILY_GARCH)
+  err = mcport_garch_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(), hp,
+                              out.data(), dd.data(), rets.data(), rn, layout, nullptr);
+#elif defined(FAMILY_BOOTSTRAP)
+  err = mcport_bootstrap_multi_dd(11, 6, nb, paths, t_len, a, w_cnt, steps, legs, p_restart,
+                                  cs ? 0 : 1, p.data(), w.data(), hp, out.data(), dd.data(),
+                                  rets.data(), rn, layout, nullptr);
 #else
   err = mcport_heston_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(),
-                               hp, out.data(), dd.data(), rets.data(),
-                               static_cast<long long>(rets.size()), layout, nullptr);
+                               hp, out.data(), dd.data(), rets.data(), rn, layout, nullptr);
 #endif
 #else
   (void)layout;
-#ifdef FAMILY_JUMP
+#if defined(FAMILY_JUMP)
   err = mcport_merton_multi_dd(11, 6, nb, paths, a, w_cnt, steps, legs, lam, p.data(), w.data(),
                                hp, out.data(), dd.data(), nullptr);
+#elif defined(FAMILY_GARCH)
+  err = mcport_garch_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(), hp,
+                              out.data(), dd.data(), nullptr);
+#elif defined(FAMILY_BOOTSTRAP)
+  err = mcport_bootstrap_multi_dd(11, 6, nb, paths, t_len, a, w_cnt, steps, legs, p_restart,
+                                  cs ? 0 : 1, p.data(), w.data(), hp, out.data(), dd.data(),
+                                  nullptr);
 #else
   err = mcport_heston_multi_dd(11, 6, nb, paths, a, w_cnt, steps, 0, legs, p.data(), w.data(),
                                hp, out.data(), dd.data(), nullptr);

@@ -1,7 +1,9 @@
 """Copy a tree's ``csrc`` into a directory, rewritten for the host emulation
 (``cuda_runtime.h`` beside this file): dynamic shared memory becomes the
-block's buffer, each ``bar.sync`` a named std::barrier, ``<<<...>>>`` a call of
-``shim_launch``, a volatile ``ld.shared.v4.f32`` a plain load.
+block's buffer, each ``bar.sync`` a named std::barrier, ``<<<...>>>`` a call
+of ``shim_launch``, a volatile ``ld.shared.v4.f32`` a plain load. Only
+dynamic shared memory is shared: a kernel's static ``__shared__`` arrays
+would be each thread's own, so such kernels build but are not run.
 
     python3 tools/cuda_emu/prep.py SRC_CSRC_DIR DST_DIR
 """
@@ -14,11 +16,12 @@ def prep(src: Path, dst: Path) -> None:
     dst.mkdir(parents=True, exist_ok=True)
     for f in [*src.glob("*.cu"), *src.glob("*.cuh")]:
         t = f.read_text()
-        t = t.replace("extern __shared__ __align__(16) float smem[];", "float* smem = g_smem;")
+        t = re.sub(r"extern __shared__ (?:__align__\(16\) )?float (\w+)\[\];",
+                   lambda m: f"float* {m.group(1)} = g_smem;", t)
         t = re.sub(r'asm volatile\("bar\.sync %0, %1;" ::"r"\((.*?)\), "r"\((.*?)\) : "memory"\);',
                    lambda m: f"shim_bar({m.group(1)}, {m.group(2)});", t)
-        t = re.sub(r"(\w+)<<<(.*?)>>>\(", lambda m: f"shim_launch({m.group(1)}, {m.group(2)}, ",
-                   t, flags=re.S)
+        t = re.sub(r"(\w+(?:<[^<>;]*>)?)<<<(.*?)>>>\(",
+                   lambda m: f"shim_launch({m.group(1)}, {m.group(2)}, ", t, flags=re.S)
         # the volatile 16-byte shared loads (lds128, lds4): a plain load
         t = re.sub(r'asm volatile\("ld\.shared\.v4\.f32.*?__cvta_generic_to_shared\(p\)\)\)\);',
                    "v = *reinterpret_cast<const float4*>(p);", t, flags=re.S)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one warm call of the PyTorch port's main paths goes on a card.
 
-    python3 tools/profile_gbm_risk.py [gbm|family|merton-heston|dcc]   # needs one CUDA card;
-                                                                       # all by default
+    python3 tools/profile_gbm_risk.py [gbm|family|garch-bootstrap|merton-heston|dcc]
+    # needs one CUDA card; gbm, family and dcc by default
 
 GBM tier: for each size of ``chip_smoke.py``'s main paths (GBMConfig
 defaults and BASELINE config-4 scale, on the bench's synthetic 15-asset
@@ -13,7 +13,8 @@ tier ("auto", float32 on a card) and as the bf16 screen plus rescore. Family
 tier: ``garch_risk`` and ``bootstrap_risk`` at 1,048,576 x 252 (the bench's
 GARCH parameters, a 365 x 15 history), ``run_garch_path_risk`` and
 ``run_bootstrap_path_risk`` at both sizes, and both family frontiers at the
-bench's size; then (alone: ``merton-heston``) the Merton and Heston families
+bench's size (alone: ``garch-bootstrap``); then (alone: ``merton-heston``)
+the Merton and Heston families
 at the bench's parameters: ``merton_risk`` and ``heston_terminal_returns`` at
 1,048,576 x 252, ``run_merton_path_risk`` and ``run_heston_path_risk`` at
 both sizes, and both frontiers. DCC tier: ``dcc_risk`` at 1,048,576 x 52 (bench.py's DCC
@@ -154,7 +155,7 @@ def main() -> int:
                                                                 score_dtype=sd, device=dev,
                                                                 **FRONTIER))
     steps, wb = FRONTIER["n_steps"], bench_weights()
-    if "family" in tiers:
+    if "family" in tiers or "garch-bootstrap" in tiers:
         garch, hist = bench_garch(), bench_history()
         profile_cell(f"garch_risk ({FAMILY_PATHS} x {steps})",
                      lambda: garch_risk(FAMILY_SEED, garch, wb, FAMILY_PATHS, steps,
