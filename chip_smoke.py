@@ -35,7 +35,12 @@ ends:
    score tiers, both modes, W in {1, 13, 256}, A = 15, 252 steps, the draw
    tiers at W = 13, and one 256-candidate chunk of phase 7's frontier over
    its 131,072 paths (bound: ``ops.multi_dd.multi_dd_shares``); #3 with one
-   candidate bit-identical to #2;
+   candidate bit-identical to #2; #3 up to 16 assets in every layout of
+   ``ops.multi_dd.gbm_narrow_plan`` (W = 1, each side of every switch of
+   each mode and 256; buy-and-hold, rebalanced and hedged with two legs of
+   every type; the three score tiers; 1,029 x 2 paths x 52 steps), the
+   layout W picks within the plain form's bound and every layout by name
+   (solo, split) bit for bit with it;
 7. the path tier's main path: ``run_path_risk`` at both sizes, buy-and-hold
    and rebalanced, normal and t(5.5) shocks (first call and two warm walls),
    ``run_resumable_path_risk`` split + resume bit-identical, ``path_tail_risk``
@@ -49,11 +54,12 @@ ends:
    forms on the same paths;
 8. kernels #2 and #3 timed with CUDA events beside their plain forms (and #3's
    score product alone as one torch.matmul per step; #3's plain form in the
-   float32 tier), and each kernel's
-   least time: its bytes over the memory rate or its instructions over the
-   card's issue rate, counted from the SASS (``cuobjdump -sass``) — for #1 and
-   #3 their hot loops, for #2 the work the function needs (kernel #1's draw
-   plus the steps' correlate, exp and drawdown), beside #2's own loop.
+   float32 tier), #3 at one candidate (131,072 x 252, plain and hedged), and
+   each kernel's least time: its bytes over the memory rate or its
+   instructions over the card's issue rate — for #1 its hot loop's SASS
+   (``cuobjdump -sass``), for #2 and #3 the work the function needs (kernel
+   #1's draw plus the steps' correlate, exp, scoring and drawdown), beside
+   #2's own loop and, once, #3's former SASS-counted yardstick.
 9. the family kernels against their plain forms: the GARCH terminal kernel
    (#4; A in {1, 15, 16}, normal and t(5.5), 252 and 7 steps) and candidate
    kernel (#5; W in {1, 13, 256}, 7 steps) within ``ops.garch.garch_shares``; the
@@ -571,6 +577,7 @@ KERNEL_PATHS = 16_385               # ragged: not a whole number of CUDA blocks
 MDD_PATHS = 4_099                   # ragged: not a whole number of 16-path tiles
 PLAIN_CHUNK = 131_072               # paths per plain-form call at 15 assets
 MDD_PLAIN_CHUNK = 8_192             # paths per plain multi-dd call at 256 candidates
+LAYOUT_PATHS = 1_029                # #3's layouts by name: not a whole number of blocks
 
 
 def path_config(g, t_df):
@@ -789,7 +796,64 @@ def phase_path_kernels(dev) -> dict:
         held_md(f"frontier chunk 0 W=256 score={sd} paths={n_paths}", k, p, p32, chol,
                 mean, N_STEPS, False, sd)
         del k, p
+
+    _gbm_layout_checks(dev, mean, chol)
     return worst
+
+
+def _gbm_layout_checks(dev, mean, chol) -> None:
+    """Every routed layout of #3 up to 16 assets (ops.multi_dd.gbm_narrow_plan)
+    at the bench universe ``mean, chol``: W = 1, each side of every switch of
+    each mode, and 256, in each score tier (and t(5.5) shocks at the
+    switches), in the layout W picks and in every layout by name, bit for bit
+    with each other and within the plain form's bound (hedged: two legs per
+    asset of every type, path by path)."""
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.multi_dd import (_launch, gbm_multi_portfolio_dd, gbm_narrow_plan,
+                                           multi_dd_reference, multi_dd_shares)
+
+    legs = leg_mix(N_ASSETS, 2, dev, seed=5)
+    for mode in ("buy-hold", "rebalanced", "hedged"):
+        reb, hedge = mode == "rebalanced", (legs if mode == "hedged" else None)
+        n_legs = 2 if hedge is not None else 0
+
+        def plan(*x, **k):
+            return gbm_narrow_plan(*x, rebalance=reb, **k)
+
+        for n_cand in layout_switches(plan):
+            cand = torch.as_tensor(np.random.default_rng(n_cand).dirichlet(
+                np.ones(N_ASSETS), n_cand), dtype=torch.float32, device=dev)
+            cases = [("float32", None), ("tensorfloat32", None), ("bfloat16", None)]
+            cases += [("float32", 5.5)] if n_cand not in (1, 256) else []
+            for sd, t_df in cases:
+                lk = t_scaled_chol(chol, t_df)
+                kw = dict(first_block=6, n_blocks=2, rebalance=reb, hedge=hedge, t_df=t_df)
+                k = gbm_multi_portfolio_dd(11, mean, chol, cand, LAYOUT_PATHS, 52, score_dtype=sd,
+                                           **kw)
+                p32 = multi_dd_reference(11, mean, lk, cand, LAYOUT_PATHS, 52, **kw)
+                p = (p32 if sd == "float32" and hedge is None else
+                     multi_dd_reference(11, mean, lk, cand, LAYOUT_PATHS, 52, score_dtype=sd,
+                                        with_bound=hedge is not None, **kw))
+                what = (f"layouts W={n_cand} {mode} score={sd} t_df={t_df} "
+                        f"{LAYOUT_PATHS}x2 x 52")
+                shares = multi_dd_shares(k, p, p32, lk, mean, 52, reb, sd, hedge)
+                routed = plan(N_ASSETS, n_cand, 52, LAYOUT_PATHS, 2, n_legs, score_dtype=sd)
+                print(f"phase6 multi_dd {what} by W ({routed.layout}) max_abs="
+                      f"{max(float((a - b).abs().max()) for a, b in zip(k, p)):.3e} shares="
+                      + " ".join(f"{n}={v:.3f}" for n, v in shares.items()))
+                check(max(shares.values()) <= 1.0, f"multi-dd kernel vs plain, {what}")
+                for layout in ("solo", "split"):
+                    try:
+                        plan(N_ASSETS, n_cand, 52, LAYOUT_PATHS, 2, n_legs, layout=layout,
+                             score_dtype=sd)
+                    except ValueError:
+                        continue
+                    got = _launch(11, mean, lk, cand, LAYOUT_PATHS, 52, 6, 2, reb, sd, "poly",
+                                  t_df, hedge, layout)
+                    same = all(torch.equal(a, b) for a, b in zip(got, k))
+                    print(f"phase6 multi_dd {what} {layout}: bit for bit with the layout W "
+                          f"picks={same}")
+                    check(same, f"multi-dd layout {layout} is the routed one, {what}")
 
 
 def _reports_equal(a, b) -> bool:
@@ -1026,10 +1090,13 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 peak bandwidth
 
 def bounds(rate: float) -> dict:
     """Least time of each kernel at its timing shape: the larger of its bytes
-    over HBM bandwidth and its instructions over the issue rate. Kernels #1
-    and #3 count their hot loops' SASS; #2 counts what the function needs,
-    built from kernel #1's measured draw, and prints its own loop's count
-    beside it. The rest of each kernel is left out: a lower bound."""
+    over HBM bandwidth and its instructions over the issue rate. Kernel #1
+    counts its hot loop's SASS; #2 and #3 count what the function needs, as
+    ``family_bounds`` counts #5 and #7, built from kernel #1's measured
+    draw (#2 prints the 16-asset recursion's own loop beside it, #3 the
+    former yardstick, ``multi_dd_kernel``'s SASS score loop, once); #3 also
+    at one candidate (the path-risk engine's W = 1, 131,072 x 252), plain
+    and hedged. The rest of each kernel is left out: a lower bound."""
     from mcport_torch import _build
 
     libs = _build.build_libraries()
@@ -1052,25 +1119,41 @@ def bounds(rate: float) -> dict:
                          f"{draw:.2f} instructions per draw (kernel #1) + {(a + 1) / 2:.0f} "
                          f"FMAs + 3 per asset-step, + 4 per path-step: {per_step:.2f} per "
                          f"path-step")
-    # beside it, the kernel's own loop (the <=16-asset build): one iteration is
-    # 16 assets' Philox calls and four steps, of which A=15 runs (15/16)^2
-    ins, its, _ = _hot_loop(_sass_loops(libs["path_stats"],
-                                        "path_stats_kernelILi0ELb0ELi16ELi16E"),
+    # beside it, the kernel's own loop (path_stats_narrow_kernel, up to 16
+    # assets, poly buy-and-hold): one iteration is 16 assets' Philox calls and
+    # four steps, of which A=15 runs 15/16 of the draws (printed only)
+    ins, its, _ = _hot_loop(_sass_loops(libs["path_stats"], "path_stats_narrow_kernelILi0ELb0EE"),
                             PHILOX_MULS, 16 * 20)
-    own = ins * (a / 16) ** 2 * ((-(-n // 4)) // its) * p
+    own = ins * (a / 16) * ((-(-n // 4)) // its) * p
     print(f"phase8 path_stats own call loop: {ins} instructions / {its} call(s) of 16 "
           f"assets, {ins / its / 64:.2f} per asset-step; at A={a} {own:.4e} "
           f"instructions = {own / rate * 1e3:.3f} ms at {rate:.4e}/s")
-    # kernel #3, float32 buy-and-hold: the score loop inside the Philox-call
-    # loop, two float4 loads (weights, exps) per asset, per scoring thread
-    # (one per candidate of a 16-path tile) and step
+    # kernel #3 at the frontier's shape, float32 buy-and-hold, what the
+    # function needs per path-step: the draws, the lower triangle of L z, 3
+    # per asset-step (m, logS, exp), then W·(A + 6) for scoring (W·A FMAs, V,
+    # peak, dd), as family_bounds counts #5 and #7
     w_cnt, pp = 256, FRONTIER["n_paths"]
+    gbm_step = a * (draw + 3) + a * (a + 1) / 2
+    score = w_cnt * (a + 6)
+    out["multi_dd"] = ((gbm_step + score) * n * pp, 4 * (a * a + a + w_cnt * a) + 8 * w_cnt * pp,
+                       f"{draw:.2f} per draw + 3 per asset-step + {a * (a + 1) / 2:.0f} "
+                       f"correlate FMAs: {gbm_step:.2f} per path-step + {score} for {w_cnt} "
+                       f"candidates")
+    # one candidate at 131,072 x 252 (the path-risk engine's W = 1), plain and
+    # hedged (the bench hedge, 2 legs: hedged_bounds's settlement)
+    settle = a * (7 * 2 + 1 + 8)
+    for key, step in (("multi_dd W=1", gbm_step), ("multi_dd_hedged W=1", gbm_step + settle)):
+        out[key] = ((step + a + 6) * n * pp, 4 * (a * a + 2 * a) + 8 * pp,
+                    f"{step:.2f} per path-step + {a + 6} for 1 candidate, {pp} x {n}")
+    # the former yardstick, once: multi_dd_kernel's SASS score loop (inside the
+    # Philox-call loop, two float4 loads per asset), per scoring thread and step
     loops = _sass_loops(libs["multi_dd"], "multi_dd_kernelILi0ELi0ELi0EE")
     *_, call_loop = _hot_loop(loops, PHILOX_MULS, 4 * 20)
     ins, its, _ = _hot_loop(loops, ("LDS.128",), 2, within=call_loop)
-    out["multi_dd"] = (ins * (a // its) * n * w_cnt * (pp // 16),
-                       4 * (a * a + a + w_cnt * a) + 8 * w_cnt * pp,
-                       f"score loop {ins} instructions / {its} asset(s)")
+    old = ins * (a // its) * n * w_cnt * (pp // 16)
+    print(f"phase8 bound multi_dd, the former yardstick: score loop {ins} instructions / "
+          f"{its} asset(s) of multi_dd_kernel, {old:.4e} instructions = "
+          f"{old / rate * 1e3:.3f} ms")
     res = {}
     for name, (instr, nbytes, how) in out.items():
         t_ops, t_bytes = instr / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -1160,6 +1243,23 @@ def phase_path_timing(dev) -> dict:
     print(f"phase8 timing torch.matmul ({n_cand}, {N_ASSETS}) x ({N_ASSETS}, {pp}): {mm:.4f} "
           f"ms per step, x {N_STEPS} steps = {mm * N_STEPS:.3f} ms")
     res["multi_dd"] = (*res["multi_dd"], mm * N_STEPS)
+    # one candidate (the path-risk engine's W = 1) at 131,072 x 252, plain and
+    # hedged (the bench hedge); their bounds are printed with the others'
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    one = torch.as_tensor(bench_weights()[None], dtype=torch.float32, device=dev)
+    spots = np.full(N_ASSETS, SPOT)
+    legs = HedgeTensors.from_spec(bench_hedge(spots)[1], spots, dev)
+    for key, hedge in (("multi_dd W=1", None), ("multi_dd_hedged W=1", legs)):
+        def kernel1(hedge=hedge):
+            gbm_multi_portfolio_dd(0, mean, chol, one, pp, N_STEPS, hedge=hedge)
+
+        kernel1()
+        torch.cuda.synchronize()
+        k1, k2 = _time_ms(kernel1, 10), _time_ms(kernel1, 10)
+        res[key] = ((k1 + k2) / 2, None, None)
+        print(f"phase8 timing {key} {pp} x {N_STEPS} x {N_ASSETS}: kernel {k1:.3f} / {k2:.3f} "
+              f"ms ({pp * N_STEPS / res[key][0] * 1e3:.4e} path-steps/s)")
     return res
 
 
@@ -4845,7 +4945,9 @@ def main() -> int:
     kernels = {  # name: (source, the TPU kernel it replaces)
         "terminal_noise": ("terminal_noise.cu", "mcport/ops/pallas_gbm.py:413"),
         "path_stats": ("path_stats.cu", "mcport/ops/pallas_gbm.py:631"),
-        "multi_dd": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:82"),
+        # up to 16 assets #3 runs csrc/gbm_narrow.cu's layouts (the main paths'
+        # 15), from 17 multi_dd.cu's tile kernel, past 64 its wide layout
+        "multi_dd": ("gbm_narrow.cu", "mcport/ops/pallas_multi_dd.py:82"),
         "garch_terminal": ("garch.cu", "mcport/ops/pallas_garch.py:36"),
         "garch_multi_dd": ("garch.cu", "mcport/ops/pallas_garch.py:113"),
         "bootstrap_terminal": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:52"),
@@ -4859,7 +4961,7 @@ def main() -> int:
         "dcc_dd": ("dcc.cu", "mcport/ops/pallas_dcc.py:359"),
         # the hedged modes: the hedged branches of #3 (:143-175), #8 (:100-120),
         # #5 (:137-167), #7 (:147-164) and #10 (:208-235)
-        "multi_dd_hedged": ("multi_dd.cu", "mcport/ops/pallas_multi_dd.py:143"),
+        "multi_dd_hedged": ("gbm_narrow.cu", "mcport/ops/pallas_multi_dd.py:143"),
         "merton_multi_dd_hedged": ("jump.cu", "mcport/ops/pallas_jump.py:100"),
         "garch_multi_dd_hedged": ("garch.cu", "mcport/ops/pallas_garch.py:137"),
         "bootstrap_multi_dd_hedged": ("bootstrap.cu", "mcport/ops/pallas_bootstrap.py:147"),
@@ -4872,7 +4974,7 @@ def main() -> int:
     # phase 22, times and bounds at A = 200 (DCC 256) from phase 25
     for name in WIDE_KERNELS:
         src, replaces = kernels[name]
-        kernels[f"{name} wide"] = (src, replaces)
+        kernels[f"{name} wide"] = ("multi_dd.cu" if src == "gbm_narrow.cu" else src, replaces)
         launches[f"{name} wide"] = wide_launches[name]
         worst[f"{name} wide"] = wide_worst[name]
     # hedged #10's layout past 64 (HestonWide<true, true>): launches on phase

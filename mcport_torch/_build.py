@@ -47,6 +47,8 @@ KERNELS = {
         _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],
         "mcport_path_stats_wide",
         [_c_ll, _c_ll] + 6 * _I + 2 * _F + 7 * _P + 2 * _I + _P),
+    "gbm_narrow": ("mcport_gbm_narrow_dd",
+                   [_c_ll, _c_ll] + 9 * _I + 2 * _F + 7 * _P + [_c_ll, _c_int, _c_ptr]),
     "multi_dd": ("mcport_multi_dd", [
         _c_ll, _c_ll, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
         _c_int, _c_float, _c_float, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr],

@@ -1,5 +1,6 @@
 // The candidate kernels' layouts up to 16 assets (jump.cu's kernel #8,
-// heston.cu's #10, garch.cu's #5, bootstrap.cu's #7): what they share.
+// heston.cu's #10, garch.cu's #5, bootstrap.cu's #7, gbm_narrow.cu's #3):
+// what they share.
 //
 // No TPU kernel of its own: the pieces that jump.cu, heston.cu, garch.cu and
 // bootstrap.cu assemble into their redesigned candidate kernels (ops/jump.py
@@ -52,9 +53,10 @@ enum NarrowLayout { kSolo = 0, kSplit = 1, kTileLayout = 2 };
 enum RecurMode { kOwn = 0, kReturns = 1 };
 
 // A candidate's value update from its step's score f: V *= f on gross returns
-// (kGross), V *= 1 + f on simple ones (kSimple), and V *= 1 + f with a NaN of
-// overflowed wealth carried on (kSimpleNan, the hedged modes).
-enum ValueUpdate { kGross = 0, kSimple = 1, kSimpleNan = 2 };
+// (kGross), V *= 1 + f on simple ones (kSimple), V *= 1 + f with a NaN of
+// overflowed wealth carried on (kSimpleNan, the hedged modes), and V = f, the
+// score of the state itself (kLevel: GBM buy-and-hold, f = W·exp(logS)).
+enum ValueUpdate { kGross = 0, kSimple = 1, kSimpleNan = 2, kLevel = 3 };
 
 // The scoring block's groups of 4 paths at W candidates: the most, a power of
 // two from 4, that ceil(W/4) groups of candidates leave of its 256 threads
@@ -155,7 +157,7 @@ __device__ __forceinline__ void value_update(float f, float& v, float& peak, flo
     peak = max_nan(peak, v);
     dd = min_nan(dd, v / peak - 1.0f);
   } else {
-    v = kUpd == kSimple ? v * (1.0f + f) : v * f;
+    v = kUpd == kSimple ? v * (1.0f + f) : kUpd == kLevel ? f : v * f;
     peak = fmaxf(peak, v);
     dd = fminf(dd, v / peak - 1.0f);
   }

@@ -23,10 +23,12 @@
 // bytes per path are stored once (4·A only when the terminal is asked for).
 // So it is bound by instruction issue, not memory. The design: one thread per
 // path; the asset state (logS) and the four shocks one Philox call feeds stay
-// in registers — up to 16 assets the loops over assets are unrolled so that
-// they can; from 17 to 64 assets the arrays live in local memory (the ptxas
-// log shows the stack frame), which is correct but slower. L, m and w sit in
-// shared memory. A dispatch group of blocks is one launch (gridDim.y).
+// in registers — up to 16 assets (path_stats_narrow_kernel) the loops over
+// assets are unrolled so that they can, and L z runs the lower triangle;
+// from 17 to 64 assets (path_stats_kernel<…, 64, 1>) the arrays live in
+// local memory (the ptxas log shows the stack frame), which is correct but
+// slower. L, m and w sit in shared memory. A dispatch group of blocks is one
+// launch (gridDim.y).
 //
 // Past 64 assets the function runs wide.cuh's layout with its GbmWide model
 // and one candidate (kernel #3's path, as at any width).
@@ -56,7 +58,7 @@ __device__ __forceinline__ float4 lds128(const float* p) {
 
 // kA: the asset capacity (a multiple of the real count's bucket); kUnroll: how
 // far the loops over assets unroll (kA keeps arrays in registers, 1 lets them
-// live in local memory).
+// live in local memory). Built as <…, kMaxAssets, 1>.
 template <int kTier, bool kRebal, int kA, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
 path_stats_kernel(long long seed, long long first_block, int block_paths, int n_assets,
@@ -150,12 +152,135 @@ path_stats_kernel(long long seed, long long first_block, int block_paths, int n_
   max_dd[row] = dd;
 }
 
+// Up to 16 assets: path_stats_kernel's operations in their order, with every
+// loop over assets unrolled (the logS and the shocks of one Philox call in
+// registers) and L z over row i's lower triangle only, (A+1)/2 fmafs per
+// asset. The row's chain is never -0 (it starts at +0, and a sum that
+// cancels exactly rounds to +0), so the zero terms above the diagonal of a
+// lower-triangular factor add exact zeros: leaving them out keeps the
+// outputs bit for bit. The block checks its copy of L once while it loads it
+// (__syncthreads_or); a factor with a nonzero term above the diagonal runs
+// the whole rows, in column order (kFull, the path's second build, chosen
+// once per thread).
+constexpr int kNarrow = 16;
+
+template <int kTier, bool kRebal, bool kFull>
+__device__ __forceinline__ void narrow_path(int p, int b, long long seed, long long first_block,
+                                            int block_paths, int n_assets, int n_steps,
+                                            float df, float neg2_over_df, const float* s_chol,
+                                            const float* s_mean, const float* s_w, float* term,
+                                            float* port, float* max_dd) {
+  constexpr int kA = kNarrow;
+  const uint32_t key = block_key(seed, first_block, b);
+  constexpr int kPer = steps_per_call<kTier>();
+
+  float acc[kA];
+#pragma unroll
+  for (int a = 0; a < kA; ++a) acc[a] = 0.0f;
+  float v = 1.0f, peak = 1.0f, dd = 0.0f;
+
+  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
+    const int n = min(kPer, n_steps - s0);
+    float z[kPer][kA];
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      float za[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (a < n_assets) call_draws<kTier>(s0 / kPer, a, p, key, n, df, neg2_over_df, za);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (k >= n) continue;  // (not break: a loop that may break is not unrolled)
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kA; ++i) {
+        if (i < n_assets) {
+          float y = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kA; j += 4) {  // row i in column order, kFull past the diagonal
+            if (j < n_assets && (kFull || j <= i)) {
+              const float4 l = lds128(s_chol + i * kA + j);
+              const float lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                if (kFull ? j + c < n_assets : j + c <= i) y = fmaf(lv[c], z[k][j + c], y);
+              }
+            }
+          }
+          const float x = s_mean[i] + y;
+          acc[i] += x;
+          s = fmaf(s_w[i], expf(kRebal ? x : acc[i]), s);
+        }
+      }
+      v = kRebal ? v * s : s;
+      peak = fmaxf(peak, v);
+      dd = fminf(dd, v / peak - 1.0f);
+    }
+  }
+
+  const long long row = static_cast<long long>(b) * block_paths + p;
+  if (!kRebal) {  // V_T of the terminal state (Σ w when n_steps == 0)
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kA; ++i) {
+      if (i < n_assets) s = fmaf(s_w[i], expf(acc[i]), s);
+    }
+    v = s;
+  }
+  if (term != nullptr) {
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      if (a < n_assets) term[row * n_assets + a] = acc[a];
+    }
+  }
+  port[row] = v - 1.0f;
+  max_dd[row] = dd;
+}
+
+template <int kTier, bool kRebal>
+__global__ void __launch_bounds__(kThreads)
+path_stats_narrow_kernel(long long seed, long long first_block, int block_paths, int n_assets,
+                         int n_steps, float df, float neg2_over_df,
+                         const float* __restrict__ chol, const float* __restrict__ mean,
+                         const float* __restrict__ weights, float* __restrict__ term,
+                         float* __restrict__ port, float* __restrict__ max_dd) {
+  constexpr int kA = kNarrow;
+  __shared__ __align__(16) float s_chol[kA * kA];  // (kA, kA) row-major, zero outside (A, A)
+  __shared__ float s_mean[kA];
+  __shared__ float s_w[kA];
+  int upper = 0;  // a nonzero term above the diagonal among this thread's
+  for (int i = threadIdx.x; i < kA * kA; i += kThreads) {
+    const int r = i / kA, c = i % kA;
+    const float x = (r < n_assets && c < n_assets) ? chol[r * n_assets + c] : 0.0f;
+    s_chol[i] = x;
+    upper |= c > r && x != 0.0f;
+  }
+  for (int i = threadIdx.x; i < kA; i += kThreads) {
+    s_mean[i] = i < n_assets ? mean[i] : 0.0f;
+    s_w[i] = i < n_assets ? weights[i] : 0.0f;
+  }
+  const bool full = __syncthreads_or(upper);  // run L's whole rows
+
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= block_paths) return;
+  if (full) {
+    narrow_path<kTier, kRebal, true>(p, blockIdx.y, seed, first_block, block_paths, n_assets,
+                                     n_steps, df, neg2_over_df, s_chol, s_mean, s_w, term, port,
+                                     max_dd);
+  } else {
+    narrow_path<kTier, kRebal, false>(p, blockIdx.y, seed, first_block, block_paths, n_assets,
+                                      n_steps, df, neg2_over_df, s_chol, s_mean, s_w, term, port,
+                                      max_dd);
+  }
+}
+
 template <int kTier, bool kRebal>
 int launch(dim3 grid, cudaStream_t s, long long seed, long long first_block, int block_paths,
            int n_assets, int n_steps, float df, float neg2_over_df, const float* chol,
            const float* mean, const float* w, float* term, float* port, float* dd) {
-  if (n_assets <= 16) {
-    path_stats_kernel<kTier, kRebal, 16, 16><<<grid, kThreads, 0, s>>>(
+  if (n_assets <= kNarrow) {
+    path_stats_narrow_kernel<kTier, kRebal><<<grid, kThreads, 0, s>>>(
         seed, first_block, block_paths, n_assets, n_steps, df, neg2_over_df, chol, mean, w,
         term, port, dd);
   } else {

@@ -2,9 +2,15 @@
 kernel and its plain torch form.
 
 Port of ``gbm_multi_portfolio_dd`` (``mcport/ops/pallas_multi_dd.py``), its
-three modes. The kernel (``csrc/multi_dd.cu``) replaces ``_multi_dd_kernel``:
-per path it evolves the log prices step by step on the shocks of the other
-GBM kernels (``csrc/gbm_draws.cuh``) and scores every candidate per step —
+three modes. The kernels replace ``_multi_dd_kernel``: up to 16 assets one
+per-path GBM recursion on the shared narrow layouts (``csrc/gbm_narrow.cu``,
+the layout :func:`gbm_narrow_plan` picks by W, mode and score tier: a thread
+per path scoring its own few candidates, or the recursion's returns
+through a device scratch to scoring blocks), from 17 to 64 assets
+``csrc/multi_dd.cu``'s 16-path tile kernel, past 64 ``csrc/wide.cuh``'s
+layout; their outputs are equal bit for bit. Per path each evolves the log
+prices step by step on the shocks of the other GBM kernels
+(``csrc/gbm_draws.cuh``) and scores every candidate per step —
 buy-and-hold ``V_t = W·exp(logS_t)``, rebalanced ``V_t = V_{t-1} ·
 W·exp(x_t)``, or hedged ``V_t = V_{t-1} (1 + W·r_h)`` with the option legs
 settled per step against the prices ``P_t = P_{t-1} exp(x_t)`` from the spot
@@ -36,6 +42,8 @@ from mcport_torch.ops.gbm import (_BM_CODE, _T_CODE, MAX_ASSETS, WIDE_CTAS, _che
                                   check_card_assets, step_shocks, wide_scratch, wide_tile,
                                   t_scaled_chol)
 from mcport_torch.ops.hedged import HedgeTensors, hedged_multi_dd, hedged_shares
+from mcport_torch.ops.narrow import (LAYOUTS, NARROW_ASSETS, NARROW_SCRATCH_FLOATS, NarrowPlan,
+                                     narrow_plan, r4)
 from mcport_torch.ops.path_stats import log_paths_reference, path_stats_tolerance
 
 __all__ = [
@@ -50,6 +58,7 @@ __all__ = [
     "multi_dd_tolerance",
     "hedged_price_bound",
     "multi_dd_shares",
+    "gbm_narrow_plan",
 ]
 
 # The bf16 screen's drawdown perturbation bounds, mcport's
@@ -61,6 +70,45 @@ BF16_DD_ERR_REBAL_COEF = 1.4e-2  # rebalanced widening: coef * sqrt(n_steps)
 #: Candidates one kernel launch scores (its micro-tile layout; see the .cu).
 MAX_CANDIDATES = 256
 SCORE_DTYPES = {"float32": 0, "tensorfloat32": 1, "bfloat16": 2}
+#: csrc/gbm_narrow.cu ``kSoloMaxCand`` by mode: the solo layout's widest W
+#: (float32 tier only; the split layout past it)
+_SOLO_MAX = {"buy-hold": 22, "rebalanced": 23, "hedged": 14}
+
+
+def _recur_floats(a: int, w: int, own: bool, legs: int) -> int:
+    """csrc/gbm_narrow.cu ``GbmRecurLayout(a, w, own ? kOwn : kReturns,
+    legs).total``."""
+    p = 16 * 16 + 16 + (r4(a * (1 + 4 * legs)) if legs else 0) + (w * 16 if own else 0)
+    return p + (16 * 64 if legs else 0) + (3 * w * 64 if own else 0)
+
+
+def gbm_narrow_plan(n_assets: int, n_cand: int, n_steps: int = 252, block_paths: int = 131_072,
+                    n_blocks: int = 1, n_legs: int = 0,
+                    scratch_floats: int = NARROW_SCRATCH_FLOATS, layout: str | None = None, *,
+                    rebalance: bool = False, score_dtype: str = "float32") -> NarrowPlan:
+    """The GBM candidate kernel's layout for ``n_cand`` candidates (W <=
+    256) at ``n_assets <= 16`` (csrc/gbm_narrow.cu ``gbm_layout`` and the
+    layouts' shared memory, the same arithmetic; hedged when ``n_legs`` > 0,
+    else buy-and-hold or ``rebalance``): solo up to ``_SOLO_MAX`` candidates
+    (22, 23 rebalanced, 14 hedged) in the float32 tier, split past them and
+    in every other tier, as measured on an H100 (``tools/ab_narrow_kernels.py
+    ... gbm``); or ``layout`` by name (``solo`` or ``split``). With no steps
+    the plan is solo whatever the tier or name: nothing is scored. The split
+    layout's scratch holds ``n_blocks x chunk x n_steps x n_assets``
+    returns, no more than ``scratch_floats``."""
+    if score_dtype not in SCORE_DTYPES:
+        raise ValueError(f"score_dtype must be one of {sorted(SCORE_DTYPES)}, "
+                         f"got {score_dtype!r}")
+    mode = "hedged" if n_legs else "rebalanced" if rebalance else "buy-hold"
+    f32, split = score_dtype == "float32", score_dtype == "tensorfloat32"
+    if layout == "solo" and not f32 and n_steps:
+        raise ValueError(f"the GBM candidate kernel's solo layout scores in the float32 "
+                         f"tier only, not {score_dtype}")
+    if n_steps == 0 and layout in (None, "split"):
+        layout = "solo"
+    return narrow_plan("the GBM candidate kernel", n_assets, n_cand, n_steps, block_paths,
+                       n_blocks, n_legs, scratch_floats, _SOLO_MAX[mode] if f32 else 0,
+                       MAX_CANDIDATES, _recur_floats, None, layout, split_tier=split)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -171,10 +219,12 @@ def multi_dd_reference(
 
 
 def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
-            rebalance, score_dtype, bm, t_df, hedge):
+            rebalance, score_dtype, bm, t_df, hedge, layout=None):
+    """Launch the kernel for at most ``MAX_CANDIDATES``, hedged with
+    ``hedge``; up to 16 assets in the layout of :func:`gbm_narrow_plan`, or
+    in ``layout`` by name (``solo`` or ``split``)."""
     from mcport_torch._build import library
 
-    lib = library("multi_dd")
     dev = chol.device
     w_cnt, a = weights.shape
     term = torch.empty((n_blocks, w_cnt, n_paths), dtype=torch.float32, device=dev)
@@ -186,18 +236,32 @@ def _launch(seed, mean, chol, weights, n_paths, n_steps, first_block, n_blocks,
     neg2_over_df = 0.0 if t_df is None else -2.0 / float(t_df)
     mode = 2 if hedge is not None else int(rebalance)
     block = hedge.packed() if hedge is not None else None
+    n_legs = hedge.n_legs if hedge is not None else 0
     args = (seed, first_block, n_blocks, n_paths, a, w_cnt, n_steps,
             _T_CODE if t_df is not None else _BM_CODE[bm], mode, SCORE_DTYPES[score_dtype],
-            hedge.n_legs if hedge is not None else 0, df, neg2_over_df, chol.data_ptr(),
+            n_legs, df, neg2_over_df, chol.data_ptr(),
             mean.data_ptr(), weights.data_ptr(), block.data_ptr() if block is not None else None,
             term.data_ptr(), dd.data_ptr())
+    plan = None
+    if a <= NARROW_ASSETS:
+        plan = gbm_narrow_plan(a, w_cnt, n_steps, n_paths, n_blocks, n_legs, layout=layout,
+                               rebalance=rebalance, score_dtype=score_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if a > MAX_ASSETS:   # csrc/wide.cuh's layout
+            lib = library("multi_dd")
             tp = wide_tile(a)
             scratch = wide_scratch(a * WIDE_CTAS * tp, dev, "multi-dd")
             err = lib.mcport_multi_dd_wide(*args, scratch.data_ptr(), tp, WIDE_CTAS, stream)
-        else:
+        elif plan is not None:   # csrc/gbm_narrow.cu
+            lib = library("gbm_narrow")
+            scratch = (torch.empty(plan.scratch_floats, dtype=torch.float32, device=dev)
+                       if plan.scratch_floats else None)
+            err = lib.mcport_gbm_narrow_dd(
+                *args, scratch.data_ptr() if scratch is not None else None,
+                scratch.numel() if scratch is not None else 0, LAYOUTS[plan.layout], stream)
+        else:   # 17-64 assets: csrc/multi_dd.cu's tile kernel
+            lib = library("multi_dd")
             err = lib.mcport_multi_dd(*args, stream)
     if err:
         raise RuntimeError(f"multi-dd kernel launch failed: CUDA error {err} "

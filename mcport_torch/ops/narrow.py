@@ -1,9 +1,11 @@
-"""The layouts of the Merton (#8), Heston (#10), GARCH (#5) and bootstrap
-(#7) candidate kernels up to 16 assets (``csrc/narrow_dd.cuh``): what their
-plans share.
+"""The layouts of the GBM (#3), Merton (#8), Heston (#10), GARCH (#5) and
+bootstrap (#7) candidate kernels up to 16 assets (``csrc/narrow_dd.cuh``):
+what their plans share.
 
 Each kernel picks its layout by the number of candidates W (the C side's
-``narrow_layout``; :func:`mcport_torch.ops.jump.merton_narrow_plan`,
+``narrow_layout``, ``gbm_layout``;
+:func:`mcport_torch.ops.multi_dd.gbm_narrow_plan`,
+:func:`mcport_torch.ops.jump.merton_narrow_plan`,
 :func:`mcport_torch.ops.heston.heston_narrow_plan`,
 :func:`mcport_torch.ops.garch.garch_narrow_plan` and
 :func:`mcport_torch.ops.bootstrap.bootstrap_narrow_plan` mirror it, with each
@@ -79,23 +81,27 @@ def score_steps(n_assets: int, n_cand: int) -> int:
     return min(max(STAGE_FLOATS // (n_assets * 4 * score_groups(n_cand)), 1), 16)
 
 
-def score_floats(n_assets: int, n_cand: int) -> int:
-    """csrc/narrow_dd.cuh ``score_floats``: a scoring block's shared memory."""
-    return (n_assets * r4(n_cand)
-            + score_steps(n_assets, n_cand) * n_assets * 4 * score_groups(n_cand))
+def score_floats(n_assets: int, n_cand: int, split: bool = False) -> int:
+    """csrc/narrow_dd.cuh ``score_floats``: a scoring block's shared memory
+    (twice over in the split score tier, ``split``)."""
+    return (2 if split else 1) * (n_assets * r4(n_cand) + score_steps(n_assets, n_cand)
+                                  * n_assets * 4 * score_groups(n_cand))
 
 
 def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_paths: int,
                 n_blocks: int, n_legs: int, scratch_floats: int, solo_max: int, split_max: int,
                 recur_floats: Callable[[int, int, bool, int], int],
                 tile_floats: Callable[[int, int, int], int] | None,
-                layout: str | None = None, solo_threads: int = SOLO_THREADS) -> NarrowPlan:
+                layout: str | None = None, solo_threads: int = SOLO_THREADS,
+                split_tier: bool = False) -> NarrowPlan:
     """The plan of ``kernel`` (its name, for errors): ``layout``, or by W
     ``solo`` up to ``solo_max`` candidates, ``split`` up to ``split_max`` and
     ``tile`` past it, with the kernel's shared memory in floats from
     ``recur_floats(a, W, own, legs)`` and ``tile_floats(a, W, legs)`` (None:
-    the kernel has no tile layout), and ``solo_threads`` threads (a path
-    each) per recursion block."""
+    the kernel has no tile layout), ``solo_threads`` threads (a path each)
+    per recursion block, and the split layout scoring in the split score
+    tier where ``split_tier`` (GBM's tensorfloat32: twice the scoring
+    block's shared memory)."""
     a, w = int(n_assets), int(n_cand)
     if not 1 <= a <= NARROW_ASSETS or not 1 <= w <= 256:
         raise ValueError(f"{kernel} takes 1-{NARROW_ASSETS} assets and 1-256 candidates in "
@@ -113,7 +119,7 @@ def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_pat
                           int(block_paths))
     else:
         plan = _split(a, w, int(n_steps), int(block_paths), int(n_blocks), legs,
-                      int(scratch_floats), recur_floats, solo_threads)
+                      int(scratch_floats), recur_floats, solo_threads, split_tier)
     if max(plan.shared_bytes) > SMEM:
         raise ValueError(f"{kernel}'s {plan.layout} layout needs {max(plan.shared_bytes):,} "
                          f"bytes of shared memory per block at {a} assets, {w} candidates and "
@@ -121,7 +127,8 @@ def narrow_plan(kernel: str, n_assets: int, n_cand: int, n_steps: int, block_pat
     return plan
 
 
-def _split(a, w, n_steps, block_paths, n_blocks, legs, scratch_floats, recur_floats, threads):
+def _split(a, w, n_steps, block_paths, n_blocks, legs, scratch_floats, recur_floats, threads,
+           split_tier):
     per_path = n_blocks * n_steps * a
     tiles = lambda n: -(-n // TILE) * TILE  # noqa: E731
     chunk = block_paths
@@ -131,5 +138,5 @@ def _split(a, w, n_steps, block_paths, n_blocks, legs, scratch_floats, recur_flo
             raise ValueError(f"a scratch of {scratch_floats:,} floats holds no "
                              f"{threads}-path chunk of {per_path:,} returns per path")
     return NarrowPlan("split", (threads, SCORE_THREADS), (threads, 4 * score_groups(w)),
-                      (4 * recur_floats(a, w, False, legs), 4 * score_floats(a, w)),
+                      (4 * recur_floats(a, w, False, legs), 4 * score_floats(a, w, split_tier)),
                       per_path * tiles(chunk), chunk)

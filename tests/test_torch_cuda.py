@@ -1791,3 +1791,177 @@ def test_bootstrap_narrow_layouts_match_plain_form(dev, a, n_cand, t_len):
                                          with_bound=hedge is not None, **kw)
         shares = bootstrap_shares(k, p, hist, w, 52, hedge=hedge)
         assert max(shares.values()) <= 1.0, (hedge is not None, shares)
+
+
+# ---- the GBM candidate kernel (#3) and path stats (#2) up to 16 assets --------------------
+
+GBM_MODES = ("buy-hold", "rebalanced", "hedged")
+
+
+def _gbm_switches():
+    """W = 1, each side of every layout switch of ``ops.multi_dd
+    .gbm_narrow_plan`` in each mode (float32), and 256."""
+    from mcport_torch.ops.multi_dd import gbm_narrow_plan
+
+    out = {1, 256}
+    for legs, reb in ((0, False), (0, True), (2, False)):
+        names = [gbm_narrow_plan(15, w, n_legs=legs, rebalance=reb).layout
+                 for w in range(1, 257)]
+        out |= {w + d for w in range(1, 256) if names[w] != names[w - 1] for d in (0, 1)}
+    return sorted(out)
+
+
+GBM_NARROW_W = _gbm_switches()
+
+
+def _gbm_layouts(a, n_cand, hedge, mode, sd):
+    from mcport_torch.ops.multi_dd import gbm_narrow_plan
+
+    return _named_layouts(lambda *x, **k: gbm_narrow_plan(*x, rebalance=mode == "rebalanced",
+                                                          score_dtype=sd, **k),
+                          a, n_cand, hedge)
+
+
+def _gbm_case(dev, a, n_cand, mode, sd, bm="poly", t_df=None, steps=52, chol=None, seed=0):
+    """#3 in the layout W picks (counted), in every layout by name bit for
+    bit with it, and within ``multi_dd_shares`` of the plain form (hedged
+    with two legs per asset of every type, path by path); two blocks of
+    1,029 paths."""
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.multi_dd import (_launch, gbm_multi_portfolio_dd, multi_dd_reference,
+                                           multi_dd_shares)
+
+    mean, chol0, _ = _bench_inputs(a, dev, seed)
+    chol = chol0 if chol is None else chol
+    w = _wide_cand(a, dev, n_cand, seed=seed)
+    hedge = _hedge(a, dev, 2, seed=n_cand) if mode == "hedged" else None
+    reb = mode == "rebalanced"
+    kw = dict(first_block=6, n_blocks=2, rebalance=reb, hedge=hedge)
+    before = gbm_multi_portfolio_dd.launches
+    k = gbm_multi_portfolio_dd(11, mean, chol, w, 1_029, steps, score_dtype=sd, bm=bm,
+                               t_df=t_df, **kw)
+    torch.cuda.synchronize()
+    assert gbm_multi_portfolio_dd.launches == before + 1
+    lk = t_scaled_chol(chol, t_df)
+    for layout in _gbm_layouts(a, n_cand, hedge, mode, sd):
+        got = _launch(11, mean, lk, w, 1_029, steps, 6, 2, reb, sd, bm, t_df, hedge, layout)
+        assert _same(got, k), layout
+    p32 = multi_dd_reference(11, mean, lk, w, 1_029, steps, bm=bm, t_df=t_df, **kw)
+    p = (p32 if sd == "float32" and hedge is None else
+         multi_dd_reference(11, mean, lk, w, 1_029, steps, score_dtype=sd, bm=bm, t_df=t_df,
+                            with_bound=hedge is not None, **kw))
+    if hedge is not None and steps == 0:   # V_T = 1 and dd = 0 exactly; the bound is 0
+        assert _same(k, p[:2])
+        return k
+    shares = multi_dd_shares(k, p, p32, lk, mean, steps, reb, sd, hedge)
+    assert max(shares.values()) <= 1.0, (mode, sd, shares)
+    return k
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("n_cand", GBM_NARROW_W)
+@pytest.mark.parametrize("mode", GBM_MODES)
+def test_gbm_narrow_layouts_match_plain_form(dev, a, n_cand, mode):
+    """#3 up to 16 assets in the layout its W picks (ops.multi_dd
+    .gbm_narrow_plan), float32, each mode: every layout by name bit for bit
+    with it, within the plain form's bound; 52 steps."""
+    _gbm_case(dev, a, n_cand, mode, "float32")
+
+
+@pytest.mark.parametrize("n_cand", GBM_NARROW_W)
+@pytest.mark.parametrize("mode", GBM_MODES)
+@pytest.mark.parametrize("sd", ["tensorfloat32", "bfloat16"])
+def test_gbm_narrow_score_tiers(dev, n_cand, mode, sd):
+    """The reduced-precision score tiers (the split layout; the solo layout
+    scores float32 only) at 15 assets, each mode."""
+    _gbm_case(dev, 15, n_cand, mode, sd)
+
+
+@pytest.mark.parametrize("bm, t_df", [("poly_fast", None), ("poly", 5.5)])
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("mode", GBM_MODES)
+@pytest.mark.parametrize("steps", [0, 1, 5, 252])
+def test_gbm_narrow_draw_tiers_and_steps(dev, bm, t_df, n_cand, mode, steps):
+    """The other draw tiers (Student-t: two steps per Philox call) at 0, 1, 5
+    and 252 steps, 16 assets."""
+    _gbm_case(dev, 16, n_cand, mode, "float32", bm=bm, t_df=t_df, steps=steps)
+
+
+@pytest.mark.parametrize("n_cand", [1, 13, 256])
+@pytest.mark.parametrize("mode", GBM_MODES)
+def test_gbm_narrow_factor_above_the_diagonal(dev, n_cand, mode):
+    """A factor with terms above its diagonal (the Cholesky factor times a
+    rotation of two columns: the same covariance) runs its whole rows: every
+    layout bit for bit with the one W picks, within the plain form's bound."""
+    a = 15
+    chol = _chol(a, dev).double()
+    c0, c1 = chol[:, 0].clone(), chol[:, 1].clone()
+    chol[:, 0], chol[:, 1] = 0.8 * c0 - 0.6 * c1, 0.6 * c0 + 0.8 * c1
+    chol = chol.float()
+    assert bool(torch.triu(chol, 1).any())
+    _gbm_case(dev, a, n_cand, mode, "float32", chol=chol)
+
+
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
+@pytest.mark.parametrize("bm, t_df", [("poly", None), ("poly_fast", None), ("poly", 5.5)])
+@pytest.mark.parametrize("rebalance", [False, True])
+@pytest.mark.parametrize("full", [False, True])
+def test_gbm_path_stats_up_to_16_is_multi_dd_at_one_candidate(dev, a, bm, t_df, rebalance,
+                                                              full):
+    """#2 up to 16 assets (csrc/path_stats.cu path_stats_narrow_kernel, the
+    lower triangle of L) is #3 at one candidate bit for bit (port, dd) in
+    each of #3's layouts (solo, split), for a Cholesky factor and for
+    one with terms above its diagonal (the whole rows), and within
+    ``path_stats_shares`` of the plain form (terminal logS too)."""
+    from mcport_torch.ops.gbm import t_scaled_chol
+    from mcport_torch.ops.multi_dd import _launch
+    from mcport_torch.ops.path_stats import (gbm_path_stats, path_stats_reference,
+                                             path_stats_shares)
+
+    mean, chol, w = _bench_inputs(a, dev, seed=a)
+    if full and a > 1:
+        c0, c1 = chol[:, 0].clone(), chol[:, 1].clone()
+        chol[:, 0], chol[:, 1] = 0.8 * c0 - 0.6 * c1, 0.6 * c0 + 0.8 * c1
+    n, steps = 2_053, 60
+    before = gbm_path_stats.launches
+    got = gbm_path_stats(11, mean, chol, w, n, steps, first_block=6, n_blocks=2,
+                         rebalance=rebalance, bm=bm, t_df=t_df)
+    torch.cuda.synchronize()
+    assert gbm_path_stats.launches == before + 1
+    lk = t_scaled_chol(chol, t_df)
+    for layout in ("solo", "split"):
+        term, dd = _launch(11, mean, lk, w[None], n, steps, 6, 2, rebalance, "float32", bm,
+                           t_df, None, layout)
+        assert torch.equal(term[:, 0], got[1]) and torch.equal(dd[:, 0], got[2]), layout
+    p = path_stats_reference(11, mean, lk, w, n, steps, first_block=6, n_blocks=2,
+                             rebalance=rebalance, bm=bm, t_df=t_df)
+    shares = path_stats_shares(got, p, lk, mean, steps)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("mode", GBM_MODES)
+@pytest.mark.parametrize("sd", ["float32", "tensorfloat32"])
+def test_gbm_narrow_split_chunks_its_scratch(dev, mode, sd):
+    """Through a scratch that holds one recursion block's paths, the split
+    layout gives the whole launch's outputs bit for bit."""
+    from mcport_torch._build import library
+    from mcport_torch.ops.multi_dd import SCORE_DTYPES, gbm_multi_portfolio_dd
+
+    a, n, steps = 5, 1_029, 7
+    mean, chol, _ = _bench_inputs(a, dev)
+    w = _wide_cand(a, dev, 17)
+    hedge = _hedge(a, dev, 2) if mode == "hedged" else None
+    want = gbm_multi_portfolio_dd(3, mean, chol, w, n, steps, first_block=0, n_blocks=2,
+                                  rebalance=mode == "rebalanced", score_dtype=sd, hedge=hedge)
+    got = [torch.empty_like(x) for x in want]
+    floats = 2 * steps * a * 64
+    scratch = torch.empty(floats, dtype=torch.float32, device=dev)
+    block = hedge.packed() if hedge is not None else None
+    err = library("gbm_narrow").mcport_gbm_narrow_dd(
+        3, 0, 2, n, a, 17, steps, 0, GBM_MODES.index(mode), SCORE_DTYPES[sd],
+        hedge.n_legs if hedge is not None else 0, 0.0, 0.0, chol.data_ptr(), mean.data_ptr(),
+        w.data_ptr(), block.data_ptr() if block is not None else None,
+        *(x.data_ptr() for x in got), scratch.data_ptr(), floats, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and _same(got, want)

@@ -1,13 +1,15 @@
-"""The Merton (#8), Heston (#10), GARCH (#5) and bootstrap (#7) candidate
-kernels up to 16 assets on the CPU: their layout plans and their CUDA sources
-under a host emulation.
+"""The GBM (#3, with the path-stats function #2), Merton (#8), Heston (#10),
+GARCH (#5) and bootstrap (#7) candidate kernels up to 16 assets on the CPU:
+their layout plans and their CUDA sources under a host emulation.
 
 - ``ops.jump.merton_narrow_plan`` picks the solo layout (a thread per path
   scores its own candidates) up to 10 candidates and the split one (the
   returns through a device scratch, then scoring blocks) past them;
   ``ops.heston.heston_narrow_plan`` solo up to 12, split up to 128 and the
   tile layout (a 16-path tile, items and scorers one Philox call apart) past
-  them; ``ops.garch.garch_narrow_plan`` solo up to 13 and split past them,
+  them; ``ops.multi_dd.gbm_narrow_plan`` solo (float32 tier only) up to 22
+  (23 rebalanced, 14 hedged) and split past them, solo with no steps;
+  ``ops.garch.garch_narrow_plan`` solo up to 13 and split past them,
   ``ops.bootstrap.bootstrap_narrow_plan`` solo up to 22 (14 hedged; blocks
   of 128 paths) and split past them. The layout W picks fits the H100's 232,448
   bytes of shared memory at every A <= 16, W <= 256 and 0-4 legs, and so
@@ -31,7 +33,19 @@ under a host emulation.
   ``garch_shares`` and ``bootstrap_shares`` of the plain forms, hedged path
   by path within the price bounds; the split layout through a scratch of
   one-block chunks bit for bit with the whole launch, and with the tile
-  layout where the kernel has one (Heston). Skipped where g++ is missing.
+  layout where the kernel has one (Heston).
+- The GBM source (``csrc/gbm_narrow.cu``) the same way, with its own
+  layout rows (``gbm_layout`` by W, mode and score tier): every layout of
+  each mode, score tier and draw tier, and at 0 steps, bit for bit with
+  ``csrc/multi_dd.cu``'s tile kernel emulated at the same width (the
+  oracle: on the card it runs from 17 assets), within
+  ``multi_dd_shares`` of the plain form (hedged path by path); the
+  path-stats kernel (``csrc/path_stats.cu``) bit for bit with #3 at one
+  candidate, within ``path_stats_shares``; a factor with terms
+  above its diagonal (the triangle guard) within the plain form's bound,
+  where leaving those terms out would not be.
+
+Skipped where g++ is missing.
 """
 
 import shutil
@@ -47,7 +61,9 @@ from mcport_torch.ops import bootstrap as B
 from mcport_torch.ops import garch as G
 from mcport_torch.ops import heston as H
 from mcport_torch.ops import jump as J
+from mcport_torch.ops import multi_dd as M
 from mcport_torch.ops import narrow as N
+from mcport_torch.ops import path_stats as PS
 from mcport_torch.ops.hedged import HedgeTensors
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -62,12 +78,17 @@ def _bootstrap_plan(a, w, *args, **kw):
 
 
 PLANS = {"jump": J.merton_narrow_plan, "heston": H.heston_narrow_plan,
-         "garch": G.garch_narrow_plan, "bootstrap": _bootstrap_plan}
+         "garch": G.garch_narrow_plan, "bootstrap": _bootstrap_plan,
+         "gbm": M.gbm_narrow_plan}
 #: threads (a path each) of each kernel's recursion block
-THREADS = {"jump": 64, "heston": 64, "garch": 64, "bootstrap": 128}
+THREADS = {"jump": 64, "heston": 64, "garch": 64, "bootstrap": 128, "gbm": 64}
 #: the layouts each kernel takes by name
 NAMED = {"jump": ("solo", "split"), "heston": ("solo", "split", "tile"),
-         "garch": ("solo", "split"), "bootstrap": ("solo", "split")}
+         "garch": ("solo", "split"), "bootstrap": ("solo", "split"),
+         "gbm": ("solo", "split")}
+#: the emulated GBM executables: csrc/gbm_narrow.cu, multi_dd.cu's tile kernel (the
+#: oracle) and path_stats.cu's kernels (tools/cuda_emu/gbm_main.inc)
+GBM_BUILDS = ("GBM", "GBM_TILE", "GBM_STATS")
 
 
 @pytest.mark.parametrize("family, w, layout, score_paths", [
@@ -99,7 +120,7 @@ def test_narrow_plans_pick_the_layout_by_w(family, w, layout, score_paths):
         assert p.scratch_floats == 131_072 * 252 * 15 and p.chunk == 131_072
 
 
-@pytest.mark.parametrize("family", ["jump", "heston", "garch", "bootstrap"])
+@pytest.mark.parametrize("family", ["jump", "heston", "garch", "bootstrap", "gbm"])
 def test_narrow_plans_fit_shared_memory(family):
     """The layout W picks at every A <= 16, W <= 256 and 0-4 legs per asset
     within a block's shared memory, its recursion blocks at least 256 threads
@@ -120,7 +141,7 @@ def test_narrow_plans_fit_shared_memory(family):
                     assert max(plan(a, w, 5, 100, 1, legs, layout=name).shared_bytes) <= SMEM
     assert 0 < worst <= SMEM
     assert plan(16, 64, 5, 100, 1, 4, layout="solo").shared_bytes[0] <= SMEM
-    if family in ("jump", "garch"):
+    if family in ("jump", "garch", "gbm"):
         assert plan(16, 256, 5, 100, 1, 4, layout="solo").shared_bytes[0] <= SMEM
     else:   # the variance shocks' slice, or 128 paths' state
         with pytest.raises(ValueError, match="solo layout needs .* bytes of shared memory"):
@@ -148,7 +169,7 @@ def test_bootstrap_layouts_place_the_history():
 
 
 @pytest.mark.parametrize("family, t", [("jump", 64), ("heston", 64), ("garch", 64),
-                                       ("bootstrap", 128)])
+                                       ("bootstrap", 128), ("gbm", 64)])
 def test_narrow_plans_size_the_scratch(family, t):
     """The split layout's scratch holds every block's returns of a chunk of
     paths in whole 16-path tiles: the whole launch up to 2 GiB (the
@@ -169,7 +190,7 @@ def test_narrow_plans_size_the_scratch(family, t):
     assert (small.chunk, small.scratch_floats) == (t, 70 * t)
     with pytest.raises(ValueError, match=f"holds no {t}-path chunk"):
         plan(5, 17, 7, 300, 2, scratch_floats=70 * t - 1, layout="split")
-    if family != "heston":
+    if "tile" not in NAMED[family]:
         with pytest.raises(ValueError, match="has no 'tile' layout"):
             plan(5, 200, layout="tile")
     for a, w in ((0, 1), (17, 1), (3, 0), (3, 257)):
@@ -179,7 +200,8 @@ def test_narrow_plans_size_the_scratch(family, t):
 
 @pytest.fixture(scope="module")
 def emu(tmp_path_factory):
-    """The four kernel sources under the host emulation: ``{family: driver}``."""
+    """The kernel sources under the host emulation: ``{family: executable}``
+    (the GBM sources' three by their names in ``GBM_BUILDS``)."""
     if shutil.which("g++") is None:
         pytest.skip("the host emulation of the CUDA sources needs g++")
     sys.path.insert(0, str(EMU))
@@ -190,7 +212,7 @@ def emu(tmp_path_factory):
     work = tmp_path_factory.mktemp("narrow_emu")
     prep(ROOT / "mcport_torch" / "csrc", work / "csrc")
     procs = {}
-    for family in PLANS:
+    for family in [f for f in PLANS if f != "gbm"] + list(GBM_BUILDS):
         exe = work / f"{family}_emu"
         procs[family] = (exe, subprocess.Popen(
             ["g++", "-std=c++20", "-O1", "-ffp-contract=off", f"-DFAMILY_{family.upper()}",
@@ -311,3 +333,232 @@ def test_narrow_split_source_chunks_its_scratch(emu, tmp_path, family):
     if "tile" in NAMED[family]:
         tile, _ = _launch(emu, tmp_path, family, 5, 17, 2, 1, paths=150, steps=7, layout=2)
         assert all(torch.equal(x, y) for x, y in zip(whole, tile))
+
+
+# ---- the GBM kernels (#3 and #2): csrc/gbm_narrow.cu ------------------------------------
+
+GBM_MODES = {"buy-hold": 0, "rebalanced": 1, "hedged": 2}
+GBM_DRAWS = {"poly": 0, "poly_fast": 1, "t": 2}
+
+
+@pytest.mark.parametrize("mode, score, w, layout", [
+    ("buy-hold", "float32", 1, "solo"), ("buy-hold", "float32", 22, "solo"),
+    ("buy-hold", "float32", 23, "split"), ("buy-hold", "float32", 256, "split"),
+    ("rebalanced", "float32", 23, "solo"), ("rebalanced", "float32", 24, "split"),
+    ("hedged", "float32", 14, "solo"), ("hedged", "float32", 15, "split"),
+    ("buy-hold", "bfloat16", 1, "split"), ("hedged", "tensorfloat32", 256, "split")])
+def test_gbm_plan_picks_the_layout_by_w_mode_and_tier(mode, score, w, layout):
+    """The GBM kernel's switches at 15 assets: solo to 22 candidates (23
+    rebalanced, 14 hedged) in the float32 tier, split past them and in every
+    reduced-precision tier, and solo in every tier and by any name with no
+    steps; the tile (multi_dd.cu's, which the split layout beat at every W)
+    is no layout of theirs."""
+    legs = 2 if mode == "hedged" else 0
+    p = M.gbm_narrow_plan(15, w, 252, 131_072, 1, legs, rebalance=mode == "rebalanced",
+                          score_dtype=score)
+    assert p.layout == layout
+    if layout == "split":
+        assert p.threads == (64, 256) and p.paths == (64, 4 * N.score_groups(w))
+        assert p.scratch_floats == 131_072 * 252 * 15 and p.chunk == 131_072
+    with pytest.raises(ValueError, match="has no 'tile' layout"):
+        M.gbm_narrow_plan(15, w, 252, 131_072, 1, legs, layout="tile", score_dtype=score)
+    for name in (None, "split"):
+        zero = M.gbm_narrow_plan(15, w, 0, 131_072, 1, legs, name, score_dtype=score)
+        assert (zero.layout, zero.scratch_floats) == ("solo", 0)
+
+
+def test_gbm_plan_is_the_kernels_layout(emu, tmp_path):
+    """``gbm_narrow_plan`` against ``gbm_layout``, ``GbmRecurLayout``,
+    ``gbm_score_floats`` and ``score_groups`` compiled from
+    ``csrc/gbm_narrow.cu`` (every A <= 16, W <= 256, score tier, and mode:
+    unhedged buy-and-hold and rebalanced, hedged with 1-4 legs); the solo
+    layout is the float32 tier's only."""
+    out = tmp_path / "gbm_layout.bin"
+    subprocess.run([str(emu["GBM"]), "layout", str(out)], check=True, timeout=60)
+    rows = np.fromfile(out, np.int32).reshape(-1, 10)
+    assert len(rows) == 16 * 256 * 3 * (2 + 4)
+    names = {0: "solo", 1: "split"}
+    scores = {v: k for k, v in M.SCORE_DTYPES.items()}
+    for a, w, legs, s, mode, layout, own, rets, score, groups in rows.tolist():
+        kw = dict(rebalance=mode == 1, score_dtype=scores[s])
+        assert M.gbm_narrow_plan(a, w, 5, 100, 1, legs, **kw).layout == names[layout], (a, w)
+        split = M.gbm_narrow_plan(a, w, 5, 100, 1, legs, layout="split", **kw)
+        assert split.shared_bytes == (4 * rets, 4 * score) and split.paths[1] == 4 * groups
+        if s == 0 and 4 * own <= SMEM:
+            assert M.gbm_narrow_plan(a, w, 5, 100, 1, legs, layout="solo",
+                                     **kw).shared_bytes == (4 * own,)
+        elif s:
+            with pytest.raises(ValueError, match="float32 tier only"):
+                M.gbm_narrow_plan(a, w, 5, 100, 1, legs, layout="solo", **kw)
+
+
+def _gbm_run(emu, tmp_path, build, a, w, legs, code, paths=70, steps=5, n_blocks=2,
+             layout=-1, scratch=None):
+    """One emulated GBM launch (seed 11, blocks 7 ..) with CASE ``code``
+    (tools/cuda_emu/gbm_main.inc: draw tier, mode, score tier, full factor)
+    → (outputs, inputs): #3's (term, dd) or, at ``w`` 0, #2's (terminal
+    logS, port, dd); the inputs (L, m, weights, hedge or None)."""
+    out = tmp_path / f"{build}_a{a}_w{w}_l{legs}_{code}_{layout}_{scratch}_{steps}.bin"
+    args = [str(emu[build]), str(a), str(paths), str(steps), str(n_blocks), str(w),
+            str(legs), str(layout), code, str(out)] + ([str(scratch)] if scratch else [])
+    subprocess.run(args, check=True, timeout=120)
+    y = torch.from_numpy(np.fromfile(out, np.float32))
+    if w:
+        k = tuple(y.reshape(2, n_blocks, w, paths))
+    else:
+        n = n_blocks * paths
+        k = (y[:n * a].reshape(n_blocks, paths, a), y[n * a:n * (a + 1)].reshape(n_blocks, paths),
+             y[n * (a + 1):].reshape(n_blocks, paths))
+    x = torch.from_numpy(np.fromfile(str(out) + ".in", np.float32))
+    chol, mean = x[:a * a].reshape(a, a), x[a * a:a * a + a]
+    n_w = max(w, 1)
+    weights = x[a * a + a:a * a + a + n_w * a].reshape(n_w, a)
+    hedge = None
+    if legs:
+        h = x[a * a + a + n_w * a:].numpy()
+        s0, ty, strike, prem, qty = np.split(h, np.cumsum([a] + 3 * [a * legs]))
+        f = lambda v: torch.from_numpy(np.ascontiguousarray(v))  # noqa: E731
+        hedge = HedgeTensors(f(s0), f(ty.reshape(a, legs)).to(torch.int32),
+                             f(strike.reshape(a, legs)), f(prem.reshape(a, legs)),
+                             f(qty.reshape(a, legs)))
+    return k, (chol, mean, weights, hedge)
+
+
+def _code(draw="poly", mode="buy-hold", score="float32", full=False) -> str:
+    return f"{GBM_DRAWS[draw]}{GBM_MODES[mode]}{M.SCORE_DTYPES[score]}{int(full)}"
+
+
+@pytest.mark.parametrize("a", [1, 16])
+@pytest.mark.parametrize("w", [1, 13, 256])
+@pytest.mark.parametrize("mode", ["buy-hold", "rebalanced", "hedged"])
+def test_gbm_source_matches_plain_form(emu, tmp_path, a, w, mode):
+    """The GBM source in the layout W picks (float32) against the plain form
+    within ``multi_dd_shares`` (hedged, two legs per asset of every type,
+    path by path within the price bound), and every layout by name (solo,
+    split) bit for bit with multi_dd.cu's tile kernel, the oracle."""
+    legs = 2 if mode == "hedged" else 0
+    code = _code(mode=mode)
+    k, (chol, mean, weights, hedge) = _gbm_run(emu, tmp_path, "GBM", a, w, legs, code)
+    kw = dict(first_block=6, n_blocks=2, rebalance=mode == "rebalanced", hedge=hedge,
+              with_bound=hedge is not None)
+    p = M.multi_dd_reference(11, mean, chol, weights, 70, 5, **kw)
+    shares = M.multi_dd_shares(k, p, p, chol, mean, 5, mode == "rebalanced", "float32", hedge)
+    assert max(shares.values()) <= 1.0, shares
+    tile, _ = _gbm_run(emu, tmp_path, "GBM_TILE", a, w, legs, code)
+    assert all(torch.equal(x, y) for x, y in zip(k, tile))
+    other = 1 if M.gbm_narrow_plan(a, w, 5, 70, 2, legs).layout == "solo" else 0
+    got, _ = _gbm_run(emu, tmp_path, "GBM", a, w, legs, code, layout=other)
+    assert all(torch.equal(x, y) for x, y in zip(got, tile)), other
+
+
+@pytest.mark.parametrize("mode", ["buy-hold", "rebalanced", "hedged"])
+@pytest.mark.parametrize("score", ["tensorfloat32", "bfloat16"])
+@pytest.mark.parametrize("w", [3, 256])
+def test_gbm_source_score_tiers(emu, tmp_path, mode, score, w):
+    """The split layout in the reduced-precision score tiers (the solo layout
+    takes float32 only) bit for bit with the tile kernel, and within
+    ``multi_dd_shares`` of the plain form in that tier (bfloat16 in
+    aggregate; the buy-and-hold terminal, float32 in every tier,
+    elementwise)."""
+    legs = 2 if mode == "hedged" else 0
+    code = _code(mode=mode, score=score)
+    k, (chol, mean, weights, hedge) = _gbm_run(emu, tmp_path, "GBM", 7, w, legs, code,
+                                               paths=37)
+    tile, _ = _gbm_run(emu, tmp_path, "GBM_TILE", 7, w, legs, code, paths=37)
+    assert all(torch.equal(x, y) for x, y in zip(k, tile))
+    kw = dict(first_block=6, n_blocks=2, rebalance=mode == "rebalanced", hedge=hedge,
+              with_bound=hedge is not None)
+    p = M.multi_dd_reference(11, mean, chol, weights, 37, 5, score_dtype=score, **kw)
+    p32 = M.multi_dd_reference(11, mean, chol, weights, 37, 5, **kw)
+    shares = M.multi_dd_shares(k, p, p32, chol, mean, 5, mode == "rebalanced", score, hedge)
+    assert max(shares.values()) <= 1.0, shares
+
+
+@pytest.mark.parametrize("mode", ["buy-hold", "rebalanced", "hedged"])
+@pytest.mark.parametrize("score", ["float32", "tensorfloat32", "bfloat16"])
+def test_gbm_source_zero_steps(emu, tmp_path, mode, score):
+    """With no steps every layout, by W and by name, runs the solo recursion
+    in every score tier: bit for bit with the tile kernel, the terminal
+    ``sum(w) - 1`` in float32 buy-and-hold (mcport's FP32 score of the start)
+    and 0 otherwise, the drawdown 0; 256 candidates, where steps would split."""
+    legs = 2 if mode == "hedged" else 0
+    code = _code(mode=mode, score=score)
+    tile, (_, _, weights, _) = _gbm_run(emu, tmp_path, "GBM_TILE", 7, 256, legs, code, steps=0)
+    for layout in (-1, 0, 1):
+        got, _ = _gbm_run(emu, tmp_path, "GBM", 7, 256, legs, code, layout=layout, steps=0)
+        assert all(torch.equal(x, y) for x, y in zip(got, tile)), layout
+    want = torch.zeros(256)
+    if mode == "buy-hold":
+        for a in range(7):
+            want = torch.addcmul(want, weights[:, a], torch.ones(256))
+        want = want - 1.0
+    assert torch.equal(tile[0], want[None, :, None].expand(2, 256, 70))
+    assert not tile[1].any()
+
+
+@pytest.mark.parametrize("draw", ["poly_fast", "t"])
+@pytest.mark.parametrize("full", [False, True])
+def test_gbm_source_draw_tiers_and_factors(emu, tmp_path, draw, full):
+    """The other draw tiers (Student-t: two steps per Philox call) and a
+    factor with terms above its diagonal: the source against the plain form
+    on the same factor, buy-and-hold and hedged, solo and split bit for bit
+    with the tile. The triangle guard: with those terms left out, the
+    outputs leave the bound."""
+    t_df = 5.5 if draw == "t" else None
+    bm = "poly" if draw == "t" else draw
+    for mode, w in (("buy-hold", 5), ("hedged", 13)):
+        legs = 2 if mode == "hedged" else 0
+        code = _code(draw, mode, full=full)
+        k, (chol, mean, weights, hedge) = _gbm_run(emu, tmp_path, "GBM", 7, w, legs, code,
+                                                   steps=9)
+        tile, _ = _gbm_run(emu, tmp_path, "GBM_TILE", 7, w, legs, code, steps=9)
+        for layout in (0, 1):
+            got, _ = _gbm_run(emu, tmp_path, "GBM", 7, w, legs, code, layout=layout, steps=9)
+            assert all(torch.equal(x, y) for x, y in zip(got, tile)), layout
+        kw = dict(first_block=6, n_blocks=2, bm=bm, t_df=t_df, hedge=hedge,
+                  with_bound=hedge is not None)
+        p = M.multi_dd_reference(11, mean, chol, weights, 70, 9, **kw)
+        shares = M.multi_dd_shares(k, p, p, chol, mean, 9, False, "float32", hedge)
+        assert max(shares.values()) <= 1.0, shares
+        assert bool(torch.triu(chol, 1).any()) == full
+        if full and mode == "buy-hold":   # the upper terms matter to the plain form
+            lower = M.multi_dd_reference(11, mean, torch.tril(chol), weights, 70, 9, **kw)
+            cut = M.multi_dd_shares(k, lower, lower, chol, mean, 9, False, "float32")
+            assert max(cut.values()) > 1.0, cut
+
+
+@pytest.mark.parametrize("a", [1, 7, 16])
+@pytest.mark.parametrize("draw", ["poly", "t"])
+@pytest.mark.parametrize("rebalance", [False, True])
+def test_gbm_path_stats_source(emu, tmp_path, a, draw, rebalance):
+    """The path-stats kernel up to 16 assets (csrc/path_stats.cu, the lower
+    triangle of L) bit for bit with #3 at one candidate (port, dd) and
+    within ``path_stats_shares`` of the plain form (terminal logS, port,
+    dd); 0 and 5 steps, a Cholesky factor and one with terms above its
+    diagonal."""
+    mode = "rebalanced" if rebalance else "buy-hold"
+    t_df = 5.5 if draw == "t" else None
+    for steps, full in ((5, False), (5, True), (0, False)):
+        code = _code(draw, mode, full=full)
+        k, (chol, mean, weights, _) = _gbm_run(emu, tmp_path, "GBM_STATS", a, 0, 0, code,
+                                               paths=130, steps=steps)
+        one, _ = _gbm_run(emu, tmp_path, "GBM", a, 1, 0, code, paths=130, steps=steps)
+        assert torch.equal(one[0][:, 0], k[1]) and torch.equal(one[1][:, 0], k[2])
+        p = PS.path_stats_reference(11, mean, chol, weights[0], 130, steps, first_block=6,
+                                    n_blocks=2, rebalance=rebalance, t_df=t_df)
+        shares = PS.path_stats_shares(k, p, chol, mean, steps)
+        assert max(shares.values()) <= 1.0, shares
+
+
+def test_gbm_split_source_chunks_its_scratch(emu, tmp_path):
+    """Through a scratch that holds one recursion block's paths of the 150,
+    the split layout gives the whole launch's outputs bit for bit, in each
+    mode."""
+    for mode in GBM_MODES:
+        legs = 2 if mode == "hedged" else 0
+        code = _code(mode=mode)
+        whole, _ = _gbm_run(emu, tmp_path, "GBM", 5, 17, legs, code, paths=150, steps=7,
+                            layout=1)
+        chunked, _ = _gbm_run(emu, tmp_path, "GBM", 5, 17, legs, code, paths=150, steps=7,
+                              layout=1, scratch=2 * 7 * 5 * 64)
+        assert all(torch.equal(x, y) for x, y in zip(whole, chunked)), mode

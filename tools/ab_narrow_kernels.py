@@ -2,9 +2,10 @@
 other / this / this / other.
 
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
-    python3 tools/ab_narrow_kernels.py DIR [merton-heston|garch-bootstrap|dcc|all]
+    python3 tools/ab_narrow_kernels.py DIR [merton-heston|garch-bootstrap|dcc|gbm|all]
 
-- First, per library (jump, Heston, GARCH, bootstrap, DCC), whether each
+- First, per library (jump, Heston, GARCH, bootstrap, DCC, multi-dd, path
+  stats), whether each
   kernel of the other tree has this tree's instructions (``cuobjdump
   -sass``; a template parameter added with its default, ``<16>`` against
   ``<16, false>``, names the same kernel, as does a kernel made a template
@@ -39,9 +40,22 @@ other / this / this / other.
   15, 16; the terminal, W = 1/5/64/256, hedged), then timed at the widths
   and shapes of the DCC rows of PERF.md §6.
 
-Needs one card; builds both trees' jump, Heston, GARCH, bootstrap and DCC
-libraries. Exits 1 when a kept kernel changed its SASS or an output differs
-from the other tree's."""
+- ``gbm``: the GBM candidate kernel (#3) and the path-stats kernel (#2) up
+  to 16 assets: #3's outputs against the other tree's with ``torch.equal``
+  at A = 1, 7, 15 and 16, W = 1, each side of every layout switch and 256,
+  buy-and-hold, rebalanced and hedged (two legs per asset of every type),
+  the three score tiers and the three draw tiers, 0, 1, 5, 52 and 252
+  steps, a factor with terms above its diagonal, in the layout W picks and
+  in every layout by name; #2's (terminal, port, dd) likewise in both modes
+  and every draw tier. Then both trees timed in turns: #3 at 256 x 131,072 x
+  252 (each mode and tier) and at W = 1 (131,072 x 252), #2 at 1,048,576 x
+  252, config-4 ``run_path_risk`` (buy-and-hold, rebalanced, hedged GBM and
+  hedged Student-t) and the GBM frontier (auto and the bf16 screen); this
+  tree's layouts by name at W = 1 to 256 per mode and tier, and ptxas's
+  registers and spills.
+
+Needs one card; builds both trees' libraries. Exits 1 when a kept kernel
+changed its SASS or an output differs from the other tree's."""
 import math
 import re
 import subprocess
@@ -55,7 +69,7 @@ sys.path.insert(0, ".")
 import chip_smoke as S
 
 PART = sys.argv[2] if len(sys.argv) > 2 else "merton-heston"
-FAMILIES = ("jump", "heston", "garch", "bootstrap", "dcc")
+FAMILIES = ("jump", "heston", "garch", "bootstrap", "dcc", "multi_dd", "path_stats")
 dev = torch.device("cuda", 0)
 print(S.phase_card())
 
@@ -65,7 +79,7 @@ def load(root):
         del sys.modules[m]
     sys.path.insert(0, root)
     import mcport_torch._build as B
-    B.build_libraries(FAMILIES)
+    B.build_libraries(tuple(B.KERNELS))
     import mcport_torch.ops.bootstrap as O
     import mcport_torch.ops.dcc as D
     import mcport_torch.ops.garch as G
@@ -73,6 +87,8 @@ def load(root):
     import mcport_torch.ops.jump as J
     import mcport_torch.engine.drawdown_frontier  # noqa: F401  (each tree its own engines)
     import mcport_torch.engine.path_risk  # noqa: F401
+    import mcport_torch.ops.multi_dd  # noqa: F401
+    import mcport_torch.ops.path_stats  # noqa: F401
     sys.path.remove(root)
     mods = {m: v for m, v in sys.modules.items()
             if m == "mcport_torch" or m.startswith("mcport_torch.")}
@@ -105,20 +121,10 @@ def sass(so: Path) -> dict:
 
 
 #: the other tree's kernels that this tree no longer has: Heston's and GARCH's
-#: candidate kernels up to 16 assets, now the layouts of csrc/narrow_dd.cuh
-REDESIGNED = ("heston_dd_kernelILi16E", "garch_dd_kernelILi16E")
-#: kernels renamed in this tree, other key -> this key: narrow_dd.cuh's
-#: scoring kernel took the value update (kGross, kSimpleNan) for its flag
-RENAMED = {"score_kernelE": "score_kernelILi0EE", "score_kernelILb1EE": "score_kernelILi2EE"}
-
-
-def renamed(key: str) -> str:
-    for old, new in RENAMED.items():
-        if key.endswith(old):
-            return key[:-len(old)] + new
-    return key
-
-
+#: candidate kernels up to 16 assets, now the layouts of csrc/narrow_dd.cuh,
+#: and the path-stats kernel's 16-asset build (path_stats_kernel<…, 16, 16>),
+#: now path_stats_narrow_kernel
+REDESIGNED = ("heston_dd_kernelILi16E", "garch_dd_kernelILi16E", "ELi16ELi16E")
 mods = {"other": load(sys.argv[1]), "this": load(".")}
 kept = [0, 0]
 for fam in FAMILIES:
@@ -133,18 +139,17 @@ for fam in FAMILIES:
             if "garch_dd_kernelILi16E" in key:
                 Path(f"chiprun_out/sass_other_{key[-40:]}.txt").write_text("\n".join(ins))
     for key, ins in sorted(a.items()):
-        key_b = renamed(key)
-        same = b.get(key_b) == ins
+        same = b.get(key) == ins
         redesigned = any(r in key for r in REDESIGNED)
         kept[0] += int(same and not redesigned)
         kept[1] += int(not redesigned)
-        if key_b in b and not same:   # both listings, for a diff
-            for side, listing in (("other", ins), ("this", b[key_b])):
+        if key in b and not same:   # both listings, for a diff
+            for side, listing in (("other", ins), ("this", b[key])):
                 Path("chiprun_out").mkdir(exist_ok=True)
                 Path(f"chiprun_out/sass_{fam}_{key[-40:]}_{side}.txt").write_text(
                     "\n".join(listing))
         print(f"sass {fam} {key}: {len(ins)} instructions, "
-              f"{'the same in this tree' if same else 'CHANGED' if key_b in b else 'not found'}"
+              f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}"
               f"{' (redesigned)' if redesigned else ''}")
 print(f"sass: {kept[0]} of {kept[1]} kept kernels the same in this tree")
 
@@ -469,8 +474,11 @@ def ptxas_report(libs=("garch", "bootstrap")) -> None:
     libraries, from the ``-Xptxas -v`` report kept beside each library."""
     for side, root in (("other", sys.argv[1]), ("this", ".")):
         for fam in libs:
-            log = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.log"),
-                         key=lambda p: p.stat().st_mtime)[-1].read_text()
+            logs = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.log"),
+                          key=lambda p: p.stat().st_mtime)
+            if not logs:   # a library the tree does not have
+                continue
+            log = logs[-1].read_text()
             name, spill = None, ""
             for line in log.splitlines():
                 m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -635,6 +643,232 @@ def garch_bootstrap_part():
     return f"#5/#7 most slower than the other tree {100 * worst:.2f}%"
 
 
+# ---- kernels #3 and #2 up to 16 assets ---------------------------------------------
+
+#: the draw tiers: (bm, t_df)
+DRAWS = (("poly", None), ("poly_fast", None), ("t", 5.5))
+GBM_SWEEP_W = (1, 2, 4, 8, *range(12, 29), 32, 64, 128, 192, 256)
+SCORES = ("float32", "tensorfloat32", "bfloat16")
+MODES = ("buy-hold", "rebalanced", "hedged")
+
+
+def gbm_part():
+    """#3 and #2: outputs against the other tree's in every layout, then the
+    times: the kernels, their main paths, this tree's layouts by name."""
+    from mcport_torch.ops.hedged import HedgeTensors
+
+    this = on("this")[4]
+    M, P = this["mcport_torch.ops.multi_dd"], this["mcport_torch.ops.path_stats"]
+    plans = {mode: (lambda *x, mode=mode, **k: M.gbm_narrow_plan(
+        *x, rebalance=mode == "rebalanced", **k)) for mode in MODES}
+    switches = sorted({n for mode in MODES for n in S.layout_switches(plans[mode])})
+    print(f"layout switches (W each side, and 1 and 256): {switches}")
+    kw = dict(first_block=6, n_blocks=2)
+
+    def mods(side):
+        s = on(side)[4]
+        return s["mcport_torch.ops.multi_dd"], s["mcport_torch.ops.path_stats"]
+
+    def factor(a, full):
+        mean_np, chol_np = S.bench_universe(a)
+        chol = chol_np.astype(np.float64)
+        if full and a > 1:   # terms above the diagonal: a rotation of the first two columns
+            c0, c1 = chol[:, 0].copy(), chol[:, 1].copy()
+            chol[:, 0], chol[:, 1] = 0.8 * c0 - 0.6 * c1, 0.6 * c0 + 0.8 * c1
+        return (torch.as_tensor(mean_np, dtype=torch.float32, device=dev),
+                torch.as_tensor(chol, dtype=torch.float32, device=dev))
+
+    def cand_case(tag, a, n, mode, sd, draw, steps, full=False, by_name=True, paths=1_029):
+        mean, chol = factor(a, full)
+        w = simplex(a, n)
+        bm, t_df = ("poly", draw[1]) if draw[0] == "t" else draw
+        hedge = S.leg_mix(a, 2, dev, seed=a) if mode == "hedged" else None
+        args = dict(rebalance=mode == "rebalanced", score_dtype=sd, bm=bm, t_df=t_df,
+                    hedge=hedge, **kw)
+        want = bits(mods("other")[0].gbm_multi_portfolio_dd(11, mean, chol, w, paths, steps,
+                                                           **args))
+        Mt = mods("this")[0]
+        got = Mt.gbm_multi_portfolio_dd(11, mean, chol, w, paths, steps, **args)
+        held_equal(f"gbm {tag} by W", want, bits(got))
+        if not by_name:
+            return
+        lk = Mt.t_scaled_chol(chol, t_df)
+        for layout in ("solo", "split"):
+            try:
+                Mt.gbm_narrow_plan(a, n, steps, paths, 2, 0 if hedge is None else hedge.n_legs,
+                                   layout=layout, rebalance=mode == "rebalanced",
+                                   score_dtype=sd)
+            except ValueError:
+                continue
+            got = Mt._launch(11, mean, lk, w, paths, steps, 6, 2, mode == "rebalanced", sd,
+                             bm, t_df, hedge, layout)
+            torch.cuda.synchronize()
+            held_equal(f"gbm {tag} {layout}", want, bits(got))
+
+    for a in (1, 7, 15, 16):
+        for n in switches:
+            for mode in MODES:
+                for sd in SCORES:
+                    cand_case(f"A={a} W={n} {mode} {sd} 52 steps", a, n, mode, sd, DRAWS[0], 52)
+        for draw in DRAWS[1:]:
+            for n in (1, 256):
+                for mode in MODES:
+                    for sd in SCORES:
+                        cand_case(f"A={a} W={n} {mode} {sd} {draw[0]} 52 steps", a, n, mode, sd,
+                                  draw, 52)
+    for a in (7, 15):
+        for steps in (0, 1, 5, 252):
+            for n in (1, 11, 256):
+                for mode in MODES:
+                    for sd in SCORES:
+                        cand_case(f"A={a} W={n} {mode} {sd} {steps} steps", a, n, mode, sd,
+                                  DRAWS[0], steps, by_name=steps == 5)
+        for n in (1, 13, 256):
+            for mode in MODES:
+                cand_case(f"A={a} W={n} {mode} float32 full factor", a, n, mode, "float32",
+                          DRAWS[0], 52, full=True)
+    # #2: (terminal, port, dd), and without the terminal
+    for a in (1, 7, 15, 16):
+        for draw in DRAWS:
+            bm, t_df = ("poly", draw[1]) if draw[0] == "t" else draw
+            for reb in (False, True):
+                for steps in (0, 1, 5, 52, 252):
+                    for full in ((False, True) if steps == 52 else (False,)):
+                        mean, chol = factor(a, full)
+                        w = simplex(a, 1)[0]
+                        for terminal in (True, False):
+                            args = dict(rebalance=reb, bm=bm, t_df=t_df, terminal=terminal, **kw)
+                            want = mods("other")[1].gbm_path_stats(11, mean, chol, w, 2_053,
+                                                                   steps, **args)
+                            got = mods("this")[1].gbm_path_stats(11, mean, chol, w, 2_053, steps,
+                                                                 **args)
+                            held_equal(f"path_stats A={a} {draw[0]} rebalance={int(reb)} "
+                                       f"{steps} steps full={int(full)} terminal={int(terminal)}",
+                                       bits(tuple(x for x in want if x is not None)),
+                                       bits(tuple(x for x in got if x is not None)))
+
+    # ---- the times, in turns ---------------------------------------------------------
+    pp, p2 = 131_072, 1 << 20
+    mean, chol = factor(15, False)
+    cand = simplex(15, 256, seed=-15)
+    w_one = torch.as_tensor(S.bench_weights()[None], dtype=torch.float32, device=dev)
+    spots = np.full(15, S.SPOT)
+    h15 = HedgeTensors.from_spec(S.bench_hedge(spots)[1], spots, dev)
+    timed = [(f"W=256 {mode} {sd}", cand, mode, sd) for mode in MODES for sd in SCORES]
+    timed += [(f"W=1 {mode}", w_one, mode, "float32") for mode in MODES]
+
+    def call3(mod, w, mode, sd, t_df=None, layout=None):
+        hedge = h15 if mode == "hedged" else None
+        if layout is None:
+            return lambda: mod.gbm_multi_portfolio_dd(0, mean, chol, w, pp, 252,
+                                                      rebalance=mode == "rebalanced",
+                                                      score_dtype=sd, t_df=t_df, hedge=hedge)
+        lk = mod.t_scaled_chol(chol, t_df)
+        return lambda: mod._launch(0, mean, lk, w, pp, 252, -1, 1, mode == "rebalanced", sd,
+                                   "poly", t_df, hedge, layout)
+
+    def best(fn):
+        return min(S._time_ms(fn, 2) for _ in range(3))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = S.time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (S.time.perf_counter() - t0)
+
+    from mcport_torch.convert import gbm_params_from_numpy
+
+    mean_np, chol_np = S.bench_universe()
+    params = gbm_params_from_numpy(spots, mean_np, chol_np)
+    config4 = S.cells()["config4"]
+    weights = S.bench_weights()
+    _, spec = S.bench_hedge(spots)
+    res, firsts = {}, {}
+
+    def turn(name, order, fn, key=bits):
+        out = fn()
+        torch.cuda.synchronize()
+        firsts.setdefault((name, order), key(out))
+        res.setdefault((name, order), []).append(best(fn))
+
+    def same_values(x, y):
+        return len(x) == len(y) and all(a == b or (a != a and b != b) for a, b in zip(x, y))
+
+    for order in ("other", "this", "this", "other"):
+        M_, P_ = mods(order)
+        side = on(order)[4]
+        for label, w, mode, sd in timed:
+            turn(f"gbm {label}", order, call3(M_, w, mode, sd))
+        turn("gbm W=1 hedged t", order, call3(M_, w_one, "hedged", "float32", t_df=5.5))
+        w15 = torch.as_tensor(weights, dtype=torch.float32, device=dev)
+        for label, reb, t_df in (("buy-hold", False, None), ("rebalanced", True, None),
+                                 ("buy-hold t", False, 5.5)):
+            turn(f"path_stats {label} 1,048,576 x 252", order,
+                 lambda P_=P_, reb=reb, t_df=t_df: P_.gbm_path_stats(
+                     0, mean, chol, w15, p2, 252, rebalance=reb, t_df=t_df, terminal=False),
+                 key=lambda out: bits(out[1:]))
+        pr = side["mcport_torch.engine.path_risk"]
+        fr = side["mcport_torch.engine.drawdown_frontier"]
+        for label, reb, t_df, hedged in (("buy-hold", False, None, False),
+                                         ("rebalanced", True, None, False),
+                                         ("hedged gbm", False, None, True),
+                                         ("hedged student_t", False, 5.5, True)):
+            cfg = S.path_config(config4, t_df)
+            name = f"config-4 run_path_risk {label}"
+            rep, ms = wall(lambda: pr.run_path_risk(params, weights, cfg, rebalance=reb,
+                                                    hedge=spec if hedged else None, device=dev))
+            firsts.setdefault((name, order), (rep.var, rep.cvar, rep.dd_p95, rep.dd_mean))
+            res.setdefault((name, order), []).append(ms)
+        for sd in ("auto", "bfloat16"):
+            name = f"gbm frontier {sd} 4,096 x 131,072 x 252"
+            r, ms = wall(lambda: fr.drawdown_frontier_search(S.FRONTIER_SEED, params,
+                                                             score_dtype=sd, device=dev,
+                                                             **S.FRONTIER))
+            firsts.setdefault((name, order), (int(r.opt_idx), float(r.ret[r.opt_idx])))
+            res.setdefault((name, order), []).append(ms)
+    for (name, order), t in sorted(res.items()):
+        print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+    worst = 0.0
+    for name in sorted({k[0] for k in res}):
+        other, this_ = min(res[(name, "other")]), min(res[(name, "this")])
+        x, y = firsts[(name, "other")], firsts[(name, "this")]
+        walls = name.startswith(("config-4", "gbm frontier"))
+        same = same_values(x, y) if walls else all(torch.equal(p, q) for p, q in zip(x, y))
+        if not same:
+            unequal.append(f"{name} timed")
+        if not walls:
+            worst = max(worst, this_ / other - 1.0)
+        print(f"speedup {name}: {other:.3f} -> {this_:.3f} ms, {other / this_:.2f}x, "
+              f"{'best of 2 walls, results' if walls else 'outputs'} "
+              f"{'bit for bit' if same else 'DIFFERENT'}")
+    # this tree's layouts by name, W = 1 to 256 at 131,072 x 252: float32 at
+    # every W near the solo layout's switches, the other tiers at a few
+    Mt, _ = mods("this")
+    for n in GBM_SWEEP_W:
+        w = cand[:n] if n > 1 else w_one
+        for mode in MODES:
+            for sd in SCORES:
+                if sd != "float32" and n not in (1, 8, 32, 128, 256):
+                    continue
+                times = []
+                for layout in ("solo", "split"):
+                    try:
+                        Mt.gbm_narrow_plan(15, n, 252, pp, 1, h15.n_legs if mode == "hedged"
+                                           else 0, layout=layout,
+                                           rebalance=mode == "rebalanced", score_dtype=sd)
+                    except ValueError:
+                        continue
+                    fn = call3(Mt, w, mode, sd, layout=layout)
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append(f"{layout} {best(fn):.3f}")
+                print(f"layouts gbm W={n} {mode} {sd} A=15 {pp} x 252: " + ", ".join(times)
+                      + " ms")
+    ptxas_report(("gbm_narrow", "multi_dd", "path_stats"))
+    return f"#3/#2 most slower than the other tree {100 * worst:.2f}%"
+
+
 notes = []
 if PART in ("merton-heston", "all"):
     notes.append(merton_heston_part())
@@ -642,6 +876,8 @@ if PART in ("garch-bootstrap", "all"):
     notes.append(garch_bootstrap_part())
 if PART in ("dcc", "all"):
     notes.append(dcc_part())
+if PART in ("gbm", "all"):
+    notes.append(gbm_part())
 print(f"summary: sass {kept[0]} of {kept[1]} kept; outputs "
       f"{'all bit for bit' if not unequal else 'DIFFERENT: ' + ', '.join(unequal)}; "
       + "; ".join(notes))

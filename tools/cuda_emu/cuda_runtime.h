@@ -1,7 +1,8 @@
-// Host emulation of the few CUDA features the DCC kernel sources use, for
+// Host emulation of the few CUDA features the kernel sources use, for
 // checking their logic on a machine without nvcc or a card (tools/cuda_emu/
-// dcc_ab.py): each CUDA thread of a block is a std::thread, __syncthreads,
-// __syncwarp and named barriers are std::barriers, __shfl_sync an exchange
+// dcc_ab.py, narrow_ab.py): each CUDA thread of a block is a std::thread,
+// __syncthreads, __syncthreads_or, __syncwarp and named barriers are
+// std::barriers, __shfl_sync an exchange
 // through a per-warp buffer between two warp barriers, a launch runs its
 // blocks one after the other. The arithmetic is the host's IEEE float32 without
 // contraction (g++ -ffp-contract=off): nvcc contracts a*b+c where the
@@ -11,6 +12,7 @@
 // multiply-add;
 // __frsqrt_rn is the float64 reciprocal square root rounded to float32.
 #pragma once
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -46,6 +48,7 @@ struct Block {
   std::map<int, std::unique_ptr<std::barrier<>>> named;
   std::vector<float> smem;
   std::vector<uint64_t> shfl;  // __shfl_sync's exchange: one word per thread
+  std::atomic<int> vote{0};    // __syncthreads_or's
   explicit Block(int n, size_t bytes) : all(n), smem(bytes / 4 + 16), shfl(n) {
     for (int w = 0; w < n / 32; ++w) warps.emplace_back(new std::barrier<>(32));
   }
@@ -55,6 +58,16 @@ inline thread_local Block* tl_block = nullptr;
 inline thread_local float* g_smem = nullptr;
 
 inline void __syncthreads() { tl_block->all.arrive_and_wait(); }
+// A barrier that returns whether any thread of the block passed a nonzero p.
+inline int __syncthreads_or(int p) {
+  if (threadIdx.x == 0) tl_block->vote.store(0);
+  tl_block->all.arrive_and_wait();
+  if (p) tl_block->vote.store(1);
+  tl_block->all.arrive_and_wait();
+  const int any = tl_block->vote.load();
+  tl_block->all.arrive_and_wait();
+  return any;
+}
 inline void __syncwarp(unsigned = 0xffffffffu) { tl_block->warps[threadIdx.x / 32]->arrive_and_wait(); }
 inline void shim_bar(int id, int count) {
   std::barrier<>* b;

@@ -1,6 +1,7 @@
-"""Bit-for-bit A/B of two trees' Merton (#8), Heston (#10), GARCH (#5) and
-bootstrap (#7) candidate kernels on the CPU, under the host emulation of
-``cuda_runtime.h`` (no nvcc or card needed; g++ with C++20).
+"""Bit-for-bit A/B of two trees' Merton (#8), Heston (#10), GARCH (#5),
+bootstrap (#7) and GBM (#3, with the path-stats function #2) kernels on the
+CPU, under the host emulation of ``cuda_runtime.h`` (no nvcc or card
+needed; g++ with C++20).
 
     python3 tools/cuda_emu/narrow_ab.py OTHER_TREE [THIS_TREE] [FAMILY,...]
 
@@ -23,8 +24,16 @@ own (no contraction), so GARCH, whose former candidate kernel left its
 variance update's multiply-adds to nvcc while the redesigned layouts write
 nvcc's two FMAs out, is compared like for like only between this tree's
 layouts: the one W picks and split against solo, bit for bit; the A/B of
-the trees is the card's (``tools/ab_narrow_kernels.py``). Prints one
-line per launch and exits 1 if any output differs.
+the trees is the card's (``tools/ab_narrow_kernels.py``). FAMILY ``gbm``
+(not in the default) holds #3 of this tree against the other tree's
+``multi_dd.cu`` — up to 16 assets ``csrc/gbm_narrow.cu`` in every layout
+(by W, solo, split), at 17 and 33 ``multi_dd.cu``'s tile kernel (A = 1, 7,
+16, 17, 33, W = 1, 9 and 256, the three draw tiers, modes and score tiers,
+and a factor with terms above its diagonal; 9 steps, and 0 steps with the
+poly draws) — and this tree's ``path_stats.cu`` (#2) against the other
+tree's (terminal logS, port, dd), 9 steps over two blocks of 37 paths
+(``tools/cuda_emu/gbm_main.inc``). Prints one line
+per launch and exits 1 if any output differs.
 """
 import re
 import subprocess
@@ -63,6 +72,74 @@ def build(tree: Path, work: Path, tag: str, family: str) -> tuple[Path, bool]:
     return exe, layouts
 
 
+def build_gbm(tree: Path, work: Path, tag: str, build: str) -> Path:
+    """The emulated GBM executable ``build`` (GBM, GBM_TILE, GBM_STATS) of ``tree``."""
+    csrc = work / f"{tag}_csrc"
+    if not csrc.exists():
+        prep(tree / "mcport_torch" / "csrc", csrc)
+    exe = work / f"{build}_emu_{tag}"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", f"-DFAMILY_{build}",
+                    f"-I{HERE}", f"-I{csrc}", str(HERE / "narrow_main.cpp"), "-o", str(exe),
+                    "-lpthread"], check=True)
+    return exe
+
+
+def gbm_ab(other: Path, this: Path, work: Path) -> tuple[int, int]:
+    """#3 and #2 of this tree against the other's: (launches, differences)."""
+    exe = {(tag, d): build_gbm(tree, work, tag, d) for tag, tree in (("other", other),
+                                                                      ("this", this))
+           for d in ("GBM_TILE", "GBM_STATS")}
+    exe["this", "GBM"] = build_gbm(this, work, "this", "GBM")
+    n = bad = 0
+
+    def same(x: Path, y: Path) -> bool:
+        return np.fromfile(x, np.float32).tobytes() == np.fromfile(y, np.float32).tobytes()
+
+    def run(key, args, out) -> bool:
+        return subprocess.run([str(exe[key]), *args, str(out)], timeout=900).returncode == 0
+
+    for a in (1, 7, 16, 17, 33):
+        for w in (1, 9, 256):
+            for draw in range(3):
+                for mode in range(3):
+                    for score in range(3):
+                        for full, steps in ([(0, 9), (1, 9)] if score == 0 else [(0, 9)]) + (
+                                [(0, 0)] if draw == 0 else []):
+                            code = f"{draw}{mode}{score}{full}"
+                            legs = 2 if mode == 2 else 0
+                            args = [str(x) for x in (a, 37, steps, 2, w, legs)]
+                            ref, got = work / "other.bin", work / "this.bin"
+                            assert run(("other", "GBM_TILE"), args + ["-1", code], ref)
+                            layouts = ([(name, ("this", "GBM"), lay) for name, lay in
+                                        (("by W", "-1"), ("solo", "0"), ("split", "1"))]
+                                       if a <= 16 else [("tile", ("this", "GBM_TILE"), "-1")])
+                            for name, key, lay in layouts:
+                                what = f"gbm A={a} W={w} steps={steps} case {code} {name}"
+                                if not run(key, args + [lay, code], got):
+                                    print(f"{what}: refused")
+                                    continue
+                                ok = same(ref, got)
+                                bad += not ok
+                                n += 1
+                                print(f"{what}: {'bit for bit' if ok else 'DIFFERENT'}",
+                                      flush=True)
+    for a in (1, 7, 16):
+        for draw in range(3):
+            for mode in range(2):
+                for full in (0, 1):
+                    code = f"{draw}{mode}0{full}"
+                    args = [str(x) for x in (a, 150, 9, 2, 0, 0, "-1", code)]
+                    ref, got = work / "other.bin", work / "this.bin"
+                    assert run(("other", "GBM_STATS"), args, ref)
+                    assert run(("this", "GBM_STATS"), args, got)
+                    ok = same(ref, got)
+                    bad += not ok
+                    n += 1
+                    print(f"path_stats A={a} case {code}: {'bit for bit' if ok else 'DIFFERENT'}",
+                          flush=True)
+    return n, bad
+
+
 def main() -> int:
     other = Path(sys.argv[1]).resolve()
     this = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else HERE.parents[1]
@@ -70,6 +147,9 @@ def main() -> int:
     bad = n = 0
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
+        if "gbm" in families:
+            families.remove("gbm")
+            n, bad = gbm_ab(other, this, work)
         for family in families:
             o_exe, _ = build(other, work, "other", family)
             t_exe, layouts = build(this, work, "this", family)

@@ -1,6 +1,8 @@
 // One candidate launch of a tree's csrc/jump.cu (-DFAMILY_JUMP, kernel #8),
 // csrc/heston.cu (-DFAMILY_HESTON, #10), csrc/garch.cu (-DFAMILY_GARCH, #5) or
-// csrc/bootstrap.cu (-DFAMILY_BOOTSTRAP, #7) under the host emulation
+// csrc/bootstrap.cu (-DFAMILY_BOOTSTRAP, #7) — or of the GBM kernels #3 and
+// #2 (-DFAMILY_GBM, -DFAMILY_GBM_TILE, -DFAMILY_GBM_STATS: gbm_main.inc) —
+// under the host emulation
 // (cuda_runtime.h), its outputs written as raw float32 (tools/cuda_emu/
 // narrow_ab.py and tests/test_torch_narrow_plans.py build and run it):
 //   narrow_emu A PATHS STEPS NBLOCKS NCAND NLEGS LAYOUT CASE OUTFILE [SCRATCH_FLOATS]
@@ -21,7 +23,9 @@
 // the history, then its RecurLayout kOwn and kReturns totals with a 365-row
 // history in shared memory) for A = 1-16, W = 1-256 and legs 0-4.
 #include "cuda_runtime.h"
-#if defined(FAMILY_JUMP)
+#if defined(FAMILY_GBM) || defined(FAMILY_GBM_TILE) || defined(FAMILY_GBM_STATS)
+#include "gbm_main.inc"
+#elif defined(FAMILY_JUMP)
 #include "jump.cu"
 #elif defined(FAMILY_GARCH)
 #include "garch.cu"
@@ -33,6 +37,7 @@
 #include <random>
 #include <string>
 
+#if !(defined(FAMILY_GBM) || defined(FAMILY_GBM_TILE) || defined(FAMILY_GBM_STATS))
 int main(int argc, char** argv) {
 #ifdef NARROW_LAYOUTS
   if (std::string(argv[1]) == "layout") {
@@ -182,3 +187,4 @@ int main(int argc, char** argv) {
   std::fclose(f);
   return 0;
 }
+#endif

@@ -7,7 +7,8 @@
 GBM tier: for each size of ``chip_smoke.py``'s main paths (GBMConfig
 defaults and BASELINE config-4 scale, on the bench's synthetic 15-asset
 universe) it profiles ``mcport_torch.api.gbm_risk`` and ``run_path_risk``
-(buy-and-hold, normal shocks), and then ``drawdown_frontier_search`` at the
+(buy-and-hold, normal shocks; hedged with the smoke's married put and
+collar at spot 100), and then ``drawdown_frontier_search`` at the
 bench's size (4,096 candidates x 131,072 paths x 252 steps) in its default
 tier ("auto", float32 on a card) and as the bf16 screen plus rescore. Family
 tier: ``garch_risk`` and ``bootstrap_risk`` at 1,048,576 x 252 (the bench's
@@ -115,8 +116,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (DCC_STEPS, FAMILY_PATHS, FAMILY_SEED, FRONTIER, FRONTIER_SEED,
-                            N_ASSETS, bench_dcc, bench_garch, bench_heston, bench_history,
-                            bench_merton, bench_universe, bench_weights, cells)
+                            N_ASSETS, SPOT, bench_dcc, bench_garch, bench_hedge, bench_heston,
+                            bench_history, bench_merton, bench_universe, bench_weights, cells)
     from mcport_torch.api import compare_tail_risk, gbm_risk
     from mcport_torch.config import Config
     from mcport_torch.convert import gbm_params_from_numpy
@@ -149,6 +150,13 @@ def main() -> int:
                          lambda g=g: gbm_risk(params, w, Config(gbm=g), device=dev))
             profile_cell(f"run_path_risk {size}",
                          lambda g=g: run_path_risk(params, w, g, device=dev))
+        spots = np.full(N_ASSETS, SPOT)
+        hedged = gbm_params_from_numpy(spots, mean, chol)
+        spec = bench_hedge(spots)[1]
+        for name, g in cells().items():
+            size = f"{name} ({g.n_paths} x {g.n_steps}, block {g.path_block})"
+            profile_cell(f"run_path_risk hedged {size}",
+                         lambda g=g: run_path_risk(hedged, w, g, hedge=spec, device=dev))
         for sd in ("auto", "bfloat16"):
             profile_cell(f"drawdown_frontier_search {sd} {front}",
                          lambda sd=sd: drawdown_frontier_search(FRONTIER_SEED, params,
