@@ -1073,6 +1073,58 @@ def _hot_loop(loops, ops: tuple[str, ...], per_iter: int,
 
 PHILOX_MULS = ("IMAD.WIDE.U32", "IMAD.HI.U32")   # 2 per Philox round, 20 per call
 
+#: a probe of the draws alone: kernel #1's Philox-call loop (four normal draws
+#: and their running sum) in the poly tier and in the strict tier the Heston
+#: kernels draw (gbm_draws.cuh kPolyStrict: every operation rounded as the
+#: torch form rounds it, no contraction)
+DRAW_PROBE = r"""
+#include "gbm_draws.cuh"
+template <int kTier>
+__device__ void probe(long long seed, int n_calls, float* out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t key = block_key(seed, 0, 0);
+  float acc = 0.0f;
+  for (int c = 0; c < n_calls; ++c) {
+    float z[4];
+    call_draws<kTier>(c, 0, p, key, 4, 0.0f, 0.0f, z);
+    acc = acc + ((z[0] + z[1]) + (z[2] + z[3]));
+  }
+  out[p] = acc;
+}
+extern "C" __global__ void draw_probe_poly(long long s, int n, float* o) { probe<kPoly>(s, n, o); }
+extern "C" __global__ void draw_probe_strict(long long s, int n, float* o) {
+  probe<kPolyStrict>(s, n, o);
+}
+"""
+
+
+def draw_counts() -> dict:
+    """Instructions per draw in the SASS: kernel #1's loop per Philox call
+    over its draws (four normal, two Student-t) and the probe's loops, poly
+    and strict (``DRAW_PROBE``, built with nvcc into a temporary
+    directory)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from mcport_torch import _build
+
+    lib = _build.build_libraries(("terminal_noise",))["terminal_noise"]
+    out = {}
+    for tier, name, draws in (("poly", "terminal_noise_kernelILi0E", 4),
+                              ("t", "terminal_noise_kernelILi2E", 2)):
+        ins, its, _ = _hot_loop(_sass_loops(lib, name), PHILOX_MULS, 20)
+        out[f"kernel #1 {tier}"] = ins / its / draws
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = Path(tmp) / "probe.cu", Path(tmp) / "probe.cubin"
+        src.write_text(DRAW_PROBE)
+        subprocess.run([str(Path(CUDA_HOME) / "bin" / "nvcc"), "-cubin", "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        f"-I{_build._CSRC}", "-o", str(cubin), str(src)], check=True,
+                       timeout=300, capture_output=True)
+        for tier in ("poly", "strict"):
+            ins, its, _ = _hot_loop(_sass_loops(cubin, f"draw_probe_{tier}"), PHILOX_MULS, 20)
+            out[f"probe {tier}"] = ins / its / 4
+    return out
+
 
 def issue_rate() -> float:
     """Thread-instructions the card can issue per second: 4 schedulers of 32
@@ -1114,6 +1166,9 @@ def bounds(rate: float) -> dict:
     # (FMUL, MUFU.EX2) and the w.exp FMA; per path-step the peak and the
     # drawdown (FMNMX, MUFU.RCP, FFMA, FMNMX)
     draw = ins / its / 4
+    # kernel #1's t tier (the draw that #4's t(5.5) bound charges) and the
+    # strict draw of the Heston kernels, printed beside #9's bound below
+    draws = draw_counts()
     per_step = a * (draw + (a + 1) / 2 + 3) + 4
     out["path_stats"] = (per_step * n * p, 4 * (a * a + 2 * a) + 8 * p,
                          f"{draw:.2f} instructions per draw (kernel #1) + {(a + 1) / 2:.0f} "
@@ -1160,8 +1215,12 @@ def bounds(rate: float) -> dict:
         res[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
         print(f"phase8 bound {name}: {how}; {instr:.4e} instructions at {rate:.4e}/s = "
               f"{t_ops:.3f} ms, {nbytes} bytes at 3.35 TB/s = {t_bytes:.3f} ms")
-    res.update(family_bounds(draw, rate))
+    res.update(family_bounds(draw, rate, draw_t=draws["kernel #1 t"]))
     res.update(family2_bounds(draw, rate))
+    # beside #9's bound, which charges kernel #1's draw twice: what a strict
+    # draw (kPolyStrict, the Heston kernels') costs in the SASS
+    print("phase14 bound heston_terminal, for information, instructions per draw: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in draws.items()))
     res.update(dcc_bounds(draw, rate, w1_steps=N_STEPS))
     res.update(hedged_bounds(draw, rate))
     # phase 21's variants, keyed as it keys their times: the widened kernels at
@@ -1723,14 +1782,17 @@ PHILOX_CALL = 60      # 10 rounds of 2 IMAD.WIDE.U32, 2 LOP3 and 2 IADD (key sch
 
 def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STEPS,
                   p: int = FAMILY_PATHS, pp: int = FRONTIER["n_paths"], rows: int = 365,
-                  names=None, tag: str = "phase11", w_cnt: int = 256) -> dict:
+                  names=None, tag: str = "phase11", w_cnt: int = 256,
+                  draw_t: float | None = None) -> dict:
     """Least time of kernels #4-#7 at their timing shapes (or at ``a``
     assets, ``n`` steps, ``p`` terminal and ``pp`` candidate paths, a
     ``rows``-row history; only ``names`` if given), from the work each
     function needs: the larger of its instructions over the issue rate and
     its bytes over HBM bandwidth. ``draw`` is kernel #1's measured
     instructions per normal draw (its pair loop per Philox call / 4);
-    ``w_cnt`` candidates."""
+    ``w_cnt`` candidates. ``draw_t``, kernel #1's per Student-t draw (its t
+    tier's loop per Philox call / 2), adds #4's t(5.5) tier, counted as the
+    normal one."""
     tri = a * (a + 1) / 2
     garch_step = a * (draw + 7) + tri          # draw, (A+1)/2 FMAs, sqrt + 6 per asset
     score = w_cnt * (a + 6)                    # W·A FMAs, 1 + f, V·, peak, dd
@@ -1751,6 +1813,12 @@ def family_bounds(draw: float, rate: float, *, a: int = N_ASSETS, n: int = N_STE
                                f"{boot_step + a:.0f} per path-step (selection and the "
                                f"row's loads) + {score} for {w_cnt} candidates"),
     }
+    if draw_t is not None:
+        step_t = a * (draw_t + 7) + tri
+        work["garch_terminal t(5.5)"] = (step_t * n * p, work["garch_terminal"][1],
+                                         f"{draw_t:.2f} per Student-t draw + 7 per asset-step "
+                                         f"+ {tri:.0f} correlate FMAs: {step_t:.2f} per "
+                                         f"path-step")
     return _bound_table(work, rate, tag, names)
 
 
@@ -2521,6 +2589,7 @@ def phase_family2_timing(dev) -> dict:
     print(f"phase14 timing garch_terminal t(5.5) tier alone {FAMILY_PATHS} x {N_STEPS} x "
           f"{N_ASSETS}: kernel {t1:.3f} / {t2:.3f} ms "
           f"({FAMILY_PATHS * N_STEPS / ((t1 + t2) / 2) * 1e3:.4e} path-steps/s)")
+    res["garch_terminal t(5.5)"] = [(t1 + t2) / 2, None, None]   # beside its bound in main
     return res
 
 

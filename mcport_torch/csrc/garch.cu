@@ -31,11 +31,17 @@
 // the GARCH update (an IEEE sqrt, ~6 FMAs); the candidate kernel adds W·A
 // scoring FMAs per path-step. Nothing is read per step and each output is
 // stored once, so both are bound by instruction issue. The designs:
-// - terminal: one thread per path; sigma2 and cum for A <= 16 and the shocks
-//   of one Philox call stay in registers (all loops over assets unrolled).
-//   L_R's rows and the per-asset (omega, alpha, beta, 1 + mu) sit in shared
-//   memory, read with 16-byte loads; the unrolled correlate skips the zero
-//   upper triangle at compile time: A(A+1)/2 FMAs per step, not A².
+// - terminal up to 16 assets: one thread per path, asset by asset within a
+//   Philox call (garch_call; all loops over assets unrolled): the call's
+//   shocks of every asset in registers, then per asset its row of L_R and its
+//   (omega, alpha, beta, 1 + mu) (shared memory, 16-byte loads, once per
+//   call) and its steps. sigma2 and the gross wait in the thread's slices of
+//   shared memory, so that three 256-thread blocks fit an SM: the draw's and
+//   the update's dependent chains leave it bound by latency more than by its
+//   instruction count (PERF.md §6, #4), and more warps hide it. Whole calls
+//   run without a step guard; a path's last, shorter call runs a copy of its
+//   own. The unrolled correlate skips the zero upper triangle at compile
+//   time: A(A+1)/2 FMAs per step, not A².
 // - candidates up to 16 assets, the layout narrow_layout picks by W
 //   (narrow_dd.cuh; ops/garch.py garch_narrow_plan): for few candidates a
 //   thread per path (64 per block) runs the terminal kernel's recursion, one
@@ -58,8 +64,8 @@
 //   terminal kernel takes the same tile (garch_terminal_tile_kernel): 16
 //   paths per block, each (asset, path) item's sigma2 and gross in a
 //   thread's registers, the Philox call's shocks in shared memory, one barrier
-//   per four steps. The A <= 16 terminal kernel is unchanged: the wide
-//   variant is a separate kernel, with the same operations in the same order.
+//   per four steps, the former narrow kernel's operations in their order
+//   (its multiply-adds left to nvcc).
 // A dispatch group of blocks is one launch (gridDim.y).
 //
 // Past 64 assets both functions run wide.cuh's layout with the GarchWide model
@@ -71,7 +77,10 @@
 // The recursion kernel up to 16 assets writes out the contractions nvcc made
 // in the former candidate kernel up to 16 assets, garch_dd_kernel<16, *>
 // (__fmaf_rn, __fmul_rn, __fadd_rn), so every layout's outputs are that
-// kernel's bit for bit.
+// kernel's bit for bit; the terminal kernel up to 16 assets writes out those
+// of the former terminal kernel (the same four: read from its SASS, whose
+// floating-point operations the written-out form repeats in order), so its
+// outputs are that kernel's bit for bit in both tiers.
 
 #include "gbm_draws.cuh"
 #include "hedged.cuh"
@@ -80,8 +89,9 @@
 
 namespace {
 
-constexpr int kGA = 16;              // the register-resident terminal kernel's asset bound
-constexpr int kTermThreads = 128;
+constexpr int kGA = 16;              // the narrow terminal kernel's asset bound
+constexpr int kTermThreads = 256;    // the terminal kernel's block, and its blocks per SM:
+constexpr int kTermMinBlocks = 3;    // 24 warps at <= 80 registers (tools/ab_narrow_kernels.py)
 constexpr int kDdThreads = 256;
 constexpr int kTileP = 16;           // paths per candidate block
 constexpr int kMaxCand = 256;        // ops/garch.py MAX_CANDIDATES
@@ -127,13 +137,67 @@ __device__ __forceinline__ void load_params(const Params& q, int a_n, bool one_p
   }
 }
 
+// One Philox call c of the terminal kernel's path, asset by asset: the shocks
+// of every asset first, then for each asset in ascending order its row of L
+// and its (omega, alpha, beta, 1 + mu) once, its (sigma2, gross) from the
+// thread's slices of shared memory (ss, sc: asset i at i·kTermThreads), and
+// its steps of the call. The operations are the former terminal kernel's with
+// the multiply-adds nvcc contracted there written out: one fmaf per
+// correlate term in column order, eps = sqrt(max(s2, 0))·y rounded, the gross
+// times ((1 + mu) + eps), each rounded, sigma2' = fma(beta, s2, fma(alpha,
+// eps², omega)). kTail: the last call of a path, of n < kPer steps.
+template <int kTier, bool kTail>
+__device__ __forceinline__ void garch_call(int c, int n, uint32_t p, uint32_t key, int n_assets,
+                                           float df, float neg2_over_df, const float* s_l,
+                                           const float4* s_g, volatile float* ss,
+                                           volatile float* sc) {
+  constexpr int kPer = steps_per_call<kTier>();
+  float z[kPer][kGA];
+#pragma unroll
+  for (int a = 0; a < kGA; ++a) {
+    float za[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (a < n_assets) call_draws<kTier>(c, a, p, key, kTail ? n : kPer, df, neg2_over_df, za);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+  }
+#pragma unroll
+  for (int i = 0; i < kGA; ++i) {
+    if (i < n_assets) {
+      float l[kGA];
+#pragma unroll
+      for (int j = 0; j <= i; j += 4) {  // row i's lower triangle
+        const float4 v = lds128(s_l + i * kGA + j);
+        l[j] = v.x;
+        l[j + 1] = v.y;
+        l[j + 2] = v.z;
+        l[j + 3] = v.w;
+      }
+      const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+      float s2 = ss[i * kTermThreads], cum = sc[i * kTermThreads];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (kTail && k >= n) continue;
+        float y = 0.0f;
+#pragma unroll
+        for (int j = 0; j <= i; ++j) y = fmaf(l[j], z[k][j], y);  // in column order
+        const float eps = __fmul_rn(sqrtf(fmaxf(s2, 0.0f)), y);
+        cum = __fmul_rn(cum, __fadd_rn(g.w, eps));
+        s2 = __fmaf_rn(g.z, s2, __fmaf_rn(g.y, __fmul_rn(eps, eps), g.x));
+      }
+      ss[i * kTermThreads] = s2;
+      sc[i * kTermThreads] = cum;
+    }
+  }
+}
+
 template <int kTier>
-__global__ void __launch_bounds__(kTermThreads)
+__global__ void __launch_bounds__(kTermThreads, kTermMinBlocks)
 garch_terminal_kernel(long long seed, long long first_block, int block_paths, int n_assets,
                       int n_steps, float df, float neg2_over_df,
                       const float* __restrict__ params, float* __restrict__ out) {
   __shared__ __align__(16) float s_l[kGA * kGA];
   __shared__ float4 s_g[kGA];  // (omega, alpha, beta, 1 + mu)
+  __shared__ float s_state[2 * kGA * kTermThreads];  // (sigma2, gross) per asset and thread
   const Params q(params, n_assets);
   load_params(q, n_assets, true, s_l, s_g, threadIdx.x, kTermThreads);
   __syncthreads();
@@ -143,57 +207,28 @@ garch_terminal_kernel(long long seed, long long first_block, int block_paths, in
   const int b = blockIdx.y;
   const uint32_t key = block_key(seed, first_block, b);
   constexpr int kPer = steps_per_call<kTier>();
-
-  float s2[kGA], cum[kGA];  // s2: the variance of the coming step
+  volatile float* ss = s_state + threadIdx.x;  // this thread's slices: sigma2 (of the coming
+  volatile float* sc = ss + kGA * kTermThreads;  // step), then the gross
 #pragma unroll
   for (int a = 0; a < kGA; ++a) {
-    s2[a] = a < n_assets ? first_sigma2(q, a) : 0.0f;
-    cum[a] = 1.0f;
+    ss[a * kTermThreads] = a < n_assets ? __fmaf_rn(q.beta[a], q.s2_0[a],
+                                                    __fmaf_rn(q.alpha[a], q.e2_0[a], q.omega[a]))
+                                        : 0.0f;
+    sc[a * kTermThreads] = 1.0f;
   }
-
-  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
-    const int n = min(kPer, n_steps - s0);
-    float z[kPer][kGA];
-#pragma unroll
-    for (int a = 0; a < kGA; ++a) {
-      float za[4];
-      if (a < n_assets) {
-        call_draws<kTier>(s0 / kPer, a, p, key, n, df, neg2_over_df, za);
-      } else {
-        za[0] = za[1] = za[2] = za[3] = 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (k >= n) continue;  // (not break: a loop that may break is not unrolled)
-#pragma unroll
-      for (int i = 0; i < kGA; ++i) {
-        if (i < n_assets) {
-          float y = 0.0f;
-#pragma unroll
-          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only
-            const float4 l = lds128(s_l + i * kGA + j);
-            y = fmaf(l.x, z[k][j], y);
-            if (j + 1 <= i) y = fmaf(l.y, z[k][j + 1], y);
-            if (j + 2 <= i) y = fmaf(l.z, z[k][j + 2], y);
-            if (j + 3 <= i) y = fmaf(l.w, z[k][j + 3], y);
-          }
-          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
-          const float eps = sqrtf(fmaxf(s2[i], 0.0f)) * y;
-          cum[i] *= g.w + eps;
-          const float e2 = eps * eps;
-          s2[i] = g.x + g.y * e2 + g.z * s2[i];
-        }
-      }
-    }
+  const int whole = n_steps / kPer;
+  for (int c = 0; c < whole; ++c) {
+    garch_call<kTier, false>(c, kPer, p, key, n_assets, df, neg2_over_df, s_l, s_g, ss, sc);
+  }
+  if (n_steps % kPer) {
+    garch_call<kTier, true>(whole, n_steps % kPer, p, key, n_assets, df, neg2_over_df, s_l, s_g,
+                            ss, sc);
   }
 
   const long long row = static_cast<long long>(b) * block_paths + p;
 #pragma unroll
   for (int a = 0; a < kGA; ++a) {
-    if (a < n_assets) out[row * n_assets + a] = cum[a] - 1.0f;
+    if (a < n_assets) out[row * n_assets + a] = sc[a * kTermThreads] - 1.0f;
   }
 }
 

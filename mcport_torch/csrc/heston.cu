@@ -51,11 +51,18 @@
 // per path-step. Nothing is read per step and each output is stored once, so
 // both are bound by instruction issue. The designs are the GARCH kernels'
 // (garch.cu):
-// - terminal: one thread per path; v, acc and both fields of one Philox call
-//   for A <= 16 stay in registers (all loops over assets unrolled). L_R's rows
-//   and the per-asset (mu, kappa, theta, xi) and (rho, rho_c) sit in shared
-//   memory behind volatile 16-byte loads; the unrolled correlate skips the
-//   zero upper triangle at compile time: A(A+1)/2 terms per step, not A².
+// - terminal up to 16 assets: one thread per path, asset by asset within a
+//   Philox call (heston_call; all loops over assets unrolled): the call's
+//   return shocks of every asset in registers, then per asset its variance
+//   shocks, its row of L_R and its (mu, kappa, theta, xi) and (rho, rho_c)
+//   (shared memory behind volatile 16-byte loads, once per call) and its four
+//   steps. v and acc wait in the thread's slices of shared memory, so that
+//   the kernel fits 128 registers and four 128-thread blocks per SM: the
+//   dependent chains of the strict draws and the update leave it bound by
+//   latency more than by its instruction count (PERF.md §6, #9), and more
+//   warps hide it. Whole calls run without a step guard; a path's last,
+//   shorter call runs a copy of its own. The correlate skips the zero upper
+//   triangle at compile time: A(A+1)/2 terms per step, not A².
 // - candidates up to 16 assets, the layout narrow_layout picks by W
 //   (narrow_dd.cuh; ops/heston.py heston_narrow_plan): up to 12 candidates a
 //   thread per path (64 per block) runs the terminal kernel's recursion (the
@@ -91,8 +98,9 @@
 
 namespace {
 
-constexpr int kHA = 16;              // the register-resident terminal kernel's asset bound
-constexpr int kTermThreads = 128;
+constexpr int kHA = 16;              // the narrow terminal kernel's asset bound
+constexpr int kTermThreads = 128;    // the terminal kernel's block, and its blocks per SM:
+constexpr int kTermMinBlocks = 4;    // 16 warps at <= 128 registers (tools/ab_narrow_kernels.py)
 constexpr int kDdThreads = 256;
 constexpr int kTileP = 16;           // paths per candidate block
 constexpr int kMaxCand = 256;        // ops/multi_dd.py MAX_CANDIDATES
@@ -149,12 +157,66 @@ __device__ __forceinline__ float heston_step(float zc, float w, float4 g, float4
   return x;
 }
 
-__global__ void __launch_bounds__(kTermThreads)
+// One Philox call c of the terminal kernel's path, asset by asset: the return
+// shocks of every asset first; then for each asset in ascending order its
+// variance shocks, its row of L and its parameters once, its (v, acc) from
+// the thread's slices of shared memory (sv, sa: asset i at i·kTermThreads),
+// and its steps of the call. Each asset's recursion needs the other assets
+// only through its correlated shock, so every operation keeps its operands
+// and its order. kTail: the last call of a path, of n < 4 steps.
+template <bool kTail>
+__device__ __forceinline__ void heston_call(int c, int n, uint32_t p, uint32_t key, int n_assets,
+                                            const float* s_l, const float4* s_g,
+                                            const float4* s_h, volatile float* sv,
+                                            volatile float* sa) {
+  constexpr int kPer = steps_per_call<kPolyStrict>();
+  const int nd = kTail ? n : kPer;
+  float z[kPer][kHA];
+#pragma unroll
+  for (int a = 0; a < kHA; ++a) {
+    float za[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (a < n_assets) call_draws<kPolyStrict>(c, a, p, key, nd, 0.0f, 0.0f, za);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) z[k][a] = za[k];
+  }
+#pragma unroll
+  for (int i = 0; i < kHA; ++i) {
+    if (i < n_assets) {
+      float wa[4];
+      call_draws<kPolyStrict, kStreamHeston>(c, i, p, key, nd, 0.0f, 0.0f, wa);
+      float l[kHA];
+#pragma unroll
+      for (int j = 0; j <= i; j += 4) {  // row i's lower triangle
+        const float4 r = lds128(s_l + i * kHA + j);
+        l[j] = r.x;
+        l[j + 1] = r.y;
+        l[j + 2] = r.z;
+        l[j + 3] = r.w;
+      }
+      const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
+      const float4 h = lds128(reinterpret_cast<const float*>(s_h + i));
+      float v = sv[i * kTermThreads], acc = sa[i * kTermThreads];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (kTail && k >= n) continue;
+        float y = 0.0f;
+#pragma unroll
+        for (int j = 0; j <= i; ++j) y = __fadd_rn(y, __fmul_rn(l[j], z[k][j]));  // column order
+        acc = __fadd_rn(acc, heston_step(y, wa[k], g, h, &v));
+      }
+      sv[i * kTermThreads] = v;
+      sa[i * kTermThreads] = acc;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTermThreads, kTermMinBlocks)
 heston_terminal_kernel(long long seed, long long first_block, int block_paths, int n_assets,
                        int n_steps, const float* __restrict__ params, float* __restrict__ out) {
   __shared__ __align__(16) float s_l[kHA * kHA];
   __shared__ float4 s_g[kHA];  // (mu, kappa, theta, xi)
   __shared__ float4 s_h[kHA];  // (rho, rho_c, v0, 0)
+  __shared__ float s_state[2 * kHA * kTermThreads];  // (v, acc) per asset and thread
   const Params q(params, n_assets);
   load_params(q, n_assets, s_l, s_g, s_h, threadIdx.x, kTermThreads);
   __syncthreads();
@@ -164,60 +226,25 @@ heston_terminal_kernel(long long seed, long long first_block, int block_paths, i
   const int b = blockIdx.y;
   const uint32_t key = block_key(seed, first_block, b);
   constexpr int kPer = steps_per_call<kPolyStrict>();
-
-  float v[kHA], acc[kHA];
+  volatile float* sv = s_state + threadIdx.x;  // this thread's slices: v, then acc
+  volatile float* sa = sv + kHA * kTermThreads;
 #pragma unroll
   for (int a = 0; a < kHA; ++a) {
-    v[a] = a < n_assets ? s_h[a].z : 0.0f;
-    acc[a] = 0.0f;
+    sv[a * kTermThreads] = a < n_assets ? s_h[a].z : 0.0f;
+    sa[a * kTermThreads] = 0.0f;
   }
-
-  for (int s0 = 0; s0 < n_steps; s0 += kPer) {
-    const int n = min(kPer, n_steps - s0);
-    float z[kPer][kHA], w[kPer][kHA];
-#pragma unroll
-    for (int a = 0; a < kHA; ++a) {
-      float za[4], wa[4];
-      if (a < n_assets) {
-        call_draws<kPolyStrict>(s0 / kPer, a, p, key, n, 0.0f, 0.0f, za);
-        call_draws<kPolyStrict, kStreamHeston>(s0 / kPer, a, p, key, n, 0.0f, 0.0f, wa);
-      } else {
-        za[0] = za[1] = za[2] = za[3] = 0.0f;
-        wa[0] = wa[1] = wa[2] = wa[3] = 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        z[k][a] = za[k];
-        w[k][a] = wa[k];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      if (k >= n) continue;  // (not break: a loop that may break is not unrolled)
-#pragma unroll
-      for (int i = 0; i < kHA; ++i) {
-        if (i < n_assets) {
-          float y = 0.0f;
-#pragma unroll
-          for (int j = 0; j <= i; j += 4) {  // row i's lower triangle only, in column order
-            const float4 l = lds128(s_l + i * kHA + j);
-            y = __fadd_rn(y, __fmul_rn(l.x, z[k][j]));
-            if (j + 1 <= i) y = __fadd_rn(y, __fmul_rn(l.y, z[k][j + 1]));
-            if (j + 2 <= i) y = __fadd_rn(y, __fmul_rn(l.z, z[k][j + 2]));
-            if (j + 3 <= i) y = __fadd_rn(y, __fmul_rn(l.w, z[k][j + 3]));
-          }
-          const float4 g = lds128(reinterpret_cast<const float*>(s_g + i));
-          const float4 h = lds128(reinterpret_cast<const float*>(s_h + i));
-          acc[i] = __fadd_rn(acc[i], heston_step(y, w[k][i], g, h, &v[i]));
-        }
-      }
-    }
+  const int whole = n_steps / kPer;
+  for (int c = 0; c < whole; ++c) {
+    heston_call<false>(c, kPer, p, key, n_assets, s_l, s_g, s_h, sv, sa);
+  }
+  if (n_steps % kPer) {
+    heston_call<true>(whole, n_steps % kPer, p, key, n_assets, s_l, s_g, s_h, sv, sa);
   }
 
   const long long row = static_cast<long long>(b) * block_paths + p;
 #pragma unroll
   for (int a = 0; a < kHA; ++a) {
-    if (a < n_assets) out[row * n_assets + a] = expm1f(acc[a]);
+    if (a < n_assets) out[row * n_assets + a] = expm1f(sa[a * kTermThreads]);
   }
 }
 

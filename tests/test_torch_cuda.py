@@ -298,10 +298,14 @@ def _garch(a, dev, seed=0):
                                        0.5 * np.eye(a) + 0.5), s0, s0).tensors(dev)
 
 
-@pytest.mark.parametrize("a", [1, 15, 16])
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
 @pytest.mark.parametrize("t_df", [None, 5.5])
-@pytest.mark.parametrize("steps", [252, 7])
+@pytest.mark.parametrize("steps", [252, 7, 5, 1, 0])
 def test_garch_terminal_kernel_matches_plain_form(dev, a, t_df, steps):
+    """The kernel the wrapper routes to, at every tail of a Philox call
+    (1-3 normal steps, 1 Student-t step, none), over two blocks of 4,099
+    paths (not a whole number of CUDA blocks) from block 7: within
+    garch_shares of its plain form, exactly 0 at no step."""
     from mcport_torch.ops.garch import garch_shares, garch_terminal, garch_terminal_reference
 
     g = _garch(a, dev)
@@ -310,6 +314,9 @@ def test_garch_terminal_kernel_matches_plain_form(dev, a, t_df, steps):
     k = garch_terminal(11, g, 4_099, steps, **kw)
     torch.cuda.synchronize()
     assert garch_terminal.launches == before + 1
+    if steps == 0:
+        assert torch.equal(k, torch.zeros_like(k))
+        return
     p = garch_terminal_reference(11, g, 4_099, steps, **kw)
     shares = garch_shares(k, p, g, steps, t_df)
     assert max(shares.values()) <= 1.0, shares
@@ -541,11 +548,16 @@ def _heston(a, dev, xi=3e-3, seed=0):
         4e-4 * full, np.linalg.cholesky(0.5 * np.eye(a) + 0.5), full).tensors(dev)
 
 
-@pytest.mark.parametrize("a", [1, 15, 16])
+@pytest.mark.parametrize("a", [1, 7, 15, 16])
 @pytest.mark.parametrize("xi", [3e-3, 0.05])
-@pytest.mark.parametrize("steps", [252, 7])
+@pytest.mark.parametrize("steps", [252, 7, 5, 1, 0])
 def test_heston_terminal_kernel_matches_plain_form(dev, a, xi, steps):
-    from mcport_torch.ops.heston import heston_shares, heston_terminal, heston_terminal_reference
+    """The kernel the wrapper routes to, at every tail of a Philox call and
+    none, over two blocks of 4,099 paths from block 7: within heston_shares
+    of its plain form (whose path state it keeps bit for bit), exactly 0 at
+    no step; the 17-64-asset tile at the same width gives the same bits."""
+    from mcport_torch.ops.heston import (_launch_terminal, heston_shares, heston_terminal,
+                                         heston_terminal_reference)
 
     h = _heston(a, dev, xi)
     kw = dict(first_block=6, n_blocks=2)
@@ -553,6 +565,10 @@ def test_heston_terminal_kernel_matches_plain_form(dev, a, xi, steps):
     k = heston_terminal(11, h, 4_099, steps, **kw)
     torch.cuda.synchronize()
     assert heston_terminal.launches == before + 1
+    assert torch.equal(k, _launch_terminal(11, h, 4_099, steps, 6, 2, wide=True))
+    if steps == 0:
+        assert torch.equal(k, torch.zeros_like(k))
+        return
     p = heston_terminal_reference(11, h, 4_099, steps, **kw)
     shares = heston_shares(k, p, h, steps)
     assert max(shares.values()) <= 1.0, shares

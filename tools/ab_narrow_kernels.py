@@ -2,7 +2,7 @@
 other / this / this / other.
 
     git archive <commit> mcport_torch | tar -x -C DIR    # the other tree
-    python3 tools/ab_narrow_kernels.py DIR [merton-heston|garch-bootstrap|dcc|gbm|all]
+    python3 tools/ab_narrow_kernels.py DIR [merton-heston|garch-bootstrap|dcc|gbm|terminal|all]
 
 - First, per library (jump, Heston, GARCH, bootstrap, DCC, multi-dd, path
   stats), whether each
@@ -54,6 +54,19 @@ other / this / this / other.
   tree's layouts by name at W = 1 to 256 per mode and tier, and ptxas's
   registers and spills.
 
+- ``terminal``: the Heston (#9) and GARCH (#4) terminal kernels up to 16
+  assets: their outputs against the other tree's with ``torch.equal`` at A
+  = 1, 2, 7, 15, 16 and 0, 1, 5, 7, 9, 52, 252 steps over two blocks of
+  1,029 paths (Heston at both vols of vol, and this tree's 17-64-asset tile
+  at the same width; GARCH in the normal and the t(5.5) tier). Then both
+  trees timed in turns at 1,048,576 x 252 x 15, the timed outputs held
+  equal, with the walls of ``heston_terminal_returns`` and ``garch_risk``
+  (normal and t(5.5)); both trees again at A = 1, 7, 15, 16 beside this
+  tree's tile; each terminal kernel's instructions per asset-step in its
+  Philox-call loop (both trees) and per draw (kernel #1's tiers and a
+  strict-draw probe, ``chip_smoke.draw_counts``); ptxas's registers
+  and spills of both libraries.
+
 Needs one card; builds both trees' libraries. Exits 1 when a kept kernel
 changed its SASS or an output differs from the other tree's."""
 import math
@@ -87,6 +100,8 @@ def load(root):
     import mcport_torch.ops.jump as J
     import mcport_torch.engine.drawdown_frontier  # noqa: F401  (each tree its own engines)
     import mcport_torch.engine.path_risk  # noqa: F401
+    import mcport_torch.models.garch_mc  # noqa: F401
+    import mcport_torch.models.heston  # noqa: F401
     import mcport_torch.ops.multi_dd  # noqa: F401
     import mcport_torch.ops.path_stats  # noqa: F401
     sys.path.remove(root)
@@ -123,8 +138,10 @@ def sass(so: Path) -> dict:
 #: the other tree's kernels that this tree no longer has: Heston's and GARCH's
 #: candidate kernels up to 16 assets, now the layouts of csrc/narrow_dd.cuh,
 #: and the path-stats kernel's 16-asset build (path_stats_kernel<…, 16, 16>),
-#: now path_stats_narrow_kernel
-REDESIGNED = ("heston_dd_kernelILi16E", "garch_dd_kernelILi16E", "ELi16ELi16E")
+#: now path_stats_narrow_kernel; and the terminal kernels #9 and #4 up to 16
+#: assets, redesigned under their names
+REDESIGNED = ("heston_dd_kernelILi16E", "garch_dd_kernelILi16E", "ELi16ELi16E",
+              "22heston_terminal_kernelE", "21garch_terminal_kernelILi")
 mods = {"other": load(sys.argv[1]), "this": load(".")}
 kept = [0, 0]
 for fam in FAMILIES:
@@ -136,7 +153,7 @@ for fam in FAMILIES:
     if fam == "garch":   # the former candidate kernel's listings: which adds nvcc fuses
         Path("chiprun_out").mkdir(exist_ok=True)
         for key, ins in a.items():
-            if "garch_dd_kernelILi16E" in key:
+            if "garch_dd_kernelILi16E" in key or "garch_terminal_kernelILi" in key:
                 Path(f"chiprun_out/sass_other_{key[-40:]}.txt").write_text("\n".join(ins))
     for key, ins in sorted(a.items()):
         same = b.get(key) == ins
@@ -148,9 +165,17 @@ for fam in FAMILIES:
                 Path("chiprun_out").mkdir(exist_ok=True)
                 Path(f"chiprun_out/sass_{fam}_{key[-40:]}_{side}.txt").write_text(
                     "\n".join(listing))
+        flops = ""
+        if key in b and not same:   # the floating-point operations, in order
+            fp = [[re.search(r"\b(FFMA|FMUL|FADD|FMNMX|MUFU\.\w+)\b", i) for i in x]
+                  for x in (ins, b[key])]
+            fp = [[m.group(1) for m in x if m] for x in fp]
+            flops = (f" (the same {len(fp[0])} floating-point operations in the same order)"
+                     if fp[0] == fp[1] else f" ({len(fp[0])} -> {len(fp[1])} floating-point "
+                                            f"operations, not in the same order)")
         print(f"sass {fam} {key}: {len(ins)} instructions, "
               f"{'the same in this tree' if same else 'CHANGED' if key in b else 'not found'}"
-              f"{' (redesigned)' if redesigned else ''}")
+              f"{flops}{' (redesigned)' if redesigned else ''}")
 print(f"sass: {kept[0]} of {kept[1]} kept kernels the same in this tree")
 
 
@@ -869,6 +894,152 @@ def gbm_part():
     return f"#3/#2 most slower than the other tree {100 * worst:.2f}%"
 
 
+# ---- the terminal kernels #9 and #4 up to 16 assets ---------------------------------
+
+TERMINAL_A = (1, 2, 7, 15, 16)
+TERMINAL_STEPS = (0, 1, 5, 7, 9, 52, 252)
+
+
+def terminal_sass_counts() -> None:
+    """Instructions per asset-step of each terminal kernel's Philox-call
+    loop (``S._hot_loop`` over ``cuobjdump -sass``: an iteration holds 16
+    assets' Philox calls, two per asset for Heston; four steps, two in
+    GARCH's t tier), both trees, and the draws' own loops: kernel #1's
+    normal and t tiers and a strict (kPolyStrict) draw probe."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for side, root in (("other", sys.argv[1]), ("this", ".")):
+        for fam, calls in (("heston", 32), ("garch", 16)):
+            so = sorted((Path(root) / "mcport_torch" / "build").glob(f"lib{fam}_*.so"),
+                        key=lambda x: x.stat().st_mtime)[-1]
+            text = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+                                   str(so)], capture_output=True, text=True, check=True).stdout
+            for name in sorted(set(re.findall(r"Function : (\S*terminal_kernel\S*)", text))):
+                steps = 2 if fam == "garch" and "ILi2E" in name else 4
+                ins, its, _ = S._hot_loop(S._sass_loops(so, name), S.PHILOX_MULS, calls * 20)
+                print(f"sass loop {side} {name}: {ins} instructions / {its} call(s) of 16 "
+                      f"assets, {ins / its / (16 * steps):.2f} per asset-step")
+    print("instructions per draw: " + ", ".join(f"{k} {v:.2f}"
+                                                 for k, v in S.draw_counts().items()))
+
+
+def terminal_part():
+    """#9 and #4: outputs against the other tree's at every width, step count
+    and tier (Heston also this tree's 17-64-asset tile), then both trees
+    timed in turns and their main paths' walls, then both trees' kernels and
+    this tree's tile at A = 1, 7, 15, 16; the SASS counts and ptxas's
+    registers and spills."""
+    kw = dict(first_block=6, n_blocks=2)
+    n_eq = 0
+    for a in TERMINAL_A:
+        hs = {xi: S.bench_heston(a, xi).tensors(dev) for xi in (3e-3, S.FELLER_XI)}
+        g = S.bench_garch(a).tensors(dev)
+        for steps in TERMINAL_STEPS:
+            for xi, h in hs.items():
+                want = bits(on("other")[2].heston_terminal(11, h, 1_029, steps, **kw))
+                H = on("this")[2]
+                held_equal(f"heston_terminal A={a} steps={steps} xi={xi}", want,
+                           bits(H.heston_terminal(11, h, 1_029, steps, **kw)))
+                n_eq += 1
+                # the 17-64-asset tile at the same width: the same path, bit for bit
+                got = H._launch_terminal(11, h, 1_029, steps, 6, 2, wide=True)
+                torch.cuda.synchronize()
+                held_equal(f"heston_terminal A={a} steps={steps} xi={xi} tile 64", want,
+                           bits(got))
+                n_eq += 1
+            for t_df in (None, 5.5):
+                want = bits(on("other")[0].garch_terminal(11, g, 1_029, steps, t_df=t_df, **kw))
+                G = on("this")[0]
+                held_equal(f"garch_terminal A={a} steps={steps} t_df={t_df}", want,
+                           bits(G.garch_terminal(11, g, 1_029, steps, t_df=t_df, **kw)))
+                n_eq += 1
+    print(f"terminal comparisons: {n_eq}")
+
+    p_term = 1 << 20
+    h15, g15 = S.bench_heston().tensors(dev), S.bench_garch().tensors(dev)
+    hp, gp, w15 = S.bench_heston(), S.bench_garch(), S.bench_weights()
+
+    def best(fn):
+        return min(S._time_ms(fn, 2) for _ in range(3))
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = S.time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (S.time.perf_counter() - t0)
+
+    timed = {"heston": lambda side: lambda: side[2].heston_terminal(0, h15, p_term, 252),
+             "garch poly": lambda side: lambda: side[0].garch_terminal(0, g15, p_term, 252),
+             "garch t(5.5)": lambda side: lambda: side[0].garch_terminal(0, g15, p_term, 252,
+                                                                          t_df=5.5)}
+    res, firsts = {}, {}
+    for order in ("other", "this", "this", "other"):
+        side = on(order)
+        for name, make in timed.items():
+            fn = make(side)
+            out = fn()
+            torch.cuda.synchronize()
+            firsts.setdefault((name, order), bits(out))
+            res.setdefault((name, order), []).append(best(fn))
+        heston_mod = side[4]["mcport_torch.models.heston"]
+        garch_mod = side[4]["mcport_torch.models.garch_mc"]
+        for name, fn in (
+                ("heston_terminal_returns wall", lambda: heston_mod.heston_terminal_returns(
+                    S.FAMILY_SEED, hp, p_term, 252, device=dev)),
+                ("garch_risk wall", lambda: garch_mod.garch_risk(
+                    S.FAMILY_SEED, gp, w15, n_paths=p_term, n_steps=252, device=dev)),
+                ("garch_risk t(5.5) wall", lambda: garch_mod.garch_risk(
+                    S.FAMILY_SEED, gp, w15, n_paths=p_term, n_steps=252, t_df=5.5,
+                    device=dev))):
+            fn()
+            out, ms = min((wall(fn) for _ in range(3)), key=lambda x: x[1])
+            key = bits(out) if isinstance(out, torch.Tensor) else (out.var, out.cvar,
+                                                                   out.port_mean)
+            firsts.setdefault((name, order), key)
+            res.setdefault((name, order), []).append(ms)
+    for (name, order), t in sorted(res.items()):
+        print(f"ab {name} {order}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+    worst = 0.0
+    for name in sorted({k[0] for k in res}):
+        other, this_ = min(res[(name, "other")]), min(res[(name, "this")])
+        x, y = firsts[(name, "other")], firsts[(name, "this")]
+        same = (all(torch.equal(p, q) for p, q in zip(x, y)) if isinstance(x, list)
+                else x == y)
+        if not same:
+            unequal.append(f"{name} timed")
+        if "wall" not in name:
+            worst = max(worst, this_ / other - 1.0)
+        print(f"speedup {name} A=15 1,048,576 x 252: {other:.3f} -> {this_:.3f} ms, "
+              f"{other / this_:.3f}x, {'results' if 'wall' in name else 'outputs'} "
+              f"{'equal' if same else 'DIFFERENT'}")
+    # both trees' kernels and this tree's 17-64-asset tile at A = 1, 7, 15, 16
+    for a in (1, 7, 15, 16):
+        h, g = S.bench_heston(a).tensors(dev), S.bench_garch(a).tensors(dev)
+        for fam in ("heston", "garch poly", "garch t(5.5)"):
+            t_df = 5.5 if "t(5.5)" in fam else None
+            times = {}
+            for order in ("other", "this", "this", "other"):
+                side = on(order)
+                fn = ((lambda: side[2].heston_terminal(0, h, p_term, 252)) if fam == "heston"
+                      else (lambda: side[0].garch_terminal(0, g, p_term, 252, t_df=t_df)))
+                fn()
+                times.setdefault(order, []).append(best(fn))
+            other, this_ = min(times["other"]), min(times["this"])
+            if a in (1, 7, 16):
+                worst = max(worst, this_ / other - 1.0)
+            side = on("this")
+            fn = ((lambda: side[2]._launch_terminal(0, h, p_term, 252, -1, 1, wide=True))
+                  if fam == "heston" else
+                  (lambda: side[0]._launch_terminal(0, g, p_term, 252, -1, 1, t_df, wide=True)))
+            fn()
+            print(f"terminal {fam} A={a} 1,048,576 x 252: other {other:.3f}, this {this_:.3f} ms "
+                  f"({other / this_:.3f}x); this tree's 17-64-asset tile {best(fn):.3f} ms")
+    terminal_sass_counts()
+    ptxas_report(("heston", "garch"))
+    return f"#9/#4 most slower than the other tree {100 * worst:.2f}%"
+
+
 notes = []
 if PART in ("merton-heston", "all"):
     notes.append(merton_heston_part())
@@ -878,6 +1049,8 @@ if PART in ("dcc", "all"):
     notes.append(dcc_part())
 if PART in ("gbm", "all"):
     notes.append(gbm_part())
+if PART in ("terminal", "all"):
+    notes.append(terminal_part())
 print(f"summary: sass {kept[0]} of {kept[1]} kept; outputs "
       f"{'all bit for bit' if not unequal else 'DIFFERENT: ' + ', '.join(unequal)}; "
       + "; ".join(notes))

@@ -10,7 +10,8 @@
 // the source rounds explicitly; two trees' emulated outputs compare like for
 // like. fmaf and __fmaf_rn are the C library's correctly rounded fused
 // multiply-add;
-// __frsqrt_rn is the float64 reciprocal square root rounded to float32.
+// __frsqrt_rn is the float64 reciprocal square root rounded to float32;
+// expm1f may return its argument (g_emu_log_sum, below).
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -95,6 +96,13 @@ template <class T> T __shfl_sync(unsigned, T v, int src, int width = 32) {
   __syncwarp();
   return v;
 }
+
+// expm1f, the Heston terminal kernels' last operation: the C library's, or
+// the path's log sum itself where a launch asks for it (g_emu_log_sum), so
+// that a test can hold the path state to the plain form's bit for bit.
+inline bool g_emu_log_sum = false;
+inline float emu_expm1f(float x) { return g_emu_log_sum ? x : expm1f(x); }
+#define expm1f emu_expm1f
 
 inline float __frsqrt_rn(float x) { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(x))); }
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }

@@ -1,7 +1,8 @@
 """Bit-for-bit A/B of two trees' Merton (#8), Heston (#10), GARCH (#5),
-bootstrap (#7) and GBM (#3, with the path-stats function #2) kernels on the
-CPU, under the host emulation of ``cuda_runtime.h`` (no nvcc or card
-needed; g++ with C++20).
+bootstrap (#7) and GBM (#3, with the path-stats function #2) kernels, and
+of their Heston (#9) and GARCH (#4) terminal kernels, on the CPU, under the
+host emulation of ``cuda_runtime.h`` (no nvcc or card needed; g++ with
+C++20).
 
     python3 tools/cuda_emu/narrow_ab.py OTHER_TREE [THIS_TREE] [FAMILY,...]
 
@@ -32,8 +33,15 @@ the trees is the card's (``tools/ab_narrow_kernels.py``). FAMILY ``gbm``
 and a factor with terms above its diagonal; 9 steps, and 0 steps with the
 poly draws) — and this tree's ``path_stats.cu`` (#2) against the other
 tree's (terminal logS, port, dd), 9 steps over two blocks of 37 paths
-(``tools/cuda_emu/gbm_main.inc``). Prints one line
-per launch and exits 1 if any output differs.
+(``tools/cuda_emu/gbm_main.inc``). FAMILY ``heston-terminal`` and
+``garch-terminal`` (not in the default) hold this tree's terminal kernel
+#9 or #4, in the layout its entry point routes to, against the other
+tree's at A = 1, 2, 7, 15, 16 and 0, 1, 7 and 9 steps over two blocks of 37
+paths: Heston at both vols of vol, its output and its log sum, GARCH at both
+parameter sets in both draw tiers, the other tree's terminal
+multiply-adds written out as nvcc contracted them where that tree left them
+to nvcc (``GARCH_CONTRACTIONS``). Prints one line per launch and exits 1 if
+any output differs.
 """
 import re
 import subprocess
@@ -140,6 +148,70 @@ def gbm_ab(other: Path, this: Path, work: Path) -> tuple[int, int]:
     return n, bad
 
 
+#: the GARCH terminal kernel up to commit 96dcd2a left these multiply-adds to nvcc;
+#: written out as nvcc contracted them (read from that kernel's SASS), so that the
+#: emulation, which contracts nothing, compares like for like
+GARCH_CONTRACTIONS = (
+    ("  return q.omega[a] + q.alpha[a] * q.e2_0[a] + q.beta[a] * q.s2_0[a];",
+     "  return __fmaf_rn(q.beta[a], q.s2_0[a], __fmaf_rn(q.alpha[a], q.e2_0[a], q.omega[a]));"),
+    ("""          const float eps = sqrtf(fmaxf(s2[i], 0.0f)) * y;
+          cum[i] *= g.w + eps;
+          const float e2 = eps * eps;
+          s2[i] = g.x + g.y * e2 + g.z * s2[i];""",
+     """          const float eps = __fmul_rn(sqrtf(fmaxf(s2[i], 0.0f)), y);
+          cum[i] = __fmul_rn(cum[i], __fadd_rn(g.w, eps));
+          s2[i] = __fmaf_rn(g.z, s2[i], __fmaf_rn(g.y, __fmul_rn(eps, eps), g.x));"""),
+)
+
+
+def terminal_ab(other: Path, this: Path, work: Path, family: str) -> tuple[int, int]:
+    """The terminal kernel of ``family`` (heston: #9, garch: #4) of this tree,
+    in the layout its entry point routes to, against the other tree's: A = 1,
+    2, 7, 15, 16 at 0, 1, 7 and 9 steps over two blocks of 37 paths (blocks 7
+    and 8); Heston at both vols of vol, its output and its log sum; GARCH at
+    both parameter sets in both tiers, the other tree's contractions written
+    out where it left them to nvcc (GARCH_CONTRACTIONS). (launches, differences)."""
+    base = family.removesuffix("-terminal")
+    exe = {}
+    for tag, tree in (("other", other), ("this", this)):
+        csrc = work / f"{tag}_{base}_terminal_csrc"
+        prep(tree / "mcport_torch" / "csrc", csrc)
+        if base == "garch" and tag == "other":
+            src = (csrc / "garch.cu").read_text()
+            done = [old for old, _ in GARCH_CONTRACTIONS if old in src]
+            for old, new in GARCH_CONTRACTIONS:
+                src = src.replace(old, new)
+            (csrc / "garch.cu").write_text(src)
+            print(f"garch-terminal: the other tree's contractions written out: {len(done)} of "
+                  f"{len(GARCH_CONTRACTIONS)} expressions")
+        layouts = bool(re.search(rf"int {ENTRY[base]}\([^)]*layout", (csrc / f"{base}.cu")
+                                 .read_text(), re.S))
+        exe[tag] = work / f"{base}_terminal_emu_{tag}"
+        subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off",
+                        f"-DFAMILY_{base.upper()}"] + (["-DNARROW_LAYOUTS"] if layouts else [])
+                       + [f"-I{HERE}", f"-I{csrc}", str(HERE / "narrow_main.cpp"), "-o",
+                          str(exe[tag]), "-lpthread"], check=True)
+    n = bad = 0
+    for a in (1, 2, 7, 15, 16):
+        for steps in (0, 1, 7, 9):
+            for case in range(4):
+                args = [str(x) for x in (a, 37, steps, 2, 0, 0, "-1", case)]
+                want, got = work / "other.bin", work / "this.bin"
+                subprocess.run([str(exe["other"]), *args, str(want)], check=True, timeout=900)
+                subprocess.run([str(exe["this"]), *args, str(got)], check=True, timeout=900)
+                same = (np.fromfile(want, np.float32).tobytes()
+                        == np.fromfile(got, np.float32).tobytes())
+                bad += not same
+                n += 1
+                what = ({0: "xi 3e-3", 1: "xi 0.05", 2: "xi 3e-3 log sum",
+                         3: "xi 0.05 log sum"} if base == "heston" else
+                        {0: "poly", 1: "poly, larger shocks", 2: "t(5.5)",
+                         3: "t(5.5), larger shocks"})[case]
+                print(f"{family} A={a} steps={steps} {what}: "
+                      f"{'bit for bit' if same else 'DIFFERENT'}", flush=True)
+    return n, bad
+
+
 def main() -> int:
     other = Path(sys.argv[1]).resolve()
     this = Path(sys.argv[2]).resolve() if len(sys.argv) > 2 else HERE.parents[1]
@@ -150,6 +222,10 @@ def main() -> int:
         if "gbm" in families:
             families.remove("gbm")
             n, bad = gbm_ab(other, this, work)
+        for family in [f for f in families if f.endswith("-terminal")]:
+            families.remove(family)
+            dn, db = terminal_ab(other, this, work, family)
+            n, bad = n + dn, bad + db
         for family in families:
             o_exe, _ = build(other, work, "other", family)
             t_exe, layouts = build(this, work, "this", family)

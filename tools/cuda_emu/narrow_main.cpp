@@ -15,7 +15,14 @@
 // Heston kernel has layout 2). CASE 0: the bench's jump rate 0.02, Heston vol of
 // vol 3e-3, GARCH persistence, a 365-row history in shared memory; 1: rate
 // 0.3, a Feller-violating 0.05, a GARCH of larger shocks, a 4,099-row history
-// read from device memory.
+// read from device memory. NCAND 0 (-DFAMILY_HESTON, -DFAMILY_GARCH) runs the
+// terminal function instead, kernel #9 or #4, in the layout LAYOUT names
+// (-1 and 0 the one the entry point routes to, 1 the 17-64-asset tile):
+// OUTFILE gets (NBLOCKS, PATHS, A) and OUTFILE.in the parameter block; CASE 2
+// and 3 are CASE 0 and 1 with, for Heston, the log sum in place of its
+// expm1 (cuda_runtime.h g_emu_log_sum) and, for GARCH, Student-t(5.5) shocks
+// (the t scale folded into L as ops/gbm.py t_scaled_chol folds it; OUTFILE.in
+// holds the unscaled block).
 // `narrow_emu layout OUTFILE` (trees built with -DNARROW_LAYOUTS) writes the
 // redesigned layouts' arithmetic as int32 rows (A, W, legs, narrow_layout,
 // RecurLayout kOwn and kReturns totals, the tile layout's total (jump, GARCH,
@@ -72,7 +79,8 @@ int main(int argc, char** argv) {
 #endif
   const int a = std::atoi(argv[1]), paths = std::atoi(argv[2]), steps = std::atoi(argv[3]),
             nb = std::atoi(argv[4]), w_cnt = std::atoi(argv[5]), legs = std::atoi(argv[6]),
-            layout = std::atoi(argv[7]), cs = std::atoi(argv[8]);
+            layout = std::atoi(argv[7]);
+  const int t_tier = std::atoi(argv[8]) / 2, cs = std::atoi(argv[8]) % 2;  // t: GARCH terminal
   std::mt19937 rng(a * 7 + 1);
   std::uniform_real_distribution<float> u(0.0f, 1.0f);
   // the shocks' factor: the Cholesky factor of 0.5 I + 0.5, perturbed
@@ -113,6 +121,32 @@ int main(int argc, char** argv) {
   for (int i = 0; i < a; ++i) p.push_back(-0.5f);                                 // rho
   for (int i = 0; i < a; ++i) p.push_back(static_cast<float>(std::sqrt(1.0 - 0.25)));  // rho_c
   for (int i = 0; i < a; ++i) p.push_back(4e-4f);                                 // v0
+#endif
+#if defined(FAMILY_GARCH) || defined(FAMILY_HESTON)
+  if (w_cnt == 0) {  // the terminal function (kernels #4 and #9)
+    std::vector<float> out(1LL * nb * paths * a, -999.0f);
+#if defined(FAMILY_GARCH)
+    std::vector<float> q(p);  // the t tier folds its scale into L (ops/gbm.py t_scaled_chol)
+    const float df = 5.5f, scale = std::sqrt(static_cast<float>(5.5 / 3.5));
+    if (t_tier) for (int i = 0; i < a * a; ++i) q[i] = p[i] / scale;
+    const int err = mcport_garch_terminal(11, 6, nb, paths, a, steps, layout < 0 ? 0 : layout,
+                                          t_tier ? kStudentT : kPoly, t_tier ? df : 0.0f,
+                                          t_tier ? -2.0f / df : 0.0f, q.data(), out.data(),
+                                          nullptr);
+#else
+    g_emu_log_sum = t_tier;  // CASE 2, 3: the log sum before expm1
+    const int err = mcport_heston_terminal(11, 6, nb, paths, a, steps, layout < 0 ? 0 : layout,
+                                           p.data(), out.data(), nullptr);
+#endif
+    if (err) { std::fprintf(stderr, "error %d\n", err); return 1; }
+    FILE* in = std::fopen((std::string(argv[9]) + ".in").c_str(), "wb");
+    std::fwrite(p.data(), 4, p.size(), in);
+    std::fclose(in);
+    FILE* f = std::fopen(argv[9], "wb");
+    std::fwrite(out.data(), 4, out.size(), f);
+    std::fclose(f);
+    return 0;
+  }
 #endif
   std::vector<float> w(w_cnt * a);
   for (int k = 0; k < w_cnt; ++k) {
